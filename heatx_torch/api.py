@@ -1,0 +1,417 @@
+"""High-level API: ``ThermalModel`` and the day-march ``FastRunner``.
+
+PyTorch counterpart of ``heatx.api`` for the slice the port carries: a
+compiled building on an explicit device, its initial state and inputs, and
+``FastRunner.run``, which marches a whole hourly input sequence through the
+TR-BDF2 day march (the CUDA kernel on a GPU, its plain twin on the CPU).
+"""
+
+from __future__ import annotations
+
+from types import SimpleNamespace
+
+import numpy as np
+import torch
+
+from heatx_torch.build.layout import CompiledBuilding, compile_building
+from heatx_torch.config import DEFAULT_CONFIG, SimConfig
+from heatx_torch.constants import KELVIN
+from heatx_torch.engine.state import SimState, StepInputs, default_inputs, initial_state
+from heatx_torch.model.building import BuildingModel
+from heatx_torch.ops import day_march
+from heatx_torch.physics import gas
+from heatx_torch.weather.epw import interpolate_to_steps
+
+#: FastRunner.run checks the per-hour non-finite counts once at the end of
+#: the run when a dispatch chunk covers fewer surface-hours than this, and
+#: per chunk with a one-chunk lag otherwise (heatx.api's rule).
+DEFER_CHECK_SURFACE_HOURS = int(1e7)
+
+
+def _np(v) -> np.ndarray:
+    if isinstance(v, torch.Tensor):
+        return v.detach().cpu().numpy()
+    return np.asarray(v)
+
+
+def _unsupported(**flags):
+    on = [name for name, (value, item) in flags.items() if value]
+    if on:
+        raise NotImplementedError(
+            "not ported yet: "
+            + ", ".join(f"{n} ({flags[n][1]})" for n in on)
+        )
+
+
+def _device(device) -> torch.device:
+    """The model's device; a CUDA device without a GPU raises (the model
+    never carries on on the CPU instead)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "ThermalModel(device='cuda') needs a CUDA device, and "
+            "torch.cuda.is_available() is False"
+        )
+    return device
+
+
+class ThermalModel:
+    """A compiled whole-building thermal model on one torch device."""
+
+    def __init__(
+        self,
+        model: BuildingModel,
+        n: int = 1,
+        config: SimConfig = DEFAULT_CONFIG,
+        device="cpu",
+    ):
+        self.device = _device(device)
+        self.building: CompiledBuilding = compile_building(model, n=n, config=config)
+
+    @classmethod
+    def from_building(cls, building: CompiledBuilding, device="cpu") -> "ThermalModel":
+        """A model around an already compiled building (for instance one
+        carried across from heatx by ``heatx_torch.convert``)."""
+        tm = cls.__new__(cls)
+        tm.device = _device(device)
+        tm.building = building
+        return tm
+
+    @property
+    def dt(self) -> float:
+        return self.building.dt
+
+    @property
+    def dt_subdivisions(self) -> int:
+        return self.building.dt_subdivisions
+
+    def initial_state(self, dtype=None) -> SimState:
+        return initial_state(self.building, dtype=dtype, device=self.device)
+
+    def inputs(self, dtype=None, **overrides) -> StepInputs:
+        return default_inputs(self.building, dtype=dtype, device=self.device, **overrides)
+
+    def fast_runner(
+        self,
+        block_size: int = None,
+        mode: str = "parity",
+        substeps: int = None,
+        hours: int = 1,
+        collect_fluxes: bool = False,
+        scheduled_setpoints: bool = False,
+        mesh=None,
+        collect_operative: bool = False,
+        refresh_every: int = None,
+        use_kernel: bool = True,
+    ) -> "FastRunner":
+        """The day-march path (heatx ``ThermalModel.fast_runner``).
+
+        ``mode`` is ``"trbdf2"`` (operators frozen per hour) or
+        ``"trbdf2_refresh"`` (rebuilt every ``refresh_every`` sub-steps,
+        default 1); ``substeps`` defaults to 12 per hour.  ``block_size`` is
+        the number of surface lanes per zone-closed block, one CUDA thread
+        block each (at most 256; default: the largest zone-connected
+        component rounded up to a warp).  ``use_kernel=False`` runs the
+        plain PyTorch twin even on a GPU: the reference the kernel is
+        checked against.
+        ``mode="parity"`` (heatx's default) and the remaining options are not
+        ported yet and raise ``NotImplementedError``."""
+        return FastRunner(
+            self, block_size=block_size, mode=mode, substeps=substeps,
+            hours=hours, collect_fluxes=collect_fluxes,
+            scheduled_setpoints=scheduled_setpoints, mesh=mesh,
+            collect_operative=collect_operative, refresh_every=refresh_every,
+            use_kernel=use_kernel,
+        )
+
+
+class FastRunner:
+    """Marches :class:`SimState` through the day march, handling the
+    zone-closed block permutation.  ``params`` holds the blocked building on
+    the model's device."""
+
+    def __init__(
+        self,
+        tm: ThermalModel,
+        block_size: int = None,
+        mode: str = "parity",
+        substeps: int = None,
+        hours: int = 1,
+        collect_fluxes: bool = False,
+        scheduled_setpoints: bool = False,
+        mesh=None,
+        collect_operative: bool = False,
+        refresh_every: int = None,
+        use_kernel: bool = True,
+    ):
+        _unsupported(
+            collect_fluxes=(collect_fluxes, "ROADMAP A9/B5"),
+            scheduled_setpoints=(scheduled_setpoints, "ROADMAP A6/B2"),
+            mesh=(mesh is not None, "ROADMAP A12"),
+            collect_operative=(collect_operative, "ROADMAP A9/B5"),
+        )
+        self._tm = tm
+        self.device = tm.device
+        building = tm.building
+        self._bb = day_march.block_building(building, block_size=block_size)
+        self._hours = hours
+        self.hour_march, self.params = day_march.make_hour_march(
+            self._bb, substeps=substeps, mode=mode, hours=hours,
+            refresh_every=refresh_every, collect_bad=True, device=self.device,
+        )
+        self._substeps = self.hour_march.substeps
+        self._march = self.hour_march if use_kernel else self.hour_march.plain
+        self._dtype = building.config.dtype
+
+        lay = self._bb.layout
+        S, Z = building.n_surfaces, building.n_zones
+        perm = np.asarray(lay.surf_perm)  # [SP] -> surface id or -1
+        inv = np.zeros(S, np.int64)  # surface id -> blocked lane
+        inv[perm[perm >= 0]] = np.nonzero(perm >= 0)[0]
+        zt = np.asarray(lay.zone_table)  # [NB, ZB] -> zone id or -1
+        zinv = np.zeros(Z, np.int64)  # zone id -> blocked slot
+        zinv[zt.reshape(-1)[zt.reshape(-1) >= 0]] = np.nonzero(zt.reshape(-1) >= 0)[0]
+
+        def dev(a):
+            return torch.as_tensor(a, device=self.device)
+
+        self._perm_c, self._perm_ok = dev(np.maximum(perm, 0)), dev(perm >= 0)
+        self._inv = dev(inv)
+        self._zt_c, self._zt_ok = dev(np.maximum(zt, 0)), dev(zt >= 0)
+        self._zinv = dev(zinv)
+
+    @property
+    def layout(self):
+        return self._bb.layout
+
+    # -- layout conversion --------------------------------------------------
+
+    def to_blocked(self, state: SimState):
+        """SimState -> (T_blocked [N, SP], zT_blocked [NB, ZB])."""
+        dt = self._dtype
+        zero = torch.zeros((), dtype=dt, device=self.device)
+        T = torch.where(self._perm_ok[None, :], state.node_T.to(dt)[:, self._perm_c], zero)
+        zT = torch.where(self._zt_ok, state.zone_T.to(dt)[self._zt_c], zero)
+        return T, zT
+
+    def from_blocked(self, T, zT, hq=None) -> SimState:
+        """(T_blocked, zT_blocked[, hq]) -> SimState."""
+        if hq is None:
+            z = torch.zeros((self._bb.layout.padded_surfaces,), dtype=T.dtype, device=T.device)
+            hq = (z, z, z, z)
+        hf, hb, qf, qb = (x[self._inv] for x in hq)
+        return SimState(
+            node_T=T[:, self._inv], zone_T=zT.reshape(-1)[self._zinv],
+            h_front=hf, h_back=hb, q_front=qf, q_back=qb,
+        )
+
+    # -- input preparation --------------------------------------------------
+
+    def _weather_xs(self, v, T_steps, interp_weather):
+        """[T] hourly weather -> [D, hours*substeps] per-sub-step rows."""
+        sub, H = self._substeps, self._hours
+        a = np.broadcast_to(_np(v).astype(np.float64), (T_steps,))
+        s = interpolate_to_steps(a, sub)[: T_steps * sub] if interp_weather else np.repeat(a, sub)
+        return torch.as_tensor(s.reshape(T_steps // H, H * sub), dtype=self._dtype, device=self.device)
+
+    def _gains(self, inputs_seq: StepInputs, T_steps):
+        """Per-hour zone A/B gain terms [T, Z]: heater and luminaire power
+        into A; infiltration and ventilation air exchange into A and B (the
+        logic of heatx ``FastRunner.hour_inputs``, without vent gates)."""
+        b = self._tm.building
+        Z = b.n_zones
+        kw = dict(dtype=self._dtype, device=self.device)
+
+        def seq(v, n):
+            a = torch.as_tensor(v, **kw)
+            return a if a.ndim == 2 else torch.broadcast_to(a, (T_steps, n))
+
+        a_gain = torch.zeros((T_steps, Z), **kw)
+        if b.hvac_pair_unit.size:
+            hv = seq(inputs_seq.hvac_power, b.n_hvacs)
+            a_gain.index_add_(
+                1, torch.as_tensor(b.hvac_pair_space, device=self.device),
+                hv[:, torch.as_tensor(b.hvac_pair_unit, device=self.device)],
+            )
+        if b.lum_space.size:
+            a_gain.index_add_(
+                1, torch.as_tensor(b.lum_space, device=self.device),
+                seq(inputs_seq.lum_power, b.n_luminaires),
+            )
+        b_gain = torch.zeros((T_steps, Z), **kw)
+        for vol, temp, mask in (
+            (inputs_seq.inf_vol, inputs_seq.inf_temp, inputs_seq.inf_mask),
+            (inputs_seq.vent_vol, inputs_seq.vent_temp, inputs_seq.vent_mask),
+        ):
+            vol, temp, mask = seq(vol, Z), seq(temp, Z), seq(mask, Z) > 0
+            t_k = temp + KELVIN
+            term = torch.where(
+                mask, gas.density(gas.AIR, t_k) * vol * gas.heat_capacity(gas.AIR, t_k),
+                torch.zeros_like(vol),
+            )
+            # Masked product too: a masked-off channel may carry NaN temperatures.
+            a_gain = a_gain + torch.where(mask, term * temp, torch.zeros_like(term))
+            b_gain = b_gain + term
+        return a_gain, b_gain
+
+    def _surf_xs(self, v, time_leading, d0, n_days):
+        """A per-surface channel ([T, S], [T], [S] or scalar) -> the blocked
+        [n_days, hours, SP] rows of one dispatch chunk."""
+        H = self._hours
+        S = self._tm.building.n_surfaces
+        a = torch.as_tensor(v, dtype=self._dtype, device=self.device)
+        if time_leading:
+            a = a[d0 * H:(d0 + n_days) * H]
+            if a.ndim == 1:
+                a = a[:, None]
+        a = torch.broadcast_to(a, (n_days * H, S))
+        zero = torch.zeros((), dtype=self._dtype, device=self.device)
+        blocked = torch.where(self._perm_ok[None, :], a[:, self._perm_c], zero)
+        return blocked.reshape(n_days, H, -1)
+
+    def _zone_xs(self, a, d0, n_days):
+        """[T, Z] zone rows -> blocked [n_days, hours, NB, ZB]."""
+        H = self._hours
+        zero = torch.zeros((), dtype=self._dtype, device=self.device)
+        rows = a[d0 * H:(d0 + n_days) * H]
+        out = torch.where(self._zt_ok[None], rows[:, self._zt_c], zero)
+        return out.reshape((n_days, H) + tuple(self._zt_c.shape))
+
+    def _prepare(self, inputs_seq: StepInputs, interp_weather: bool):
+        """Whole-horizon input prep: weather per sub-step, zone gains, and
+        the per-surface channels with their time-axis reading."""
+        T_steps = int(np.shape(_np(inputs_seq.t_out))[0])
+        if T_steps % self._hours:
+            raise ValueError(
+                f"sequence length {T_steps} not divisible by the runner's "
+                f"hours={self._hours} chunk; pad the sequence or use hours=1"
+            )
+        surf_raw = (inputs_seq.sol_front, inputs_seq.sol_back,
+                    inputs_seq.ir_front, inputs_seq.ir_back)
+
+        def time_leading(v):
+            # A leading axis of length T is a per-hour series ([T] = one value
+            # for every surface); on the T == n_surfaces ambiguity the
+            # time-series reading wins, as in heatx.
+            sh = tuple(np.shape(v))
+            return len(sh) in (1, 2) and sh[0] == T_steps
+
+        a_gain, b_gain = self._gains(inputs_seq, T_steps)
+        return SimpleNamespace(
+            T_steps=T_steps, D=T_steps // self._hours,
+            weather=tuple(
+                self._weather_xs(v, T_steps, interp_weather)
+                for v in (inputs_seq.t_out, inputs_seq.wind_speed, inputs_seq.wind_direction)
+            ),
+            a_gain=a_gain, b_gain=b_gain, surf=surf_raw,
+            surf_ts=tuple(time_leading(v) for v in surf_raw),
+        )
+
+    def _day_inputs(self, prep, d0: int, n_days: int):
+        """The hour_march inputs of days [d0, d0 + n_days), blocked on the
+        device for this chunk only (an annual [T, SP] buffer per channel
+        would not be needed at once)."""
+        surf = [self._surf_xs(v, ts, d0, n_days) for v, ts in zip(prep.surf, prep.surf_ts)]
+        a_c = self._zone_xs(prep.a_gain, d0, n_days)
+        b_c = self._zone_xs(prep.b_gain, d0, n_days)
+        w = prep.weather
+        return [
+            (w[0][d0 + d], w[1][d0 + d], w[2][d0 + d],
+             surf[0][d], surf[1][d], surf[2][d], surf[3][d], a_c[d], b_c[d])
+            for d in range(n_days)
+        ]
+
+    def kernel_inputs(self, inputs_seq: StepInputs, interp_weather: bool = False):
+        """The per-day ``hour_inputs`` tuples that :meth:`run` feeds to
+        ``hour_march`` for ``inputs_seq`` (one per ``hours`` chunk)."""
+        prep = self._prepare(inputs_seq, interp_weather)
+        return self._day_inputs(prep, 0, prep.D)
+
+    # -- the run ------------------------------------------------------------
+
+    def run(
+        self,
+        state: SimState,
+        inputs_seq: StepInputs,
+        collect_zone_T: bool = True,
+        assert_finite: bool = True,
+        interp_weather: bool = False,
+        dispatch_days: int = None,
+        collect_fluxes: bool = False,
+        collect_loads: bool = False,
+        ground_hourly=None,
+        collect_operative: bool = False,
+    ):
+        """March a whole [T, ...] input sequence (heatx ``FastRunner.run``).
+
+        ``inputs_seq`` channels carry a leading [T] hour axis: weather as
+        [T] series, per-surface irradiance as [T, S], [T] (one value for
+        every surface), [S] or a scalar, gains as [T, n] or [n].  T must be
+        a multiple of the runner's ``hours``.  ``interp_weather`` linearly
+        interpolates the hourly weather to the sub-steps.  ``dispatch_days``
+        bounds how many day-chunks of per-surface inputs are blocked on the
+        device at once.  ``assert_finite`` reads the kernel's per-hour
+        non-finite counts and raises :class:`FloatingPointError` naming the
+        first bad hour and block.
+
+        Returns ``(final SimState, zone_T [T, Z] or None)``.
+        """
+        _unsupported(
+            collect_fluxes=(collect_fluxes, "ROADMAP A9/B5"),
+            collect_loads=(collect_loads, "ROADMAP A6/B2"),
+            ground_hourly=(ground_hourly is not None, "ROADMAP A4 follow-up"),
+            collect_operative=(collect_operative, "ROADMAP A9/B5"),
+        )
+        b = self._tm.building
+        H = self._hours
+        prep = self._prepare(inputs_seq, interp_weather)
+        T_steps, D = prep.T_steps, prep.D
+
+        Tb, zTb = self.to_blocked(state)
+        chunk_D = D if dispatch_days is None else max(1, int(dispatch_days))
+        defer = min(chunk_D, D) * H * b.n_surfaces < DEFER_CHECK_SURFACE_HOURS
+        NB = self._bb.n_blocks
+
+        def check_bad(d0, bad_c):
+            if float(bad_c.sum()) <= 0:
+                return
+            bad_np = _np(bad_c).reshape(-1, H, NB)
+            ci, hi, bi = (int(x) for x in np.argwhere(bad_np > 0)[0])
+            hour = (d0 + ci) * H + hi
+            raise FloatingPointError(
+                f"non-finite state first detected at hour {hour} (day "
+                f"{hour // 24}, block {bi}): {int(bad_np[ci, hi, bi])} bad values"
+            )
+
+        hists, bads = [], []
+        pending = None
+        hq = None
+        for d0 in range(0, D, chunk_D):
+            n_days = min(chunk_D, D - d0)
+            hist_c, bad_c = [], []
+            for hi in self._day_inputs(prep, d0, n_days):
+                Tb, zTb, hq, zt_hist, bad = self._march(self.params, Tb, zTb, hi)
+                hist_c.append(zt_hist)
+                bad_c.append(bad)
+            if collect_zone_T:
+                hists.extend(hist_c)
+            if assert_finite:
+                bad_c = torch.stack(bad_c)
+                if defer:
+                    bads.append((d0, bad_c))
+                else:
+                    if pending is not None:
+                        check_bad(*pending)
+                    pending = (d0, bad_c)
+        if pending is not None:
+            check_bad(*pending)
+        if bads and float(sum(bc.sum() for _, bc in bads)) > 0:
+            for d0, bc in bads:
+                check_bad(d0, bc)
+
+        final = self.from_blocked(Tb, zTb, hq)
+        zone_T = None
+        if collect_zone_T:
+            hist = torch.cat(hists, dim=0).reshape(T_steps, -1)
+            zone_T = hist[:, self._zinv]
+        return final, zone_T

@@ -1,0 +1,92 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each kernel source under ``heatx_torch/csrc/`` has a plain C interface and is
+compiled with ``nvcc`` into its own shared library, loaded with ``ctypes``.
+The build runs at first use, from the sources in the package only, into
+``heatx_torch/_build/`` (listed in ``.gitignore``), keyed by a hash of the
+sources and the compiler flags, so an edited source rebuilds and an
+unchanged one is reused.  Nothing is built or loaded at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+
+# sm_90a (not sm_90) keeps Hopper's wgmma/setmaxnreg available to later
+# kernels; -Xptxas -v writes each kernel's registers, shared memory and
+# spills into the build log.
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_LOADED: dict = {}
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: ``nvcc`` on PATH, else the toolkit's default
+    location.  Raises when neither exists (no fallback)."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build the kernels")
+
+
+def _digest(sources) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(CSRC_DIR.glob("*.cuh"))
+    for path in list(sources) + headers:
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build(name: str, sources) -> Path:
+    """Compile ``sources`` (paths under csrc/) into ``lib<name>_<hash>.so``
+    unless that file exists; returns its path.  The compiler's output is
+    kept beside it as ``.log``."""
+    sources = [Path(s) for s in sources]
+    out = BUILD_DIR / f"lib{name}_{_digest(sources)}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log = out.with_suffix(".log")
+    log.write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}) building {name}:\n{proc.stderr[-4000:]}"
+        )
+    os.replace(tmp, out)
+    return out
+
+
+def load(name: str, sources) -> ctypes.CDLL:
+    """Build (if needed) and load a kernel library once per process."""
+    lib = _LOADED.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build(name, sources)))
+        _LOADED[name] = lib
+    return lib
+
+
+def build_log(name: str, sources) -> str:
+    """The compiler output of the current build of ``name`` ('' if none)."""
+    sources = [Path(s) for s in sources]
+    log = (BUILD_DIR / f"lib{name}_{_digest(sources)}.so").with_suffix(".log")
+    return log.read_text() if log.exists() else ""

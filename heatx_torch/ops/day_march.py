@@ -1,0 +1,727 @@
+"""The TR-BDF2 day march: heatx's fused Pallas hour kernel, on PyTorch/CUDA.
+
+Counterpart of ``heatx.ops.pallas_step`` for modes ``trbdf2`` and
+``trbdf2_refresh`` on free-float buildings.  :func:`make_hour_march` returns
+``(hour_march, params)`` with heatx's call signature and output layout:
+``hour_march(params, T [N, SP], zT [NB, ZB], hour_inputs)`` marches
+``hours`` hours of ``substeps`` sub-steps per call and returns
+``(T, zT, (h_front, h_back, q_front, q_back), zt_hist [hours, NB, ZB])``,
+plus ``bad [hours, NB]`` (the per-hour non-finite state count) with
+``collect_bad``.  ``hour_inputs`` is heatx's 9-tuple ``(t_out, wind, wdir
+[hours*substeps], sol_front, sol_back, ir_front, ir_back [hours, SP],
+a_extra, b_extra [hours, NB, ZB])``.
+
+Dispatch is by device, with no fallback: on CPU tensors the call runs the
+plain PyTorch twin (:func:`plain_day_march`); on CUDA tensors it launches the
+hand-written kernel in ``heatx_torch/csrc/day_march.cu`` or raises.
+
+Design, and what of heatx's kernel is deliberately not carried over:
+
+* One CUDA thread block per zone-closed block, one thread per surface lane
+  (at most 256 lanes per block).  Blocks are laid out with
+  ``node_split=None``: a thread marches its surface's whole node column, so
+  the node-height split that saves padded rows on the TPU's vector lanes has
+  nothing to save here.
+* Zone coupling goes through shared memory: boundary air temperatures are
+  indexed reads of the block's zone row (``front_zone``/``back_zone``, -1 for
+  a face that bounds no zone), and the zone A/B sums are a fixed-order sum
+  per zone over a lane list built on the host (``zone_ptr``/``zone_faces``),
+  so two runs give the same bits.  heatx's one-hot matmuls (and their
+  transposed copies) are not ported.
+* The zone update uses ``expm1``; heatx's ``_expm1_neg`` series exists only
+  because Mosaic has no expm1.
+* Mosaic layout workarounds are gone: ``_row01`` and the rank-2 ``[1, ZB]``
+  zone rows, the 8-row zone padding (``zone_spec``/``_pad_zone_rows``) and
+  the HR8 hour padding, full-block broadcast writes, ``vmem_limit_mb`` /
+  ``HEATX_KERNEL_VMEM_MB``.
+* Solver selection is gone: the stage matrix is factored once per operator
+  refresh with the Thomas sweeps (heatx's ``factor``/``solve_factored``),
+  which is the natural per-thread solver; ``HEATX_KERNEL_SOLVER``,
+  ``HEATX_KERNEL_LOOP`` and the scratch-ref ``_make_ref_thomas`` are not
+  ported.  The PCR twins stay in ``heatx_torch.ops.tridiag``.
+* bench.py's dispatch chunking against a remote watchdog has no counterpart.
+
+Frozen mode (``trbdf2``) is the refresh kernel with ``refresh_every =
+substeps``: heatx proves the two bit-identical (test_pallas_imp.py).
+
+Not ported yet (each raises ``NotImplementedError``): the parity body, gas
+cavities, interior MRT, thermostats, inter-zone mixing, in-run shading and
+vent gates (ROADMAP A6, A7, A9), ``collect_hq``/``collect_operative`` (A9),
+gradients (A8) and sharding (A12).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from dataclasses import replace
+from types import SimpleNamespace
+
+import numpy as np
+import torch
+
+from heatx_torch.build.blocking import BlockedLayout, _union_find_components, build_blocks
+from heatx_torch.build.layout import B_AMBIENT, B_OUTDOOR, B_SPACE, CompiledBuilding, SurfaceBatch
+from heatx_torch.config import SimConfig
+from heatx_torch.constants import KELVIN
+from heatx_torch.engine import implicit as imp_mod
+from heatx_torch.engine import surface as surf_mod
+from heatx_torch.ops import cuda_lib, tridiag
+from heatx_torch.physics import gas
+
+#: Largest surface node count the kernel marches (node masks ride as 32-bit
+#: words, one per lane).
+MAX_NODES = 32
+#: Largest lane count per CUDA thread block (the kernel's launch bound).
+MAX_BLOCK_LANES = 256
+#: Lane granularity of a block: one warp.
+WARP = 32
+
+# Row order of DayMarchParams.node / .surf / .lane — the CUDA kernel indexes
+# these rows by the same order (enum ND_*, SF_*, LN_* in csrc/day_march.cu).
+NODE_FIELDS = ("seg_u", "capacity", "front_alphas", "back_alphas")
+SURF_FIELDS = (
+    "area", "perimeter", "cos_tilt", "wind_mod", "eps_front", "eps_back", "rf",
+    "front_temp", "back_temp", "fixed_h_front", "fixed_h_back", "normal_x",
+    "normal_y",
+)
+LANE_FIELDS = ("front_code", "back_code", "front_zone", "back_zone", "node_bits")
+
+KERNEL_SOURCE = cuda_lib.CSRC_DIR / "day_march.cu"
+
+
+@dataclasses.dataclass
+class BlockedBuilding:
+    """A compiled building permuted and padded into zone-closed blocks."""
+
+    base: CompiledBuilding
+    layout: BlockedLayout
+    surfaces: SurfaceBatch  # node arrays [N, SP], scalars [SP] (SP = blocks*SB)
+    front_oh: np.ndarray  # [SP, ZB]
+    back_oh: np.ndarray  # [SP, ZB]
+    zone_volume: np.ndarray  # [n_blocks, ZB] (1.0 in padded slots)
+    zone_valid: np.ndarray  # [n_blocks, ZB]
+
+    @property
+    def config(self) -> SimConfig:
+        return self.base.config
+
+    @property
+    def n_blocks(self) -> int:
+        return self.layout.n_blocks
+
+    @property
+    def block_size(self) -> int:
+        return self.layout.block_size
+
+    @property
+    def zones_per_block(self) -> int:
+        return self.layout.zones_per_block
+
+    @property
+    def max_nodes(self) -> int:
+        return self.surfaces.max_nodes
+
+
+def _check_supported(building: CompiledBuilding):
+    """Raise NotImplementedError (naming the ROADMAP item) for building
+    features the day march does not carry yet."""
+    missing = []
+    if building.surfaces.has_cavity:
+        missing.append("gas cavities (ROADMAP A9/B5)")
+    if building.config.interior_mrt:
+        missing.append("config.interior_mrt (ROADMAP A9/B5)")
+    if building.has_ideal_hvac:
+        missing.append("thermostats / IdealHeaterCooler setpoints (ROADMAP A6/B2)")
+    if np.asarray(building.mix_src).size:
+        missing.append("inter-zone mixing (ROADMAP A6/B2)")
+    if building.has_zone_shading:
+        missing.append("in-run zone shading (ROADMAP A9/B5)")
+    if building.has_vent_gates:
+        missing.append("ventilation gates (ROADMAP A9/B5)")
+    if building.max_nodes > MAX_NODES:
+        missing.append(f"more than {MAX_NODES} nodes per surface (ROADMAP B1)")
+    if missing:
+        raise NotImplementedError(
+            "heatx_torch's day march does not support " + "; ".join(missing)
+        )
+
+
+def min_block_lanes(building: CompiledBuilding) -> int:
+    """The smallest block that holds the largest zone-connected component:
+    its surface count rounded up to a whole warp."""
+    comp = _union_find_components(building)
+    sb = building.surfaces
+    fc, bc = np.asarray(sb.front_code), np.asarray(sb.back_code)
+    owner = np.where(
+        fc == B_SPACE, comp[np.asarray(sb.front_space)],
+        np.where(bc == B_SPACE, comp[np.asarray(sb.back_space)], -1),
+    )
+    largest = int(np.bincount(owner[owner >= 0]).max()) if (owner >= 0).any() else 1
+    return -(-largest // WARP) * WARP
+
+
+def block_building(
+    building: CompiledBuilding, block_size: int = None, node_split=None
+) -> BlockedBuilding:
+    """Permute + pad a compiled building into zone-closed blocks of
+    ``block_size`` lanes (heatx ``block_building`` with ``node_split=None``;
+    the same arrays).  ``None`` picks :func:`min_block_lanes`: at bench scale
+    the day kernel runs fastest with the fewest lanes per thread block
+    (PERF.md, H100 port)."""
+    if node_split is not None:
+        raise NotImplementedError(
+            "the node-height split is a TPU lane optimisation; the CUDA day "
+            "kernel marches whole node columns (node_split=None only)"
+        )
+    _check_supported(building)
+    if block_size is None:
+        block_size = min_block_lanes(building)
+    if block_size > MAX_BLOCK_LANES:
+        raise NotImplementedError(
+            f"blocks of {block_size} lanes: the day kernel takes at most "
+            f"{MAX_BLOCK_LANES} surfaces per zone-connected component (ROADMAP B1)"
+        )
+    layout = build_blocks(building, block_size=block_size, node_split=None)
+    sb = building.surfaces
+
+    def perm(a, fill=0.0):
+        return layout.surfaces_to_blocked(np.asarray(a), fill)
+
+    new_sb = replace(
+        sb,
+        node_mask=perm(sb.node_mask, False),
+        n_nodes=np.where(layout.surf_valid, perm(sb.n_nodes, 1), 1).astype(np.int32),
+        mass=perm(sb.mass),
+        massive=perm(sb.massive, False),
+        seg_u=perm(sb.seg_u),
+        seg_is_cavity=perm(sb.seg_is_cavity, False),
+        cav_gas=type(sb.cav_gas)(*[perm(f) for f in sb.cav_gas]),
+        cav_thickness=perm(sb.cav_thickness),
+        cav_height=perm(sb.cav_height, 1.0),
+        cav_angle=perm(sb.cav_angle),
+        cav_ein=perm(sb.cav_ein),
+        cav_eout=perm(sb.cav_eout),
+        same_chunk=perm(sb.same_chunk, False),
+        nomass_chunk_id=perm(sb.nomass_chunk_id, -1),
+        nomass_chunk_count=perm(sb.nomass_chunk_count),
+        front_alphas=perm(sb.front_alphas),
+        back_alphas=perm(sb.back_alphas),
+        area=perm(sb.area, 1.0),  # pad 1 to keep P*v/A finite
+        perimeter=perm(sb.perimeter, 0.0),
+        normal=np.ascontiguousarray(perm(np.ascontiguousarray(sb.normal.T)).T),
+        cos_tilt=perm(sb.cos_tilt),
+        wind_mod=perm(sb.wind_mod),
+        eps_front=perm(sb.eps_front),
+        eps_back=perm(sb.eps_back),
+        rf=perm(sb.rf, 1.0),
+        front_code=np.where(
+            layout.surf_valid, perm(sb.front_code, B_AMBIENT), B_AMBIENT
+        ).astype(np.int32),
+        front_space=perm(sb.front_space, 0).astype(np.int32),
+        front_temp=np.where(layout.surf_valid, perm(sb.front_temp), 22.0),
+        back_code=np.where(
+            layout.surf_valid, perm(sb.back_code, B_AMBIENT), B_AMBIENT
+        ).astype(np.int32),
+        back_space=perm(sb.back_space, 0).astype(np.int32),
+        back_temp=np.where(layout.surf_valid, perm(sb.back_temp), 22.0),
+        fixed_h_front=perm(sb.fixed_h_front, np.nan),
+        fixed_h_back=perm(sb.fixed_h_back, np.nan),
+        is_fenestration=perm(sb.is_fenestration, False),
+    )
+    zone_volume = layout.zones_to_blocked(np.asarray(building.zone_volume), fill=1.0)
+    zone_volume = np.where(layout.zone_valid, zone_volume, 1.0)
+    return BlockedBuilding(
+        base=building,
+        layout=layout,
+        surfaces=new_sb,
+        front_oh=layout.front_oh,
+        back_oh=layout.back_oh,
+        zone_volume=zone_volume,
+        zone_valid=layout.zone_valid,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Kernel operands
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class DayMarchParams:
+    """The blocked building as the day march reads it (one device, one
+    dtype).  Rows of ``node``/``surf``/``lane`` follow NODE_FIELDS,
+    SURF_FIELDS and LANE_FIELDS."""
+
+    node: torch.Tensor  # [4, N, SP] float
+    surf: torch.Tensor  # [13, SP] float
+    lane: torch.Tensor  # [5, SP] int32
+    zone_volume: torch.Tensor  # [NB, ZB] float
+    zone_ptr: torch.Tensor  # [NB*ZB + 1] int32 offsets into zone_faces
+    zone_faces: torch.Tensor  # [E] int32: block-local lane*2 + side (0 front, 1 back)
+
+    @property
+    def n_blocks(self) -> int:
+        return self.zone_volume.shape[0]
+
+    @property
+    def zones_per_block(self) -> int:
+        return self.zone_volume.shape[1]
+
+    @property
+    def block_size(self) -> int:
+        return self.surf.shape[1] // self.n_blocks
+
+    @property
+    def max_nodes(self) -> int:
+        return self.node.shape[1]
+
+    def field(self, name: str) -> torch.Tensor:
+        if name in NODE_FIELDS:
+            return self.node[NODE_FIELDS.index(name)]
+        if name in SURF_FIELDS:
+            return self.surf[SURF_FIELDS.index(name)]
+        return self.lane[LANE_FIELDS.index(name)]
+
+
+def _local_zone(oh: np.ndarray) -> np.ndarray:
+    """[SP, ZB] one-hot rows -> block-local zone index per lane (-1: none)."""
+    oh = np.asarray(oh)
+    return np.where(oh.any(axis=1), oh.argmax(axis=1), -1).astype(np.int32)
+
+
+def pack_params(
+    node_mask, capacity, seg_u, front_alphas, back_alphas, surf: dict,
+    front_code, back_code, front_oh, back_oh, zone_volume, n_blocks,
+    dtype=torch.float32, device="cpu",
+) -> DayMarchParams:
+    """Pack blocked numpy operands into :class:`DayMarchParams`.
+
+    Node arrays are ``[N, SP]``, ``surf`` maps each SURF_FIELDS name to an
+    ``[SP]`` array, ``front_oh``/``back_oh`` are the ``[SP, ZB]`` block-local
+    zone one-hots, ``zone_volume`` is ``[NB, ZB]``.  Shared by
+    :func:`make_hour_march` and ``heatx_torch.convert``."""
+    node_mask = np.asarray(node_mask, bool)
+    N, SP = node_mask.shape
+    if N > MAX_NODES:
+        raise NotImplementedError(f"more than {MAX_NODES} nodes per surface (ROADMAP B1)")
+    NB = int(n_blocks)
+    SB = SP // NB
+    ZB = np.asarray(zone_volume).shape[-1]
+    bits = np.zeros(SP, np.int64)
+    for i in range(N):
+        bits |= node_mask[i].astype(np.int64) << i
+    bits = bits.astype(np.uint32).view(np.int32)
+    fz = _local_zone(front_oh)
+    bz = _local_zone(back_oh)
+
+    # Zone -> lane lists (CSR over global zone slots b*ZB + z): front faces
+    # first, then back faces, each in ascending lane order — the fixed
+    # summation order of the kernel's zone sums.
+    lanes = np.arange(SP)
+    keys, side, local = [], [], []
+    for s, zl in ((0, fz), (1, bz)):
+        m = zl >= 0
+        keys.append((lanes[m] // SB) * ZB + zl[m])
+        side.append(np.full(int(m.sum()), s))
+        local.append(lanes[m] % SB)
+    keys, side, local = (np.concatenate(x) for x in (keys, side, local))
+    order = np.lexsort((local, side, keys))
+    faces = (local * 2 + side)[order].astype(np.int32)
+    counts = np.bincount(keys, minlength=NB * ZB)
+    zone_ptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+
+    def f(a):
+        return torch.as_tensor(np.array(a, np.float64), dtype=dtype, device=device)
+
+    def i32(a):
+        return torch.as_tensor(np.array(a, np.int32), device=device)
+
+    return DayMarchParams(
+        node=f(np.stack([seg_u, capacity, front_alphas, back_alphas])),
+        surf=f(np.stack([np.asarray(surf[k], np.float64).reshape(SP) for k in SURF_FIELDS])),
+        lane=i32(np.stack([
+            np.asarray(front_code).reshape(SP), np.asarray(back_code).reshape(SP),
+            fz, bz, bits,
+        ])),
+        zone_volume=f(np.asarray(zone_volume).reshape(NB, ZB)),
+        zone_ptr=i32(zone_ptr),
+        zone_faces=i32(faces),
+    )
+
+
+def params_from_blocked(bb: BlockedBuilding, dtype, device) -> DayMarchParams:
+    """DayMarchParams of a blocked building (in the building's dtype cast
+    first, as heatx casts ``bb.surfaces.astype(dtype)``)."""
+    np_dtype = torch.empty((), dtype=dtype).numpy().dtype
+    sb = bb.surfaces.astype(np_dtype)
+    capacity = np.where(sb.massive, sb.mass, np.zeros_like(sb.mass))
+    surf = {k: getattr(sb, k) for k in SURF_FIELDS if not k.startswith("normal")}
+    surf["normal_x"] = sb.normal[:, 0]
+    surf["normal_y"] = sb.normal[:, 1]
+    return pack_params(
+        sb.node_mask, capacity, sb.seg_u, sb.front_alphas, sb.back_alphas, surf,
+        sb.front_code, sb.back_code, bb.front_oh, bb.back_oh, bb.zone_volume,
+        bb.n_blocks, dtype=dtype, device=device,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch twin of heatx's _hour_body_imp (all blocks at once)
+# ---------------------------------------------------------------------------
+
+
+def _lanes(params: DayMarchParams):
+    """SurfaceBatch-like view of the blocked lanes for the engine functions,
+    plus the global zone slot (block*ZB + local zone, -1 none) of each face."""
+    N = params.max_nodes
+    SP = params.surf.shape[1]
+    bits = params.field("node_bits").to(torch.int64)
+    shifts = torch.arange(N, device=bits.device)[:, None]
+    node_mask = ((bits[None, :] >> shifts) & 1).bool()
+    block = torch.arange(SP, device=bits.device) // params.block_size
+    ZB = params.zones_per_block
+
+    def slot(local):
+        local = local.to(torch.int64)
+        return torch.where(local >= 0, block * ZB + local, local)
+
+    v = {k: params.field(k) for k in NODE_FIELDS + SURF_FIELDS}
+    return SimpleNamespace(
+        node_mask=node_mask,
+        seg_u=v["seg_u"], capacity=v["capacity"],
+        front_alphas=v["front_alphas"], back_alphas=v["back_alphas"],
+        normal=(v["normal_x"], v["normal_y"]),
+        **{k: v[k] for k in SURF_FIELDS if not k.startswith("normal")},
+        front_code=params.field("front_code"), back_code=params.field("back_code"),
+        front_slot=slot(params.field("front_zone")),
+        back_slot=slot(params.field("back_zone")),
+        has_cavity=False,
+    )
+
+
+def _boundary_temps(sbv, zT, t_out):
+    """Boundary air temperatures: outdoor air, the zone air of the face's
+    zone slot (``zT`` flat [NB*ZB]), or the fixed ambient temperature."""
+
+    def side(code, slot, temp):
+        t_zone = torch.where(slot >= 0, zT[slot.clamp_min(0)], torch.zeros_like(temp))
+        t_out_b = torch.as_tensor(t_out, dtype=temp.dtype, device=temp.device).expand_as(temp)
+        return torch.where(
+            code == B_OUTDOOR, t_out_b, torch.where(code == B_SPACE, t_zone, temp)
+        )
+
+    return (
+        side(sbv.front_code, sbv.front_slot, sbv.front_temp),
+        side(sbv.back_code, sbv.back_slot, sbv.back_temp),
+    )
+
+
+def _zone_dots(a_extra, b_extra, sbv, h_front, h_back, ts_front, ts_back):
+    """Per-zone A/B sums (model.rs:489-597): a = a_extra + sum(h A T_s),
+    b = b_extra + sum(h A) over the faces bounding each zone, front faces
+    then back faces, each in ascending lane order."""
+    a_z, b_z = a_extra, b_extra
+    for h, ts, slot in ((h_front, ts_front, sbv.front_slot), (h_back, ts_back, sbv.back_slot)):
+        m = slot >= 0
+        ha = h * sbv.area
+        a_z = a_z + torch.zeros_like(a_extra).index_add_(0, slot[m], (ha * ts)[m])
+        b_z = b_z + torch.zeros_like(b_extra).index_add_(0, slot[m], ha[m])
+    return a_z, b_z
+
+
+def _zone_update(zT, a_z, b_z, zone_volume, dt):
+    """Exact exponential zone-air update (model.rs:650-674); zones with
+    |B| ~ 0 hold their temperature."""
+    t_k = zT + KELVIN
+    c_z = zone_volume * gas.density(gas.AIR, t_k) * gas.heat_capacity(gas.AIR, t_k)
+    ok = torch.abs(b_z) > 1e-9
+    safe_b = torch.where(ok, b_z, torch.ones_like(b_z))
+    ratio = a_z / safe_b
+    zT_new = zT - (ratio - zT) * torch.expm1(-(safe_b * dt / c_z))
+    return torch.where(ok, zT_new, zT)
+
+
+def _hour_body_imp(
+    cfg: SimConfig, sbv, st, zone_volume, a_extra, b_extra, t_out_arr, wind_arr,
+    wdir_arr, sol_front, sol_back, ir_front, ir_back, T0, zT0, substeps: int,
+    dt_sub: float, off: int, refresh_every: int,
+):
+    """One hour of TR-BDF2 sub-steps for every block (heatx
+    ``_hour_body_imp``, free-float, no cavities): the operators (film
+    coefficients, linearized radiation, K, the stage matrix and its Thomas
+    factorization) are rebuilt from the marching state at the start of every
+    group of ``refresh_every`` sub-steps; each sub-step is one K mat-vec, two
+    stage solves on that factorization, the zone sums and the zone update.
+    Zone vectors are flat ``[NB*ZB]``."""
+    solar_q = surf_mod.absorbed_solar_q(sbv, sol_front, sol_back)
+    a_dt = imp_mod.GAMMA * dt_sub / 2.0
+
+    def build_ops(T, zT, t_out, ws, wd):
+        t_front, t_back = _boundary_temps(sbv, zT, t_out)
+        env_f0, env_b0 = surf_mod.border_conditions(
+            sbv, T, t_front, t_back, wd, ws, ir_front, ir_back, cfg, statics=st
+        )
+        rad_hs_f = surf_mod.linearized_rad_coefficient(sbv.eps_front, env_f0)
+        rad_hs_b = surf_mod.linearized_rad_coefficient(sbv.eps_back, env_b0)
+        U = surf_mod.segment_u(sbv, T, env_b0.air)
+        K = imp_mod._full_system_K(sbv, U, env_f0, env_b0, rad_hs_f, rad_hs_b, st)
+        M1 = imp_mod._stage_matrix(sbv, K, sbv.capacity, a_dt)
+        cs, inv = tridiag.factor(*M1)
+        return SimpleNamespace(
+            env_f0=env_f0, env_b0=env_b0, rad_hs_f=rad_hs_f, rad_hs_b=rad_hs_b,
+            K=K, lower=M1[0], cs=cs, inv=inv,
+        )
+
+    T, zT, hq = T0, zT0, None
+    C = sbv.capacity
+    for i0 in range(0, substeps, refresh_every):
+        w = off + i0
+        fz = build_ops(T, zT, t_out_arr[w], wind_arr[w], wdir_arr[w])
+        for i in range(i0, i0 + refresh_every):
+            t_front, t_back = _boundary_temps(sbv, zT, t_out_arr[off + i])
+            env_f = fz.env_f0._replace(air=t_front)
+            env_b = fz.env_b0._replace(air=t_back)
+            q = imp_mod._substep_forcing(env_f, env_b, fz.rad_hs_f, fz.rad_hs_b, solar_q, st)
+            KT0 = tridiag.matvec(*fz.K, T)
+            rhs1 = C * T + a_dt * KT0 + imp_mod.GAMMA * dt_sub * q
+            rhs1 = torch.where(sbv.node_mask, rhs1, T)
+            T1 = tridiag.solve_factored(fz.lower, fz.cs, fz.inv, rhs1)
+            rhs2 = imp_mod.C1 * C * T1 - imp_mod.C2 * C * T + imp_mod.BETA * dt_sub * q
+            rhs2 = torch.where(sbv.node_mask, rhs2, T)
+            T = tridiag.solve_factored(fz.lower, fz.cs, fz.inv, rhs2)
+
+            ts_front = T[0]
+            ts_back = surf_mod._last_node(sbv, T, st)
+            h_f, h_b = fz.env_f0.h, fz.env_b0.h
+            hq = (h_f, h_b, (ts_front - t_front) * h_f, (ts_back - t_back) * h_b)
+            a_z, b_z = _zone_dots(a_extra, b_extra, sbv, h_f, h_b, ts_front, ts_back)
+            zT = _zone_update(zT, a_z, b_z, zone_volume, dt_sub)
+    return T, zT, hq
+
+
+def plain_day_march(
+    params: DayMarchParams, T, zT, t_out, wind, wdir, sol_front, sol_back,
+    ir_front, ir_back, a_extra, b_extra, *, hours: int, substeps: int,
+    refresh_every: int, dt: float, config: SimConfig,
+):
+    """The plain PyTorch day march on any device: the reference the CUDA
+    kernel is held against.  Shapes as :func:`day_march_kernel`; returns
+    ``(T, zT, hq [4, SP], zt_hist, bad)``."""
+    sbv = _lanes(params)
+    st = surf_mod.compute_statics(sbv)
+    NB, ZB = params.n_blocks, params.zones_per_block
+    zone_volume = params.zone_volume.reshape(-1)
+    zT = zT.reshape(-1)
+    hist, bad = [], []
+    hq = None
+    for h in range(hours):
+        T, zT, hq = _hour_body_imp(
+            config, sbv, st, zone_volume, a_extra[h].reshape(-1),
+            b_extra[h].reshape(-1), t_out, wind, wdir, sol_front[h], sol_back[h],
+            ir_front[h], ir_back[h], T, zT, substeps, dt, h * substeps, refresh_every,
+        )
+        hist.append(zT.reshape(NB, ZB))
+        node_bad = (sbv.node_mask & ~torch.isfinite(T)).sum(dim=0)
+        count = node_bad.reshape(NB, -1).sum(dim=1) + (~torch.isfinite(zT)).reshape(NB, ZB).sum(dim=1)
+        bad.append(count.to(T.dtype))
+    return T, zT.reshape(NB, ZB), torch.stack(hq), torch.stack(hist), torch.stack(bad)
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel wrapper
+# ---------------------------------------------------------------------------
+
+
+def _load_library():
+    lib = cuda_lib.load("heatx_day_march", [KERNEL_SOURCE])
+    if not getattr(lib, "_heatx_bound", False):
+        vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+        for fn in (lib.heatx_day_march_f32, lib.heatx_day_march_f64):
+            fn.argtypes = [vp] * 22 + [ci] * 8 + [cd] * 6 + [vp]
+            fn.restype = ci
+        lib.heatx_cuda_error_string.argtypes = [ci]
+        lib.heatx_cuda_error_string.restype = ctypes.c_char_p
+        lib._heatx_bound = True
+    return lib
+
+
+def load_kernel() -> None:
+    """Build (at first use) and load the day-march kernel library."""
+    _load_library()
+
+
+class DayMarchKernel:
+    """Launches ``day_march.cu`` on CUDA tensors.  ``launches`` counts the
+    launches made through this wrapper (and nothing else)."""
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(
+        self, params: DayMarchParams, T, zT, t_out, wind, wdir, sol_front,
+        sol_back, ir_front, ir_back, a_extra, b_extra, *, hours: int,
+        substeps: int, refresh_every: int, dt: float, config: SimConfig,
+    ):
+        N, NB, ZB = params.max_nodes, params.n_blocks, params.zones_per_block
+        SB = params.block_size
+        SP = NB * SB
+        dtype = T.dtype
+        if dtype not in (torch.float32, torch.float64):
+            raise TypeError(f"day_march kernel takes float32/float64, got {dtype}")
+        if SB > MAX_BLOCK_LANES:
+            raise ValueError(f"block of {SB} lanes > {MAX_BLOCK_LANES} (use a smaller block_size)")
+        if N > MAX_NODES:
+            raise ValueError(f"{N} nodes per surface > {MAX_NODES}")
+        if substeps % refresh_every:
+            raise ValueError(f"refresh_every {refresh_every} must divide substeps {substeps}")
+        expect = {
+            "node": (params.node, (4, N, SP), dtype),
+            "surf": (params.surf, (len(SURF_FIELDS), SP), dtype),
+            "lane": (params.lane, (len(LANE_FIELDS), SP), torch.int32),
+            "zone_volume": (params.zone_volume, (NB, ZB), dtype),
+            "zone_ptr": (params.zone_ptr, (NB * ZB + 1,), torch.int32),
+            "zone_faces": (params.zone_faces, tuple(params.zone_faces.shape), torch.int32),
+            "t_out": (t_out, (hours * substeps,), dtype),
+            "wind": (wind, (hours * substeps,), dtype),
+            "wdir": (wdir, (hours * substeps,), dtype),
+            "sol_front": (sol_front, (hours, SP), dtype),
+            "sol_back": (sol_back, (hours, SP), dtype),
+            "ir_front": (ir_front, (hours, SP), dtype),
+            "ir_back": (ir_back, (hours, SP), dtype),
+            "a_extra": (a_extra, (hours, NB, ZB), dtype),
+            "b_extra": (b_extra, (hours, NB, ZB), dtype),
+            "T": (T, (N, SP), dtype),
+            "zT": (zT, (NB, ZB), dtype),
+        }
+        for name, (t, shape, dt_) in expect.items():
+            if not t.is_cuda or t.device != T.device:
+                raise ValueError(f"{name}: expected a tensor on {T.device}, got {t.device}")
+            if t.dtype != dt_ or tuple(t.shape) != shape or not t.is_contiguous():
+                raise ValueError(
+                    f"{name}: expected contiguous {dt_} {shape}, got "
+                    f"{'contiguous' if t.is_contiguous() else 'strided'} {t.dtype} {tuple(t.shape)}"
+                )
+        lib = _load_library()
+        fn = lib.heatx_day_march_f32 if dtype == torch.float32 else lib.heatx_day_march_f64
+        kw = dict(dtype=dtype, device=T.device)
+        T_out = torch.empty((N, SP), **kw)
+        zT_out = torch.empty((NB, ZB), **kw)
+        hq = torch.empty((4, SP), **kw)
+        zt_hist = torch.empty((hours, NB, ZB), **kw)
+        bad = torch.empty((hours, NB), **kw)
+        ptrs = [t.data_ptr() for t in (
+            params.node, params.surf, params.lane, params.zone_volume,
+            params.zone_ptr, params.zone_faces, t_out, wind, wdir, sol_front,
+            sol_back, ir_front, ir_back, a_extra, b_extra, T, zT,
+            T_out, zT_out, hq, zt_hist, bad,
+        )]
+        with torch.cuda.device(T.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = fn(
+                *ptrs, N, NB, SB, ZB, hours, substeps, refresh_every,
+                int(config.replicate_ambient_back_bug),
+                dt, imp_mod.GAMMA * dt / 2.0, imp_mod.GAMMA * dt,
+                imp_mod.BETA * dt, imp_mod.C1, imp_mod.C2, stream,
+            )
+        if err != 0:
+            msg = lib.heatx_cuda_error_string(err).decode()
+            raise RuntimeError(f"day_march kernel launch failed: CUDA error {err} ({msg})")
+        self.launches += 1
+        return T_out, zT_out, hq, zt_hist, bad
+
+
+#: The process's day-march kernel wrapper (its ``launches`` counter is what
+#: chip_smoke.py reads).
+day_march_kernel = DayMarchKernel()
+
+
+class HourMarch:
+    """``hour_march(params, T, zT_blocked, hour_inputs)`` (see the module
+    docstring).  CUDA tensors launch the kernel, CPU tensors run the plain
+    twin; :meth:`plain` runs the plain twin on any device."""
+
+    def __init__(self, bb: BlockedBuilding, substeps, hours, refresh_every, dt,
+                 collect_bad):
+        self.substeps = substeps
+        self.hours = hours
+        self.refresh_every = refresh_every
+        self.dt = dt
+        self.collect_bad = collect_bad
+        self.config = bb.config
+        self.n_blocks = bb.n_blocks
+        self.zones_per_block = bb.zones_per_block
+        self.padded_surfaces = bb.layout.padded_surfaces
+
+    def _operands(self, T, zT_blocked, hour_inputs):
+        t_o, wnd, wdr, sol_f, sol_b, ir_f, ir_b, a_extra, b_extra = hour_inputs
+        H, sub, SP = self.hours, self.substeps, self.padded_surfaces
+        NB, ZB = self.n_blocks, self.zones_per_block
+
+        def cast(a, shape):
+            a = torch.as_tensor(a, dtype=T.dtype, device=T.device)
+            return a.reshape(shape).contiguous()
+
+        return (
+            T.contiguous(), cast(zT_blocked, (NB, ZB)),
+            cast(t_o, (H * sub,)), cast(wnd, (H * sub,)), cast(wdr, (H * sub,)),
+            cast(sol_f, (H, SP)), cast(sol_b, (H, SP)), cast(ir_f, (H, SP)),
+            cast(ir_b, (H, SP)), cast(a_extra, (H, NB, ZB)), cast(b_extra, (H, NB, ZB)),
+        )
+
+    def _finish(self, outs):
+        T, zT, hq, zt_hist, bad = outs
+        ret = (T, zT, tuple(hq.unbind(0)), zt_hist)
+        return ret + (bad,) if self.collect_bad else ret
+
+    def _kw(self):
+        return dict(
+            hours=self.hours, substeps=self.substeps,
+            refresh_every=self.refresh_every, dt=self.dt, config=self.config,
+        )
+
+    def __call__(self, params, T, zT_blocked, hour_inputs):
+        ops = self._operands(T, zT_blocked, hour_inputs)
+        if T.device.type == "cuda":
+            return self._finish(day_march_kernel(params, *ops, **self._kw()))
+        if T.device.type == "cpu":
+            return self._finish(plain_day_march(params, *ops, **self._kw()))
+        raise ValueError(f"no day march for device {T.device}")
+
+    def plain(self, params, T, zT_blocked, hour_inputs):
+        ops = self._operands(T, zT_blocked, hour_inputs)
+        return self._finish(plain_day_march(params, *ops, **self._kw()))
+
+
+def make_hour_march(
+    bb: BlockedBuilding,
+    substeps: int = None,
+    mode: str = "trbdf2",
+    hours: int = 1,
+    refresh_every: int = None,
+    collect_bad: bool = False,
+    device="cpu",
+):
+    """Build the day march: ``(hour_march, params)`` with ``params`` on
+    ``device`` in the building's dtype (heatx ``make_hour_march`` for modes
+    ``trbdf2``/``trbdf2_refresh``).  ``refresh_every=k`` rebuilds the
+    operators every k sub-steps (default 1 in refresh mode); frozen mode is
+    ``k = substeps``."""
+    if mode == "parity":
+        raise NotImplementedError("mode='parity' is ROADMAP A7/B3 (not ported yet)")
+    if mode not in ("trbdf2", "trbdf2_refresh"):
+        raise ValueError(f"unknown hour-kernel mode {mode!r}")
+    if refresh_every is not None and mode != "trbdf2_refresh":
+        raise ValueError(
+            f"refresh_every only applies to mode='trbdf2_refresh' (got mode={mode!r})"
+        )
+    substeps = substeps or 12
+    if mode == "trbdf2":
+        refresh_every = substeps
+    elif refresh_every is None:
+        refresh_every = 1
+    if refresh_every < 1 or substeps % refresh_every:
+        raise ValueError(f"refresh_every {refresh_every} must divide substeps {substeps}")
+    dt = 3600.0 / (bb.base.n_steps_per_hour * substeps)
+    params = params_from_blocked(bb, bb.config.dtype, device)
+    return HourMarch(bb, substeps, hours, refresh_every, dt, collect_bad), params

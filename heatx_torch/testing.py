@@ -1,0 +1,120 @@
+"""The bench workload, rebuilt on ``heatx_torch.model``.
+
+``build_city_model`` and ``synthetic_weather`` reproduce bench.py's
+``build_city_model`` (bench.py:20) and its synthetic weather (bench.py:106-113)
+without importing bench.py, which reaches jax through ``heatx``.
+``bench_inputs`` assembles the bench's hourly input sequence: seeded
+per-surface solar factors on the horizontal irradiance, the horizontal IR on
+every front face, 500 W per heater and 150 W per luminaire.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from heatx_torch.engine.state import StepInputs, default_inputs
+from heatx_torch.model.building import (
+    Boundary,
+    BuildingModel,
+    Construction,
+    ElectricHeater,
+    Luminaire,
+    Material,
+    SpaceDef,
+    Substance,
+    SurfaceDef,
+)
+
+
+def build_city_model(n_zones: int, surfaces_per_zone: int, orientations: bool = False):
+    """A synthetic city-block building: per zone, massive concrete walls, one
+    mixed (insulated) wall, and a glazed window, all outdoor on the front and
+    facing the zone on the back; one electric heater and one luminaire per
+    zone.  ``orientations=True`` rotates successive surfaces through the four
+    compass facades (the default keeps every facade south-facing)."""
+    m = BuildingModel()
+    m.add_substance(
+        Substance("concrete", thermal_conductivity=0.816, density=1700.0,
+                  specific_heat_capacity=800.0, front_thermal_absorbtance=0.9,
+                  back_thermal_absorbtance=0.9, front_solar_absorbtance=0.7,
+                  back_solar_absorbtance=0.7)
+    )
+    m.add_substance(
+        Substance("poly", thermal_conductivity=0.0252, density=17.5,
+                  specific_heat_capacity=2400.0, front_thermal_absorbtance=0.9,
+                  back_thermal_absorbtance=0.9, front_solar_absorbtance=0.7,
+                  back_solar_absorbtance=0.7)
+    )
+    m.add_substance(
+        Substance("glass", thermal_conductivity=1.0, density=2500.0,
+                  specific_heat_capacity=840.0, solar_transmittance=0.8,
+                  front_solar_absorbtance=0.1, back_solar_absorbtance=0.1,
+                  front_thermal_absorbtance=0.84, back_thermal_absorbtance=0.84)
+    )
+    m.add_material(Material("c20", "concrete", 0.2))
+    m.add_material(Material("p2", "poly", 0.02))
+    m.add_material(Material("g6", "glass", 0.006))
+    m.add_construction(Construction("massive", ["c20"]))
+    m.add_construction(Construction("mixed", ["p2", "c20", "p2"]))
+    m.add_construction(Construction("window", ["g6"]))
+
+    base = np.array([[0, 0, 0], [6, 0, 0], [6, 0, 3], [0, 0, 3]], float)
+    rots = [base]
+    if orientations:
+        for _ in range(3):  # rotate 90 deg about z: (x, y) -> (-y, x)
+            prev = rots[-1]
+            rots.append(np.stack([-prev[:, 1], prev[:, 0], prev[:, 2]], axis=1))
+    kinds = ["massive"] * (surfaces_per_zone - 2) + ["mixed", "window"]
+    for z in range(n_zones):
+        zone = f"z{z}"
+        m.add_space(SpaceDef(zone, 200.0))
+        for si, kind in enumerate(kinds):
+            m.add_surface(
+                SurfaceDef(
+                    f"s{z}_{si}", kind, Boundary.outdoor(), Boundary.space_(zone),
+                    vertices=rots[(z + si) % len(rots)],
+                )
+            )
+        m.add_hvac(ElectricHeater(f"h{z}", zone))
+        m.add_luminaire(Luminaire(f"l{z}", zone))
+    return m
+
+
+def synthetic_weather(hours: int):
+    """bench.py's synthetic hourly weather: (dry bulb C, wind m/s, wind
+    direction rad, global horizontal W/m2, horizontal IR W/m2), each [hours]."""
+    t = np.arange(hours)
+    return (
+        10.0 + 10.0 * np.sin(2 * np.pi * t / 24.0),
+        3.0 + 2.0 * np.sin(2 * np.pi * t / 17.0),
+        np.radians((t * 7.0) % 360.0),
+        np.maximum(0.0, 600.0 * np.sin(2 * np.pi * (t % 24) / 24.0 - np.pi / 2)),
+        np.full(hours, 350.0),
+    )
+
+
+def solar_factors(n_surfaces: int, seed: int = 0) -> np.ndarray:
+    """bench.py's static per-surface solar scale factors, U(0.2, 1)."""
+    return np.random.default_rng(seed).uniform(0.2, 1.0, n_surfaces)
+
+
+def bench_inputs(building, hours: int, dtype=None, device="cpu", seed: int = 0) -> StepInputs:
+    """The bench's [hours]-long input sequence for ``FastRunner.run``."""
+    dry, wind, wdir, ghi, ir = synthetic_weather(hours)
+    S = building.n_surfaces
+    base = default_inputs(building, dtype=dtype, device=device)
+    dtype = base.t_out.dtype
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float64), dtype=dtype, device=device)
+
+    return base.replace(
+        t_out=t(dry),
+        wind_speed=t(wind),
+        wind_direction=t(wdir),
+        sol_front=t(ghi[:, None] * solar_factors(S, seed)[None, :]),
+        ir_front=t(ir),
+        hvac_power=t(np.full(building.n_hvacs, 500.0)),
+        lum_power=t(np.full(building.n_luminaires, 150.0)),
+    )
