@@ -27,10 +27,42 @@ Phases (one output line each, then a JSON line per contract):
    day through the plain twin; the kernel against the plain twin on the
    same day's inputs (max |dT| <= 1e-2 K, f32 summation-order round-off).
 
-The last line is ``{"ok": true, "device": {...}}``; any failed check raises
-and the script exits non-zero.
+6. build (the adjoint): the day-adjoint kernel (heatx_torch/csrc/
+   day_adjoint.cu), compiled by its own nvcc started together with phase 2's;
+   its ptxas registers/stack/spill lines.
+7. f64 on the 4-zone city, 3 h, k=2, k=8 and frozen: the adjoint kernel
+   against its plain PyTorch version (autograd through the plain day march)
+   on seeded cotangents, max |d| <= 1e-9 max |ref| for every output; and a
+   second oracle that shares nothing with the plain version: central finite
+   differences of the forward KERNEL along seeded directions of T0, seg_u
+   and front_alphas, relative error <= 1e-5.  Then the kernel against the
+   plain version on testing.build_mixed_model (tilted roof, ground floor,
+   partition, ambient back face), k=1, k=2 and frozen.
+8. the gradient path at full width (bench city, f32, trbdf2_refresh k=2, 8
+   sub-steps, hours=24): one day's adjoint on the kernel against the f64
+   plain adjoint (relative L2 gap per output <= 1e-2); bench.py's
+   run_grad_bench workload (its inputs, conductance and solar-absorptance
+   scales, mean((zt - 21)^2)) through chunked_value_and_grad with
+   FastRunner.chunk_forward/chunk_grad over 30 days in 2 chunks, f32 against
+   f64, both on the kernels, with exactly 30 forward + 30 recompute day-march
+   launches and 30 adjoint launches, every value finite and both gradients
+   nonzero; the annual run (5 chunks of 73 days, host clock, twice), then a
+   third under torch.profiler for the device's busy share and each kernel's
+   part of it; the adjoint's ms per day-launch (CUDA events) and the f32
+   plain adjoint's time for one day.
+
+The line before the last is the kernels JSON line.  ``launches`` is each
+kernel's count on this slice's main path, the 30-day value_and_grad of
+phase 8b; ``launches_by_path`` adds the day march's count on the ``run``
+path of phase 4.  ``ms`` is one f32 bench-day launch (CUDA events), the
+same operands on both paths; ``plain_ms`` its f32 plain version on the same
+inputs; ``max_abs_err`` the f32 kernel against that plain version;
+``bound_ms`` the bound from this run's shapes.  The last line is
+``{"ok": true, "device": {...}}``; any failed check raises and the script
+exits non-zero.
 """
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -41,6 +73,24 @@ import numpy as np
 F64_TOL = 1e-9  # K: kernel vs plain twin, f64, same inputs
 F32_TOL = 1e-2  # K: f32 against f64, or f32 kernel vs f32 twin, full width
 BLOCK_SIZES = (32, 64, 128, 256)
+ADJ_F64_RTOL = 1e-9  # of max |ref|: adjoint kernel vs plain adjoint, f64, same inputs
+FD_RTOL = 1e-5  # central differences of the f64 forward kernel vs the adjoint kernel
+# f32 adjoint kernel vs f64 plain adjoint, one bench day, relative L2 per
+# output: f32 round-off carried through 192 sub-steps of forward and
+# reverse sweeps; 2.3e-3 at most measured on an H100 80GB HBM3 at 700 W (PERF.md), bound 4x that.
+ADJ_F32_RL2 = 1e-2
+# The 30-day value_and_grad, f32 against f64 on the kernels, relative.  The
+# two marches part where the windward test (facade normal . wind > 0) flips
+# under f32 rounding: the synthetic weather blows exactly along the facades
+# at hours 90 and 270 (cos(wd) is +-1e-16 in f64, -+4e-8 in f32), the forced
+# film coefficient halves or doubles for that hour, and zone T moves by up to
+# ~0.5 K (phase 8b prints it).  The loss and gradients then differ by 8.6e-3
+# at most, measured on an H100 80GB HBM3 at 700 W (PERF.md); bound ~3.5x that.
+GRAD_F32_RTOL = 3e-2
+# Published H100 SXM rates (NVIDIA H100 datasheet): HBM bytes/s and the
+# f32 FLOP/s outside the tensor cores (the kernels run no matrix products).
+HBM_BPS = 3.35e12
+PEAK_F32_FLOPS = 67e12
 
 
 def card_facts():
@@ -104,6 +154,233 @@ def phase3_f64_check(torch, day_march, testing, SimConfig, compile_building):
     return worst
 
 
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def day_work(params, hours, sub, k):
+    """Operations of one day-march launch, counted from day_march.cu on this
+    run's shapes (transcendentals count as one): per valid node and sub-step
+    32 (two fused right-hand-side/forward sweeps and two back
+    substitutions), per valid node and refresh 12 (K row, stage row, Thomas
+    factor), per lane and sub-step 10 (face sums), per lane and refresh 50
+    (film coefficients and linearized radiation), per zone and sub-step 20
+    (zone sums and update)."""
+    import torch
+
+    bits = params.field("node_bits").to(torch.int64)
+    valid = int(sum(int(((bits >> i) & 1).sum()) for i in range(params.max_nodes)))
+    lanes = params.surf.shape[1]
+    zones = params.zone_volume.numel()
+    per_sub = 32 * valid + 10 * lanes + 20 * zones
+    per_refresh = 12 * valid + 50 * lanes
+    return hours * (sub * per_sub + (sub // k) * per_refresh), valid, lanes, zones
+
+
+def adjoint_work(params, hours, sub, k):
+    """Operations the day's adjoint needs, counted from day_adjoint.cu: one
+    forward march of the day, then the reverse sweep's own work, per valid
+    node and sub-step 60 (two transposed solves, two band cotangents, the
+    right-hand sides and forcing backwards), per valid node and refresh 12
+    (K's band backwards), per lane and sub-step 20, per lane and refresh 100
+    (the operator build backwards), per zone and sub-step 30 (zone update
+    backwards, face sums).  The kernel's recomputation (the taped re-march
+    of each hour, the operators rebuilt in the reverse) trades operations
+    for memory and is not counted."""
+    fwd, valid, lanes, zones = day_work(params, hours, sub, k)
+    per_sub = 60 * valid + 20 * lanes + 30 * zones
+    per_refresh = 12 * valid + 100 * lanes
+    return fwd + hours * (sub * per_sub + (sub // k) * per_refresh)
+
+
+def bound(bytes_moved, ops):
+    """(bound_ms, bound_by): the larger of bytes over HBM rate and
+    operations over the f32 peak."""
+    t_bytes, t_ops = bytes_moved / HBM_BPS * 1e3, ops / PEAK_F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def device_time(torch, fn):
+    """Run ``fn`` once under torch.profiler: (the device's busy ms, {kernel:
+    its ms}) for the day_march and day_adjoint kernels.  One stream, so the
+    sum of the device events is the busy time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy, kern = 0.0, {"day_march": 0.0, "day_adjoint": 0.0}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = e.self_device_time_total
+        busy += us
+        for name in kern:
+            if f"{name}_kernel" in e.key:
+                kern[name] += us
+    return busy / 1e3, {k: v / 1e3 for k, v in kern.items()}
+
+
+def _flat_grads(g):
+    out = {k: v for k, v in g.items() if k != "d_params"}
+    out.update(g["d_params"])
+    return out
+
+
+def adjoint_vs_plain(torch, adj, params, T0, zT0, hi, cots, what):
+    """The adjoint kernel's outputs (flattened) after holding each against
+    the plain adjoint's: max |d| <= ADJ_F64_RTOL max |ref|.  Returns them
+    and the worst ratio."""
+    got = _flat_grads(adj(params, T0, zT0, hi, cots))
+    ref = _flat_grads(adj.plain(params, T0, zT0, hi, cots))
+    worst = 0.0
+    for name, r in ref.items():
+        check(bool(torch.isfinite(got[name]).all()), f"adjoint {what} {name}: non-finite")
+        scale = float(r.abs().max())
+        err = float((got[name] - r).abs().max())
+        check(err <= ADJ_F64_RTOL * scale, f"adjoint {what} {name}: max |d| {err} > {ADJ_F64_RTOL} x {scale}")
+        worst = max(worst, err / scale if scale else err)
+    return got, worst
+
+
+def phase7_adjoint_f64(torch, day_march, day_adjoint, testing, SimConfig, compile_building):
+    """Adjoint kernel vs plain adjoint, and vs central differences of the
+    forward kernel, f64, 4-zone city, 3 h, three cadences; then kernel vs
+    plain on the mixed-boundary building (tilted roof, ground floor,
+    partition, ambient back face: the branches the city lacks)."""
+    hours, sub = 3, 8
+    building = compile_building(
+        testing.build_city_model(4, 10), n=1, config=SimConfig(dtype=torch.float64)
+    )
+    bb = day_march.block_building(building, block_size=16)
+    lay = bb.layout
+    S, N = building.n_surfaces, bb.max_nodes
+    rng = np.random.default_rng(0)
+
+    def dev(a):
+        return torch.as_tensor(np.asarray(a, np.float64), device="cuda")
+
+    def lanes(a):
+        return dev(np.stack([lay.surfaces_to_blocked(x) for x in a]))
+
+    def zones(a):
+        return dev(np.stack([lay.zones_to_blocked(x) for x in a]))
+
+    mask = building.surfaces.node_mask
+    hi = tuple(dev(rng.uniform(lo, hi, hours * sub)) for lo, hi in ((-5, 15), (0, 8), (0, 6.28))) + (
+        lanes(rng.uniform(0, 400, (hours, S))), lanes(rng.uniform(0, 50, (hours, S))),
+        lanes(rng.uniform(250, 400, (hours, S))), lanes(rng.uniform(250, 400, (hours, S))),
+        zones(rng.uniform(0, 900, (hours, building.n_zones))),
+        zones(rng.uniform(0, 50, (hours, building.n_zones))),
+    )
+    # A random start state: away from the |dT| = 0 kink of the cube root, so
+    # central differences see a smooth function.
+    T0 = dev(lay.surfaces_to_blocked(np.where(mask, rng.uniform(15, 25, mask.shape), 0.0)))
+    zT0 = dev(lay.zones_to_blocked(rng.uniform(18, 24, building.n_zones)))
+    W_T = dev(lay.surfaces_to_blocked(rng.normal(size=mask.shape)))
+    W_z = dev(lay.zones_to_blocked(rng.normal(size=building.n_zones)))
+    W_h = zones(rng.normal(size=(hours, building.n_zones)))
+    D_T = dev(lay.surfaces_to_blocked(np.where(mask, rng.normal(size=mask.shape), 0.0)))
+    D_node = dev(lay.surfaces_to_blocked(rng.normal(size=mask.shape)))
+    worst, worst_fd = 0.0, 0.0
+    for mode, k in (("trbdf2_refresh", 2), ("trbdf2_refresh", 8), ("trbdf2", None)):
+        hm, params = day_march.make_hour_march(bb, substeps=sub, mode=mode, hours=hours, refresh_every=k)
+        adj = day_adjoint.make_day_adjoint(bb, substeps=sub, mode=mode, hours=hours, refresh_every=k)
+        got, w = adjoint_vs_plain(torch, adj, params, T0, zT0, hi, (W_T, W_z, W_h), f"{mode} k={k}")
+        worst = max(worst, w)
+
+        def loss(p, T):
+            Tn, zTn, _, hist = hm(p, T, zT0, hi)[:4]
+            return float((Tn * W_T).sum() + (zTn * W_z).sum() + (hist * W_h).sum())
+
+        def perturbed(row, d):
+            node = params.node.clone()
+            node[row] += d * params.node[row]
+            return dataclasses.replace(params, node=node)
+
+        eps = 1e-6
+        fd_cases = {
+            "T0": (got["dT0"], D_T, lambda e: loss(params, T0 + e * D_T)),
+            "seg_u": (got["seg_u"], D_node * params.node[0], lambda e: loss(perturbed(0, e * D_node), T0)),
+            "front_alphas": (got["front_alphas"], D_node * params.node[2],
+                             lambda e: loss(perturbed(2, e * D_node), T0)),
+        }
+        for name, (grad, direction, f) in fd_cases.items():
+            fd = (f(eps) - f(-eps)) / (2 * eps)
+            an = float((grad * direction).sum())
+            rel = abs(fd - an) / max(abs(an), 1e-300)
+            check(rel <= FD_RTOL, f"adjoint {mode} k={k} d/d{name}: FD {fd} vs adjoint {an} (rel {rel})")
+            worst_fd = max(worst_fd, rel)
+
+    mixed = compile_building(testing.build_mixed_model(), n=1, config=SimConfig(dtype=torch.float64))
+    bb = day_march.block_building(mixed)
+    lay, S, mask = bb.layout, mixed.n_surfaces, mixed.surfaces.node_mask
+    hours, sub = 2, 4
+    hi = tuple(dev(rng.uniform(lo, hi, hours * sub)) for lo, hi in ((-5, 15), (0, 8), (0, 6.28))) + (
+        lanes(rng.uniform(0, 400, (hours, S))), lanes(rng.uniform(0, 50, (hours, S))),
+        lanes(rng.uniform(250, 400, (hours, S))), lanes(rng.uniform(250, 400, (hours, S))),
+        zones(rng.uniform(0, 900, (hours, mixed.n_zones))), zones(rng.uniform(0, 50, (hours, mixed.n_zones))),
+    )
+    T0 = dev(lay.surfaces_to_blocked(np.where(mask, rng.uniform(15, 25, mask.shape), 0.0)))
+    zT0 = dev(lay.zones_to_blocked(rng.uniform(18, 24, mixed.n_zones)))
+    cots = (dev(lay.surfaces_to_blocked(rng.normal(size=mask.shape))),
+            dev(lay.zones_to_blocked(rng.normal(size=mixed.n_zones))),
+            zones(rng.normal(size=(hours, mixed.n_zones))))
+    for mode, k in (("trbdf2_refresh", 1), ("trbdf2_refresh", 2), ("trbdf2", None)):
+        _, params = day_march.make_hour_march(bb, substeps=sub, mode=mode, hours=hours, refresh_every=k)
+        adj = day_adjoint.make_day_adjoint(bb, substeps=sub, mode=mode, hours=hours, refresh_every=k)
+        got, w = adjoint_vs_plain(torch, adj, params, T0, zT0, hi, cots, f"mixed building {mode} k={k}")
+        worst = max(worst, w)
+        for name in ("cos_tilt", "front_temp", "back_temp", "fixed_h_front"):
+            check(float(got[name].abs().max()) > 0, f"mixed building: d {name} is 0, the branch was not taken")
+    return worst, worst_fd
+
+
+def grad_workload(torch, ThermalModel, SimConfig, testing, dtype, days, chunks):
+    """bench.py run_grad_bench (bench.py:199-308) through the port, on its
+    inputs (the bench weather and solar factors, 500 W HVAC, luminaires
+    off): returns (a callable running the chunked value_and_grad, the
+    runner, its input sequence)."""
+    from heatx_torch.engine.adjoint import chunked_value_and_grad, tree_map
+
+    tm = ThermalModel(testing.build_city_model(1000, 10), n=1, config=SimConfig(dtype=dtype))
+    b = tm.building
+    T = days * 24
+    seq = testing.bench_inputs(b, T, device="cuda")
+    seq = seq.replace(lum_power=torch.zeros_like(seq.lum_power))  # the grad row leaves luminaires off
+
+    def chunkize(v):
+        if v.ndim and v.shape[0] == T:
+            return v.reshape((chunks, T // chunks) + tuple(v.shape[1:]))
+        return torch.broadcast_to(v, (chunks,) + tuple(v.shape))
+
+    xs = tree_map(chunkize, seq)
+    sb0 = b.surfaces
+    seg_u0 = torch.as_tensor(sb0.seg_u, device="cuda")
+    alphas0 = torch.as_tensor(sb0.front_alphas, device="cuda")
+
+    def with_params(p):
+        sb = dataclasses.replace(sb0, seg_u=seg_u0 * p["u_scale"], front_alphas=alphas0 * p["alpha_scale"])
+        return dataclasses.replace(b, surfaces=sb)
+
+    def loss_fn(zt, xs):
+        return torch.mean((zt - 21.0) ** 2) / chunks
+
+    fr = tm.fast_runner(mode="trbdf2_refresh", refresh_every=2, substeps=8, hours=24)
+    kf = fr.chunk_forward(with_params, loss_fn)
+    kb = fr.chunk_grad(with_params, loss_fn)
+    st = tm.initial_state()
+    params = {"u_scale": torch.tensor(1.2, dtype=dtype, device="cuda"),
+              "alpha_scale": torch.tensor(0.8, dtype=dtype, device="cuda")}
+
+    def run():
+        val, g = chunked_value_and_grad(None, params, st, xs, forward_fn=kf, backward_fn=kb)
+        return float(val), float(g["u_scale"]), float(g["alpha_scale"])
+
+    return run, fr, seq
+
+
 def main() -> int:
     try:
         import torch
@@ -116,7 +393,7 @@ def main() -> int:
     try:
         from heatx_torch import SimConfig, ThermalModel, testing
         from heatx_torch.build.layout import compile_building
-        from heatx_torch.ops import cuda_lib, day_march
+        from heatx_torch.ops import cuda_lib, day_adjoint, day_march
     except ImportError as e:
         print(f"chip_smoke: heatx_torch is not importable here ({e})", file=sys.stderr)
         return 2
@@ -128,15 +405,21 @@ def main() -> int:
     print(f"phase 1 device: torch sees {kind!r} x{torch.cuda.device_count()}; "
           f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
-    # 2. build
+    # 2. build: one nvcc per kernel source, all started together
     t0 = time.time()
+    cuda_lib.build_many([
+        ("heatx_day_march", [day_march.KERNEL_SOURCE]),
+        ("heatx_day_adjoint", [day_adjoint.KERNEL_SOURCE]),
+    ])
     day_march.load_kernel()
+    day_adjoint.load_kernel()
     build_s = time.time() - t0
     ptxas = [
         ln.strip() for ln in cuda_lib.build_log("heatx_day_march", [day_march.KERNEL_SOURCE]).splitlines()
         if "registers" in ln or "spill" in ln
     ]
-    print(f"phase 2 build: {build_s:.1f} s (nvcc sm_90a); ptxas: {' | '.join(ptxas)}", flush=True)
+    print(f"phase 2 build: {build_s:.1f} s for both kernels (nvcc sm_90a, in parallel); "
+          f"day_march ptxas: {' | '.join(ptxas)}", flush=True)
 
     # 3. f64 algorithm check on the card
     err64 = phase3_f64_check(torch, day_march, testing, SimConfig, compile_building)
@@ -224,16 +507,153 @@ def main() -> int:
           + ", ".join(f"{bs}: ({nb}, {ms:.3f})" for bs, (nb, ms) in sweep.items()),
           flush=True)
 
-    print(json.dumps({"kernels": [{
-        "name": "day_march",
-        "route": "cuda",
-        "source": "heatx_torch/csrc/day_march.cu",
-        "replaces": "heatx/ops/pallas_step.py:1976",
-        "launches": launches,
-        "max_abs_err": err32,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-    }]}))
+    # 6. the adjoint kernel's build (it ran in parallel with phase 2's)
+    ptxas_adj = [
+        ln.strip() for ln in cuda_lib.build_log("heatx_day_adjoint", [day_adjoint.KERNEL_SOURCE]).splitlines()
+        if "registers" in ln or "spill" in ln or "stack" in ln
+    ]
+    print(f"phase 6 build day_adjoint.cu (with phase 2's, {build_s:.1f} s for both); "
+          f"ptxas: {' | '.join(ptxas_adj)}", flush=True)
+
+    # 7. f64: adjoint kernel vs plain adjoint, and vs finite differences of the forward kernel
+    adj_err64, fd_err = phase7_adjoint_f64(torch, day_march, day_adjoint, testing, SimConfig, compile_building)
+    print(f"phase 7 f64 4-zone 3 h adjoint kernel vs plain adjoint: worst max |d| / max |ref| "
+          f"{adj_err64:.3e} (<= {ADJ_F64_RTOL:g}); central differences of the forward kernel "
+          f"along T0, seg_u, front_alphas: worst relative error {fd_err:.3e} (<= {FD_RTOL:g}); "
+          f"trbdf2_refresh k=2, k=8 and trbdf2", flush=True)
+
+    # 8a. one bench day: f32 adjoint kernel vs f64 plain adjoint
+    tm64 = ThermalModel(model, n=1, config=SimConfig(dtype=torch.float64), device="cuda")
+    r64 = tm64.fast_runner(**kw)
+    adj_kw = dict(substeps=8, mode="trbdf2_refresh", hours=24, refresh_every=2)
+    adj32 = day_adjoint.make_day_adjoint(runner._bb, **adj_kw)
+    adj64 = day_adjoint.make_day_adjoint(r64._bb, **adj_kw)
+    NB, ZB = runner._bb.n_blocks, runner._bb.zones_per_block
+    d_hist = np.random.default_rng(3).normal(size=(24, NB, ZB)) / (24 * 1000)
+    T, zT, hi = day_operands(runner)
+    cots32 = (torch.zeros_like(T), torch.zeros_like(zT), torch.as_tensor(d_hist, dtype=torch.float32, device="cuda"))
+    T64, zT64 = r64.to_blocked(tm64.initial_state())
+    hi64 = r64.kernel_inputs(testing.bench_inputs(tm64.building, 24, device="cuda"), interp_weather=True)[0]
+    cots64 = tuple(c.double() for c in cots32)
+    g32 = _flat_grads(adj32(runner.params, T, zT, hi, cots32))
+    g64p = _flat_grads(adj64.plain(r64.params, T64, zT64, hi64, cots64))
+    gaps = {}
+    for name, ref in g64p.items():
+        check(bool(torch.isfinite(g32[name]).all()), f"f32 adjoint {name}: non-finite")
+        norm = float(ref.norm())
+        gaps[name] = float((g32[name].double() - ref).norm()) / norm if norm else float(g32[name].abs().max())
+        check(gaps[name] <= ADJ_F32_RL2, f"f32 adjoint kernel vs f64 plain {name}: relative L2 {gaps[name]} > {ADJ_F32_RL2}")
+    worst_gap = max(gaps, key=gaps.get)
+    adj_ms = event_ms(lambda: adj32(runner.params, T, zT, hi, cots32), 10)
+    t0 = time.time()
+    g32p = _flat_grads(adj32.plain(runner.params, T, zT, hi, cots32))
+    torch.cuda.synchronize()
+    adj_plain_ms = (time.time() - t0) * 1e3  # the f32 plain adjoint, as the kernel's ms is f32
+    adj32_abs = max(float((g32[n] - ref).abs().max()) for n, ref in g32p.items())
+    adj32_rel = max(float((g32[n] - ref).abs().max()) / max(float(ref.abs().max()), 1e-300)
+                    for n, ref in g32p.items())
+    print(f"phase 8a one bench day, f32 adjoint kernel vs f64 plain adjoint: relative L2 gap "
+          f"worst {gaps[worst_gap]:.3e} ({worst_gap}; <= {ADJ_F32_RL2:g}), "
+          + ", ".join(f"{n} {v:.2e}" for n, v in gaps.items()), flush=True)
+
+    # 8b. the gradient main path: 30 days in 2 chunks, f32 and f64 on the kernels
+    run32, fr32, seq32 = grad_workload(torch, ThermalModel, SimConfig, testing, torch.float32, 30, 2)
+    run64, fr64, seq64 = grad_workload(torch, ThermalModel, SimConfig, testing, torch.float64, 30, 2)
+    day_march.day_march_kernel.launches = 0
+    day_adjoint.day_adjoint_kernel.launches = 0
+    t0 = time.time()
+    v32 = run32()
+    torch.cuda.synchronize()
+    grad30_s = time.time() - t0
+    launches_fwd = day_march.day_march_kernel.launches
+    launches_adj = day_adjoint.day_adjoint_kernel.launches
+    check(launches_fwd == 60 and launches_adj == 30,
+          f"30-day value_and_grad launched the day march {launches_fwd} times (expected 30 "
+          f"forward + 30 recompute) and the adjoint {launches_adj} times (expected 30)")
+    v64 = run64()
+    zt_gap = float((fr32.run(fr32._tm.initial_state(), seq32)[1].double()
+                    - fr64.run(fr64._tm.initial_state(), seq64)[1]).abs().max())
+    for name, a, b in zip(("loss", "dL/du", "dL/dalpha"), v32, v64):
+        check(np.isfinite(a) and np.isfinite(b), f"30-day {name} not finite: {a}, {b}")
+        check(abs(a - b) <= GRAD_F32_RTOL * abs(b), f"30-day {name}: f32 {a} vs f64 {b}")
+    check(v32[1] != 0 and v32[2] != 0, f"30-day gradients are zero: {v32}")
+    print(f"phase 8b bench grad workload, 30 days in 2 chunks (main path): {launches_fwd} day-march "
+          f"launches (30 forward + 30 recompute), {launches_adj} adjoint launches, {grad30_s:.3f} s f32; "
+          f"loss / dL/du / dL/dalpha f32 {v32[0]:.6g} / {v32[1]:.6g} / {v32[2]:.6g} vs f64 "
+          f"{v64[0]:.6g} / {v64[1]:.6g} / {v64[2]:.6g} (relative <= {GRAD_F32_RTOL:g}); "
+          f"30-day zone T f32 vs f64 through run: max |d| {zt_gap:.3e} K", flush=True)
+
+    # 8c. the annual value_and_grad (run_grad_bench: 5 chunks of 73 days),
+    # host clock; then one more run under torch.profiler for the device's
+    # busy share and each kernel's part of it.
+    run_year, _, _ = grad_workload(torch, ThermalModel, SimConfig, testing, torch.float32, 365, 5)
+    walls = []
+    for _ in range(2):
+        t0 = time.time()
+        vy = run_year()
+        torch.cuda.synchronize()
+        walls.append(time.time() - t0)
+        check(all(np.isfinite(vy)) and vy[1] != 0 and vy[2] != 0, f"annual value_and_grad: {vy}")
+    dev_ms, kern_ms = device_time(torch, run_year)
+    wall_ms = min(walls) * 1e3
+    share = (f"device busy {dev_ms:.1f} ms = {dev_ms / wall_ms:.1%} of the faster wall; day_adjoint "
+             f"{kern_ms['day_adjoint']:.1f} ms ({kern_ms['day_adjoint'] / dev_ms:.1%} of device time), "
+             f"day_march {kern_ms['day_march']:.1f} ms ({kern_ms['day_march'] / dev_ms:.1%})"
+             if dev_ms > 0 else "device time not measured (the profiler recorded none)")
+    print(f"phase 8c on {smi}: annual value_and_grad (8760 h, 5 chunks of 73 days, f32) "
+          f"{walls[0]:.3f} s and {walls[1]:.3f} s (host clock); loss {vy[0]:.6g}, dL/du {vy[1]:.6g}, "
+          f"dL/dalpha {vy[2]:.6g}; torch.profiler over a third run: {share}; adjoint day-launch "
+          f"{adj_ms:.3f} ms (CUDA events, 10 reps) vs f32 plain adjoint {adj_plain_ms:.1f} ms for one "
+          f"day (host clock); f32 adjoint kernel vs f32 plain max |d| {adj32_abs:.3e} "
+          f"({adj32_rel:.2e} of max |ref|)", flush=True)
+
+    # The kernels line: bounds from this run's shapes (f32 bench day).
+    ops_fwd, *_ = day_work(runner.params, 24, 8, 2)
+    bytes_fwd = nbytes(runner.params.node, runner.params.surf, runner.params.lane,
+                       runner.params.zone_volume, runner.params.zone_ptr, runner.params.zone_faces,
+                       T, zT, *hi) + nbytes(got[0], got[1], *got[2], got[3], got[4])
+    fwd_bound, fwd_by = bound(bytes_fwd, ops_fwd)
+    ops_adj = adjoint_work(runner.params, 24, 8, 2)
+    bytes_adj = (nbytes(runner.params.node, runner.params.surf, runner.params.lane,
+                        runner.params.zone_volume, runner.params.zone_ptr, runner.params.zone_faces,
+                        T, zT, *hi, *cots32)
+                 + nbytes(*[v for v in g32.values()]))
+    adj_bound, adj_by = bound(bytes_adj, ops_adj)
+    print(f"bounds (f32 bench day, published H100 SXM rates): day_march {bytes_fwd / 1e6:.2f} MB, "
+          f"{ops_fwd / 1e9:.3f} GFLOP -> {fwd_bound * 1e3:.2f} us ({fwd_by}); day_adjoint "
+          f"{bytes_adj / 1e6:.2f} MB, {ops_adj / 1e9:.3f} GFLOP -> {adj_bound * 1e3:.2f} us ({adj_by})",
+          flush=True)
+
+    print(json.dumps({"kernels": [
+        {
+            "name": "day_march",
+            "route": "cuda",
+            "source": "heatx_torch/csrc/day_march.cu",
+            "replaces": "heatx/ops/pallas_step.py:1976",
+            "launches": launches_fwd,
+            "launches_by_path": {"run, 48 h (phase 4)": launches, "value_and_grad, 30 days (phase 8b)": launches_fwd},
+            "max_abs_err": err32,
+            "ms": kernel_ms,
+            "plain_ms": plain_ms,
+            "bound_ms": fwd_bound,
+            "bound_by": fwd_by,
+            "library_ms": None,
+        },
+        {
+            "name": "day_adjoint",
+            "route": "cuda",
+            "source": "heatx_torch/csrc/day_adjoint.cu",
+            "replaces": "heatx/ops/pallas_adjoint.py:717",
+            "launches": launches_adj,
+            "launches_by_path": {"value_and_grad, 30 days (phase 8b)": launches_adj},
+            "max_abs_err": adj32_abs,
+            "ms": adj_ms,
+            "plain_ms": adj_plain_ms,
+            "bound_ms": adj_bound,
+            "bound_by": adj_by,
+            "library_ms": None,
+        },
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}))

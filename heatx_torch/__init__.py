@@ -3,11 +3,15 @@
 A package beside ``heatx`` (which stays the JAX/TPU reference).  It imports
 ``torch`` and never ``jax``, and carries its own copy of heatx's numpy front
 end (model, discretization, layout, blocking), because the GPU host has no
-jax.  What runs today: the TR-BDF2 day march (modes ``trbdf2`` and
-``trbdf2_refresh``) on free-float buildings, through
-``ThermalModel(..., device=...).fast_runner(...).run``, with the day kernel
-written in CUDA for Hopper (``heatx_torch/csrc/day_march.cu``) and a plain
-PyTorch twin on the CPU.
+jax.  What runs today, on free-float buildings in modes ``trbdf2`` and
+``trbdf2_refresh``: the day march through
+``ThermalModel(...).fast_runner(...).run``, and its gradient through
+``heatx_torch.engine.adjoint.chunked_value_and_grad`` with
+``FastRunner.chunk_forward``/``chunk_grad``.  Both day kernels are written
+in CUDA for Hopper (``heatx_torch/csrc/day_march.cu``, ``day_adjoint.cu``)
+with plain PyTorch versions beside them.  Models live on the card
+(``device="cuda"``) unless the caller asks for ``device="cpu"``, where the
+plain versions run.
 """
 
 __version__ = "0.5.0"

@@ -1,13 +1,19 @@
 """High-level API: ``ThermalModel`` and the day-march ``FastRunner``.
 
 PyTorch counterpart of ``heatx.api`` for the slice the port carries: a
-compiled building on an explicit device, its initial state and inputs, and
-``FastRunner.run``, which marches a whole hourly input sequence through the
-TR-BDF2 day march (the CUDA kernel on a GPU, its plain twin on the CPU).
+compiled building on a device (the card unless the caller asks for the
+CPU), its initial state and inputs; ``FastRunner.run``, which marches a
+whole hourly input sequence through the TR-BDF2 day march (the CUDA kernel
+on a GPU, its plain twin on the CPU); and ``FastRunner.chunk_forward``/
+``chunk_grad``, the forward and backward sweeps of
+``heatx_torch.engine.adjoint.chunked_value_and_grad`` (the day march and
+the adjoint day march).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 from types import SimpleNamespace
 
 import numpy as np
@@ -16,9 +22,11 @@ import torch
 from heatx_torch.build.layout import CompiledBuilding, compile_building
 from heatx_torch.config import DEFAULT_CONFIG, SimConfig
 from heatx_torch.constants import KELVIN
+from heatx_torch.engine.adjoint import tree_flatten
 from heatx_torch.engine.state import SimState, StepInputs, default_inputs, initial_state
 from heatx_torch.model.building import BuildingModel
-from heatx_torch.ops import day_march
+from heatx_torch.ops import day_adjoint, day_march
+from heatx_torch.ops.cuda_lib import resolve_device
 from heatx_torch.physics import gas
 from heatx_torch.weather.epw import interpolate_to_steps
 
@@ -27,11 +35,51 @@ from heatx_torch.weather.epw import interpolate_to_steps
 #: per chunk with a one-chunk lag otherwise (heatx.api's rule).
 DEFER_CHECK_SURFACE_HOURS = int(1e7)
 
+#: ``run`` options that do not change the marched trajectory (heatx
+#: api.py:889-892).  ``chunk_grad`` takes only these, and raises when its
+#: paired ``chunk_forward`` ran with any other.
+TRAJECTORY_NEUTRAL = frozenset(
+    {"assert_finite", "dispatch_days", "collect_zone_T", "collect_fluxes", "collect_operative"}
+)
+
+#: Building fields whose cotangents the adjoint day march returns.
+DIFF_FIELDS = frozenset(
+    ["surfaces." + n for n in day_adjoint.DIFF_NODE + day_adjoint.DIFF_SURF] + ["zone_volume"]
+)
+
 
 def _np(v) -> np.ndarray:
     if isinstance(v, torch.Tensor):
         return v.detach().cpu().numpy()
     return np.asarray(v)
+
+
+def _fields(building: CompiledBuilding):
+    """(name, value) of every building field the day march reads or could be
+    asked to: the surface fields and the building-level arrays (not the
+    discretization records or the config)."""
+    for f in dataclasses.fields(building.surfaces):
+        yield "surfaces." + f.name, getattr(building.surfaces, f.name)
+    for f in dataclasses.fields(building):
+        if f.name not in ("surfaces", "discretizations", "config"):
+            yield f.name, getattr(building, f.name)
+
+
+def _same(a, b) -> bool:
+    if a is b:
+        return True
+    if isinstance(a, tuple) and isinstance(b, tuple):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    a, b = _np(a), _np(b)
+    if a.shape != b.shape:
+        return False
+    return bool(np.array_equal(a, b, equal_nan=a.dtype.kind == "f" and b.dtype.kind == "f"))
+
+
+def _requires_grad(v) -> bool:
+    if isinstance(v, tuple):
+        return any(_requires_grad(x) for x in v)
+    return isinstance(v, torch.Tensor) and v.requires_grad
 
 
 def _unsupported(**flags):
@@ -43,18 +91,6 @@ def _unsupported(**flags):
         )
 
 
-def _device(device) -> torch.device:
-    """The model's device; a CUDA device without a GPU raises (the model
-    never carries on on the CPU instead)."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "ThermalModel(device='cuda') needs a CUDA device, and "
-            "torch.cuda.is_available() is False"
-        )
-    return device
-
-
 class ThermalModel:
     """A compiled whole-building thermal model on one torch device."""
 
@@ -63,17 +99,17 @@ class ThermalModel:
         model: BuildingModel,
         n: int = 1,
         config: SimConfig = DEFAULT_CONFIG,
-        device="cpu",
+        device="cuda",
     ):
-        self.device = _device(device)
+        self.device = resolve_device(device)
         self.building: CompiledBuilding = compile_building(model, n=n, config=config)
 
     @classmethod
-    def from_building(cls, building: CompiledBuilding, device="cpu") -> "ThermalModel":
+    def from_building(cls, building: CompiledBuilding, device="cuda") -> "ThermalModel":
         """A model around an already compiled building (for instance one
         carried across from heatx by ``heatx_torch.convert``)."""
         tm = cls.__new__(cls)
-        tm.device = _device(device)
+        tm.device = resolve_device(device)
         tm.building = building
         return tm
 
@@ -159,26 +195,25 @@ class FastRunner:
             self._bb, substeps=substeps, mode=mode, hours=hours,
             refresh_every=refresh_every, collect_bad=True, device=self.device,
         )
+        self._mode = mode
         self._substeps = self.hour_march.substeps
+        self._use_kernel = use_kernel
         self._march = self.hour_march if use_kernel else self.hour_march.plain
         self._dtype = building.config.dtype
+        # Differentiable gathers into the blocked layout (state, inputs and
+        # the parameter rows alike).
+        self._blocker = day_march.ParamBlocker(self._bb, self.device)
 
         lay = self._bb.layout
         S, Z = building.n_surfaces, building.n_zones
         perm = np.asarray(lay.surf_perm)  # [SP] -> surface id or -1
         inv = np.zeros(S, np.int64)  # surface id -> blocked lane
         inv[perm[perm >= 0]] = np.nonzero(perm >= 0)[0]
-        zt = np.asarray(lay.zone_table)  # [NB, ZB] -> zone id or -1
+        zt = np.asarray(lay.zone_table).reshape(-1)  # blocked slot -> zone id or -1
         zinv = np.zeros(Z, np.int64)  # zone id -> blocked slot
-        zinv[zt.reshape(-1)[zt.reshape(-1) >= 0]] = np.nonzero(zt.reshape(-1) >= 0)[0]
-
-        def dev(a):
-            return torch.as_tensor(a, device=self.device)
-
-        self._perm_c, self._perm_ok = dev(np.maximum(perm, 0)), dev(perm >= 0)
-        self._inv = dev(inv)
-        self._zt_c, self._zt_ok = dev(np.maximum(zt, 0)), dev(zt >= 0)
-        self._zinv = dev(zinv)
+        zinv[zt[zt >= 0]] = np.nonzero(zt >= 0)[0]
+        self._inv = torch.as_tensor(inv, device=self.device)
+        self._zinv = torch.as_tensor(zinv, device=self.device)
 
     @property
     def layout(self):
@@ -187,12 +222,13 @@ class FastRunner:
     # -- layout conversion --------------------------------------------------
 
     def to_blocked(self, state: SimState):
-        """SimState -> (T_blocked [N, SP], zT_blocked [NB, ZB])."""
+        """SimState -> (T_blocked [N, SP], zT_blocked [NB, ZB])
+        (differentiable)."""
+        return self._blocked_state(state.node_T, state.zone_T)
+
+    def _blocked_state(self, node_T, zone_T):
         dt = self._dtype
-        zero = torch.zeros((), dtype=dt, device=self.device)
-        T = torch.where(self._perm_ok[None, :], state.node_T.to(dt)[:, self._perm_c], zero)
-        zT = torch.where(self._zt_ok, state.zone_T.to(dt)[self._zt_c], zero)
-        return T, zT
+        return self._blocker.lanes(node_T.to(dt)), self._blocker.zones(zone_T.to(dt))
 
     def from_blocked(self, T, zT, hq=None) -> SimState:
         """(T_blocked, zT_blocked[, hq]) -> SimState."""
@@ -265,17 +301,13 @@ class FastRunner:
             if a.ndim == 1:
                 a = a[:, None]
         a = torch.broadcast_to(a, (n_days * H, S))
-        zero = torch.zeros((), dtype=self._dtype, device=self.device)
-        blocked = torch.where(self._perm_ok[None, :], a[:, self._perm_c], zero)
-        return blocked.reshape(n_days, H, -1)
+        return self._blocker.lanes(a).reshape(n_days, H, -1)
 
     def _zone_xs(self, a, d0, n_days):
         """[T, Z] zone rows -> blocked [n_days, hours, NB, ZB]."""
         H = self._hours
-        zero = torch.zeros((), dtype=self._dtype, device=self.device)
-        rows = a[d0 * H:(d0 + n_days) * H]
-        out = torch.where(self._zt_ok[None], rows[:, self._zt_c], zero)
-        return out.reshape((n_days, H) + tuple(self._zt_c.shape))
+        out = self._blocker.zones(a[d0 * H:(d0 + n_days) * H])
+        return out.reshape((n_days, H) + tuple(out.shape[-2:]))
 
     def _prepare(self, inputs_seq: StepInputs, interp_weather: bool):
         """Whole-horizon input prep: weather per sub-step, zone gains, and
@@ -415,3 +447,174 @@ class FastRunner:
             hist = torch.cat(hists, dim=0).reshape(T_steps, -1)
             zone_T = hist[:, self._zinv]
         return final, zone_T
+
+    # -- gradients ----------------------------------------------------------
+
+    def chunk_forward(self, apply_params, loss_fn, collect_loads=False, schedule_fn=None, **run_kw):
+        """The forward sweep of :func:`heatx_torch.engine.adjoint.chunked_value_and_grad`
+        (heatx ``FastRunner.chunk_forward``).
+
+        ``apply_params(params) -> CompiledBuilding`` maps the optimization
+        parameters to a same-layout building whose DIFF fields
+        (``heatx_torch.ops.day_adjoint.DIFF_NODE``/``DIFF_SURF``, in surface
+        order) and ``zone_volume`` may be torch tensors computed from the
+        params; every other field must keep the runner's values.
+        ``loss_fn(zt_hist, xs) -> scalar`` scores one chunk from its per-hour
+        zone temperatures ``[H, zones]``.  ``run_kw`` pass through to
+        :meth:`run`.  The returned ``forward_fn(params, state, xs)`` re-blocks
+        the parameter rows only when the parameter values change, then runs
+        the chunk.  ``collect_loads``/``schedule_fn`` (thermostats) are
+        ROADMAP B2 and raise."""
+        _unsupported(
+            collect_loads=(collect_loads, "ROADMAP A6/B2"),
+            schedule_fn=(schedule_fn is not None, "ROADMAP A6/B2"),
+        )
+        # The paired chunk_grad checks this record: a backward that
+        # recomputes a different trajectory would give a silently wrong
+        # gradient.  Unlike heatx (ROADMAP C, api.py:704) the record keeps
+        # every trajectory-changing run option, not only interp_weather.
+        self._fw_contract = dict(
+            interp_weather=bool(run_kw.get("interp_weather", False)),
+            trajectory_options=sorted(set(run_kw) - TRAJECTORY_NEUTRAL - {"interp_weather"}),
+        )
+
+        def forward_fn(params, state, xs):
+            with torch.no_grad():
+                self._sync_params(apply_params, params)
+                final, zt = self.run(state, xs, **run_kw)
+                return final, loss_fn(zt, xs)
+
+        return forward_fn
+
+    def _sync_params(self, apply_params, params):
+        """Re-block the parameter rows iff ``apply_params`` (the callable
+        itself, not its id) or the parameter VALUES changed (heatx
+        ``_sync_params``): one optimizer step re-blocks once."""
+        key = tuple(_np(v).tobytes() for v in tree_flatten(params)[0])
+        if getattr(self, "_param_fn", None) is not apply_params or getattr(self, "_param_key", None) != key:
+            with torch.no_grad():
+                self.params = self._blocked_params(apply_params(params))
+            self._param_fn, self._param_key = apply_params, key
+
+    def _blocked_params(self, building: CompiledBuilding):
+        """``self.params`` with the DIFF rows and zone volumes of
+        ``building``, blocked differentiably.  Raises if ``building`` changed
+        any other field: the runner holds those fixed (heatx re-blocks them
+        in ``update_building``, ROADMAP A9)."""
+        base = dict(_fields(self._tm.building))
+        changed = [
+            name for name, v in _fields(building) if name not in DIFF_FIELDS and not _same(v, base[name])
+        ]
+        if changed:
+            raise ValueError(
+                f"apply_params changed building fields the runner holds fixed: {changed}. "
+                "Only the differentiated fields and zone_volume may change; build a new "
+                "fast_runner for another building"
+            )
+        return self._blocker(self.params, building.surfaces, building.zone_volume)
+
+    @staticmethod
+    def _check_grad_scope(building: CompiledBuilding):
+        """Raise if a building field the adjoint does not differentiate holds
+        a tensor that requires grad: its gradient would silently be zero.
+        Runs on every backward call, at the current parameter values (heatx
+        probes once at the first values and caches, ROADMAP C api.py:825)."""
+        bad = [name for name, v in _fields(building) if name not in DIFF_FIELDS and _requires_grad(v)]
+        if bad:
+            raise ValueError(
+                f"chunk_grad: apply_params feeds building fields the adjoint day march "
+                f"does not differentiate: {bad}.  Their gradients would silently be zero"
+            )
+
+    def chunk_grad(
+        self, apply_params, loss_fn, interp_weather: bool = False, collect_loads=False,
+        schedule_fn=None, **run_kw,
+    ):
+        """The backward sweep of :func:`heatx_torch.engine.adjoint.chunked_value_and_grad`
+        (heatx ``FastRunner.chunk_grad``): pair it with :meth:`chunk_forward`
+        built from the same ``apply_params``/``loss_fn``.
+
+        ``backward_fn(params, state, xs, state_cot, loss_cot)`` re-runs the
+        chunk from its start state day by day through
+        :class:`~heatx_torch.ops.day_adjoint.DayMarchFn` (the day march
+        forward, the adjoint day march backward: the CUDA kernels on a GPU)
+        with the parameter rows blocked differentiably from
+        ``apply_params(params)``, and takes ``torch.autograd.grad`` of the
+        chunk loss and the final state onto the params and the start state.
+        Cotangents on h/q are not propagated (as in heatx).
+
+        Raises: ``run_kw`` outside TRAJECTORY_NEUTRAL, or a paired
+        chunk_forward with a different ``interp_weather`` or with
+        trajectory-changing options (ValueError); ``collect_loads`` and
+        ``schedule_fn`` (NotImplementedError, ROADMAP B2); ``apply_params``
+        feeding non-differentiated fields (ValueError, checked on every
+        call)."""
+        unsupported = set(run_kw) - TRAJECTORY_NEUTRAL
+        if unsupported:
+            raise ValueError(
+                f"chunk_grad: run options {sorted(unsupported)} change the forward "
+                "trajectory in ways the backward does not recompute"
+            )
+        _unsupported(
+            collect_loads=(collect_loads, "ROADMAP A6/B2"),
+            schedule_fn=(schedule_fn is not None, "ROADMAP A6/B2"),
+        )
+        fw = getattr(self, "_fw_contract", None)
+        if fw is not None:
+            bad = (["interp_weather"] if fw["interp_weather"] != bool(interp_weather) else [])
+            bad += fw["trajectory_options"]
+            if bad:
+                raise ValueError(
+                    f"chunk_grad: {bad} differ from this runner's last chunk_forward: the "
+                    "backward would differentiate a different trajectory"
+                )
+        adj = day_adjoint.make_day_adjoint(
+            self._bb, substeps=self._substeps, mode=self._mode, hours=self._hours,
+            refresh_every=self.hour_march.refresh_every if self._mode == "trbdf2_refresh" else None,
+            device=self.device,
+        )
+        adjoint = adj.raw if self._use_kernel else functools.partial(adj.raw, plain=True)
+
+        def backward_fn(params, state, xs, state_cot, loss_cot):
+            p_leaves, rebuild = tree_flatten(params)
+            leaves = [
+                x.detach().requires_grad_() if isinstance(x, torch.Tensor) and x.is_floating_point() else x
+                for x in p_leaves
+            ]
+            wrt = [x for x in leaves if isinstance(x, torch.Tensor) and x.requires_grad]
+            node_T = state.node_T.detach().requires_grad_()
+            zone_T = state.zone_T.detach().requires_grad_()
+            with torch.enable_grad():
+                building = apply_params(rebuild(leaves))
+                self._check_grad_scope(building)
+                p = self._blocked_params(building)
+                T, zT = self._blocked_state(node_T, zone_T)
+                prep = self._prepare(xs, interp_weather)
+                hist = []
+                for hi in self._day_inputs(prep, 0, prep.D):
+                    T, zT, zt_hist = day_adjoint.DayMarchFn.apply(
+                        self._march, adjoint, p, p.node, p.surf, p.zone_volume,
+                        T, zT, *hi,
+                    )[:3]
+                    hist.append(zt_hist)
+                zt = torch.cat(hist).reshape(prep.T_steps, -1)[:, self._zinv]
+                loss = loss_fn(zt, xs)
+                outs = [loss, T[:, self._inv], zT.reshape(-1)[self._zinv]]
+                cots = [
+                    torch.as_tensor(loss_cot, dtype=loss.dtype, device=loss.device),
+                    state_cot.node_T.to(T.dtype), state_cot.zone_T.to(T.dtype),
+                ]
+                grads = torch.autograd.grad(outs, wrt + [node_T, zone_T], cots, allow_unused=True)
+            grads = [torch.zeros_like(x) if g is None else g for x, g in zip(wrt + [node_T, zone_T], grads)]
+            it = iter(grads[:len(wrt)])
+            params_cot = rebuild([
+                next(it) if isinstance(x, torch.Tensor) and x.requires_grad else None for x in leaves
+            ])
+            state_cot_out = SimState(
+                node_T=grads[-2].to(state.node_T.dtype), zone_T=grads[-1].to(state.zone_T.dtype),
+                h_front=torch.zeros_like(state.h_front), h_back=torch.zeros_like(state.h_back),
+                q_front=torch.zeros_like(state.q_front), q_back=torch.zeros_like(state.q_back),
+            )
+            return params_cot, state_cot_out
+
+        return backward_fn

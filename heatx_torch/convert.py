@@ -65,10 +65,11 @@ def params_from_kernel_operands(
     if zv.shape[0] != n_blocks:
         zv = zv.reshape(n_blocks, -1, ZB)[:, 0]
     mass = np.asarray(ops["mass"], np.float64)
-    capacity = np.where(np.asarray(ops["massive"], bool), mass, 0.0)
+    massive = np.asarray(ops["massive"], bool)
+    capacity = np.where(massive, mass, 0.0)
     zero_oh = np.zeros((SP, ZB))
     return pack_params(
-        node_mask, capacity, ops["seg_u"], ops["front_alphas"], ops["back_alphas"],
+        node_mask, massive, capacity, ops["seg_u"], ops["front_alphas"], ops["back_alphas"],
         {k: np.asarray(ops[k]).reshape(SP) for k in SURF_FIELDS},
         np.asarray(ops["front_code"]).reshape(SP),
         np.asarray(ops["back_code"]).reshape(SP),

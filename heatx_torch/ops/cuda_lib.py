@@ -17,6 +17,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
@@ -30,6 +32,19 @@ NVCC_FLAGS = (
 )
 
 _LOADED: dict = {}
+
+
+def resolve_device(device) -> torch.device:
+    """``torch.device(device)``; a CUDA device without a GPU raises (the
+    port never carries on on the CPU instead)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device={str(device)!r} needs a CUDA device, and "
+            "torch.cuda.is_available() is False; pass device='cpu' to run "
+            "the plain PyTorch twins on the CPU"
+        )
+    return device
 
 
 def nvcc_path() -> str:
@@ -53,27 +68,40 @@ def _digest(sources) -> str:
     return h.hexdigest()[:16]
 
 
+def build_many(specs) -> list:
+    """Compile each ``(name, sources)`` of ``specs`` (paths under csrc/) into
+    ``lib<name>_<hash>.so`` unless that file exists, one nvcc per library,
+    all started together; returns their paths.  The compiler's output is
+    kept beside each library as ``.log``."""
+    outs, jobs = [], []
+    for name, sources in specs:
+        sources = [Path(s) for s in sources]
+        out = BUILD_DIR / f"lib{name}_{_digest(sources)}.so"
+        outs.append(out)
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        jobs.append((name, out, tmp, proc))
+    failed = []
+    for name, out, tmp, proc in jobs:
+        stdout, stderr = proc.communicate()
+        out.with_suffix(".log").write_text(stdout + stderr)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed ({proc.returncode}) building {name}:\n{stderr[-4000:]}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return outs
+
+
 def build(name: str, sources) -> Path:
-    """Compile ``sources`` (paths under csrc/) into ``lib<name>_<hash>.so``
-    unless that file exists; returns its path.  The compiler's output is
-    kept beside it as ``.log``."""
-    sources = [Path(s) for s in sources]
-    out = BUILD_DIR / f"lib{name}_{_digest(sources)}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = out.with_suffix(".log")
-    log.write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) building {name}:\n{proc.stderr[-4000:]}"
-        )
-    os.replace(tmp, out)
-    return out
+    """Compile one library (see :func:`build_many`); returns its path."""
+    return build_many([(name, sources)])[0]
 
 
 def load(name: str, sources) -> ctypes.CDLL:
@@ -90,3 +118,16 @@ def build_log(name: str, sources) -> str:
     sources = [Path(s) for s in sources]
     log = (BUILD_DIR / f"lib{name}_{_digest(sources)}.so").with_suffix(".log")
     return log.read_text() if log.exists() else ""
+
+
+def check_operands(expect: dict, device: torch.device) -> None:
+    """Raise unless every ``name: (tensor, shape, dtype)`` of ``expect`` is a
+    contiguous CUDA tensor of that shape and dtype on ``device``."""
+    for name, (t, shape, dtype) in expect.items():
+        if not t.is_cuda or t.device != device:
+            raise ValueError(f"{name}: expected a tensor on {device}, got {t.device}")
+        if t.dtype != dtype or tuple(t.shape) != tuple(shape) or not t.is_contiguous():
+            raise ValueError(
+                f"{name}: expected contiguous {dtype} {tuple(shape)}, got "
+                f"{'contiguous' if t.is_contiguous() else 'strided'} {t.dtype} {tuple(t.shape)}"
+            )

@@ -1,0 +1,374 @@
+"""The adjoint day march: heatx's reverse-sweep Pallas kernel, on PyTorch/CUDA.
+
+Counterpart of ``heatx.ops.pallas_adjoint`` for modes ``trbdf2`` and
+``trbdf2_refresh`` on free-float buildings.  :func:`make_day_adjoint`
+returns ``day_adjoint(params, T0, zT0, hour_inputs, cots) -> dict`` with
+heatx's call signature, keys and blocked shapes: ``params`` and
+``hour_inputs`` are those of :func:`heatx_torch.ops.day_march.make_hour_march`,
+``T0 [N, SP]``/``zT0 [NB, ZB]`` the day-START state, and ``cots = (dT_final,
+d_zT_final, d_zt_hist[, d_ld_hist])`` the cotangents of the day's outputs
+(any may be None for zero; ``d_ld_hist`` must be None: thermostats are not
+ported).  The dict holds ``dT0`` [N, SP], ``d_zT0`` [NB, ZB], ``d_params``
+({name: [N, SP] for DIFF_NODE, [SP] for DIFF_SURF}), ``d_zone_volume``
+[NB, ZB], ``d_sol_front``/``d_sol_back``/``d_ir_front``/``d_ir_back``
+[hours, SP] and ``d_a_extra``/``d_b_extra`` [hours, NB, ZB].
+
+Dispatch is by device, with no fallback: CPU tensors run the plain version
+(:func:`plain_day_adjoint`), CUDA tensors launch the hand-written kernel in
+``heatx_torch/csrc/day_adjoint.cu`` or raise; ``day_adjoint.plain`` runs the
+plain version on any device.
+
+The plain version is heatx's structure with autograd in place of the
+trace-time ``jax.vjp``: march the day forward keeping each hour's start
+state, then for h = hours-1 ... 0 re-run the hour body on that start under
+``torch.enable_grad`` and pull the carried cotangents back with
+``torch.autograd.grad``.  Memory stays at one hour's tape.  The kernel's
+adjoint is derived by hand (design note in the CUDA source); both give the
+cotangents of autograd through :func:`heatx_torch.ops.day_march.plain_day_march`.
+
+:class:`DayMarchFn` joins the two: a ``torch.autograd.Function`` whose
+forward is the day march and whose backward is the day adjoint, so a chain
+of days differentiates with ``torch.autograd`` (``FastRunner.chunk_grad``).
+
+Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
+item): the thermostat and schedule cotangents, inter-zone mixing, the
+interior-MRT emissivities, parity mode, gas cavities.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from dataclasses import replace
+
+import torch
+
+from heatx_torch.engine import implicit as imp_mod
+from heatx_torch.engine import surface as surf_mod
+from heatx_torch.ops import cuda_lib, day_march
+from heatx_torch.ops.day_march import BlockedBuilding, DayMarchParams, SURF_FIELDS
+
+# The building parameters the adjoint differentiates (heatx's names,
+# pallas_adjoint.py:94-108).  ``mass`` is the heat capacity of massive nodes:
+# DayMarchParams carries ``capacity = where(massive, mass, 0)``, so its
+# cotangent is the capacity's on massive nodes and 0 elsewhere.
+DIFF_NODE = ("mass", "seg_u", "front_alphas", "back_alphas")
+DIFF_SURF = (
+    "area", "perimeter", "cos_tilt", "wind_mod", "eps_front", "eps_back", "rf",
+    "front_temp", "back_temp", "fixed_h_front", "fixed_h_back",
+)
+DIFF_CHANNELS = ("sol_front", "sol_back", "ir_front", "ir_back")
+#: The DayMarchParams.node row of each DIFF_NODE name (NODE_FIELDS order).
+NODE_ROW = {"seg_u": 0, "mass": 1, "front_alphas": 2, "back_alphas": 3}
+
+#: Largest per-thread tape, (substeps + 1) * max_nodes values of each of the
+#: two stage states (csrc/day_adjoint.cu kTape).
+MAX_TAPE = 384
+
+KERNEL_SOURCE = cuda_lib.CSRC_DIR / "day_adjoint.cu"
+
+
+def plain_day_adjoint(
+    params: DayMarchParams, T0, zT0, t_out, wind, wdir, sol_front, sol_back,
+    ir_front, ir_back, a_extra, b_extra, dT, d_zT, d_zt_hist, *, hours: int,
+    substeps: int, refresh_every: int, dt: float, config,
+):
+    """The plain PyTorch day adjoint on any device: the reference the CUDA
+    kernel is held against.  Operands as ``day_march.plain_day_march`` plus
+    the cotangents ``dT`` [N, SP], ``d_zT`` [NB, ZB] and ``d_zt_hist``
+    [hours, NB, ZB].  Returns ``(dT0 [N, SP], d_zT0 [NB, ZB], d_node
+    [4, N, SP], d_surf [13, SP], d_zone_volume [NB, ZB], d_chan
+    [4, hours, SP], d_a_extra, d_b_extra [hours, NB, ZB])``; ``d_node``
+    follows NODE_FIELDS with the capacity row holding the ``mass`` cotangent,
+    ``d_surf`` follows SURF_FIELDS (normal rows 0), ``d_chan`` follows
+    DIFF_CHANNELS."""
+    NB, ZB = params.n_blocks, params.zones_per_block
+    kw = dict(
+        cfg=config, t_out_arr=t_out, wind_arr=wind, wdir_arr=wdir,
+        substeps=substeps, dt_sub=dt, refresh_every=refresh_every,
+    )
+
+    def hour(p, zone_volume, h, T, zT, chans, a_h, b_h):
+        sbv = day_march._lanes(p)
+        st = surf_mod.compute_statics(sbv)  # inside the tape: cos_tilt's TARP coefficients
+        T, zT, _ = day_march._hour_body_imp(
+            sbv=sbv, st=st, zone_volume=zone_volume, a_extra=a_h, b_extra=b_h,
+            sol_front=chans[0], sol_back=chans[1], ir_front=chans[2], ir_back=chans[3],
+            T0=T, zT0=zT, off=h * substeps, **kw,
+        )
+        return T, zT
+
+    channels = (sol_front, sol_back, ir_front, ir_back)
+    starts = []
+    with torch.no_grad():
+        T, zT = T0, zT0.reshape(-1)
+        for h in range(hours):
+            starts.append((T, zT))
+            T, zT = hour(params, params.zone_volume.reshape(-1), h, T, zT,
+                         [c[h] for c in channels], a_extra[h].reshape(-1), b_extra[h].reshape(-1))
+
+    node = params.node.detach().requires_grad_()
+    surf = params.surf.detach().requires_grad_()
+    zone_volume = params.zone_volume.detach().reshape(-1).requires_grad_()
+    p = replace(params, node=node, surf=surf)
+    gT, gz = dT, d_zT.reshape(-1)
+    g_node, g_surf, g_zv = (torch.zeros_like(x) for x in (node, surf, zone_volume))
+    g_chan = torch.zeros((4,) + tuple(sol_front.shape), dtype=T0.dtype, device=T0.device)
+    g_a = torch.zeros_like(a_extra)
+    g_b = torch.zeros_like(b_extra)
+    for h in reversed(range(hours)):
+        gz = gz + d_zt_hist[h].reshape(-1)
+        with torch.enable_grad():
+            T = starts[h][0].detach().requires_grad_()
+            zT = starts[h][1].detach().requires_grad_()
+            chans = [c[h].detach().requires_grad_() for c in channels]
+            a_h = a_extra[h].reshape(-1).detach().requires_grad_()
+            b_h = b_extra[h].reshape(-1).detach().requires_grad_()
+            T1, zT1 = hour(p, zone_volume, h, T, zT, chans, a_h, b_h)
+            leaves = (T, zT, node, surf, zone_volume, *chans, a_h, b_h)
+            grads = torch.autograd.grad((T1, zT1), leaves, (gT, gz), allow_unused=True)
+        grads = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
+        gT, gz = grads[0], grads[1]
+        g_node += grads[2]
+        g_surf += grads[3]
+        g_zv += grads[4]
+        for c in range(4):
+            g_chan[c, h] = grads[5 + c]
+        g_a[h] = grads[9].reshape(NB, ZB)
+        g_b[h] = grads[10].reshape(NB, ZB)
+    # The capacity row holds the mass cotangent: capacity = where(massive, mass, 0).
+    g_node[1] = torch.where(day_march.bit_rows(params, "mass_bits"), g_node[1], 0.0)
+    g_surf[SURF_FIELDS.index("normal_x"):] = 0.0
+    return gT, gz.reshape(NB, ZB), g_node, g_surf, g_zv.reshape(NB, ZB), g_chan, g_a, g_b
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel wrapper
+# ---------------------------------------------------------------------------
+
+_N_PTRS = 30
+
+
+def _load_library():
+    lib = cuda_lib.load("heatx_day_adjoint", [KERNEL_SOURCE])
+    if not getattr(lib, "_heatx_bound", False):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        for fn in (lib.heatx_day_adjoint_f32, lib.heatx_day_adjoint_f64):
+            fn.argtypes = [vp, ci, vp, vp, vp]
+            fn.restype = ci
+        lib.heatx_cuda_error_string.argtypes = [ci]
+        lib.heatx_cuda_error_string.restype = ctypes.c_char_p
+        lib._heatx_bound = True
+    return lib
+
+
+def load_kernel() -> None:
+    """Build (at first use) and load the day-adjoint kernel library."""
+    _load_library()
+
+
+class DayAdjointKernel:
+    """Launches ``day_adjoint.cu`` on CUDA tensors.  ``launches`` counts the
+    launches made through this wrapper (and nothing else).  Arguments and
+    returns as :func:`plain_day_adjoint`; no cotangent may be None here."""
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(
+        self, params: DayMarchParams, T0, zT0, t_out, wind, wdir, sol_front,
+        sol_back, ir_front, ir_back, a_extra, b_extra, dT, d_zT, d_zt_hist, *,
+        hours: int, substeps: int, refresh_every: int, dt: float, config,
+    ):
+        N, NB, ZB = params.max_nodes, params.n_blocks, params.zones_per_block
+        SB = params.block_size
+        SP = NB * SB
+        dtype = T0.dtype
+        if dtype not in (torch.float32, torch.float64):
+            raise TypeError(f"day_adjoint kernel takes float32/float64, got {dtype}")
+        if SB > day_march.MAX_BLOCK_LANES:
+            raise ValueError(f"block of {SB} lanes > {day_march.MAX_BLOCK_LANES} (use a smaller block_size)")
+        if N > day_march.MAX_NODES:
+            raise ValueError(f"{N} nodes per surface > {day_march.MAX_NODES}")
+        if substeps % refresh_every:
+            raise ValueError(f"refresh_every {refresh_every} must divide substeps {substeps}")
+        if (substeps + 1) * N > MAX_TAPE:
+            raise ValueError(
+                f"(substeps + 1) * nodes = {(substeps + 1) * N} > {MAX_TAPE}: the "
+                "adjoint kernel's per-thread tape holds one hour of sub-step states"
+            )
+        expect = {
+            "node": (params.node, (4, N, SP), dtype),
+            "surf": (params.surf, (len(SURF_FIELDS), SP), dtype),
+            "lane": (params.lane, (len(day_march.LANE_FIELDS), SP), torch.int32),
+            "zone_volume": (params.zone_volume, (NB, ZB), dtype),
+            "zone_ptr": (params.zone_ptr, (NB * ZB + 1,), torch.int32),
+            "zone_faces": (params.zone_faces, tuple(params.zone_faces.shape), torch.int32),
+            "t_out": (t_out, (hours * substeps,), dtype),
+            "wind": (wind, (hours * substeps,), dtype),
+            "wdir": (wdir, (hours * substeps,), dtype),
+            "sol_front": (sol_front, (hours, SP), dtype),
+            "sol_back": (sol_back, (hours, SP), dtype),
+            "ir_front": (ir_front, (hours, SP), dtype),
+            "ir_back": (ir_back, (hours, SP), dtype),
+            "a_extra": (a_extra, (hours, NB, ZB), dtype),
+            "b_extra": (b_extra, (hours, NB, ZB), dtype),
+            "T0": (T0, (N, SP), dtype),
+            "zT0": (zT0, (NB, ZB), dtype),
+            "dT": (dT, (N, SP), dtype),
+            "d_zT": (d_zT, (NB, ZB), dtype),
+            "d_zt_hist": (d_zt_hist, (hours, NB, ZB), dtype),
+        }
+        cuda_lib.check_operands(expect, T0.device)
+        lib = _load_library()
+        fn = lib.heatx_day_adjoint_f32 if dtype == torch.float32 else lib.heatx_day_adjoint_f64
+        kw = dict(dtype=dtype, device=T0.device)
+        # Workspace: each hour's start state (the kernel allocates nothing).
+        T_ws = torch.empty((hours, N, SP), **kw)
+        zT_ws = torch.empty((hours, NB, ZB), **kw)
+        outs = (
+            torch.empty((N, SP), **kw), torch.empty((NB, ZB), **kw),
+            torch.empty((4, N, SP), **kw), torch.empty((len(SURF_FIELDS), SP), **kw),
+            torch.empty((NB, ZB), **kw), torch.empty((4, hours, SP), **kw),
+            torch.empty((hours, NB, ZB), **kw), torch.empty((hours, NB, ZB), **kw),
+        )
+        tensors = [t for t, _, _ in expect.values()] + [T_ws, zT_ws, *outs]
+        ptrs = (ctypes.c_void_p * _N_PTRS)(*[t.data_ptr() for t in tensors])
+        ints = (ctypes.c_int * 8)(
+            N, NB, SB, ZB, hours, substeps, refresh_every, int(config.replicate_ambient_back_bug)
+        )
+        reals = (ctypes.c_double * 6)(
+            dt, imp_mod.GAMMA * dt / 2.0, imp_mod.GAMMA * dt, imp_mod.BETA * dt,
+            imp_mod.C1, imp_mod.C2,
+        )
+        with torch.cuda.device(T0.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = fn(ctypes.cast(ptrs, ctypes.c_void_p), len(tensors),
+                     ctypes.cast(ints, ctypes.c_void_p), ctypes.cast(reals, ctypes.c_void_p), stream)
+        if err != 0:
+            msg = lib.heatx_cuda_error_string(err).decode()
+            raise RuntimeError(f"day_adjoint kernel launch failed: CUDA error {err} ({msg})")
+        self.launches += 1
+        return outs
+
+
+#: The process's day-adjoint kernel wrapper (its ``launches`` counter is
+#: what chip_smoke.py reads).
+day_adjoint_kernel = DayAdjointKernel()
+
+
+class DayAdjoint:
+    """``day_adjoint(params, T0, zT0, hour_inputs, cots) -> dict`` (see the
+    module docstring).  CUDA tensors launch the kernel, CPU tensors run the
+    plain version; :meth:`plain` runs the plain version on any device and
+    :meth:`raw` returns the kernel's tuple instead of the dict."""
+
+    def __init__(self, hour_march: day_march.HourMarch):
+        self._hm = hour_march
+        self.hours = hour_march.hours
+        self.substeps = hour_march.substeps
+
+    def _args(self, params, T0, zT0, hour_inputs, cots):
+        T0, zT0, *hi = self._hm._operands(T0, zT0, hour_inputs)
+        cots = tuple(cots) + (None,) * (4 - len(cots))
+        dT, d_zT, d_zth, d_ld = cots
+        if d_ld is not None:
+            raise NotImplementedError(
+                "the thermostat load cotangent d_ld_hist is ROADMAP B2 (not ported yet)"
+            )
+        H, NB, ZB = self.hours, self._hm.n_blocks, self._hm.zones_per_block
+
+        def cot(c, like, shape):
+            if c is None:
+                return torch.zeros(shape, dtype=like.dtype, device=like.device)
+            return torch.as_tensor(c, dtype=like.dtype, device=like.device).reshape(shape).contiguous()
+
+        cots = (cot(dT, T0, T0.shape), cot(d_zT, T0, (NB, ZB)), cot(d_zth, T0, (H, NB, ZB)))
+        return (params, T0, zT0, *hi, *cots)
+
+    def raw(self, params, T0, zT0, hour_inputs, cots, plain=False):
+        args = self._args(params, T0, zT0, hour_inputs, cots)
+        kw = self._hm._kw()
+        if plain or T0.device.type == "cpu":
+            return plain_day_adjoint(*args, **kw)
+        if T0.device.type == "cuda":
+            return day_adjoint_kernel(*args, **kw)
+        raise ValueError(f"no day adjoint for device {T0.device}")
+
+    @staticmethod
+    def _dict(outs):
+        dT0, d_zT0, d_node, d_surf, d_zv, d_chan, d_a, d_b = outs
+        d_params = {name: d_node[NODE_ROW[name]] for name in DIFF_NODE}
+        d_params.update({name: d_surf[SURF_FIELDS.index(name)] for name in DIFF_SURF})
+        return {
+            "dT0": dT0, "d_zT0": d_zT0, "d_params": d_params, "d_zone_volume": d_zv,
+            **{"d_" + name: d_chan[i] for i, name in enumerate(DIFF_CHANNELS)},
+            "d_a_extra": d_a, "d_b_extra": d_b,
+        }
+
+    def __call__(self, params, T0, zT0, hour_inputs, cots):
+        return self._dict(self.raw(params, T0, zT0, hour_inputs, cots))
+
+    def plain(self, params, T0, zT0, hour_inputs, cots):
+        return self._dict(self.raw(params, T0, zT0, hour_inputs, cots, plain=True))
+
+
+def make_day_adjoint(
+    bb: BlockedBuilding,
+    substeps: int = None,
+    mode: str = "trbdf2",
+    hours: int = 1,
+    refresh_every: int = None,
+    device="cuda",
+) -> DayAdjoint:
+    """Build the day adjoint (heatx ``make_day_adjoint`` for modes
+    ``trbdf2``/``trbdf2_refresh``): ``day_adjoint(params, T0, zT0,
+    hour_inputs, cots) -> dict``, taking the ``params`` that
+    ``make_hour_march`` returns for the same arguments.  ``device`` is
+    checked as ``make_hour_march`` checks it (``"cuda"``, the default,
+    raises without a GPU)."""
+    if mode == "parity":
+        raise NotImplementedError("the parity-mode adjoint is ROADMAP B3/B4 (not ported yet)")
+    day_march._check_supported(bb.base)
+    cuda_lib.resolve_device(device)
+    return DayAdjoint(day_march.hour_march_for(bb, substeps, mode, hours, refresh_every))
+
+
+class DayMarchFn(torch.autograd.Function):
+    """The day march with the day adjoint as its backward.
+
+    ``DayMarchFn.apply(hour_march, day_adjoint, params, node, surf,
+    zone_volume, T, zT, *hour_inputs)`` runs ``hour_march`` on ``params``
+    with its ``node``/``surf``/``zone_volume`` replaced by the given tensors
+    (so their cotangents reach whatever built them, e.g.
+    :class:`~heatx_torch.ops.day_march.ParamBlocker`) and returns ``(T, zT,
+    zt_hist, h_front, h_back, q_front, q_back)``.  The backward calls
+    ``day_adjoint`` (:meth:`DayAdjoint.raw`, or anything with its signature
+    and returns) on the cotangents of T, zT and zt_hist; h/q are
+    marked non-differentiable (heatx does not propagate their cotangents
+    either, api.py:853-855).  The capacity row's cotangent is the ``mass``
+    cotangent (0 on no-mass nodes, where the capacity is the constant 0).
+    ``hour_march`` may be an HourMarch or its ``.plain``; ``day_adjoint``
+    ``DayAdjoint.raw`` or ``functools.partial(DayAdjoint.raw, plain=True)``.
+    """
+
+    @staticmethod
+    def forward(ctx, hour_march, day_adjoint, params, node, surf, zone_volume, T, zT, *hour_inputs):
+        p = replace(params, node=node, surf=surf, zone_volume=zone_volume)
+        T1, zT1, hq, zt_hist = hour_march(p, T, zT, hour_inputs)[:4]
+        ctx.save_for_backward(node, surf, zone_volume, T, zT, *hour_inputs)
+        ctx.params = params
+        ctx.adjoint = day_adjoint
+        ctx.mark_non_differentiable(*hq)
+        return (T1, zT1, zt_hist) + tuple(hq)
+
+    @staticmethod
+    def backward(ctx, gT, gzT, g_hist, *_):
+        node, surf, zone_volume, T, zT, *hour_inputs = ctx.saved_tensors
+        p = replace(ctx.params, node=node, surf=surf, zone_volume=zone_volume)
+        dT0, d_zT0, d_node, d_surf, d_zv, d_chan, d_a, d_b = ctx.adjoint(
+            p, T, zT, hour_inputs, (gT, gzT, g_hist)
+        )
+        d_hi = (None, None, None, *d_chan, d_a, d_b)
+        d_hi = tuple(None if d is None else d.reshape(x.shape) for d, x in zip(d_hi, hour_inputs))
+        return (None, None, None, d_node, d_surf, d_zv.reshape(zone_volume.shape),
+                dT0.reshape(T.shape), d_zT0.reshape(zT.shape)) + d_hi

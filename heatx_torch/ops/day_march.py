@@ -44,10 +44,14 @@ Design, and what of heatx's kernel is deliberately not carried over:
 Frozen mode (``trbdf2``) is the refresh kernel with ``refresh_every =
 substeps``: heatx proves the two bit-identical (test_pallas_imp.py).
 
+Gradients: :class:`ParamBlocker` blocks the parameter rows differentiably
+from torch tensors, and ``heatx_torch.ops.day_adjoint`` holds the reverse
+sweep (the adjoint kernel and ``DayMarchFn``).
+
 Not ported yet (each raises ``NotImplementedError``): the parity body, gas
 cavities, interior MRT, thermostats, inter-zone mixing, in-run shading and
-vent gates (ROADMAP A6, A7, A9), ``collect_hq``/``collect_operative`` (A9),
-gradients (A8) and sharding (A12).
+vent gates (ROADMAP A6, A7, A9), ``collect_hq``/``collect_operative`` (A9)
+and sharding (A12).
 """
 
 from __future__ import annotations
@@ -85,9 +89,19 @@ SURF_FIELDS = (
     "front_temp", "back_temp", "fixed_h_front", "fixed_h_back", "normal_x",
     "normal_y",
 )
-LANE_FIELDS = ("front_code", "back_code", "front_zone", "back_zone", "node_bits")
+LANE_FIELDS = (
+    "front_code", "back_code", "front_zone", "back_zone", "node_bits", "mass_bits",
+)
 
 KERNEL_SOURCE = cuda_lib.CSRC_DIR / "day_march.cu"
+
+#: Values of the blocked parameter rows on padded lanes (0.0 for the rest).
+#: Area 1 keeps perimeter*v/area finite on a padded lane, and its
+#: derivative too.
+LANE_PADS = {
+    "area": 1.0, "rf": 1.0, "front_temp": 22.0, "back_temp": 22.0,
+    "fixed_h_front": float("nan"), "fixed_h_back": float("nan"),
+}
 
 
 @dataclasses.dataclass
@@ -207,26 +221,26 @@ def block_building(
         nomass_chunk_count=perm(sb.nomass_chunk_count),
         front_alphas=perm(sb.front_alphas),
         back_alphas=perm(sb.back_alphas),
-        area=perm(sb.area, 1.0),  # pad 1 to keep P*v/A finite
+        area=perm(sb.area, LANE_PADS["area"]),
         perimeter=perm(sb.perimeter, 0.0),
         normal=np.ascontiguousarray(perm(np.ascontiguousarray(sb.normal.T)).T),
         cos_tilt=perm(sb.cos_tilt),
         wind_mod=perm(sb.wind_mod),
         eps_front=perm(sb.eps_front),
         eps_back=perm(sb.eps_back),
-        rf=perm(sb.rf, 1.0),
+        rf=perm(sb.rf, LANE_PADS["rf"]),
         front_code=np.where(
             layout.surf_valid, perm(sb.front_code, B_AMBIENT), B_AMBIENT
         ).astype(np.int32),
         front_space=perm(sb.front_space, 0).astype(np.int32),
-        front_temp=np.where(layout.surf_valid, perm(sb.front_temp), 22.0),
+        front_temp=np.where(layout.surf_valid, perm(sb.front_temp), LANE_PADS["front_temp"]),
         back_code=np.where(
             layout.surf_valid, perm(sb.back_code, B_AMBIENT), B_AMBIENT
         ).astype(np.int32),
         back_space=perm(sb.back_space, 0).astype(np.int32),
-        back_temp=np.where(layout.surf_valid, perm(sb.back_temp), 22.0),
-        fixed_h_front=perm(sb.fixed_h_front, np.nan),
-        fixed_h_back=perm(sb.fixed_h_back, np.nan),
+        back_temp=np.where(layout.surf_valid, perm(sb.back_temp), LANE_PADS["back_temp"]),
+        fixed_h_front=perm(sb.fixed_h_front, LANE_PADS["fixed_h_front"]),
+        fixed_h_back=perm(sb.fixed_h_back, LANE_PADS["fixed_h_back"]),
         is_fenestration=perm(sb.is_fenestration, False),
     )
     zone_volume = layout.zones_to_blocked(np.asarray(building.zone_volume), fill=1.0)
@@ -255,7 +269,7 @@ class DayMarchParams:
 
     node: torch.Tensor  # [4, N, SP] float
     surf: torch.Tensor  # [13, SP] float
-    lane: torch.Tensor  # [5, SP] int32
+    lane: torch.Tensor  # [6, SP] int32
     zone_volume: torch.Tensor  # [NB, ZB] float
     zone_ptr: torch.Tensor  # [NB*ZB + 1] int32 offsets into zone_faces
     zone_faces: torch.Tensor  # [E] int32: block-local lane*2 + side (0 front, 1 back)
@@ -290,16 +304,25 @@ def _local_zone(oh: np.ndarray) -> np.ndarray:
     return np.where(oh.any(axis=1), oh.argmax(axis=1), -1).astype(np.int32)
 
 
+def _node_bits(mask: np.ndarray) -> np.ndarray:
+    """[N, SP] bool -> [SP] int32 words with bit i = row i."""
+    bits = np.zeros(mask.shape[1], np.int64)
+    for i in range(mask.shape[0]):
+        bits |= mask[i].astype(np.int64) << i
+    return bits.astype(np.uint32).view(np.int32)
+
+
 def pack_params(
-    node_mask, capacity, seg_u, front_alphas, back_alphas, surf: dict,
+    node_mask, massive, capacity, seg_u, front_alphas, back_alphas, surf: dict,
     front_code, back_code, front_oh, back_oh, zone_volume, n_blocks,
     dtype=torch.float32, device="cpu",
 ) -> DayMarchParams:
     """Pack blocked numpy operands into :class:`DayMarchParams`.
 
-    Node arrays are ``[N, SP]``, ``surf`` maps each SURF_FIELDS name to an
-    ``[SP]`` array, ``front_oh``/``back_oh`` are the ``[SP, ZB]`` block-local
-    zone one-hots, ``zone_volume`` is ``[NB, ZB]``.  Shared by
+    Node arrays are ``[N, SP]`` (``massive`` marks the nodes whose capacity
+    is their ``mass``), ``surf`` maps each SURF_FIELDS name to an ``[SP]``
+    array, ``front_oh``/``back_oh`` are the ``[SP, ZB]`` block-local zone
+    one-hots, ``zone_volume`` is ``[NB, ZB]``.  Shared by
     :func:`make_hour_march` and ``heatx_torch.convert``."""
     node_mask = np.asarray(node_mask, bool)
     N, SP = node_mask.shape
@@ -308,10 +331,6 @@ def pack_params(
     NB = int(n_blocks)
     SB = SP // NB
     ZB = np.asarray(zone_volume).shape[-1]
-    bits = np.zeros(SP, np.int64)
-    for i in range(N):
-        bits |= node_mask[i].astype(np.int64) << i
-    bits = bits.astype(np.uint32).view(np.int32)
     fz = _local_zone(front_oh)
     bz = _local_zone(back_oh)
 
@@ -342,12 +361,62 @@ def pack_params(
         surf=f(np.stack([np.asarray(surf[k], np.float64).reshape(SP) for k in SURF_FIELDS])),
         lane=i32(np.stack([
             np.asarray(front_code).reshape(SP), np.asarray(back_code).reshape(SP),
-            fz, bz, bits,
+            fz, bz, _node_bits(node_mask), _node_bits(np.asarray(massive, bool)),
         ])),
         zone_volume=f(np.asarray(zone_volume).reshape(NB, ZB)),
         zone_ptr=i32(zone_ptr),
         zone_faces=i32(faces),
     )
+
+
+class ParamBlocker:
+    """Differentiable blocking of a building's parameter arrays.
+
+    ``blocker(params, surfaces, zone_volume)`` returns ``params`` with its
+    node rows (``seg_u``, the capacity ``where(massive, mass, 0)``,
+    ``front_alphas``, ``back_alphas``), its SURF_FIELDS rows (``normal_x``/
+    ``normal_y`` kept) and its zone volumes recomputed from ``surfaces``
+    (any object with the SurfaceBatch field names: node arrays [N, S],
+    surface arrays [S]) and ``zone_volume`` [Z], in surface and zone order.
+    They may be torch tensors: the blocking is gathers, wheres and stacks,
+    so the cotangents of the blocked rows flow back to them.  With the
+    building's own arrays the result equals :func:`params_from_blocked`."""
+
+    def __init__(self, bb: BlockedBuilding, device):
+        lay = bb.layout
+        perm = np.asarray(lay.surf_perm)
+        zt = np.asarray(lay.zone_table)
+
+        def dev(a):
+            return torch.as_tensor(a, device=device)
+
+        self.perm_c, self.perm_ok = dev(np.maximum(perm, 0)), dev(perm >= 0)
+        self.zt_c, self.zt_ok = dev(np.maximum(zt, 0)), dev(zt >= 0)
+        self.massive = dev(np.asarray(bb.surfaces.massive, bool))
+
+    def lanes(self, a: torch.Tensor, fill: float = 0.0) -> torch.Tensor:
+        """[..., S] -> [..., SP], ``fill`` on padded lanes."""
+        return torch.where(self.perm_ok, a[..., self.perm_c], fill)
+
+    def zones(self, a: torch.Tensor, fill: float = 0.0) -> torch.Tensor:
+        """[..., Z] -> [..., NB, ZB], ``fill`` in padded zone slots."""
+        return torch.where(self.zt_ok, a[..., self.zt_c], fill)
+
+    def __call__(self, params: DayMarchParams, surfaces, zone_volume) -> DayMarchParams:
+        kw = dict(dtype=params.surf.dtype, device=params.surf.device)
+
+        def get(name):
+            return self.lanes(torch.as_tensor(getattr(surfaces, name), **kw), LANE_PADS.get(name, 0.0))
+
+        node = torch.stack([
+            get("seg_u"), torch.where(self.massive, get("mass"), 0.0),
+            get("front_alphas"), get("back_alphas"),
+        ])
+        surf = torch.stack([
+            params.field(k) if k.startswith("normal") else get(k) for k in SURF_FIELDS
+        ])
+        zv = self.zones(torch.as_tensor(zone_volume, **kw), 1.0)
+        return replace(params, node=node, surf=surf, zone_volume=zv)
 
 
 def params_from_blocked(bb: BlockedBuilding, dtype, device) -> DayMarchParams:
@@ -360,7 +429,7 @@ def params_from_blocked(bb: BlockedBuilding, dtype, device) -> DayMarchParams:
     surf["normal_x"] = sb.normal[:, 0]
     surf["normal_y"] = sb.normal[:, 1]
     return pack_params(
-        sb.node_mask, capacity, sb.seg_u, sb.front_alphas, sb.back_alphas, surf,
+        sb.node_mask, sb.massive, capacity, sb.seg_u, sb.front_alphas, sb.back_alphas, surf,
         sb.front_code, sb.back_code, bb.front_oh, bb.back_oh, bb.zone_volume,
         bb.n_blocks, dtype=dtype, device=device,
     )
@@ -371,15 +440,20 @@ def params_from_blocked(bb: BlockedBuilding, dtype, device) -> DayMarchParams:
 # ---------------------------------------------------------------------------
 
 
+def bit_rows(params: DayMarchParams, name: str) -> torch.Tensor:
+    """A lane row of 32-bit node masks (``node_bits``/``mass_bits``) as
+    the [N, SP] bool mask it packs."""
+    bits = params.field(name).to(torch.int64)
+    shifts = torch.arange(params.max_nodes, device=bits.device)[:, None]
+    return ((bits[None, :] >> shifts) & 1).bool()
+
+
 def _lanes(params: DayMarchParams):
     """SurfaceBatch-like view of the blocked lanes for the engine functions,
     plus the global zone slot (block*ZB + local zone, -1 none) of each face."""
-    N = params.max_nodes
     SP = params.surf.shape[1]
-    bits = params.field("node_bits").to(torch.int64)
-    shifts = torch.arange(N, device=bits.device)[:, None]
-    node_mask = ((bits[None, :] >> shifts) & 1).bool()
-    block = torch.arange(SP, device=bits.device) // params.block_size
+    node_mask = bit_rows(params, "node_bits")
+    block = torch.arange(SP, device=node_mask.device) // params.block_size
     ZB = params.zones_per_block
 
     def slot(local):
@@ -594,14 +668,7 @@ class DayMarchKernel:
             "T": (T, (N, SP), dtype),
             "zT": (zT, (NB, ZB), dtype),
         }
-        for name, (t, shape, dt_) in expect.items():
-            if not t.is_cuda or t.device != T.device:
-                raise ValueError(f"{name}: expected a tensor on {T.device}, got {t.device}")
-            if t.dtype != dt_ or tuple(t.shape) != shape or not t.is_contiguous():
-                raise ValueError(
-                    f"{name}: expected contiguous {dt_} {shape}, got "
-                    f"{'contiguous' if t.is_contiguous() else 'strided'} {t.dtype} {tuple(t.shape)}"
-                )
+        cuda_lib.check_operands(expect, T.device)
         lib = _load_library()
         fn = lib.heatx_day_march_f32 if dtype == torch.float32 else lib.heatx_day_march_f64
         kw = dict(dtype=dtype, device=T.device)
@@ -693,20 +760,12 @@ class HourMarch:
         return self._finish(plain_day_march(params, *ops, **self._kw()))
 
 
-def make_hour_march(
-    bb: BlockedBuilding,
-    substeps: int = None,
-    mode: str = "trbdf2",
-    hours: int = 1,
-    refresh_every: int = None,
-    collect_bad: bool = False,
-    device="cpu",
-):
-    """Build the day march: ``(hour_march, params)`` with ``params`` on
-    ``device`` in the building's dtype (heatx ``make_hour_march`` for modes
-    ``trbdf2``/``trbdf2_refresh``).  ``refresh_every=k`` rebuilds the
-    operators every k sub-steps (default 1 in refresh mode); frozen mode is
-    ``k = substeps``."""
+def hour_march_for(
+    bb: BlockedBuilding, substeps: int = None, mode: str = "trbdf2", hours: int = 1,
+    refresh_every: int = None, collect_bad: bool = False,
+) -> HourMarch:
+    """The :class:`HourMarch` of :func:`make_hour_march`'s arguments, with
+    the sub-step count and refresh cadence resolved (no operands)."""
     if mode == "parity":
         raise NotImplementedError("mode='parity' is ROADMAP A7/B3 (not ported yet)")
     if mode not in ("trbdf2", "trbdf2_refresh"):
@@ -723,5 +782,24 @@ def make_hour_march(
     if refresh_every < 1 or substeps % refresh_every:
         raise ValueError(f"refresh_every {refresh_every} must divide substeps {substeps}")
     dt = 3600.0 / (bb.base.n_steps_per_hour * substeps)
-    params = params_from_blocked(bb, bb.config.dtype, device)
-    return HourMarch(bb, substeps, hours, refresh_every, dt, collect_bad), params
+    return HourMarch(bb, substeps, hours, refresh_every, dt, collect_bad)
+
+
+def make_hour_march(
+    bb: BlockedBuilding,
+    substeps: int = None,
+    mode: str = "trbdf2",
+    hours: int = 1,
+    refresh_every: int = None,
+    collect_bad: bool = False,
+    device="cuda",
+):
+    """Build the day march: ``(hour_march, params)`` with ``params`` on
+    ``device`` (the card unless the caller asks for another; ``"cuda"``
+    without a GPU raises) in the building's dtype (heatx ``make_hour_march``
+    for modes ``trbdf2``/``trbdf2_refresh``).  ``refresh_every=k`` rebuilds the
+    operators every k sub-steps (default 1 in refresh mode); frozen mode is
+    ``k = substeps``."""
+    hm = hour_march_for(bb, substeps, mode, hours, refresh_every, collect_bad)
+    params = params_from_blocked(bb, bb.config.dtype, cuda_lib.resolve_device(device))
+    return hm, params

@@ -81,6 +81,29 @@ def build_city_model(n_zones: int, surfaces_per_zone: int, orientations: bool = 
     return m
 
 
+def build_mixed_model():
+    """A 2-zone building that takes every boundary branch of the day march:
+    outdoor walls, a tilted roof, a floor on the ground (fixed contact h), a
+    partition between the zones, a wall with an ambient back face, and a
+    window; massive, layered and glazed constructions."""
+    m = build_city_model(2, 3)
+    walls = {
+        "roof": ("mixed", Boundary.outdoor(), Boundary.space_("z0"),
+                 [[0, 0, 3], [6, 0, 3], [6, 4, 5], [0, 4, 5]]),
+        "floor": ("massive", Boundary.ground(8.0), Boundary.space_("z0"),
+                  [[0, 0, 0], [0, 4, 0], [6, 4, 0], [6, 0, 0]]),
+        "partition": ("massive", Boundary.space_("z0"), Boundary.space_("z1"),
+                      [[0, 0, 0], [0, 4, 0], [0, 4, 3], [0, 0, 3]]),
+        "to_plant": ("mixed", Boundary.space_("z1"), Boundary.ambient(30.0),
+                     [[0, 0, 0], [4, 0, 0], [4, 0, 2], [0, 0, 2]]),
+        "skylight": ("window", Boundary.outdoor(), Boundary.space_("z1"),
+                     [[0, 0, 3], [1, 0, 3.2], [1, 1, 3.2], [0, 1, 3]]),
+    }
+    for name, (kind, front, back, verts) in walls.items():
+        m.add_surface(SurfaceDef(name, kind, front, back, vertices=np.asarray(verts, float)))
+    return m
+
+
 def synthetic_weather(hours: int):
     """bench.py's synthetic hourly weather: (dry bulb C, wind m/s, wind
     direction rad, global horizontal W/m2, horizontal IR W/m2), each [hours]."""

@@ -132,7 +132,7 @@ def test_bad_count_names_the_block(buildings):
     _, pb = buildings
     bb = day_march.block_building(pb, block_size=16)
     hm, params = day_march.make_hour_march(
-        bb, substeps=2, mode="trbdf2", hours=2, collect_bad=True
+        bb, substeps=2, mode="trbdf2", hours=2, collect_bad=True, device="cpu"
     )
     T0, zT0 = (torch.as_tensor(a) for a in _initial(bb.layout, pb))
     lane = int(np.nonzero(bb.layout.surf_valid)[0][bb.block_size + 1])  # in block 1

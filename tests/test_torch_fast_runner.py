@@ -119,7 +119,7 @@ def test_convert_runs_port_on_heatx_operands(heatx_run):
         )
     assert building.config.dtype == torch.float64
 
-    tm = ThermalModel.from_building(building)
+    tm = ThermalModel.from_building(building, device="cpu")
     runner = tm.fast_runner(block_size=32, **KW)
     runner.params = convert.params_from_kernel_operands(
         _operand_dict(bb, params), bb.n_blocks, dtype=torch.float64
@@ -142,7 +142,7 @@ def test_nonfinite_state_raises_with_hour_and_block():
 def _thermostat_model():
     m = testing.build_city_model(2, 4)
     m.add_hvac(IdealHeaterCooler("t0", ["z0"], heat_setpoint=20.0, cool_setpoint=26.0))
-    return ThermalModel(m, config=SimConfig(dtype=torch.float64))
+    return ThermalModel(m, config=SimConfig(dtype=torch.float64), device="cpu")
 
 
 @pytest.mark.parametrize(

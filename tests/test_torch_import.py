@@ -17,6 +17,7 @@ def test_import_loads_no_jax():
     code = (
         "import sys\n"
         "import heatx_torch, heatx_torch.api, heatx_torch.ops.day_march\n"
+        "import heatx_torch.ops.day_adjoint, heatx_torch.engine.adjoint\n"
         "import heatx_torch.convert, heatx_torch.testing\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'heatx'))\n"
         "print(bad)\n"
@@ -52,6 +53,28 @@ def test_cuda_model_raises_without_gpu():
 
     with pytest.raises(RuntimeError, match="CUDA"):
         ThermalModel(testing.build_city_model(1, 3), device="cuda")
+
+
+def test_model_defaults_to_the_card():
+    """With no device given, the entry points ask for the card, and refuse
+    on a box without one."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the no-GPU refusal")
+    from heatx_torch import SimConfig, ThermalModel, testing
+    from heatx_torch.build.layout import compile_building
+    from heatx_torch.ops import day_adjoint, day_march
+
+    model = testing.build_city_model(1, 3)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ThermalModel(model)
+    b = compile_building(model, config=SimConfig(dtype=torch.float64))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ThermalModel.from_building(b)
+    bb = day_march.block_building(b)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        day_march.make_hour_march(bb, substeps=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        day_adjoint.make_day_adjoint(bb, substeps=2)
 
 
 def test_hour_march_has_no_device_fallback():
