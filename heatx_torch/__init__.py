@@ -3,11 +3,14 @@
 A package beside ``heatx`` (which stays the JAX/TPU reference).  It imports
 ``torch`` and never ``jax``, and carries its own copy of heatx's numpy front
 end (model, discretization, layout, blocking), because the GPU host has no
-jax.  What runs today, on free-float buildings in modes ``trbdf2`` and
-``trbdf2_refresh``: the day march through
-``ThermalModel(...).fast_runner(...).run``, and its gradient through
+jax.  What runs today, in modes ``trbdf2`` and ``trbdf2_refresh``, on
+free-float buildings and on buildings with thermostats (ideal loads),
+setpoint schedules and inter-zone mixing: the day march through
+``ThermalModel(...).fast_runner(...).run`` (with ``collect_loads=True``, the
+hourly demand), and its gradient through
 ``heatx_torch.engine.adjoint.chunked_value_and_grad`` with
-``FastRunner.chunk_forward``/``chunk_grad``.  Both day kernels are written
+``FastRunner.chunk_forward``/``chunk_grad`` (zone-temperature and demand
+objectives).  Both day kernels are written
 in CUDA for Hopper (``heatx_torch/csrc/day_march.cu``, ``day_adjoint.cu``)
 with plain PyTorch versions beside them.  Models live on the card
 (``device="cuda"``) unless the caller asks for ``device="cpu"``, where the

@@ -4,10 +4,11 @@ PyTorch counterpart of ``heatx.api`` for the slice the port carries: a
 compiled building on a device (the card unless the caller asks for the
 CPU), its initial state and inputs; ``FastRunner.run``, which marches a
 whole hourly input sequence through the TR-BDF2 day march (the CUDA kernel
-on a GPU, its plain twin on the CPU); and ``FastRunner.chunk_forward``/
-``chunk_grad``, the forward and backward sweeps of
-``heatx_torch.engine.adjoint.chunked_value_and_grad`` (the day march and
-the adjoint day march).
+on a GPU, its plain twin on the CPU), with the per-hour ideal loads of a
+building with thermostats and with setpoint schedules; and
+``FastRunner.chunk_forward``/``chunk_grad``, the forward and backward sweeps
+of ``heatx_torch.engine.adjoint.chunked_value_and_grad`` (the day march and
+the adjoint day march), for zone-temperature and demand objectives.
 """
 
 from __future__ import annotations
@@ -42,10 +43,12 @@ TRAJECTORY_NEUTRAL = frozenset(
     {"assert_finite", "dispatch_days", "collect_zone_T", "collect_fluxes", "collect_operative"}
 )
 
-#: Building fields whose cotangents the adjoint day march returns.
+#: Building fields whose cotangents the adjoint day march returns; on a
+#: building with thermostats also the compiled setpoints CTL_FIELDS.
 DIFF_FIELDS = frozenset(
     ["surfaces." + n for n in day_adjoint.DIFF_NODE + day_adjoint.DIFF_SURF] + ["zone_volume"]
 )
+CTL_FIELDS = frozenset(["ctl_heat_sp", "ctl_cool_sp"])
 
 
 def _np(v) -> np.ndarray:
@@ -80,6 +83,32 @@ def _requires_grad(v) -> bool:
     if isinstance(v, tuple):
         return any(_requires_grad(x) for x in v)
     return isinstance(v, torch.Tensor) and v.requires_grad
+
+
+def _check_setpoint_order(building, heat_sp, cool_sp):
+    """Scheduled setpoints: heating must stay below cooling wherever both are
+    active (heatx ``_check_setpoint_order``).  The zone update's heating
+    branch wins, so a transposed setback array would hold every zone at the
+    cooling setpoint.  Skipped for shape pairs that do not broadcast."""
+    if heat_sp is None and cool_sp is None:
+        return
+    h = _np(building.ctl_heat_sp if heat_sp is None else heat_sp).astype(np.float64)
+    c = _np(building.ctl_cool_sp if cool_sp is None else cool_sp).astype(np.float64)
+    if h.size == 0 or c.size == 0:
+        return
+    try:
+        hb, cb = np.broadcast_arrays(h, c)
+    except ValueError:
+        return
+    bad = (hb > -1e8) & (cb < 1e8) & (hb >= cb)
+    if bad.any():
+        i = tuple(int(x) for x in np.argwhere(bad)[0])
+        raise ValueError(
+            f"scheduled heating setpoint >= cooling setpoint at index {i} "
+            f"({float(hb[i])} >= {float(cb[i])}): the heating branch would win every "
+            "sub-step and hold the zone at the heating value (transposed schedule "
+            "arrays are the usual cause)"
+        )
 
 
 def _unsupported(**flags):
@@ -149,9 +178,12 @@ class ThermalModel:
         block each (at most 256; default: the largest zone-connected
         component rounded up to a warp).  ``use_kernel=False`` runs the
         plain PyTorch twin even on a GPU: the reference the kernel is
-        checked against.
-        ``mode="parity"`` (heatx's default) and the remaining options are not
-        ported yet and raise ``NotImplementedError``."""
+        checked against.  ``scheduled_setpoints`` (buildings with
+        thermostats) lets ``StepInputs.heat_sp``/``cool_sp`` override the
+        compiled setpoints hour by hour.
+        ``mode="parity"`` (heatx's default), ``collect_fluxes``,
+        ``collect_operative`` and ``mesh`` are not ported yet and raise
+        ``NotImplementedError``."""
         return FastRunner(
             self, block_size=block_size, mode=mode, substeps=substeps,
             hours=hours, collect_fluxes=collect_fluxes,
@@ -182,7 +214,6 @@ class FastRunner:
     ):
         _unsupported(
             collect_fluxes=(collect_fluxes, "ROADMAP A9/B5"),
-            scheduled_setpoints=(scheduled_setpoints, "ROADMAP A6/B2"),
             mesh=(mesh is not None, "ROADMAP A12"),
             collect_operative=(collect_operative, "ROADMAP A9/B5"),
         )
@@ -194,7 +225,10 @@ class FastRunner:
         self.hour_march, self.params = day_march.make_hour_march(
             self._bb, substeps=substeps, mode=mode, hours=hours,
             refresh_every=refresh_every, collect_bad=True, device=self.device,
+            scheduled_setpoints=scheduled_setpoints,
         )
+        self._scheduled_sp = scheduled_setpoints
+        self._has_loads = self.hour_march.collect_loads
         self._mode = mode
         self._substeps = self.hour_march.substeps
         self._use_kernel = use_kernel
@@ -330,7 +364,7 @@ class FastRunner:
 
         a_gain, b_gain = self._gains(inputs_seq, T_steps)
         return SimpleNamespace(
-            T_steps=T_steps, D=T_steps // self._hours,
+            T_steps=T_steps, D=T_steps // self._hours, sp=self._setpoints(inputs_seq, T_steps),
             weather=tuple(
                 self._weather_xs(v, T_steps, interp_weather)
                 for v in (inputs_seq.t_out, inputs_seq.wind_speed, inputs_seq.wind_direction)
@@ -338,6 +372,47 @@ class FastRunner:
             a_gain=a_gain, b_gain=b_gain, surf=surf_raw,
             surf_ts=tuple(time_leading(v) for v in surf_raw),
         )
+
+    def _setpoints(self, inputs_seq: StepInputs, T_steps):
+        """The heating and cooling setpoint schedules of a scheduled runner,
+        each as ``(is_series, tensor)``: a ``[T, Z]`` or ``[T, 1]`` series or
+        a ``[Z]`` constant (heatx's reading: a 1-D array of length T is a
+        per-hour schedule for every zone; scalar, ``[Z]`` and ``[1, Z]`` are
+        constants; None is the compiled setpoints).  None on other runners,
+        which refuse schedules."""
+        b = self._tm.building
+        heat, cool = inputs_seq.heat_sp, inputs_seq.cool_sp
+        has_sp = heat is not None or cool is not None
+        if has_sp and not self._scheduled_sp:
+            raise ValueError(
+                "construct the runner with scheduled_setpoints=True to pass "
+                "StepInputs.heat_sp/cool_sp schedules through the day march"
+            )
+        if has_sp:
+            _check_setpoint_order(b, heat, cool)
+        if not self._scheduled_sp:
+            return None
+        Z = b.n_zones
+
+        def series(v, compiled):
+            a = torch.as_tensor(compiled if v is None else v, dtype=self._dtype, device=self.device)
+            sh = tuple(a.shape)
+            if v is None:
+                return False, a
+            if len(sh) == 1 and sh[0] == T_steps:
+                return True, a[:, None]
+            if len(sh) <= 1:
+                return False, torch.broadcast_to(a, (Z,))
+            if sh[0] == T_steps:
+                return True, a
+            if sh[0] == 1:
+                return False, a[0]
+            raise ValueError(
+                f"setpoint schedule shape {sh} not understood: pass scalar, [Z], [T], "
+                f"[1, Z], or [T, Z] (T={T_steps}, Z={Z})"
+            )
+
+        return series(heat, b.ctl_heat_sp), series(cool, b.ctl_cool_sp)
 
     def _day_inputs(self, prep, d0: int, n_days: int):
         """The hour_march inputs of days [d0, d0 + n_days), blocked on the
@@ -347,9 +422,16 @@ class FastRunner:
         a_c = self._zone_xs(prep.a_gain, d0, n_days)
         b_c = self._zone_xs(prep.b_gain, d0, n_days)
         w = prep.weather
+        sp = []
+        if prep.sp is not None:
+            H, Z = self._hours, self._tm.building.n_zones
+            for is_series, a in prep.sp:  # padded zone slots read 0, as in heatx
+                a = a[d0 * H:(d0 + n_days) * H] if is_series else a
+                sp.append(self._zone_xs(torch.broadcast_to(a, (n_days * H, Z)), 0, n_days))
         return [
             (w[0][d0 + d], w[1][d0 + d], w[2][d0 + d],
              surf[0][d], surf[1][d], surf[2][d], surf[3][d], a_c[d], b_c[d])
+            + tuple(x[d] for x in sp)
             for d in range(n_days)
         ]
 
@@ -384,16 +466,27 @@ class FastRunner:
         bounds how many day-chunks of per-surface inputs are blocked on the
         device at once.  ``assert_finite`` reads the kernel's per-hour
         non-finite counts and raises :class:`FloatingPointError` naming the
-        first bad hour and block.
+        first bad hour and block.  ``collect_loads`` (buildings with
+        thermostats) appends the per-hour mean ideal-load power ``[T, Z]`` (W,
+        heating positive, cooling negative); with or without it, the final
+        state of such a building carries the last hour's row as
+        ``ideal_load``.  On a ``scheduled_setpoints`` runner
+        ``inputs_seq.heat_sp``/``cool_sp`` may be scalar, ``[Z]``, ``[1, Z]``,
+        ``[T]`` or ``[T, Z]``; other runners raise ``ValueError`` on them.
 
-        Returns ``(final SimState, zone_T [T, Z] or None)``.
+        Returns ``(final SimState, zone_T [T, Z] or None)``, then the loads
+        with ``collect_loads``.
         """
         _unsupported(
             collect_fluxes=(collect_fluxes, "ROADMAP A9/B5"),
-            collect_loads=(collect_loads, "ROADMAP A6/B2"),
             ground_hourly=(ground_hourly is not None, "ROADMAP A4 follow-up"),
             collect_operative=(collect_operative, "ROADMAP A9/B5"),
         )
+        if collect_loads and not self._has_loads:
+            raise ValueError(
+                "collect_loads requires setpoint-driven HVAC "
+                "(IdealHeaterCooler with heat_setpoint/cool_setpoint)"
+            )
         b = self._tm.building
         H = self._hours
         prep = self._prepare(inputs_seq, interp_weather)
@@ -415,16 +508,20 @@ class FastRunner:
                 f"{hour // 24}, block {bi}): {int(bad_np[ci, hi, bi])} bad values"
             )
 
-        hists, bads = [], []
+        hists, bads, loads = [], [], []
         pending = None
-        hq = None
+        hq = last_ld = None
         for d0 in range(0, D, chunk_D):
             n_days = min(chunk_D, D - d0)
             hist_c, bad_c = [], []
             for hi in self._day_inputs(prep, d0, n_days):
-                Tb, zTb, hq, zt_hist, bad = self._march(self.params, Tb, zTb, hi)
+                Tb, zTb, hq, zt_hist, bad, *ld = self._march(self.params, Tb, zTb, hi)
                 hist_c.append(zt_hist)
                 bad_c.append(bad)
+                if ld:
+                    last_ld = ld[0]
+                if collect_loads:
+                    loads.append(ld[0])
             if collect_zone_T:
                 hists.extend(hist_c)
             if assert_finite:
@@ -442,13 +539,26 @@ class FastRunner:
                 check_bad(d0, bc)
 
         final = self.from_blocked(Tb, zTb, hq)
+        if last_ld is not None:  # the last marched hour's mean ideal power
+            final.ideal_load = last_ld[-1].reshape(-1)[self._zinv]
         zone_T = None
         if collect_zone_T:
             hist = torch.cat(hists, dim=0).reshape(T_steps, -1)
             zone_T = hist[:, self._zinv]
+        if collect_loads:
+            return final, zone_T, torch.cat(loads, dim=0).reshape(T_steps, -1)[:, self._zinv]
         return final, zone_T
 
     # -- gradients ----------------------------------------------------------
+
+    def _check_chunk_options(self, who, collect_loads, schedule_fn):
+        if collect_loads and not self._has_loads:
+            raise ValueError(
+                f"{who}(collect_loads=True) requires setpoint-driven HVAC "
+                "(IdealHeaterCooler with heat/cool setpoints)"
+            )
+        if schedule_fn is not None and not self._scheduled_sp:
+            raise ValueError(f"{who}: schedule_fn requires a scheduled_setpoints=True runner")
 
     def chunk_forward(self, apply_params, loss_fn, collect_loads=False, schedule_fn=None, **run_kw):
         """The forward sweep of :func:`heatx_torch.engine.adjoint.chunked_value_and_grad`
@@ -457,30 +567,39 @@ class FastRunner:
         ``apply_params(params) -> CompiledBuilding`` maps the optimization
         parameters to a same-layout building whose DIFF fields
         (``heatx_torch.ops.day_adjoint.DIFF_NODE``/``DIFF_SURF``, in surface
-        order) and ``zone_volume`` may be torch tensors computed from the
-        params; every other field must keep the runner's values.
+        order), ``zone_volume`` and, with thermostats, ``ctl_heat_sp``/
+        ``ctl_cool_sp`` may be torch tensors computed from the params; every
+        other field must keep the runner's values.
         ``loss_fn(zt_hist, xs) -> scalar`` scores one chunk from its per-hour
-        zone temperatures ``[H, zones]``.  ``run_kw`` pass through to
-        :meth:`run`.  The returned ``forward_fn(params, state, xs)`` re-blocks
-        the parameter rows only when the parameter values change, then runs
-        the chunk.  ``collect_loads``/``schedule_fn`` (thermostats) are
-        ROADMAP B2 and raise."""
-        _unsupported(
-            collect_loads=(collect_loads, "ROADMAP A6/B2"),
-            schedule_fn=(schedule_fn is not None, "ROADMAP A6/B2"),
-        )
+        zone temperatures ``[H, zones]``; with ``collect_loads=True``
+        (thermostats only) the contract is ``loss_fn(zt_hist, loads_hist,
+        xs)`` with the per-hour mean ideal loads ``[H, zones]`` (W, heating
+        positive): the demand objective.  ``schedule_fn(params, xs) ->
+        {"heat_sp": ..., "cool_sp": ...}`` (scheduled runners) derives the
+        chunk's setpoint schedules from the parameters; they replace those of
+        ``xs``.  ``run_kw`` pass through to :meth:`run`.  The returned
+        ``forward_fn(params, state, xs)`` re-blocks the parameter rows only
+        when the parameter values change, then runs the chunk."""
+        self._check_chunk_options("chunk_forward", collect_loads, schedule_fn)
         # The paired chunk_grad checks this record: a backward that
         # recomputes a different trajectory would give a silently wrong
         # gradient.  Unlike heatx (ROADMAP C, api.py:704) the record keeps
         # every trajectory-changing run option, not only interp_weather.
         self._fw_contract = dict(
             interp_weather=bool(run_kw.get("interp_weather", False)),
+            collect_loads=bool(collect_loads),
+            schedule_fn=schedule_fn is not None,
             trajectory_options=sorted(set(run_kw) - TRAJECTORY_NEUTRAL - {"interp_weather"}),
         )
 
         def forward_fn(params, state, xs):
             with torch.no_grad():
                 self._sync_params(apply_params, params)
+                if schedule_fn is not None:
+                    xs = xs.replace(**schedule_fn(params, xs))
+                if collect_loads:
+                    final, zt, ld = self.run(state, xs, collect_loads=True, **run_kw)
+                    return final, loss_fn(zt, ld, xs)
                 final, zt = self.run(state, xs, **run_kw)
                 return final, loss_fn(zt, xs)
 
@@ -502,8 +621,9 @@ class FastRunner:
         any other field: the runner holds those fixed (heatx re-blocks them
         in ``update_building``, ROADMAP A9)."""
         base = dict(_fields(self._tm.building))
+        free = self._diff_fields()
         changed = [
-            name for name, v in _fields(building) if name not in DIFF_FIELDS and not _same(v, base[name])
+            name for name, v in _fields(building) if name not in free and not _same(v, base[name])
         ]
         if changed:
             raise ValueError(
@@ -511,15 +631,25 @@ class FastRunner:
                 "Only the differentiated fields and zone_volume may change; build a new "
                 "fast_runner for another building"
             )
-        return self._blocker(self.params, building.surfaces, building.zone_volume)
+        return self._blocker(
+            self.params, building.surfaces, building.zone_volume,
+            building.ctl_heat_sp if self._has_loads else None,
+            building.ctl_cool_sp if self._has_loads else None,
+        )
 
-    @staticmethod
-    def _check_grad_scope(building: CompiledBuilding):
+    def _diff_fields(self):
+        """The building fields ``apply_params`` may change and feed: the
+        adjoint's DIFF set, plus the compiled setpoints on a building with
+        thermostats (heatx api.py:769-771)."""
+        return DIFF_FIELDS | CTL_FIELDS if self._has_loads else DIFF_FIELDS
+
+    def _check_grad_scope(self, building: CompiledBuilding):
         """Raise if a building field the adjoint does not differentiate holds
         a tensor that requires grad: its gradient would silently be zero.
         Runs on every backward call, at the current parameter values (heatx
         probes once at the first values and caches, ROADMAP C api.py:825)."""
-        bad = [name for name, v in _fields(building) if name not in DIFF_FIELDS and _requires_grad(v)]
+        free = self._diff_fields()
+        bad = [name for name, v in _fields(building) if name not in free and _requires_grad(v)]
         if bad:
             raise ValueError(
                 f"chunk_grad: apply_params feeds building fields the adjoint day march "
@@ -541,28 +671,34 @@ class FastRunner:
         with the parameter rows blocked differentiably from
         ``apply_params(params)``, and takes ``torch.autograd.grad`` of the
         chunk loss and the final state onto the params and the start state.
-        Cotangents on h/q are not propagated (as in heatx).
+        Cotangents on h/q are not propagated (as in heatx).  With
+        ``collect_loads=True`` the loss is ``loss_fn(zt_hist, loads_hist,
+        xs)`` and the load cotangent is seeded into the adjoint day march;
+        the compiled setpoints ``ctl_heat_sp``/``ctl_cool_sp`` are
+        differentiated on any building with thermostats.  With
+        ``schedule_fn`` the schedule cotangents go back to the params through
+        the one call of ``schedule_fn(params, xs)`` on the caller's ``xs``
+        (heatx linearizes it a second time around the ``xs`` it has already
+        replaced, ROADMAP C api.py:1173; the port does not).
 
-        Raises: ``run_kw`` outside TRAJECTORY_NEUTRAL, or a paired
-        chunk_forward with a different ``interp_weather`` or with
-        trajectory-changing options (ValueError); ``collect_loads`` and
-        ``schedule_fn`` (NotImplementedError, ROADMAP B2); ``apply_params``
-        feeding non-differentiated fields (ValueError, checked on every
-        call)."""
+        Raises (ValueError): ``run_kw`` outside TRAJECTORY_NEUTRAL; a paired
+        chunk_forward with a different ``interp_weather``, ``collect_loads``
+        or ``schedule_fn`` presence, or with trajectory-changing options;
+        ``collect_loads`` without thermostats, ``schedule_fn`` without a
+        scheduled runner; ``apply_params`` feeding non-differentiated fields
+        (checked on every call)."""
         unsupported = set(run_kw) - TRAJECTORY_NEUTRAL
         if unsupported:
             raise ValueError(
                 f"chunk_grad: run options {sorted(unsupported)} change the forward "
                 "trajectory in ways the backward does not recompute"
             )
-        _unsupported(
-            collect_loads=(collect_loads, "ROADMAP A6/B2"),
-            schedule_fn=(schedule_fn is not None, "ROADMAP A6/B2"),
-        )
+        self._check_chunk_options("chunk_grad", collect_loads, schedule_fn)
         fw = getattr(self, "_fw_contract", None)
         if fw is not None:
-            bad = (["interp_weather"] if fw["interp_weather"] != bool(interp_weather) else [])
-            bad += fw["trajectory_options"]
+            mine = dict(interp_weather=bool(interp_weather), collect_loads=bool(collect_loads),
+                        schedule_fn=schedule_fn is not None)
+            bad = [k for k, v in mine.items() if fw[k] != v] + fw["trajectory_options"]
             if bad:
                 raise ValueError(
                     f"chunk_grad: {bad} differ from this runner's last chunk_forward: the "
@@ -571,7 +707,7 @@ class FastRunner:
         adj = day_adjoint.make_day_adjoint(
             self._bb, substeps=self._substeps, mode=self._mode, hours=self._hours,
             refresh_every=self.hour_march.refresh_every if self._mode == "trbdf2_refresh" else None,
-            device=self.device,
+            device=self.device, scheduled_setpoints=self._scheduled_sp,
         )
         adjoint = adj.raw if self._use_kernel else functools.partial(adj.raw, plain=True)
 
@@ -585,20 +721,30 @@ class FastRunner:
             node_T = state.node_T.detach().requires_grad_()
             zone_T = state.zone_T.detach().requires_grad_()
             with torch.enable_grad():
-                building = apply_params(rebuild(leaves))
+                live = rebuild(leaves)
+                building = apply_params(live)
                 self._check_grad_scope(building)
                 p = self._blocked_params(building)
                 T, zT = self._blocked_state(node_T, zone_T)
+                if schedule_fn is not None:
+                    xs = xs.replace(**schedule_fn(live, xs))
                 prep = self._prepare(xs, interp_weather)
-                hist = []
+                hist, loads = [], []
                 for hi in self._day_inputs(prep, 0, prep.D):
-                    T, zT, zt_hist = day_adjoint.DayMarchFn.apply(
+                    outs = day_adjoint.DayMarchFn.apply(
                         self._march, adjoint, p, p.node, p.surf, p.zone_volume,
-                        T, zT, *hi,
-                    )[:3]
-                    hist.append(zt_hist)
-                zt = torch.cat(hist).reshape(prep.T_steps, -1)[:, self._zinv]
-                loss = loss_fn(zt, xs)
+                        T, zT, *hi, ctl=p.ctl,
+                    )
+                    T, zT = outs[:2]
+                    hist.append(outs[2])
+                    if collect_loads:
+                        loads.append(outs[-1])
+
+                def zone_order(rows):
+                    return torch.cat(rows).reshape(prep.T_steps, -1)[:, self._zinv]
+
+                zt = zone_order(hist)
+                loss = loss_fn(zt, zone_order(loads), xs) if collect_loads else loss_fn(zt, xs)
                 outs = [loss, T[:, self._inv], zT.reshape(-1)[self._zinv]]
                 cots = [
                     torch.as_tensor(loss_cot, dtype=loss.dtype, device=loss.device),
@@ -614,6 +760,7 @@ class FastRunner:
                 node_T=grads[-2].to(state.node_T.dtype), zone_T=grads[-1].to(state.zone_T.dtype),
                 h_front=torch.zeros_like(state.h_front), h_back=torch.zeros_like(state.h_back),
                 q_front=torch.zeros_like(state.q_front), q_back=torch.zeros_like(state.q_back),
+                ideal_load=None if state.ideal_load is None else torch.zeros_like(state.ideal_load),
             )
             return params_cot, state_cot_out
 

@@ -23,8 +23,13 @@ import torch
 
 from heatx_torch.build.layout import CompiledBuilding, SurfaceBatch
 from heatx_torch.config import SimConfig
-from heatx_torch.ops.day_march import SURF_FIELDS, DayMarchParams, pack_params
+from heatx_torch.ops.day_march import (
+    SURF_FIELDS, DayMarchParams, mix_lists_from_dense, pack_params,
+)
 from heatx_torch.physics.gas import GasProps
+
+#: heatx's names for the four thermostat operand rows, in kernel order.
+CTL_NAMES = ("ctl_heat_sp", "ctl_cool_sp", "ctl_max_heat", "ctl_max_cool")
 
 _TORCH_DTYPES = {np.dtype(np.float32): torch.float32, np.dtype(np.float64): torch.float64}
 
@@ -56,14 +61,25 @@ def params_from_kernel_operands(
     ``seg_u``, ``front_alphas``, ``back_alphas`` ([N, SP]); the lane rows
     ``area`` ... ``normal_y``, ``front_code``, ``back_code`` ([1, SP] or
     [SP]); the zone one-hots ``front_oh``/``back_oh`` ([SP, ZB]; absent when
-    no face of that side bounds a zone); and ``zone_volume`` ([NB*8, ZB],
-    heatx's 8-row padded zone rows, or [NB, ZB])."""
+    no face of that side bounds a zone); ``zone_volume`` ([NB*8, ZB],
+    heatx's 8-row padded zone rows, or [NB, ZB]); and, where the building
+    has them, the thermostat rows ``ctl_heat_sp``, ``ctl_cool_sp``,
+    ``ctl_max_heat``, ``ctl_max_cool`` (zone rows like ``zone_volume``) and
+    the dense mixing matrix ``mix_wt`` ([NB*ZB, ZB], ``[block*ZB + from,
+    to]``), which becomes the port's entry lists."""
     node_mask = np.asarray(ops["node_mask"], bool)
     SP = node_mask.shape[1]
-    zv = np.asarray(ops["zone_volume"])
-    ZB = zv.shape[-1]
-    if zv.shape[0] != n_blocks:
-        zv = zv.reshape(n_blocks, -1, ZB)[:, 0]
+    ZB = np.asarray(ops["zone_volume"]).shape[-1]
+
+    def zone_rows(a):
+        a = np.asarray(a)
+        return a if a.shape[0] == n_blocks else a.reshape(n_blocks, -1, ZB)[:, 0]
+
+    zv = zone_rows(ops["zone_volume"])
+    ctl = None
+    if "ctl_heat_sp" in ops:
+        ctl = [zone_rows(ops[k]) for k in CTL_NAMES]
+    mix = mix_lists_from_dense(ops["mix_wt"]) if "mix_wt" in ops else None
     mass = np.asarray(ops["mass"], np.float64)
     massive = np.asarray(ops["massive"], bool)
     capacity = np.where(massive, mass, 0.0)
@@ -74,5 +90,5 @@ def params_from_kernel_operands(
         np.asarray(ops["front_code"]).reshape(SP),
         np.asarray(ops["back_code"]).reshape(SP),
         ops.get("front_oh", zero_oh), ops.get("back_oh", zero_oh), zv, n_blocks,
-        dtype=dtype, device=device,
+        dtype=dtype, device=device, ctl=ctl, mix=mix,
     )

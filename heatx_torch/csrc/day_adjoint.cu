@@ -4,13 +4,15 @@
 //
 // Replaces heatx/ops/pallas_adjoint.py::make_day_adjoint -> `kernel` (the
 // pl.pallas_call at pallas_adjoint.py:717) in modes trbdf2 / trbdf2_refresh
-// for free-float buildings without gas cavities.  Given the cotangents of a
-// day's final state (dT, d_zT) and of its per-hour zone history, one launch
-// returns the cotangents of the day-start state, of the differentiated
-// building rows (seg_u, mass, the solar absorption fractions, the 11 surface
-// parameters, the zone volumes) and of the per-hour inputs (solar and IR per
-// face, the zone gain rows a_extra/b_extra): exactly what autograd through
-// the plain day march (heatx_torch/ops/day_march.py) gives.
+// for buildings without gas cavities.  Given the cotangents of a day's final
+// state (dT, d_zT), of its per-hour zone history and, with thermostats, of
+// its per-hour mean ideal loads, one launch returns the cotangents of the
+// day-start state, of the differentiated building rows (seg_u, mass, the
+// solar absorption fractions, the 11 surface parameters, the zone volumes),
+// of the per-hour inputs (solar and IR per face, the zone gain rows
+// a_extra/b_extra) and of the thermostat setpoints (the compiled rows, or the
+// per-hour schedule rows): exactly what autograd through the plain day march
+// (heatx_torch/ops/day_march.py) gives.
 //
 // heatx builds the reverse pass with jax.vjp at trace time.  CUDA has no
 // such thing, so every primitive's adjoint is written here by hand, as the
@@ -18,6 +20,15 @@
 //  * zone update: exact exponential in a_z, b_z and zT, with the air
 //    capacity's dependence on zT; |b_z| <= 1e-9 passes the cotangent
 //    through to zT;
+//  * thermostat update (kExt): the branch is recomputed from the taped
+//    (zT, a_z, b_z).  A zero load is the free-float update.  Otherwise the
+//    result is the exponential update at a_z + load, whose a-cotangent joins
+//    the load's own; an unclamped load passes both on through the landing
+//    power to a_z, b_z, zT, the volume and the setpoint, a clamped one is a
+//    constant (the capacities are not differentiated);
+//  * mixing (kExt): the transpose of the sums over a zone's sources is a sum
+//    over a source's destinations, in the fixed order of the lists grouped by
+//    source, run by the source zone's own thread;
 //  * zone sums: the transpose of the fixed-order sum is a gather (each face
 //    reads its zone's cotangent from shared memory), and the transpose of the
 //    boundary-temperature gather is the same fixed-order face sum the
@@ -78,6 +89,12 @@ struct AdjArgs {
   T* d_chan;           // [4, hours, SP]: sol_f, sol_b, ir_f, ir_b
   T* d_a;              // [hours, NB, ZB]
   T* d_b;              // [hours, NB, ZB]
+  // Thermostats (null without): the load history's cotangent in; out the
+  // setpoint rows' cotangents, and the schedule rows' where scheduled.
+  const T* d_ld_hist;  // [hours, NB, ZB]
+  T* d_ctl;            // [4, NB, ZB]; rows 0 (heat_sp) and 1 (cool_sp) written
+  T* d_sp_heat;        // [hours, NB, ZB]
+  T* d_sp_cool;
 };
 
 // Cotangents of one refresh group's operators.
@@ -170,7 +187,64 @@ __device__ void zone_update_adj(T zt, T az, T bz, T volume, T dt, T lz, T& laz, 
   lvol = l_cz * rho * cp;
 }
 
+// Adjoint of zone_update_ctl: lz (cotangent of the new zone T) and lload
+// (cotangent of this sub-step's load) pulled back to a_z, b_z, the old zone T,
+// the zone volume and the active setpoint (l_heat or l_cool; the other is 0).
 template <typename T>
+__device__ void zone_update_ctl_adj(T zt, T az, T bz, T volume, T dt, const Setpoints<T>& sp, T lz,
+                                    T lload, T& laz, T& lbz, T& lzt, T& lvol, T& l_heat,
+                                    T& l_cool) {
+  l_heat = l_cool = T(0);
+  if (m_abs(bz) <= T(1e-9)) {
+    laz = lbz = lvol = T(0);
+    lzt = lz;
+    return;
+  }
+  const T t_k = zt + T(kKelvin);
+  const T rho = T(kRhoNum) / (T(kGasR) * t_k);
+  const T cp = T(kAirCp0) + T(kAirCp1) * t_k;
+  const T c_z = volume * rho * cp;
+  const T x = bz * dt / c_z;
+  const T em = m_expm1(-x);
+  const T t_free = zt - (az / bz - zt) * em;
+  const bool heat = t_free < sp.heat;
+  const bool cool = !heat && t_free > sp.cool;
+  T load = T(0), t_set = T(0);
+  bool live = false;  // the clamp passes the cotangent (autograd: lo <= x <= hi)
+  if (heat || cool) {
+    t_set = heat ? sp.heat : sp.cool;
+    const T lo = heat ? T(0) : -sp.max_cool, hi = heat ? sp.max_heat : T(0);
+    const T xr = landing_power(zt, az, bz, em, t_set);
+    load = m_min(m_max(xr, lo), hi);
+    live = xr >= lo && xr <= hi;
+  }
+  if (load == T(0)) {  // the free-float value was returned
+    zone_update_adj(zt, az, bz, volume, dt, lz, laz, lbz, lzt, lvol);
+    return;
+  }
+  zone_update_adj(zt, az + load, bz, volume, dt, lz, laz, lbz, lzt, lvol);
+  if (!live) return;  // a clamped load is a constant
+  const T lx = lload + laz;  // the load enters its own history and a_z + load
+  // load = b u / em - a, u = zT (1 + em) - t_set.
+  const T u = zt * (T(1) + em) - t_set;
+  const T l_u = lx * bz / em;
+  laz -= lx;
+  lbz += lx * u / em;
+  lzt += l_u * (T(1) + em);
+  const T l_em = l_u * zt - lx * bz * u / (em * em);
+  // em = expm1(-x), x = b dt / c_z, c_z = V rho(zT) cp(zT).
+  const T l_x = -l_em * (em + T(1));
+  lbz += l_x * dt / c_z;
+  const T l_cz = -l_x * x / c_z;
+  lzt += l_cz * volume * rho * (T(kAirCp1) - cp / t_k);
+  lvol += l_cz * rho * cp;
+  if (heat)
+    l_heat = -l_u;
+  else
+    l_cool = -l_u;
+}
+
+template <typename T, bool kExt>
 __global__ void __launch_bounds__(kMaxLanes) day_adjoint_kernel(const AdjArgs<T> g) {
   const DayArgs<T>& a = g.in;
   const int N = a.N, SB = a.SB, ZB = a.ZB, NB = a.NB;
@@ -194,6 +268,9 @@ __global__ void __launch_bounds__(kMaxLanes) day_adjoint_kernel(const AdjArgs<T>
   T* s_haT = s_db + ZB;                      // [2*SB] h*A*T_s per face
   T* s_ha = s_haT + 2 * SB;                  // [2*SB] h*A per face
   T* s_lt = s_ha + 2 * SB;                   // [2*SB] boundary-T cotangent per face
+  T* s_lld = s_lt + 2 * SB;                  // kExt: [ZB] cotangent of each sub-step's load (hour)
+  T* s_dsh = s_lld + ZB;                     // kExt: [ZB] heating-setpoint cotangent (hour or day)
+  T* s_dsc = s_dsh + ZB;                     // kExt: [ZB] cooling-setpoint cotangent
 
   const Lane<T> L(a, lane);
   const Scheme<T> sc(a);
@@ -229,9 +306,18 @@ __global__ void __launch_bounds__(kMaxLanes) day_adjoint_kernel(const AdjArgs<T>
           const int gz = b * ZB + z;
           T az, bz;
           zone_sums(a.zone_ptr, a.zone_faces, gz, s_haT, s_ha, a_ex[z], b_ex[z], az, bz);
+          // Mixing reads the sub-step-start row s_zt[i], which no thread
+          // writes here, so s_zT updates in place.
+          if (kExt && a.mix_ptr) mix_sums(a, gz, s_zt + i * ZB, az, bz);
           s_az[i * ZB + z] = az;
           s_bz[i * ZB + z] = bz;
-          s_zT[z] = zone_update(s_zT[z], az, bz, a.zone_volume[gz], sc.dt);
+          if (kExt && a.ctl) {
+            T load;
+            s_zT[z] = zone_update_ctl(s_zT[z], az, bz, a.zone_volume[gz], sc.dt,
+                                      Setpoints<T>(a, h, gz), load);
+          } else {
+            s_zT[z] = zone_update(s_zT[z], az, bz, a.zone_volume[gz], sc.dt);
+          }
         }
         __syncthreads();
       }
@@ -262,6 +348,7 @@ __global__ void __launch_bounds__(kMaxLanes) day_adjoint_kernel(const AdjArgs<T>
   for (int z = tid; z < ZB; z += SB) {
     s_lz[z] = g.d_zT[b * ZB + z];
     s_dV[z] = T(0);
+    if (kExt) s_dsh[z] = s_dsc[z] = T(0);
   }
 
   for (int h = a.hours - 1; h >= 0; --h) {
@@ -270,6 +357,9 @@ __global__ void __launch_bounds__(kMaxLanes) day_adjoint_kernel(const AdjArgs<T>
       s_zT[z] = g.zT_ws[(size_t)h * NB * ZB + b * ZB + z];
       s_lz[z] += g.d_zt_hist[(size_t)h * NB * ZB + b * ZB + z];
       s_da[z] = s_db[z] = T(0);
+      // The hour's load is the mean over its sub-steps.
+      if (kExt && a.ctl)
+        s_lld[z] = g.d_ld_hist[(size_t)h * NB * ZB + b * ZB + z] / T(sub);
     }
     __syncthreads();
     march_hour(h);
@@ -291,8 +381,17 @@ __global__ void __launch_bounds__(kMaxLanes) day_adjoint_kernel(const AdjArgs<T>
         for (int z = tid; z < ZB; z += SB) {
           const int gz = b * ZB + z;
           T laz, lbz, lzt, lvol;
-          zone_update_adj(s_zt[i * ZB + z], s_az[i * ZB + z], s_bz[i * ZB + z],
-                          a.zone_volume[gz], sc.dt, s_lz[z], laz, lbz, lzt, lvol);
+          if (kExt && a.ctl) {
+            T l_heat, l_cool;
+            zone_update_ctl_adj(s_zt[i * ZB + z], s_az[i * ZB + z], s_bz[i * ZB + z],
+                                a.zone_volume[gz], sc.dt, Setpoints<T>(a, h, gz), s_lz[z],
+                                s_lld[z], laz, lbz, lzt, lvol, l_heat, l_cool);
+            s_dsh[z] += l_heat;
+            s_dsc[z] += l_cool;
+          } else {
+            zone_update_adj(s_zt[i * ZB + z], s_az[i * ZB + z], s_bz[i * ZB + z],
+                            a.zone_volume[gz], sc.dt, s_lz[z], laz, lbz, lzt, lvol);
+          }
           s_laz[z] = laz;
           s_lbz[z] = lbz;
           s_lz[z] = lzt;
@@ -474,8 +573,21 @@ __global__ void __launch_bounds__(kMaxLanes) day_adjoint_kernel(const AdjArgs<T>
         __syncthreads();
 
         // (c) the faces' boundary cotangents into their zones.
-        for (int z = tid; z < ZB; z += SB)
-          s_lz[z] += face_sum(a.zone_ptr, a.zone_faces, b * ZB + z, s_lt);
+        for (int z = tid; z < ZB; z += SB) {
+          const int gz = b * ZB + z;
+          s_lz[z] += face_sum(a.zone_ptr, a.zone_faces, gz, s_lt);
+          if (kExt && a.mixt_ptr) {
+            // The transpose of the mixing sums: this zone as a source.
+            const T zs = s_zt[i * ZB + z];
+            const T s0 = air_rho_cp(zs), ds0 = air_rho_cp_dt(zs);
+            T lm = T(0);
+            for (int e = a.mixt_ptr[gz]; e < a.mixt_ptr[gz + 1]; ++e) {
+              const int to = a.mixt_dst[e];
+              lm += a.mixt_vol[e] * (s_laz[to] * (s0 + zs * ds0) + s_lbz[to] * ds0);
+            }
+            s_lz[z] += lm;
+          }
+        }
         __syncthreads();
       }
     }
@@ -496,6 +608,11 @@ __global__ void __launch_bounds__(kMaxLanes) day_adjoint_kernel(const AdjArgs<T>
     for (int z = tid; z < ZB; z += SB) {
       g.d_a[(size_t)h * NB * ZB + b * ZB + z] = s_da[z];
       g.d_b[(size_t)h * NB * ZB + b * ZB + z] = s_db[z];
+      if (kExt && a.sp_heat) {  // scheduled: the hour's rows take the cotangents
+        g.d_sp_heat[(size_t)h * NB * ZB + b * ZB + z] = s_dsh[z];
+        g.d_sp_cool[(size_t)h * NB * ZB + b * ZB + z] = s_dsc[z];
+        s_dsh[z] = s_dsc[z] = T(0);
+      }
     }
   }
 
@@ -511,7 +628,26 @@ __global__ void __launch_bounds__(kMaxLanes) day_adjoint_kernel(const AdjArgs<T>
   for (int z = tid; z < ZB; z += SB) {
     g.d_zT0[b * ZB + z] = s_lz[z];
     g.d_zv[b * ZB + z] = s_dV[z];
+    if (kExt && a.ctl) {  // the compiled rows (0 where the march was scheduled)
+      g.d_ctl[b * ZB + z] = s_dsh[z];
+      g.d_ctl[NB * ZB + b * ZB + z] = s_dsc[z];
+    }
   }
+}
+
+template <typename T, bool kExt>
+int launch_as(const AdjArgs<T>& g, cudaStream_t stream) {
+  const DayArgs<T>& a = g.in;
+  const size_t smem = sizeof(T) * (static_cast<size_t>(a.ZB) * (3 * a.substeps + (kExt ? 11 : 8)) +
+                                   6 * static_cast<size_t>(a.SB));
+  if (smem > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(day_adjoint_kernel<T, kExt>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  day_adjoint_kernel<T, kExt><<<a.NB, a.SB, smem, stream>>>(g);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
@@ -521,18 +657,19 @@ int launch(const AdjArgs<T>& g, cudaStream_t stream) {
       a.hours < 1 || a.refresh_every < 1 || a.substeps % a.refresh_every ||
       (a.substeps + 1) * a.N > kTape)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(T) * (static_cast<size_t>(a.ZB) * (3 * a.substeps + 8) +
-                                   6 * static_cast<size_t>(a.SB));
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        day_adjoint_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  day_adjoint_kernel<T><<<a.NB, a.SB, smem, stream>>>(g);
-  return static_cast<int>(cudaGetLastError());
+  // Thermostat rows come with the load cotangent and the rows' output;
+  // schedule rows with theirs; mixing with both groupings of its entries.
+  const bool ctl = a.ctl != nullptr, sched = a.sp_heat != nullptr;
+  if (ctl != (g.d_ld_hist != nullptr) || ctl != (g.d_ctl != nullptr) || (sched && !ctl) ||
+      sched != (a.sp_cool != nullptr) || sched != (g.d_sp_heat != nullptr) ||
+      sched != (g.d_sp_cool != nullptr) || (a.mix_ptr != nullptr) != (a.mixt_ptr != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // Free-float buildings run the instantiation without the extra zone code.
+  if (ctl || a.mix_ptr) return launch_as<T, true>(g, stream);
+  return launch_as<T, false>(g, stream);
 }
 
-constexpr int kPointers = 30;
+constexpr int kPointers = 43;
 
 template <typename T>
 int day_adjoint(void* const* p, int n_ptrs, const int* ints, const double* reals, void* stream) {
@@ -570,6 +707,19 @@ int day_adjoint(void* const* p, int n_ptrs, const int* ints, const double* reals
   g.d_chan = static_cast<T*>(p[i++]);
   g.d_a = static_cast<T*>(p[i++]);
   g.d_b = static_cast<T*>(p[i++]);
+  g.d_ld_hist = static_cast<const T*>(p[i++]);
+  a.ctl = static_cast<const T*>(p[i++]);
+  a.sp_heat = static_cast<const T*>(p[i++]);
+  a.sp_cool = static_cast<const T*>(p[i++]);
+  a.mix_ptr = static_cast<const int*>(p[i++]);
+  a.mix_src = static_cast<const int*>(p[i++]);
+  a.mix_vol = static_cast<const T*>(p[i++]);
+  a.mixt_ptr = static_cast<const int*>(p[i++]);
+  a.mixt_dst = static_cast<const int*>(p[i++]);
+  a.mixt_vol = static_cast<const T*>(p[i++]);
+  g.d_ctl = static_cast<T*>(p[i++]);
+  g.d_sp_heat = static_cast<T*>(p[i++]);
+  g.d_sp_cool = static_cast<T*>(p[i++]);
   a.N = ints[0];
   a.NB = ints[1];
   a.SB = ints[2];
@@ -591,10 +741,12 @@ int day_adjoint(void* const* p, int n_ptrs, const int* ints, const double* reals
 
 extern "C" {
 
-// Launch on `stream`.  `ptrs` holds the 30 device pointers in the order of
-// DayAdjointKernel (operands, cotangents, workspace, outputs), `ints` N, NB,
-// SB, ZB, hours, substeps, refresh_every, amb_bug, `reals` dt, gamma dt/2,
-// gamma dt, beta dt, c1, c2.  Returns cudaGetLastError() of the launch.
+// Launch on `stream`.  `ptrs` holds the 43 device pointers in the order of
+// DayAdjointKernel (operands, cotangents, workspace, outputs, then the
+// thermostat, schedule and mixing operands and outputs, null where the
+// building has none), `ints` N, NB, SB, ZB, hours, substeps, refresh_every,
+// amb_bug, `reals` dt, gamma dt/2, gamma dt, beta dt, c1, c2.  Returns
+// cudaGetLastError() of the launch.
 int heatx_day_adjoint_f32(void* const* ptrs, int n_ptrs, const int* ints, const double* reals,
                           void* stream) {
   return day_adjoint<float>(ptrs, n_ptrs, ints, reals, stream);

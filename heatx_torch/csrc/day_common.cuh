@@ -2,8 +2,9 @@
 // (day_adjoint.cu): the packed-operand layout, one surface lane's statics,
 // the operator build (film coefficients, linearized radiation, the stage
 // matrix and its Thomas factors), one TR-BDF2 sub-step of a lane's node
-// column, the zone sums and the exact exponential zone update.  Both kernels
-// march with these functions, so the adjoint's recompute is the forward's
+// column, the zone sums, the inter-zone mixing sums, the exact exponential
+// zone update and its setpoint-landing (thermostat) form.  Both kernels march
+// with these functions, so the adjoint's recompute is the forward's
 // arithmetic.  The layout follows heatx_torch/ops/day_march.py (NODE_FIELDS,
 // SURF_FIELDS, LANE_FIELDS).
 #pragma once
@@ -46,6 +47,8 @@ __device__ __forceinline__ float m_abs(float x) { return fabsf(x); }
 __device__ __forceinline__ double m_abs(double x) { return fabs(x); }
 __device__ __forceinline__ float m_max(float x, float y) { return fmaxf(x, y); }
 __device__ __forceinline__ double m_max(double x, double y) { return fmax(x, y); }
+__device__ __forceinline__ float m_min(float x, float y) { return fminf(x, y); }
+__device__ __forceinline__ double m_min(double x, double y) { return fmin(x, y); }
 __device__ __forceinline__ float m_pow(float x, float y) { return powf(x, y); }
 __device__ __forceinline__ double m_pow(double x, double y) { return pow(x, y); }
 __device__ __forceinline__ float m_sqrt(float x) { return sqrtf(x); }
@@ -84,6 +87,17 @@ struct DayArgs {
   const T* b_extra;
   const T* T0;           // [N, SP]
   const T* zT0;          // [NB, ZB]
+  // Thermostats, setpoint schedules and inter-zone mixing: null where the
+  // building has none (the free-float instantiation never reads them).
+  const T* ctl;          // [4, NB, ZB]: heat_sp, cool_sp, max_heat, max_cool
+  const T* sp_heat;      // [hours, NB, ZB] per-hour setpoints (override ctl's)
+  const T* sp_cool;
+  const int* mix_ptr;    // [NB*ZB + 1] mixing entries by destination zone slot
+  const int* mix_src;    // [M] block-local source zone
+  const T* mix_vol;      // [M] flow, m3/s
+  const int* mixt_ptr;   // the same entries by source zone slot (the transpose)
+  const int* mixt_dst;   // [M] block-local destination zone
+  const T* mixt_vol;
   int N, NB, SB, ZB, hours, substeps, refresh_every, amb_bug;
   double dt, half_dt, gamma_dt, beta_dt, c1, c2;
 };
@@ -367,6 +381,79 @@ template <typename T>
 __device__ __forceinline__ T air_capacity(T zt, T volume) {
   const T t_k = zt + T(kKelvin);
   return volume * (T(kRhoNum) / (T(kGasR) * t_k)) * (T(kAirCp0) + T(kAirCp1) * t_k);
+}
+
+// rho(T) cp(T) of zone air, and its derivative in T.
+template <typename T>
+__device__ __forceinline__ T air_rho_cp(T zt) {
+  const T t_k = zt + T(kKelvin);
+  return (T(kRhoNum) / (T(kGasR) * t_k)) * (T(kAirCp0) + T(kAirCp1) * t_k);
+}
+template <typename T>
+__device__ __forceinline__ T air_rho_cp_dt(T zt) {
+  const T t_k = zt + T(kKelvin);
+  const T rho = T(kRhoNum) / (T(kGasR) * t_k);
+  return rho * (T(kAirCp1) - (T(kAirCp0) + T(kAirCp1) * t_k) / t_k);
+}
+
+// Inter-zone mixing into zone slot gz: ventilation whose inlet is the source
+// zone's air at the sub-step's start (zT_old is the block's row then),
+// a += sum s0 T W, b += sum s0 W with s0 = rho cp of the SOURCE zone, summed
+// in the fixed order of the slot's entry list.
+template <typename T>
+__device__ __forceinline__ void mix_sums(const DayArgs<T>& a, int gz, const T* zT_old, T& az,
+                                         T& bz) {
+  T am = T(0), bm = T(0);
+  for (int e = a.mix_ptr[gz]; e < a.mix_ptr[gz + 1]; ++e) {
+    const T zs = zT_old[a.mix_src[e]];
+    const T s0 = air_rho_cp(zs);
+    am += (s0 * zs) * a.mix_vol[e];
+    bm += s0 * a.mix_vol[e];
+  }
+  az += am;
+  bz += bm;
+}
+
+// A zone's thermostat for hour h: the hour's setpoint rows where the march is
+// scheduled, else the compiled rows; capacities always from the compiled rows.
+template <typename T>
+struct Setpoints {
+  T heat, cool, max_heat, max_cool;
+  __device__ Setpoints(const DayArgs<T>& a, int h, int gz) {
+    const int NZ = a.NB * a.ZB;
+    heat = a.sp_heat ? a.sp_heat[(size_t)h * NZ + gz] : a.ctl[gz];
+    cool = a.sp_cool ? a.sp_cool[(size_t)h * NZ + gz] : a.ctl[NZ + gz];
+    max_heat = a.ctl[2 * NZ + gz];
+    max_cool = a.ctl[3 * NZ + gz];
+  }
+};
+
+// The power that lands the exact exponential update on t_set:
+// B (T0 (1 + em) - T_set) / em - A.
+template <typename T>
+__device__ __forceinline__ T landing_power(T zt, T az, T bz, T em, T t_set) {
+  return bz * (zt * (T(1) + em) - t_set) / em - az;
+}
+
+// Zone update with setpoint-driven ideal loads (heatx _zone_update_ctl):
+// predict the free-float temperature; where it crosses a setpoint, inject the
+// power that lands on it, clamped to the capacity.  |B| ~ 0 holds and control
+// stands down; a zero load returns the free-float value bit for bit.  The
+// landing power is formed only on a zone that crossed its setpoint, so the
+// never-act sentinels (-1e9, 1e9) never enter the arithmetic.
+template <typename T>
+__device__ __forceinline__ T zone_update_ctl(T zt, T az, T bz, T volume, T dt,
+                                             const Setpoints<T>& sp, T& load) {
+  load = T(0);
+  if (m_abs(bz) <= T(1e-9)) return zt;
+  const T em = m_expm1(-(bz * dt / air_capacity(zt, volume)));
+  const T t_free = zt - (az / bz - zt) * em;
+  if (t_free < sp.heat)
+    load = m_min(m_max(landing_power(zt, az, bz, em, sp.heat), T(0)), sp.max_heat);
+  else if (t_free > sp.cool)
+    load = m_min(m_max(landing_power(zt, az, bz, em, sp.cool), -sp.max_cool), T(0));
+  if (load == T(0)) return t_free;
+  return zt - ((az + load) / bz - zt) * em;
 }
 
 // The exact exponential zone-air update (model.rs:650-674); |B| ~ 0 holds.

@@ -3,7 +3,9 @@
 //
 // Replaces heatx/ops/pallas_step.py::make_hour_march -> `kernel` (the
 // pl.pallas_call at pallas_step.py:1976) in modes trbdf2 / trbdf2_refresh,
-// body `_hour_body_imp`, for free-float buildings without gas cavities.
+// body `_hour_body_imp`, for buildings without gas cavities: free-float, or
+// with thermostats (`_zone_update_ctl`, the per-hour mean load history),
+// per-hour setpoint schedules and inter-zone mixing.
 // One launch marches `hours` hours of `substeps` sub-steps per sub-step
 // operator group of `refresh_every` (frozen mode: refresh_every == substeps).
 //
@@ -31,6 +33,14 @@
 //    so two runs give the same bits; no float atomics.
 //  * The zone update is the exact exponential with expm1, one thread per
 //    zone.  __syncthreads() separates the phases of each sub-step.
+//  * Thermostats, schedules and mixing are a second instantiation of the
+//    kernel template (kExt), so a free-float building runs the code it ran
+//    without them.  There the zone thread adds the mixing sums of its
+//    sources' sub-step-start temperatures, applies the setpoint-landing
+//    update and accumulates the load.  Because a zone reads other zones' old
+//    temperatures while it computes its own new one, the new row goes to a
+//    second shared row and the two swap after the sub-step's last barrier: no
+//    third barrier.  The hour's mean load goes to ld_hist.
 //  * The hour loop runs inside the kernel; weather per sub-step, the hour's
 //    solar/IR per lane and the zone gains come from device memory.  Outputs:
 //    final T and zT, the last h/q, the per-hour zone history and the
@@ -53,15 +63,18 @@ struct MarchArgs {
   T* hq;       // [4, SP]: h_front, h_back, q_front, q_back
   T* zt_hist;  // [hours, NB, ZB]
   T* bad;      // [hours, NB]
+  T* ld_hist;  // [hours, NB, ZB] mean ideal load per hour (thermostats), or null
 };
 
-template <typename T>
+template <typename T, bool kExt>
 __global__ void __launch_bounds__(kMaxLanes) day_march_kernel(const MarchArgs<T> m) {
   const DayArgs<T>& a = m.in;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* s_zT = reinterpret_cast<T*>(smem_raw);  // [ZB] zone air temperatures
   T* s_haT = s_zT + a.ZB;                    // [2*SB] h*A*T_s per face
   T* s_ha = s_haT + 2 * a.SB;                // [2*SB] h*A per face
+  T* s_zN = s_ha + 2 * a.SB;                 // kExt: [ZB] the sub-step's new zone row
+  T* s_ld = s_zN + a.ZB;                     // kExt: [ZB] the hour's load sum
   __shared__ int s_bad;
 
   const int N = a.N, SB = a.SB, ZB = a.ZB, NB = a.NB;
@@ -74,7 +87,10 @@ __global__ void __launch_bounds__(kMaxLanes) day_march_kernel(const MarchArgs<T>
 
   T Tn[kMaxNodes], T1[kMaxNodes], cs[kMaxNodes], inv[kMaxNodes];
   for (int i = 0; i < N; ++i) Tn[i] = a.T0[i * SP + lane];
-  for (int z = tid; z < ZB; z += SB) s_zT[z] = a.zT0[b * ZB + z];
+  for (int z = tid; z < ZB; z += SB) {
+    s_zT[z] = a.zT0[b * ZB + z];
+    if (kExt) s_ld[z] = T(0);
+  }
   __syncthreads();
 
   Ops<T> o{};
@@ -108,9 +124,26 @@ __global__ void __launch_bounds__(kMaxLanes) day_march_kernel(const MarchArgs<T>
           const int gz = b * ZB + z;
           T az, bz;
           zone_sums(a.zone_ptr, a.zone_faces, gz, s_haT, s_ha, a_ex[z], b_ex[z], az, bz);
-          s_zT[z] = zone_update(s_zT[z], az, bz, a.zone_volume[gz], sc.dt);
+          if (kExt) {
+            if (a.mix_ptr) mix_sums(a, gz, s_zT, az, bz);
+            if (a.ctl) {
+              T load;
+              s_zN[z] = zone_update_ctl(s_zT[z], az, bz, a.zone_volume[gz], sc.dt,
+                                        Setpoints<T>(a, h, gz), load);
+              s_ld[z] += load;
+            } else {
+              s_zN[z] = zone_update(s_zT[z], az, bz, a.zone_volume[gz], sc.dt);
+            }
+          } else {
+            s_zT[z] = zone_update(s_zT[z], az, bz, a.zone_volume[gz], sc.dt);
+          }
         }
         __syncthreads();
+        if (kExt) {  // the new row becomes the current one
+          T* t = s_zT;
+          s_zT = s_zN;
+          s_zN = t;
+        }
       }
     }
 
@@ -122,6 +155,10 @@ __global__ void __launch_bounds__(kMaxLanes) day_march_kernel(const MarchArgs<T>
       const T zt = s_zT[z];
       m.zt_hist[(size_t)h * NB * ZB + b * ZB + z] = zt;
       if (!is_finite(zt)) ++cnt;
+      if (kExt && a.ctl) {
+        m.ld_hist[(size_t)h * NB * ZB + b * ZB + z] = s_ld[z] / T(a.substeps);
+        s_ld[z] = T(0);
+      }
     }
     if (tid == 0) s_bad = 0;
     __syncthreads();
@@ -139,18 +176,30 @@ __global__ void __launch_bounds__(kMaxLanes) day_march_kernel(const MarchArgs<T>
 }
 
 template <typename T>
-int launch(const MarchArgs<T>& m, cudaStream_t stream) {
+int check_args(const MarchArgs<T>& m) {
   const DayArgs<T>& a = m.in;
   if (a.N < 1 || a.N > kMaxNodes || a.SB < 1 || a.SB > kMaxLanes || a.NB < 1 ||
       a.ZB < 1 || a.hours < 1 || a.refresh_every < 1 || a.substeps % a.refresh_every)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(T) * (static_cast<size_t>(a.ZB) + 4 * static_cast<size_t>(a.SB));
+  // Thermostat rows come with a load history; schedules need the rows.
+  if ((a.ctl != nullptr) != (m.ld_hist != nullptr) ||
+      (a.sp_heat != nullptr) != (a.sp_cool != nullptr) || (a.sp_heat && !a.ctl))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaSuccess);
+}
+
+template <typename T, bool kExt>
+int launch_as(const MarchArgs<T>& m, cudaStream_t stream) {
+  const DayArgs<T>& a = m.in;
+  const size_t smem = sizeof(T) * (static_cast<size_t>(a.ZB) * (kExt ? 3 : 1) +
+                                   4 * static_cast<size_t>(a.SB));
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        day_march_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    const cudaError_t e =
+        cudaFuncSetAttribute(day_march_kernel<T, kExt>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  day_march_kernel<T><<<a.NB, a.SB, smem, stream>>>(m);
+  day_march_kernel<T, kExt><<<a.NB, a.SB, smem, stream>>>(m);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -160,9 +209,10 @@ int day_march(const void* node, const void* surf, const void* lane, const void* 
               const void* wdir, const void* sol_f, const void* sol_b, const void* ir_f,
               const void* ir_b, const void* a_extra, const void* b_extra, const void* T0,
               const void* zT0, void* T_out, void* zT_out, void* hq, void* zt_hist, void* bad,
-              int N, int NB, int SB, int ZB, int hours, int substeps, int refresh_every,
-              int amb_bug, double dt, double half_dt, double gamma_dt, double beta_dt,
-              double c1, double c2, void* stream) {
+              void* ld_hist, const void* ctl, const void* sp_heat, const void* sp_cool,
+              const void* mix_ptr, const void* mix_src, const void* mix_vol, int N, int NB, int SB,
+              int ZB, int hours, int substeps, int refresh_every, int amb_bug, double dt,
+              double half_dt, double gamma_dt, double beta_dt, double c1, double c2, void* stream) {
   MarchArgs<T> m;
   DayArgs<T>& a = m.in;
   a.node = static_cast<const T*>(node);
@@ -187,6 +237,16 @@ int day_march(const void* node, const void* surf, const void* lane, const void* 
   m.hq = static_cast<T*>(hq);
   m.zt_hist = static_cast<T*>(zt_hist);
   m.bad = static_cast<T*>(bad);
+  m.ld_hist = static_cast<T*>(ld_hist);
+  a.ctl = static_cast<const T*>(ctl);
+  a.sp_heat = static_cast<const T*>(sp_heat);
+  a.sp_cool = static_cast<const T*>(sp_cool);
+  a.mix_ptr = static_cast<const int*>(mix_ptr);
+  a.mix_src = static_cast<const int*>(mix_src);
+  a.mix_vol = static_cast<const T*>(mix_vol);
+  a.mixt_ptr = nullptr;  // the transposed lists are the adjoint's
+  a.mixt_dst = nullptr;
+  a.mixt_vol = nullptr;
   a.N = N;
   a.NB = NB;
   a.SB = SB;
@@ -201,7 +261,11 @@ int day_march(const void* node, const void* surf, const void* lane, const void* 
   a.beta_dt = beta_dt;
   a.c1 = c1;
   a.c2 = c2;
-  return launch<T>(m, static_cast<cudaStream_t>(stream));
+  const int err = check_args(m);
+  if (err) return err;
+  // Free-float buildings run the instantiation without the extra zone code.
+  if (a.ctl || a.mix_ptr) return launch_as<T, true>(m, static_cast<cudaStream_t>(stream));
+  return launch_as<T, false>(m, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -212,14 +276,15 @@ int day_march(const void* node, const void* surf, const void* lane, const void* 
       const void *wdir, const void *sol_f, const void *sol_b, const void *ir_f,           \
       const void *ir_b, const void *a_extra, const void *b_extra, const void *T0,         \
       const void *zT0, void *T_out, void *zT_out, void *hq, void *zt_hist, void *bad,     \
-      int N, int NB, int SB, int ZB, int hours, int substeps, int refresh_every,          \
-      int amb_bug, double dt, double half_dt, double gamma_dt, double beta_dt, double c1, \
-      double c2, void *stream
+      void *ld_hist, const void *ctl, const void *sp_heat, const void *sp_cool,           \
+      const void *mix_ptr, const void *mix_src, const void *mix_vol, int N, int NB,       \
+      int SB, int ZB, int hours, int substeps, int refresh_every, int amb_bug, double dt, \
+      double half_dt, double gamma_dt, double beta_dt, double c1, double c2, void *stream
 #define HEATX_DAY_MARCH_CALL                                                              \
   node, surf, lane, zone_volume, zone_ptr, zone_faces, t_out, wind, wdir, sol_f, sol_b,   \
-      ir_f, ir_b, a_extra, b_extra, T0, zT0, T_out, zT_out, hq, zt_hist, bad, N, NB, SB,  \
-      ZB, hours, substeps, refresh_every, amb_bug, dt, half_dt, gamma_dt, beta_dt, c1, c2, \
-      stream
+      ir_f, ir_b, a_extra, b_extra, T0, zT0, T_out, zT_out, hq, zt_hist, bad, ld_hist,    \
+      ctl, sp_heat, sp_cool, mix_ptr, mix_src, mix_vol, N, NB, SB, ZB, hours, substeps,   \
+      refresh_every, amb_bug, dt, half_dt, gamma_dt, beta_dt, c1, c2, stream
 
 extern "C" {
 

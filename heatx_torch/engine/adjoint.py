@@ -21,7 +21,10 @@ import torch
 
 def tree_flatten(tree) -> Tuple[list, Callable]:
     """The leaves of a dict/list/tuple/dataclass tree and a function that
-    rebuilds the tree from a list of new leaves."""
+    rebuilds the tree from a list of new leaves.  None is an empty subtree
+    (an optional channel that is absent), not a leaf."""
+    if tree is None:
+        return [], lambda leaves: None
     if isinstance(tree, dict):
         keys = list(tree)
         parts = [tree_flatten(tree[k]) for k in keys]

@@ -25,6 +25,10 @@ class SimState:
     h_back: torch.Tensor  # [S]
     q_front: torch.Tensor  # [S] front convective heat flow, W/m2
     q_back: torch.Tensor  # [S]
+    # [Z] ideal-loads power (W, heating positive) of a building with
+    # thermostats: the mean over the last marched hour.  None on other
+    # buildings (an absent leaf of the state tree).
+    ideal_load: torch.Tensor = None
 
 
 @dataclasses.dataclass
@@ -33,9 +37,11 @@ class StepInputs:
     on each channel — for a sequence (``FastRunner.run``).
 
     Weather entries may be scalars (held over the sub-steps) or per-hour
-    series.  heatx's optional channels (``mix_vol``, ``heat_sp``,
-    ``cool_sp``, ``shade_sp``) come with the slices that use them (ROADMAP
-    A6, A9).
+    series.  ``heat_sp``/``cool_sp`` are optional thermostat setpoint
+    schedules for a ``scheduled_setpoints`` runner (None: the compiled
+    setpoints).  heatx's other optional channels (``mix_vol``, ``shade_sp``)
+    come with the slices that use them (ROADMAP A9, A10): the day march
+    mixes at the compiled flows.
     """
 
     t_out: torch.Tensor  # scalar or [T]
@@ -53,6 +59,8 @@ class StepInputs:
     vent_vol: torch.Tensor  # [Z]
     vent_temp: torch.Tensor  # [Z]
     vent_mask: torch.Tensor  # [Z] bool
+    heat_sp: torch.Tensor = None  # scalar, [Z], [1, Z], [T] or [T, Z] heating setpoints, C
+    cool_sp: torch.Tensor = None
 
     def replace(self, **kw) -> "StepInputs":
         return dataclasses.replace(self, **kw)
@@ -72,6 +80,7 @@ def initial_state(building, dtype=None, device="cpu") -> SimState:
         h_back=torch.full((S,), INITIAL_CONVECTION_COEFFICIENT, **kw),
         q_front=torch.zeros((S,), **kw),
         q_back=torch.zeros((S,), **kw),
+        ideal_load=torch.zeros((Z,), **kw) if building.has_ideal_hvac else None,
     )
 
 

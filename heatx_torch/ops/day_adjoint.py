@@ -1,17 +1,23 @@
 """The adjoint day march: heatx's reverse-sweep Pallas kernel, on PyTorch/CUDA.
 
 Counterpart of ``heatx.ops.pallas_adjoint`` for modes ``trbdf2`` and
-``trbdf2_refresh`` on free-float buildings.  :func:`make_day_adjoint`
-returns ``day_adjoint(params, T0, zT0, hour_inputs, cots) -> dict`` with
-heatx's call signature, keys and blocked shapes: ``params`` and
-``hour_inputs`` are those of :func:`heatx_torch.ops.day_march.make_hour_march`,
-``T0 [N, SP]``/``zT0 [NB, ZB]`` the day-START state, and ``cots = (dT_final,
-d_zT_final, d_zt_hist[, d_ld_hist])`` the cotangents of the day's outputs
-(any may be None for zero; ``d_ld_hist`` must be None: thermostats are not
-ported).  The dict holds ``dT0`` [N, SP], ``d_zT0`` [NB, ZB], ``d_params``
-({name: [N, SP] for DIFF_NODE, [SP] for DIFF_SURF}), ``d_zone_volume``
-[NB, ZB], ``d_sol_front``/``d_sol_back``/``d_ir_front``/``d_ir_back``
-[hours, SP] and ``d_a_extra``/``d_b_extra`` [hours, NB, ZB].
+``trbdf2_refresh``, with thermostats, scheduled setpoints and inter-zone
+mixing.  :func:`make_day_adjoint` returns ``day_adjoint(params, T0, zT0,
+hour_inputs, cots) -> dict`` with heatx's call signature, keys and blocked
+shapes: ``params`` and ``hour_inputs`` are those of
+:func:`heatx_torch.ops.day_march.make_hour_march`, ``T0 [N, SP]``/``zT0 [NB,
+ZB]`` the day-START state, and ``cots = (dT_final, d_zT_final, d_zt_hist[,
+d_ld_hist])`` the cotangents of the day's outputs (any may be None for zero;
+``d_ld_hist``, the cotangent of the per-hour mean ideal loads, needs
+thermostats).  The dict holds ``dT0`` [N, SP], ``d_zT0`` [NB, ZB],
+``d_params`` ({name: [N, SP] for DIFF_NODE, [SP] for DIFF_SURF}),
+``d_zone_volume`` [NB, ZB], ``d_sol_front``/``d_sol_back``/``d_ir_front``/
+``d_ir_back`` [hours, SP] and ``d_a_extra``/``d_b_extra`` [hours, NB, ZB];
+with thermostats also ``d_ctl_heat``/``d_ctl_cool`` [NB, ZB] (the compiled
+setpoint rows; zero under scheduled setpoints, where the march reads the
+schedule instead) and, under ``scheduled_setpoints``, ``d_sp_heat``/
+``d_sp_cool`` [hours, NB, ZB].  The capacities ``max_heat``/``max_cool``,
+the mixing flows and the masks are not differentiated, as in heatx.
 
 Dispatch is by device, with no fallback: CPU tensors run the plain version
 (:func:`plain_day_adjoint`), CUDA tensors launch the hand-written kernel in
@@ -31,8 +37,7 @@ forward is the day march and whose backward is the day adjoint, so a chain
 of days differentiates with ``torch.autograd`` (``FastRunner.chunk_grad``).
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): the thermostat and schedule cotangents, inter-zone mixing, the
-interior-MRT emissivities, parity mode, gas cavities.
+item): the interior-MRT emissivities, parity mode, gas cavities.
 """
 
 from __future__ import annotations
@@ -69,33 +74,45 @@ KERNEL_SOURCE = cuda_lib.CSRC_DIR / "day_adjoint.cu"
 
 def plain_day_adjoint(
     params: DayMarchParams, T0, zT0, t_out, wind, wdir, sol_front, sol_back,
-    ir_front, ir_back, a_extra, b_extra, dT, d_zT, d_zt_hist, *, hours: int,
-    substeps: int, refresh_every: int, dt: float, config,
+    ir_front, ir_back, a_extra, b_extra, sp_heat, sp_cool, dT, d_zT, d_zt_hist,
+    d_ld_hist, *, hours: int, substeps: int, refresh_every: int, dt: float, config,
 ):
     """The plain PyTorch day adjoint on any device: the reference the CUDA
-    kernel is held against.  Operands as ``day_march.plain_day_march`` plus
-    the cotangents ``dT`` [N, SP], ``d_zT`` [NB, ZB] and ``d_zt_hist``
-    [hours, NB, ZB].  Returns ``(dT0 [N, SP], d_zT0 [NB, ZB], d_node
-    [4, N, SP], d_surf [13, SP], d_zone_volume [NB, ZB], d_chan
-    [4, hours, SP], d_a_extra, d_b_extra [hours, NB, ZB])``; ``d_node``
-    follows NODE_FIELDS with the capacity row holding the ``mass`` cotangent,
-    ``d_surf`` follows SURF_FIELDS (normal rows 0), ``d_chan`` follows
-    DIFF_CHANNELS."""
+    kernel is held against.  Operands as ``day_march.plain_day_march``
+    (``sp_heat``/``sp_cool`` None without a schedule) plus the cotangents
+    ``dT`` [N, SP], ``d_zT`` [NB, ZB], ``d_zt_hist`` and ``d_ld_hist``
+    [hours, NB, ZB] (the last None without thermostats).  Returns ``(dT0
+    [N, SP], d_zT0 [NB, ZB], d_node [4, N, SP], d_surf [13, SP],
+    d_zone_volume [NB, ZB], d_chan [4, hours, SP], d_a_extra, d_b_extra
+    [hours, NB, ZB], d_ctl [4, NB, ZB], d_sp_heat, d_sp_cool [hours, NB,
+    ZB])``; ``d_node`` follows NODE_FIELDS with the capacity row holding the
+    ``mass`` cotangent, ``d_surf`` follows SURF_FIELDS (normal rows 0),
+    ``d_chan`` follows DIFF_CHANNELS, ``d_ctl`` the thermostat rows (capacity
+    rows 0; None without thermostats), ``d_sp_*`` None without a schedule."""
     NB, ZB = params.n_blocks, params.zones_per_block
+    has_ctl, sched = params.ctl is not None, sp_heat is not None
+    mix = day_march._mix_slots(params)
     kw = dict(
         cfg=config, t_out_arr=t_out, wind_arr=wind, wdir_arr=wdir,
-        substeps=substeps, dt_sub=dt, refresh_every=refresh_every,
+        substeps=substeps, dt_sub=dt, refresh_every=refresh_every, mix=mix,
     )
 
-    def hour(p, zone_volume, h, T, zT, chans, a_h, b_h):
+    def hour(p, zone_volume, h, T, zT, chans, a_h, b_h, sp_h):
         sbv = day_march._lanes(p)
         st = surf_mod.compute_statics(sbv)  # inside the tape: cos_tilt's TARP coefficients
-        T, zT, _ = day_march._hour_body_imp(
+        ctl = None
+        if has_ctl:
+            rows = p.ctl.reshape(4, -1)
+            ctl = (sp_h if sched else (rows[0], rows[1])) + (rows[2], rows[3])
+        T, zT, _, ld = day_march._hour_body_imp(
             sbv=sbv, st=st, zone_volume=zone_volume, a_extra=a_h, b_extra=b_h,
             sol_front=chans[0], sol_back=chans[1], ir_front=chans[2], ir_back=chans[3],
-            T0=T, zT0=zT, off=h * substeps, **kw,
+            T0=T, zT0=zT, off=h * substeps, ctl=ctl, **kw,
         )
-        return T, zT
+        return T, zT, ld
+
+    def sp_rows(h):
+        return (sp_heat[h].reshape(-1), sp_cool[h].reshape(-1)) if sched else ()
 
     channels = (sol_front, sol_back, ir_front, ir_back)
     starts = []
@@ -103,18 +120,22 @@ def plain_day_adjoint(
         T, zT = T0, zT0.reshape(-1)
         for h in range(hours):
             starts.append((T, zT))
-            T, zT = hour(params, params.zone_volume.reshape(-1), h, T, zT,
-                         [c[h] for c in channels], a_extra[h].reshape(-1), b_extra[h].reshape(-1))
+            T, zT, _ = hour(params, params.zone_volume.reshape(-1), h, T, zT,
+                            [c[h] for c in channels], a_extra[h].reshape(-1),
+                            b_extra[h].reshape(-1), sp_rows(h))
 
     node = params.node.detach().requires_grad_()
     surf = params.surf.detach().requires_grad_()
     zone_volume = params.zone_volume.detach().reshape(-1).requires_grad_()
-    p = replace(params, node=node, surf=surf)
+    ctl = params.ctl.detach().requires_grad_() if has_ctl else None
+    p = replace(params, node=node, surf=surf, ctl=ctl)
     gT, gz = dT, d_zT.reshape(-1)
     g_node, g_surf, g_zv = (torch.zeros_like(x) for x in (node, surf, zone_volume))
+    g_ctl = torch.zeros_like(ctl) if has_ctl else None
     g_chan = torch.zeros((4,) + tuple(sol_front.shape), dtype=T0.dtype, device=T0.device)
     g_a = torch.zeros_like(a_extra)
     g_b = torch.zeros_like(b_extra)
+    g_sp = (torch.zeros_like(sp_heat), torch.zeros_like(sp_cool)) if sched else (None, None)
     for h in reversed(range(hours)):
         gz = gz + d_zt_hist[h].reshape(-1)
         with torch.enable_grad():
@@ -123,9 +144,14 @@ def plain_day_adjoint(
             chans = [c[h].detach().requires_grad_() for c in channels]
             a_h = a_extra[h].reshape(-1).detach().requires_grad_()
             b_h = b_extra[h].reshape(-1).detach().requires_grad_()
-            T1, zT1 = hour(p, zone_volume, h, T, zT, chans, a_h, b_h)
-            leaves = (T, zT, node, surf, zone_volume, *chans, a_h, b_h)
-            grads = torch.autograd.grad((T1, zT1), leaves, (gT, gz), allow_unused=True)
+            sp_h = tuple(x.detach().requires_grad_() for x in sp_rows(h))
+            T1, zT1, ld = hour(p, zone_volume, h, T, zT, chans, a_h, b_h, sp_h)
+            leaves = (T, zT, node, surf, zone_volume, *chans, a_h, b_h) + sp_h
+            leaves += (ctl,) if has_ctl else ()
+            outs, cots = (T1, zT1), (gT, gz)
+            if has_ctl:
+                outs, cots = outs + (ld,), cots + (d_ld_hist[h].reshape(-1),)
+            grads = torch.autograd.grad(outs, leaves, cots, allow_unused=True)
         grads = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
         gT, gz = grads[0], grads[1]
         g_node += grads[2]
@@ -135,17 +161,25 @@ def plain_day_adjoint(
             g_chan[c, h] = grads[5 + c]
         g_a[h] = grads[9].reshape(NB, ZB)
         g_b[h] = grads[10].reshape(NB, ZB)
+        if sched:
+            g_sp[0][h] = grads[11].reshape(NB, ZB)
+            g_sp[1][h] = grads[12].reshape(NB, ZB)
+        if has_ctl:
+            g_ctl += grads[-1]
     # The capacity row holds the mass cotangent: capacity = where(massive, mass, 0).
     g_node[1] = torch.where(day_march.bit_rows(params, "mass_bits"), g_node[1], 0.0)
     g_surf[SURF_FIELDS.index("normal_x"):] = 0.0
-    return gT, gz.reshape(NB, ZB), g_node, g_surf, g_zv.reshape(NB, ZB), g_chan, g_a, g_b
+    if has_ctl:
+        g_ctl[2:] = 0.0  # the capacities are not differentiated
+    return (gT, gz.reshape(NB, ZB), g_node, g_surf, g_zv.reshape(NB, ZB), g_chan, g_a, g_b,
+            g_ctl, *g_sp)
 
 
 # ---------------------------------------------------------------------------
 # The CUDA kernel wrapper
 # ---------------------------------------------------------------------------
 
-_N_PTRS = 30
+_N_PTRS = 43
 
 
 def _load_library():
@@ -169,55 +203,41 @@ def load_kernel() -> None:
 class DayAdjointKernel:
     """Launches ``day_adjoint.cu`` on CUDA tensors.  ``launches`` counts the
     launches made through this wrapper (and nothing else).  Arguments and
-    returns as :func:`plain_day_adjoint`; no cotangent may be None here."""
+    returns as :func:`plain_day_adjoint`; of the cotangents only
+    ``d_ld_hist`` may be None here (and must be, without thermostats)."""
 
     def __init__(self):
         self.launches = 0
 
     def __call__(
         self, params: DayMarchParams, T0, zT0, t_out, wind, wdir, sol_front,
-        sol_back, ir_front, ir_back, a_extra, b_extra, dT, d_zT, d_zt_hist, *,
-        hours: int, substeps: int, refresh_every: int, dt: float, config,
+        sol_back, ir_front, ir_back, a_extra, b_extra, sp_heat, sp_cool, dT, d_zT,
+        d_zt_hist, d_ld_hist, *, hours: int, substeps: int, refresh_every: int,
+        dt: float, config,
     ):
         N, NB, ZB = params.max_nodes, params.n_blocks, params.zones_per_block
         SB = params.block_size
         SP = NB * SB
         dtype = T0.dtype
-        if dtype not in (torch.float32, torch.float64):
-            raise TypeError(f"day_adjoint kernel takes float32/float64, got {dtype}")
-        if SB > day_march.MAX_BLOCK_LANES:
-            raise ValueError(f"block of {SB} lanes > {day_march.MAX_BLOCK_LANES} (use a smaller block_size)")
-        if N > day_march.MAX_NODES:
-            raise ValueError(f"{N} nodes per surface > {day_march.MAX_NODES}")
-        if substeps % refresh_every:
-            raise ValueError(f"refresh_every {refresh_every} must divide substeps {substeps}")
         if (substeps + 1) * N > MAX_TAPE:
             raise ValueError(
                 f"(substeps + 1) * nodes = {(substeps + 1) * N} > {MAX_TAPE}: the "
                 "adjoint kernel's per-thread tape holds one hour of sub-step states"
             )
-        expect = {
-            "node": (params.node, (4, N, SP), dtype),
-            "surf": (params.surf, (len(SURF_FIELDS), SP), dtype),
-            "lane": (params.lane, (len(day_march.LANE_FIELDS), SP), torch.int32),
-            "zone_volume": (params.zone_volume, (NB, ZB), dtype),
-            "zone_ptr": (params.zone_ptr, (NB * ZB + 1,), torch.int32),
-            "zone_faces": (params.zone_faces, tuple(params.zone_faces.shape), torch.int32),
-            "t_out": (t_out, (hours * substeps,), dtype),
-            "wind": (wind, (hours * substeps,), dtype),
-            "wdir": (wdir, (hours * substeps,), dtype),
-            "sol_front": (sol_front, (hours, SP), dtype),
-            "sol_back": (sol_back, (hours, SP), dtype),
-            "ir_front": (ir_front, (hours, SP), dtype),
-            "ir_back": (ir_back, (hours, SP), dtype),
-            "a_extra": (a_extra, (hours, NB, ZB), dtype),
-            "b_extra": (b_extra, (hours, NB, ZB), dtype),
-            "T0": (T0, (N, SP), dtype),
-            "zT0": (zT0, (NB, ZB), dtype),
-            "dT": (dT, (N, SP), dtype),
-            "d_zT": (d_zT, (NB, ZB), dtype),
+        has_ctl, sched, mix = params.ctl is not None, sp_heat is not None, params.mix
+        if d_ld_hist is not None and not has_ctl:
+            raise ValueError("d_ld_hist needs thermostat rows (params.ctl)")
+        expect = day_march.launch_operands(
+            "day_adjoint", params, T0, zT0, t_out, wind, wdir, sol_front, sol_back, ir_front,
+            ir_back, a_extra, b_extra, sp_heat, sp_cool, hours=hours, substeps=substeps,
+            refresh_every=refresh_every,
+        )
+        expect.update({
+            "dT": (dT, (N, SP), dtype), "d_zT": (d_zT, (NB, ZB), dtype),
             "d_zt_hist": (d_zt_hist, (hours, NB, ZB), dtype),
-        }
+        })
+        if has_ctl:
+            expect["d_ld_hist"] = (d_ld_hist, (hours, NB, ZB), dtype)
         cuda_lib.check_operands(expect, T0.device)
         lib = _load_library()
         fn = lib.heatx_day_adjoint_f32 if dtype == torch.float32 else lib.heatx_day_adjoint_f64
@@ -230,9 +250,22 @@ class DayAdjointKernel:
             torch.empty((4, N, SP), **kw), torch.empty((len(SURF_FIELDS), SP), **kw),
             torch.empty((NB, ZB), **kw), torch.empty((4, hours, SP), **kw),
             torch.empty((hours, NB, ZB), **kw), torch.empty((hours, NB, ZB), **kw),
+            # The thermostat rows' cotangent: the kernel writes the two
+            # setpoint rows, the capacity rows stay 0.
+            torch.zeros((4, NB, ZB), **kw) if has_ctl else None,
+            torch.empty((hours, NB, ZB), **kw) if sched else None,
+            torch.empty((hours, NB, ZB), **kw) if sched else None,
         )
-        tensors = [t for t, _, _ in expect.values()] + [T_ws, zT_ws, *outs]
-        ptrs = (ctypes.c_void_p * _N_PTRS)(*[t.data_ptr() for t in tensors])
+        tensors = [
+            params.node, params.surf, params.lane, params.zone_volume, params.zone_ptr,
+            params.zone_faces, t_out, wind, wdir, sol_front, sol_back, ir_front, ir_back,
+            a_extra, b_extra, T0, zT0, dT, d_zT, d_zt_hist, T_ws, zT_ws, *outs[:8],
+            d_ld_hist, params.ctl, sp_heat, sp_cool,
+            *((None,) * 6 if mix is None
+              else (mix.ptr, mix.src, mix.vol, mix.t_ptr, mix.t_dst, mix.t_vol)),
+            *outs[8:],
+        ]
+        ptrs = (ctypes.c_void_p * _N_PTRS)(*[None if t is None else t.data_ptr() for t in tensors])
         ints = (ctypes.c_int * 8)(
             N, NB, SB, ZB, hours, substeps, refresh_every, int(config.replicate_ambient_back_bug)
         )
@@ -268,12 +301,15 @@ class DayAdjoint:
         self.substeps = hour_march.substeps
 
     def _args(self, params, T0, zT0, hour_inputs, cots):
-        T0, zT0, *hi = self._hm._operands(T0, zT0, hour_inputs)
+        T0, zT0, *hi = self._hm._operands(params, T0, zT0, hour_inputs)
+        sp = tuple(hi[9:]) if self._hm.scheduled_setpoints else (None, None)
         cots = tuple(cots) + (None,) * (4 - len(cots))
         dT, d_zT, d_zth, d_ld = cots
-        if d_ld is not None:
-            raise NotImplementedError(
-                "the thermostat load cotangent d_ld_hist is ROADMAP B2 (not ported yet)"
+        has_ctl = params.ctl is not None
+        if d_ld is not None and not has_ctl:
+            raise ValueError(
+                "d_ld_hist, the ideal-load cotangent, requires setpoint-driven HVAC "
+                "(IdealHeaterCooler with heat/cool setpoints)"
             )
         H, NB, ZB = self.hours, self._hm.n_blocks, self._hm.zones_per_block
 
@@ -282,8 +318,9 @@ class DayAdjoint:
                 return torch.zeros(shape, dtype=like.dtype, device=like.device)
             return torch.as_tensor(c, dtype=like.dtype, device=like.device).reshape(shape).contiguous()
 
-        cots = (cot(dT, T0, T0.shape), cot(d_zT, T0, (NB, ZB)), cot(d_zth, T0, (H, NB, ZB)))
-        return (params, T0, zT0, *hi, *cots)
+        cots = (cot(dT, T0, T0.shape), cot(d_zT, T0, (NB, ZB)), cot(d_zth, T0, (H, NB, ZB)),
+                cot(d_ld, T0, (H, NB, ZB)) if has_ctl else None)
+        return (params, T0, zT0, *hi[:9], *sp, *cots)
 
     def raw(self, params, T0, zT0, hour_inputs, cots, plain=False):
         args = self._args(params, T0, zT0, hour_inputs, cots)
@@ -296,14 +333,19 @@ class DayAdjoint:
 
     @staticmethod
     def _dict(outs):
-        dT0, d_zT0, d_node, d_surf, d_zv, d_chan, d_a, d_b = outs
+        dT0, d_zT0, d_node, d_surf, d_zv, d_chan, d_a, d_b, d_ctl, d_sph, d_spc = outs
         d_params = {name: d_node[NODE_ROW[name]] for name in DIFF_NODE}
         d_params.update({name: d_surf[SURF_FIELDS.index(name)] for name in DIFF_SURF})
-        return {
+        out = {
             "dT0": dT0, "d_zT0": d_zT0, "d_params": d_params, "d_zone_volume": d_zv,
             **{"d_" + name: d_chan[i] for i, name in enumerate(DIFF_CHANNELS)},
             "d_a_extra": d_a, "d_b_extra": d_b,
         }
+        if d_ctl is not None:
+            out.update(d_ctl_heat=d_ctl[0], d_ctl_cool=d_ctl[1])
+        if d_sph is not None:
+            out.update(d_sp_heat=d_sph, d_sp_cool=d_spc)
+        return out
 
     def __call__(self, params, T0, zT0, hour_inputs, cots):
         return self._dict(self.raw(params, T0, zT0, hour_inputs, cots))
@@ -319,56 +361,79 @@ def make_day_adjoint(
     hours: int = 1,
     refresh_every: int = None,
     device="cuda",
+    scheduled_setpoints: bool = False,
 ) -> DayAdjoint:
     """Build the day adjoint (heatx ``make_day_adjoint`` for modes
     ``trbdf2``/``trbdf2_refresh``): ``day_adjoint(params, T0, zT0,
     hour_inputs, cots) -> dict``, taking the ``params`` that
-    ``make_hour_march`` returns for the same arguments.  ``device`` is
+    ``make_hour_march`` returns for the same arguments (with
+    ``scheduled_setpoints``, the 11-leaf hour inputs too).  ``device`` is
     checked as ``make_hour_march`` checks it (``"cuda"``, the default,
     raises without a GPU)."""
     if mode == "parity":
         raise NotImplementedError("the parity-mode adjoint is ROADMAP B3/B4 (not ported yet)")
     day_march._check_supported(bb.base)
     cuda_lib.resolve_device(device)
-    return DayAdjoint(day_march.hour_march_for(bb, substeps, mode, hours, refresh_every))
+    return DayAdjoint(day_march.hour_march_for(
+        bb, substeps, mode, hours, refresh_every, scheduled_setpoints=scheduled_setpoints
+    ))
 
 
-class DayMarchFn(torch.autograd.Function):
+class _DayMarch(torch.autograd.Function):
+    """The autograd node behind :class:`DayMarchFn`: ``apply(hour_march,
+    day_adjoint, params, node, surf, zone_volume, ctl, T, zT,
+    *hour_inputs)``, ``ctl`` the thermostat rows or None."""
+
+    @staticmethod
+    def forward(ctx, hour_march, day_adjoint, params, node, surf, zone_volume, ctl, T, zT, *hour_inputs):
+        p = replace(params, node=node, surf=surf, zone_volume=zone_volume, ctl=ctl)
+        outs = hour_march(p, T, zT, hour_inputs)
+        T1, zT1, hq, zt_hist = outs[:4]
+        ctx.save_for_backward(node, surf, zone_volume, ctl, T, zT, *hour_inputs)
+        ctx.params = params
+        ctx.adjoint = day_adjoint
+        ctx.mark_non_differentiable(*hq)
+        # The load history is the last output of a thermostat march.
+        return (T1, zT1, zt_hist) + tuple(hq) + ((outs[-1],) if ctl is not None else ())
+
+    @staticmethod
+    def backward(ctx, gT, gzT, g_hist, *rest):
+        node, surf, zone_volume, ctl, T, zT, *hour_inputs = ctx.saved_tensors
+        p = replace(ctx.params, node=node, surf=surf, zone_volume=zone_volume, ctl=ctl)
+        g_ld = rest[4] if ctl is not None else None
+        dT0, d_zT0, d_node, d_surf, d_zv, d_chan, d_a, d_b, d_ctl, d_sph, d_spc = ctx.adjoint(
+            p, T, zT, hour_inputs, (gT, gzT, g_hist, g_ld)
+        )
+        d_hi = (None, None, None, *d_chan, d_a, d_b, d_sph, d_spc)
+        d_hi = tuple(None if d is None else d.reshape(x.shape) for d, x in zip(d_hi, hour_inputs))
+        return (None, None, None, d_node, d_surf, d_zv.reshape(zone_volume.shape), d_ctl,
+                dT0.reshape(T.shape), d_zT0.reshape(zT.shape)) + d_hi
+
+
+class DayMarchFn:
     """The day march with the day adjoint as its backward.
 
     ``DayMarchFn.apply(hour_march, day_adjoint, params, node, surf,
-    zone_volume, T, zT, *hour_inputs)`` runs ``hour_march`` on ``params``
-    with its ``node``/``surf``/``zone_volume`` replaced by the given tensors
-    (so their cotangents reach whatever built them, e.g.
+    zone_volume, T, zT, *hour_inputs, ctl=None)`` runs ``hour_march`` on
+    ``params`` with its ``node``/``surf``/``zone_volume`` (and, on a building
+    with thermostats, its rows ``ctl``) replaced by the given tensors (so
+    their cotangents reach whatever built them, e.g.
     :class:`~heatx_torch.ops.day_march.ParamBlocker`) and returns ``(T, zT,
-    zt_hist, h_front, h_back, q_front, q_back)``.  The backward calls
-    ``day_adjoint`` (:meth:`DayAdjoint.raw`, or anything with its signature
-    and returns) on the cotangents of T, zT and zt_hist; h/q are
-    marked non-differentiable (heatx does not propagate their cotangents
-    either, api.py:853-855).  The capacity row's cotangent is the ``mass``
-    cotangent (0 on no-mass nodes, where the capacity is the constant 0).
+    zt_hist, h_front, h_back, q_front, q_back)``, plus ``ld_hist`` when
+    ``ctl`` is given.  The backward calls ``day_adjoint``
+    (:meth:`DayAdjoint.raw`, or anything with its signature and returns) on
+    the cotangents of T, zT, zt_hist and ld_hist; h/q are marked
+    non-differentiable (heatx does not propagate their cotangents either,
+    api.py:853-855).  The capacity row's cotangent is the ``mass`` cotangent
+    (0 on no-mass nodes, where the capacity is the constant 0); the
+    thermostat capacities get none.  Under scheduled setpoints the 11-leaf
+    ``hour_inputs`` carry the setpoint rows and receive their cotangents.
     ``hour_march`` may be an HourMarch or its ``.plain``; ``day_adjoint``
     ``DayAdjoint.raw`` or ``functools.partial(DayAdjoint.raw, plain=True)``.
     """
 
     @staticmethod
-    def forward(ctx, hour_march, day_adjoint, params, node, surf, zone_volume, T, zT, *hour_inputs):
-        p = replace(params, node=node, surf=surf, zone_volume=zone_volume)
-        T1, zT1, hq, zt_hist = hour_march(p, T, zT, hour_inputs)[:4]
-        ctx.save_for_backward(node, surf, zone_volume, T, zT, *hour_inputs)
-        ctx.params = params
-        ctx.adjoint = day_adjoint
-        ctx.mark_non_differentiable(*hq)
-        return (T1, zT1, zt_hist) + tuple(hq)
-
-    @staticmethod
-    def backward(ctx, gT, gzT, g_hist, *_):
-        node, surf, zone_volume, T, zT, *hour_inputs = ctx.saved_tensors
-        p = replace(ctx.params, node=node, surf=surf, zone_volume=zone_volume)
-        dT0, d_zT0, d_node, d_surf, d_zv, d_chan, d_a, d_b = ctx.adjoint(
-            p, T, zT, hour_inputs, (gT, gzT, g_hist)
+    def apply(hour_march, day_adjoint, params, node, surf, zone_volume, T, zT, *hour_inputs, ctl=None):
+        return _DayMarch.apply(
+            hour_march, day_adjoint, params, node, surf, zone_volume, ctl, T, zT, *hour_inputs
         )
-        d_hi = (None, None, None, *d_chan, d_a, d_b)
-        d_hi = tuple(None if d is None else d.reshape(x.shape) for d, x in zip(d_hi, hour_inputs))
-        return (None, None, None, d_node, d_surf, d_zv.reshape(zone_volume.shape),
-                dT0.reshape(T.shape), d_zT0.reshape(zT.shape)) + d_hi

@@ -1,15 +1,21 @@
 """The TR-BDF2 day march: heatx's fused Pallas hour kernel, on PyTorch/CUDA.
 
 Counterpart of ``heatx.ops.pallas_step`` for modes ``trbdf2`` and
-``trbdf2_refresh`` on free-float buildings.  :func:`make_hour_march` returns
-``(hour_march, params)`` with heatx's call signature and output layout:
-``hour_march(params, T [N, SP], zT [NB, ZB], hour_inputs)`` marches
-``hours`` hours of ``substeps`` sub-steps per call and returns
-``(T, zT, (h_front, h_back, q_front, q_back), zt_hist [hours, NB, ZB])``,
-plus ``bad [hours, NB]`` (the per-hour non-finite state count) with
-``collect_bad``.  ``hour_inputs`` is heatx's 9-tuple ``(t_out, wind, wdir
-[hours*substeps], sol_front, sol_back, ir_front, ir_back [hours, SP],
-a_extra, b_extra [hours, NB, ZB])``.
+``trbdf2_refresh``, on free-float buildings and on buildings with
+thermostats (setpoint-driven ideal loads), scheduled setpoints and
+inter-zone mixing.  :func:`make_hour_march` returns ``(hour_march, params)``
+with heatx's call signature and output layout: ``hour_march(params, T [N,
+SP], zT [NB, ZB], hour_inputs)`` marches ``hours`` hours of ``substeps``
+sub-steps per call and returns ``(T, zT, (h_front, h_back, q_front, q_back),
+zt_hist [hours, NB, ZB])``, plus ``bad [hours, NB]`` (the per-hour non-finite
+state count) with ``collect_bad``, plus ``ld_hist [hours, NB, ZB]`` (the
+per-hour mean ideal-load power, W, heating positive) when the building has
+thermostats (``hour_march.collect_loads``).  ``hour_inputs`` is heatx's
+9-tuple ``(t_out, wind, wdir [hours*substeps], sol_front, sol_back, ir_front,
+ir_back [hours, SP], a_extra, b_extra [hours, NB, ZB])``; a
+``scheduled_setpoints`` march also takes the 11-tuple that appends the
+per-hour setpoint rows ``sp_heat, sp_cool [hours, NB, ZB]`` (a 9-tuple there
+falls back to the compiled rows ``params.ctl``).
 
 Dispatch is by device, with no fallback: on CPU tensors the call runs the
 plain PyTorch twin (:func:`plain_day_march`); on CUDA tensors it launches the
@@ -30,6 +36,13 @@ Design, and what of heatx's kernel is deliberately not carried over:
   transposed copies) are not ported.
 * The zone update uses ``expm1``; heatx's ``_expm1_neg`` series exists only
   because Mosaic has no expm1.
+* Inter-zone mixing keeps the meaning of heatx's dense ``mix_wt[b*ZB + from,
+  to]`` as per-block entry lists (:class:`MixLists`): grouped by destination
+  zone in a fixed order for the march, and by source zone for the adjoint's
+  transpose.  A zone reads its sources' sub-step-start temperatures, so the
+  kernel writes the new zone row into a second shared row and swaps the two.
+* The thermostat, schedule and mixing code is a second instantiation of the
+  kernel template: free-float buildings run the code they ran before.
 * Mosaic layout workarounds are gone: ``_row01`` and the rank-2 ``[1, ZB]``
   zone rows, the 8-row zone padding (``zone_spec``/``_pad_zone_rows``) and
   the HR8 hour padding, full-block broadcast writes, ``vmem_limit_mb`` /
@@ -49,9 +62,8 @@ from torch tensors, and ``heatx_torch.ops.day_adjoint`` holds the reverse
 sweep (the adjoint kernel and ``DayMarchFn``).
 
 Not ported yet (each raises ``NotImplementedError``): the parity body, gas
-cavities, interior MRT, thermostats, inter-zone mixing, in-run shading and
-vent gates (ROADMAP A6, A7, A9), ``collect_hq``/``collect_operative`` (A9)
-and sharding (A12).
+cavities, interior MRT, in-run shading and vent gates (ROADMAP A7, A9),
+``collect_hq``/``collect_operative`` (A9) and sharding (A12).
 """
 
 from __future__ import annotations
@@ -70,6 +82,7 @@ from heatx_torch.config import SimConfig
 from heatx_torch.constants import KELVIN
 from heatx_torch.engine import implicit as imp_mod
 from heatx_torch.engine import surface as surf_mod
+from heatx_torch.engine import zone as zone_mod
 from heatx_torch.ops import cuda_lib, tridiag
 from heatx_torch.physics import gas
 
@@ -104,6 +117,70 @@ LANE_PADS = {
 }
 
 
+#: Never-act thermostat sentinels of padded and uncontrolled zone slots:
+#: heating setpoint, cooling setpoint, heating capacity, cooling capacity.
+CTL_FILL = (-1e9, 1e9, 0.0, 0.0)
+
+
+@dataclasses.dataclass
+class MixLists:
+    """Inter-zone mixing flows of a blocked building as entry lists (numpy
+    arrays on the host, tensors in :class:`DayMarchParams`).  Entry ``e`` with
+    ``ptr[s] <= e < ptr[s + 1]`` moves ``vol[e]`` m3/s of the air of the
+    block-local zone ``src[e]`` into the zone slot ``s = block*ZB + to``;
+    within a slot the entries ascend by source.  ``t_ptr``/``t_dst``/``t_vol``
+    hold the same entries grouped by source slot (ascending destination): the
+    transpose the adjoint sums.  Together they are heatx's dense
+    ``mix_wt[block*ZB + from, to]``."""
+
+    ptr: object  # [NB*ZB + 1] int32
+    src: object  # [M] int32
+    vol: object  # [M] float
+    t_ptr: object  # [NB*ZB + 1] int32
+    t_dst: object  # [M] int32
+    t_vol: object  # [M] float
+
+    def dense(self, zones_per_block: int) -> np.ndarray:
+        """The ``[NB*ZB, ZB]`` matrix ``mix_wt[block*ZB + from, to]``."""
+        ptr, src, vol = (np.asarray(x) for x in (self.ptr, self.src, self.vol))
+        ZB = zones_per_block
+        W = np.zeros((len(ptr) - 1, ZB))
+        slot = np.repeat(np.arange(len(ptr) - 1), np.diff(ptr))
+        W[(slot // ZB) * ZB + src, slot % ZB] = vol
+        return W
+
+
+def mix_lists(from_slot, to_local, vol, n_slots: int, zones_per_block: int) -> MixLists:
+    """:class:`MixLists` from flows ``vol[i]`` of zone slot ``from_slot[i]``
+    into the block-local zone ``to_local[i]`` of the same block; repeated
+    pairs add up (as in heatx's dense matrix)."""
+    ZB = zones_per_block
+    acc = {}
+    for f, t, v in zip(np.asarray(from_slot), np.asarray(to_local), np.asarray(vol, np.float64)):
+        key = (int(f), int(t))
+        acc[key] = acc.get(key, 0.0) + float(v)
+    frm = np.array([k[0] for k in acc], np.int64)
+    to = np.array([k[1] for k in acc], np.int64)
+    v = np.array(list(acc.values()), np.float64)
+    to_slot = (frm // ZB) * ZB + to
+
+    def csr(group, within, payload):
+        order = np.lexsort((within, group))
+        ptr = np.concatenate([[0], np.cumsum(np.bincount(group, minlength=n_slots))])
+        return ptr.astype(np.int32), payload[order].astype(np.int32), v[order]
+
+    ptr, src, vol_to = csr(to_slot, frm % ZB, frm % ZB)
+    t_ptr, t_dst, vol_from = csr(frm, to, to)
+    return MixLists(ptr, src, vol_to, t_ptr, t_dst, vol_from)
+
+
+def mix_lists_from_dense(mix_wt) -> MixLists:
+    """:class:`MixLists` of heatx's dense ``mix_wt [NB*ZB, ZB]``."""
+    W = np.asarray(mix_wt, np.float64)
+    frm, to = np.nonzero(W)
+    return mix_lists(frm, to, W[frm, to], W.shape[0], W.shape[1])
+
+
 @dataclasses.dataclass
 class BlockedBuilding:
     """A compiled building permuted and padded into zone-closed blocks."""
@@ -115,6 +192,12 @@ class BlockedBuilding:
     back_oh: np.ndarray  # [SP, ZB]
     zone_volume: np.ndarray  # [n_blocks, ZB] (1.0 in padded slots)
     zone_valid: np.ndarray  # [n_blocks, ZB]
+    #: Thermostat rows (heat_sp, cool_sp, max_heat, max_cool), each [n_blocks,
+    #: ZB] with CTL_FILL in padded and uncontrolled slots; None without
+    #: thermostats.
+    ctl: tuple = None
+    #: Inter-zone mixing entries; None without mixing.
+    mix: MixLists = None
 
     @property
     def config(self) -> SimConfig:
@@ -145,10 +228,6 @@ def _check_supported(building: CompiledBuilding):
         missing.append("gas cavities (ROADMAP A9/B5)")
     if building.config.interior_mrt:
         missing.append("config.interior_mrt (ROADMAP A9/B5)")
-    if building.has_ideal_hvac:
-        missing.append("thermostats / IdealHeaterCooler setpoints (ROADMAP A6/B2)")
-    if np.asarray(building.mix_src).size:
-        missing.append("inter-zone mixing (ROADMAP A6/B2)")
     if building.has_zone_shading:
         missing.append("in-run zone shading (ROADMAP A9/B5)")
     if building.has_vent_gates:
@@ -245,6 +324,27 @@ def block_building(
     )
     zone_volume = layout.zones_to_blocked(np.asarray(building.zone_volume), fill=1.0)
     zone_volume = np.where(layout.zone_valid, zone_volume, 1.0)
+
+    mix = None
+    if np.asarray(building.mix_src).size:
+        ZB = layout.zones_per_block
+        zt = np.asarray(layout.zone_table).reshape(-1)
+        slot_of = np.zeros(building.n_zones, np.int64)  # zone id -> blocked slot
+        slot_of[zt[zt >= 0]] = np.nonzero(zt >= 0)[0]
+        src, dst = slot_of[np.asarray(building.mix_src)], slot_of[np.asarray(building.mix_dst)]
+        if (src // ZB != dst // ZB).any():
+            raise AssertionError("mixed zones must share a block (blocking invariant violated)")
+        mix = mix_lists(src, dst % ZB, building.mix_vol, zt.size, ZB)
+
+    ctl = None
+    if building.has_ideal_hvac:
+        ctl = tuple(
+            np.where(layout.zone_valid, layout.zones_to_blocked(np.asarray(v), fill=fill), fill)
+            for v, fill in zip(
+                (building.ctl_heat_sp, building.ctl_cool_sp, building.ctl_max_heat,
+                 building.ctl_max_cool), CTL_FILL,
+            )
+        )
     return BlockedBuilding(
         base=building,
         layout=layout,
@@ -253,6 +353,8 @@ def block_building(
         back_oh=layout.back_oh,
         zone_volume=zone_volume,
         zone_valid=layout.zone_valid,
+        ctl=ctl,
+        mix=mix,
     )
 
 
@@ -273,6 +375,11 @@ class DayMarchParams:
     zone_volume: torch.Tensor  # [NB, ZB] float
     zone_ptr: torch.Tensor  # [NB*ZB + 1] int32 offsets into zone_faces
     zone_faces: torch.Tensor  # [E] int32: block-local lane*2 + side (0 front, 1 back)
+    #: Thermostat rows [4, NB, ZB] (heat_sp, cool_sp, max_heat, max_cool; CTL_FILL
+    #: where nothing is controlled), or None without thermostats.
+    ctl: torch.Tensor = None
+    #: Inter-zone mixing entries (int32 lists, ``vol`` in the working dtype), or None.
+    mix: MixLists = None
 
     @property
     def n_blocks(self) -> int:
@@ -315,15 +422,16 @@ def _node_bits(mask: np.ndarray) -> np.ndarray:
 def pack_params(
     node_mask, massive, capacity, seg_u, front_alphas, back_alphas, surf: dict,
     front_code, back_code, front_oh, back_oh, zone_volume, n_blocks,
-    dtype=torch.float32, device="cpu",
+    dtype=torch.float32, device="cpu", ctl=None, mix: MixLists = None,
 ) -> DayMarchParams:
     """Pack blocked numpy operands into :class:`DayMarchParams`.
 
     Node arrays are ``[N, SP]`` (``massive`` marks the nodes whose capacity
     is their ``mass``), ``surf`` maps each SURF_FIELDS name to an ``[SP]``
     array, ``front_oh``/``back_oh`` are the ``[SP, ZB]`` block-local zone
-    one-hots, ``zone_volume`` is ``[NB, ZB]``.  Shared by
-    :func:`make_hour_march` and ``heatx_torch.convert``."""
+    one-hots, ``zone_volume`` is ``[NB, ZB]``; ``ctl`` the four ``[NB, ZB]``
+    thermostat rows and ``mix`` the host-side mixing lists (None: absent).
+    Shared by :func:`make_hour_march` and ``heatx_torch.convert``."""
     node_mask = np.asarray(node_mask, bool)
     N, SP = node_mask.shape
     if N > MAX_NODES:
@@ -366,6 +474,10 @@ def pack_params(
         zone_volume=f(np.asarray(zone_volume).reshape(NB, ZB)),
         zone_ptr=i32(zone_ptr),
         zone_faces=i32(faces),
+        ctl=None if ctl is None else f(np.stack([np.asarray(c).reshape(NB, ZB) for c in ctl])),
+        mix=None if mix is None else MixLists(
+            i32(mix.ptr), i32(mix.src), f(mix.vol), i32(mix.t_ptr), i32(mix.t_dst), f(mix.t_vol)
+        ),
     )
 
 
@@ -379,8 +491,11 @@ class ParamBlocker:
     (any object with the SurfaceBatch field names: node arrays [N, S],
     surface arrays [S]) and ``zone_volume`` [Z], in surface and zone order.
     They may be torch tensors: the blocking is gathers, wheres and stacks,
-    so the cotangents of the blocked rows flow back to them.  With the
-    building's own arrays the result equals :func:`params_from_blocked`."""
+    so the cotangents of the blocked rows flow back to them.  On a building
+    with thermostats ``ctl_heat_sp``/``ctl_cool_sp`` [Z] re-block the two
+    setpoint rows of ``params.ctl`` the same way (the capacity rows stay).
+    With the building's own arrays the result equals
+    :func:`params_from_blocked`."""
 
     def __init__(self, bb: BlockedBuilding, device):
         lay = bb.layout
@@ -402,7 +517,9 @@ class ParamBlocker:
         """[..., Z] -> [..., NB, ZB], ``fill`` in padded zone slots."""
         return torch.where(self.zt_ok, a[..., self.zt_c], fill)
 
-    def __call__(self, params: DayMarchParams, surfaces, zone_volume) -> DayMarchParams:
+    def __call__(
+        self, params: DayMarchParams, surfaces, zone_volume, ctl_heat_sp=None, ctl_cool_sp=None
+    ) -> DayMarchParams:
         kw = dict(dtype=params.surf.dtype, device=params.surf.device)
 
         def get(name):
@@ -416,7 +533,14 @@ class ParamBlocker:
             params.field(k) if k.startswith("normal") else get(k) for k in SURF_FIELDS
         ])
         zv = self.zones(torch.as_tensor(zone_volume, **kw), 1.0)
-        return replace(params, node=node, surf=surf, zone_volume=zv)
+        ctl = params.ctl
+        if ctl is not None and ctl_heat_sp is not None:
+            ctl = torch.stack([
+                self.zones(torch.as_tensor(ctl_heat_sp, **kw), CTL_FILL[0]),
+                self.zones(torch.as_tensor(ctl_cool_sp, **kw), CTL_FILL[1]),
+                ctl[2], ctl[3],
+            ])
+        return replace(params, node=node, surf=surf, zone_volume=zv, ctl=ctl)
 
 
 def params_from_blocked(bb: BlockedBuilding, dtype, device) -> DayMarchParams:
@@ -432,6 +556,8 @@ def params_from_blocked(bb: BlockedBuilding, dtype, device) -> DayMarchParams:
         sb.node_mask, sb.massive, capacity, sb.seg_u, sb.front_alphas, sb.back_alphas, surf,
         sb.front_code, sb.back_code, bb.front_oh, bb.back_oh, bb.zone_volume,
         bb.n_blocks, dtype=dtype, device=device,
+        ctl=None if bb.ctl is None else [np.asarray(c).astype(np_dtype) for c in bb.ctl],
+        mix=bb.mix,
     )
 
 
@@ -504,30 +630,52 @@ def _zone_dots(a_extra, b_extra, sbv, h_front, h_back, ts_front, ts_back):
     return a_z, b_z
 
 
-def _zone_update(zT, a_z, b_z, zone_volume, dt):
-    """Exact exponential zone-air update (model.rs:650-674); zones with
-    |B| ~ 0 hold their temperature."""
+def _air_rho_cp(zT):
+    """rho(T) cp(T) of zone air, J/m3.K."""
     t_k = zT + KELVIN
-    c_z = zone_volume * gas.density(gas.AIR, t_k) * gas.heat_capacity(gas.AIR, t_k)
-    ok = torch.abs(b_z) > 1e-9
-    safe_b = torch.where(ok, b_z, torch.ones_like(b_z))
-    ratio = a_z / safe_b
-    zT_new = zT - (ratio - zT) * torch.expm1(-(safe_b * dt / c_z))
-    return torch.where(ok, zT_new, zT)
+    return gas.density(gas.AIR, t_k) * gas.heat_capacity(gas.AIR, t_k)
+
+
+def _mix_slots(params: DayMarchParams):
+    """The mixing entries with global zone slots: ``(src_slot, dst_slot,
+    vol)``, or None without mixing."""
+    mix = params.mix
+    if mix is None:
+        return None
+    ZB = params.zones_per_block
+    n = mix.ptr.to(torch.int64)
+    dst = torch.repeat_interleave(torch.arange(n.numel() - 1, device=n.device), n[1:] - n[:-1])
+    return (dst // ZB) * ZB + mix.src.to(torch.int64), dst, mix.vol
+
+
+def _mix_terms(a_z, b_z, zT, mix):
+    """Inter-zone mixing (heatx ``_hour_body_imp``, pallas_step.py:938-944):
+    ventilation whose inlet is the source zone's air at the sub-step's start,
+    ``a += sum s0 T W`` and ``b += sum s0 W`` with ``s0 = rho cp`` of the
+    SOURCE zone."""
+    src, dst, vol = mix
+    s0 = _air_rho_cp(zT)
+    a_z = a_z + torch.zeros_like(a_z).index_add_(0, dst, (s0 * zT)[src] * vol)
+    b_z = b_z + torch.zeros_like(b_z).index_add_(0, dst, s0[src] * vol)
+    return a_z, b_z
 
 
 def _hour_body_imp(
     cfg: SimConfig, sbv, st, zone_volume, a_extra, b_extra, t_out_arr, wind_arr,
     wdir_arr, sol_front, sol_back, ir_front, ir_back, T0, zT0, substeps: int,
-    dt_sub: float, off: int, refresh_every: int,
+    dt_sub: float, off: int, refresh_every: int, ctl=None, mix=None,
 ):
     """One hour of TR-BDF2 sub-steps for every block (heatx
-    ``_hour_body_imp``, free-float, no cavities): the operators (film
-    coefficients, linearized radiation, K, the stage matrix and its Thomas
-    factorization) are rebuilt from the marching state at the start of every
-    group of ``refresh_every`` sub-steps; each sub-step is one K mat-vec, two
-    stage solves on that factorization, the zone sums and the zone update.
-    Zone vectors are flat ``[NB*ZB]``."""
+    ``_hour_body_imp``, no cavities): the operators (film coefficients,
+    linearized radiation, K, the stage matrix and its Thomas factorization)
+    are rebuilt from the marching state at the start of every group of
+    ``refresh_every`` sub-steps; each sub-step is one K mat-vec, two stage
+    solves on that factorization, the zone sums (plus the mixing terms of
+    ``mix = (src_slot, dst_slot, vol)``) and the zone update: free-float, or
+    with ``ctl = (heat_sp, cool_sp, max_heat, max_cool)`` the setpoint-landing
+    control of :func:`heatx_torch.engine.zone.zone_update`.  Zone vectors are
+    flat ``[NB*ZB]``.  Returns ``(T, zT, hq, load)`` with ``load`` the hour's
+    mean ideal-load power (None without ``ctl``)."""
     solar_q = surf_mod.absorbed_solar_q(sbv, sol_front, sol_back)
     a_dt = imp_mod.GAMMA * dt_sub / 2.0
 
@@ -548,6 +696,7 @@ def _hour_body_imp(
         )
 
     T, zT, hq = T0, zT0, None
+    lsum = None if ctl is None else torch.zeros_like(zT0)
     C = sbv.capacity
     for i0 in range(0, substeps, refresh_every):
         w = off + i0
@@ -570,36 +719,53 @@ def _hour_body_imp(
             h_f, h_b = fz.env_f0.h, fz.env_b0.h
             hq = (h_f, h_b, (ts_front - t_front) * h_f, (ts_back - t_back) * h_b)
             a_z, b_z = _zone_dots(a_extra, b_extra, sbv, h_f, h_b, ts_front, ts_back)
-            zT = _zone_update(zT, a_z, b_z, zone_volume, dt_sub)
-    return T, zT, hq
+            if mix is not None:
+                a_z, b_z = _mix_terms(a_z, b_z, zT, mix)
+            t_k = zT + KELVIN  # (V rho) cp, heatx's order
+            c_z = zone_volume * gas.density(gas.AIR, t_k) * gas.heat_capacity(gas.AIR, t_k)
+            if ctl is None:
+                zT = zone_mod.future_zone_temperatures(zT, a_z, b_z, c_z, dt_sub)
+            else:
+                zT, load = zone_mod.zone_update(zT, a_z, b_z, c_z, dt_sub, *ctl)
+                lsum = lsum + load
+    return T, zT, hq, (None if lsum is None else lsum / substeps)
 
 
 def plain_day_march(
     params: DayMarchParams, T, zT, t_out, wind, wdir, sol_front, sol_back,
-    ir_front, ir_back, a_extra, b_extra, *, hours: int, substeps: int,
-    refresh_every: int, dt: float, config: SimConfig,
+    ir_front, ir_back, a_extra, b_extra, sp_heat=None, sp_cool=None, *, hours: int,
+    substeps: int, refresh_every: int, dt: float, config: SimConfig,
 ):
     """The plain PyTorch day march on any device: the reference the CUDA
     kernel is held against.  Shapes as :func:`day_march_kernel`; returns
-    ``(T, zT, hq [4, SP], zt_hist, bad)``."""
+    ``(T, zT, hq [4, SP], zt_hist, bad, ld_hist)`` with ``ld_hist`` None
+    when ``params`` has no thermostat rows."""
     sbv = _lanes(params)
     st = surf_mod.compute_statics(sbv)
     NB, ZB = params.n_blocks, params.zones_per_block
     zone_volume = params.zone_volume.reshape(-1)
     zT = zT.reshape(-1)
-    hist, bad = [], []
+    mix = _mix_slots(params)
+    ctl = None if params.ctl is None else tuple(params.ctl.reshape(4, -1))
+    hist, bad, loads = [], [], []
     hq = None
     for h in range(hours):
-        T, zT, hq = _hour_body_imp(
+        if ctl is not None and sp_heat is not None:
+            ctl = (sp_heat[h].reshape(-1), sp_cool[h].reshape(-1)) + ctl[2:]
+        T, zT, hq, ld = _hour_body_imp(
             config, sbv, st, zone_volume, a_extra[h].reshape(-1),
             b_extra[h].reshape(-1), t_out, wind, wdir, sol_front[h], sol_back[h],
             ir_front[h], ir_back[h], T, zT, substeps, dt, h * substeps, refresh_every,
+            ctl=ctl, mix=mix,
         )
         hist.append(zT.reshape(NB, ZB))
+        if ld is not None:
+            loads.append(ld.reshape(NB, ZB))
         node_bad = (sbv.node_mask & ~torch.isfinite(T)).sum(dim=0)
         count = node_bad.reshape(NB, -1).sum(dim=1) + (~torch.isfinite(zT)).reshape(NB, ZB).sum(dim=1)
         bad.append(count.to(T.dtype))
-    return T, zT.reshape(NB, ZB), torch.stack(hq), torch.stack(hist), torch.stack(bad)
+    return (T, zT.reshape(NB, ZB), torch.stack(hq), torch.stack(hist), torch.stack(bad),
+            torch.stack(loads) if loads else None)
 
 
 # ---------------------------------------------------------------------------
@@ -612,7 +778,7 @@ def _load_library():
     if not getattr(lib, "_heatx_bound", False):
         vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
         for fn in (lib.heatx_day_march_f32, lib.heatx_day_march_f64):
-            fn.argtypes = [vp] * 22 + [ci] * 8 + [cd] * 6 + [vp]
+            fn.argtypes = [vp] * 29 + [ci] * 8 + [cd] * 6 + [vp]
             fn.restype = ci
         lib.heatx_cuda_error_string.argtypes = [ci]
         lib.heatx_cuda_error_string.restype = ctypes.c_char_p
@@ -627,47 +793,28 @@ def load_kernel() -> None:
 
 class DayMarchKernel:
     """Launches ``day_march.cu`` on CUDA tensors.  ``launches`` counts the
-    launches made through this wrapper (and nothing else)."""
+    launches made through this wrapper (and nothing else).  Arguments and
+    returns as :func:`plain_day_march`.  Thermostat rows (``params.ctl``),
+    per-hour setpoints and mixing lists select the kernel's second
+    instantiation; without them the free-float one runs."""
 
     def __init__(self):
         self.launches = 0
 
     def __call__(
         self, params: DayMarchParams, T, zT, t_out, wind, wdir, sol_front,
-        sol_back, ir_front, ir_back, a_extra, b_extra, *, hours: int,
-        substeps: int, refresh_every: int, dt: float, config: SimConfig,
+        sol_back, ir_front, ir_back, a_extra, b_extra, sp_heat=None, sp_cool=None, *,
+        hours: int, substeps: int, refresh_every: int, dt: float, config: SimConfig,
     ):
         N, NB, ZB = params.max_nodes, params.n_blocks, params.zones_per_block
         SB = params.block_size
         SP = NB * SB
         dtype = T.dtype
-        if dtype not in (torch.float32, torch.float64):
-            raise TypeError(f"day_march kernel takes float32/float64, got {dtype}")
-        if SB > MAX_BLOCK_LANES:
-            raise ValueError(f"block of {SB} lanes > {MAX_BLOCK_LANES} (use a smaller block_size)")
-        if N > MAX_NODES:
-            raise ValueError(f"{N} nodes per surface > {MAX_NODES}")
-        if substeps % refresh_every:
-            raise ValueError(f"refresh_every {refresh_every} must divide substeps {substeps}")
-        expect = {
-            "node": (params.node, (4, N, SP), dtype),
-            "surf": (params.surf, (len(SURF_FIELDS), SP), dtype),
-            "lane": (params.lane, (len(LANE_FIELDS), SP), torch.int32),
-            "zone_volume": (params.zone_volume, (NB, ZB), dtype),
-            "zone_ptr": (params.zone_ptr, (NB * ZB + 1,), torch.int32),
-            "zone_faces": (params.zone_faces, tuple(params.zone_faces.shape), torch.int32),
-            "t_out": (t_out, (hours * substeps,), dtype),
-            "wind": (wind, (hours * substeps,), dtype),
-            "wdir": (wdir, (hours * substeps,), dtype),
-            "sol_front": (sol_front, (hours, SP), dtype),
-            "sol_back": (sol_back, (hours, SP), dtype),
-            "ir_front": (ir_front, (hours, SP), dtype),
-            "ir_back": (ir_back, (hours, SP), dtype),
-            "a_extra": (a_extra, (hours, NB, ZB), dtype),
-            "b_extra": (b_extra, (hours, NB, ZB), dtype),
-            "T": (T, (N, SP), dtype),
-            "zT": (zT, (NB, ZB), dtype),
-        }
+        expect = launch_operands(
+            "day_march", params, T, zT, t_out, wind, wdir, sol_front, sol_back, ir_front, ir_back,
+            a_extra, b_extra, sp_heat, sp_cool, hours=hours, substeps=substeps,
+            refresh_every=refresh_every,
+        )
         cuda_lib.check_operands(expect, T.device)
         lib = _load_library()
         fn = lib.heatx_day_march_f32 if dtype == torch.float32 else lib.heatx_day_march_f64
@@ -677,11 +824,15 @@ class DayMarchKernel:
         hq = torch.empty((4, SP), **kw)
         zt_hist = torch.empty((hours, NB, ZB), **kw)
         bad = torch.empty((hours, NB), **kw)
-        ptrs = [t.data_ptr() for t in (
+        ld_hist = None if params.ctl is None else torch.empty((hours, NB, ZB), **kw)
+        mix = params.mix
+        ptrs = [None if t is None else t.data_ptr() for t in (
             params.node, params.surf, params.lane, params.zone_volume,
             params.zone_ptr, params.zone_faces, t_out, wind, wdir, sol_front,
             sol_back, ir_front, ir_back, a_extra, b_extra, T, zT,
             T_out, zT_out, hq, zt_hist, bad,
+            ld_hist, params.ctl, sp_heat, sp_cool,
+            *((None,) * 3 if mix is None else (mix.ptr, mix.src, mix.vol)),
         )]
         with torch.cuda.device(T.device):
             stream = torch.cuda.current_stream().cuda_stream
@@ -695,7 +846,66 @@ class DayMarchKernel:
             msg = lib.heatx_cuda_error_string(err).decode()
             raise RuntimeError(f"day_march kernel launch failed: CUDA error {err} ({msg})")
         self.launches += 1
-        return T_out, zT_out, hq, zt_hist, bad
+        return T_out, zT_out, hq, zt_hist, bad, ld_hist
+
+
+def launch_operands(
+    kernel: str, params: DayMarchParams, T, zT, t_out, wind, wdir, sol_front, sol_back, ir_front,
+    ir_back, a_extra, b_extra, sp_heat, sp_cool, *, hours: int, substeps: int, refresh_every: int,
+) -> dict:
+    """What either kernel's launch reads, as ``cuda_lib.check_operands``
+    takes it (``name: (tensor, shape, dtype)``, in the order of the C
+    interface's leading pointers, then the thermostat, schedule and mixing
+    operands the building has).  Raises on a dtype, block size, node count
+    or cadence the kernels do not take; per-hour setpoints come as a
+    heat/cool pair, on thermostat rows."""
+    N, NB, ZB = params.max_nodes, params.n_blocks, params.zones_per_block
+    SB = params.block_size
+    SP = NB * SB
+    dtype = T.dtype
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{kernel} kernel takes float32/float64, got {dtype}")
+    if SB > MAX_BLOCK_LANES:
+        raise ValueError(f"block of {SB} lanes > {MAX_BLOCK_LANES} (use a smaller block_size)")
+    if N > MAX_NODES:
+        raise ValueError(f"{N} nodes per surface > {MAX_NODES}")
+    if substeps % refresh_every:
+        raise ValueError(f"refresh_every {refresh_every} must divide substeps {substeps}")
+    if (sp_heat is None) != (sp_cool is None) or (sp_heat is not None and params.ctl is None):
+        raise ValueError("per-hour setpoints come as a heat/cool pair, on thermostat rows")
+    out = {
+        "node": (params.node, (4, N, SP), dtype),
+        "surf": (params.surf, (len(SURF_FIELDS), SP), dtype),
+        "lane": (params.lane, (len(LANE_FIELDS), SP), torch.int32),
+        "zone_volume": (params.zone_volume, (NB, ZB), dtype),
+        "zone_ptr": (params.zone_ptr, (NB * ZB + 1,), torch.int32),
+        "zone_faces": (params.zone_faces, tuple(params.zone_faces.shape), torch.int32),
+        "t_out": (t_out, (hours * substeps,), dtype),
+        "wind": (wind, (hours * substeps,), dtype),
+        "wdir": (wdir, (hours * substeps,), dtype),
+        "sol_front": (sol_front, (hours, SP), dtype),
+        "sol_back": (sol_back, (hours, SP), dtype),
+        "ir_front": (ir_front, (hours, SP), dtype),
+        "ir_back": (ir_back, (hours, SP), dtype),
+        "a_extra": (a_extra, (hours, NB, ZB), dtype),
+        "b_extra": (b_extra, (hours, NB, ZB), dtype),
+        "T": (T, (N, SP), dtype),
+        "zT": (zT, (NB, ZB), dtype),
+    }
+    if params.ctl is not None:
+        out["ctl"] = (params.ctl, (4, NB, ZB), dtype)
+    if sp_heat is not None:
+        out["sp_heat"] = (sp_heat, (hours, NB, ZB), dtype)
+        out["sp_cool"] = (sp_cool, (hours, NB, ZB), dtype)
+    if params.mix is not None:
+        m = params.mix
+        n = tuple(m.src.shape)
+        out.update({
+            "mix.ptr": (m.ptr, (NB * ZB + 1,), torch.int32), "mix.src": (m.src, n, torch.int32),
+            "mix.vol": (m.vol, n, dtype), "mix.t_ptr": (m.t_ptr, (NB * ZB + 1,), torch.int32),
+            "mix.t_dst": (m.t_dst, n, torch.int32), "mix.t_vol": (m.t_vol, n, dtype),
+        })
+    return out
 
 
 #: The process's day-march kernel wrapper (its ``launches`` counter is what
@@ -706,22 +916,27 @@ day_march_kernel = DayMarchKernel()
 class HourMarch:
     """``hour_march(params, T, zT_blocked, hour_inputs)`` (see the module
     docstring).  CUDA tensors launch the kernel, CPU tensors run the plain
-    twin; :meth:`plain` runs the plain twin on any device."""
+    twin; :meth:`plain` runs the plain twin on any device.
+    ``collect_loads`` says whether the outputs end with ``ld_hist`` (the
+    building has thermostats), ``scheduled_setpoints`` whether the march
+    reads per-hour setpoint rows."""
 
     def __init__(self, bb: BlockedBuilding, substeps, hours, refresh_every, dt,
-                 collect_bad):
+                 collect_bad, scheduled_setpoints=False):
         self.substeps = substeps
         self.hours = hours
         self.refresh_every = refresh_every
         self.dt = dt
         self.collect_bad = collect_bad
+        self.collect_loads = bb.ctl is not None
+        self.scheduled_setpoints = scheduled_setpoints
         self.config = bb.config
         self.n_blocks = bb.n_blocks
         self.zones_per_block = bb.zones_per_block
         self.padded_surfaces = bb.layout.padded_surfaces
 
-    def _operands(self, T, zT_blocked, hour_inputs):
-        t_o, wnd, wdr, sol_f, sol_b, ir_f, ir_b, a_extra, b_extra = hour_inputs
+    def _operands(self, params, T, zT_blocked, hour_inputs):
+        hour_inputs = tuple(hour_inputs)
         H, sub, SP = self.hours, self.substeps, self.padded_surfaces
         NB, ZB = self.n_blocks, self.zones_per_block
 
@@ -729,17 +944,29 @@ class HourMarch:
             a = torch.as_tensor(a, dtype=T.dtype, device=T.device)
             return a.reshape(shape).contiguous()
 
+        sp = ()
+        if self.scheduled_setpoints:
+            if len(hour_inputs) == 11:
+                sp = tuple(cast(a, (H, NB, ZB)) for a in hour_inputs[9:])
+                hour_inputs = hour_inputs[:9]
+            else:  # the compiled setpoints, hour-constant, from the params given
+                sp = tuple(params.ctl[k].expand(H, NB, ZB).contiguous() for k in (0, 1))
+        t_o, wnd, wdr, sol_f, sol_b, ir_f, ir_b, a_extra, b_extra = hour_inputs
         return (
             T.contiguous(), cast(zT_blocked, (NB, ZB)),
             cast(t_o, (H * sub,)), cast(wnd, (H * sub,)), cast(wdr, (H * sub,)),
             cast(sol_f, (H, SP)), cast(sol_b, (H, SP)), cast(ir_f, (H, SP)),
             cast(ir_b, (H, SP)), cast(a_extra, (H, NB, ZB)), cast(b_extra, (H, NB, ZB)),
-        )
+        ) + sp
 
     def _finish(self, outs):
-        T, zT, hq, zt_hist, bad = outs
+        T, zT, hq, zt_hist, bad, ld_hist = outs
         ret = (T, zT, tuple(hq.unbind(0)), zt_hist)
-        return ret + (bad,) if self.collect_bad else ret
+        if self.collect_bad:
+            ret += (bad,)
+        if self.collect_loads:
+            ret += (ld_hist,)
+        return ret
 
     def _kw(self):
         return dict(
@@ -748,7 +975,7 @@ class HourMarch:
         )
 
     def __call__(self, params, T, zT_blocked, hour_inputs):
-        ops = self._operands(T, zT_blocked, hour_inputs)
+        ops = self._operands(params, T, zT_blocked, hour_inputs)
         if T.device.type == "cuda":
             return self._finish(day_march_kernel(params, *ops, **self._kw()))
         if T.device.type == "cpu":
@@ -756,13 +983,14 @@ class HourMarch:
         raise ValueError(f"no day march for device {T.device}")
 
     def plain(self, params, T, zT_blocked, hour_inputs):
-        ops = self._operands(T, zT_blocked, hour_inputs)
+        ops = self._operands(params, T, zT_blocked, hour_inputs)
         return self._finish(plain_day_march(params, *ops, **self._kw()))
 
 
 def hour_march_for(
     bb: BlockedBuilding, substeps: int = None, mode: str = "trbdf2", hours: int = 1,
     refresh_every: int = None, collect_bad: bool = False,
+    scheduled_setpoints: bool = False,
 ) -> HourMarch:
     """The :class:`HourMarch` of :func:`make_hour_march`'s arguments, with
     the sub-step count and refresh cadence resolved (no operands)."""
@@ -774,6 +1002,11 @@ def hour_march_for(
         raise ValueError(
             f"refresh_every only applies to mode='trbdf2_refresh' (got mode={mode!r})"
         )
+    if scheduled_setpoints and bb.ctl is None:
+        raise ValueError(
+            "scheduled_setpoints requires setpoint-driven HVAC "
+            "(IdealHeaterCooler with heat_setpoint/cool_setpoint)"
+        )
     substeps = substeps or 12
     if mode == "trbdf2":
         refresh_every = substeps
@@ -782,7 +1015,7 @@ def hour_march_for(
     if refresh_every < 1 or substeps % refresh_every:
         raise ValueError(f"refresh_every {refresh_every} must divide substeps {substeps}")
     dt = 3600.0 / (bb.base.n_steps_per_hour * substeps)
-    return HourMarch(bb, substeps, hours, refresh_every, dt, collect_bad)
+    return HourMarch(bb, substeps, hours, refresh_every, dt, collect_bad, scheduled_setpoints)
 
 
 def make_hour_march(
@@ -793,13 +1026,15 @@ def make_hour_march(
     refresh_every: int = None,
     collect_bad: bool = False,
     device="cuda",
+    scheduled_setpoints: bool = False,
 ):
     """Build the day march: ``(hour_march, params)`` with ``params`` on
     ``device`` (the card unless the caller asks for another; ``"cuda"``
     without a GPU raises) in the building's dtype (heatx ``make_hour_march``
     for modes ``trbdf2``/``trbdf2_refresh``).  ``refresh_every=k`` rebuilds the
     operators every k sub-steps (default 1 in refresh mode); frozen mode is
-    ``k = substeps``."""
-    hm = hour_march_for(bb, substeps, mode, hours, refresh_every, collect_bad)
+    ``k = substeps``.  ``scheduled_setpoints`` (thermostat buildings) makes
+    the march read per-hour setpoint rows from the 11-leaf hour inputs."""
+    hm = hour_march_for(bb, substeps, mode, hours, refresh_every, collect_bad, scheduled_setpoints)
     params = params_from_blocked(bb, bb.config.dtype, cuda_lib.resolve_device(device))
     return hm, params

@@ -6,6 +6,11 @@ without importing bench.py, which reaches jax through ``heatx``.
 ``bench_inputs`` assembles the bench's hourly input sequence: seeded
 per-surface solar factors on the horizontal irradiance, the horizontal IR on
 every front face, 500 W per heater and 150 W per luminaire.
+``build_demand_city`` and ``demand_inputs`` are the demand rows' workload
+(bench.py:116-196, :311-371): the same city with one ideal-loads thermostat
+per zone at 20/26 C, luminaires on, heaters off.  ``build_thermostat_model``
+is a small building that takes every branch of the thermostat update, and
+``BranchCounter`` counts the zone-sub-steps a plain march puts on each.
 """
 
 from __future__ import annotations
@@ -13,12 +18,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from heatx_torch.engine import zone as zone_mod
 from heatx_torch.engine.state import StepInputs, default_inputs
 from heatx_torch.model.building import (
     Boundary,
     BuildingModel,
     Construction,
     ElectricHeater,
+    IdealHeaterCooler,
     Luminaire,
     Material,
     SpaceDef,
@@ -78,6 +85,35 @@ def build_city_model(n_zones: int, surfaces_per_zone: int, orientations: bool = 
             )
         m.add_hvac(ElectricHeater(f"h{z}", zone))
         m.add_luminaire(Luminaire(f"l{z}", zone))
+    return m
+
+
+def build_demand_city(n_zones: int, surfaces_per_zone: int):
+    """bench.py's demand workload (bench.py:129-132): the city block with one
+    ``IdealHeaterCooler`` thermostat per zone, heating to 20 C and cooling to
+    26 C at unlimited capacity."""
+    m = build_city_model(n_zones, surfaces_per_zone)
+    for z in range(n_zones):
+        m.add_hvac(IdealHeaterCooler(f"tstat{z}", [f"z{z}"], heat_setpoint=20.0, cool_setpoint=26.0))
+    return m
+
+
+def build_thermostat_model(uncontrolled: bool = True):
+    """A 4-zone city block that takes every branch of the thermostat update:
+    z0 at 20/26 C with unlimited capacity, z1 at 21/25 C with 300 W of
+    heating (a cold start exceeds it: the clamp), z2 at 19/23 C with 100 W of
+    cooling, z3 uncontrolled (or, with ``uncontrolled=False``, at 22/24 C);
+    z0 and z1 exchange air in both directions at different rates, and z3
+    feeds z2 one way."""
+    m = build_city_model(4, 4)
+    m.add_hvac(IdealHeaterCooler("t0", ["z0"], heat_setpoint=20.0, cool_setpoint=26.0))
+    m.add_hvac(IdealHeaterCooler("t1", ["z1"], heat_setpoint=21.0, cool_setpoint=25.0, max_heating=300.0))
+    m.add_hvac(IdealHeaterCooler("t2", ["z2"], heat_setpoint=19.0, cool_setpoint=23.0, max_cooling=100.0))
+    if not uncontrolled:
+        m.add_hvac(IdealHeaterCooler("t3", ["z3"], heat_setpoint=22.0, cool_setpoint=24.0))
+    m.add_mixing("z0", "z1", 0.02, bidirectional=False)
+    m.add_mixing("z1", "z0", 0.03, bidirectional=False)
+    m.add_mixing("z3", "z2", 0.01, bidirectional=False)
     return m
 
 
@@ -141,3 +177,72 @@ def bench_inputs(building, hours: int, dtype=None, device="cpu", seed: int = 0) 
         hvac_power=t(np.full(building.n_hvacs, 500.0)),
         lum_power=t(np.full(building.n_luminaires, 150.0)),
     )
+
+
+def demand_inputs(building, hours: int, dtype=None, device="cpu", seed: int = 0) -> StepInputs:
+    """The demand rows' [hours]-long input sequence (bench.py:152-160,
+    :339-349): the bench weather and solar factors, 150 W per luminaire, and
+    every scheduled HVAC unit at its default 0 W (the thermostats act)."""
+    seq = bench_inputs(building, hours, dtype=dtype, device=device, seed=seed)
+    return seq.replace(hvac_power=torch.zeros_like(seq.hvac_power))
+
+
+def branch_counts(zone_T, a, b, c, dt, heat_sp, cool_sp, max_heat, max_cool, load=None) -> dict:
+    """How many zones of one sub-step take each branch of
+    ``engine.zone.zone_update`` (``smallb``, ``heating``, ``cooling``,
+    ``clamped`` (a subset of the two), ``deadband``) and how many sit on a
+    tie, where subgradient conventions differ (``ties``: the load exactly 0
+    inside an active branch, or the free-float temperature exactly on a
+    setpoint).  ``load`` is the update's load where the caller has it."""
+    smallb = torch.abs(b) <= zone_mod.SMALL_B
+    t_free = zone_mod.future_zone_temperatures(zone_T, a, b, c, dt)
+    if load is None:
+        load = zone_mod.zone_update(zone_T, a, b, c, dt, heat_sp, cool_sp, max_heat, max_cool)[1]
+    heating = ~smallb & (t_free < heat_sp)
+    cooling = ~smallb & ~heating & (t_free > cool_sp)
+    clamped = (heating & (load == max_heat)) | (cooling & (load == -max_cool))
+    act = (heating & (max_heat > 0)) | (cooling & (max_cool > 0))
+    ties = (act & (load == 0)) | (~smallb & ((t_free == heat_sp) | (t_free == cool_sp)))
+    return dict(
+        smallb=int(smallb.sum()), heating=int(heating.sum()), cooling=int(cooling.sum()),
+        clamped=int(clamped.sum()), deadband=int((~smallb & ~heating & ~cooling).sum()),
+        ties=int(ties.sum()),
+    )
+
+
+class BranchCounter:
+    """Counts, over every ``engine.zone.zone_update`` call made while it is
+    installed (``with BranchCounter() as c:`` around a plain day march), the
+    zone-sub-steps on each branch of the thermostat update: ``c.counts`` sums
+    :func:`branch_counts`, and ``c.masks`` lists, per call, the load's sign
+    and whether it sits on a capacity: two marches took the same branches
+    iff their masks are equal."""
+
+    def __init__(self):
+        self.counts = dict.fromkeys(("heating", "cooling", "clamped", "deadband", "smallb", "ties"), 0)
+        self.masks = []
+
+    def __enter__(self):
+        orig = self._orig = zone_mod.zone_update
+
+        def counted(zone_T, a, b, c, dt, heat_sp, cool_sp, max_heat, max_cool):
+            args = (zone_T, a, b, c, dt, heat_sp, cool_sp, max_heat, max_cool)
+            new_T, load = orig(*args)
+            with torch.no_grad():
+                for k, v in branch_counts(*args, load=load).items():
+                    self.counts[k] += v
+                self.masks.append(torch.stack([
+                    torch.sign(load), ((load == max_heat) | (load == -max_cool)).to(load.dtype),
+                ]))
+            return new_T, load
+
+        zone_mod.zone_update = counted
+        return self
+
+    def __exit__(self, *exc):
+        zone_mod.zone_update = self._orig
+
+    def same_branches(self, other: "BranchCounter") -> bool:
+        return len(self.masks) == len(other.masks) and all(
+            torch.equal(a, b) for a, b in zip(self.masks, other.masks)
+        )

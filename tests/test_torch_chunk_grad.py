@@ -191,8 +191,9 @@ def test_chunked_value_and_grad_matches_monolithic_autograd():
         (lambda r, f, l: r.chunk_grad(f, l, ground_hourly=np.zeros(4)), ValueError),
         (lambda r, f, l: (r.chunk_forward(f, l, interp_weather=True), r.chunk_grad(f, l)), ValueError),
         (lambda r, f, l: (r.chunk_forward(f, l, ground_hourly=np.zeros(4)), r.chunk_grad(f, l)), ValueError),
-        (lambda r, f, l: r.chunk_grad(f, l, collect_loads=True), NotImplementedError),
-        (lambda r, f, l: r.chunk_forward(f, l, schedule_fn=lambda p, xs: {}), NotImplementedError),
+        # Demand objectives and schedules need thermostats (heatx's ValueErrors).
+        (lambda r, f, l: r.chunk_grad(f, l, collect_loads=True), ValueError),
+        (lambda r, f, l: r.chunk_forward(f, l, schedule_fn=lambda p, xs: {}), ValueError),
     ],
     ids=["trajectory_option", "contract_interp_weather", "contract_forward_option",
          "collect_loads", "schedule_fn"],
@@ -218,8 +219,7 @@ def test_scope_check_runs_on_every_call():
 
     bwd = runner.chunk_grad(apply_params, loss_fn)
     x0 = tree_map(lambda v: v[0], xs)
-    cot = dataclasses.replace(state, **{f.name: torch.zeros_like(getattr(state, f.name))
-                                        for f in dataclasses.fields(state)})
+    cot = tree_map(torch.zeros_like, state)
     one = torch.tensor(1.0, dtype=torch.float64)
     bwd(params, state, x0, cot, one)
     with pytest.raises(ValueError, match="does not differentiate.*surfaces.normal"):

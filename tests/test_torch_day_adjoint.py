@@ -265,7 +265,8 @@ def test_make_day_adjoint_refuses_what_is_not_ported(buildings):
     hi, cots = _blocked(bb.layout, bb.n_blocks, bb.zones_per_block, inp)
     T0, zT0 = (torch.as_tensor(a) for a in _state(bb.layout, pb))
     hi = tuple(torch.as_tensor(x) for x in hi)
-    with pytest.raises(NotImplementedError, match="ROADMAP B2"):
+    # A load cotangent needs thermostats: ported, so heatx's ValueError.
+    with pytest.raises(ValueError, match="setpoint-driven HVAC"):
         adj(params, T0, zT0, hi, (None, None, None, torch.zeros(HOURS, bb.n_blocks, bb.zones_per_block)))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):

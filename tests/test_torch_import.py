@@ -17,7 +17,7 @@ def test_import_loads_no_jax():
     code = (
         "import sys\n"
         "import heatx_torch, heatx_torch.api, heatx_torch.ops.day_march\n"
-        "import heatx_torch.ops.day_adjoint, heatx_torch.engine.adjoint\n"
+        "import heatx_torch.ops.day_adjoint, heatx_torch.engine.adjoint, heatx_torch.engine.zone\n"
         "import heatx_torch.convert, heatx_torch.testing\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'heatx'))\n"
         "print(bad)\n"
