@@ -74,27 +74,71 @@ Phases (one output line each, then a JSON line per contract):
    1e-4 mean(zt)/C, trbdf2_refresh k=2): 30 days in 2 chunks, f32 against
    f64 on the kernels, exactly 60 day-march and 30 adjoint launches, dL/dsp
    != 0; one day's f32 adjoint (seeded load cotangent) against the f64
-   plain adjoint; the annual run in 5 chunks of 73 days twice by the host
+   plain adjoint; the annual run in 5 chunks of 73 days once by the host
    clock, and once under torch.profiler for the device's busy share and
    each kernel's part of it.
 
+12. parity mode, f64, small (``testing.coarse_config``: 6 stability
+   sub-steps per hour): the 4-zone city, testing.build_mixed_model,
+   testing.build_nomass_run_model (no-mass runs of 3 and 4 nodes) and
+   testing.build_thermostat_model, 1, 2 and 3 no-mass iterations, 2 h at the
+   building's own dt_subdivisions: the parity forward kernel against its
+   plain twin (T, zT, zone history, h/q <= 1e-9 K; loads <= 1e-9 of max
+   |ref|), the parity adjoint kernel against the plain parity adjoint (every
+   output <= 1e-9 of max |ref|) and, on the free-float buildings, against
+   central differences of the forward kernel along T0, seg_u, mass and
+   front_alphas (<= 1e-5 relative).
+13. parity mode at full width: the bench city, f32, mode="parity", 118
+   sub-steps per hour (the building's dt_subdivisions), nomass_fixed_iters=1,
+   hours=24: 48 h on the kernel (exactly 2 launches, all finite) against the
+   f64 plain twin (zone T <= 3e-2 K: on the bench day's evening the relaxed
+   no-mass iteration 2-cycles on some faces and amplifies round-off, see
+   PARITY_* below), and against the port's own trbdf2_refresh k=2 f32 run of
+   the same 48 h (printed: the card-side stand-in for the accuracy gate until
+   the EPW file is in the repository); one launch on the bench day timed
+   (CUDA events), checked finite and measured for how far it carries a
+   perturbation of its start state; the plain twin with and without flushing
+   tiny RK4 stage values, 2 h f32 (printed); the annual run once by the host
+   clock; ptxas registers, stack and spills of every instantiation (phases 2
+   and 6).
+14. the parity gradient at full width: bench.py's run_grad_bench objective
+   in mode="parity", 30 days in 2 chunks in f32, exactly 60 day-march and 30
+   adjoint launches, all of them the parity kernels, gradients finite and
+   nonzero; 6 days in 2 chunks, f32 against f64 on the kernels.  Then both
+   parity kernels against their plain versions at the shape that path
+   launches, 24 h x 118 sub-steps, on the operands of its first day-launch
+   (the conductance scale 1.2 keeps every face off the 2-cycle, which the
+   phase measures): the day march on T, zT and the zone history (<= 2e-4 K)
+   and on h/q (<= 1e-3), the adjoint on the loss's own cotangent, every output
+   (relative L2 <= 2e-4 against the f32 plain adjoint).  The bench day's adjoint launch is
+   timed and checked finite.  (The f64 plain adjoint, longer gradients and the
+   2-cycles taken apart: scripts/torch_parity_diag.py; 73 days, one chunk of
+   bench.py's five, take ~140 s on an H100.)
+
 The line before the last is the kernels JSON line.  ``launches`` is each
-kernel's count on this slice's main path, the 30-day demand gradient of
-phase 11; ``launches_by_path`` lists every driven path (phases 4, 8b, 10,
-11), each counted from 0.  ``ms`` is one f32 free-float bench-day launch
+kernel's count on this slice's main path, the 30-day parity gradient of
+phase 14 (for the TR-BDF2 entries: the 30-day demand gradient of phase
+11); ``launches_by_path`` lists every driven path (phases 4, 8b, 10, 11,
+13, 14), each counted from 0.  ``ms`` is one f32 free-float bench-day launch
 (CUDA events), ``plain_ms`` its f32 plain version on the same inputs,
 ``max_abs_err`` the f32 kernel against that plain version, ``bound_ms`` the
 bound from this run's shapes; ``thermostat`` holds the same five numbers
 for the thermostat instantiation on the demand city's day (same mode, k=2).
-The last line is ``{"ok": true, "device": {...}}``; any failed check raises
-and the script exits non-zero.
+The two ``*_parity`` entries are the parity kernels on the first day-launch
+of the 30-day parity gradient (24 h x 118 sub-steps, phase 14b), held against
+their f32 plain versions there; ``ms_bench_day`` is the same launch on the
+bench day's own operands.  The last line is ``{"ok": true, "device": {...}}``;
+any failed check raises and the script exits non-zero.
 """
 
+import copy
 import dataclasses
 import json
 import subprocess
 import sys
 import time
+
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -131,6 +175,44 @@ LOAD_F32_RTOL = 1e-3
 # cotangent on to the surfaces, so their outputs are small differences;
 # presumed, not examined); bound ~3x the measurement.
 ADJ_F32_RL2_TSTAT = 2e-2
+# Parity mode at full width (nomass_fixed_iters=1, 118 sub-steps per hour).
+# With one relaxed no-mass iteration per sub-step the iteration runs on from
+# sub-step to sub-step, and it is not a contraction everywhere: K's diagonal
+# holds U + h but not the linearized radiation, which sits in q at the old
+# temperature, so the iterate moves by 1/2 - rad / (2 (U + h)) per sub-step.
+# On the inner face of the bench city's insulated walls (U 1.26, rad ~5.5
+# W/m2K) that is below -1 once the film coefficient h falls under ~0.6, and
+# the face temperature settles on a 2-cycle.  From hour 19 of the first bench
+# day on, two marches that differ by round-off (f32 and f64, kernel and plain
+# twin, even the f64 kernel and the f64 twin) can sit on opposite phases of
+# it: ~190 no-mass nodes then differ by up to 0.39 K and the zones by up to
+# 4e-3 K, and the adjoint through such an episode amplifies round-off to
+# order 1 (scripts/torch_parity_diag.py prints all of it).  heatx's scheme,
+# not the port's: it is a property of the bench day's operands, not of the
+# launch.  So each parity kernel is held against its plain version at the
+# launch shape of the main path (24 h x 118 sub-steps, every lane of the
+# bench city) on the operands of the gradient workload's first day, where
+# the conductance scale 1.2 (U 1.51) lets no face settle on the 2-cycle (a
+# face's film coefficient still touches its floor as it changes sign, too
+# briefly to matter): phase 14b measures that (a start state moved by
+# PARITY_EPS must end the day no more than PARITY_GROWTH_MAX times as far
+# apart; 0.37 x measured, and 382 x on the bench day itself).  Two or more
+# no-mass iterations per sub-step remove the cycle at either scale
+# (scripts/torch_parity_diag.py G); bench.py's parity rows run one.  The bench day's own launches are timed and checked
+# finite, and its 48 h get a bound that allows for the 2-cycles: 6.2e-3 K
+# measured on zone T, f32 kernel vs f64 twin, on an H100 80GB HBM3 at 700 W.
+PARITY_ITERS = 1  # bench.py's parity rows: nomass_fixed_iters=1
+# f32 kernel vs f32 twin over the main path's first day; measured on an H100
+# 80GB HBM3 at 700 W: 3.8e-5 K on T, 1.1e-5 K on the zone history, 2.1e-4 W/m2
+# on q_front (a film coefficient of ~5 W/m2K times the surface's gap), and
+# 1.9e-5 relative L2 at most on the adjoint's outputs (d_sol_back)
+PARITY_DAY_TOL = 2e-4  # K: T, zT, the zone history
+PARITY_HQ_TOL = 1e-3  # W/m2K and W/m2: h and q of the day's last sub-step
+PARITY_ADJ_F32_RL2 = 2e-4  # f32 adjoint kernel vs f32 plain adjoint, relative L2 per output
+PARITY_EPS = 1e-3  # K: the perturbation of parity_sensitivity
+PARITY_GROWTH_MAX = 2.0
+PARITY_F32_TOL = 3e-2  # K: zone T over 48 h of the bench days, f32 kernel vs f64 twin
+PARITY_F64_DAYS = 6  # the f32-vs-f64 gradient comparison's depth
 # Published H100 SXM rates (NVIDIA H100 datasheet): HBM bytes/s and the
 # f32 FLOP/s outside the tensor cores (the kernels run no matrix products).
 HBM_BPS = 3.35e12
@@ -290,7 +372,7 @@ def device_time(torch, fn):
     return busy / 1e3, {k: v / 1e3 for k, v in kern.items()}
 
 
-def _flat_grads(g):
+def flat_grads(g):
     out = {k: v for k, v in g.items() if k != "d_params"}
     out.update(g["d_params"])
     return out
@@ -300,8 +382,8 @@ def adjoint_vs_plain(torch, adj, params, T0, zT0, hi, cots, what):
     """The adjoint kernel's outputs (flattened) after holding each against
     the plain adjoint's: max |d| <= ADJ_F64_RTOL max |ref|.  Returns them
     and the worst ratio."""
-    got = _flat_grads(adj(params, T0, zT0, hi, cots))
-    ref = _flat_grads(adj.plain(params, T0, zT0, hi, cots))
+    got = flat_grads(adj(params, T0, zT0, hi, cots))
+    ref = flat_grads(adj.plain(params, T0, zT0, hi, cots))
     worst = 0.0
     for name, r in ref.items():
         check(bool(torch.isfinite(got[name]).all()), f"adjoint {what} {name}: non-finite")
@@ -405,7 +487,8 @@ def phase7_adjoint_f64(torch, day_march, day_adjoint, testing, SimConfig, compil
     return worst, worst_fd
 
 
-def grad_workload(torch, ThermalModel, SimConfig, testing, dtype, days, chunks, demand=False):
+def grad_workload(torch, ThermalModel, SimConfig, testing, dtype, days, chunks, demand=False,
+                  mode="trbdf2_refresh", config_kw=None, u_scale=1.2):
     """bench.py's gradient rows through the port: returns (a callable running
     the chunked value_and_grad, the runner, its input sequence).
 
@@ -415,11 +498,14 @@ def grad_workload(torch, ThermalModel, SimConfig, testing, dtype, days, chunks, 
     ``demand=True`` is ``_grad_demand_variant`` (bench.py:311-399): the city
     with a thermostat per zone on the demand rows' inputs (luminaires at
     150 W, scheduled units at 0 W), a conductance scale and a shift of the
-    compiled heating setpoint, the metered-energy loss on the load history."""
+    compiled heating setpoint, the metered-energy loss on the load history.
+    ``mode="parity"`` runs either at the building's stability sub-step count
+    (``config_kw`` then carries ``nomass_fixed_iters``).  ``u_scale`` is
+    the conductance scale the run starts from (bench.py: 1.2)."""
     from heatx_torch.engine.adjoint import chunked_value_and_grad, tree_map
 
     build = testing.build_demand_city if demand else testing.build_city_model
-    tm = ThermalModel(build(1000, 10), n=1, config=SimConfig(dtype=dtype))
+    tm = ThermalModel(build(1000, 10), n=1, config=SimConfig(dtype=dtype, **(config_kw or {})))
     b = tm.building
     T = days * 24
     if demand:
@@ -454,11 +540,14 @@ def grad_workload(torch, ThermalModel, SimConfig, testing, dtype, days, chunks, 
         return torch.mean((ld / 1e3) ** 2) / chunks + 1e-4 * torch.mean(zt) / chunks
 
     loss_fn = loss_demand if demand else loss_zt
-    fr = tm.fast_runner(mode="trbdf2_refresh", refresh_every=2, substeps=8, hours=24)
+    if mode == "parity":
+        fr = tm.fast_runner(mode="parity", hours=24)
+    else:
+        fr = tm.fast_runner(mode=mode, refresh_every=2, substeps=8, hours=24)
     kf = fr.chunk_forward(with_params, loss_fn, collect_loads=demand)
     kb = fr.chunk_grad(with_params, loss_fn, collect_loads=demand)
     st = tm.initial_state()
-    params = {"u_scale": torch.tensor(1.2, dtype=dtype, device="cuda"),
+    params = {"u_scale": torch.tensor(u_scale, dtype=dtype, device="cuda"),
               second: torch.tensor(0.5 if demand else 0.8, dtype=dtype, device="cuda")}
 
     def run():
@@ -585,6 +674,406 @@ def phase9_thermostats_f64(torch, day_march, day_adjoint, testing, SimConfig, co
     return worst, total
 
 
+def event_ms(torch, fn, reps):
+    """ms per call of ``fn`` by CUDA events, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def ptxas_table(log: str) -> str:
+    """ptxas's lines of a build log, one entry per kernel instantiation:
+    ``f32 ext=0 parity=1: 96 registers, 1200 B stack, spills 0/0 B``."""
+    import re
+
+    out, name = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            sym = m.group(1)
+            t = re.search(r"kernelI([fd])((?:Lb[01]E)+)", sym)
+            flags = re.findall(r"Lb([01])E", t.group(2)) if t else []
+            kind = "parity_adjoint" if "parity_adjoint" in sym else ""
+            name = (f"{'f32' if t and t.group(1) == 'f' else 'f64'} ext={flags[0] if flags else '?'}"
+                    + (f" parity={flags[1]}" if len(flags) > 1 else (" parity=1" if kind else "")))
+            entry = {"name": name}
+            out.append(entry)
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:  # the entry's own line comes first; its library calls' lines follow
+            out[-1].setdefault("stack", m.groups())
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[-1]["regs"] = m.group(1)
+    return " | ".join(
+        f"{e['name']}: {e.get('regs', '?')} registers, {e.get('stack', ('?',) * 3)[0]} B stack, spills "
+        f"{e.get('stack', ('?',) * 3)[1]}/{e.get('stack', ('?',) * 3)[2]} B" for e in out
+    )
+
+
+def parity_day_work(params, hours, sub, iters):
+    """Operations of one parity day-march launch, counted from day_parity.cuh
+    on this run's shapes: per valid node and sub-step 65 + 16 per no-mass
+    iteration (K's row 6; the forcing 10, once for RK4 and once per
+    iteration; the no-mass factor 5 and its two sweeps 6 per iteration; four
+    RK4 stages of 8 and their 12 combinations), per lane and sub-step 125
+    (two film evaluations, the linearized radiation, the forced term, the
+    face sums), per zone and sub-step 20 (45 more with thermostat rows, 12
+    per mixing entry)."""
+    import torch
+
+    bits = params.field("node_bits").to(torch.int64)
+    valid = int(sum(int(((bits >> i) & 1).sum()) for i in range(params.max_nodes)))
+    lanes = params.surf.shape[1]
+    zones = params.zone_volume.numel()
+    per_sub = (65 + 16 * iters) * valid + 125 * lanes + 20 * zones
+    if params.ctl is not None:
+        per_sub += 45 * zones
+    if params.mix is not None:
+        per_sub += 12 * params.mix.src.numel()
+    return hours * sub * per_sub, valid, lanes, zones
+
+
+def parity_adjoint_work(params, hours, sub, iters):
+    """Operations the parity day's adjoint needs, counted from
+    day_adjoint.cu: one forward march of the day, then per valid node and
+    sub-step 100 + 24 per no-mass iteration (four transposed RK4 stages of 14
+    with their band cotangents, the forcing backwards twice, per iteration a
+    transposed solve, its band cotangent and the forcing backwards), per lane
+    and sub-step 250 (both film evaluations and the radiation backwards), per
+    zone and sub-step 30 (90 more with thermostat rows, 20 per mixing entry).
+    The kernel's recomputation (the second march of each hour, each
+    sub-step's intermediates, the iterations re-marched to learn their
+    masks) is not counted."""
+    fwd, valid, lanes, zones = parity_day_work(params, hours, sub, iters)
+    per_sub = (100 + 24 * iters) * valid + 250 * lanes + 30 * zones
+    if params.ctl is not None:
+        per_sub += 90 * zones
+    if params.mix is not None:
+        per_sub += 20 * params.mix.src.numel()
+    return fwd + hours * sub * per_sub
+
+
+def phase12_parity_f64(torch, day_march, day_adjoint, testing, ThermalModel, device="cuda"):
+    """Both parity kernels against their plain versions, f64, small
+    buildings at the coarse discretization; central differences of the
+    forward kernel on the free-float ones.  Returns the worst gaps."""
+    hours = 2
+    rng = np.random.default_rng(12)
+    worst = dict(T=0.0, load=0.0, adj=0.0, fd=0.0)
+    models = {
+        "4-zone city": (lambda: testing.build_city_model(4, 10), testing.bench_inputs),
+        "mixed building": (testing.build_mixed_model, testing.bench_inputs),
+        "no-mass runs": (testing.build_nomass_run_model, testing.bench_inputs),
+        "thermostat building": (testing.build_thermostat_model, testing.demand_inputs),
+    }
+    cases = 0
+    for label, (build, inputs) in models.items():
+        for iters in (1, 2, 3):
+            what = f"parity {label} iters={iters}"
+            tm = ThermalModel(build(), config=testing.coarse_config(torch.float64, iters), device=device)
+            r = tm.fast_runner(mode="parity", hours=hours)
+            sub = r._substeps
+            check(sub == tm.dt_subdivisions <= 8, f"{what}: {sub} sub-steps")
+            seq = inputs(tm.building, hours, device=device)
+            # The bench weather starts at midnight: give the two hours some sun.
+            sun = rng.uniform(50.0, 400.0, (hours, tm.building.n_surfaces))
+            seq = seq.replace(sol_front=torch.as_tensor(sun, device=device))
+            hi = r.kernel_inputs(seq, interp_weather=True)[0]
+            st0 = tm.initial_state()
+            if r._has_loads:  # a cold, a cool and a hot zone: heating, the clamp, cooling
+                st0 = dataclasses.replace(st0, zone_T=torch.as_tensor([18.0, 19.0, 27.0, 21.0], device=device))
+            T0, zT0 = r.to_blocked(st0)
+            mask = day_march.bit_rows(r.params, "node_bits")
+            NB, ZB = r.params.n_blocks, r.params.zones_per_block
+
+            def rand(shape, scale=1.0):
+                return torch.as_tensor(rng.normal(size=tuple(shape)) * scale, device=device)
+
+            # A random start state: off the |dT| = 0 kink of the cube root.
+            T0 = T0 + rand(T0.shape, 2.0) * mask
+            zT0 = zT0 + rand(zT0.shape, 0.5)
+            hm, params = r.hour_march, r.params
+            got = hm(params, T0, zT0, hi)
+            ref = hm.plain(params, T0, zT0, hi)
+            for name, a, b in (("T", got[0], ref[0]), ("zT", got[1], ref[1]), ("zt_hist", got[3], ref[3]),
+                               *((f"hq{j}", got[2][j], ref[2][j]) for j in range(4))):
+                err = float((a - b).abs().max())
+                check(err <= F64_TOL, f"{what} {name}: max |d| {err} > {F64_TOL}")
+                worst["T"] = max(worst["T"], err)
+            check(float(got[4].sum()) == 0.0, f"{what}: non-finite state in the kernel")
+            check(float((got[1] - zT0).abs().max()) > 0.05, f"{what}: the march did not move the zones")
+            cots = [rand(T0.shape) * mask, rand((NB, ZB)), rand((hours, NB, ZB))]
+            if r._has_loads:
+                scale = float(ref[5].abs().max())
+                err = float((got[5] - ref[5]).abs().max())
+                check(scale > 0 and err <= F64_TOL * scale, f"{what} ld_hist: max |d| {err} > {F64_TOL} x {scale}")
+                worst["load"] = max(worst["load"], err / scale)
+                cots.append(rand((hours, NB, ZB), 1e-2))
+            adj = day_adjoint.make_day_adjoint(r._bb, substeps=sub, mode="parity", hours=hours, device=device)
+            g, w = adjoint_vs_plain(torch, adj, params, T0, zT0, hi, cots, what)
+            worst["adj"] = max(worst["adj"], w)
+            cases += 1
+            if r._has_loads:
+                continue  # finite differences across thermostat branches: phase 9's business
+
+            def loss(p, T):
+                out = hm(p, T, zT0, hi)
+                return float((out[0] * cots[0]).sum() + (out[1] * cots[1]).sum() + (out[3] * cots[2]).sum())
+
+            def perturbed(row, d):
+                node = params.node.clone()
+                node[row] += d * params.node[row]
+                return dataclasses.replace(params, node=node)
+
+            D_T, D_node = rand(T0.shape) * mask, rand(T0.shape)
+            eps = 1e-6
+            fd_cases = {"T0": (g["dT0"], D_T, lambda e: loss(params, T0 + e * D_T))}
+            for name, row in (("seg_u", 0), ("mass", 1), ("front_alphas", 2)):
+                fd_cases[name] = (g[name], D_node * params.node[row],
+                                  lambda e, row=row: loss(perturbed(row, e * D_node), T0))
+            for name, (grad, direction, f) in fd_cases.items():
+                fd = (f(eps) - f(-eps)) / (2 * eps)
+                an = float((grad * direction).sum())
+                rel = abs(fd - an) / max(abs(an), 1e-300)
+                check(an != 0 and rel <= FD_RTOL, f"{what} d/d{name}: FD {fd} vs adjoint {an} (rel {rel})")
+                worst["fd"] = max(worst["fd"], rel)
+    return worst, cases
+
+
+def parity_sensitivity(torch, hm, params, T, zT, hi):
+    """How far one day-launch carries a perturbation of its start state:
+    the launch is repeated from ``T + PARITY_EPS x noise`` (seeded, valid nodes
+    only) and the gaps at the end of the day are returned as multiples of
+    PARITY_EPS, ``(node T, zone T)``.  A march that damps gives well under 1;
+    one whose no-mass faces 2-cycle gives hundreds on the nodes."""
+    from heatx_torch.ops import day_march
+
+    mask = day_march.bit_rows(params, "node_bits")
+    noise = torch.as_tensor(np.random.default_rng(13).normal(size=tuple(T.shape)), dtype=T.dtype, device=T.device)
+    base = hm(params, T, zT, hi)
+    moved = hm(params, T + PARITY_EPS * noise * mask, zT, hi)
+    return (float((base[0] - moved[0]).abs().max()) / PARITY_EPS,
+            float((base[1] - moved[1]).abs().max()) / PARITY_EPS)
+
+
+def phase13_parity_run(torch, ctx):
+    """Parity mode at full width through FastRunner.run (see the module
+    docstring).  Returns what the kernels line and PERF.md need."""
+    day_march, testing, SimConfig, ThermalModel = ctx.day_march, ctx.testing, ctx.SimConfig, ctx.ThermalModel
+    smi = ctx.smi
+    cfg = dict(nomass_fixed_iters=PARITY_ITERS)
+    tm32 = ThermalModel(ctx.model, n=1, config=SimConfig(dtype=torch.float32, **cfg), device="cuda")
+    rp = tm32.fast_runner(mode="parity", hours=24)
+    sub = rp._substeps
+    check(sub == tm32.dt_subdivisions and rp.hour_march.dt == tm32.dt, "parity sub-steps are not the building's")
+    inputs48 = testing.bench_inputs(tm32.building, 48, device="cuda")
+    st0 = tm32.initial_state()
+    k = day_march.day_march_kernel
+    k.launches = k.parity_launches = 0
+    t0 = time.time()
+    fin32, z32 = rp.run(st0, inputs48, interp_weather=True)
+    torch.cuda.synchronize()
+    run48_s = time.time() - t0
+    launches = (k.launches, k.parity_launches)
+    check(launches == (2, 2), f"parity main path: {launches} (all, parity) day-kernel launches, expected (2, 2)")
+
+    tm64 = ThermalModel(ctx.model, n=1, config=SimConfig(dtype=torch.float64, **cfg), device="cuda")
+    t0 = time.time()
+    _, z64 = tm64.fast_runner(mode="parity", hours=24, use_kernel=False).run(
+        tm64.initial_state(), testing.bench_inputs(tm64.building, 48, device="cuda"), interp_weather=True)
+    torch.cuda.synchronize()
+    plain48_s = time.time() - t0
+    check(tuple(z32.shape) == (48, 1000), f"parity zone_T shape {tuple(z32.shape)}")
+    for name, t in (("zone_T", z32), ("node_T", fin32.node_T), ("zone_T f64", z64)):
+        check(bool(torch.isfinite(t).all()), f"parity {name} has non-finite values")
+    err_main = float((z32.double() - z64).abs().max())
+    check(err_main <= PARITY_F32_TOL, f"parity f32 kernel vs f64 twin zone_T: max |d| {err_main} > {PARITY_F32_TOL}")
+    gap = (z32 - ctx.z32_trbdf2).abs()
+    gap_rmse = float((gap.double() ** 2).mean().sqrt())
+    print(f"phase 13a parity run on {smi}: 10,000 surfaces x 48 h at {sub} sub-steps/h "
+          f"(dt {tm32.dt:.4g} s, nomass_fixed_iters={PARITY_ITERS}), {launches[0]} kernel launches "
+          f"({launches[1]} parity), f32 run {run48_s:.3f} s; f32 kernel vs f64 plain twin max |d zone_T| "
+          f"{err_main:.3e} K (<= {PARITY_F32_TOL:g}; the f64 plain twin took {plain48_s:.1f} s); against the port's "
+          f"trbdf2_refresh k=2 f32 run of the same 48 h: max |d zone_T| {float(gap.max()):.3e} K, RMSE "
+          f"{gap_rmse:.3e} K; zone_T range [{float(z32.min()):.2f}, {float(z32.max()):.2f}] C", flush=True)
+
+    # One launch on the bench day itself: its time, that it is finite, and how
+    # far it carries a perturbation (its evening's 2-cycles: PARITY_* above);
+    # a twin that flushes tiny stage values
+    T, zT = rp.to_blocked(st0)
+    hi = rp.kernel_inputs(testing.bench_inputs(tm32.building, 24, device="cuda"), interp_weather=True)[0]
+    kernel_ms = event_ms(torch, lambda: rp.hour_march(rp.params, T, zT, hi), 3)
+    growth = parity_sensitivity(torch, rp.hour_march, rp.params, T, zT, hi)
+    check(all(np.isfinite(growth)), f"the bench day's parity launch is not finite: {growth}")
+    r2 = tm32.fast_runner(mode="parity", hours=2)
+    hi2 = r2.kernel_inputs(testing.bench_inputs(tm32.building, 2, device="cuda"), interp_weather=True)[0]
+    keep = r2.hour_march.plain(r2.params, T, zT, hi2)
+    flushing = copy.copy(r2.hour_march)
+    flushing.config = flushing.config.replace(flush_tiny=True)
+    flushed = flushing.plain(r2.params, T, zT, hi2)
+    flush_gap = max(float((keep[i] - flushed[i]).abs().max()) for i in (0, 1, 3))
+    check(flush_gap <= 1e-4, f"flushing tiny RK4 stage values moves the f32 march by {flush_gap} K")
+
+    inputs_year = testing.bench_inputs(tm32.building, 8760, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    _, zy = rp.run(st0, inputs_year, interp_weather=True)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    check(bool(torch.isfinite(zy).all()), "annual parity zone_T has non-finite values")
+    del inputs_year, zy
+    print(f"phase 13b on {smi}: annual parity run (8760 h, f32) {wall:.3f} s (host clock, one run); one parity "
+          f"launch on the bench day {kernel_ms:.3f} ms (CUDA events, 3 reps; trbdf2_refresh k=2 "
+          f"{ctx.kernel_ms:.3f} ms), finite; a start state moved by {PARITY_EPS:g} K ends that day "
+          f"{growth[0]:.3g} x as far apart on the nodes and {growth[1]:.3g} x on the zones (the evening's "
+          f"2-cycles: phase 14b holds the kernels on a day without them); plain twin with vs without "
+          f"flushing RK4 stage values below 1e-25, 2 h f32: max |d| {flush_gap:.3e} K", flush=True)
+    return SimpleNamespace(launches=launches, kernel_ms=kernel_ms, wall=wall, sub=sub, runner=rp, hi=hi, T=T,
+                           zT=zT, growth=growth)
+
+
+def phase14_parity_grad(torch, ctx, p13):
+    """The parity gradient at full width, and both parity kernels against
+    their plain versions on its first day-launch (see the module docstring)."""
+    day_march, day_adjoint, testing = ctx.day_march, ctx.day_adjoint, ctx.testing
+    SimConfig, ThermalModel, smi = ctx.SimConfig, ctx.ThermalModel, ctx.smi
+    km, ka = day_march.day_march_kernel, day_adjoint.day_adjoint_kernel
+    gw = dict(mode="parity", config_kw=dict(nomass_fixed_iters=PARITY_ITERS))
+    days, chunks = 30, 2
+    run32, fr32, seq32 = grad_workload(torch, ThermalModel, SimConfig, testing, torch.float32, days, chunks, **gw)
+    km.launches = km.parity_launches = ka.launches = ka.parity_launches = 0
+    t0 = time.time()
+    v32 = run32()
+    torch.cuda.synchronize()
+    grad30_s = time.time() - t0
+    counts = (km.launches, km.parity_launches, ka.launches, ka.parity_launches)
+    check(counts == (60, 60, 30, 30),
+          f"30-day parity value_and_grad: (day march, its parity, adjoint, its parity) launches {counts}, "
+          f"expected (60, 60, 30, 30)")
+    check(all(np.isfinite(v32)) and v32[1] != 0 and v32[2] != 0, f"30-day parity value_and_grad: {v32}")
+    # f32 against f64 on the kernels, at a depth the f64 kernels reach quickly
+    short = {}
+    for name, dtype in (("f32", torch.float32), ("f64", torch.float64)):
+        run, _, _ = grad_workload(torch, ThermalModel, SimConfig, testing, dtype, PARITY_F64_DAYS, chunks, **gw)
+        t0 = time.time()
+        short[name] = run()
+        torch.cuda.synchronize()
+        short[name + "_s"] = time.time() - t0
+        del run
+    for name, a, b in zip(("loss", "dL/du", "dL/dalpha"), short["f32"], short["f64"]):
+        check(np.isfinite(a) and np.isfinite(b), f"{PARITY_F64_DAYS}-day parity {name} not finite: {a}, {b}")
+        check(abs(a - b) <= GRAD_F32_RTOL * abs(b), f"{PARITY_F64_DAYS}-day parity {name}: f32 {a} vs f64 {b}")
+    print(f"phase 14a parity grad workload, {days} days in {chunks} chunks (this slice's main path): {counts[0]} "
+          f"day-march launches (30 forward + 30 recompute; {counts[1]} parity), {counts[2]} adjoint launches "
+          f"({counts[3]} parity), {grad30_s:.3f} s f32; loss / dL/du / dL/dalpha {v32[0]:.6g} / {v32[1]:.6g} / "
+          f"{v32[2]:.6g}; {PARITY_F64_DAYS} days in {chunks} chunks, f32 ({short['f32_s']:.1f} s) "
+          + " / ".join(f"{x:.6g}" for x in short["f32"]) + f" vs f64 ({short['f64_s']:.1f} s) "
+          + " / ".join(f"{x:.6g}" for x in short["f64"]) + f" (relative <= {GRAD_F32_RTOL:g})", flush=True)
+
+    # 14b. The main path's first day-launch, on its own operands: the runner
+    # holds the parameter rows that run32 blocked (u_scale 1.2, alpha_scale
+    # 0.8), the state is the initial one, the inputs are day 0 of the
+    # workload's (hourly weather held over the sub-steps, luminaires off).
+    sub = p13.sub
+    T, zT = fr32.to_blocked(fr32._tm.initial_state())
+    hi = fr32.kernel_inputs(tree_head(seq32, days * 24, 24))[0]
+    hm, params = fr32.hour_march, fr32.params
+    check(hm.hours == 24 and hm.substeps == sub, f"the main path's launch is {hm.hours} h x {hm.substeps}")
+    kernel_ms = event_ms(torch, lambda: hm(params, T, zT, hi), 3)
+    got = hm(params, T, zT, hi)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    ref = hm.plain(params, T, zT, hi)
+    torch.cuda.synchronize()
+    plain_ms = (time.time() - t0) * 1e3
+    fwd_gaps = {name: float((a - b).abs().max()) for name, a, b in (
+        ("T", got[0], ref[0]), ("zT", got[1], ref[1]), ("zt_hist", got[3], ref[3]),
+        *((n, got[2][j], ref[2][j]) for j, n in enumerate(("h_front", "h_back", "q_front", "q_back"))))}
+    for name, err in fwd_gaps.items():
+        tol = PARITY_HQ_TOL if name[:2] in ("h_", "q_") else PARITY_DAY_TOL
+        check(err <= tol, f"parity f32 kernel vs plain twin over the main path's day, {name}: max |d| {err} > {tol}")
+    err32 = max(fwd_gaps.values())
+    growth = parity_sensitivity(torch, hm, params, T, zT, hi)
+    check(growth[0] <= PARITY_GROWTH_MAX,
+          f"the main path's first day carries a perturbation {growth[0]} x on the nodes: a no-mass face 2-cycles")
+    del ref
+
+    # The loss's own cotangent on that day's zone history
+    NB, ZB = fr32._bb.n_blocks, fr32._bb.zones_per_block
+    valid = torch.as_tensor(np.asarray(fr32.layout.zone_table).reshape(NB, ZB) >= 0, device="cuda")
+    d_hist = 2.0 * (got[3] - 21.0) * valid / (days * 24 * 1000)
+    cots = (torch.zeros_like(T), torch.zeros_like(zT), d_hist.contiguous())
+    adj = day_adjoint.make_day_adjoint(fr32._bb, substeps=sub, mode="parity", hours=24)
+    g32 = flat_grads(adj(params, T, zT, hi, cots))
+    adj_ms = event_ms(torch, lambda: adj(params, T, zT, hi, cots), 2)
+    t0 = time.time()
+    g32p = flat_grads(adj.plain(params, T, zT, hi, cots))
+    torch.cuda.synchronize()
+    adj_plain_ms = (time.time() - t0) * 1e3
+    gaps = {}
+    for name, ref in g32p.items():
+        check(bool(torch.isfinite(g32[name]).all()), f"f32 parity adjoint {name}: non-finite")
+        norm = float(ref.norm())
+        gaps[name] = float((g32[name] - ref).norm()) / norm if norm else float(g32[name].abs().max())
+        check(gaps[name] <= PARITY_ADJ_F32_RL2,
+              f"f32 parity adjoint kernel vs f32 plain adjoint over the main path's day, {name}: relative L2 "
+              f"{gaps[name]} > {PARITY_ADJ_F32_RL2}")
+    worst_gap = max(gaps, key=gaps.get)
+    adj32_abs = max(float((g32[n] - ref).abs().max()) for n, ref in g32p.items())
+    check(float(g32["seg_u"].abs().max()) > 0 and float(g32["front_alphas"].abs().max()) > 0,
+          "the main path's day adjoint gives no gradient on seg_u or front_alphas")
+    del g32p
+    torch.cuda.empty_cache()
+
+    # The bench day itself (phase 13's operands): the adjoint's time, and that
+    # it is finite through the evening's 2-cycles, where nothing can be compared
+    rp = p13.runner
+    seeded = np.random.default_rng(3).normal(size=(24, NB, ZB)) / (24 * 1000)
+    cots_b = (torch.zeros_like(T), torch.zeros_like(zT), torch.as_tensor(seeded, dtype=torch.float32, device="cuda"))
+    adj_b = day_adjoint.make_day_adjoint(rp._bb, substeps=sub, mode="parity", hours=24)
+    bench_adj_ms = event_ms(torch, lambda: adj_b(rp.params, p13.T, p13.zT, p13.hi, cots_b), 1)
+    g_day = flat_grads(adj_b(rp.params, p13.T, p13.zT, p13.hi, cots_b))
+    for name, v in g_day.items():
+        check(bool(torch.isfinite(v).all()), f"f32 parity bench-day adjoint {name}: non-finite")
+    day_max = max(float(v.abs().max()) for v in g_day.values())
+    del g_day
+    print(f"phase 14b the main path's first day-launch (24 h x {sub} sub-steps, u_scale 1.2, alpha_scale 0.8), "
+          f"f32, each parity kernel against its plain version: day march {kernel_ms:.3f} ms vs plain twin "
+          f"{plain_ms:.1f} ms (host clock), max |d| " + ", ".join(f"{n} {v:.2e}" for n, v in fwd_gaps.items())
+          + f" (<= {PARITY_DAY_TOL:g} K, h/q <= {PARITY_HQ_TOL:g}); a start state moved by {PARITY_EPS:g} K ends the day {growth[0]:.3g} x as "
+          f"far apart on the nodes, {growth[1]:.3g} x on the zones (<= {PARITY_GROWTH_MAX:g}: no face 2-cycles); "
+          f"adjoint, the loss's own cotangent: {adj_ms:.3f} ms vs f32 plain adjoint {adj_plain_ms:.1f} ms "
+          f"(autograd per hour, host clock), max |d| {adj32_abs:.3e}, relative L2 worst {gaps[worst_gap]:.3e} "
+          f"({worst_gap}; <= {PARITY_ADJ_F32_RL2:g}), " + ", ".join(f"{n} {v:.2e}" for n, v in gaps.items())
+          + f"; on the bench day (u_scale 1, seeded hourly cotangents): adjoint launch {bench_adj_ms:.3f} ms "
+          f"(trbdf2_refresh k=2 {ctx.adj_ms:.3f} ms), all finite, largest |value| {day_max:.3e} against "
+          f"{max(float(v.abs().max()) for v in g32.values()):.3e} on the main path's day", flush=True)
+
+    return SimpleNamespace(
+        counts=counts, kernel_ms=kernel_ms, plain_ms=plain_ms, err32=err32, adj_ms=adj_ms,
+        adj_plain_ms=adj_plain_ms, adj32_abs=adj32_abs, adj32_rel=gaps[worst_gap], bench_adj_ms=bench_adj_ms,
+        growth=growth, params=params, T=T, zT=zT, hi=hi, got=got, cots=cots, g32=g32,
+    )
+
+
+def tree_head(seq, T, hours):
+    """The first ``hours`` of an input sequence whose time series have ``T``
+    leading rows (the rest is passed on as it is)."""
+    from heatx_torch.engine.adjoint import tree_map
+
+    return tree_map(lambda v: v[:hours] if v.ndim and v.shape[0] == T else v, seq)
+
+
 def main() -> int:
     try:
         import torch
@@ -618,12 +1107,9 @@ def main() -> int:
     day_march.load_kernel()
     day_adjoint.load_kernel()
     build_s = time.time() - t0
-    ptxas = [
-        ln.strip() for ln in cuda_lib.build_log("heatx_day_march", [day_march.KERNEL_SOURCE]).splitlines()
-        if "registers" in ln or "spill" in ln
-    ]
+    ptxas = ptxas_table(cuda_lib.build_log("heatx_day_march", [day_march.KERNEL_SOURCE]))
     print(f"phase 2 build: {build_s:.1f} s for both kernels (nvcc sm_90a, in parallel); "
-          f"day_march ptxas: {' | '.join(ptxas)}", flush=True)
+          f"day_march ptxas: {ptxas}", flush=True)
 
     # 3. f64 algorithm check on the card
     err64 = phase3_f64_check(torch, day_march, testing, SimConfig, compile_building)
@@ -678,21 +1164,9 @@ def main() -> int:
         T, zT = r.to_blocked(state0)
         return T, zT, r.kernel_inputs(inputs24, interp_weather=True)[0]
 
-    def event_ms(fn, reps):
-        fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / reps
-
     T, zT, hi = day_operands(runner)
-    kernel_ms = event_ms(lambda: runner.hour_march(runner.params, T, zT, hi), 10)
-    plain_ms = event_ms(lambda: runner.hour_march.plain(runner.params, T, zT, hi), 1)
+    kernel_ms = event_ms(torch, lambda: runner.hour_march(runner.params, T, zT, hi), 10)
+    plain_ms = event_ms(torch, lambda: runner.hour_march.plain(runner.params, T, zT, hi), 1)
     got = runner.hour_march(runner.params, T, zT, hi)
     ref = runner.hour_march.plain(runner.params, T, zT, hi)
     torch.cuda.synchronize()
@@ -703,7 +1177,7 @@ def main() -> int:
     for bs in BLOCK_SIZES:
         r = tm32.fast_runner(block_size=bs, **kw)
         Tb, zTb, hib = day_operands(r)
-        sweep[bs] = (r.layout.n_blocks, event_ms(lambda: r.hour_march(r.params, Tb, zTb, hib), 10))
+        sweep[bs] = (r.layout.n_blocks, event_ms(torch, lambda: r.hour_march(r.params, Tb, zTb, hib), 10))
     print(f"phase 5 timing on {smi}: 30 days kernel path {wall30:.3f} s "
           f"({wall30 / 30 * 1e3:.2f} ms/day, host clock); one day-kernel launch "
           f"{kernel_ms:.3f} ms vs plain twin {plain_ms:.1f} ms (CUDA events, default {runner.layout.block_size} lanes/block); "
@@ -712,12 +1186,9 @@ def main() -> int:
           flush=True)
 
     # 6. the adjoint kernel's build (it ran in parallel with phase 2's)
-    ptxas_adj = [
-        ln.strip() for ln in cuda_lib.build_log("heatx_day_adjoint", [day_adjoint.KERNEL_SOURCE]).splitlines()
-        if "registers" in ln or "spill" in ln or "stack" in ln
-    ]
+    ptxas_adj = ptxas_table(cuda_lib.build_log("heatx_day_adjoint", [day_adjoint.KERNEL_SOURCE]))
     print(f"phase 6 build day_adjoint.cu (with phase 2's, {build_s:.1f} s for both); "
-          f"ptxas: {' | '.join(ptxas_adj)}", flush=True)
+          f"ptxas: {ptxas_adj}", flush=True)
 
     # 7. f64: adjoint kernel vs plain adjoint, and vs finite differences of the forward kernel
     adj_err64, fd_err = phase7_adjoint_f64(torch, day_march, day_adjoint, testing, SimConfig, compile_building)
@@ -739,8 +1210,8 @@ def main() -> int:
     T64, zT64 = r64.to_blocked(tm64.initial_state())
     hi64 = r64.kernel_inputs(testing.bench_inputs(tm64.building, 24, device="cuda"), interp_weather=True)[0]
     cots64 = tuple(c.double() for c in cots32)
-    g32 = _flat_grads(adj32(runner.params, T, zT, hi, cots32))
-    g64p = _flat_grads(adj64.plain(r64.params, T64, zT64, hi64, cots64))
+    g32 = flat_grads(adj32(runner.params, T, zT, hi, cots32))
+    g64p = flat_grads(adj64.plain(r64.params, T64, zT64, hi64, cots64))
     gaps = {}
     for name, ref in g64p.items():
         check(bool(torch.isfinite(g32[name]).all()), f"f32 adjoint {name}: non-finite")
@@ -748,9 +1219,9 @@ def main() -> int:
         gaps[name] = float((g32[name].double() - ref).norm()) / norm if norm else float(g32[name].abs().max())
         check(gaps[name] <= ADJ_F32_RL2, f"f32 adjoint kernel vs f64 plain {name}: relative L2 {gaps[name]} > {ADJ_F32_RL2}")
     worst_gap = max(gaps, key=gaps.get)
-    adj_ms = event_ms(lambda: adj32(runner.params, T, zT, hi, cots32), 10)
+    adj_ms = event_ms(torch, lambda: adj32(runner.params, T, zT, hi, cots32), 10)
     t0 = time.time()
-    g32p = _flat_grads(adj32.plain(runner.params, T, zT, hi, cots32))
+    g32p = flat_grads(adj32.plain(runner.params, T, zT, hi, cots32))
     torch.cuda.synchronize()
     adj_plain_ms = (time.time() - t0) * 1e3  # the f32 plain adjoint, as the kernel's ms is f32
     adj32_abs = max(float((g32[n] - ref).abs().max()) for n, ref in g32p.items())
@@ -860,10 +1331,10 @@ def main() -> int:
     inputs24d = testing.demand_inputs(tmd32.building, 24, device="cuda")
     Td, zTd = rd32.to_blocked(std32)
     hid = rd32.kernel_inputs(inputs24d)[0]
-    demand_ms = event_ms(lambda: rd32.hour_march(rd32.params, Td, zTd, hid), 10)
+    demand_ms = event_ms(torch, lambda: rd32.hour_march(rd32.params, Td, zTd, hid), 10)
     free_frozen = tm32.fast_runner(**kw_demand)
     Tf, zTf, hif = day_operands(free_frozen)
-    free_frozen_ms = event_ms(lambda: free_frozen.hour_march(free_frozen.params, Tf, zTf, hif), 10)
+    free_frozen_ms = event_ms(torch, lambda: free_frozen.hour_march(free_frozen.params, Tf, zTf, hif), 10)
     print(f"phase 10 demand path on {smi}: bench city + 1,000 thermostats, 48 h, {launches_demand} kernel "
           f"launches, f32 run {demand48_s:.3f} s; f32 kernel vs f64 plain twin max |d zone_T| {err_dz:.3e} K "
           f"(<= {F32_TOL:g}), max |d load| {err_ld:.3e} W = {err_ld / ld_scale:.3e} of max |load| "
@@ -880,8 +1351,8 @@ def main() -> int:
     run_d64, frd64, seqd64 = grad_workload(torch, ThermalModel, SimConfig, testing, torch.float64, 30, 2, demand=True)
     Tt, zTt = frd32.to_blocked(frd32._tm.initial_state())
     hit = frd32.kernel_inputs(testing.demand_inputs(frd32._tm.building, 24, device="cuda"))[0]
-    tstat_ms = event_ms(lambda: frd32.hour_march(frd32.params, Tt, zTt, hit), 10)
-    tstat_plain_ms = event_ms(lambda: frd32.hour_march.plain(frd32.params, Tt, zTt, hit), 1)
+    tstat_ms = event_ms(torch, lambda: frd32.hour_march(frd32.params, Tt, zTt, hit), 10)
+    tstat_plain_ms = event_ms(torch, lambda: frd32.hour_march.plain(frd32.params, Tt, zTt, hit), 1)
     got_t = frd32.hour_march(frd32.params, Tt, zTt, hit)
     ref_t = frd32.hour_march.plain(frd32.params, Tt, zTt, hit)
     torch.cuda.synchronize()
@@ -903,8 +1374,8 @@ def main() -> int:
                 torch.as_tensor(rng_d.normal(size=shape_d) / (24 * 1000 * 1e3), dtype=torch.float32, device="cuda"))
     Tt64, zTt64 = frd64.to_blocked(frd64._tm.initial_state())
     hit64 = frd64.kernel_inputs(testing.demand_inputs(frd64._tm.building, 24, device="cuda"))[0]
-    gd32 = _flat_grads(adjd32(frd32.params, Tt, zTt, hit, cots_d32))
-    gd64p = _flat_grads(adjd64.plain(frd64.params, Tt64, zTt64, hit64, tuple(c.double() for c in cots_d32)))
+    gd32 = flat_grads(adjd32(frd32.params, Tt, zTt, hit, cots_d32))
+    gd64p = flat_grads(adjd64.plain(frd64.params, Tt64, zTt64, hit64, tuple(c.double() for c in cots_d32)))
     gaps_d = {}
     for name, ref in gd64p.items():
         check(bool(torch.isfinite(gd32[name]).all()), f"f32 demand adjoint {name}: non-finite")
@@ -913,9 +1384,9 @@ def main() -> int:
         check(gaps_d[name] <= ADJ_F32_RL2_TSTAT,
               f"f32 demand adjoint kernel vs f64 plain {name}: relative L2 {gaps_d[name]} > {ADJ_F32_RL2_TSTAT}")
     worst_gap_d = max(gaps_d, key=gaps_d.get)
-    tstat_adj_ms = event_ms(lambda: adjd32(frd32.params, Tt, zTt, hit, cots_d32), 10)
+    tstat_adj_ms = event_ms(torch, lambda: adjd32(frd32.params, Tt, zTt, hit, cots_d32), 10)
     t0 = time.time()
-    gd32p = _flat_grads(adjd32.plain(frd32.params, Tt, zTt, hit, cots_d32))
+    gd32p = flat_grads(adjd32.plain(frd32.params, Tt, zTt, hit, cots_d32))
     torch.cuda.synchronize()
     tstat_adj_plain_ms = (time.time() - t0) * 1e3
     tstat_adj_abs = max(float((gd32[n] - ref).abs().max()) for n, ref in gd32p.items())
@@ -951,25 +1422,37 @@ def main() -> int:
           f"loss / dL/du / dL/dsp f32 {d32[0]:.6g} / {d32[1]:.6g} / {d32[2]:.6g} vs f64 "
           f"{d64[0]:.6g} / {d64[1]:.6g} / {d64[2]:.6g} (relative <= {GRAD_F32_RTOL:g})", flush=True)
 
-    # 11c. the annual demand gradient (5 chunks of 73 days), host clock twice,
-    # then once under torch.profiler for the device's busy share
+    # 11c. the annual demand gradient (5 chunks of 73 days), by the host
+    # clock once, then once under torch.profiler for the device's busy share
     run_dyear, _, _ = grad_workload(torch, ThermalModel, SimConfig, testing, torch.float32, 365, 5, demand=True)
-    walls = []
-    for _ in range(2):
-        t0 = time.time()
-        dy = run_dyear()
-        torch.cuda.synchronize()
-        walls.append(time.time() - t0)
-        check(all(np.isfinite(dy)) and dy[1] != 0 and dy[2] != 0, f"annual demand gradient: {dy}")
+    t0 = time.time()
+    dy = run_dyear()
+    torch.cuda.synchronize()
+    wall_dyear = time.time() - t0
+    check(all(np.isfinite(dy)) and dy[1] != 0 and dy[2] != 0, f"annual demand gradient: {dy}")
     dev_ms, kern_ms = device_time(torch, run_dyear)
-    wall_ms = min(walls) * 1e3
-    share = (f"device busy {dev_ms:.1f} ms = {dev_ms / wall_ms:.1%} of the faster wall; day_adjoint "
+    share = (f"device busy {dev_ms:.1f} ms = {dev_ms / (wall_dyear * 1e3):.1%} of that wall; day_adjoint "
              f"{kern_ms['day_adjoint']:.1f} ms ({kern_ms['day_adjoint'] / dev_ms:.1%} of device time), "
              f"day_march {kern_ms['day_march']:.1f} ms ({kern_ms['day_march'] / dev_ms:.1%})"
              if dev_ms > 0 else "device time not measured (the profiler recorded none)")
     print(f"phase 11c on {smi}: annual demand gradient (8760 h, 5 chunks of 73 days, f32) "
-          f"{walls[0]:.3f} s and {walls[1]:.3f} s (host clock); loss {dy[0]:.6g}, dL/du {dy[1]:.6g}, "
-          f"dL/dsp {dy[2]:.6g}; torch.profiler over a third run: {share}", flush=True)
+          f"{wall_dyear:.3f} s (host clock, one run); loss {dy[0]:.6g}, dL/du {dy[1]:.6g}, "
+          f"dL/dsp {dy[2]:.6g}; torch.profiler over a second run: {share}", flush=True)
+
+    # 12-14. parity mode: both kernels' parity bodies (see the module docstring)
+    w12, n12 = phase12_parity_f64(torch, day_march, day_adjoint, testing, ThermalModel)
+    print(f"phase 12 f64 parity kernels, {n12} cases (4-zone city, mixed building, no-mass runs of 3 and 4 "
+          f"nodes, thermostat building; 1, 2, 3 no-mass iterations; 2 h at 6 sub-steps): forward kernel vs "
+          f"plain twin max |d| {w12['T']:.3e} K on T, zT, zone history, h/q (<= {F64_TOL:g}), loads "
+          f"{w12['load']:.3e} of max |ref|; adjoint kernel vs plain parity adjoint {w12['adj']:.3e} of max |ref| "
+          f"(<= {ADJ_F64_RTOL:g}); central differences of the forward kernel along T0, seg_u, mass, "
+          f"front_alphas: worst relative error {w12['fd']:.3e} (<= {FD_RTOL:g})", flush=True)
+    ctx = SimpleNamespace(
+        day_march=day_march, day_adjoint=day_adjoint, testing=testing, SimConfig=SimConfig,
+        ThermalModel=ThermalModel, smi=smi, model=model, z32_trbdf2=z32, kernel_ms=kernel_ms, adj_ms=adj_ms,
+    )
+    p13 = phase13_parity_run(torch, ctx)
+    p14 = phase14_parity_grad(torch, ctx, p13)
 
     # The kernels line: bounds from this run's shapes (f32 bench day; the
     # thermostat instantiation on the demand city's day, same mode).
@@ -988,12 +1471,21 @@ def main() -> int:
     ops_adj, bytes_adj, adj_bound, adj_by = adjoint_bound(runner.params, T, zT, hi, cots32, g32)
     ops_tf, bytes_tf, tf_bound, tf_by = march_bound(frd32.params, Tt, zTt, hit, got_t)
     ops_ta, bytes_ta, ta_bound, ta_by = adjoint_bound(frd32.params, Tt, zTt, hit, cots_d32, gd32)
+    ops_pf = parity_day_work(p14.params, 24, p13.sub, PARITY_ITERS)[0]
+    bytes_pf = nbytes(*param_tensors(p14.params), p14.T, p14.zT, *p14.hi) + nbytes(
+        p14.got[0], p14.got[1], *p14.got[2], *p14.got[3:])
+    pf_bound, pf_by = bound(bytes_pf, ops_pf)
+    ops_pa = parity_adjoint_work(p14.params, 24, p13.sub, PARITY_ITERS)
+    bytes_pa = nbytes(*param_tensors(p14.params), p14.T, p14.zT, *p14.hi, *p14.cots) + nbytes(*p14.g32.values())
+    pa_bound, pa_by = bound(bytes_pa, ops_pa)
     print(f"bounds (f32 bench day, published H100 SXM rates): day_march {bytes_fwd / 1e6:.2f} MB, "
           f"{ops_fwd / 1e9:.3f} GFLOP -> {fwd_bound * 1e3:.2f} us ({fwd_by}); day_adjoint "
           f"{bytes_adj / 1e6:.2f} MB, {ops_adj / 1e9:.3f} GFLOP -> {adj_bound * 1e3:.2f} us ({adj_by}); "
           f"with thermostats: day_march {bytes_tf / 1e6:.2f} MB, {ops_tf / 1e9:.3f} GFLOP -> "
           f"{tf_bound * 1e3:.2f} us ({tf_by}); day_adjoint {bytes_ta / 1e6:.2f} MB, {ops_ta / 1e9:.3f} GFLOP "
-          f"-> {ta_bound * 1e3:.2f} us ({ta_by})", flush=True)
+          f"-> {ta_bound * 1e3:.2f} us ({ta_by}); parity, 24 h at {p13.sub} sub-steps/h: day_march "
+          f"{bytes_pf / 1e6:.2f} MB, {ops_pf / 1e9:.3f} GFLOP -> {pf_bound * 1e3:.2f} us ({pf_by}); day_adjoint "
+          f"{bytes_pa / 1e6:.2f} MB, {ops_pa / 1e9:.3f} GFLOP -> {pa_bound * 1e3:.2f} us ({pa_by})", flush=True)
 
     print(json.dumps({"kernels": [
         {
@@ -1007,6 +1499,8 @@ def main() -> int:
                 "value_and_grad, 30 days (phase 8b)": launches_fwd,
                 "demand run, 48 h (phase 10)": launches_demand,
                 "demand gradient, 30 days (phase 11b)": launches_dfwd,
+                "parity run, 48 h (phase 13a)": p13.launches[0],
+                "parity value_and_grad, 30 days (phase 14a)": p14.counts[0],
             },
             "max_abs_err": err32,
             "ms": kernel_ms,
@@ -1026,6 +1520,7 @@ def main() -> int:
             "launches_by_path": {
                 "value_and_grad, 30 days (phase 8b)": launches_adj,
                 "demand gradient, 30 days (phase 11b)": launches_dadj,
+                "parity value_and_grad, 30 days (phase 14a)": p14.counts[2],
             },
             "max_abs_err": adj32_abs,
             "ms": adj_ms,
@@ -1035,6 +1530,40 @@ def main() -> int:
             "library_ms": None,
             "thermostat": {"ms": tstat_adj_ms, "plain_ms": tstat_adj_plain_ms, "max_abs_err": tstat_adj_abs,
                            "bound_ms": ta_bound, "bound_by": ta_by},
+        },
+        {
+            "name": "day_march_parity",
+            "route": "cuda",
+            "source": "heatx_torch/csrc/day_march.cu (body: heatx_torch/csrc/day_parity.cuh)",
+            "replaces": "heatx/ops/pallas_step.py:1976 (body _hour_body, pallas_step.py:633)",
+            "launches": p14.counts[1],
+            "launches_by_path": {
+                "parity run, 48 h (phase 13a)": p13.launches[1],
+                "parity value_and_grad, 30 days (phase 14a)": p14.counts[1],
+            },
+            "ms_bench_day": p13.kernel_ms,
+            "max_abs_err": p14.err32,
+            "ms": p14.kernel_ms,
+            "plain_ms": p14.plain_ms,
+            "bound_ms": pf_bound,
+            "bound_by": pf_by,
+            "library_ms": None,
+        },
+        {
+            "name": "day_adjoint_parity",
+            "route": "cuda",
+            "source": "heatx_torch/csrc/day_adjoint.cu (body: heatx_torch/csrc/day_parity.cuh)",
+            "replaces": "heatx/ops/pallas_adjoint.py:717 (body _hour_body(unroll=True), pallas_adjoint.py:573)",
+            "launches": p14.counts[3],
+            "launches_by_path": {"parity value_and_grad, 30 days (phase 14a)": p14.counts[3]},
+            "ms_bench_day": p14.bench_adj_ms,
+            "max_abs_err": p14.adj32_abs,
+            "rel_l2_err": p14.adj32_rel,
+            "ms": p14.adj_ms,
+            "plain_ms": p14.adj_plain_ms,
+            "bound_ms": pa_bound,
+            "bound_by": pa_by,
+            "library_ms": None,
         },
     ]}))
     print(json.dumps({"ok": True, "device": {

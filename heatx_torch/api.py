@@ -171,9 +171,13 @@ class ThermalModel:
     ) -> "FastRunner":
         """The day-march path (heatx ``ThermalModel.fast_runner``).
 
-        ``mode`` is ``"trbdf2"`` (operators frozen per hour) or
+        ``mode`` is ``"trbdf2"`` (operators frozen per hour),
         ``"trbdf2_refresh"`` (rebuilt every ``refresh_every`` sub-steps,
-        default 1); ``substeps`` defaults to 12 per hour.  ``block_size`` is
+        default 1), both with ``substeps`` defaulting to 12 per hour, or
+        ``"parity"`` (heatx's default: the reference-parity sub-step at the
+        building's own ``dt`` and ``dt_subdivisions`` sub-steps per hour,
+        118 at the default discretization; a building with no-mass nodes
+        needs ``config.nomass_fixed_iters``).  ``block_size`` is
         the number of surface lanes per zone-closed block, one CUDA thread
         block each (at most 256; default: the largest zone-connected
         component rounded up to a warp).  ``use_kernel=False`` runs the
@@ -181,9 +185,8 @@ class ThermalModel:
         checked against.  ``scheduled_setpoints`` (buildings with
         thermostats) lets ``StepInputs.heat_sp``/``cool_sp`` override the
         compiled setpoints hour by hour.
-        ``mode="parity"`` (heatx's default), ``collect_fluxes``,
-        ``collect_operative`` and ``mesh`` are not ported yet and raise
-        ``NotImplementedError``."""
+        ``collect_fluxes``, ``collect_operative`` and ``mesh`` are not
+        ported yet and raise ``NotImplementedError``."""
         return FastRunner(
             self, block_size=block_size, mode=mode, substeps=substeps,
             hours=hours, collect_fluxes=collect_fluxes,

@@ -4,15 +4,15 @@ The reference hard-codes its numerical knobs (max_dx=0.04 / min_dt=60 at
 model.rs:236-237, SAFETY=2 at model.rs:329) and exposes no options
 (``OptionType = ()``, model.rs:190).  heatx promotes them into a config
 dataclass, and this is heatx_torch's copy of the fields the port reads:
-``dtype`` is a ``torch.dtype``.  heatx's parity-integrator and XLA-path
-knobs (the no-mass fixed-point tolerances, ``nomass_fixed_iters``,
-``flush_tiny``, ``kernel_mode``, ``unroll_fixed_loops``, ``surface_axis``)
-come with the slices that use them (ROADMAP A7, A10, A12).
+``dtype`` is a ``torch.dtype``.  ``kernel_mode`` and ``unroll_fixed_loops``
+are switches for heatx's Mosaic lowering and have no counterpart here;
+``surface_axis`` comes with sharding (ROADMAP A12).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -29,6 +29,27 @@ class SimConfig:
     max_dx: float = 0.04
     min_dt: float = 60.0
     safety: int = 2
+
+    # No-mass fixed-point solve of the parity integrator (surface.rs:808-896):
+    # mean-error tolerance, escalated tolerance after `escalate_after`
+    # iterations, and a hard iteration cap for the adaptive loop (the loop is
+    # not ported yet, ROADMAP B6/A10: ``nomass_max_iter`` is carried for it).
+    nomass_tol: float = 0.01
+    nomass_tol_escalated: float = 0.5
+    nomass_escalate_after: int = 100
+    nomass_max_iter: int = 500
+
+    # Run exactly this many relaxed fixed-point iterations per sub-step, with
+    # the same per-chunk update/convergence masking, instead of iterating to
+    # tolerance.  The parity day march requires it (None, the adaptive loop,
+    # is not ported: ROADMAP B6/A10).
+    nomass_fixed_iters: Optional[int] = None
+
+    # Flush RK4 stage values below 1e-25 to zero: read by
+    # ``engine.surface.march_surfaces`` and by the plain parity hour it runs
+    # in.  The day-march path overrides it to False (``ops.day_march.HourMarch``):
+    # the kernel never flushes, as heatx's kernel path does not.
+    flush_tiny: bool = True
 
     # Reproduce the reference's back-side AmbientTemperature boundary reusing
     # *front* surface values (surface.rs:672-686) — an apparent upstream bug,

@@ -58,7 +58,9 @@ def params_from_kernel_operands(
     """DayMarchParams from heatx ``make_hour_march`` operands.
 
     ``ops`` holds the node arrays ``node_mask``, ``mass``, ``massive``,
-    ``seg_u``, ``front_alphas``, ``back_alphas`` ([N, SP]); the lane rows
+    ``seg_u``, ``same_chunk``, ``front_alphas``, ``back_alphas`` ([N, SP];
+    ``same_chunk``, which only the parity march reads, may be absent and is
+    then derived from the masks); the lane rows
     ``area`` ... ``normal_y``, ``front_code``, ``back_code`` ([1, SP] or
     [SP]); the zone one-hots ``front_oh``/``back_oh`` ([SP, ZB]; absent when
     no face of that side bounds a zone); ``zone_volume`` ([NB*8, ZB],
@@ -90,5 +92,5 @@ def params_from_kernel_operands(
         np.asarray(ops["front_code"]).reshape(SP),
         np.asarray(ops["back_code"]).reshape(SP),
         ops.get("front_oh", zero_oh), ops.get("back_oh", zero_oh), zv, n_blocks,
-        dtype=dtype, device=device, ctl=ctl, mix=mix,
+        dtype=dtype, device=device, ctl=ctl, mix=mix, same_chunk=ops.get("same_chunk"),
     )

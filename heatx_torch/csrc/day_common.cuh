@@ -1,5 +1,6 @@
-// Device code shared by the TR-BDF2 day march (day_march.cu) and its adjoint
-// (day_adjoint.cu): the packed-operand layout, one surface lane's statics,
+// Device code shared by the day march (day_march.cu) and its adjoint
+// (day_adjoint.cu), in TR-BDF2 and (with day_parity.cuh) reference-parity
+// mode: the packed-operand layout, one surface lane's statics,
 // the operator build (film coefficients, linearized radiation, the stage
 // matrix and its Thomas factors), one TR-BDF2 sub-step of a lane's node
 // column, the zone sums, the inter-zone mixing sums, the exact exponential
@@ -100,6 +101,10 @@ struct DayArgs {
   const T* mixt_vol;
   int N, NB, SB, ZB, hours, substeps, refresh_every, amb_bug;
   double dt, half_dt, gamma_dt, beta_dt, c1, c2;
+  // The reference-parity march (day_parity.cuh): whether it runs instead of
+  // TR-BDF2, and its no-mass iteration count, escalation and tolerances.
+  int parity, nomass_iters, esc_after;
+  double nomass_tol, nomass_tol_esc;
 };
 
 // TR-BDF2 scheme constants in the working precision.

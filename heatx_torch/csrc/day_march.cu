@@ -1,11 +1,12 @@
-// TR-BDF2 day march for NVIDIA Hopper (sm_90a), bound through a plain C
+// The day march for NVIDIA Hopper (sm_90a), bound through a plain C
 // interface (ctypes; see heatx_torch/ops/day_march.py).
 //
 // Replaces heatx/ops/pallas_step.py::make_hour_march -> `kernel` (the
 // pl.pallas_call at pallas_step.py:1976) in modes trbdf2 / trbdf2_refresh,
-// body `_hour_body_imp`, for buildings without gas cavities: free-float, or
-// with thermostats (`_zone_update_ctl`, the per-hour mean load history),
-// per-hour setpoint schedules and inter-zone mixing.
+// body `_hour_body_imp`, and in mode parity, body `_hour_body` (kParity; the
+// sub-step itself is in day_parity.cuh), for buildings without gas cavities:
+// free-float, or with thermostats (`_zone_update_ctl`, the per-hour mean load
+// history), per-hour setpoint schedules and inter-zone mixing.
 // One launch marches `hours` hours of `substeps` sub-steps per sub-step
 // operator group of `refresh_every` (frozen mode: refresh_every == substeps).
 //
@@ -48,8 +49,13 @@
 //  * The device functions (lane statics, operator build, one sub-step, zone
 //    sums and update) live in day_common.cuh, shared with the adjoint kernel
 //    (day_adjoint.cu), whose recompute is therefore this kernel's arithmetic.
+//  * The parity march is two more instantiations (kParity x kExt): the same
+//    hour loop, zone phases and outputs around parity_substep, with the
+//    operators rebuilt every sub-step (refresh_every == 1), so the four
+//    TR-BDF2 instantiations keep their code.
 
 #include "day_common.cuh"
+#include "day_parity.cuh"
 
 namespace {
 
@@ -66,7 +72,7 @@ struct MarchArgs {
   T* ld_hist;  // [hours, NB, ZB] mean ideal load per hour (thermostats), or null
 };
 
-template <typename T, bool kExt>
+template <typename T, bool kExt, bool kParity>
 __global__ void __launch_bounds__(kMaxLanes) day_march_kernel(const MarchArgs<T> m) {
   const DayArgs<T>& a = m.in;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -102,12 +108,20 @@ __global__ void __launch_bounds__(kMaxLanes) day_march_kernel(const MarchArgs<T>
     for (int i0 = 0; i0 < a.substeps; i0 += a.refresh_every) {
       const int w = h * a.substeps + i0;
       T t_front, t_back;
-      L.boundary(s_zT, a.t_out[w], t_front, t_back);
-      o = build_ops(L, Tn, t_front, t_back, a.wind[w], a.wdir[w], hi, a.amb_bug, sc.a_dt, cs, inv);
+      if (!kParity) {
+        L.boundary(s_zT, a.t_out[w], t_front, t_back);
+        o = build_ops(L, Tn, t_front, t_back, a.wind[w], a.wdir[w], hi, a.amb_bug, sc.a_dt, cs, inv);
+      }
 
       for (int i = i0; i < i0 + a.refresh_every; ++i) {
         L.boundary(s_zT, a.t_out[h * a.substeps + i], t_front, t_back);
-        march_substep(L, o, cs, inv, hi, t_front, t_back, sc, Tn, T1);
+        if (kParity) {  // refresh_every is 1: the operators are the sub-step's own
+          ParityWork<T> W;
+          o = parity_substep(Chunks<T>(a, L, lane), ParityCfg<T>(a), hi, t_front, t_back,
+                             a.wind[w], a.wdir[w], a.amb_bug, Tn, W);
+        } else {
+          march_substep(L, o, cs, inv, hi, t_front, t_back, sc, Tn, T1);
+        }
         const T ts_front = Tn[0];
         const T ts_back = L.last_node(Tn);
         qf = (ts_front - t_front) * o.hf;
@@ -181,6 +195,9 @@ int check_args(const MarchArgs<T>& m) {
   if (a.N < 1 || a.N > kMaxNodes || a.SB < 1 || a.SB > kMaxLanes || a.NB < 1 ||
       a.ZB < 1 || a.hours < 1 || a.refresh_every < 1 || a.substeps % a.refresh_every)
     return static_cast<int>(cudaErrorInvalidValue);
+  // The parity march rebuilds its operators every sub-step.
+  if (a.parity && (a.refresh_every != 1 || a.nomass_iters < 0))
+    return static_cast<int>(cudaErrorInvalidValue);
   // Thermostat rows come with a load history; schedules need the rows.
   if ((a.ctl != nullptr) != (m.ld_hist != nullptr) ||
       (a.sp_heat != nullptr) != (a.sp_cool != nullptr) || (a.sp_heat && !a.ctl))
@@ -188,18 +205,18 @@ int check_args(const MarchArgs<T>& m) {
   return static_cast<int>(cudaSuccess);
 }
 
-template <typename T, bool kExt>
+template <typename T, bool kExt, bool kParity>
 int launch_as(const MarchArgs<T>& m, cudaStream_t stream) {
   const DayArgs<T>& a = m.in;
   const size_t smem = sizeof(T) * (static_cast<size_t>(a.ZB) * (kExt ? 3 : 1) +
                                    4 * static_cast<size_t>(a.SB));
   if (smem > 48 * 1024) {
     const cudaError_t e =
-        cudaFuncSetAttribute(day_march_kernel<T, kExt>,
+        cudaFuncSetAttribute(day_march_kernel<T, kExt, kParity>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  day_march_kernel<T, kExt><<<a.NB, a.SB, smem, stream>>>(m);
+  day_march_kernel<T, kExt, kParity><<<a.NB, a.SB, smem, stream>>>(m);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -211,8 +228,10 @@ int day_march(const void* node, const void* surf, const void* lane, const void* 
               const void* zT0, void* T_out, void* zT_out, void* hq, void* zt_hist, void* bad,
               void* ld_hist, const void* ctl, const void* sp_heat, const void* sp_cool,
               const void* mix_ptr, const void* mix_src, const void* mix_vol, int N, int NB, int SB,
-              int ZB, int hours, int substeps, int refresh_every, int amb_bug, double dt,
-              double half_dt, double gamma_dt, double beta_dt, double c1, double c2, void* stream) {
+              int ZB, int hours, int substeps, int refresh_every, int amb_bug, int parity,
+              int nomass_iters, int esc_after, double dt, double half_dt, double gamma_dt,
+              double beta_dt, double c1, double c2, double nomass_tol, double nomass_tol_esc,
+              void* stream) {
   MarchArgs<T> m;
   DayArgs<T>& a = m.in;
   a.node = static_cast<const T*>(node);
@@ -261,11 +280,18 @@ int day_march(const void* node, const void* surf, const void* lane, const void* 
   a.beta_dt = beta_dt;
   a.c1 = c1;
   a.c2 = c2;
+  a.parity = parity;
+  a.nomass_iters = nomass_iters;
+  a.esc_after = esc_after;
+  a.nomass_tol = nomass_tol;
+  a.nomass_tol_esc = nomass_tol_esc;
   const int err = check_args(m);
   if (err) return err;
   // Free-float buildings run the instantiation without the extra zone code.
-  if (a.ctl || a.mix_ptr) return launch_as<T, true>(m, static_cast<cudaStream_t>(stream));
-  return launch_as<T, false>(m, static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool ext = a.ctl || a.mix_ptr;
+  if (parity) return ext ? launch_as<T, true, true>(m, st) : launch_as<T, false, true>(m, st);
+  return ext ? launch_as<T, true, false>(m, st) : launch_as<T, false, false>(m, st);
 }
 
 }  // namespace
@@ -278,13 +304,16 @@ int day_march(const void* node, const void* surf, const void* lane, const void* 
       const void *zT0, void *T_out, void *zT_out, void *hq, void *zt_hist, void *bad,     \
       void *ld_hist, const void *ctl, const void *sp_heat, const void *sp_cool,           \
       const void *mix_ptr, const void *mix_src, const void *mix_vol, int N, int NB,       \
-      int SB, int ZB, int hours, int substeps, int refresh_every, int amb_bug, double dt, \
-      double half_dt, double gamma_dt, double beta_dt, double c1, double c2, void *stream
+      int SB, int ZB, int hours, int substeps, int refresh_every, int amb_bug, int parity, \
+      int nomass_iters, int esc_after, double dt, double half_dt, double gamma_dt,         \
+      double beta_dt, double c1, double c2, double nomass_tol, double nomass_tol_esc,      \
+      void *stream
 #define HEATX_DAY_MARCH_CALL                                                              \
   node, surf, lane, zone_volume, zone_ptr, zone_faces, t_out, wind, wdir, sol_f, sol_b,   \
       ir_f, ir_b, a_extra, b_extra, T0, zT0, T_out, zT_out, hq, zt_hist, bad, ld_hist,    \
       ctl, sp_heat, sp_cool, mix_ptr, mix_src, mix_vol, N, NB, SB, ZB, hours, substeps,   \
-      refresh_every, amb_bug, dt, half_dt, gamma_dt, beta_dt, c1, c2, stream
+      refresh_every, amb_bug, parity, nomass_iters, esc_after, dt, half_dt, gamma_dt,      \
+      beta_dt, c1, c2, nomass_tol, nomass_tol_esc, stream
 
 extern "C" {
 

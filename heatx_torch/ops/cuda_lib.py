@@ -11,6 +11,7 @@ unchanged one is reused.  Nothing is built or loaded at import time.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -59,8 +60,18 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build the kernels")
 
 
+@functools.lru_cache(maxsize=None)
+def nvcc_flags() -> tuple:
+    """``NVCC_FLAGS`` plus, where this nvcc has it, ``-split-compile 0``: the
+    optimizer then works on a source's kernels on all CPUs at once, which
+    matters for the adjoint's eight instantiations (the TR-BDF2 kernels come
+    out with the same registers and stack either way)."""
+    helped = subprocess.run([nvcc_path(), "--help"], capture_output=True, text=True).stdout
+    return NVCC_FLAGS + (("-split-compile", "0") if "--split-compile " in helped else ())
+
+
 def _digest(sources) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(nvcc_flags()).encode())
     headers = sorted(CSRC_DIR.glob("*.cuh"))
     for path in list(sources) + headers:
         h.update(path.name.encode())
@@ -82,7 +93,7 @@ def build_many(specs) -> list:
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        cmd = [nvcc_path(), *nvcc_flags(), "-o", str(tmp), *map(str, sources)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         jobs.append((name, out, tmp, proc))
     failed = []

@@ -1,8 +1,8 @@
 """The adjoint day march: heatx's reverse-sweep Pallas kernel, on PyTorch/CUDA.
 
-Counterpart of ``heatx.ops.pallas_adjoint`` for modes ``trbdf2`` and
-``trbdf2_refresh``, with thermostats, scheduled setpoints and inter-zone
-mixing.  :func:`make_day_adjoint` returns ``day_adjoint(params, T0, zT0,
+Counterpart of ``heatx.ops.pallas_adjoint`` for modes ``trbdf2``,
+``trbdf2_refresh`` and ``parity``, with thermostats, scheduled setpoints and
+inter-zone mixing.  :func:`make_day_adjoint` returns ``day_adjoint(params, T0, zT0,
 hour_inputs, cots) -> dict`` with heatx's call signature, keys and blocked
 shapes: ``params`` and ``hour_inputs`` are those of
 :func:`heatx_torch.ops.day_march.make_hour_march`, ``T0 [N, SP]``/``zT0 [NB,
@@ -36,8 +36,20 @@ cotangents of autograd through :func:`heatx_torch.ops.day_march.plain_day_march`
 forward is the day march and whose backward is the day adjoint, so a chain
 of days differentiates with ``torch.autograd`` (``FastRunner.chunk_grad``).
 
+Parity mode: heatx unrolls the sub-steps of ``_hour_body`` under its
+trace-time vjp, so its trace grows with the stability sub-step count.  The
+plain version here differentiates :func:`heatx_torch.ops.day_march.plain_hour_parity`
+hour by hour as it does the TR-BDF2 body, and the kernel reverses one sub-step
+at a time from sub-step-start columns kept in a wrapper-allocated workspace
+(``[substeps, N, SP]``; an hour of 118 sub-steps outgrows the per-thread tape
+of the TR-BDF2 kernel).  The no-mass iteration's update, increase and
+convergence masks are piecewise constant and carry no cotangent, as under
+``jax.vjp``.  ``substeps`` must be given and be the building's
+``dt_subdivisions`` (heatx checks only that it is given; with another count
+its adjoint would step by a dt the march does not use).
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): the interior-MRT emissivities, parity mode, gas cavities.
+item): the interior-MRT emissivities, gas cavities.
 """
 
 from __future__ import annotations
@@ -76,9 +88,11 @@ def plain_day_adjoint(
     params: DayMarchParams, T0, zT0, t_out, wind, wdir, sol_front, sol_back,
     ir_front, ir_back, a_extra, b_extra, sp_heat, sp_cool, dT, d_zT, d_zt_hist,
     d_ld_hist, *, hours: int, substeps: int, refresh_every: int, dt: float, config,
+    parity: bool = False,
 ):
     """The plain PyTorch day adjoint on any device: the reference the CUDA
-    kernel is held against.  Operands as ``day_march.plain_day_march``
+    kernel is held against (``parity``: of the reference-parity march).
+    Operands as ``day_march.plain_day_march``
     (``sp_heat``/``sp_cool`` None without a schedule) plus the cotangents
     ``dT`` [N, SP], ``d_zT`` [NB, ZB], ``d_zt_hist`` and ``d_ld_hist``
     [hours, NB, ZB] (the last None without thermostats).  Returns ``(dT0
@@ -98,14 +112,14 @@ def plain_day_adjoint(
     )
 
     def hour(p, zone_volume, h, T, zT, chans, a_h, b_h, sp_h):
-        sbv = day_march._lanes(p)
+        sbv = day_march._lanes(p, chunks=parity)
         st = surf_mod.compute_statics(sbv)  # inside the tape: cos_tilt's TARP coefficients
         ctl = None
         if has_ctl:
             rows = p.ctl.reshape(4, -1)
             ctl = (sp_h if sched else (rows[0], rows[1])) + (rows[2], rows[3])
-        T, zT, _, ld = day_march._hour_body_imp(
-            sbv=sbv, st=st, zone_volume=zone_volume, a_extra=a_h, b_extra=b_h,
+        T, zT, _, ld = day_march.hour_body(
+            parity, sbv, st, zone_volume=zone_volume, a_extra=a_h, b_extra=b_h,
             sol_front=chans[0], sol_back=chans[1], ir_front=chans[2], ir_back=chans[3],
             T0=T, zT0=zT, off=h * substeps, ctl=ctl, **kw,
         )
@@ -179,7 +193,7 @@ def plain_day_adjoint(
 # The CUDA kernel wrapper
 # ---------------------------------------------------------------------------
 
-_N_PTRS = 43
+_N_PTRS = 44
 
 
 def _load_library():
@@ -208,18 +222,19 @@ class DayAdjointKernel:
 
     def __init__(self):
         self.launches = 0
+        self.parity_launches = 0  # those of ``launches`` that ran the parity kernel
 
     def __call__(
         self, params: DayMarchParams, T0, zT0, t_out, wind, wdir, sol_front,
         sol_back, ir_front, ir_back, a_extra, b_extra, sp_heat, sp_cool, dT, d_zT,
         d_zt_hist, d_ld_hist, *, hours: int, substeps: int, refresh_every: int,
-        dt: float, config,
+        dt: float, config, parity: bool = False,
     ):
         N, NB, ZB = params.max_nodes, params.n_blocks, params.zones_per_block
         SB = params.block_size
         SP = NB * SB
         dtype = T0.dtype
-        if (substeps + 1) * N > MAX_TAPE:
+        if not parity and (substeps + 1) * N > MAX_TAPE:
             raise ValueError(
                 f"(substeps + 1) * nodes = {(substeps + 1) * N} > {MAX_TAPE}: the "
                 "adjoint kernel's per-thread tape holds one hour of sub-step states"
@@ -242,9 +257,12 @@ class DayAdjointKernel:
         lib = _load_library()
         fn = lib.heatx_day_adjoint_f32 if dtype == torch.float32 else lib.heatx_day_adjoint_f64
         kw = dict(dtype=dtype, device=T0.device)
-        # Workspace: each hour's start state (the kernel allocates nothing).
+        # Workspace: each hour's start state (the kernel allocates nothing),
+        # and in parity mode one hour's sub-step-start node columns, which
+        # outgrow a per-thread tape at the stability sub-step count.
         T_ws = torch.empty((hours, N, SP), **kw)
         zT_ws = torch.empty((hours, NB, ZB), **kw)
+        sub_ws = torch.empty((substeps, N, SP), **kw) if parity else None
         outs = (
             torch.empty((N, SP), **kw), torch.empty((NB, ZB), **kw),
             torch.empty((4, N, SP), **kw), torch.empty((len(SURF_FIELDS), SP), **kw),
@@ -263,15 +281,16 @@ class DayAdjointKernel:
             d_ld_hist, params.ctl, sp_heat, sp_cool,
             *((None,) * 6 if mix is None
               else (mix.ptr, mix.src, mix.vol, mix.t_ptr, mix.t_dst, mix.t_vol)),
-            *outs[8:],
+            *outs[8:], sub_ws,
         ]
         ptrs = (ctypes.c_void_p * _N_PTRS)(*[None if t is None else t.data_ptr() for t in tensors])
-        ints = (ctypes.c_int * 8)(
-            N, NB, SB, ZB, hours, substeps, refresh_every, int(config.replicate_ambient_back_bug)
+        ints = (ctypes.c_int * 11)(
+            N, NB, SB, ZB, hours, substeps, refresh_every, int(config.replicate_ambient_back_bug),
+            *day_march.parity_ints(config, parity),
         )
-        reals = (ctypes.c_double * 6)(
+        reals = (ctypes.c_double * 8)(
             dt, imp_mod.GAMMA * dt / 2.0, imp_mod.GAMMA * dt, imp_mod.BETA * dt,
-            imp_mod.C1, imp_mod.C2,
+            imp_mod.C1, imp_mod.C2, config.nomass_tol, config.nomass_tol_escalated,
         )
         with torch.cuda.device(T0.device):
             stream = torch.cuda.current_stream().cuda_stream
@@ -281,6 +300,7 @@ class DayAdjointKernel:
             msg = lib.heatx_cuda_error_string(err).decode()
             raise RuntimeError(f"day_adjoint kernel launch failed: CUDA error {err} ({msg})")
         self.launches += 1
+        self.parity_launches += int(parity)
         return outs
 
 
@@ -371,7 +391,20 @@ def make_day_adjoint(
     checked as ``make_hour_march`` checks it (``"cuda"``, the default,
     raises without a GPU)."""
     if mode == "parity":
-        raise NotImplementedError("the parity-mode adjoint is ROADMAP B3/B4 (not ported yet)")
+        # heatx's rules (pallas_adjoint.py:150-161): the sub-step length is
+        # 3600 / (steps per hour x substeps), so the count must be given, and
+        # it is the parity march's only when it is the building's own.
+        if substeps is None:
+            raise ValueError(
+                "mode='parity' needs the stability-dictated sub-step count "
+                "(building.dt_subdivisions) passed as substeps"
+            )
+        if substeps != bb.base.dt_subdivisions:
+            raise ValueError(
+                f"mode='parity': substeps={substeps} is not the building's dt_subdivisions "
+                f"({bb.base.dt_subdivisions}); the march it differentiates steps by the "
+                "building's dt"
+            )
     day_march._check_supported(bb.base)
     cuda_lib.resolve_device(device)
     return DayAdjoint(day_march.hour_march_for(

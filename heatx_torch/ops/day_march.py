@@ -1,9 +1,10 @@
-"""The TR-BDF2 day march: heatx's fused Pallas hour kernel, on PyTorch/CUDA.
+"""The day march: heatx's fused Pallas hour kernel, on PyTorch/CUDA.
 
-Counterpart of ``heatx.ops.pallas_step`` for modes ``trbdf2`` and
-``trbdf2_refresh``, on free-float buildings and on buildings with
-thermostats (setpoint-driven ideal loads), scheduled setpoints and
-inter-zone mixing.  :func:`make_hour_march` returns ``(hour_march, params)``
+Counterpart of ``heatx.ops.pallas_step`` for modes ``trbdf2``,
+``trbdf2_refresh`` and ``parity`` (the reference-parity sub-step: RK4 on the
+massive nodes after a relaxed fixed-iteration no-mass solve), on free-float
+buildings and on buildings with thermostats (setpoint-driven ideal loads),
+scheduled setpoints and inter-zone mixing.  :func:`make_hour_march` returns ``(hour_march, params)``
 with heatx's call signature and output layout: ``hour_march(params, T [N,
 SP], zT [NB, ZB], hour_inputs)`` marches ``hours`` hours of ``substeps``
 sub-steps per call and returns ``(T, zT, (h_front, h_back, q_front, q_back),
@@ -52,7 +53,28 @@ Design, and what of heatx's kernel is deliberately not carried over:
   which is the natural per-thread solver; ``HEATX_KERNEL_SOLVER``,
   ``HEATX_KERNEL_LOOP`` and the scratch-ref ``_make_ref_thomas`` are not
   ported.  The PCR twins stay in ``heatx_torch.ops.tridiag``.
-* bench.py's dispatch chunking against a remote watchdog has no counterpart.
+* bench.py's dispatch chunking against a remote watchdog has no counterpart
+  (a parity day-launch runs for ~0.14 s on an H100, an adjoint one for ~1.6 s).
+* Parity mode (``csrc/day_parity.cuh``, the plain twin
+  :func:`plain_hour_parity`) is a further instantiation of each kernel
+  template, so the TR-BDF2 code keeps its registers and times.  Not carried
+  over from heatx's parity path: the hoisted static-U forms of K and q and
+  the identity guards that select them (one inline form here); the solver
+  choice for the no-mass system (heatx: the closed-form pair solve when no
+  run is longer than 2 nodes, else PCR compiled and Thomas interpreted;
+  ``HEATX_NOMASS_PAIRS``, ``HEATX_KERNEL_SOLVER``, ``HEATX_KERNEL_LOOP``):
+  the kernel runs the Thomas sweeps over the identity-padded column per
+  thread, and the plain twin keeps heatx's choice (``tridiag.solve_runs2`` or
+  ``tridiag.solve``); ``unroll_fixed_loops``/``kernel_mode``; chunk ids and
+  counts as operands (a lane's ``chunk_bits`` word and its masks give them).
+  The kernel never flushes tiny RK4 stage values to zero, and
+  :class:`HourMarch` gives its twin ``flush_tiny=False`` whatever the
+  building's config says (heatx's kernel path does the same on hardware that
+  flushes subnormals; nvcc without fast-math keeps them, and chip_smoke.py
+  shows in f32 at full width that a twin which flushes differs by round-off).
+  ``SimConfig.flush_tiny`` is read by ``engine.surface.march_surfaces``.  The adaptive no-mass
+  loop (``nomass_fixed_iters=None``, ``HEATX_KERNEL_WHILE``) raises: ROADMAP
+  B6/A10.
 
 Frozen mode (``trbdf2``) is the refresh kernel with ``refresh_every =
 substeps``: heatx proves the two bit-identical (test_pallas_imp.py).
@@ -61,8 +83,8 @@ Gradients: :class:`ParamBlocker` blocks the parameter rows differentiably
 from torch tensors, and ``heatx_torch.ops.day_adjoint`` holds the reverse
 sweep (the adjoint kernel and ``DayMarchFn``).
 
-Not ported yet (each raises ``NotImplementedError``): the parity body, gas
-cavities, interior MRT, in-run shading and vent gates (ROADMAP A7, A9),
+Not ported yet (each raises ``NotImplementedError``): gas cavities, interior
+MRT, in-run shading and vent gates (ROADMAP A9/B5),
 ``collect_hq``/``collect_operative`` (A9) and sharding (A12).
 """
 
@@ -104,6 +126,7 @@ SURF_FIELDS = (
 )
 LANE_FIELDS = (
     "front_code", "back_code", "front_zone", "back_zone", "node_bits", "mass_bits",
+    "chunk_bits",
 )
 
 KERNEL_SOURCE = cuda_lib.CSRC_DIR / "day_march.cu"
@@ -371,7 +394,7 @@ class DayMarchParams:
 
     node: torch.Tensor  # [4, N, SP] float
     surf: torch.Tensor  # [13, SP] float
-    lane: torch.Tensor  # [6, SP] int32
+    lane: torch.Tensor  # [7, SP] int32
     zone_volume: torch.Tensor  # [NB, ZB] float
     zone_ptr: torch.Tensor  # [NB*ZB + 1] int32 offsets into zone_faces
     zone_faces: torch.Tensor  # [E] int32: block-local lane*2 + side (0 front, 1 back)
@@ -422,18 +445,24 @@ def _node_bits(mask: np.ndarray) -> np.ndarray:
 def pack_params(
     node_mask, massive, capacity, seg_u, front_alphas, back_alphas, surf: dict,
     front_code, back_code, front_oh, back_oh, zone_volume, n_blocks,
-    dtype=torch.float32, device="cpu", ctl=None, mix: MixLists = None,
+    dtype=torch.float32, device="cpu", ctl=None, mix: MixLists = None, same_chunk=None,
 ) -> DayMarchParams:
     """Pack blocked numpy operands into :class:`DayMarchParams`.
 
     Node arrays are ``[N, SP]`` (``massive`` marks the nodes whose capacity
-    is their ``mass``), ``surf`` maps each SURF_FIELDS name to an ``[SP]``
-    array, ``front_oh``/``back_oh`` are the ``[SP, ZB]`` block-local zone
-    one-hots, ``zone_volume`` is ``[NB, ZB]``; ``ctl`` the four ``[NB, ZB]``
-    thermostat rows and ``mix`` the host-side mixing lists (None: absent).
-    Shared by :func:`make_hour_march` and ``heatx_torch.convert``."""
+    is their ``mass``; ``same_chunk[i]`` that nodes i and i+1 share a chunk,
+    by default two valid nodes of the same massiveness), ``surf`` maps each
+    SURF_FIELDS name to an ``[SP]`` array, ``front_oh``/``back_oh`` are the
+    ``[SP, ZB]`` block-local zone one-hots, ``zone_volume`` is ``[NB, ZB]``;
+    ``ctl`` the four ``[NB, ZB]`` thermostat rows and ``mix`` the host-side
+    mixing lists (None: absent).  Shared by :func:`make_hour_march` and
+    ``heatx_torch.convert``."""
     node_mask = np.asarray(node_mask, bool)
+    massive = np.asarray(massive, bool)
     N, SP = node_mask.shape
+    if same_chunk is None:
+        same_chunk = np.zeros_like(node_mask)
+        same_chunk[:-1] = node_mask[:-1] & node_mask[1:] & (massive[:-1] == massive[1:])
     if N > MAX_NODES:
         raise NotImplementedError(f"more than {MAX_NODES} nodes per surface (ROADMAP B1)")
     NB = int(n_blocks)
@@ -469,7 +498,8 @@ def pack_params(
         surf=f(np.stack([np.asarray(surf[k], np.float64).reshape(SP) for k in SURF_FIELDS])),
         lane=i32(np.stack([
             np.asarray(front_code).reshape(SP), np.asarray(back_code).reshape(SP),
-            fz, bz, _node_bits(node_mask), _node_bits(np.asarray(massive, bool)),
+            fz, bz, _node_bits(node_mask), _node_bits(massive),
+            _node_bits(np.asarray(same_chunk, bool)),
         ])),
         zone_volume=f(np.asarray(zone_volume).reshape(NB, ZB)),
         zone_ptr=i32(zone_ptr),
@@ -557,7 +587,7 @@ def params_from_blocked(bb: BlockedBuilding, dtype, device) -> DayMarchParams:
         sb.front_code, sb.back_code, bb.front_oh, bb.back_oh, bb.zone_volume,
         bb.n_blocks, dtype=dtype, device=device,
         ctl=None if bb.ctl is None else [np.asarray(c).astype(np_dtype) for c in bb.ctl],
-        mix=bb.mix,
+        mix=bb.mix, same_chunk=sb.same_chunk,
     )
 
 
@@ -567,18 +597,42 @@ def params_from_blocked(bb: BlockedBuilding, dtype, device) -> DayMarchParams:
 
 
 def bit_rows(params: DayMarchParams, name: str) -> torch.Tensor:
-    """A lane row of 32-bit node masks (``node_bits``/``mass_bits``) as
-    the [N, SP] bool mask it packs."""
+    """A lane row of 32-bit node masks (``node_bits``/``mass_bits``/
+    ``chunk_bits``) as the [N, SP] bool mask it packs."""
     bits = params.field(name).to(torch.int64)
     shifts = torch.arange(params.max_nodes, device=bits.device)[:, None]
     return ((bits[None, :] >> shifts) & 1).bool()
 
 
-def _lanes(params: DayMarchParams):
+def _chunk_view(node_mask, massive, same_chunk) -> dict:
+    """The no-mass chunk data of ``SurfaceBatch`` from the node masks: a
+    no-mass chunk is a maximal run of valid no-mass nodes joined by
+    ``same_chunk``, numbered from 0 down each surface."""
+    sel = node_mask & ~massive
+    prev = torch.cat([torch.zeros_like(sel[:1]), (sel & same_chunk)[:-1]], dim=0)
+    head = sel & ~prev
+    cid = torch.where(sel, torch.cumsum(head.to(torch.int32), dim=0) - 1, -1)
+    C = max(int(cid.max()) + 1, 1)
+    count = torch.stack([(cid == c).sum(dim=0) for c in range(C)])
+    return dict(
+        massive=massive, same_chunk=same_chunk, nomass_chunk_id=cid,
+        nomass_chunk_count=count, max_nomass_run=int(count.max()),
+        has_nomass=bool(sel.any()), has_massive=bool(massive.any()),
+    )
+
+
+def _lanes(params: DayMarchParams, chunks: bool = False):
     """SurfaceBatch-like view of the blocked lanes for the engine functions,
-    plus the global zone slot (block*ZB + local zone, -1 none) of each face."""
+    plus the global zone slot (block*ZB + local zone, -1 none) of each face.
+    ``chunks`` adds what the parity integrator reads: ``massive``, ``mass``
+    (the capacity row: the mass on massive nodes) and the no-mass chunks."""
     SP = params.surf.shape[1]
     node_mask = bit_rows(params, "node_bits")
+    extra = {}
+    if chunks:
+        extra = _chunk_view(node_mask, bit_rows(params, "mass_bits"), bit_rows(params, "chunk_bits"))
+        extra["nomass_chunk_count"] = extra["nomass_chunk_count"].to(params.node.dtype)
+        extra["mass"] = params.field("capacity")
     block = torch.arange(SP, device=node_mask.device) // params.block_size
     ZB = params.zones_per_block
 
@@ -597,6 +651,7 @@ def _lanes(params: DayMarchParams):
         front_slot=slot(params.field("front_zone")),
         back_slot=slot(params.field("back_zone")),
         has_cavity=False,
+        **extra,
     )
 
 
@@ -731,16 +786,74 @@ def _hour_body_imp(
     return T, zT, hq, (None if lsum is None else lsum / substeps)
 
 
+def plain_hour_parity(
+    cfg: SimConfig, sbv, st, zone_volume, a_extra, b_extra, t_out_arr, wind_arr,
+    wdir_arr, sol_front, sol_back, ir_front, ir_back, T0, zT0, substeps: int,
+    dt_sub: float, off: int, refresh_every: int = 1, ctl=None, mix=None,
+):
+    """One hour of reference-parity sub-steps for every block (heatx
+    ``_hour_body``, no cavities, no interior MRT).  Per sub-step: the TARP
+    border conditions of the state, ``engine.surface.march_surfaces`` (the
+    relaxed no-mass solve, then RK4 on the massive nodes, flushing tiny stage
+    values only where ``cfg.flush_tiny`` says so: :class:`HourMarch` turns it
+    off, as the kernel never flushes), the border conditions again on the new temperatures with
+    the same forced-convection terms (they give the h of the zone sums and of
+    h/q), the zone sums, mixing and the zone update.  Operands and returns as
+    :func:`_hour_body_imp` (``refresh_every`` is not read: the operators are
+    every sub-step's own); ``sbv`` and ``st`` carry the chunk structure."""
+    rad_out = surf_mod.radiant_out_temperatures(ir_front, ir_back)
+    solar_q = surf_mod.absorbed_solar_q(sbv, sol_front, sol_back)
+    T, zT, hq = T0, zT0, None
+    lsum = None if ctl is None else torch.zeros_like(zT0)
+    for i in range(substeps):
+        t_out, ws, wd = t_out_arr[off + i], wind_arr[off + i], wdir_arr[off + i]
+        t_front, t_back = _boundary_temps(sbv, zT, t_out)
+        forced = surf_mod.forced_context(sbv, wd, ws)
+        kw = dict(statics=st, rad_out=rad_out, forced=forced)
+        envs = surf_mod.border_conditions(
+            sbv, T, t_front, t_back, wd, ws, ir_front, ir_back, cfg, **kw
+        )
+        T = surf_mod.march_surfaces(
+            sbv, T, t_front, t_back, wd, ws, sol_front, sol_back, ir_front, ir_back, dt_sub, cfg,
+            has_massive=sbv.has_massive, statics=st, rad_out=rad_out, envs=envs, solar_q=solar_q,
+        )
+        env_f, env_b = surf_mod.border_conditions(
+            sbv, T, t_front, t_back, wd, ws, ir_front, ir_back, cfg, **kw
+        )
+        ts_front = T[0]
+        ts_back = surf_mod._last_node(sbv, T, st)
+        hq = (env_f.h, env_b.h, (ts_front - t_front) * env_f.h, (ts_back - t_back) * env_b.h)
+        a_z, b_z = _zone_dots(a_extra, b_extra, sbv, env_f.h, env_b.h, ts_front, ts_back)
+        if mix is not None:
+            a_z, b_z = _mix_terms(a_z, b_z, zT, mix)
+        t_k = zT + KELVIN  # (V rho) cp, heatx's order
+        c_z = zone_volume * gas.density(gas.AIR, t_k) * gas.heat_capacity(gas.AIR, t_k)
+        if ctl is None:
+            zT = zone_mod.future_zone_temperatures(zT, a_z, b_z, c_z, dt_sub)
+        else:
+            zT, load = zone_mod.zone_update(zT, a_z, b_z, c_z, dt_sub, *ctl)
+            lsum = lsum + load
+    return T, zT, hq, (None if lsum is None else lsum / substeps)
+
+
+def hour_body(parity: bool, sbv, st, **kw):
+    """One hour of either integrator on the plain path (keyword operands as
+    :func:`_hour_body_imp`)."""
+    return (plain_hour_parity if parity else _hour_body_imp)(sbv=sbv, st=st, **kw)
+
+
 def plain_day_march(
     params: DayMarchParams, T, zT, t_out, wind, wdir, sol_front, sol_back,
     ir_front, ir_back, a_extra, b_extra, sp_heat=None, sp_cool=None, *, hours: int,
-    substeps: int, refresh_every: int, dt: float, config: SimConfig,
+    substeps: int, refresh_every: int, dt: float, config: SimConfig, parity: bool = False,
 ):
     """The plain PyTorch day march on any device: the reference the CUDA
     kernel is held against.  Shapes as :func:`day_march_kernel`; returns
     ``(T, zT, hq [4, SP], zt_hist, bad, ld_hist)`` with ``ld_hist`` None
-    when ``params`` has no thermostat rows."""
-    sbv = _lanes(params)
+    when ``params`` has no thermostat rows.  ``parity`` marches the
+    reference-parity sub-steps (:func:`plain_hour_parity`) instead of
+    TR-BDF2."""
+    sbv = _lanes(params, chunks=parity)
     st = surf_mod.compute_statics(sbv)
     NB, ZB = params.n_blocks, params.zones_per_block
     zone_volume = params.zone_volume.reshape(-1)
@@ -752,11 +865,12 @@ def plain_day_march(
     for h in range(hours):
         if ctl is not None and sp_heat is not None:
             ctl = (sp_heat[h].reshape(-1), sp_cool[h].reshape(-1)) + ctl[2:]
-        T, zT, hq, ld = _hour_body_imp(
-            config, sbv, st, zone_volume, a_extra[h].reshape(-1),
-            b_extra[h].reshape(-1), t_out, wind, wdir, sol_front[h], sol_back[h],
-            ir_front[h], ir_back[h], T, zT, substeps, dt, h * substeps, refresh_every,
-            ctl=ctl, mix=mix,
+        T, zT, hq, ld = hour_body(
+            parity, sbv, st, cfg=config, zone_volume=zone_volume,
+            a_extra=a_extra[h].reshape(-1), b_extra=b_extra[h].reshape(-1), t_out_arr=t_out,
+            wind_arr=wind, wdir_arr=wdir, sol_front=sol_front[h], sol_back=sol_back[h],
+            ir_front=ir_front[h], ir_back=ir_back[h], T0=T, zT0=zT, substeps=substeps,
+            dt_sub=dt, off=h * substeps, refresh_every=refresh_every, ctl=ctl, mix=mix,
         )
         hist.append(zT.reshape(NB, ZB))
         if ld is not None:
@@ -778,7 +892,7 @@ def _load_library():
     if not getattr(lib, "_heatx_bound", False):
         vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
         for fn in (lib.heatx_day_march_f32, lib.heatx_day_march_f64):
-            fn.argtypes = [vp] * 29 + [ci] * 8 + [cd] * 6 + [vp]
+            fn.argtypes = [vp] * 29 + [ci] * 11 + [cd] * 8 + [vp]
             fn.restype = ci
         lib.heatx_cuda_error_string.argtypes = [ci]
         lib.heatx_cuda_error_string.restype = ctypes.c_char_p
@@ -796,15 +910,19 @@ class DayMarchKernel:
     launches made through this wrapper (and nothing else).  Arguments and
     returns as :func:`plain_day_march`.  Thermostat rows (``params.ctl``),
     per-hour setpoints and mixing lists select the kernel's second
-    instantiation; without them the free-float one runs."""
+    instantiation; without them the free-float one runs.  ``parity`` selects
+    the reference-parity kernel (again one instantiation of each kind), whose
+    no-mass iteration count and tolerances come from ``config``."""
 
     def __init__(self):
         self.launches = 0
+        self.parity_launches = 0  # those of ``launches`` that ran the parity kernel
 
     def __call__(
         self, params: DayMarchParams, T, zT, t_out, wind, wdir, sol_front,
         sol_back, ir_front, ir_back, a_extra, b_extra, sp_heat=None, sp_cool=None, *,
         hours: int, substeps: int, refresh_every: int, dt: float, config: SimConfig,
+        parity: bool = False,
     ):
         N, NB, ZB = params.max_nodes, params.n_blocks, params.zones_per_block
         SB = params.block_size
@@ -838,15 +956,26 @@ class DayMarchKernel:
             stream = torch.cuda.current_stream().cuda_stream
             err = fn(
                 *ptrs, N, NB, SB, ZB, hours, substeps, refresh_every,
-                int(config.replicate_ambient_back_bug),
+                int(config.replicate_ambient_back_bug), *parity_ints(config, parity),
                 dt, imp_mod.GAMMA * dt / 2.0, imp_mod.GAMMA * dt,
-                imp_mod.BETA * dt, imp_mod.C1, imp_mod.C2, stream,
+                imp_mod.BETA * dt, imp_mod.C1, imp_mod.C2,
+                config.nomass_tol, config.nomass_tol_escalated, stream,
             )
         if err != 0:
             msg = lib.heatx_cuda_error_string(err).decode()
             raise RuntimeError(f"day_march kernel launch failed: CUDA error {err} ({msg})")
         self.launches += 1
+        self.parity_launches += int(parity)
         return T_out, zT_out, hq, zt_hist, bad, ld_hist
+
+
+def parity_ints(config: SimConfig, parity: bool) -> tuple:
+    """The integer arguments that select and steer the parity kernels:
+    ``(parity, nomass_fixed_iters, nomass_escalate_after)``.  Raises where
+    the march needs the adaptive no-mass loop."""
+    if parity and config.nomass_fixed_iters is None:
+        raise ValueError("the parity kernels require config.nomass_fixed_iters")
+    return int(parity), int(config.nomass_fixed_iters or 0), int(config.nomass_escalate_after)
 
 
 def launch_operands(
@@ -919,10 +1048,12 @@ class HourMarch:
     twin; :meth:`plain` runs the plain twin on any device.
     ``collect_loads`` says whether the outputs end with ``ld_hist`` (the
     building has thermostats), ``scheduled_setpoints`` whether the march
-    reads per-hour setpoint rows."""
+    reads per-hour setpoint rows, ``parity`` whether it marches the
+    reference-parity sub-steps instead of TR-BDF2."""
 
     def __init__(self, bb: BlockedBuilding, substeps, hours, refresh_every, dt,
-                 collect_bad, scheduled_setpoints=False):
+                 collect_bad, scheduled_setpoints=False, parity=False):
+        self.parity = parity
         self.substeps = substeps
         self.hours = hours
         self.refresh_every = refresh_every
@@ -930,7 +1061,9 @@ class HourMarch:
         self.collect_bad = collect_bad
         self.collect_loads = bb.ctl is not None
         self.scheduled_setpoints = scheduled_setpoints
-        self.config = bb.config
+        # The kernel never flushes tiny RK4 stage values (heatx's kernel path
+        # passes flush_tiny=False, pallas_step.py:1555), so neither does its twin.
+        self.config = bb.config.replace(flush_tiny=False) if parity else bb.config
         self.n_blocks = bb.n_blocks
         self.zones_per_block = bb.zones_per_block
         self.padded_surfaces = bb.layout.padded_surfaces
@@ -972,6 +1105,7 @@ class HourMarch:
         return dict(
             hours=self.hours, substeps=self.substeps,
             refresh_every=self.refresh_every, dt=self.dt, config=self.config,
+            parity=self.parity,
         )
 
     def __call__(self, params, T, zT_blocked, hour_inputs):
@@ -994,9 +1128,7 @@ def hour_march_for(
 ) -> HourMarch:
     """The :class:`HourMarch` of :func:`make_hour_march`'s arguments, with
     the sub-step count and refresh cadence resolved (no operands)."""
-    if mode == "parity":
-        raise NotImplementedError("mode='parity' is ROADMAP A7/B3 (not ported yet)")
-    if mode not in ("trbdf2", "trbdf2_refresh"):
+    if mode not in ("parity", "trbdf2", "trbdf2_refresh"):
         raise ValueError(f"unknown hour-kernel mode {mode!r}")
     if refresh_every is not None and mode != "trbdf2_refresh":
         raise ValueError(
@@ -1007,6 +1139,18 @@ def hour_march_for(
             "scheduled_setpoints requires setpoint-driven HVAC "
             "(IdealHeaterCooler with heat_setpoint/cool_setpoint)"
         )
+    if mode == "parity":
+        # heatx's rules (pallas_step.py:1345-1355): the building's own
+        # stability sub-step count and sub-step length, and a fixed number of
+        # no-mass iterations wherever there is a no-mass node.
+        if bb.config.nomass_fixed_iters is None and bb.surfaces.has_nomass:
+            raise ValueError(
+                "the parity day march requires config.nomass_fixed_iters (the adaptive "
+                "no-mass loop is ROADMAP B6/A10, not ported yet)"
+            )
+        substeps = substeps or bb.base.dt_subdivisions
+        return HourMarch(bb, substeps, hours, 1, bb.base.dt, collect_bad,
+                         scheduled_setpoints, parity=True)
     substeps = substeps or 12
     if mode == "trbdf2":
         refresh_every = substeps
@@ -1030,10 +1174,14 @@ def make_hour_march(
 ):
     """Build the day march: ``(hour_march, params)`` with ``params`` on
     ``device`` (the card unless the caller asks for another; ``"cuda"``
-    without a GPU raises) in the building's dtype (heatx ``make_hour_march``
-    for modes ``trbdf2``/``trbdf2_refresh``).  ``refresh_every=k`` rebuilds the
-    operators every k sub-steps (default 1 in refresh mode); frozen mode is
-    ``k = substeps``.  ``scheduled_setpoints`` (thermostat buildings) makes
+    without a GPU raises) in the building's dtype (heatx
+    ``make_hour_march``).  ``mode="parity"`` marches the reference-parity
+    sub-steps: ``substeps`` defaults to the building's ``dt_subdivisions``,
+    the sub-step length is the building's ``dt`` whatever ``substeps`` says,
+    and a building with no-mass nodes needs ``config.nomass_fixed_iters``.
+    In the TR-BDF2 modes ``substeps`` defaults to 12, ``refresh_every=k``
+    rebuilds the operators every k sub-steps (default 1 in refresh mode) and
+    frozen mode is ``k = substeps``.  ``scheduled_setpoints`` (thermostat buildings) makes
     the march read per-hour setpoint rows from the 11-leaf hour inputs."""
     hm = hour_march_for(bb, substeps, mode, hours, refresh_every, collect_bad, scheduled_setpoints)
     params = params_from_blocked(bb, bb.config.dtype, cuda_lib.resolve_device(device))

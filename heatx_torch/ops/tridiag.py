@@ -1,7 +1,8 @@
 """Batched tridiagonal operations over the leading (node) axis.
 
 PyTorch twin of ``heatx.ops.tridiag`` for the day march: the mat-vec, the
-pre-factored Thomas sweeps and the pre-factored PCR.  Arrays are node-major
+Thomas solve and its pre-factored sweeps, parallel cyclic reduction and its
+pre-factored form, and the closed-form solve of 1- and 2-node runs.  Arrays are node-major
 ``[N, S]``; row ``i`` of each system is
 
     lower[i] * x[i-1] + diag[i] * x[i] + upper[i] * x[i+1] = rhs[i]
@@ -23,6 +24,62 @@ def matvec(lower, diag, upper, x):
     x_dn = torch.cat([zero_row, x[:-1]], dim=0)  # x[i-1]
     x_up = torch.cat([x[1:], zero_row], dim=0)  # x[i+1]
     return diag * x + lower * x_dn + upper * x_up
+
+
+def solve(lower, diag, upper, rhs):
+    """Thomas algorithm over axis 0, batched over the trailing axes."""
+    n = rhs.shape[0]
+    inv = 1.0 / diag[0]
+    cs = [upper[0] * inv]
+    ds = [rhs[0] * inv]
+    for i in range(1, n):
+        inv = 1.0 / (diag[i] - lower[i] * cs[i - 1])
+        cs.append(upper[i] * inv)
+        ds.append((rhs[i] - lower[i] * ds[i - 1]) * inv)
+    xs = [None] * n
+    xs[n - 1] = ds[n - 1]
+    for i in range(n - 2, -1, -1):
+        xs[i] = ds[i] - cs[i] * xs[i + 1]
+    return torch.stack(xs, dim=0)
+
+
+def solve_runs2(lower, diag, upper, rhs, pair_head, pair_tail):
+    """Closed-form solve when off-diagonal couplings occur only inside
+    disjoint 2-node runs (``pair_head[i]`` marks row i coupled to i+1,
+    ``pair_tail`` its partner; every other row is decoupled: x = rhs/diag).
+    The shape of the no-mass systems of ordinary constructions, whose
+    no-mass layers discretize to 1-2 nodes per chunk; callers guarantee the
+    run length (``SurfaceBatch.max_nomass_run <= 2``)."""
+    d_n, r_n, l_n = (_shift_dn(x, 1, 0.0) for x in (diag, rhs, lower))
+    d_p, r_p, u_p = (_shift_up(x, 1, 0.0) for x in (diag, rhs, upper))
+    # 2x2 Cramer: [d_i u_i; l_{i+1} d_{i+1}] x = [r_i; r_{i+1}]
+    det_head = diag * d_n - upper * l_n
+    det_tail = d_p * diag - u_p * lower
+    num = torch.where(
+        pair_head, rhs * d_n - upper * r_n,
+        torch.where(pair_tail, d_p * rhs - lower * r_p, rhs),
+    )
+    den = torch.where(pair_head, det_head, torch.where(pair_tail, det_tail, diag))
+    return num / den
+
+
+def solve_pcr(lower, diag, upper, rhs):
+    """Parallel cyclic reduction over axis 0: ceil(log2 N) elimination steps
+    with static shifts.  Needs (weak) diagonal dominance; out-of-range
+    neighbours act as identity rows, which keeps decoupled sub-systems
+    exact."""
+    n = rhs.shape[0]
+    a, b, c, r = lower, diag, upper, rhs
+    d = 1
+    while d < n:
+        alpha = -a / _shift_up(b, d, 1.0)
+        gamma = -c / _shift_dn(b, d, 1.0)
+        b = b + alpha * _shift_up(c, d, 0.0) + gamma * _shift_dn(a, d, 0.0)
+        r = r + alpha * _shift_up(r, d, 0.0) + gamma * _shift_dn(r, d, 0.0)
+        a = alpha * _shift_up(a, d, 0.0)
+        c = gamma * _shift_dn(c, d, 0.0)
+        d *= 2
+    return r / b
 
 
 def factor(lower, diag, upper):

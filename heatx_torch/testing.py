@@ -11,6 +11,8 @@ every front face, 500 W per heater and 150 W per luminaire.
 per zone at 20/26 C, luminaires on, heaters off.  ``build_thermostat_model``
 is a small building that takes every branch of the thermostat update, and
 ``BranchCounter`` counts the zone-sub-steps a plain march puts on each.
+``build_nomass_run_model`` has no-mass runs of 3 and 4 nodes and
+``coarse_config`` a discretization whose parity march is short.
 """
 
 from __future__ import annotations
@@ -138,6 +140,39 @@ def build_mixed_model():
     for name, (kind, front, back, verts) in walls.items():
         m.add_surface(SurfaceDef(name, kind, front, back, vertices=np.asarray(verts, float)))
     return m
+
+
+def build_nomass_run_model():
+    """A 2-zone building whose no-mass runs are longer than 2 nodes, so the
+    parity march takes the tridiagonal sweep and not the closed-form pair
+    solve: the bench constructions plus three insulation layers in front of
+    concrete (a 3-node no-mass run at the front face) and a wall of
+    insulation only (a 4-node run from face to face, no massive node)."""
+    m = build_city_model(2, 3)
+    m.add_construction(Construction("clad", ["p2", "p2", "p2", "c20"]))
+    m.add_construction(Construction("light", ["p2", "p2", "p2"]))
+    walls = {
+        "clad0": ("clad", Boundary.outdoor(), Boundary.space_("z0"),
+                  [[0, 0, 0], [6, 0, 0], [6, 0, 3], [0, 0, 3]]),
+        "light1": ("light", Boundary.outdoor(), Boundary.space_("z1"),
+                   [[0, 0, 0], [0, 4, 0], [0, 4, 3], [0, 0, 3]]),
+        "between": ("clad", Boundary.space_("z0"), Boundary.space_("z1"),
+                    [[0, 0, 0], [4, 0, 0], [4, 0, 2], [0, 0, 2]]),
+    }
+    for name, (kind, front, back, verts) in walls.items():
+        m.add_surface(SurfaceDef(name, kind, front, back, vertices=np.asarray(verts, float)))
+    return m
+
+
+def coarse_config(dtype=torch.float64, nomass_fixed_iters: int = 2, min_dt: float = 900.0, **kw):
+    """A coarse discretization for tests of the parity march: 6 stability
+    sub-steps per hour on the bench constructions instead of the default
+    discretization's 118 (the ``min_dt`` floor drives that count: 1200 s
+    gives 4, 1800 s gives 2)."""
+    from heatx_torch.config import SimConfig
+
+    return SimConfig(dtype=dtype, max_dx=0.5, min_dt=min_dt,
+                     nomass_fixed_iters=nomass_fixed_iters, **kw)
 
 
 def synthetic_weather(hours: int):

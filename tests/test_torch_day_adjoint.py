@@ -257,8 +257,13 @@ def test_plain_adjoint_matches_finite_differences_on_every_branch(mode, k):
 def test_make_day_adjoint_refuses_what_is_not_ported(buildings):
     _, pb = buildings
     bb = day_march.block_building(pb, block_size=16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # Parity mode is ported, with heatx's rules: the sub-step count must be
+    # given (and be the building's), and the adaptive no-mass loop of the
+    # default config is ROADMAP B6/A10.
+    with pytest.raises(ValueError, match="dt_subdivisions"):
         day_adjoint.make_day_adjoint(bb, substeps=SUB, mode="parity", device="cpu")
+    with pytest.raises(ValueError, match="nomass_fixed_iters.*ROADMAP"):
+        day_adjoint.make_day_adjoint(bb, substeps=pb.dt_subdivisions, mode="parity", device="cpu")
     adj = day_adjoint.make_day_adjoint(bb, substeps=SUB, hours=HOURS, device="cpu")
     _, params = day_march.make_hour_march(bb, substeps=SUB, hours=HOURS, device="cpu")
     inp = _inputs(pb.n_surfaces, pb.n_zones, bb.max_nodes)
