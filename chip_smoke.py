@@ -102,8 +102,8 @@ Phases (one output line each, then a JSON line per contract):
    clock; ptxas registers, stack and spills of every instantiation (phases 2
    and 6).
 14. the parity gradient at full width: bench.py's run_grad_bench objective
-   in mode="parity", 30 days in 2 chunks in f32, exactly 60 day-march and 30
-   adjoint launches, all of them the parity kernels, gradients finite and
+   in mode="parity", 10 days in 2 chunks in f32 (PARITY_GRAD_DAYS), exactly 20
+   day-march and 10 adjoint launches, all of them the parity kernels, gradients finite and
    nonzero; 6 days in 2 chunks, f32 against f64 on the kernels.  Then both
    parity kernels against their plain versions at the shape that path
    launches, 24 h x 118 sub-steps, on the operands of its first day-launch
@@ -115,17 +115,57 @@ Phases (one output line each, then a JSON line per contract):
    2-cycles taken apart: scripts/torch_parity_diag.py; 73 days, one chunk of
    bench.py's five, take ~140 s on an H100.)
 
+15. gas cavities, f64, small: testing.build_cavity_model (cavities in every
+   tilt band of the ISO 15099 correlation, heat flowing either way) and the
+   4-zone glazed city (testing.build_glazed_city: the office's argon double
+   glazing in every window); all four cavity bodies (trbdf2, trbdf2_refresh
+   k=2 at 8 sub-steps over 3 h; parity with 1 and 2 no-mass iterations at the
+   coarse discretization over 2 h): the forward kernel against its plain twin
+   (<= 1e-9 K), the adjoint kernel against the plain adjoint (<= 1e-9 of max
+   |ref|, seg_u's cotangent exactly 0 on every cavity segment), central
+   differences of the forward kernel along T0 and seg_u (<= 1e-5); and how far
+   the live cavity U moves the zones from the static U.
+16. the glazed city at full width (build_glazed_city(1000, 10): 10,000
+   surfaces, 1,000 argon double-glazed windows), f32: 48 h of trbdf2_refresh
+   k=2 through FastRunner.run against the f64 plain twin (exactly 2 cavity
+   launches, zone T <= 1e-2 K); one bench-day launch of the march and of its
+   adjoint timed, the adjoint against the f64 and the f32 plain adjoint
+   (relative L2 <= 2e-2, over all lanes and over the cavity lanes alone);
+   bench.py's gradient workload on the glazed city in TR-BDF2 and in
+   parity mode, 2 days in 2 chunks each (exact launch counts, all on cavity
+   lanes); then both parity cavity bodies against their f32 plain versions
+   at the main path's launch shape (24 h x 118 sub-steps) on the parity
+   workload's first-day operands (u_scale 1.2, alpha_scale 0.8), the
+   forward with the bounds of phase 14b, the adjoint against its f32 plain
+   version and the f64 kernel (CAV_PARITY_ADJ_F32_RL2, over all lanes and
+   over the cavity lanes alone; the f32 plain adjoint against the f64 kernel
+   printed), and timed.
+17. the office IDF workflow (bench.py run_office_bench): a seeded synthetic
+   EPW file at Santiago's location (testing.write_synthetic_epw, written to a
+   temporary directory), examples/data/office.idf through load_idf, its
+   inputs as bench.py builds them (testing.office_inputs: computed solar,
+   hourly schedules, airflows, monthly ground temperatures), an annual f32
+   run (trbdf2, 8 sub-steps, scheduled setpoints, ground_hourly,
+   collect_loads) twice by the host clock: exactly 365 cavity launches in 12
+   dispatches (one per soil temperature), finite, heating and cooling kWh;
+   48 h of it against the f64 plain twin (zone T <= 1e-2 K, loads <= 1e-3 of
+   max |load|).
+
 The line before the last is the kernels JSON line.  ``launches`` is each
-kernel's count on this slice's main path, the 30-day parity gradient of
-phase 14 (for the TR-BDF2 entries: the 30-day demand gradient of phase
-11); ``launches_by_path`` lists every driven path (phases 4, 8b, 10, 11,
-13, 14), each counted from 0.  ``ms`` is one f32 free-float bench-day launch
+kernel's count on this slice's main path: for the four ``*_cavity``
+entries the office workflow (phase 17) and the glazed city's gradient paths
+(phase 16), for the two parity entries the parity gradient of phase 14, for
+the TR-BDF2 entries the 30-day demand gradient of phase 11;
+``launches_by_path`` lists every driven path (phases 4, 8b, 10, 11, 13, 14,
+16, 17), each counted from 0.  The ``*_cavity`` entries' ``ms``,
+``plain_ms``, ``max_abs_err`` and ``bound_ms`` are the glazed city's
+(phase 16).  ``ms`` is one f32 free-float bench-day launch
 (CUDA events), ``plain_ms`` its f32 plain version on the same inputs,
 ``max_abs_err`` the f32 kernel against that plain version, ``bound_ms`` the
 bound from this run's shapes; ``thermostat`` holds the same five numbers
 for the thermostat instantiation on the demand city's day (same mode, k=2).
 The two ``*_parity`` entries are the parity kernels on the first day-launch
-of the 30-day parity gradient (24 h x 118 sub-steps, phase 14b), held against
+of the 10-day parity gradient (24 h x 118 sub-steps, phase 14b), held against
 their f32 plain versions there; ``ms_bench_day`` is the same launch on the
 bench day's own operands.  The last line is ``{"ok": true, "device": {...}}``;
 any failed check raises and the script exits non-zero.
@@ -213,6 +253,37 @@ PARITY_EPS = 1e-3  # K: the perturbation of parity_sensitivity
 PARITY_GROWTH_MAX = 2.0
 PARITY_F32_TOL = 3e-2  # K: zone T over 48 h of the bench days, f32 kernel vs f64 twin
 PARITY_F64_DAYS = 6  # the f32-vs-f64 gradient comparison's depth
+# The parity gradient's depth in phase 14a (30 days until the cavity phases
+# came: cut to keep the command near its time).
+PARITY_GRAD_DAYS = 10
+# Gas cavities (phases 15-17).  One cavity U, counted from day_common.cuh
+# cavity_u: ~50 operations for the value, ~40 more for its two partial
+# derivatives in an adjoint.
+CAV_OPS = 50
+CAV_ADJ_OPS = 40
+# The glazed city's one-day f32 TR-BDF2 adjoint against the f64 plain adjoint
+# and against the f32 plain adjoint, relative L2 per output, over all lanes and
+# over the cavity lanes alone.  Measured on an H100 80GB HBM3 at 700 W: 1.0e-2
+# and 2.6e-3 (d_sol_back; the bench city's 2.2e-3 in phase 8a), 2.9e-3 and
+# 4.9e-4 on the cavity lanes.  An adjoint that drops the cavity U's dU/dT
+# parts from the full one by 3.2e-2, and by 0.67 on the cavity lanes
+# (scripts/torch_cavity_f32_diag.py --mode trbdf2_refresh, 20 zones, f64):
+# the cavity lanes' check is the one that fails it.
+CAV_ADJ_F32_RL2 = 2e-2
+CAV_GRAD_DAYS = 2  # the glazed city's gradient paths, in 2 chunks
+# The glazed city's parity adjoint at 24 h x 118 sub-steps, f32 kernel against
+# its f32 plain version and against the f64 kernel, relative L2 per output,
+# over all lanes and over the cavity lanes alone.  Measured on an H100 80GB
+# HBM3 at 700 W: 1.6e-3 and 1.5e-3 (d_ir_front), 2.9e-3 and 2.8e-3 on the
+# cavity lanes, ~85x the bench city's 1.9e-5 (phase 14b); the f32 plain
+# adjoint is 5.0e-4 (9.0e-4) from the f64 kernel.  The gap is f32 round-off
+# that grows with the width and sits on a few windows: the f32 plain adjoint
+# against the f64 plain one is 8.3e-5 at 20 zones and 1.3e-3 at 1,000, 90 % of
+# it on one window (scripts/torch_cavity_f32_diag.py).  An adjoint that drops
+# the cavity U's dU/dT parts from the full one by 3.4e-2, 5.0e-2 on the cavity
+# lanes (the same script, 1,000 zones, f64): the bound fails it 6-10x over,
+# where 2e-4 would fail the f32 plain version itself.
+CAV_PARITY_ADJ_F32_RL2 = 5e-3
 # Published H100 SXM rates (NVIDIA H100 datasheet): HBM bytes/s and the
 # f32 FLOP/s outside the tensor cores (the kernels run no matrix products).
 HBM_BPS = 3.35e12
@@ -332,14 +403,17 @@ def adjoint_work(params, hours, sub, k):
 
 
 def param_tensors(params):
-    """Every tensor of a DayMarchParams a launch reads (thermostat rows and
-    mixing lists included, where the building has them)."""
+    """Every tensor of a DayMarchParams a launch reads (thermostat rows,
+    mixing lists and gas-cavity operands included, where the building has
+    them)."""
     out = [params.node, params.surf, params.lane, params.zone_volume, params.zone_ptr, params.zone_faces]
     if params.ctl is not None:
         out.append(params.ctl)
     if params.mix is not None:
         m = params.mix
         out += [m.ptr, m.src, m.vol, m.t_ptr, m.t_dst, m.t_vol]
+    if params.cav is not None:
+        out.append(params.cav)
     return out
 
 
@@ -372,6 +446,12 @@ def device_time(torch, fn):
     return busy / 1e3, {k: v / 1e3 for k, v in kern.items()}
 
 
+def worst_of(gaps):
+    """``gaps``' largest value and its output's name, for a report line."""
+    name = max(gaps, key=gaps.get)
+    return f"{gaps[name]:.3e} ({name})"
+
+
 def flat_grads(g):
     out = {k: v for k, v in g.items() if k != "d_params"}
     out.update(g["d_params"])
@@ -392,6 +472,26 @@ def adjoint_vs_plain(torch, adj, params, T0, zT0, hi, cots, what):
         check(err <= ADJ_F64_RTOL * scale, f"adjoint {what} {name}: max |d| {err} > {ADJ_F64_RTOL} x {scale}")  # exact where the reference is 0
         worst = max(worst, err / scale if scale else err)
     return got, worst
+
+
+def rel_l2_gaps(torch, got, ref, what, bound, lanes=None):
+    """Relative L2 gap per adjoint output (max |d| where the reference is
+    0), each held to ``bound``, outputs finite.  ``lanes`` (a [SP] bool
+    row) keeps only those lanes' columns of the per-lane outputs (last
+    dimension SP) and leaves the others out.  Returns the gaps."""
+    gaps = {}
+    for name, r in ref.items():
+        g = got[name]
+        check(bool(torch.isfinite(g).all()), f"{what} {name}: non-finite")
+        if lanes is not None:
+            if r.shape[-1] != lanes.shape[0]:
+                continue
+            r, g = r[..., lanes], g[..., lanes]
+        norm = float(r.norm())
+        gaps[name] = float((g.to(r.dtype) - r).norm()) / norm if norm else float(g.abs().max())
+    bad = {name: gap for name, gap in gaps.items() if gap > bound}
+    check(not bad, f"{what}: relative L2 above {bound}: {bad}; all: {gaps}")
+    return gaps
 
 
 def phase7_adjoint_f64(torch, day_march, day_adjoint, testing, SimConfig, compile_building):
@@ -488,7 +588,7 @@ def phase7_adjoint_f64(torch, day_march, day_adjoint, testing, SimConfig, compil
 
 
 def grad_workload(torch, ThermalModel, SimConfig, testing, dtype, days, chunks, demand=False,
-                  mode="trbdf2_refresh", config_kw=None, u_scale=1.2):
+                  mode="trbdf2_refresh", config_kw=None, u_scale=1.2, build=None):
     """bench.py's gradient rows through the port: returns (a callable running
     the chunked value_and_grad, the runner, its input sequence).
 
@@ -501,11 +601,13 @@ def grad_workload(torch, ThermalModel, SimConfig, testing, dtype, days, chunks, 
     compiled heating setpoint, the metered-energy loss on the load history.
     ``mode="parity"`` runs either at the building's stability sub-step count
     (``config_kw`` then carries ``nomass_fixed_iters``).  ``u_scale`` is
-    the conductance scale the run starts from (bench.py: 1.2)."""
+    the conductance scale the run starts from (bench.py: 1.2); ``build``
+    replaces the function that builds the city (the glazed city of phase 16)."""
     from heatx_torch.engine.adjoint import chunked_value_and_grad, tree_map
 
-    build = testing.build_demand_city if demand else testing.build_city_model
-    tm = ThermalModel(build(1000, 10), n=1, config=SimConfig(dtype=dtype, **(config_kw or {})))
+    build = build or (testing.build_demand_city if demand else testing.build_city_model)
+    tm = ThermalModel(build(1000, 10), n=1, config=SimConfig(dtype=dtype, **(config_kw or {})),
+                      device="cuda")
     b = tm.building
     T = days * 24
     if demand:
@@ -557,8 +659,7 @@ def grad_workload(torch, ThermalModel, SimConfig, testing, dtype, days, chunks, 
     return run, fr, seq
 
 
-def phase9_thermostats_f64(torch, day_march, day_adjoint, testing, SimConfig, compile_building,
-                           device="cuda"):
+def phase9_thermostats_f64(torch, day_march, day_adjoint, testing, SimConfig, compile_building):
     """Both kernels' thermostat instantiation against their plain versions,
     f64, on testing.build_thermostat_model (see the module docstring); then
     central differences of the forward kernel.  Returns the worst forward
@@ -570,7 +671,7 @@ def phase9_thermostats_f64(torch, day_march, day_adjoint, testing, SimConfig, co
     total = {}
 
     def dev(a):
-        return torch.as_tensor(np.asarray(a, np.float64), device=device)
+        return torch.as_tensor(np.asarray(a, np.float64), device="cuda")
 
     for uncontrolled in (False, True):
         building = compile_building(
@@ -610,7 +711,7 @@ def phase9_thermostats_f64(torch, day_march, day_adjoint, testing, SimConfig, co
             for mode, k in (("trbdf2_refresh", 2), ("trbdf2_refresh", 8), ("trbdf2", None)):
                 what = (f"thermostats {'uncontrolled z3 ' if uncontrolled else ''}"
                         f"{'scheduled ' if scheduled else ''}{mode} k={k}")
-                kw = dict(substeps=sub, mode=mode, hours=hours, refresh_every=k, device=device,
+                kw = dict(substeps=sub, mode=mode, hours=hours, refresh_every=k, device="cuda",
                           scheduled_setpoints=scheduled)
                 hm, params = day_march.make_hour_march(bb, collect_bad=True, **kw)
                 adj = day_adjoint.make_day_adjoint(bb, **kw)
@@ -690,7 +791,8 @@ def event_ms(torch, fn, reps):
 
 def ptxas_table(log: str) -> str:
     """ptxas's lines of a build log, one entry per kernel instantiation:
-    ``f32 ext=0 parity=1: 96 registers, 1200 B stack, spills 0/0 B``."""
+    ``f32 ext=0 parity=1: 96 registers, 1200 B stack, spills 0/0 B`` (the
+    instantiations with the gas-cavity code are marked ``cavities``)."""
     import re
 
     out, name = [], None
@@ -700,9 +802,13 @@ def ptxas_table(log: str) -> str:
             sym = m.group(1)
             t = re.search(r"kernelI([fd])((?:Lb[01]E)+)", sym)
             flags = re.findall(r"Lb([01])E", t.group(2)) if t else []
-            kind = "parity_adjoint" if "parity_adjoint" in sym else ""
-            name = (f"{'f32' if t and t.group(1) == 'f' else 'f64'} ext={flags[0] if flags else '?'}"
-                    + (f" parity={flags[1]}" if len(flags) > 1 else (" parity=1" if kind else "")))
+            # day_march_kernel<T, kExt, kParity, kCav>; the adjoints <T, kExt, kCav>
+            if "day_march_kernel" in sym:
+                ext, parity, cav = (flags + ["?"] * 3)[:3]
+            else:
+                (ext, cav), parity = (flags + ["?"] * 2)[:2], "1" if "parity_adjoint" in sym else "0"
+            name = (f"{'f32' if t and t.group(1) == 'f' else 'f64'} ext={ext} parity={parity}"
+                    + (" cavities" if cav == "1" else ""))
             entry = {"name": name}
             out.append(entry)
             continue
@@ -763,7 +869,7 @@ def parity_adjoint_work(params, hours, sub, iters):
     return fwd + hours * sub * per_sub
 
 
-def phase12_parity_f64(torch, day_march, day_adjoint, testing, ThermalModel, device="cuda"):
+def phase12_parity_f64(torch, day_march, day_adjoint, testing, ThermalModel):
     """Both parity kernels against their plain versions, f64, small
     buildings at the coarse discretization; central differences of the
     forward kernel on the free-float ones.  Returns the worst gaps."""
@@ -780,24 +886,24 @@ def phase12_parity_f64(torch, day_march, day_adjoint, testing, ThermalModel, dev
     for label, (build, inputs) in models.items():
         for iters in (1, 2, 3):
             what = f"parity {label} iters={iters}"
-            tm = ThermalModel(build(), config=testing.coarse_config(torch.float64, iters), device=device)
+            tm = ThermalModel(build(), config=testing.coarse_config(torch.float64, iters), device="cuda")
             r = tm.fast_runner(mode="parity", hours=hours)
             sub = r._substeps
             check(sub == tm.dt_subdivisions <= 8, f"{what}: {sub} sub-steps")
-            seq = inputs(tm.building, hours, device=device)
+            seq = inputs(tm.building, hours, device="cuda")
             # The bench weather starts at midnight: give the two hours some sun.
             sun = rng.uniform(50.0, 400.0, (hours, tm.building.n_surfaces))
-            seq = seq.replace(sol_front=torch.as_tensor(sun, device=device))
+            seq = seq.replace(sol_front=torch.as_tensor(sun, device="cuda"))
             hi = r.kernel_inputs(seq, interp_weather=True)[0]
             st0 = tm.initial_state()
             if r._has_loads:  # a cold, a cool and a hot zone: heating, the clamp, cooling
-                st0 = dataclasses.replace(st0, zone_T=torch.as_tensor([18.0, 19.0, 27.0, 21.0], device=device))
+                st0 = dataclasses.replace(st0, zone_T=torch.as_tensor([18.0, 19.0, 27.0, 21.0], device="cuda"))
             T0, zT0 = r.to_blocked(st0)
             mask = day_march.bit_rows(r.params, "node_bits")
             NB, ZB = r.params.n_blocks, r.params.zones_per_block
 
             def rand(shape, scale=1.0):
-                return torch.as_tensor(rng.normal(size=tuple(shape)) * scale, device=device)
+                return torch.as_tensor(rng.normal(size=tuple(shape)) * scale, device="cuda")
 
             # A random start state: off the |dT| = 0 kink of the cube root.
             T0 = T0 + rand(T0.shape, 2.0) * mask
@@ -819,7 +925,7 @@ def phase12_parity_f64(torch, day_march, day_adjoint, testing, ThermalModel, dev
                 check(scale > 0 and err <= F64_TOL * scale, f"{what} ld_hist: max |d| {err} > {F64_TOL} x {scale}")
                 worst["load"] = max(worst["load"], err / scale)
                 cots.append(rand((hours, NB, ZB), 1e-2))
-            adj = day_adjoint.make_day_adjoint(r._bb, substeps=sub, mode="parity", hours=hours, device=device)
+            adj = day_adjoint.make_day_adjoint(r._bb, substeps=sub, mode="parity", hours=hours, device="cuda")
             g, w = adjoint_vs_plain(torch, adj, params, T0, zT0, hi, cots, what)
             worst["adj"] = max(worst["adj"], w)
             cases += 1
@@ -949,7 +1055,7 @@ def phase14_parity_grad(torch, ctx, p13):
     SimConfig, ThermalModel, smi = ctx.SimConfig, ctx.ThermalModel, ctx.smi
     km, ka = day_march.day_march_kernel, day_adjoint.day_adjoint_kernel
     gw = dict(mode="parity", config_kw=dict(nomass_fixed_iters=PARITY_ITERS))
-    days, chunks = 30, 2
+    days, chunks = PARITY_GRAD_DAYS, 2
     run32, fr32, seq32 = grad_workload(torch, ThermalModel, SimConfig, testing, torch.float32, days, chunks, **gw)
     km.launches = km.parity_launches = ka.launches = ka.parity_launches = 0
     t0 = time.time()
@@ -957,10 +1063,11 @@ def phase14_parity_grad(torch, ctx, p13):
     torch.cuda.synchronize()
     grad30_s = time.time() - t0
     counts = (km.launches, km.parity_launches, ka.launches, ka.parity_launches)
-    check(counts == (60, 60, 30, 30),
-          f"30-day parity value_and_grad: (day march, its parity, adjoint, its parity) launches {counts}, "
-          f"expected (60, 60, 30, 30)")
-    check(all(np.isfinite(v32)) and v32[1] != 0 and v32[2] != 0, f"30-day parity value_and_grad: {v32}")
+    expected = (2 * days, 2 * days, days, days)
+    check(counts == expected,
+          f"{days}-day parity value_and_grad: (day march, its parity, adjoint, its parity) launches {counts}, "
+          f"expected {expected}")
+    check(all(np.isfinite(v32)) and v32[1] != 0 and v32[2] != 0, f"{days}-day parity value_and_grad: {v32}")
     # f32 against f64 on the kernels, at a depth the f64 kernels reach quickly
     short = {}
     for name, dtype in (("f32", torch.float32), ("f64", torch.float64)):
@@ -974,7 +1081,7 @@ def phase14_parity_grad(torch, ctx, p13):
         check(np.isfinite(a) and np.isfinite(b), f"{PARITY_F64_DAYS}-day parity {name} not finite: {a}, {b}")
         check(abs(a - b) <= GRAD_F32_RTOL * abs(b), f"{PARITY_F64_DAYS}-day parity {name}: f32 {a} vs f64 {b}")
     print(f"phase 14a parity grad workload, {days} days in {chunks} chunks (this slice's main path): {counts[0]} "
-          f"day-march launches (30 forward + 30 recompute; {counts[1]} parity), {counts[2]} adjoint launches "
+          f"day-march launches ({days} forward + {days} recompute; {counts[1]} parity), {counts[2]} adjoint launches "
           f"({counts[3]} parity), {grad30_s:.3f} s f32; loss / dL/du / dL/dalpha {v32[0]:.6g} / {v32[1]:.6g} / "
           f"{v32[2]:.6g}; {PARITY_F64_DAYS} days in {chunks} chunks, f32 ({short['f32_s']:.1f} s) "
           + " / ".join(f"{x:.6g}" for x in short["f32"]) + f" vs f64 ({short['f64_s']:.1f} s) "
@@ -1020,14 +1127,8 @@ def phase14_parity_grad(torch, ctx, p13):
     g32p = flat_grads(adj.plain(params, T, zT, hi, cots))
     torch.cuda.synchronize()
     adj_plain_ms = (time.time() - t0) * 1e3
-    gaps = {}
-    for name, ref in g32p.items():
-        check(bool(torch.isfinite(g32[name]).all()), f"f32 parity adjoint {name}: non-finite")
-        norm = float(ref.norm())
-        gaps[name] = float((g32[name] - ref).norm()) / norm if norm else float(g32[name].abs().max())
-        check(gaps[name] <= PARITY_ADJ_F32_RL2,
-              f"f32 parity adjoint kernel vs f32 plain adjoint over the main path's day, {name}: relative L2 "
-              f"{gaps[name]} > {PARITY_ADJ_F32_RL2}")
+    gaps = rel_l2_gaps(torch, g32, g32p, "f32 parity adjoint kernel vs f32 plain adjoint over the main path's day",
+                       PARITY_ADJ_F32_RL2)
     worst_gap = max(gaps, key=gaps.get)
     adj32_abs = max(float((g32[n] - ref).abs().max()) for n, ref in g32p.items())
     check(float(g32["seg_u"].abs().max()) > 0 and float(g32["front_alphas"].abs().max()) > 0,
@@ -1064,6 +1165,378 @@ def phase14_parity_grad(torch, ctx, p13):
         adj_plain_ms=adj_plain_ms, adj32_abs=adj32_abs, adj32_rel=gaps[worst_gap], bench_adj_ms=bench_adj_ms,
         growth=growth, params=params, T=T, zT=zT, hi=hi, got=got, cots=cots, g32=g32,
     )
+
+
+def cavity_segments(params):
+    """The gas-cavity segments of a launch (the set bits of the lanes' cavity
+    words)."""
+    import torch
+
+    if params.cav is None:
+        return 0
+    bits = params.field("cav_bits").to(torch.int64)
+    return sum(int(((bits >> i) & 1).sum()) for i in range(params.max_nodes))
+
+
+def cavity_work(params, builds, adjoint=False):
+    """Operations of the cavity U-values over ``builds`` operator builds,
+    counted from day_common.cuh ``cavity_u`` (powers and roots count as one):
+    CAV_OPS per cavity segment and build, CAV_ADJ_OPS more in an adjoint
+    (the two partial derivatives and their chain into the column)."""
+    return cavity_segments(params) * builds * (CAV_OPS + (CAV_ADJ_OPS if adjoint else 0))
+
+
+def phase15_cavity_f64(torch, ctx):
+    """The four cavity bodies against their plain versions, f64, on the
+    cavity building and the 4-zone glazed city; central differences of the
+    forward kernels (see the module docstring).  Returns the worst gaps, the
+    case count and the largest move of the zones that the live cavity U
+    makes against the static one."""
+    day_march, day_adjoint, testing = ctx.day_march, ctx.day_adjoint, ctx.testing
+    SimConfig, ThermalModel = ctx.SimConfig, ctx.ThermalModel
+    rng = np.random.default_rng(15)
+    worst = dict(T=0.0, adj=0.0, fd=0.0)
+    models = {"cavity building": testing.build_cavity_model,
+              "glazed 4-zone city": lambda: testing.build_glazed_city(4, 10)}
+    bodies = (("trbdf2", None, None), ("trbdf2_refresh", 2, None), ("parity", None, 1), ("parity", None, 2))
+    cases, live = 0, 0.0
+    km = day_march.day_march_kernel
+    for label, build in models.items():
+        for mode, k, iters in bodies:
+            what = f"cavities, {label}, {mode} k={k} iters={iters}"
+            parity = mode == "parity"
+            cfg = testing.coarse_config(torch.float64, iters) if parity else SimConfig(dtype=torch.float64)
+            tm = ThermalModel(build(), config=cfg, device="cuda")
+            hours = 2 if parity else 3
+            r = tm.fast_runner(mode=mode, hours=hours, substeps=None if parity else 8, refresh_every=k)
+            sub = r._substeps
+            seq = testing.bench_inputs(tm.building, hours, device="cuda")
+            sun = rng.uniform(50.0, 400.0, (hours, tm.building.n_surfaces))
+            seq = seq.replace(sol_front=torch.as_tensor(sun, device="cuda"))
+            hi = r.kernel_inputs(seq, interp_weather=True)[0]
+            T0, zT0 = r.to_blocked(tm.initial_state())
+            mask = day_march.bit_rows(r.params, "node_bits")
+            cav = day_march.bit_rows(r.params, "cav_bits")
+            check(bool(cav.any()) and r.params.cav is not None, f"{what}: no gas cavity in the launch")
+            NB, ZB = r.params.n_blocks, r.params.zones_per_block
+
+            def rand(shape, scale=1.0):
+                return torch.as_tensor(rng.normal(size=tuple(shape)) * scale, device="cuda")
+
+            # A random start state: every cavity carries heat, off the kinks.
+            T0 = T0 + rand(T0.shape, 4.0) * mask
+            zT0 = zT0 + rand(zT0.shape, 0.5)
+            hm, params = r.hour_march, r.params
+            before = km.cavity_launches
+            got = hm(params, T0, zT0, hi)
+            check(km.cavity_launches == before + 1, f"{what}: the launch did not count as a cavity launch")
+            ref = hm.plain(params, T0, zT0, hi)
+            for name, a, b in (("T", got[0], ref[0]), ("zT", got[1], ref[1]), ("zt_hist", got[3], ref[3]),
+                               *((f"hq{j}", got[2][j], ref[2][j]) for j in range(4))):
+                err = float((a - b).abs().max())
+                check(err <= F64_TOL, f"{what} {name}: max |d| {err} > {F64_TOL}")
+                worst["T"] = max(worst["T"], err)
+            check(float(got[4].sum()) == 0.0, f"{what}: non-finite state in the kernel")
+            static = hm(dataclasses.replace(params, cav=None), T0, zT0, hi)
+            live = max(live, float((static[1] - got[1]).abs().max()))
+            cots = [rand(T0.shape) * mask, rand((NB, ZB)), rand((hours, NB, ZB))]
+            adj = day_adjoint.make_day_adjoint(r._bb, substeps=sub, mode=mode, hours=hours, refresh_every=k,
+                                               device="cuda")
+            g, w = adjoint_vs_plain(torch, adj, params, T0, zT0, hi, cots, what)
+            worst["adj"] = max(worst["adj"], w)
+            check(float(g["seg_u"][cav].abs().max()) == 0.0, f"{what}: seg_u cotangent on a cavity segment")
+            cases += 1
+
+            def loss(p, T):
+                out = hm(p, T, zT0, hi)
+                return float((out[0] * cots[0]).sum() + (out[1] * cots[1]).sum() + (out[3] * cots[2]).sum())
+
+            def moved_u(e):
+                node = params.node.clone()
+                node[0] += e * D_u
+                return dataclasses.replace(params, node=node)
+
+            D_T, D_u = rand(T0.shape) * mask, rand(T0.shape) * params.node[0]
+            eps = 1e-6
+            for name, grad, direction, f in (
+                ("T0", g["dT0"], D_T, lambda e: loss(params, T0 + e * D_T)),
+                ("seg_u", g["seg_u"], D_u, lambda e: loss(moved_u(e), T0)),
+            ):
+                fd = (f(eps) - f(-eps)) / (2 * eps)
+                an = float((grad * direction).sum())
+                rel = abs(fd - an) / max(abs(an), 1e-300)
+                check(an != 0 and rel <= FD_RTOL, f"{what} d/d{name}: FD {fd} vs adjoint {an} (rel {rel})")
+                worst["fd"] = max(worst["fd"], rel)
+    check(live > 1e-3, f"the cavity U moved no zone against the static one ({live} K)")
+    return worst, cases, live
+
+
+def phase16_glazed_city(torch, ctx):
+    """The glazed city at full width, f32 (see the module docstring)."""
+    day_march, day_adjoint, testing = ctx.day_march, ctx.day_adjoint, ctx.testing
+    SimConfig, ThermalModel, smi = ctx.SimConfig, ctx.ThermalModel, ctx.smi
+    km, ka = day_march.day_march_kernel, day_adjoint.day_adjoint_kernel
+    model = testing.build_glazed_city(1000, 10)
+    kw = dict(mode="trbdf2_refresh", substeps=8, hours=24, refresh_every=2)
+    tm32 = ThermalModel(model, n=1, config=SimConfig(dtype=torch.float32), device="cuda")
+    r32 = tm32.fast_runner(**kw)
+    st0 = tm32.initial_state()
+    km.launches = km.cavity_launches = 0
+    t0 = time.time()
+    fin32, z32 = r32.run(st0, testing.bench_inputs(tm32.building, 48, device="cuda"), interp_weather=True)
+    torch.cuda.synchronize()
+    run48_s = time.time() - t0
+    run_launches = km.cavity_launches
+    check((km.launches, run_launches) == (2, 2), f"glazed city 48 h: {km.launches} launches, {run_launches} with cavities")
+    tm64 = ThermalModel(model, n=1, config=SimConfig(dtype=torch.float64), device="cuda")
+    _, z64 = tm64.fast_runner(use_kernel=False, **kw).run(
+        tm64.initial_state(), testing.bench_inputs(tm64.building, 48, device="cuda"), interp_weather=True)
+    for name, v in (("zone_T", z32), ("node_T", fin32.node_T), ("zone_T f64", z64)):
+        check(bool(torch.isfinite(v).all()), f"glazed city {name} has non-finite values")
+    err48 = float((z32.double() - z64).abs().max())
+    check(err48 <= F32_TOL, f"glazed city f32 kernel vs f64 twin zone_T: max |d| {err48} > {F32_TOL}")
+
+    # One bench day: the TR-BDF2 cavity launch and its adjoint.
+    T, zT = r32.to_blocked(st0)
+    hi = r32.kernel_inputs(testing.bench_inputs(tm32.building, 24, device="cuda"), interp_weather=True)[0]
+    ms = event_ms(torch, lambda: r32.hour_march(r32.params, T, zT, hi), 10)
+    plain_ms = event_ms(torch, lambda: r32.hour_march.plain(r32.params, T, zT, hi), 1)
+    got = r32.hour_march(r32.params, T, zT, hi)
+    ref = r32.hour_march.plain(r32.params, T, zT, hi)
+    torch.cuda.synchronize()
+    err32 = max(float((got[i] - ref[i]).abs().max()) for i in (0, 1, 3))
+    check(err32 <= F32_TOL, f"glazed city f32 day kernel vs plain twin: max |d| {err32} > {F32_TOL}")
+    r64 = tm64.fast_runner(**kw)
+    adj_kw = dict(substeps=8, mode="trbdf2_refresh", hours=24, refresh_every=2)
+    adj32 = day_adjoint.make_day_adjoint(r32._bb, device="cuda", **adj_kw)
+    adj64 = day_adjoint.make_day_adjoint(r64._bb, device="cuda", **adj_kw)
+    NB, ZB = r32._bb.n_blocks, r32._bb.zones_per_block
+    d_hist = np.random.default_rng(16).normal(size=(24, NB, ZB)) / (24 * 1000)
+    cots = (torch.zeros_like(T), torch.zeros_like(zT), torch.as_tensor(d_hist, dtype=torch.float32, device="cuda"))
+    T64, zT64 = r64.to_blocked(tm64.initial_state())
+    hi64 = r64.kernel_inputs(testing.bench_inputs(tm64.building, 24, device="cuda"), interp_weather=True)[0]
+    g32 = flat_grads(adj32(r32.params, T, zT, hi, cots))
+    g64p = flat_grads(adj64.plain(r64.params, T64, zT64, hi64, tuple(c.double() for c in cots)))
+    what = "glazed city f32 adjoint kernel vs f64 plain adjoint"
+    cav_lanes = day_march.bit_rows(r32.params, "cav_bits").any(0)
+    gaps = rel_l2_gaps(torch, g32, g64p, what, CAV_ADJ_F32_RL2)
+    cgaps = rel_l2_gaps(torch, g32, g64p, what + ", cavity lanes", CAV_ADJ_F32_RL2, lanes=cav_lanes)
+    del g64p
+    adj_ms = event_ms(torch, lambda: adj32(r32.params, T, zT, hi, cots), 5)
+    t0 = time.time()
+    g32p = flat_grads(adj32.plain(r32.params, T, zT, hi, cots))
+    torch.cuda.synchronize()
+    adj_plain_ms = (time.time() - t0) * 1e3
+    adj_abs = max(float((g32[n] - r).abs().max()) for n, r in g32p.items())
+    what = "glazed city f32 adjoint kernel vs f32 plain adjoint"
+    gaps32 = rel_l2_gaps(torch, g32, g32p, what, CAV_ADJ_F32_RL2)
+    cgaps32 = rel_l2_gaps(torch, g32, g32p, what + ", cavity lanes", CAV_ADJ_F32_RL2, lanes=cav_lanes)
+    cav = day_march.bit_rows(r32.params, "cav_bits")
+    check(float(g32["seg_u"][cav].abs().max()) == 0.0, "glazed city adjoint: seg_u cotangent on a cavity segment")
+    del g32p
+    worst = max(gaps, key=gaps.get)
+    print(f"phase 16a glazed city on {smi}: 10,000 surfaces (1,000 argon double-glazed windows) x 48 h, "
+          f"trbdf2_refresh k=2, {run_launches} cavity launches, f32 run {run48_s:.3f} s; f32 kernel vs f64 plain "
+          f"twin max |d zone_T| {err48:.3e} K (<= {F32_TOL:g}); one bench-day launch {ms:.3f} ms vs plain twin "
+          f"{plain_ms:.1f} ms (CUDA events; bench city {ctx.kernel_ms:.3f} ms), max |d| {err32:.3e} K; adjoint "
+          f"{adj_ms:.3f} ms vs f32 plain adjoint {adj_plain_ms:.1f} ms (bench city {ctx.adj_ms:.3f} ms), f32 kernel "
+          f"vs f64 plain adjoint relative L2 worst {gaps[worst]:.3e} ({worst}; <= {CAV_ADJ_F32_RL2:g}), seg_u "
+          f"{gaps['seg_u']:.2e}, dT0 {gaps['dT0']:.2e}, on the cavity lanes alone {worst_of(cgaps)}; vs the f32 "
+          f"plain adjoint {worst_of(gaps32)} (<= {CAV_ADJ_F32_RL2:g}), max |d| {adj_abs:.3e}, on the cavity lanes "
+          f"{worst_of(cgaps32)}", flush=True)
+
+    # The gradient paths on the glazed city: TR-BDF2 and parity, 2 days in 2
+    # chunks each; the parity runner's first day-launch is then where both
+    # parity cavity bodies are held against their f32 plain versions.
+    counts = {}
+    runners = {}
+    for name, gw in (("trbdf2", {}), ("parity", dict(mode="parity", config_kw=dict(nomass_fixed_iters=PARITY_ITERS)))):
+        run, fr, seq = grad_workload(torch, ThermalModel, SimConfig, testing, torch.float32, CAV_GRAD_DAYS, 2,
+                                     build=testing.build_glazed_city, **gw)
+        km.launches = km.cavity_launches = km.parity_cavity_launches = 0
+        ka.launches = ka.cavity_launches = ka.parity_cavity_launches = 0
+        t0 = time.time()
+        v = run()
+        torch.cuda.synchronize()
+        counts[name] = dict(wall=time.time() - t0, value=v, march=(km.launches, km.cavity_launches,
+                                                                    km.parity_cavity_launches),
+                            adjoint=(ka.launches, ka.cavity_launches, ka.parity_cavity_launches))
+        check(all(np.isfinite(v)) and v[1] != 0 and v[2] != 0, f"glazed city {name} value_and_grad: {v}")
+        runners[name] = (fr, seq)
+    n = CAV_GRAD_DAYS
+    check(counts["trbdf2"]["march"] == (2 * n, 2 * n, 0) and counts["trbdf2"]["adjoint"] == (n, n, 0),
+          f"glazed city gradient launches: {counts['trbdf2']}")
+    check(counts["parity"]["march"] == (2 * n, 2 * n, 2 * n) and counts["parity"]["adjoint"] == (n, n, n),
+          f"glazed city parity gradient launches: {counts['parity']}")
+
+    fr, seq = runners["parity"]
+    sub = fr._substeps
+    Tp, zTp = fr.to_blocked(fr._tm.initial_state())
+    hip = fr.kernel_inputs(tree_head(seq, CAV_GRAD_DAYS * 24, 24))[0]
+    hm, params = fr.hour_march, fr.params
+    check(hm.hours == 24 and sub == fr._tm.dt_subdivisions, f"the parity launch is {hm.hours} h x {sub}")
+    p_ms = event_ms(torch, lambda: hm(params, Tp, zTp, hip), 3)
+    gotp = hm(params, Tp, zTp, hip)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    refp = hm.plain(params, Tp, zTp, hip)
+    torch.cuda.synchronize()
+    p_plain_ms = (time.time() - t0) * 1e3
+    fwd_gaps = {name: float((a - b).abs().max()) for name, a, b in (
+        ("T", gotp[0], refp[0]), ("zT", gotp[1], refp[1]), ("zt_hist", gotp[3], refp[3]),
+        *((nm, gotp[2][j], refp[2][j]) for j, nm in enumerate(("h_front", "h_back", "q_front", "q_back"))))}
+    for name, err in fwd_gaps.items():
+        tol = PARITY_HQ_TOL if name[:2] in ("h_", "q_") else PARITY_DAY_TOL
+        check(err <= tol, f"glazed city parity f32 kernel vs plain twin, {name}: max |d| {err} > {tol}")
+    del refp
+    growth = parity_sensitivity(torch, hm, params, Tp, zTp, hip)
+    check(growth[0] <= PARITY_GROWTH_MAX, f"the glazed city's parity day carries a perturbation {growth[0]} x")
+    NBp, ZBp = fr._bb.n_blocks, fr._bb.zones_per_block
+    valid = torch.as_tensor(np.asarray(fr.layout.zone_table).reshape(NBp, ZBp) >= 0, device="cuda")
+    cotp = (torch.zeros_like(Tp), torch.zeros_like(zTp),
+            (2.0 * (gotp[3] - 21.0) * valid / (CAV_GRAD_DAYS * 24 * 1000)).contiguous())
+    adjp = day_adjoint.make_day_adjoint(fr._bb, substeps=sub, mode="parity", hours=24, device="cuda")
+    gp = flat_grads(adjp(params, Tp, zTp, hip, cotp))
+    pa_ms = event_ms(torch, lambda: adjp(params, Tp, zTp, hip, cotp), 1)
+    t0 = time.time()
+    gpp = flat_grads(adjp.plain(params, Tp, zTp, hip, cotp))
+    torch.cuda.synchronize()
+    pa_plain_ms = (time.time() - t0) * 1e3
+    what = "glazed city f32 parity adjoint kernel vs f32 plain adjoint"
+    cav_lanes = day_march.bit_rows(params, "cav_bits").any(0)
+    pgaps = rel_l2_gaps(torch, gp, gpp, what, CAV_PARITY_ADJ_F32_RL2)
+    pgaps_cav = rel_l2_gaps(torch, gp, gpp, what + ", cavity lanes", CAV_PARITY_ADJ_F32_RL2, lanes=cav_lanes)
+    pa_abs = max(float((gp[n] - r).abs().max()) for n, r in gpp.items())
+    # The same day on the f64 kernel, on the workload's scaled parameters
+    # (seg_u x 1.2, front_alphas x 0.8) blocked directly, and the same inputs:
+    # how much of that gap is the f32 kernel's round-off, and how much the f32
+    # plain version's.
+    b64 = ThermalModel(testing.build_glazed_city(1000, 10), n=1, device="cuda",
+                       config=SimConfig(dtype=torch.float64, nomass_fixed_iters=PARITY_ITERS)).building
+    sb64 = dataclasses.replace(b64.surfaces, seg_u=b64.surfaces.seg_u * 1.2,
+                               front_alphas=b64.surfaces.front_alphas * 0.8)
+    tmp64 = ThermalModel.from_building(dataclasses.replace(b64, surfaces=sb64), device="cuda")
+    fr64 = tmp64.fast_runner(mode="parity", hours=24)
+    check(fr64._substeps == sub, f"the f64 parity runner takes {fr64._substeps} sub-steps, not {sub}")
+    seq64 = testing.bench_inputs(tmp64.building, CAV_GRAD_DAYS * 24, device="cuda")
+    seq64 = seq64.replace(lum_power=torch.zeros_like(seq64.lum_power))  # as grad_workload's
+    Tp64, zTp64 = fr64.to_blocked(tmp64.initial_state())
+    hip64 = fr64.kernel_inputs(tree_head(seq64, CAV_GRAD_DAYS * 24, 24))[0]
+    adjp64 = day_adjoint.make_day_adjoint(fr64._bb, substeps=sub, mode="parity", hours=24, device="cuda")
+    g64 = flat_grads(adjp64(fr64.params, Tp64, zTp64, hip64, tuple(c.double() for c in cotp)))
+    what = "glazed city f32 parity adjoint kernel vs f64 kernel"
+    kgaps = rel_l2_gaps(torch, gp, g64, what, CAV_PARITY_ADJ_F32_RL2)
+    kgaps_cav = rel_l2_gaps(torch, gp, g64, what + ", cavity lanes", CAV_PARITY_ADJ_F32_RL2, lanes=cav_lanes)
+    what = "glazed city f32 plain parity adjoint vs f64 kernel"
+    plain_gaps = rel_l2_gaps(torch, gpp, g64, what, float("inf"))
+    plain_gaps_cav = rel_l2_gaps(torch, gpp, g64, what + ", cavity lanes", float("inf"), lanes=cav_lanes)
+    del g64, fr64, tmp64, b64
+    check(float(gp["seg_u"][day_march.bit_rows(params, "cav_bits")].abs().max()) == 0.0,
+          "glazed city parity adjoint: seg_u cotangent on a cavity segment")
+    del gpp
+    torch.cuda.empty_cache()
+    pworst = max(pgaps, key=pgaps.get)
+    c_t, c_p = counts["trbdf2"], counts["parity"]
+    print(f"phase 16b glazed city gradients, {n} days in 2 chunks (u_scale 1.2, alpha_scale 0.8): trbdf2_refresh k=2 "
+          f"{c_t['wall']:.3f} s, day march (all, cavity, parity cavity) {c_t['march']}, adjoint {c_t['adjoint']}, "
+          f"loss / dL/du / dL/dalpha " + " / ".join(f"{x:.6g}" for x in c_t["value"])
+          + f"; parity {c_p['wall']:.3f} s, day march {c_p['march']}, adjoint {c_p['adjoint']}, "
+          + " / ".join(f"{x:.6g}" for x in c_p["value"])
+          + f"; its first day-launch (24 h x {sub} sub-steps), f32, against the plain versions: day march "
+          f"{p_ms:.3f} ms vs {p_plain_ms:.1f} ms (host clock), max |d| "
+          + ", ".join(f"{k} {v:.2e}" for k, v in fwd_gaps.items())
+          + f" (<= {PARITY_DAY_TOL:g} K, h/q <= {PARITY_HQ_TOL:g}); a start state moved by {PARITY_EPS:g} K ends the "
+          f"day {growth[0]:.3g} x as far apart on the nodes (<= {PARITY_GROWTH_MAX:g}); adjoint {pa_ms:.3f} ms vs "
+          f"{pa_plain_ms:.1f} ms, relative L2 worst {pgaps[pworst]:.3e} ({pworst}; <= {CAV_PARITY_ADJ_F32_RL2:g}), "
+          f"max |d| {pa_abs:.3e}, on the cavity lanes alone {worst_of(pgaps_cav)}; f32 kernel vs f64 kernel "
+          f"{worst_of(kgaps)}, cavity lanes {worst_of(kgaps_cav)}; f32 plain adjoint vs f64 kernel "
+          f"{worst_of(plain_gaps)}, cavity lanes {worst_of(plain_gaps_cav)}", flush=True)
+
+    def bounds(p, hours, sub, builds, fwd_ops, adj_ops, T_, zT_, hi_, outs, cots_, grads):
+        ops_f = fwd_ops + cavity_work(p, builds)
+        bytes_f = nbytes(*param_tensors(p), T_, zT_, *hi_) + nbytes(
+            outs[0], outs[1], *outs[2], *[o for o in outs[3:] if o is not None])
+        ops_a = adj_ops + cavity_work(p, builds) + cavity_work(p, builds, adjoint=True)
+        bytes_a = nbytes(*param_tensors(p), T_, zT_, *hi_, *cots_) + nbytes(*grads.values())
+        return (ops_f, bytes_f) + bound(bytes_f, ops_f), (ops_a, bytes_a) + bound(bytes_a, ops_a)
+
+    b_tr = bounds(r32.params, 24, 8, 24 * 8 // 2, day_work(r32.params, 24, 8, 2)[0],
+                  adjoint_work(r32.params, 24, 8, 2), T, zT, hi, got, cots, g32)
+    pb_builds = 24 * sub * (PARITY_ITERS + 1)
+    b_pa = bounds(params, 24, sub, pb_builds, parity_day_work(params, 24, sub, PARITY_ITERS)[0],
+                  parity_adjoint_work(params, 24, sub, PARITY_ITERS), Tp, zTp, hip, gotp, cotp, gp)
+    return SimpleNamespace(
+        run_launches=run_launches, counts=counts, ms=ms, plain_ms=plain_ms, err32=err32, err48=err48,
+        adj_ms=adj_ms, adj_plain_ms=adj_plain_ms, adj_abs=adj_abs, adj_rel=gaps[worst], p_ms=p_ms,
+        p_plain_ms=p_plain_ms, p_err=max(fwd_gaps.values()), pa_ms=pa_ms, pa_plain_ms=pa_plain_ms,
+        pa_abs=pa_abs, pa_rel=pgaps[pworst], bounds=dict(march=b_tr[0], adjoint=b_tr[1], parity=b_pa[0],
+                                                         parity_adjoint=b_pa[1]),
+    )
+
+
+def phase17_office(torch, ctx):
+    """bench.py's office IDF workflow on the card (see the module
+    docstring)."""
+    import os
+    import tempfile
+
+    from heatx_torch.model.idf import load_idf
+    from heatx_torch.weather.epw import read_epw
+
+    testing, SimConfig, ThermalModel, smi = ctx.testing, ctx.SimConfig, ctx.ThermalModel, ctx.smi
+    km = ctx.day_march.day_march_kernel
+    with tempfile.TemporaryDirectory() as d:
+        w = read_epw(testing.write_synthetic_epw(os.path.join(d, "santiago_synthetic.epw"), seed=0))
+    t0 = time.time()
+    loaded = load_idf(os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", "data", "office.idf"))
+    tm32 = ThermalModel(loaded.model, n=1, config=SimConfig(dtype=torch.float32), device="cuda")
+    b = tm32.building
+    check(b.surfaces.has_cavity, "the office has no gas cavity")
+    kw = dict(mode="trbdf2", substeps=8, hours=24, scheduled_setpoints="heat_sp" in loaded.hourly_channels(24))
+    fr = tm32.fast_runner(**kw)
+    seq, ground = testing.office_inputs(loaded, tm32, w, 8760)
+    check(ground is not None, "the office has no ground face")
+    setup_s = time.time() - t0
+    st = tm32.initial_state()
+    walls = []
+    for _ in range(2):
+        km.launches = km.cavity_launches = 0
+        torch.cuda.synchronize()
+        t0 = time.time()
+        final, zt, loads = fr.run(st, seq, ground_hourly=ground, collect_loads=True)
+        heat = float(loads.clamp(min=0).sum()) / 1000.0
+        cool = float(-loads.clamp(max=0).sum()) / 1000.0
+        walls.append(time.time() - t0)
+    launches = (km.launches, km.cavity_launches)
+    dispatches = len(fr.dispatch_starts)
+    check(launches == (365, 365), f"office year: {launches} (all, cavity) day-march launches, expected 365")
+    check(dispatches == 12, f"office year: {dispatches} dispatches, expected one per month")
+    for name, v in (("zone_T", zt), ("loads", loads), ("node_T", final.node_T)):
+        check(bool(torch.isfinite(v).all()), f"office year {name} has non-finite values")
+    check(heat > 0 and cool > 0 and np.isfinite(heat + cool), f"office year: heating {heat}, cooling {cool} kWh")
+
+    seq48, g48 = testing.office_inputs(loaded, tm32, w, 48)
+    _, z32, l32 = fr.run(st, seq48, ground_hourly=g48, collect_loads=True)
+    tm64 = ThermalModel(loaded.model, n=1, config=SimConfig(dtype=torch.float64), device="cuda")
+    s64, g64 = testing.office_inputs(loaded, tm64, w, 48)
+    _, z64, l64 = tm64.fast_runner(use_kernel=False, **kw).run(tm64.initial_state(), s64, ground_hourly=g64,
+                                                              collect_loads=True)
+    err_z = float((z32.double() - z64).abs().max())
+    l_scale = float(l64.abs().max())
+    err_l = float((l32.double() - l64).abs().max())
+    check(err_z <= F32_TOL, f"office f32 kernel vs f64 twin zone_T: max |d| {err_z} > {F32_TOL}")
+    check(l_scale > 0 and err_l <= LOAD_F32_RTOL * l_scale,
+          f"office f32 kernel vs f64 twin loads: max |d| {err_l} W > {LOAD_F32_RTOL} x {l_scale} W")
+    print(f"phase 17 office IDF workflow on {smi}: examples/data/office.idf ({b.n_zones} zones, {b.n_surfaces} "
+          f"surfaces, {cavity_segments(fr.params)} gas cavities) on a synthetic Santiago EPW (seed 0), set-up "
+          f"{setup_s:.2f} s; annual run (8760 h, trbdf2, 8 sub-steps, scheduled setpoints, monthly ground "
+          f"temperatures, collect_loads, f32) {walls[0]:.3f} s and {walls[1]:.3f} s (host clock), {dispatches} "
+          f"dispatches, {launches[0]} day-march launches ({launches[1]} with cavities); heating {heat:.1f} kWh, "
+          f"cooling {cool:.1f} kWh; 48 h f32 kernel vs f64 plain twin: max |d zone_T| {err_z:.3e} K "
+          f"(<= {F32_TOL:g}), max |d load| {err_l:.3e} W = {err_l / l_scale:.3e} of max |load| {l_scale:.1f} W "
+          f"(<= {LOAD_F32_RTOL:g})", flush=True)
+    return SimpleNamespace(launches=launches[1], walls=walls, heat=heat, cool=cool, dispatches=dispatches,
+                           err_z=err_z, err_l=err_l)
 
 
 def tree_head(seq, T, hours):
@@ -1212,12 +1685,7 @@ def main() -> int:
     cots64 = tuple(c.double() for c in cots32)
     g32 = flat_grads(adj32(runner.params, T, zT, hi, cots32))
     g64p = flat_grads(adj64.plain(r64.params, T64, zT64, hi64, cots64))
-    gaps = {}
-    for name, ref in g64p.items():
-        check(bool(torch.isfinite(g32[name]).all()), f"f32 adjoint {name}: non-finite")
-        norm = float(ref.norm())
-        gaps[name] = float((g32[name].double() - ref).norm()) / norm if norm else float(g32[name].abs().max())
-        check(gaps[name] <= ADJ_F32_RL2, f"f32 adjoint kernel vs f64 plain {name}: relative L2 {gaps[name]} > {ADJ_F32_RL2}")
+    gaps = rel_l2_gaps(torch, g32, g64p, "f32 adjoint kernel vs f64 plain adjoint", ADJ_F32_RL2)
     worst_gap = max(gaps, key=gaps.get)
     adj_ms = event_ms(torch, lambda: adj32(runner.params, T, zT, hi, cots32), 10)
     t0 = time.time()
@@ -1376,13 +1844,7 @@ def main() -> int:
     hit64 = frd64.kernel_inputs(testing.demand_inputs(frd64._tm.building, 24, device="cuda"))[0]
     gd32 = flat_grads(adjd32(frd32.params, Tt, zTt, hit, cots_d32))
     gd64p = flat_grads(adjd64.plain(frd64.params, Tt64, zTt64, hit64, tuple(c.double() for c in cots_d32)))
-    gaps_d = {}
-    for name, ref in gd64p.items():
-        check(bool(torch.isfinite(gd32[name]).all()), f"f32 demand adjoint {name}: non-finite")
-        norm = float(ref.norm())
-        gaps_d[name] = float((gd32[name].double() - ref).norm()) / norm if norm else float(gd32[name].abs().max())
-        check(gaps_d[name] <= ADJ_F32_RL2_TSTAT,
-              f"f32 demand adjoint kernel vs f64 plain {name}: relative L2 {gaps_d[name]} > {ADJ_F32_RL2_TSTAT}")
+    gaps_d = rel_l2_gaps(torch, gd32, gd64p, "f32 demand adjoint kernel vs f64 plain adjoint", ADJ_F32_RL2_TSTAT)
     worst_gap_d = max(gaps_d, key=gaps_d.get)
     tstat_adj_ms = event_ms(torch, lambda: adjd32(frd32.params, Tt, zTt, hit, cots_d32), 10)
     t0 = time.time()
@@ -1454,6 +1916,19 @@ def main() -> int:
     p13 = phase13_parity_run(torch, ctx)
     p14 = phase14_parity_grad(torch, ctx, p13)
 
+    # 15-17. gas cavities: the four bodies small in f64, the glazed city at
+    # full width, the office IDF workflow (see the module docstring)
+    w15, n15, live15 = phase15_cavity_f64(torch, ctx)
+    print(f"phase 15 f64 cavity bodies, {n15} cases (testing.build_cavity_model: cavities in every tilt band of "
+          f"the correlation; the 4-zone glazed city; trbdf2, trbdf2_refresh k=2, parity with 1 and 2 no-mass "
+          f"iterations): forward kernel vs plain twin max |d| {w15['T']:.3e} K on T, zT, zone history, h/q "
+          f"(<= {F64_TOL:g}); adjoint kernel vs plain adjoint {w15['adj']:.3e} of max |ref| (<= {ADJ_F64_RTOL:g}), "
+          f"seg_u cotangent exactly 0 on every cavity segment; central differences of the forward kernel along "
+          f"T0 and seg_u: worst relative error {w15['fd']:.3e} (<= {FD_RTOL:g}); the live cavity U moves the "
+          f"zones up to {live15:.3e} K against the static one", flush=True)
+    p16 = phase16_glazed_city(torch, ctx)
+    p17 = phase17_office(torch, ctx)
+
     # The kernels line: bounds from this run's shapes (f32 bench day; the
     # thermostat instantiation on the demand city's day, same mode).
     def march_bound(params, T, zT, hi, outs):
@@ -1478,6 +1953,10 @@ def main() -> int:
     ops_pa = parity_adjoint_work(p14.params, 24, p13.sub, PARITY_ITERS)
     bytes_pa = nbytes(*param_tensors(p14.params), p14.T, p14.zT, *p14.hi, *p14.cots) + nbytes(*p14.g32.values())
     pa_bound, pa_by = bound(bytes_pa, ops_pa)
+    cav_b = p16.bounds
+    print("bounds with gas cavities (f32 glazed city, the day-launches of phase 16): " + "; ".join(
+        f"{name} {b[1] / 1e6:.2f} MB, {b[0] / 1e9:.3f} GFLOP -> {b[2] * 1e3:.2f} us ({b[3]})"
+        for name, b in cav_b.items()), flush=True)
     print(f"bounds (f32 bench day, published H100 SXM rates): day_march {bytes_fwd / 1e6:.2f} MB, "
           f"{ops_fwd / 1e9:.3f} GFLOP -> {fwd_bound * 1e3:.2f} us ({fwd_by}); day_adjoint "
           f"{bytes_adj / 1e6:.2f} MB, {ops_adj / 1e9:.3f} GFLOP -> {adj_bound * 1e3:.2f} us ({adj_by}); "
@@ -1500,7 +1979,7 @@ def main() -> int:
                 "demand run, 48 h (phase 10)": launches_demand,
                 "demand gradient, 30 days (phase 11b)": launches_dfwd,
                 "parity run, 48 h (phase 13a)": p13.launches[0],
-                "parity value_and_grad, 30 days (phase 14a)": p14.counts[0],
+                f"parity value_and_grad, {PARITY_GRAD_DAYS} days (phase 14a)": p14.counts[0],
             },
             "max_abs_err": err32,
             "ms": kernel_ms,
@@ -1520,7 +1999,7 @@ def main() -> int:
             "launches_by_path": {
                 "value_and_grad, 30 days (phase 8b)": launches_adj,
                 "demand gradient, 30 days (phase 11b)": launches_dadj,
-                "parity value_and_grad, 30 days (phase 14a)": p14.counts[2],
+                f"parity value_and_grad, {PARITY_GRAD_DAYS} days (phase 14a)": p14.counts[2],
             },
             "max_abs_err": adj32_abs,
             "ms": adj_ms,
@@ -1539,7 +2018,7 @@ def main() -> int:
             "launches": p14.counts[1],
             "launches_by_path": {
                 "parity run, 48 h (phase 13a)": p13.launches[1],
-                "parity value_and_grad, 30 days (phase 14a)": p14.counts[1],
+                f"parity value_and_grad, {PARITY_GRAD_DAYS} days (phase 14a)": p14.counts[1],
             },
             "ms_bench_day": p13.kernel_ms,
             "max_abs_err": p14.err32,
@@ -1555,7 +2034,7 @@ def main() -> int:
             "source": "heatx_torch/csrc/day_adjoint.cu (body: heatx_torch/csrc/day_parity.cuh)",
             "replaces": "heatx/ops/pallas_adjoint.py:717 (body _hour_body(unroll=True), pallas_adjoint.py:573)",
             "launches": p14.counts[3],
-            "launches_by_path": {"parity value_and_grad, 30 days (phase 14a)": p14.counts[3]},
+            "launches_by_path": {f"parity value_and_grad, {PARITY_GRAD_DAYS} days (phase 14a)": p14.counts[3]},
             "ms_bench_day": p14.bench_adj_ms,
             "max_abs_err": p14.adj32_abs,
             "rel_l2_err": p14.adj32_rel,
@@ -1563,6 +2042,76 @@ def main() -> int:
             "plain_ms": p14.adj_plain_ms,
             "bound_ms": pa_bound,
             "bound_by": pa_by,
+            "library_ms": None,
+        },
+        {
+            "name": "day_march_cavity",
+            "route": "cuda",
+            "source": "heatx_torch/csrc/day_march.cu (cavity U: heatx_torch/csrc/day_common.cuh cavity_u)",
+            "replaces": "heatx/ops/pallas_step.py:1976 (body _hour_body_imp, pallas_step.py:777, with gas "
+                        "cavities, :1497-1529)",
+            "launches": p17.launches,
+            "launches_by_path": {
+                "office IDF workflow, 8760 h (phase 17)": p17.launches,
+                "glazed city run, 48 h (phase 16a)": p16.run_launches,
+                f"glazed city value_and_grad, {CAV_GRAD_DAYS} days (phase 16b)": p16.counts["trbdf2"]["march"][1],
+            },
+            "max_abs_err": p16.err32,
+            "ms": p16.ms,
+            "plain_ms": p16.plain_ms,
+            "bound_ms": cav_b["march"][2],
+            "bound_by": cav_b["march"][3],
+            "library_ms": None,
+        },
+        {
+            "name": "day_adjoint_cavity",
+            "route": "cuda",
+            "source": "heatx_torch/csrc/day_adjoint.cu (cavity_band_adj_tr; day_common.cuh cavity_u)",
+            "replaces": "heatx/ops/pallas_adjoint.py:717 (body _hour_body_imp, cavity operands :401-425)",
+            "launches": p16.counts["trbdf2"]["adjoint"][1],
+            "launches_by_path": {
+                f"glazed city value_and_grad, {CAV_GRAD_DAYS} days (phase 16b)": p16.counts["trbdf2"]["adjoint"][1],
+            },
+            "max_abs_err": p16.adj_abs,
+            "ms": p16.adj_ms,
+            "plain_ms": p16.adj_plain_ms,
+            "bound_ms": cav_b["adjoint"][2],
+            "bound_by": cav_b["adjoint"][3],
+            "library_ms": None,
+        },
+        {
+            "name": "day_march_parity_cavity",
+            "route": "cuda",
+            "source": "heatx_torch/csrc/day_march.cu (body: heatx_torch/csrc/day_parity.cuh cavity_k_rows)",
+            "replaces": "heatx/ops/pallas_step.py:1976 (body _hour_body, pallas_step.py:633, with gas cavities)",
+            "launches": p16.counts["parity"]["march"][2],
+            "launches_by_path": {
+                f"glazed city parity value_and_grad, {CAV_GRAD_DAYS} days (phase 16b)": p16.counts["parity"]["march"][2],
+            },
+            "max_abs_err": p16.p_err,
+            "ms": p16.p_ms,
+            "plain_ms": p16.p_plain_ms,
+            "bound_ms": cav_b["parity"][2],
+            "bound_by": cav_b["parity"][3],
+            "library_ms": None,
+        },
+        {
+            "name": "day_adjoint_parity_cavity",
+            "route": "cuda",
+            "source": "heatx_torch/csrc/day_adjoint.cu (cavity_band_adj in parity_substep_adj)",
+            "replaces": "heatx/ops/pallas_adjoint.py:717 (body _hour_body(unroll=True), pallas_adjoint.py:573, "
+                        "with gas cavities)",
+            "launches": p16.counts["parity"]["adjoint"][2],
+            "launches_by_path": {
+                f"glazed city parity value_and_grad, {CAV_GRAD_DAYS} days (phase 16b)":
+                    p16.counts["parity"]["adjoint"][2],
+            },
+            "max_abs_err": p16.pa_abs,
+            "rel_l2_err": p16.pa_rel,
+            "ms": p16.pa_ms,
+            "plain_ms": p16.pa_plain_ms,
+            "bound_ms": cav_b["parity_adjoint"][2],
+            "bound_by": cav_b["parity_adjoint"][3],
             "library_ms": None,
         },
     ]}))

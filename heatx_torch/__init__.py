@@ -3,18 +3,22 @@
 A package beside ``heatx`` (which stays the JAX/TPU reference).  It imports
 ``torch`` and never ``jax``, and carries its own copy of heatx's numpy front
 end (model, discretization, layout, blocking), because the GPU host has no
-jax.  What runs today, in modes ``trbdf2`` and ``trbdf2_refresh``, on
-free-float buildings and on buildings with thermostats (ideal loads),
-setpoint schedules and inter-zone mixing: the day march through
+jax.  What runs today, in modes ``trbdf2``, ``trbdf2_refresh`` and
+``parity``, on free-float buildings, on buildings with thermostats (ideal
+loads), setpoint schedules and inter-zone mixing, and with gas cavities
+(double glazing): the day march through
 ``ThermalModel(...).fast_runner(...).run`` (with ``collect_loads=True``, the
-hourly demand), and its gradient through
+hourly demand; with ``ground_hourly``, monthly soil temperatures swapped in
+per dispatch), and its gradient through
 ``heatx_torch.engine.adjoint.chunked_value_and_grad`` with
 ``FastRunner.chunk_forward``/``chunk_grad`` (zone-temperature and demand
-objectives).  Both day kernels are written
-in CUDA for Hopper (``heatx_torch/csrc/day_march.cu``, ``day_adjoint.cu``)
-with plain PyTorch versions beside them.  Models live on the card
-(``device="cuda"``) unless the caller asks for ``device="cpu"``, where the
-plain versions run.
+objectives).  The EnergyPlus front end is here too: ``model.idf.load_idf``
+(IDF files), ``weather.epw.read_epw`` and ``weather.solar`` (EPW weather,
+computed solar and longwave), so bench.py's office workflow runs end to end.
+Both day kernels are written in CUDA for Hopper
+(``heatx_torch/csrc/day_march.cu``, ``day_adjoint.cu``) with plain PyTorch
+versions beside them.  Models live on the card (``device="cuda"``) unless
+the caller asks for ``device="cpu"``, where the plain versions run.
 """
 
 __version__ = "0.5.0"

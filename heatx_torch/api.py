@@ -5,7 +5,8 @@ compiled building on a device (the card unless the caller asks for the
 CPU), its initial state and inputs; ``FastRunner.run``, which marches a
 whole hourly input sequence through the TR-BDF2 day march (the CUDA kernel
 on a GPU, its plain twin on the CPU), with the per-hour ideal loads of a
-building with thermostats and with setpoint schedules; and
+building with thermostats, with setpoint schedules and with the ground faces'
+soil temperature swapped in month by month (``ground_hourly``); and
 ``FastRunner.chunk_forward``/``chunk_grad``, the forward and backward sweeps
 of ``heatx_torch.engine.adjoint.chunked_value_and_grad`` (the day march and
 the adjoint day march), for zone-temperature and demand objectives.
@@ -20,7 +21,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from heatx_torch.build.layout import CompiledBuilding, compile_building
+from heatx_torch.build.layout import B_GROUND, CompiledBuilding, compile_building
 from heatx_torch.config import DEFAULT_CONFIG, SimConfig
 from heatx_torch.constants import KELVIN
 from heatx_torch.engine.adjoint import tree_flatten
@@ -150,6 +151,19 @@ class ThermalModel:
     def dt_subdivisions(self) -> int:
         return self.building.dt_subdivisions
 
+    def set_ground_temperature(self, value: float) -> None:
+        """Set every ground-contact face's soil temperature in the compiled
+        building, in place (heatx ``ThermalModel.set_ground_temperature``):
+        runners made afterwards read it.  ``FastRunner.set_ground_temperature``
+        (or ``run(ground_hourly=...)``) swaps it in a runner that exists."""
+        sb = self.building.surfaces
+        front = np.asarray(sb.front_code) == B_GROUND
+        back = np.asarray(sb.back_code) == B_GROUND
+        if not (front.any() or back.any()):
+            raise ValueError("model has no ground boundaries")
+        sb.front_temp[front] = value
+        sb.back_temp[back] = value
+
     def initial_state(self, dtype=None) -> SimState:
         return initial_state(self.building, dtype=dtype, device=self.device)
 
@@ -240,6 +254,9 @@ class FastRunner:
         # Differentiable gathers into the blocked layout (state, inputs and
         # the parameter rows alike).
         self._blocker = day_march.ParamBlocker(self._bb, self.device)
+        self._ground_masks = None
+        #: The first day of each dispatch chunk of the last ``run``.
+        self.dispatch_starts = []
 
         lay = self._bb.layout
         S, Z = building.n_surfaces, building.n_zones
@@ -255,6 +272,25 @@ class FastRunner:
     @property
     def layout(self):
         return self._bb.layout
+
+    def set_ground_temperature(self, value: float) -> None:
+        """Set every ground-contact face's soil temperature in the blocked
+        operands on the device (heatx ``FastRunner.set_ground_temperature``):
+        a masked in-place write of the ``front_temp``/``back_temp`` rows, with
+        the masks computed once from the boundary codes, and no re-blocking.
+        A later change of the parameter rows (``chunk_forward``'s re-blocking)
+        takes the compiled building's values again."""
+        if self._ground_masks is None:
+            self._ground_masks = [
+                (day_march.SURF_FIELDS.index(f"{side}_temp"), mask)
+                for side in ("front", "back")
+                for mask in [self.params.field(f"{side}_code") == B_GROUND]
+                if bool(mask.any())
+            ]
+        if not self._ground_masks:
+            raise ValueError("model has no ground boundaries")
+        for row, mask in self._ground_masks:
+            self.params.surf[row].masked_fill_(mask, float(value))
 
     # -- layout conversion --------------------------------------------------
 
@@ -476,13 +512,17 @@ class FastRunner:
         ``ideal_load``.  On a ``scheduled_setpoints`` runner
         ``inputs_seq.heat_sp``/``cool_sp`` may be scalar, ``[Z]``, ``[1, Z]``,
         ``[T]`` or ``[T, Z]``; other runners raise ``ValueError`` on them.
+        ``ground_hourly`` ``[T]`` is the soil temperature of the ground faces
+        hour by hour, constant within each ``hours`` chunk (monthly values
+        from ``EPWData.ground_temperature``): the dispatches split where it
+        changes and :meth:`set_ground_temperature` swaps it in before each
+        (the runner keeps the last value).
 
         Returns ``(final SimState, zone_T [T, Z] or None)``, then the loads
         with ``collect_loads``.
         """
         _unsupported(
             collect_fluxes=(collect_fluxes, "ROADMAP A9/B5"),
-            ground_hourly=(ground_hourly is not None, "ROADMAP A4 follow-up"),
             collect_operative=(collect_operative, "ROADMAP A9/B5"),
         )
         if collect_loads and not self._has_loads:
@@ -499,6 +539,24 @@ class FastRunner:
         chunk_D = D if dispatch_days is None else max(1, int(dispatch_days))
         defer = min(chunk_D, D) * H * b.n_surfaces < DEFER_CHECK_SURFACE_HOURS
         NB = self._bb.n_blocks
+        starts = set(range(0, D, chunk_D))
+        gday = None
+        if ground_hourly is not None:
+            g = _np(ground_hourly).astype(np.float64)
+            if g.shape != (T_steps,):
+                raise ValueError(
+                    f"ground_hourly must be [{T_steps}] (one value per hour), got {g.shape}"
+                )
+            gd = g.reshape(D, H)
+            if not (gd == gd[:, :1]).all():
+                raise ValueError(
+                    f"ground_hourly must be constant within each {H}-hour kernel chunk "
+                    "(use a daily-or-coarser series, or hours=1)"
+                )
+            gday = gd[:, 0]
+            starts |= set(int(i) for i in np.flatnonzero(np.diff(gday)) + 1)
+        starts = sorted(starts)
+        self.dispatch_starts = starts
 
         def check_bad(d0, bad_c):
             if float(bad_c.sum()) <= 0:
@@ -514,8 +572,10 @@ class FastRunner:
         hists, bads, loads = [], [], []
         pending = None
         hq = last_ld = None
-        for d0 in range(0, D, chunk_D):
-            n_days = min(chunk_D, D - d0)
+        for si, d0 in enumerate(starts):
+            n_days = (starts[si + 1] if si + 1 < len(starts) else D) - d0
+            if gday is not None and (si == 0 or gday[d0] != gday[starts[si - 1]]):
+                self.set_ground_temperature(float(gday[d0]))
             hist_c, bad_c = [], []
             for hi in self._day_inputs(prep, d0, n_days):
                 Tb, zTb, hq, zt_hist, bad, *ld = self._march(self.params, Tb, zTb, hi)

@@ -24,12 +24,17 @@ import torch
 from heatx_torch.build.layout import CompiledBuilding, SurfaceBatch
 from heatx_torch.config import SimConfig
 from heatx_torch.ops.day_march import (
-    SURF_FIELDS, DayMarchParams, mix_lists_from_dense, pack_params,
+    CAV_FIELDS, SURF_FIELDS, DayMarchParams, mix_lists_from_dense, pack_params,
 )
 from heatx_torch.physics.gas import GasProps
 
 #: heatx's names for the four thermostat operand rows, in kernel order.
 CTL_NAMES = ("ctl_heat_sp", "ctl_cool_sp", "ctl_max_heat", "ctl_max_cool")
+#: heatx's names for the gas-cavity operands, in ``CAV_FIELDS`` order.
+CAV_NAMES = (
+    "cav_k0", "cav_k1", "cav_mu0", "cav_mu1", "cav_cp0", "cav_cp1", "cav_mass",
+    "cav_thickness", "cav_height", "cav_angle", "cav_ein", "cav_eout",
+)
 
 _TORCH_DTYPES = {np.dtype(np.float32): torch.float32, np.dtype(np.float64): torch.float64}
 
@@ -68,7 +73,8 @@ def params_from_kernel_operands(
     has them, the thermostat rows ``ctl_heat_sp``, ``ctl_cool_sp``,
     ``ctl_max_heat``, ``ctl_max_cool`` (zone rows like ``zone_volume``) and
     the dense mixing matrix ``mix_wt`` ([NB*ZB, ZB], ``[block*ZB + from,
-    to]``), which becomes the port's entry lists."""
+    to]``), which becomes the port's entry lists, and the gas-cavity operands
+    ``seg_is_cavity`` and CAV_NAMES ([N, SP])."""
     node_mask = np.asarray(ops["node_mask"], bool)
     SP = node_mask.shape[1]
     ZB = np.asarray(ops["zone_volume"]).shape[-1]
@@ -86,6 +92,10 @@ def params_from_kernel_operands(
     massive = np.asarray(ops["massive"], bool)
     capacity = np.where(massive, mass, 0.0)
     zero_oh = np.zeros((SP, ZB))
+    seg_is_cavity = ops.get("seg_is_cavity")
+    cav = None
+    if seg_is_cavity is not None and np.asarray(seg_is_cavity).any():
+        cav = {k: np.asarray(ops[n]) for k, n in zip(CAV_FIELDS, CAV_NAMES)}
     return pack_params(
         node_mask, massive, capacity, ops["seg_u"], ops["front_alphas"], ops["back_alphas"],
         {k: np.asarray(ops[k]).reshape(SP) for k in SURF_FIELDS},
@@ -93,4 +103,5 @@ def params_from_kernel_operands(
         np.asarray(ops["back_code"]).reshape(SP),
         ops.get("front_oh", zero_oh), ops.get("back_oh", zero_oh), zv, n_blocks,
         dtype=dtype, device=device, ctl=ctl, mix=mix, same_chunk=ops.get("same_chunk"),
+        seg_is_cavity=seg_is_cavity, cav=cav,
     )

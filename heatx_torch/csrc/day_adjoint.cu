@@ -4,7 +4,7 @@
 //
 // Replaces heatx/ops/pallas_adjoint.py::make_day_adjoint -> `kernel` (the
 // pl.pallas_call at pallas_adjoint.py:717) in modes trbdf2 / trbdf2_refresh
-// for buildings without gas cavities.  Given the cotangents of a day's final
+// and parity, with gas cavities or without.  Given the cotangents of a day's final
 // state (dT, d_zT), of its per-hour zone history and, with thermostats, of
 // its per-hour mean ideal loads, one launch returns the cotangents of the
 // day-start state, of the differentiated building rows (seg_u, mass, the
@@ -41,7 +41,16 @@
 //    linearized radiation and the TARP/forced film coefficients (with
 //    autograd's subgradients: |x|' = sign(x), 0 at 0; clamp and where pass
 //    or stop the cotangent as their forward branch does), to the
-//    parameters, the IR channels and the group-start state.
+//    parameters, the IR channels and the group-start state;
+//  * gas cavities: a cavity segment's U is a function of its two node
+//    temperatures at the operator build (day_common.cuh cavity_u), so its
+//    share of K's band cotangent goes through dU/dT to those nodes of the
+//    group-start column (the tape holds it: Tt + i0*N), not to seg_u, whose
+//    cotangent there is exactly 0 (heatx: jnp.where(seg_is_cavity, ...)).
+//    The gas operands and the cavity geometry are not differentiated, as in
+//    heatx (pallas_adjoint.py:44-47).  Like the forward, this code is in the
+//    kCav instantiations only (x kExt, both kernels), which every building
+//    with a cavity takes.
 //
 // What bounds it: like the forward, per-thread serial latency.  It re-marches
 // the day (to store each hour's start state), re-marches each hour again
@@ -246,7 +255,26 @@ __device__ void zone_update_ctl_adj(T zt, T az, T bz, T volume, T dt, const Setp
     l_cool = -l_u;
 }
 
-template <typename T, bool kExt>
+// The cavity chain of one TR-BDF2 operator build: each cavity segment's
+// share of K's band cotangent (what the build's band-to-U loop adds to
+// dU[s]) pulled back through dU/dT to nodes s and s+1 of the group-start
+// column Tg.  cav is the lane's column of the cavity operands.
+template <typename T>
+__device__ __noinline__ void cavity_band_adj_tr(const T* cav, int N, int SP, unsigned cav_bits,
+                                                const T* Tg, const T* gKl, const T* gKd,
+                                                const T* gKu, T* lT) {
+  const size_t ns = static_cast<size_t>(N) * SP;
+  for (int s = 0; s + 1 < N; ++s) {
+    if (!((cav_bits >> s) & 1u)) continue;
+    const T gu = (gKu[s] - gKd[s]) + (gKl[s + 1] - gKd[s + 1]);
+    T d_f, d_b;
+    cavity_u(cav + s * SP, ns, Tg[s], Tg[s + 1], &d_f, &d_b);
+    lT[s] += gu * d_f;
+    lT[s + 1] += gu * d_b;
+  }
+}
+
+template <typename T, bool kExt, bool kCav>
 __global__ void __launch_bounds__(kMaxLanes) day_adjoint_kernel(const AdjArgs<T> g) {
   const DayArgs<T>& a = g.in;
   const int N = a.N, SB = a.SB, ZB = a.ZB, NB = a.NB;
@@ -274,7 +302,7 @@ __global__ void __launch_bounds__(kMaxLanes) day_adjoint_kernel(const AdjArgs<T>
   T* s_dsh = s_lld + ZB;                     // kExt: [ZB] heating-setpoint cotangent (hour or day)
   T* s_dsc = s_dsh + ZB;                     // kExt: [ZB] cooling-setpoint cotangent
 
-  const Lane<T> L(a, lane);
+  const Lane<T> L(a, lane, kCav);
   const Scheme<T> sc(a);
   T Tt[kTape], T1t[kTape];  // the hour's tape: T at sub-step starts (+ end), T1
   T cs[kMaxNodes], inv[kMaxNodes];
@@ -503,6 +531,7 @@ __global__ void __launch_bounds__(kMaxLanes) day_adjoint_kernel(const AdjArgs<T>
               og.radb -= gd;
             }
           }
+          if (L.cav_bits) cavity_band_adj_tr(L.Cav, N, SP, L.cav_bits, Tg, gKl, gKd, gKu, lT);
           const FaceTemps<T> ft(L, Tg, tf0, tb0, hi, a.amb_bug);
           // Linearized radiation 4 eps sigma x^3, x = K + (T_rad + T_s)/2.
           const T xf = T(kKelvin) + (ft.front_rad + ft.front_surf) / T(2);
@@ -621,7 +650,7 @@ __global__ void __launch_bounds__(kMaxLanes) day_adjoint_kernel(const AdjArgs<T>
   // ---- outputs ------------------------------------------------------------
   for (int n = 0; n < N; ++n) {
     g.dT0[n * SP + lane] = lT[n];
-    g.d_node[(ND_U * N + n) * SP + lane] = dU[n];
+    g.d_node[(ND_U * N + n) * SP + lane] = ((L.cav_bits >> n) & 1u) ? T(0) : dU[n];
     g.d_node[(ND_CAP * N + n) * SP + lane] = ((L.mass_bits >> n) & 1u) ? dCap[n] : T(0);
     g.d_node[(ND_FA * N + n) * SP + lane] = dFA[n];
     g.d_node[(ND_FB * N + n) * SP + lane] = dFB[n];
@@ -662,7 +691,13 @@ __global__ void __launch_bounds__(kMaxLanes) day_adjoint_kernel(const AdjArgs<T>
 //    band cotangent -y x^T, and q again;
 //  * K's band onto U and the films, then the first film evaluation with the
 //    linearized radiation (the same chain as the TR-BDF2 operator build) and
-//    the forced-convection term shared by both film evaluations.
+//    the forced-convection term shared by both film evaluations;
+//  * on a cavity lane K and q are rebuilt at each no-mass iteration's input
+//    and at the post-no-mass column, so each of those instances turns its
+//    own band and Dirichlet cotangents into U's at once and sends the cavity
+//    segments' share through dU/dT into its own input column (the lane's
+//    day accumulator of a cavity segment's seg_u cotangent is scratch,
+//    emptied after each instance, and written out as 0).
 // Zone coupling, thermostat, mixing and the end-of-hour outputs are those of
 // the TR-BDF2 adjoint above.
 
@@ -789,6 +824,57 @@ __device__ void parity_q_adj(const Chunks<T>& C, const Ops<T>& o, const HourIn<T
   }
 }
 
+// The films' share of one K instance's band cotangent.
+template <typename T>
+struct FilmCot {
+  T hf, hb;
+};
+
+// One K instance of a cavity lane, backwards (parity): its band cotangent
+// (gKl, gKd, gKu, emptied here) onto U (dU) and the films (returned), then
+// each cavity segment's U cotangent, its Dirichlet share already in dU[s],
+// through dU/dT into lT at that instance's working column Tw; dU[s] is
+// emptied again.  cav is the lane's column of the cavity operands; bits,
+// cbits the node and chunk words.
+template <typename T>
+__device__ __noinline__ FilmCot<T> cavity_band_adj(const T* cav, int N, int SP, unsigned bits,
+                                                   unsigned cbits, unsigned cav_bits, const T* Tw,
+                                                   T* gKl, T* gKd, T* gKu, T* lT, T* dU) {
+  auto valid = [&](int i) { return i >= 0 && i < N && ((bits >> i) & 1u); };
+  auto joined = [&](int i) { return i >= 0 && ((cbits >> i) & 1u); };
+  FilmCot<T> f{T(0), T(0)};
+  for (int n = 0; n < N; ++n) {
+    if (!valid(n)) continue;
+    const T gd = gKd[n];
+    if (valid(n - 1)) dU[n - 1] += (joined(n - 1) ? gKl[n] : T(0)) - gd;
+    if (valid(n + 1)) dU[n] += (joined(n) ? gKu[n] : T(0)) - gd;
+    if (!valid(n - 1)) f.hf -= gd;
+    if (!valid(n + 1)) f.hb -= gd;
+  }
+  for (int n = 0; n < N; ++n) gKl[n] = gKd[n] = gKu[n] = T(0);
+  const size_t ns = static_cast<size_t>(N) * SP;
+  for (int s = 0; s + 1 < N; ++s) {
+    if (!((cav_bits >> s) & 1u)) continue;
+    T d_f, d_b;
+    cavity_u(cav + s * SP, ns, Tw[s], Tw[s + 1], &d_f, &d_b);
+    lT[s] += dU[s] * d_f;
+    lT[s + 1] += dU[s] * d_b;
+    dU[s] = T(0);
+  }
+  return f;
+}
+
+// A cavity lane's K instance at Tw, backwards, into og.
+template <typename T>
+__device__ __forceinline__ void cavity_instance_adj(const Chunks<T>& C, const T* Tw, T* gKl,
+                                                    T* gKd, T* gKu, T* lT, T* dU, OpsGrad<T>& og) {
+  const Lane<T>& L = C.L;
+  const FilmCot<T> f =
+      cavity_band_adj(L.Cav, L.N, L.SP, L.bits, C.cbits, L.cav_bits, Tw, gKl, gKd, gKu, lT, dU);
+  og.hf += f.hf;
+  og.hb += f.hb;
+}
+
 // The columns the reverse of one parity sub-step works on.
 template <typename T>
 struct ParityTape {
@@ -848,6 +934,14 @@ __device__ void nomass_solve_transposed(const Chunks<T>& C, const T* kl, const T
     y[i] = (y[i] - (C.sel(i + 1) ? kl[i + 1] : T(0)) * y[i + 1]) * inv[i];
 }
 
+// A cavity lane's no-mass K rows and factors at the iteration input P.Tw.
+template <typename T>
+__device__ __forceinline__ void cavity_nomass_factor(const Chunks<T>& C, const Ops<T>& o,
+                                                     ParityTape<T>& P) {
+  cavity_k_rows(C, o, P.Tw, P.kl, P.kd, P.ku);
+  nomass_factor(C, P.kl, P.kd, P.ku, P.cs, P.inv);
+}
+
 // Adjoint of march_nomass from the sub-step's start column T0: lT holds the
 // post-no-mass column's cotangent in and the start column's out.
 template <typename T>
@@ -858,9 +952,11 @@ __device__ void march_nomass_adj(const Chunks<T>& C, const ParityCfg<T>& pc, con
   nomass_factor(C, P.kl, P.kd, P.ku, P.cs, P.inv);
   for (int j = pc.iters - 1; j >= 0; --j) {
     // Iteration j's input column, its solve and the nodes it updated.
+    // (A cavity lane factors each iteration's own K, at its input.)
     for (int n = 0; n < N; ++n) P.Tw[n] = T0[n];
     unsigned upd = 0u;
     if (pc.iters == 1) {
+      if (C.L.cav_bits) cavity_nomass_factor(C, o, P);
       nomass_solve(C, o, hi, tf, tb, P.kl, P.cs, P.inv, P.Tw, P.Ts);
       for (int n = 0; n < N; ++n)
         if (C.sel(n)) upd |= 1u << n;
@@ -868,9 +964,11 @@ __device__ void march_nomass_adj(const Chunks<T>& C, const ParityCfg<T>& pc, con
       NomassState<T> st;
       st.init(C);
       for (int jj = 0; jj < j; ++jj) {
+        if (C.L.cav_bits) cavity_nomass_factor(C, o, P);
         nomass_solve(C, o, hi, tf, tb, P.kl, P.cs, P.inv, P.Tw, P.Ts);
         nomass_step(C, pc, st, P.Tw, P.Ts);
       }
+      if (C.L.cav_bits) cavity_nomass_factor(C, o, P);
       nomass_solve(C, o, hi, tf, tb, P.kl, P.cs, P.inv, P.Tw, P.Ts);
       upd = nomass_step(C, pc, st, P.Tw, P.Ts, false);
     }
@@ -895,6 +993,7 @@ __device__ void march_nomass_adj(const Chunks<T>& C, const ParityCfg<T>& pc, con
       }
     }
     parity_q_adj(C, o, hi, tf, tb, P.Tw, P.lq, lT, og, G, lt_f, lt_b);
+    if (C.L.cav_bits) cavity_instance_adj(C, P.Tw, P.gKl, P.gKd, P.gKu, lT, G.dU, og);
   }
 }
 
@@ -913,10 +1012,12 @@ __device__ void parity_substep_adj(const Chunks<T>& C, const ParityCfg<T>& pc,
   // ---- the sub-step forward, keeping Tm and the stages --------------------
   const T base = forced_base(L, ws, wd);
   const Ops<T> o = parity_ops(L, Ts, tf, tb, base, hi, amb_bug);
+  if (L.cav_bits) cavity_refresh(L, Ts);
   parity_k_rows(C, o.hf, o.hb, P.kl, P.kd, P.ku);
   for (int n = 0; n < N; ++n) P.Tm[n] = Ts[n];
   march_nomass(C, pc, o, hi, tf, tb, P.kl, P.kd, P.ku, P.Tm, P.cs, P.inv, P.Ts);
   T* Tnew = P.Tw;  // the new column, until the no-mass adjoint reuses the work columns
+  if (L.cav_bits) cavity_k_rows(C, o, P.Tm, P.kl, P.kd, P.ku);  // RK4's K
   {
     T* qs = P.lq;
     for (int n = 0; n < N; ++n)
@@ -964,8 +1065,9 @@ __device__ void parity_substep_adj(const Chunks<T>& C, const ParityCfg<T>& pc,
   OpsGrad<T> og{T(0), T(0), T(0), T(0), T(0), T(0)};
   march_massive_adj(C, pc.dt, P, lT, G);
   parity_q_adj(C, o, hi, tf, tb, P.Tm, P.lq, lT, og, G, lt_f, lt_b);
+  if (L.cav_bits) cavity_instance_adj(C, P.Tm, P.gKl, P.gKd, P.gKu, lT, G.dU, og);
   march_nomass_adj(C, pc, o, hi, tf, tb, Ts, P, lT, og, G, lt_f, lt_b);
-  // K's band -> U and the films.
+  // K's band -> U and the films (a cavity lane's band is already empty).
   for (int n = 0; n < N; ++n) {
     if (!L.valid(n)) continue;
     const T gd = P.gKd[n];
@@ -978,7 +1080,7 @@ __device__ void parity_substep_adj(const Chunks<T>& C, const ParityCfg<T>& pc,
   forced_base_adj(L, ws, wd, lbase, G.sg);
 }
 
-template <typename T, bool kExt>
+template <typename T, bool kExt, bool kCav>
 __global__ void __launch_bounds__(kMaxLanes) day_parity_adjoint_kernel(const AdjArgs<T> g) {
   const DayArgs<T>& a = g.in;
   const int N = a.N, SB = a.SB, ZB = a.ZB, NB = a.NB;
@@ -1006,7 +1108,7 @@ __global__ void __launch_bounds__(kMaxLanes) day_parity_adjoint_kernel(const Adj
   T* s_dsh = s_lld + ZB;                     // kExt: [ZB] heating-setpoint cotangent (hour or day)
   T* s_dsc = s_dsh + ZB;                     // kExt: [ZB] cooling-setpoint cotangent
 
-  const Lane<T> L(a, lane);
+  const Lane<T> L(a, lane, kCav);
   const Chunks<T> C(a, L, lane);
   const ParityCfg<T> pc(a);
   T Tn[kMaxNodes];
@@ -1187,7 +1289,7 @@ __global__ void __launch_bounds__(kMaxLanes) day_parity_adjoint_kernel(const Adj
   // ---- outputs ------------------------------------------------------------
   for (int n = 0; n < N; ++n) {
     g.dT0[n * SP + lane] = lT[n];
-    g.d_node[(ND_U * N + n) * SP + lane] = G.dU[n];
+    g.d_node[(ND_U * N + n) * SP + lane] = ((L.cav_bits >> n) & 1u) ? T(0) : G.dU[n];
     g.d_node[(ND_CAP * N + n) * SP + lane] = ((L.mass_bits >> n) & 1u) ? G.dCap[n] : T(0);
     g.d_node[(ND_FA * N + n) * SP + lane] = G.dFA[n];
     g.d_node[(ND_FB * N + n) * SP + lane] = G.dFB[n];
@@ -1203,12 +1305,13 @@ __global__ void __launch_bounds__(kMaxLanes) day_parity_adjoint_kernel(const Adj
   }
 }
 
-template <typename T, bool kExt, bool kParity>
+template <typename T, bool kExt, bool kParity, bool kCav = false>
 int launch_as(const AdjArgs<T>& g, cudaStream_t stream) {
   const DayArgs<T>& a = g.in;
   const size_t smem = sizeof(T) * (static_cast<size_t>(a.ZB) * (3 * a.substeps + (kExt ? 11 : 8)) +
                                    6 * static_cast<size_t>(a.SB));
-  const auto kernel = kParity ? day_parity_adjoint_kernel<T, kExt> : day_adjoint_kernel<T, kExt>;
+  const auto kernel =
+      kParity ? day_parity_adjoint_kernel<T, kExt, kCav> : day_adjoint_kernel<T, kExt, kCav>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -1234,15 +1337,19 @@ int launch(const AdjArgs<T>& g, cudaStream_t stream) {
   const bool ctl = a.ctl != nullptr, sched = a.sp_heat != nullptr;
   if (ctl != (g.d_ld_hist != nullptr) || ctl != (g.d_ctl != nullptr) || (sched && !ctl) ||
       sched != (a.sp_cool != nullptr) || sched != (g.d_sp_heat != nullptr) ||
-      sched != (g.d_sp_cool != nullptr) || (a.mix_ptr != nullptr) != (a.mixt_ptr != nullptr))
+      sched != (g.d_sp_cool != nullptr) || (a.mix_ptr != nullptr) != (a.mixt_ptr != nullptr) ||
+      (a.cav != nullptr) != (a.cav_u != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  // Free-float buildings run the instantiation without the extra zone code.
+  // Free-float buildings run the instantiation without the extra zone code;
+  // buildings with gas cavities the extended one with the cavity code (kCav).
   const bool ext = ctl || a.mix_ptr;
+  if (a.cav)
+    return a.parity ? launch_as<T, true, true, true>(g, stream) : launch_as<T, true, false, true>(g, stream);
   if (a.parity) return ext ? launch_as<T, true, true>(g, stream) : launch_as<T, false, true>(g, stream);
   return ext ? launch_as<T, true, false>(g, stream) : launch_as<T, false, false>(g, stream);
 }
 
-constexpr int kPointers = 44;
+constexpr int kPointers = 46;
 
 template <typename T>
 int day_adjoint(void* const* p, int n_ptrs, const int* ints, const double* reals, void* stream) {
@@ -1294,6 +1401,8 @@ int day_adjoint(void* const* p, int n_ptrs, const int* ints, const double* reals
   g.d_sp_heat = static_cast<T*>(p[i++]);
   g.d_sp_cool = static_cast<T*>(p[i++]);
   g.sub_ws = static_cast<T*>(p[i++]);
+  a.cav_u = static_cast<T*>(p[i++]);
+  a.cav = static_cast<const T*>(p[i++]);
   a.N = ints[0];
   a.NB = ints[1];
   a.SB = ints[2];
@@ -1320,10 +1429,11 @@ int day_adjoint(void* const* p, int n_ptrs, const int* ints, const double* reals
 
 extern "C" {
 
-// Launch on `stream`.  `ptrs` holds the 44 device pointers in the order of
+// Launch on `stream`.  `ptrs` holds the 46 device pointers in the order of
 // DayAdjointKernel (operands, cotangents, workspace, outputs, then the
 // thermostat, schedule and mixing operands and outputs, null where the
-// building has none, and last the parity march's sub-step workspace), `ints`
+// building has none, the parity march's sub-step workspace and last the
+// gas-cavity U row and operands), `ints`
 // N, NB, SB, ZB, hours, substeps, refresh_every, amb_bug, parity,
 // nomass_iters, esc_after, `reals` dt, gamma dt/2, gamma dt, beta dt, c1, c2,
 // nomass_tol, nomass_tol_esc.  Returns cudaGetLastError() of the launch.

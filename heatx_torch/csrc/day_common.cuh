@@ -1,7 +1,8 @@
 // Device code shared by the day march (day_march.cu) and its adjoint
 // (day_adjoint.cu), in TR-BDF2 and (with day_parity.cuh) reference-parity
-// mode: the packed-operand layout, one surface lane's statics,
-// the operator build (film coefficients, linearized radiation, the stage
+// mode: the packed-operand layout, one surface lane's statics, the ISO 15099
+// gas-cavity U-value and its two partial derivatives, the operator build
+// (film coefficients, linearized radiation, the cavity U, the stage
 // matrix and its Thomas factors), one TR-BDF2 sub-step of a lane's node
 // column, the zone sums, the inter-zone mixing sums, the exact exponential
 // zone update and its setpoint-landing (thermostat) form.  Both kernels march
@@ -32,9 +33,11 @@ enum {
   SF_TEMPB, SF_FIXHF, SF_FIXHB, SF_NX, SF_NY, SF_COUNT
 };
 enum { LN_FCODE, LN_BCODE, LN_FZONE, LN_BZONE, LN_BITS, LN_MASS };
+constexpr int LN_CAV = LN_MASS + 2;  // after day_parity.cuh's chunk words
 
 constexpr double kKelvin = 273.15;
 constexpr double kSigma = 5.670374419e-8;
+constexpr double kPi = 3.14159265358979323846;
 constexpr double kMinH = 0.1;
 // Air (heatx_torch/physics/gas.py): rho = 101325 M / (R T), cp = cp0 + cp1 T.
 constexpr double kRhoNum = 101325.0 * 28.97;
@@ -58,6 +61,8 @@ __device__ __forceinline__ float m_sin(float x) { return sinf(x); }
 __device__ __forceinline__ double m_sin(double x) { return sin(x); }
 __device__ __forceinline__ float m_cos(float x) { return cosf(x); }
 __device__ __forceinline__ double m_cos(double x) { return cos(x); }
+__device__ __forceinline__ float m_fmod(float x, float y) { return fmodf(x, y); }
+__device__ __forceinline__ double m_fmod(double x, double y) { return fmod(x, y); }
 __device__ __forceinline__ float m_expm1(float x) { return expm1f(x); }
 __device__ __forceinline__ double m_expm1(double x) { return expm1(x); }
 __device__ __forceinline__ bool is_finite(float x) { return fabsf(x) <= FLT_MAX; }
@@ -67,6 +72,156 @@ __device__ __forceinline__ bool is_nan(T x) { return x != x; }
 // sign(x) with sign(0) = 0: the derivative of |x| that autograd uses.
 template <typename T>
 __device__ __forceinline__ T m_sign(T x) { return x > T(0) ? T(1) : (x < T(0) ? T(-1) : T(0)); }
+
+// ---------------------------------------------------------------------------
+// The gas-cavity U-value (heatx/physics/cavity.py, gas.py): ISO 15099
+// convection through the Rayleigh and Nusselt numbers of the cavity, plus
+// the linearized radiation between its panes.  Only the tilt band's own
+// correlation is evaluated (heatx evaluates all five and selects); its
+// derivative in Ra comes with it.  Out of line, and called only from the
+// kCav instantiations (day_march.cu), so the others keep their code.
+// ---------------------------------------------------------------------------
+
+// max(x1, x2) with its derivative; a tie takes the mean, as torch.maximum's.
+template <typename T>
+__device__ __forceinline__ T max_d(T x1, T d1, T x2, T d2, T& d) {
+  d = x1 > x2 ? d1 : (x1 < x2 ? d2 : (d1 + d2) / T(2));
+  return m_max(x1, x2);
+}
+
+// Nusselt at 60 deg (ISO 15099 Eq. 45-48); where (Ra/3160)^20.6 overflows
+// the type, g is the 0 it rounds to in heatx.
+template <typename T>
+__device__ T nu_60(T ra, T a_gi, T& d) {
+  const T x = m_pow(ra / T(3160), T(20.6));
+  T g = T(0), dg = T(0);
+  if (is_finite(x)) {
+    g = T(0.5) / m_pow(T(1) + x, T(0.1));
+    dg = T(-0.05) * m_pow(T(1) + x, T(-1.1)) * T(20.6) * x / ra;
+  }
+  const T y = T(0.0936) * m_pow(ra, T(0.314)) / (T(1) + g);
+  const T dy = y * (T(0.314) / ra - dg / (T(1) + g));
+  const T y7 = m_pow(y, T(7));
+  const T nu1 = m_pow(T(1) + y7, T(1.0 / 7.0));
+  const T d1 = nu1 / (T(1) + y7) * m_pow(y, T(6)) * dy;
+  const T nu2 = (T(0.104) + T(0.175) / a_gi) * m_pow(ra, T(0.283));
+  return max_d(nu1, d1, nu2, T(0.283) * nu2 / ra, d);
+}
+
+// Nusselt at 90 deg (ISO 15099 Eq. 49-53): three Ra ranges, then the
+// aspect-ratio term.
+template <typename T>
+__device__ T nu_90(T ra, T a_gi, T& d) {
+  T nu1, d1;
+  if (ra <= T(1e4)) {
+    const T c = T(1.7596678e-10) * m_pow(ra, T(1.2984755));
+    nu1 = T(1) + c * ra;
+    d1 = T(2.2984755) * c;
+  } else if (ra < T(5e4)) {
+    nu1 = T(0.028154) * m_pow(ra, T(0.4134));
+    d1 = T(0.4134) * nu1 / ra;
+  } else {
+    nu1 = T(0.0673838) * m_pow(ra, T(1.0 / 3.0));
+    d1 = nu1 / (T(3) * ra);
+  }
+  const T nu2 = T(0.242) * m_pow(ra / a_gi, T(0.272));
+  return max_d(nu1, d1, nu2, T(0.272) * nu2 / ra, d);
+}
+
+// The cavity Nusselt number of tilt gamma (heatx nusselt: reduced modulo pi,
+// bands of +-0.5 deg around 60 and 90 deg) and its derivative in Ra.
+template <typename T>
+__device__ T nusselt(T ra, T gamma, T a_gi, T& d) {
+  T g = m_fmod(gamma, T(kPi));
+  if (g < T(0)) g += T(kPi);
+  const T thirty = T(30.0 * kPi / 180.0), eps = T(0.5 * kPi / 180.0);
+  if (g < T(2) * thirty - eps) {  // 0-60 deg (Eq. 43-44)
+    const T cg = m_cos(g);
+    const T prod = ra * cg;
+    const T safe = m_max(prod, T(1e-30));
+    const T dsafe = prod > T(1e-30) ? cg : T(0);
+    const T a_in = T(1) - T(1708) / safe;
+    const T a = m_max(a_in, T(0));
+    const T da = a_in > T(0) ? T(1708) / (safe * safe) : T(0);
+    const T s16 = m_pow(m_max(m_sin(T(1.8) * g), T(0)), T(1.6));
+    const T b = T(1) - T(1708) * s16 / safe;
+    const T db = T(1708) * s16 / (safe * safe);
+    const T cr = m_pow(safe / T(5830), T(1.0 / 3.0));
+    const T c = cr - T(1);
+    const T dc = c > T(0) ? cr / (T(3) * safe) : T(0);
+    d = (T(1.44) * (da * b + a * db) + dc) * dsafe;
+    return T(1) + T(1.44) * a * b + m_max(c, T(0));
+  }
+  if (g < T(2) * thirty + eps) return nu_60(ra, a_gi, d);
+  if (g < T(3) * thirty - eps) {  // linear between 60 and 90 deg
+    T d60, d90;
+    const T n60 = nu_60(ra, a_gi, d60);
+    const T n90 = nu_90(ra, a_gi, d90);
+    const T x = (g - T(kPi / 3.0)) / T(kPi / 2.0 - kPi / 3.0);
+    d = d60 + (d90 - d60) * x;
+    return n60 + (n90 - n60) * x;
+  }
+  if (g < T(3) * thirty + eps) return nu_90(ra, a_gi, d);
+  T dv;  // 90-180 deg (Eq. 54)
+  const T nv = nu_90(ra, a_gi, dv);
+  const T s = m_sin(g);
+  d = dv * s;
+  return T(1) + (nv - T(1)) * s;
+}
+
+// U of one cavity segment between node temperatures tf (front) and tb (C):
+// p points at its first operand (day_march.CAV_FIELDS), the others follow at
+// `stride`.  With d_tf/d_tb it also returns dU/dtf and dU/dtb (autograd's
+// conventions: |x|' = sign(x), the isothermal Ra constant, the tilt branch
+// and the front-warmer complement piecewise constant).
+template <typename T>
+__device__ __noinline__ T cavity_u(const T* p, size_t stride, T tf, T tb, T* d_tf, T* d_tb) {
+  const T k0 = p[0], k1 = p[stride], mu0 = p[2 * stride], mu1 = p[3 * stride];
+  const T cp0 = p[4 * stride], cp1 = p[5 * stride], mm = p[6 * stride];
+  const T thick = p[7 * stride], height = p[8 * stride], angle = p[9 * stride];
+  const T ein = p[10 * stride], eout = p[11 * stride];
+  // Radiation 4 Tm^3 sigma e_in e_out / (1 - (1 - e_in)(1 - e_out)).
+  const T tm = (tb + tf) / T(2) + T(kKelvin);
+  const T e = ein * eout / (T(1) - (T(1) - ein) * (T(1) - eout));
+  const T rad = T(4) * (tm * tm * tm) * T(kSigma) * e;
+  // Convection: Ra (Eq. 40), Nu of the tilt band, h = Nu lambda / d.
+  const T gamma = tf > tb ? T(kPi) - angle : angle;
+  const T safe_th = thick > T(0) ? thick : T(1);
+  const T dtt = m_abs(tf - tb);
+  const T temp = (tf + tb) / T(2) + T(kKelvin);
+  const T cp = cp0 + cp1 * temp, mu = mu0 + mu1 * temp, lam = k0 + k1 * temp;
+  const T rho = T(101325) * mm / (T(kGasR) * temp);
+  const bool iso = dtt < T(1e-10);
+  const T ra = iso ? T(1e-7)
+                   : rho * rho * (thick * thick * thick) * T(9.81) * (T(1) / temp) * cp * dtt /
+                         (mu * lam);
+  T dnu;
+  const T nu = nusselt(ra, gamma, height / safe_th, dnu);
+  if (d_tf) {
+    // d ln Ra / d temp = -3/temp + cp'/cp - mu'/mu - lambda'/lambda.
+    const T dra_dtemp = iso ? T(0) : ra * (T(-3) / temp + cp1 / cp - mu1 / mu - k1 / lam);
+    const T dra_ddt = iso ? T(0) : ra / dtt;
+    const T sg = m_sign(tf - tb);
+    const T l_ra = dnu * lam / safe_th;
+    const T common = T(6) * (tm * tm) * T(kSigma) * e + nu * k1 / safe_th / T(2) +
+                     l_ra * dra_dtemp / T(2);
+    *d_tf = common + l_ra * dra_ddt * sg;
+    *d_tb = common - l_ra * dra_ddt * sg;
+  }
+  return rad + nu * lam / safe_th;
+}
+
+// Rewrite a cavity lane's cavity-segment U-values (u: the lane's column of
+// cav_u, rows of SP) from the node temperatures Tn; cav: the lane's column of
+// the cavity operands.
+template <typename T>
+__device__ __noinline__ void cavity_u_update(T* u, const T* cav, const T* Tn, int N, int SP,
+                                             unsigned cav_bits) {
+  const size_t ns = static_cast<size_t>(N) * SP;
+  for (int s = 0; s + 1 < N; ++s)
+    if ((cav_bits >> s) & 1u) u[s * SP] = cavity_u(cav + s * SP, ns, Tn[s], Tn[s + 1],
+                                                   static_cast<T*>(nullptr), static_cast<T*>(nullptr));
+}
 
 // The operands of one day march (both kernels read these).
 template <typename T>
@@ -99,6 +254,12 @@ struct DayArgs {
   const int* mixt_ptr;   // the same entries by source zone slot (the transpose)
   const int* mixt_dst;   // [M] block-local destination zone
   const T* mixt_vol;
+  // Gas cavities (null without): cav_u [N, SP] the segment U-values, a
+  // per-launch copy of the U row whose cavity segments the march rewrites at
+  // each operator build; cav [12, N, SP] the cavity operands
+  // (day_march.CAV_FIELDS), read only.
+  T* cav_u;
+  const T* cav;
   int N, NB, SB, ZB, hours, substeps, refresh_every, amb_bug;
   double dt, half_dt, gamma_dt, beta_dt, c1, c2;
   // The reference-parity march (day_parity.cuh): whether it runs instead of
@@ -123,13 +284,17 @@ struct Lane {
   T c_same, c_opp;  // TARP branch coefficients (|cos| is tilt-flip invariant)
   int code_f, code_b, zone_f, zone_b, N, SP;
   unsigned bits, mass_bits;
+  unsigned cav_bits;  // bit i: segment i is a gas cavity
   bool f_out, b_out, b_amb;
   const T* U;  // node rows, stride SP
+  const T* Cav;  // a cavity lane's cavity operands (rows of N x SP), else null
   const T* Cap;
   const T* FA;
   const T* FB;
 
-  __device__ Lane(const DayArgs<T>& a, int lane) : N(a.N), SP(a.NB * a.SB) {
+  // `cavities` is the kernel's compile-time kCav: without it cav_bits is the
+  // constant 0 and every cavity branch folds away.
+  __device__ Lane(const DayArgs<T>& a, int lane, bool cavities) : N(a.N), SP(a.NB * a.SB) {
     const T* sf = a.surf + lane;
     area = sf[SF_AREA * SP];
     perim = sf[SF_PERIM * SP];
@@ -156,6 +321,11 @@ struct Lane {
     c_same = T(9.482) / (T(7.238) - m_abs(cos_t));
     c_opp = T(1.81) / (T(1.382) + m_abs(cos_t));
     U = a.node + (ND_U * N) * SP + lane;
+    // A cavity lane's K reads its segment U-values from cav_u, rewritten at
+    // each operator build.
+    cav_bits = cavities ? static_cast<unsigned>(a.lane[LN_CAV * SP + lane]) : 0u;
+    Cav = cav_bits ? a.cav + lane : nullptr;
+    if (cav_bits) U = a.cav_u + lane;
     Cap = a.node + (ND_CAP * N) * SP + lane;
     FA = a.node + (ND_FA * N) * SP + lane;
     FB = a.node + (ND_FB * N) * SP + lane;
@@ -206,6 +376,12 @@ struct HourIn {
     rad_out_b = m_pow(m_max(a.ir_b[h * SP + lane], T(1e-30)) / T(kSigma), T(0.25)) - T(kKelvin);
   }
 };
+
+// The cavity segments' U-values of a cavity lane at the node temperatures Tn.
+template <typename T>
+__device__ __forceinline__ void cavity_refresh(const Lane<T>& L, const T* Tn) {
+  cavity_u_update(const_cast<T*>(L.U), L.Cav, Tn, L.N, L.SP, L.cav_bits);
+}
 
 // TARP natural convection (convection.rs:87-110) with hoisted branch
 // coefficients; cube root as pow(max(|dT|, 1e-30), 1/3), as in heatx's kernel.
@@ -266,12 +442,14 @@ __device__ __forceinline__ T m_lower(const Lane<T>& L, int i, T a_dt) {
 }
 
 // Operators from the marching state (implicit.build_operators): film
-// coefficients, linearized radiation, and the Thomas factors (cs, inv) of the
-// stage matrix C - (gamma dt/2) K, identity rows on padded nodes.
+// coefficients, linearized radiation, the cavity U-values (segment_u), and
+// the Thomas factors (cs, inv) of the stage matrix C - (gamma dt/2) K,
+// identity rows on padded nodes.
 template <typename T>
 __device__ Ops<T> build_ops(const Lane<T>& L, const T* Tn, T t_front, T t_back, T ws, T wd,
                             const HourIn<T>& hi, int amb_bug, T a_dt, T* cs, T* inv) {
   Ops<T> o;
+  if (L.cav_bits) cavity_refresh(L, Tn);
   const FaceTemps<T> ft(L, Tn, t_front, t_back, hi, amb_bug);
   const T front_cos = L.f_out ? -L.cos_t : L.cos_t;
   const T base = forced_base(L, ws, wd);

@@ -4,7 +4,7 @@
 // Replaces heatx/ops/pallas_step.py::make_hour_march -> `kernel` (the
 // pl.pallas_call at pallas_step.py:1976) in modes trbdf2 / trbdf2_refresh,
 // body `_hour_body_imp`, and in mode parity, body `_hour_body` (kParity; the
-// sub-step itself is in day_parity.cuh), for buildings without gas cavities:
+// sub-step itself is in day_parity.cuh), with gas cavities or without,
 // free-float, or with thermostats (`_zone_update_ctl`, the per-hour mean load
 // history), per-hour setpoint schedules and inter-zone mixing.
 // One launch marches `hours` hours of `substeps` sub-steps per sub-step
@@ -49,6 +49,16 @@
 //  * The device functions (lane statics, operator build, one sub-step, zone
 //    sums and update) live in day_common.cuh, shared with the adjoint kernel
 //    (day_adjoint.cu), whose recompute is therefore this kernel's arithmetic.
+//  * Gas cavities: a cavity lane's K reads its segment U-values from a
+//    per-launch copy of the U row (cav_u, written by the wrapper) whose
+//    cavity segments an out-of-line device function rewrites at every
+//    operator build.  That code is compiled only into two more
+//    instantiations (kCav, with kExt, TR-BDF2 and parity), which every
+//    building with a cavity takes: without kCav the lane's cavity word is
+//    the constant 0, the cavity branches fold away, and the other
+//    instantiations keep their code and their ptxas lines (a call to the
+//    out-of-line function alone raised the TR-BDF2 kernel from 77 to 112
+//    registers).
 //  * The parity march is two more instantiations (kParity x kExt): the same
 //    hour loop, zone phases and outputs around parity_substep, with the
 //    operators rebuilt every sub-step (refresh_every == 1), so the four
@@ -72,7 +82,7 @@ struct MarchArgs {
   T* ld_hist;  // [hours, NB, ZB] mean ideal load per hour (thermostats), or null
 };
 
-template <typename T, bool kExt, bool kParity>
+template <typename T, bool kExt, bool kParity, bool kCav>
 __global__ void __launch_bounds__(kMaxLanes) day_march_kernel(const MarchArgs<T> m) {
   const DayArgs<T>& a = m.in;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -88,7 +98,7 @@ __global__ void __launch_bounds__(kMaxLanes) day_march_kernel(const MarchArgs<T>
   const int tid = threadIdx.x;
   const int SP = NB * SB;
   const int lane = b * SB + tid;
-  const Lane<T> L(a, lane);
+  const Lane<T> L(a, lane, kCav);
   const Scheme<T> sc(a);
 
   T Tn[kMaxNodes], T1[kMaxNodes], cs[kMaxNodes], inv[kMaxNodes];
@@ -205,18 +215,18 @@ int check_args(const MarchArgs<T>& m) {
   return static_cast<int>(cudaSuccess);
 }
 
-template <typename T, bool kExt, bool kParity>
+template <typename T, bool kExt, bool kParity, bool kCav = false>
 int launch_as(const MarchArgs<T>& m, cudaStream_t stream) {
   const DayArgs<T>& a = m.in;
   const size_t smem = sizeof(T) * (static_cast<size_t>(a.ZB) * (kExt ? 3 : 1) +
                                    4 * static_cast<size_t>(a.SB));
   if (smem > 48 * 1024) {
     const cudaError_t e =
-        cudaFuncSetAttribute(day_march_kernel<T, kExt, kParity>,
+        cudaFuncSetAttribute(day_march_kernel<T, kExt, kParity, kCav>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  day_march_kernel<T, kExt, kParity><<<a.NB, a.SB, smem, stream>>>(m);
+  day_march_kernel<T, kExt, kParity, kCav><<<a.NB, a.SB, smem, stream>>>(m);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -227,11 +237,12 @@ int day_march(const void* node, const void* surf, const void* lane, const void* 
               const void* ir_b, const void* a_extra, const void* b_extra, const void* T0,
               const void* zT0, void* T_out, void* zT_out, void* hq, void* zt_hist, void* bad,
               void* ld_hist, const void* ctl, const void* sp_heat, const void* sp_cool,
-              const void* mix_ptr, const void* mix_src, const void* mix_vol, int N, int NB, int SB,
-              int ZB, int hours, int substeps, int refresh_every, int amb_bug, int parity,
-              int nomass_iters, int esc_after, double dt, double half_dt, double gamma_dt,
-              double beta_dt, double c1, double c2, double nomass_tol, double nomass_tol_esc,
-              void* stream) {
+              const void* mix_ptr, const void* mix_src, const void* mix_vol, void* cav_u, const void* cav,
+              int N,
+              int NB, int SB, int ZB, int hours, int substeps, int refresh_every, int amb_bug,
+              int parity, int nomass_iters, int esc_after, double dt, double half_dt,
+              double gamma_dt, double beta_dt, double c1, double c2, double nomass_tol,
+              double nomass_tol_esc, void* stream) {
   MarchArgs<T> m;
   DayArgs<T>& a = m.in;
   a.node = static_cast<const T*>(node);
@@ -266,6 +277,8 @@ int day_march(const void* node, const void* surf, const void* lane, const void* 
   a.mixt_ptr = nullptr;  // the transposed lists are the adjoint's
   a.mixt_dst = nullptr;
   a.mixt_vol = nullptr;
+  a.cav_u = static_cast<T*>(cav_u);
+  a.cav = static_cast<const T*>(cav);
   a.N = N;
   a.NB = NB;
   a.SB = SB;
@@ -287,33 +300,39 @@ int day_march(const void* node, const void* surf, const void* lane, const void* 
   a.nomass_tol_esc = nomass_tol_esc;
   const int err = check_args(m);
   if (err) return err;
-  // Free-float buildings run the instantiation without the extra zone code.
+  if ((a.cav != nullptr) != (a.cav_u != nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  // Free-float buildings run the instantiation without the extra zone code;
+  // buildings with gas cavities the extended one with the cavity code (kCav),
+  // whatever their zones have, so the others keep their code.
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool ext = a.ctl || a.mix_ptr;
+  if (a.cav)
+    return parity ? launch_as<T, true, true, true>(m, st) : launch_as<T, true, false, true>(m, st);
   if (parity) return ext ? launch_as<T, true, true>(m, st) : launch_as<T, false, true>(m, st);
   return ext ? launch_as<T, true, false>(m, st) : launch_as<T, false, false>(m, st);
 }
 
 }  // namespace
 
-#define HEATX_DAY_MARCH_ARGS                                                              \
-  const void *node, const void *surf, const void *lane, const void *zone_volume,          \
-      const void *zone_ptr, const void *zone_faces, const void *t_out, const void *wind,  \
-      const void *wdir, const void *sol_f, const void *sol_b, const void *ir_f,           \
-      const void *ir_b, const void *a_extra, const void *b_extra, const void *T0,         \
-      const void *zT0, void *T_out, void *zT_out, void *hq, void *zt_hist, void *bad,     \
-      void *ld_hist, const void *ctl, const void *sp_heat, const void *sp_cool,           \
-      const void *mix_ptr, const void *mix_src, const void *mix_vol, int N, int NB,       \
-      int SB, int ZB, int hours, int substeps, int refresh_every, int amb_bug, int parity, \
-      int nomass_iters, int esc_after, double dt, double half_dt, double gamma_dt,         \
-      double beta_dt, double c1, double c2, double nomass_tol, double nomass_tol_esc,      \
-      void *stream
-#define HEATX_DAY_MARCH_CALL                                                              \
-  node, surf, lane, zone_volume, zone_ptr, zone_faces, t_out, wind, wdir, sol_f, sol_b,   \
-      ir_f, ir_b, a_extra, b_extra, T0, zT0, T_out, zT_out, hq, zt_hist, bad, ld_hist,    \
-      ctl, sp_heat, sp_cool, mix_ptr, mix_src, mix_vol, N, NB, SB, ZB, hours, substeps,   \
-      refresh_every, amb_bug, parity, nomass_iters, esc_after, dt, half_dt, gamma_dt,      \
-      beta_dt, c1, c2, nomass_tol, nomass_tol_esc, stream
+#define HEATX_DAY_MARCH_ARGS                                                               \
+  const void *node, const void *surf, const void *lane, const void *zone_volume,           \
+      const void *zone_ptr, const void *zone_faces, const void *t_out, const void *wind,   \
+      const void *wdir, const void *sol_f, const void *sol_b, const void *ir_f,            \
+      const void *ir_b, const void *a_extra, const void *b_extra, const void *T0,          \
+      const void *zT0, void *T_out, void *zT_out, void *hq, void *zt_hist, void *bad,      \
+      void *ld_hist, const void *ctl, const void *sp_heat, const void *sp_cool,            \
+      const void *mix_ptr, const void *mix_src, const void *mix_vol, void *cav_u, const void *cav,  \
+      int N,                                                                               \
+      int NB, int SB, int ZB, int hours, int substeps, int refresh_every, int amb_bug,     \
+      int parity, int nomass_iters, int esc_after, double dt, double half_dt,              \
+      double gamma_dt, double beta_dt, double c1, double c2, double nomass_tol,            \
+      double nomass_tol_esc, void *stream
+#define HEATX_DAY_MARCH_CALL                                                               \
+  node, surf, lane, zone_volume, zone_ptr, zone_faces, t_out, wind, wdir, sol_f, sol_b,    \
+      ir_f, ir_b, a_extra, b_extra, T0, zT0, T_out, zT_out, hq, zt_hist, bad, ld_hist,     \
+      ctl, sp_heat, sp_cool, mix_ptr, mix_src, mix_vol, cav_u, cav, N, NB, SB, ZB, hours, \
+      substeps, refresh_every, amb_bug, parity, nomass_iters, esc_after, dt, half_dt,      \
+      gamma_dt, beta_dt, c1, c2, nomass_tol, nomass_tol_esc, stream
 
 extern "C" {
 

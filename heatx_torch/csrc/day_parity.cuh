@@ -9,6 +9,10 @@
 //   4. RK4 on the massive nodes with K and q(T) scaled row-wise by dt/C,
 //   5. the film coefficients again on the new temperatures, with the same
 //      forced-convection term: they enter the zone sums and h/q.
+// On a lane with gas cavities U depends on the temperatures, so K and q are
+// rebuilt at every no-mass iteration's input and at the post-no-mass column
+// before RK4 (heatx march_nomass/march_massive with has_cavity); other lanes
+// build K once per sub-step.
 // A lane's chunks follow from its node masks: nodes i and i+1 share a chunk
 // where bit i of the lane's chunk word is set, and a no-mass chunk is a
 // maximal run of valid no-mass nodes joined that way.  The no-mass system is
@@ -120,6 +124,15 @@ __device__ __forceinline__ T parity_q(const Chunks<T>& C, const Ops<T>& o, const
   return q;
 }
 
+// K's rows of a cavity lane at the working temperatures Tw: the cavity
+// U-values first.
+template <typename T>
+__device__ __forceinline__ void cavity_k_rows(const Chunks<T>& C, const Ops<T>& o, const T* Tw,
+                                              T* kl, T* kd, T* ku) {
+  cavity_refresh(C.L, Tw);
+  parity_k_rows(C, o.hf, o.hb, kl, kd, ku);
+}
+
 // Thomas factors of the no-mass system: K's rows on no-mass nodes, identity
 // rows elsewhere.
 template <typename T>
@@ -210,11 +223,13 @@ __device__ unsigned nomass_step(const Chunks<T>& C, const ParityCfg<T>& pc, Noma
 }
 
 // The no-mass march of one sub-step on Tn, in place.  w1..w3 are work
-// columns.  One iteration is a relaxed solve on every no-mass node.
+// columns.  One iteration is a relaxed solve on every no-mass node; K's rows
+// (kl, kd, ku) are those of Tn, and a cavity lane rebuilds them at each later
+// iteration's input.
 template <typename T>
 __device__ void march_nomass(const Chunks<T>& C, const ParityCfg<T>& pc, const Ops<T>& o,
-                             const HourIn<T>& hi, T t_front, T t_back, const T* kl, const T* kd,
-                             const T* ku, T* Tn, T* cs, T* inv, T* Ts) {
+                             const HourIn<T>& hi, T t_front, T t_back, T* kl, T* kd, T* ku, T* Tn,
+                             T* cs, T* inv, T* Ts) {
   nomass_factor(C, kl, kd, ku, cs, inv);
   if (pc.iters == 1) {
     nomass_solve(C, o, hi, t_front, t_back, kl, cs, inv, Tn, Ts);
@@ -225,6 +240,10 @@ __device__ void march_nomass(const Chunks<T>& C, const ParityCfg<T>& pc, const O
   NomassState<T> st;
   st.init(C);
   for (int it = 0; it < pc.iters; ++it) {
+    if (it > 0 && C.L.cav_bits) {
+      cavity_k_rows(C, o, Tn, kl, kd, ku);
+      nomass_factor(C, kl, kd, ku, cs, inv);
+    }
     nomass_solve(C, o, hi, t_front, t_back, kl, cs, inv, Tn, Ts);
     nomass_step(C, pc, st, Tn, Ts);
   }
@@ -245,12 +264,14 @@ __device__ __forceinline__ void rk4_stage(const Chunks<T>& C, T dt, const T* kl,
 
 // RK4 on the massive nodes of Tn (march_massive), in place; K and q(Tn) are
 // frozen over the four stages, so the no-mass nodes and the couplings across
-// chunks read frozen temperatures.  qs, y, k, acc are work columns.
+// chunks read frozen temperatures (a cavity lane first rebuilds K at Tn).
+// qs, y, k, acc are work columns.
 template <typename T>
 __device__ void march_massive(const Chunks<T>& C, const ParityCfg<T>& pc, const Ops<T>& o,
-                              const HourIn<T>& hi, T t_front, T t_back, const T* kl, const T* kd,
-                              const T* ku, T* Tn, T* qs, T* y, T* k, T* acc) {
+                              const HourIn<T>& hi, T t_front, T t_back, T* kl, T* kd, T* ku, T* Tn,
+                              T* qs, T* y, T* k, T* acc) {
   const int N = C.L.N;
+  if (C.L.cav_bits) cavity_k_rows(C, o, Tn, kl, kd, ku);
   for (int i = 0; i < N; ++i)
     qs[i] = parity_q(C, o, hi, t_front, t_back, Tn, i) * C.scale(i, pc.dt);
   rk4_stage(C, pc.dt, kl, kd, ku, qs, Tn, k);
@@ -290,6 +311,7 @@ __device__ Ops<T> parity_substep(const Chunks<T>& C, const ParityCfg<T>& pc, con
   const Lane<T>& L = C.L;
   const T base = forced_base(L, ws, wd);
   Ops<T> o = parity_ops(L, Tn, t_front, t_back, base, hi, amb_bug);
+  if (L.cav_bits) cavity_refresh(L, Tn);
   parity_k_rows(C, o.hf, o.hb, W.kl, W.kd, W.ku);
   march_nomass(C, pc, o, hi, t_front, t_back, W.kl, W.kd, W.ku, Tn, W.w1, W.w2, W.w3);
   march_massive(C, pc, o, hi, t_front, t_back, W.kl, W.kd, W.ku, Tn, W.w1, W.w2, W.w3, W.w4);

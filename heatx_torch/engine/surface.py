@@ -3,22 +3,29 @@
 PyTorch twin of the parts of ``heatx.engine.surface`` that the day march
 uses: the node-network masks, the last-node read, the outdoor radiant
 temperatures, the TARP border conditions, the linearized radiation
-coefficient, the segment U-values (no gas cavities), the absorbed solar
-forcing, and the reference-parity integrator: ``assemble_K``/``assemble_q``,
-the relaxed fixed-iteration no-mass solve ``march_nomass``, the RK4 march
+coefficient, the segment U-values (with the ISO 15099 U-value of gas
+cavities at the working temperatures), the absorbed solar forcing, and the
+reference-parity integrator: ``assemble_K``/``assemble_q``, the relaxed
+fixed-iteration no-mass solve ``march_nomass``, the RK4 march
 ``march_massive`` and ``march_surfaces``, one sub-step of every surface.
 
 heatx keeps two forms of the K/q assembly, inline and hoisted into its
-statics, proven bit-identical and selected by identity guards on ``U`` and
-``K``; the port has the inline form only.  The adaptive no-mass loop
-(``nomass_fixed_iters=None``) is ROADMAP B6/A10, the interior MRT network and
-gas cavities B5.
+statics, proven bit-identical and selected by identity guards on ``U``, ``K``
+and ``sb.has_cavity``; the port has the inline form only.  With gas cavities
+the parity integrator re-evaluates U, K and q on every no-mass iteration and
+again on the post-no-mass column before RK4, as heatx does.  The adaptive
+no-mass loop (``nomass_fixed_iters=None``) is ROADMAP B6/A10, the interior
+MRT network B5.
 
 ``sb`` is any object with the ``SurfaceBatch`` attribute names holding
 tensors; ``normal`` is an ``(nx, ny)`` pair of ``[S]`` tensors, as on heatx's
 kernel path.  The parity functions also read ``sb.massive``/``sb.mass``
 [N, S], ``sb.same_chunk`` [N, S], ``sb.nomass_chunk_id`` [N, S],
-``sb.nomass_chunk_count`` [C, S] and the static ``sb.max_nomass_run``.
+``sb.nomass_chunk_count`` [C, S] and the static ``sb.max_nomass_run``;
+with ``sb.has_cavity`` also ``sb.seg_is_cavity`` [N, S], ``sb.cav_gas`` (a
+``GasProps`` of [N, S] tensors) and ``sb.cav_thickness``/``cav_height``/
+``cav_angle``/``cav_ein``/``cav_eout`` [N, S], and optionally
+``sb.cav_index`` (:func:`cavity_index` of the mask, kept by the caller).
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from heatx_torch.build.layout import B_AMBIENT, B_OUTDOOR
 from heatx_torch.config import SimConfig
 from heatx_torch.constants import KELVIN, SIGMA
 from heatx_torch.ops import tridiag
+from heatx_torch.physics.cavity import cavity_u_value
 from heatx_torch.physics.convection import (
     is_windward,
     tarp_natural_coeffs,
@@ -228,14 +236,38 @@ def linearized_rad_coefficient(eps, env: FaceEnv):
 
 
 def segment_u(sb, T, back_air):
-    """Per-segment U-value (discretization.rs:46-56).  Without gas cavities it
-    is the static ``seg_u``; the temperature-dependent cavity U is ROADMAP
-    item B5."""
-    if sb.has_cavity:
-        raise NotImplementedError(
-            "gas cavities in the day march are ROADMAP item B5 (not ported yet)"
-        )
-    return sb.seg_u
+    """Per-segment U-value at the working temperatures ``T``
+    (discretization.rs:46-56): the static ``seg_u``, and on a gas-cavity
+    segment the ISO 15099 cavity U of its two bounding node temperatures.
+    Segment i joins nodes i and i+1; past a surface's last node the 'next'
+    temperature is the back air (a cavity never sits there).  The cavity U
+    is evaluated on the cavity segments only, gathered by their flat indices
+    (``sb.cav_index`` where the caller keeps them, so that no step waits on
+    the device): heatx evaluates it everywhere and selects, and on the other
+    segments (all-zero gas operands) it is 0/0, which a ``where`` keeps out
+    of the value but not out of autograd's products.  seg_u's cotangent on a
+    cavity segment is exactly 0."""
+    if not sb.has_cavity:
+        return sb.seg_u
+    t_next = torch.cat([T[1:], torch.zeros_like(T[:1])], dim=0)
+    t_next = torch.where(_shift_next(sb.node_mask), t_next, back_air)
+    idx = getattr(sb, "cav_index", None)
+    if idx is None:
+        idx = cavity_index(sb.seg_is_cavity)
+
+    def at(x):
+        return x.reshape(-1).index_select(0, idx)
+
+    u_cav = cavity_u_value(
+        type(sb.cav_gas)(*(at(f) for f in sb.cav_gas)), at(sb.cav_thickness), at(sb.cav_height),
+        at(sb.cav_angle), at(sb.cav_ein), at(sb.cav_eout), at(T), at(t_next),
+    )
+    return sb.seg_u.reshape(-1).index_copy(0, idx, u_cav).reshape(sb.seg_u.shape)
+
+
+def cavity_index(seg_is_cavity):
+    """The flat indices of the gas-cavity segments of an [N, S] mask."""
+    return seg_is_cavity.reshape(-1).nonzero().squeeze(1)
 
 
 def absorbed_solar_q(sb, sol_front, sol_back):
@@ -332,6 +364,8 @@ def march_nomass(
     ``solver(lower, diag, upper, rhs)`` defaults to the Thomas solve; when
     every no-mass run has at most 2 nodes (``sb.max_nomass_run``) the
     closed-form pair solve takes its place, whatever the caller supplied.
+    ``K`` is the sub-step's K where U is static; with gas cavities each
+    iteration assembles K and q at its own U (and ``K`` is not read).
     The adaptive loop (``nomass_fixed_iters=None``) raises (ROADMAP B6/A10).
     """
     if config.nomass_fixed_iters is None:
@@ -348,27 +382,32 @@ def march_nomass(
     if 0 < sb.max_nomass_run <= 2:
         solver = partial(tridiag.solve_runs2, pair_head=st.pair_head, pair_tail=st.pair_tail)
 
-    U = sb.seg_u
-    if K is None:
-        K = assemble_K(sb, U, env_f, env_b, st)
     zero, one = torch.zeros_like(T0), torch.ones_like(T0)
-    nl = torch.where(sel, K[0], zero)
-    nd = torch.where(sel, K[1], one)
-    nu = torch.where(sel, K[2], zero)
 
-    def one_iteration(T):
+    def one_iteration(T, K):
+        U = segment_u(sb, T, env_b.air)
+        if K is None:
+            K = assemble_K(sb, U, env_f, env_b, st)
         q = assemble_q(sb, T, U, env_f, env_b, rad_hs_f, rad_hs_b, solar_q, st)
-        return solver(nl, nd, nu, torch.where(sel, -q, T))
+        return solver(
+            torch.where(sel, K[0], zero), torch.where(sel, K[1], one),
+            torch.where(sel, K[2], zero), torch.where(sel, -q, T),
+        )
+
+    if sb.has_cavity:
+        K = None
+    elif K is None:
+        K = assemble_K(sb, sb.seg_u, env_f, env_b, st)
 
     if config.nomass_fixed_iters == 1:
-        return torch.where(sel, 0.5 * (T0 + one_iteration(T0)), T0)
+        return torch.where(sel, 0.5 * (T0 + one_iteration(T0, K)), T0)
 
     T = T0
     old_err = torch.full_like(chunk_n, 99999.0)
     count = torch.zeros_like(chunk_n)
     active = chunk_n > 0
     for _ in range(config.nomass_fixed_iters):
-        T_sol = one_iteration(T)
+        T_sol = one_iteration(T, K)
         err_node = _ftz(torch.where(sel, torch.abs(T_sol - T), zero))
         err_chunk = torch.stack(
             [torch.where(m, err_node, zero).sum(dim=0) for m in chunk_masks], dim=0
@@ -410,12 +449,15 @@ def march_massive(
     """RK4 march of all massive chunks (surface.rs:720-787): K and q are
     frozen for the sub-step and scaled by dt/C row by row.  Rows of
     non-massive nodes are zeroed, so those nodes stay frozen and the
-    couplings across chunks read their frozen temperatures in every stage."""
+    couplings across chunks read their frozen temperatures in every stage.
+    With gas cavities K and q are assembled at the U of ``T`` (``K`` is not
+    read)."""
     sel = sb.massive
-    if K is None:
-        K = assemble_K(sb, sb.seg_u, env_f, env_b, statics)
+    U = segment_u(sb, T, env_b.air)
+    if K is None or sb.has_cavity:
+        K = assemble_K(sb, U, env_f, env_b, statics)
     lower, diag, upper = K
-    q = assemble_q(sb, T, sb.seg_u, env_f, env_b, rad_hs_f, rad_hs_b, solar_q, statics)
+    q = assemble_q(sb, T, U, env_f, env_b, rad_hs_f, rad_hs_b, solar_q, statics)
     scale = torch.where(sel, dt / torch.where(sel, sb.mass, torch.ones_like(T)), torch.zeros_like(T))
     T_new = rk4_apply(lower * scale, diag * scale, upper * scale, q * scale, T, flush_tiny=flush_tiny)
     return torch.where(sel, T_new, T)
@@ -445,8 +487,9 @@ def march_surfaces(
     rad_hs_b = linearized_rad_coefficient(rad_eps_b, env_b)
     if solar_q is None:
         solar_q = absorbed_solar_q(sb, sol_front, sol_back)
-    segment_u(sb, node_T, env_b.air)  # raises on gas cavities
-    K = assemble_K(sb, sb.seg_u, env_f, env_b, statics)
+    # With a static U, K is sub-step-constant: assembled once for both the
+    # no-mass iterations and RK4.
+    K = None if sb.has_cavity else assemble_K(sb, sb.seg_u, env_f, env_b, statics)
     T = node_T
     if sb.has_nomass and not skip_nomass:
         T = march_nomass(

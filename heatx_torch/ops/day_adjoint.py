@@ -48,8 +48,14 @@ convergence masks are piecewise constant and carry no cotangent, as under
 ``dt_subdivisions`` (heatx checks only that it is given; with another count
 its adjoint would step by a dt the march does not use).
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): the interior-MRT emissivities, gas cavities.
+Gas cavities: the cavity U of a segment is a function of its two node
+temperatures at each operator build, so K's band cotangent on a cavity
+segment goes through dU/dT into that build's column and not to ``seg_u``,
+whose cotangent there is exactly 0; the gas operands and the cavity geometry
+are not differentiated (heatx pallas_adjoint.py:44-47).
+
+Not ported yet (raises ``NotImplementedError`` naming its ROADMAP item): the
+interior-MRT emissivities.
 """
 
 from __future__ import annotations
@@ -193,7 +199,7 @@ def plain_day_adjoint(
 # The CUDA kernel wrapper
 # ---------------------------------------------------------------------------
 
-_N_PTRS = 44
+_N_PTRS = 46
 
 
 def _load_library():
@@ -223,6 +229,8 @@ class DayAdjointKernel:
     def __init__(self):
         self.launches = 0
         self.parity_launches = 0  # those of ``launches`` that ran the parity kernel
+        self.cavity_launches = 0  # those of ``launches`` on a building with gas cavities
+        self.parity_cavity_launches = 0  # those of ``cavity_launches`` in parity mode
 
     def __call__(
         self, params: DayMarchParams, T0, zT0, t_out, wind, wdir, sol_front,
@@ -281,7 +289,7 @@ class DayAdjointKernel:
             d_ld_hist, params.ctl, sp_heat, sp_cool,
             *((None,) * 6 if mix is None
               else (mix.ptr, mix.src, mix.vol, mix.t_ptr, mix.t_dst, mix.t_vol)),
-            *outs[8:], sub_ws,
+            *outs[8:], sub_ws, day_march.cavity_u_row(params), params.cav,
         ]
         ptrs = (ctypes.c_void_p * _N_PTRS)(*[None if t is None else t.data_ptr() for t in tensors])
         ints = (ctypes.c_int * 11)(
@@ -301,6 +309,8 @@ class DayAdjointKernel:
             raise RuntimeError(f"day_adjoint kernel launch failed: CUDA error {err} ({msg})")
         self.launches += 1
         self.parity_launches += int(parity)
+        self.cavity_launches += int(params.cav is not None)
+        self.parity_cavity_launches += int(parity and params.cav is not None)
         return outs
 
 

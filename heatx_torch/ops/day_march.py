@@ -4,7 +4,7 @@ Counterpart of ``heatx.ops.pallas_step`` for modes ``trbdf2``,
 ``trbdf2_refresh`` and ``parity`` (the reference-parity sub-step: RK4 on the
 massive nodes after a relaxed fixed-iteration no-mass solve), on free-float
 buildings and on buildings with thermostats (setpoint-driven ideal loads),
-scheduled setpoints and inter-zone mixing.  :func:`make_hour_march` returns ``(hour_march, params)``
+scheduled setpoints, inter-zone mixing and gas cavities.  :func:`make_hour_march` returns ``(hour_march, params)``
 with heatx's call signature and output layout: ``hour_march(params, T [N,
 SP], zT [NB, ZB], hour_inputs)`` marches ``hours`` hours of ``substeps``
 sub-steps per call and returns ``(T, zT, (h_front, h_back, q_front, q_back),
@@ -83,7 +83,20 @@ Gradients: :class:`ParamBlocker` blocks the parameter rows differentiably
 from torch tensors, and ``heatx_torch.ops.day_adjoint`` holds the reverse
 sweep (the adjoint kernel and ``DayMarchFn``).
 
-Not ported yet (each raises ``NotImplementedError``): gas cavities, interior
+Gas cavities: a lane's ``cav_bits`` word marks its gas-cavity segments, and
+``DayMarchParams.cav`` holds their gas polynomials, geometry and
+emissivities.  The kernels re-evaluate the ISO 15099 cavity U of those
+segments at every operator build (TR-BDF2: from the refresh group's start
+column; parity: on each no-mass iteration and on the post-no-mass column, as
+heatx's ``march_surfaces``) in an out-of-line device function, compiled
+into instantiations of their own (``kCav``) that every building with a
+cavity takes, so the others run the code they ran before.  A cavity lane's
+K reads its segment U-values from a per-launch copy of the U row
+(``cavity_u_row``) that the kernel rewrites, and ``params.cav`` in place;
+heatx's hoisted static-U forms and their ``has_cavity`` guards are not
+carried over.
+
+Not ported yet (each raises ``NotImplementedError``): interior
 MRT, in-run shading and vent gates (ROADMAP A9/B5),
 ``collect_hq``/``collect_operative`` (A9) and sharding (A12).
 """
@@ -126,7 +139,13 @@ SURF_FIELDS = (
 )
 LANE_FIELDS = (
     "front_code", "back_code", "front_zone", "back_zone", "node_bits", "mass_bits",
-    "chunk_bits",
+    "chunk_bits", "cav_bits",
+)
+#: Row order of DayMarchParams.cav: the gas polynomials (GasProps order), the
+#: cavity geometry and the emissivities of every gas-cavity segment.
+CAV_FIELDS = (
+    "k0", "k1", "mu0", "mu1", "cp0", "cp1", "molar_mass", "thickness", "height",
+    "angle", "ein", "eout",
 )
 
 KERNEL_SOURCE = cuda_lib.CSRC_DIR / "day_march.cu"
@@ -247,8 +266,6 @@ def _check_supported(building: CompiledBuilding):
     """Raise NotImplementedError (naming the ROADMAP item) for building
     features the day march does not carry yet."""
     missing = []
-    if building.surfaces.has_cavity:
-        missing.append("gas cavities (ROADMAP A9/B5)")
     if building.config.interior_mrt:
         missing.append("config.interior_mrt (ROADMAP A9/B5)")
     if building.has_zone_shading:
@@ -394,7 +411,7 @@ class DayMarchParams:
 
     node: torch.Tensor  # [4, N, SP] float
     surf: torch.Tensor  # [13, SP] float
-    lane: torch.Tensor  # [7, SP] int32
+    lane: torch.Tensor  # [8, SP] int32
     zone_volume: torch.Tensor  # [NB, ZB] float
     zone_ptr: torch.Tensor  # [NB*ZB + 1] int32 offsets into zone_faces
     zone_faces: torch.Tensor  # [E] int32: block-local lane*2 + side (0 front, 1 back)
@@ -403,6 +420,10 @@ class DayMarchParams:
     ctl: torch.Tensor = None
     #: Inter-zone mixing entries (int32 lists, ``vol`` in the working dtype), or None.
     mix: MixLists = None
+    #: Gas-cavity operands [12, N, SP] (CAV_FIELDS; bit i of a lane's
+    #: ``cav_bits`` marks segment i as a cavity), or None without cavities.
+    #: Not differentiated, as in heatx.
+    cav: torch.Tensor = None
 
     @property
     def n_blocks(self) -> int:
@@ -421,6 +442,8 @@ class DayMarchParams:
         return self.node.shape[1]
 
     def field(self, name: str) -> torch.Tensor:
+        if name in CAV_FIELDS:
+            return self.cav[CAV_FIELDS.index(name)]
         if name in NODE_FIELDS:
             return self.node[NODE_FIELDS.index(name)]
         if name in SURF_FIELDS:
@@ -446,6 +469,7 @@ def pack_params(
     node_mask, massive, capacity, seg_u, front_alphas, back_alphas, surf: dict,
     front_code, back_code, front_oh, back_oh, zone_volume, n_blocks,
     dtype=torch.float32, device="cpu", ctl=None, mix: MixLists = None, same_chunk=None,
+    seg_is_cavity=None, cav: dict = None,
 ) -> DayMarchParams:
     """Pack blocked numpy operands into :class:`DayMarchParams`.
 
@@ -455,8 +479,10 @@ def pack_params(
     SURF_FIELDS name to an ``[SP]`` array, ``front_oh``/``back_oh`` are the
     ``[SP, ZB]`` block-local zone one-hots, ``zone_volume`` is ``[NB, ZB]``;
     ``ctl`` the four ``[NB, ZB]`` thermostat rows and ``mix`` the host-side
-    mixing lists (None: absent).  Shared by :func:`make_hour_march` and
-    ``heatx_torch.convert``."""
+    mixing lists (None: absent); ``seg_is_cavity`` ``[N, SP]`` marks the
+    gas-cavity segments and ``cav`` maps each CAV_FIELDS name to their
+    ``[N, SP]`` operands (both None without cavities).  Shared by
+    :func:`make_hour_march` and ``heatx_torch.convert``."""
     node_mask = np.asarray(node_mask, bool)
     massive = np.asarray(massive, bool)
     N, SP = node_mask.shape
@@ -470,6 +496,10 @@ def pack_params(
     ZB = np.asarray(zone_volume).shape[-1]
     fz = _local_zone(front_oh)
     bz = _local_zone(back_oh)
+    has_cav = seg_is_cavity is not None and np.asarray(seg_is_cavity, bool).any()
+    cav_mask = np.asarray(seg_is_cavity, bool) if has_cav else np.zeros_like(node_mask)
+    if (cav_mask & ~(node_mask & np.roll(node_mask, -1, axis=0))).any() or cav_mask[-1].any():
+        raise ValueError("a gas-cavity segment must join two valid nodes")
 
     # Zone -> lane lists (CSR over global zone slots b*ZB + z): front faces
     # first, then back faces, each in ascending lane order — the fixed
@@ -499,7 +529,7 @@ def pack_params(
         lane=i32(np.stack([
             np.asarray(front_code).reshape(SP), np.asarray(back_code).reshape(SP),
             fz, bz, _node_bits(node_mask), _node_bits(massive),
-            _node_bits(np.asarray(same_chunk, bool)),
+            _node_bits(np.asarray(same_chunk, bool)), _node_bits(cav_mask),
         ])),
         zone_volume=f(np.asarray(zone_volume).reshape(NB, ZB)),
         zone_ptr=i32(zone_ptr),
@@ -508,6 +538,7 @@ def pack_params(
         mix=None if mix is None else MixLists(
             i32(mix.ptr), i32(mix.src), f(mix.vol), i32(mix.t_ptr), i32(mix.t_dst), f(mix.t_vol)
         ),
+        cav=f(np.stack([np.asarray(cav[k]) for k in CAV_FIELDS])) if has_cav else None,
     )
 
 
@@ -582,12 +613,16 @@ def params_from_blocked(bb: BlockedBuilding, dtype, device) -> DayMarchParams:
     surf = {k: getattr(sb, k) for k in SURF_FIELDS if not k.startswith("normal")}
     surf["normal_x"] = sb.normal[:, 0]
     surf["normal_y"] = sb.normal[:, 1]
+    cav = None
+    if sb.has_cavity:
+        cav = dict(zip(CAV_FIELDS[:7], sb.cav_gas))
+        cav.update({k: getattr(sb, "cav_" + k) for k in CAV_FIELDS[7:]})
     return pack_params(
         sb.node_mask, sb.massive, capacity, sb.seg_u, sb.front_alphas, sb.back_alphas, surf,
         sb.front_code, sb.back_code, bb.front_oh, bb.back_oh, bb.zone_volume,
         bb.n_blocks, dtype=dtype, device=device,
         ctl=None if bb.ctl is None else [np.asarray(c).astype(np_dtype) for c in bb.ctl],
-        mix=bb.mix, same_chunk=sb.same_chunk,
+        mix=bb.mix, same_chunk=sb.same_chunk, seg_is_cavity=sb.seg_is_cavity, cav=cav,
     )
 
 
@@ -623,7 +658,8 @@ def _chunk_view(node_mask, massive, same_chunk) -> dict:
 
 def _lanes(params: DayMarchParams, chunks: bool = False):
     """SurfaceBatch-like view of the blocked lanes for the engine functions,
-    plus the global zone slot (block*ZB + local zone, -1 none) of each face.
+    plus the global zone slot (block*ZB + local zone, -1 none) of each face,
+    and the gas-cavity operands where the building has them.
     ``chunks`` adds what the parity integrator reads: ``massive``, ``mass``
     (the capacity row: the mass on massive nodes) and the no-mass chunks."""
     SP = params.surf.shape[1]
@@ -641,6 +677,13 @@ def _lanes(params: DayMarchParams, chunks: bool = False):
         return torch.where(local >= 0, block * ZB + local, local)
 
     v = {k: params.field(k) for k in NODE_FIELDS + SURF_FIELDS}
+    if params.cav is not None:
+        seg_is_cavity = bit_rows(params, "cav_bits")
+        extra.update(
+            seg_is_cavity=seg_is_cavity, cav_index=surf_mod.cavity_index(seg_is_cavity),
+            cav_gas=gas.GasProps(*params.cav[:7]),
+            **{"cav_" + k: params.field(k) for k in CAV_FIELDS[7:]},
+        )
     return SimpleNamespace(
         node_mask=node_mask,
         seg_u=v["seg_u"], capacity=v["capacity"],
@@ -650,7 +693,7 @@ def _lanes(params: DayMarchParams, chunks: bool = False):
         front_code=params.field("front_code"), back_code=params.field("back_code"),
         front_slot=slot(params.field("front_zone")),
         back_slot=slot(params.field("back_zone")),
-        has_cavity=False,
+        has_cavity=params.cav is not None,
         **extra,
     )
 
@@ -721,9 +764,10 @@ def _hour_body_imp(
     dt_sub: float, off: int, refresh_every: int, ctl=None, mix=None,
 ):
     """One hour of TR-BDF2 sub-steps for every block (heatx
-    ``_hour_body_imp``, no cavities): the operators (film coefficients,
-    linearized radiation, K, the stage matrix and its Thomas factorization)
-    are rebuilt from the marching state at the start of every group of
+    ``_hour_body_imp``): the operators (film coefficients, linearized
+    radiation, the segment U-values with their gas cavities, K, the stage
+    matrix and its Thomas factorization) are rebuilt from the marching state
+    at the start of every group of
     ``refresh_every`` sub-steps; each sub-step is one K mat-vec, two stage
     solves on that factorization, the zone sums (plus the mixing terms of
     ``mix = (src_slot, dst_slot, vol)``) and the zone update: free-float, or
@@ -792,7 +836,7 @@ def plain_hour_parity(
     dt_sub: float, off: int, refresh_every: int = 1, ctl=None, mix=None,
 ):
     """One hour of reference-parity sub-steps for every block (heatx
-    ``_hour_body``, no cavities, no interior MRT).  Per sub-step: the TARP
+    ``_hour_body``, no interior MRT).  Per sub-step: the TARP
     border conditions of the state, ``engine.surface.march_surfaces`` (the
     relaxed no-mass solve, then RK4 on the massive nodes, flushing tiny stage
     values only where ``cfg.flush_tiny`` says so: :class:`HourMarch` turns it
@@ -892,7 +936,7 @@ def _load_library():
     if not getattr(lib, "_heatx_bound", False):
         vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
         for fn in (lib.heatx_day_march_f32, lib.heatx_day_march_f64):
-            fn.argtypes = [vp] * 29 + [ci] * 11 + [cd] * 8 + [vp]
+            fn.argtypes = [vp] * 31 + [ci] * 11 + [cd] * 8 + [vp]
             fn.restype = ci
         lib.heatx_cuda_error_string.argtypes = [ci]
         lib.heatx_cuda_error_string.restype = ctypes.c_char_p
@@ -910,13 +954,16 @@ class DayMarchKernel:
     launches made through this wrapper (and nothing else).  Arguments and
     returns as :func:`plain_day_march`.  Thermostat rows (``params.ctl``),
     per-hour setpoints and mixing lists select the kernel's second
-    instantiation; without them the free-float one runs.  ``parity`` selects
+    instantiation, gas cavities (``params.cav``) a third that also carries
+    the cavity code; without them the free-float one runs.  ``parity`` selects
     the reference-parity kernel (again one instantiation of each kind), whose
     no-mass iteration count and tolerances come from ``config``."""
 
     def __init__(self):
         self.launches = 0
         self.parity_launches = 0  # those of ``launches`` that ran the parity kernel
+        self.cavity_launches = 0  # those of ``launches`` on a building with gas cavities
+        self.parity_cavity_launches = 0  # those of ``cavity_launches`` in parity mode
 
     def __call__(
         self, params: DayMarchParams, T, zT, t_out, wind, wdir, sol_front,
@@ -944,13 +991,14 @@ class DayMarchKernel:
         bad = torch.empty((hours, NB), **kw)
         ld_hist = None if params.ctl is None else torch.empty((hours, NB, ZB), **kw)
         mix = params.mix
+        cav_u = cavity_u_row(params)
         ptrs = [None if t is None else t.data_ptr() for t in (
             params.node, params.surf, params.lane, params.zone_volume,
             params.zone_ptr, params.zone_faces, t_out, wind, wdir, sol_front,
             sol_back, ir_front, ir_back, a_extra, b_extra, T, zT,
             T_out, zT_out, hq, zt_hist, bad,
             ld_hist, params.ctl, sp_heat, sp_cool,
-            *((None,) * 3 if mix is None else (mix.ptr, mix.src, mix.vol)),
+            *((None,) * 3 if mix is None else (mix.ptr, mix.src, mix.vol)), cav_u, params.cav,
         )]
         with torch.cuda.device(T.device):
             stream = torch.cuda.current_stream().cuda_stream
@@ -966,7 +1014,20 @@ class DayMarchKernel:
             raise RuntimeError(f"day_march kernel launch failed: CUDA error {err} ({msg})")
         self.launches += 1
         self.parity_launches += int(parity)
+        self.cavity_launches += int(params.cav is not None)
+        self.parity_cavity_launches += int(parity and params.cav is not None)
         return T_out, zT_out, hq, zt_hist, bad, ld_hist
+
+
+def cavity_u_row(params: DayMarchParams):
+    """The kernels' segment U-values on a building with gas cavities
+    ``[N, SP]``, or None without: a fresh copy of ``params.node``'s U row
+    per launch, whose cavity segments the kernel rewrites at every operator
+    build (a cavity lane's K reads them there; the cavity operands stay in
+    ``params.cav``, read only)."""
+    if params.cav is None:
+        return None
+    return params.node[0].clone()
 
 
 def parity_ints(config: SimConfig, parity: bool) -> tuple:
@@ -1026,6 +1087,8 @@ def launch_operands(
     if sp_heat is not None:
         out["sp_heat"] = (sp_heat, (hours, NB, ZB), dtype)
         out["sp_cool"] = (sp_cool, (hours, NB, ZB), dtype)
+    if params.cav is not None:
+        out["cav"] = (params.cav, (len(CAV_FIELDS), N, SP), dtype)
     if params.mix is not None:
         m = params.mix
         n = tuple(m.src.shape)

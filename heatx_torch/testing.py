@@ -13,6 +13,11 @@ is a small building that takes every branch of the thermostat update, and
 ``BranchCounter`` counts the zone-sub-steps a plain march puts on each.
 ``build_nomass_run_model`` has no-mass runs of 3 and 4 nodes and
 ``coarse_config`` a discretization whose parity march is short.
+``build_glazed_city`` is the city with argon double glazing (a gas cavity in
+every window), ``build_cavity_model`` a small building with cavities of every
+tilt branch.  ``write_synthetic_epw`` writes a seeded EPW file, and
+``office_inputs`` turns it into the office IDF workflow's inputs (bench.py's
+``run_office_bench``).
 """
 
 from __future__ import annotations
@@ -22,6 +27,8 @@ import torch
 
 from heatx_torch.engine import zone as zone_mod
 from heatx_torch.engine.state import StepInputs, default_inputs
+from heatx_torch.build.layout import B_GROUND, B_OUTDOOR
+from heatx_torch.model import building as building_mod
 from heatx_torch.model.building import (
     Boundary,
     BuildingModel,
@@ -34,6 +41,8 @@ from heatx_torch.model.building import (
     Substance,
     SurfaceDef,
 )
+from heatx_torch.weather.epw import _MONTH_HOURS
+from heatx_torch.weather.solar import solar_position, surface_irradiance
 
 
 def build_city_model(n_zones: int, surfaces_per_zone: int, orientations: bool = False):
@@ -164,6 +173,67 @@ def build_nomass_run_model():
     return m
 
 
+def glaze_windows(m, classes=building_mod):
+    """Give ``m``'s ``window`` construction the office's argon double glazing
+    ``Clear3/Argon12/Clear3`` (examples/data/office.idf, as heatx's IDF
+    importer realizes it).  ``classes`` is the module whose model classes
+    ``m`` uses (heatx's, to build the reference's twin).  Returns ``m``."""
+    tau, refl = 0.837, 0.075
+    m.add_substance(classes.Substance(
+        "Clear3 substance", thermal_conductivity=0.9, density=2500.0,
+        specific_heat_capacity=840.0, front_thermal_absorbtance=0.84,
+        back_thermal_absorbtance=0.84, front_solar_absorbtance=max(0.0, 1.0 - tau - refl),
+        back_solar_absorbtance=max(0.0, 1.0 - tau - refl), solar_transmittance=tau,
+    ))
+    m.add_substance(classes.GasSubstance("Argon12 substance", "argon"))
+    m.add_material(classes.Material("Clear3", "Clear3 substance", 0.003))
+    m.add_material(classes.Material("Argon12", "Argon12 substance", 0.012))
+    m.add_construction(classes.Construction("window", ["Clear3", "Argon12", "Clear3"]))
+    return m
+
+
+def build_glazed_city(n_zones: int, surfaces_per_zone: int):
+    """:func:`build_city_model` with argon double-glazed windows
+    (:func:`glaze_windows`): one surface in ``surfaces_per_zone`` carries a
+    gas cavity."""
+    return glaze_windows(build_city_model(n_zones, surfaces_per_zone))
+
+
+def build_cavity_model(base=None, classes=building_mod):
+    """A 2-zone building whose gas cavities take every branch of the tilt
+    correlation: ``base`` (default :func:`build_city_model` (2, 3); the test
+    passes bench.py's, built on heatx's classes ``classes``) glazed with
+    :func:`glaze_windows` (vertical windows: 90 deg, heat flowing either way
+    over a day), a partition between the zones (one zone-closed block, as in
+    heatx's test_pallas_hour.py cavity case), panes tilted 20, 60 and 75 deg
+    (cavity angles 160, 120 and 105 deg, and their complements when the front
+    face is the warmer: the 0-60, 60, 60-90 and 90-180 bands), a glazed panel
+    tilted 130 deg over an ambient space (50 deg) and a vertical window with a
+    40 mm argon gap, whose Ra passes 1e4 and 5e4 on a cold day (the switches
+    of the 90 deg correlation)."""
+    m = glaze_windows(build_city_model(2, 3) if base is None else base, classes)
+    m.add_material(classes.Material("Argon40", "Argon12 substance", 0.04))
+    m.add_construction(classes.Construction("wide", ["Clear3", "Argon40", "Clear3"]))
+
+    def tilted(deg):
+        r = np.radians(deg)
+        return np.array([[0, 0, 0], [2, 0, 0], [2, -np.cos(r), np.sin(r)],
+                         [0, -np.cos(r), np.sin(r)]], float)
+
+    B = classes.Boundary
+    walls = {
+        "partition": ("massive", B.space_("z0"), "z1", tilted(90.0)),
+        "sky20": ("window", B.outdoor(), "z0", tilted(20.0)),
+        "pane60": ("window", B.outdoor(), "z0", tilted(60.0)),
+        "pane75": ("window", B.outdoor(), "z1", tilted(75.0)),
+        "panel130": ("window", B.ambient(5.0), "z1", tilted(130.0)),
+        "wide90": ("wide", B.outdoor(), "z1", tilted(90.0)),
+    }
+    for name, (kind, front, zone, verts) in walls.items():
+        m.add_surface(classes.SurfaceDef(name, kind, front, B.space_(zone), vertices=verts))
+    return m
+
+
 def coarse_config(dtype=torch.float64, nomass_fixed_iters: int = 2, min_dt: float = 900.0, **kw):
     """A coarse discretization for tests of the parity march: 6 stability
     sub-steps per hour on the bench constructions instead of the default
@@ -281,3 +351,118 @@ class BranchCounter:
         return len(self.masks) == len(other.masks) and all(
             torch.equal(a, b) for a, b in zip(self.masks, other.masks)
         )
+
+
+#: Santiago de Chile (the IWEC file the repository's goldens were made from):
+#: latitude, longitude, time zone, elevation.
+SANTIAGO = (-33.38, -70.78, -4.0, 474.0)
+
+
+def write_synthetic_epw(path, seed: int = 0) -> str:
+    """Write a valid EPW file of 8,760 seeded hourly records at Santiago's
+    location (8 header lines: LOCATION, DESIGN CONDITIONS, TYPICAL/EXTREME
+    PERIODS, GROUND TEMPERATURES with one set of monthly soil temperatures,
+    HOLIDAYS/DAYLIGHT SAVINGS, two COMMENTS, DATA PERIODS).  Southern
+    seasons: warm Januaries, diurnal swings, clear-sky-shaped radiation from
+    the sun's altitude with seeded cloudiness, wind speed and direction (to a
+    tenth of a degree, off the multiples of 90 deg).
+    Returns ``path``."""
+    rng = np.random.default_rng(seed)
+    lat, lon, tz, elev = SANTIAGO
+    hours = np.arange(8760)
+    doy = hours // 24 + 1
+    hod = hours % 24
+    season = np.cos(2.0 * np.pi * (doy - 15) / 365.0)  # +1 mid-January
+    daily_cloud = np.repeat(rng.uniform(0.0, 0.7, 365), 24)
+    dry = (14.0 + 7.0 * season + 7.0 * np.sin(2.0 * np.pi * (hod - 9) / 24.0)
+           + rng.normal(0.0, 1.0, 8760))
+    dew = dry - 6.0 - 3.0 * rng.uniform(size=8760)
+    rh = np.clip(100.0 * np.exp(0.06 * (dew - dry)), 5.0, 100.0)
+    alt, _ = solar_position(lat, lon, tz, doy, hod + 0.5)
+    sin_alt = np.clip(np.sin(alt), 0.0, None)
+    clear = 1.0 - daily_cloud
+    dni = np.where(sin_alt > 0.02, 900.0 * clear * sin_alt**0.3, 0.0)
+    dhi = np.where(sin_alt > 0.0, (60.0 + 180.0 * daily_cloud) * sin_alt, 0.0)
+    ghi = dni * sin_alt + dhi
+    sky_ir = 5.670374419e-8 * (dry + 273.15) ** 4 * (0.75 + 0.2 * daily_cloud)
+    wind = np.clip(3.0 + 1.5 * np.sin(2.0 * np.pi * (hod - 14) / 24.0)
+                   + rng.normal(0.0, 0.8, 8760), 0.0, None)
+    # Wind directions to a tenth of a degree, never on a multiple of 90: wind
+    # along a facade of a rectangular building is the windward test's tie,
+    # where float32 and float64 take opposite sides (PERF.md, ROADMAP C).
+    wdir = np.round((200.0 + 60.0 * rng.normal(size=8760)) % 360.0, 1)
+    wdir = np.where(wdir % 90.0 == 0.0, wdir + 0.1, wdir)
+    ground = 16.0 + 5.0 * np.cos(2.0 * np.pi * (np.arange(12) - 1.0) / 12.0)
+    month = np.repeat(np.arange(1, 13), [d * 24 for d in (31, 28, 31, 30, 31, 30, 31, 31, 30,
+                                                            31, 30, 31)])
+    day = np.concatenate([np.repeat(np.arange(1, d + 1), 24)
+                          for d in (31, 28, 31, 30, 31, 30, 31, 31, 30, 31, 30, 31)])
+    head = [
+        f"LOCATION,Santiago (synthetic),-,CHL,seed {seed},855740,{lat},{lon},{tz},{elev}",
+        "DESIGN CONDITIONS,0",
+        "TYPICAL/EXTREME PERIODS,0",
+        "GROUND TEMPERATURES,1,.5,,,," + ",".join(f"{g:.2f}" for g in ground),
+        "HOLIDAYS/DAYLIGHT SAVINGS,No,0,0,0",
+        "COMMENTS 1,synthetic weather written by heatx_torch.testing.write_synthetic_epw",
+        "COMMENTS 2,",
+        "DATA PERIODS,1,1,Data,Sunday, 1/ 1,12/31",
+    ]
+    rows = []
+    for i in range(8760):
+        rows.append(",".join([
+            "1999", str(month[i]), str(day[i]), str(hod[i] + 1), "60", "?9?9?9?9E0?9?9?9",
+            f"{dry[i]:.1f}", f"{dew[i]:.1f}", f"{rh[i]:.0f}", "95000", "0", "1415",
+            f"{sky_ir[i]:.0f}", f"{ghi[i]:.0f}", f"{dni[i]:.0f}", f"{dhi[i]:.0f}",
+            "0", "0", "0", "0", f"{wdir[i]:.1f}", f"{wind[i]:.1f}",
+            "5", "5", "9999", "99999", "9", "999999999", "0", "0.1", "0", "88", "0.2", "0", "0",
+        ]))
+    with open(path, "w") as f:
+        f.write("\n".join(head + rows) + "\n")
+    return str(path)
+
+
+def office_inputs(loaded, tm, epw, hours: int):
+    """The office IDF workflow's inputs, as bench.py's ``run_office_bench``
+    builds them (bench.py:430-461): EPW weather tiled to ``hours``, computed
+    solar on the outdoor front faces, the horizontal IR, the IDF's scheduled
+    infiltration and ventilation at outdoor temperature and its hourly
+    channels (gains, setpoint schedules).  ``loaded`` is
+    :func:`heatx_torch.model.idf.load_idf`'s result, ``tm`` the
+    ``ThermalModel`` of ``loaded.model``, ``epw`` an ``EPWData``.  Returns
+    ``(StepInputs, ground_hourly)``, the latter the monthly soil temperature
+    per hour (None where the building has no ground face or the file no
+    ground temperatures)."""
+    b = tm.building
+    T = min(hours, 8760)
+    reps = -(-T // epw.n_hours)
+
+    def tile(v):
+        return np.tile(np.asarray(v, np.float64), reps)[:T]
+
+    sb = b.surfaces
+    out_f = np.asarray(sb.front_code) == B_OUTDOOR
+    sol_f = surface_irradiance(epw, b, hours=T) * out_f
+    ch = loaded.hourly_channels(T)
+    air = loaded.airflow_series(T)
+    dry = tile(epw.dry_bulb)
+    t_in = np.repeat(dry[:, None], b.n_zones, axis=1)
+    kw = dict(dtype=b.config.dtype, device=tm.device)
+
+    def t(v):
+        return torch.as_tensor(np.asarray(v, np.float64), **kw)
+
+    seq = tm.inputs().replace(
+        t_out=t(dry), wind_speed=t(tile(epw.wind_speed)),
+        wind_direction=t(tile(np.radians(epw.wind_direction_deg))),
+        sol_front=t(sol_f), ir_front=t(tile(epw.horizontal_ir)),
+        inf_vol=t(air["inf_vol"]), inf_mask=torch.as_tensor(air["inf_vol"] > 0, device=tm.device),
+        inf_temp=t(t_in), vent_vol=t(air["vent_vol"]),
+        vent_mask=torch.as_tensor(air["vent_vol"] > 0, device=tm.device), vent_temp=t(t_in),
+        **{k: t(v) for k, v in ch.items()},
+    )
+    ground = None
+    has_ground = (np.asarray(sb.front_code) == B_GROUND).any() or (
+        np.asarray(sb.back_code) == B_GROUND).any()
+    if has_ground and epw.ground_temps:
+        ground = epw.ground_temperature(None)[_MONTH_HOURS[np.arange(T) % 8760]]
+    return seq, ground

@@ -28,6 +28,7 @@ from heatx.ops import pallas_adjoint, pallas_step
 from heatx_torch import SimConfig, testing
 from heatx_torch.build.layout import compile_building
 from heatx_torch.ops import day_adjoint, day_march
+from torch_reference import unoptimized
 
 torch.set_num_threads(1)
 
@@ -119,7 +120,7 @@ def heatx_grads(buildings):
             adj = pallas_adjoint.make_day_adjoint(
                 bb, substeps=SUB, mode=mode, hours=HOURS, interpret=True, refresh_every=k
             )
-            g = adj(params, jnp.asarray(T0), jnp.asarray(zT0), tuple(jnp.asarray(x) for x in hi),
+            g = unoptimized(adj)(params, jnp.asarray(T0), jnp.asarray(zT0), tuple(jnp.asarray(x) for x in hi),
                     tuple(jnp.asarray(c) for c in cots) + (None,))
             g = {name: np.asarray(v) for name, v in _flat(g).items()}
             cache[mode, k] = _unblock(bb.layout, hb.n_surfaces, hb.n_zones, g)

@@ -21,6 +21,7 @@ from heatx.ops import pallas_step
 from heatx_torch import SimConfig, testing
 from heatx_torch.build.layout import compile_building
 from heatx_torch.ops import day_march
+from torch_reference import unoptimized
 
 torch.set_num_threads(1)
 
@@ -82,7 +83,7 @@ def _run_heatx(hb, mode, k, inp):
     )
     T0, zT0 = _initial(bb.layout, hb)
     hi = _hour_inputs(bb.layout, bb.n_blocks, bb.zones_per_block, inp)
-    out = hm(params, jnp.asarray(T0), jnp.asarray(zT0), tuple(jnp.asarray(x) for x in hi))
+    out = unoptimized(hm)(params, jnp.asarray(T0), jnp.asarray(zT0), tuple(jnp.asarray(x) for x in hi))
     return _unblock(bb.layout, hb.n_surfaces, hb.n_zones, out)
 
 

@@ -28,6 +28,7 @@ from heatx_torch import SimConfig, ThermalModel, convert, testing
 from heatx_torch.build.layout import compile_building
 from heatx_torch.ops import day_adjoint, day_march
 from torch_thermostat_case import heatx_thermostat_model, lanes, unzones, zones
+from torch_reference import unoptimized
 
 torch.set_num_threads(1)
 
@@ -90,7 +91,7 @@ def heatx_case():
     c = _case(hb, bb.max_nodes)
     T0, zT0, hi, cots = _blocked(bb.layout, c)
     j = jnp.asarray
-    out = hm(params, j(T0), j(zT0), tuple(j(x) for x in hi))
+    out = unoptimized(hm)(params, j(T0), j(zT0), tuple(j(x) for x in hi))
     assert hm.collect_loads and hm.scheduled_setpoints
     T, zT, hq, hist, ld = (np.asarray(out[0]), np.asarray(out[1]).reshape(bb.n_blocks, -1),
                            [np.asarray(x) for x in out[2]], np.asarray(out[3]), np.asarray(out[4]))
@@ -218,7 +219,7 @@ def heatx_grads(heatx_case):
     adj = pallas_adjoint.make_day_adjoint(bb, interpret=True, **KW)
     T0, zT0, hi, cots = heatx_case["operands"]
     j = jnp.asarray
-    g = adj(heatx_case["params"], j(T0), j(zT0), tuple(j(x) for x in hi), tuple(j(c) for c in cots))
+    g = unoptimized(adj)(heatx_case["params"], j(T0), j(zT0), tuple(j(x) for x in hi), tuple(j(c) for c in cots))
     g = {k: np.asarray(v) for k, v in _flat(g).items()}
     return _unblock_grads(bb.layout, hb.n_surfaces, hb.n_zones, g)
 

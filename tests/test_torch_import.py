@@ -19,6 +19,8 @@ def test_import_loads_no_jax():
         "import heatx_torch, heatx_torch.api, heatx_torch.ops.day_march\n"
         "import heatx_torch.ops.day_adjoint, heatx_torch.engine.adjoint, heatx_torch.engine.zone\n"
         "import heatx_torch.convert, heatx_torch.testing\n"
+        "import heatx_torch.model.idf, heatx_torch.weather.epw, heatx_torch.weather.solar\n"
+        "import heatx_torch.physics.gas, heatx_torch.physics.cavity\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'heatx'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

@@ -42,6 +42,7 @@ from heatx_torch import SimConfig, ThermalModel, convert, testing
 from heatx_torch.engine import surface as surf
 from heatx_torch.model.building import Construction as PConstruction
 from heatx_torch.ops import day_march, tridiag
+from torch_reference import unoptimized
 
 torch.set_num_threads(1)
 
@@ -348,7 +349,7 @@ def test_plain_parity_day_march_matches_heatx_kernel(model, iters):
     hbb = pallas_step.block_building(hb, block_size=16)
     hm, params = pallas_step.make_hour_march(hbb, interpret=True, mode="parity", hours=HOURS)
     hi, T0, zT0 = _blocked_inputs(hbb.layout, hbb, hb, inp)
-    ref = hm(params, jnp.asarray(T0), jnp.asarray(zT0), tuple(jnp.asarray(x) for x in hi))
+    ref = unoptimized(hm)(params, jnp.asarray(T0), jnp.asarray(zT0), tuple(jnp.asarray(x) for x in hi))
     ref = _unblock(hbb.layout, hb.n_surfaces, hb.n_zones, ref, has_loads)
 
     pbb = day_march.block_building(pb, block_size=32)
@@ -569,8 +570,9 @@ def _cavity_model():
         (lambda: _model().fast_runner(mode="parity", refresh_every=2), ValueError, "refresh_every"),
         (lambda: _model(testing.coarse_config(interior_mrt=True)).fast_runner(mode="parity"),
          NotImplementedError, "interior_mrt"),
-        (lambda: _model(model=_cavity_model()).fast_runner(mode="parity"),
-         NotImplementedError, "gas cavities"),
+        # Gas cavities march in parity mode; the adaptive loop stays refused.
+        (lambda: _model(SimConfig(dtype=torch.float64), model=_cavity_model()).fast_runner(
+            mode="parity"), ValueError, "nomass_fixed_iters"),
         (lambda: _model().fast_runner(mode="parity", collect_fluxes=True), NotImplementedError, "ROADMAP"),
         (lambda: _model().fast_runner(mode="exponential"), ValueError, "unknown hour-kernel mode"),
     ],

@@ -36,6 +36,7 @@ from heatx.ops import pallas_adjoint, pallas_step
 from heatx_torch import SimConfig, ThermalModel, convert, testing
 from heatx_torch.engine.adjoint import chunked_value_and_grad, tree_map
 from heatx_torch.ops import day_adjoint, day_march
+from torch_reference import unoptimized
 
 torch.set_num_threads(1)
 
@@ -148,7 +149,7 @@ def heatx_side():
             hi, cots, T0, zT0 = _blocked(bb.layout, bb.n_blocks, bb.zones_per_block, hb, inp, has_loads)
             _, params = pallas_step.make_hour_march(bb, interpret=True, mode="parity", hours=HOURS)
             adj = pallas_adjoint.make_day_adjoint(bb, substeps=sub, mode="parity", hours=HOURS, interpret=True)
-            g = adj(params, jnp.asarray(T0), jnp.asarray(zT0), tuple(jnp.asarray(x) for x in hi),
+            g = unoptimized(adj)(params, jnp.asarray(T0), jnp.asarray(zT0), tuple(jnp.asarray(x) for x in hi),
                     tuple(None if c is None else jnp.asarray(c) for c in cots))
             g = {name: np.asarray(v) for name, v in _flat(g).items()}
             cache[model] = SimpleNamespace(
