@@ -134,12 +134,16 @@ Phases (one output line each, then a JSON line per contract):
    bench.py's gradient workload on the glazed city in TR-BDF2 and in
    parity mode, 2 days in 2 chunks each (exact launch counts, all on cavity
    lanes); then both parity cavity bodies against their f32 plain versions
-   at the main path's launch shape (24 h x 118 sub-steps) on the parity
+   at the main path's width and sub-step count over the daytime window
+   PARITY_WINDOW (both sides from the kernel's state at its start; the day-
+   launch, 24 h x 118 sub-steps, timed whole) on the parity
    workload's first-day operands (u_scale 1.2, alpha_scale 0.8), the
-   forward with the bounds of phase 14b, the adjoint against its f32 plain
-   version and the f64 kernel (CAV_PARITY_ADJ_F32_RL2, over all lanes and
-   over the cavity lanes alone; the f32 plain adjoint against the f64 kernel
-   printed), and timed.
+   forward (CAV_WINDOW_T_TOL, CAV_WINDOW_HQ_TOL) and the adjoint
+   (CAV_WINDOW_ADJ_RL2, over all lanes and over the cavity lanes alone)
+   against their f32 plain versions; both f32 versions against the f64
+   kernel from the same state, the kernel held to CAV_WINDOW_T_TOL on T, zT
+   and the zone history and to CAV_PARITY_ADJ_F32_RL2 on the adjoint; the
+   day-launches timed.
 17. the office IDF workflow (bench.py run_office_bench): a seeded synthetic
    EPW file at Santiago's location (testing.write_synthetic_epw, written to a
    temporary directory), examples/data/office.idf through load_idf, its
@@ -150,6 +154,43 @@ Phases (one output line each, then a JSON line per contract):
    dispatches (one per soil temperature), finite, heating and cooling kWh;
    48 h of it against the f64 plain twin (zone T <= 1e-2 K, loads <= 1e-3 of
    max |load|).
+18. interior MRT, f64, small: testing.build_two_zone_model (a partition on
+   both zones' networks) and the 4-zone city with ``interior_mrt`` (trbdf2,
+   trbdf2_refresh k=1 and k=2 at 8 sub-steps over 3 h; parity with 1 and 2
+   no-mass iterations at the coarse discretization over 2 h), and the office
+   (gas cavities and MRT; k=2 and parity with 2): the forward kernel against
+   its plain twin with the h/q and operative histories (<= 1e-9 K), the
+   adjoint kernel against the plain adjoint, ``mrt_eps_*`` included (<= 1e-9
+   of max |ref|), central differences of the forward kernel along T0,
+   ``mrt_eps_b``, and ``eps_back`` and ``area`` through the network's statics
+   (``day_march.mrt_eps_blocked``; <= 1e-5); the histories without MRT
+   physics (the operative temperature alone, the h/q history alone on a
+   building without the network's statics), forward against plain.
+19. the MRT city at full width (build_city_model(1000, 10) with
+   ``interior_mrt``: 10,000 network faces in 1,000 ten-face networks), f32:
+   48 h of trbdf2_refresh k=2 through ``run(collect_operative=True)`` against
+   the f64 plain twin (zone and operative T, MRT_F32_TOL; exactly 2 MRT
+   launches); one bench-day launch with and without the operative history and
+   its adjoint timed and held against their f32 plain versions; the annual run
+   with the operative history (exactly 365 MRT launches); 30 days with the h/q
+   history and the device memory it holds; the gradient workload with a scale
+   of eps_back as a third parameter, 2 days f32 against f64 with exact launch
+   counts; the same in parity mode (f32, launch counts), and both parity MRT
+   kernels against their f32 plain versions over the daytime window
+   PARITY_WINDOW of its first day (the bounds of phase 14b), each day-launch
+   timed whole.
+20. the office IDF workflow with ``interior_mrt`` (gas cavities and MRT): the
+   annual run with loads and the operative history (exactly 365 launches,
+   each a cavity and an MRT launch), heating and cooling kWh beside phase
+   17's, the operative range, 48 h f32 against the f64 plain twin; one
+   day-launch of each cavity-and-MRT body (TR-BDF2 forward and adjoint,
+   parity forward and adjoint at the coarse discretization) counted, timed and
+   held against its f32 plain version.
+
+Phases 16b and 19c hold the parity kernels against their plain versions over
+the daytime window PARITY_WINDOW (hours 8-14) of the day-launch; 16b held the
+whole day until the MRT phases came (its plain parity adjoint alone took 3.5
+min).  Phase 14b holds the whole day.
 
 The line before the last is the kernels JSON line.  ``launches`` is each
 kernel's count on this slice's main path: for the four ``*_cavity``
@@ -167,7 +208,12 @@ for the thermostat instantiation on the demand city's day (same mode, k=2).
 The two ``*_parity`` entries are the parity kernels on the first day-launch
 of the 10-day parity gradient (24 h x 118 sub-steps, phase 14b), held against
 their f32 plain versions there; ``ms_bench_day`` is the same launch on the
-bench day's own operands.  The last line is ``{"ok": true, "device": {...}}``;
+bench day's own operands.  The parity cavity entries are held over
+PARITY_WINDOW (``plain_hours``: first and last hour), their ``plain_ms`` the
+plain versions' time for it.  The eight ``*_mrt`` entries are the MRT
+instantiations: the MRT city's (phase 19; the parity ones held over
+PARITY_WINDOW, ``plain_hours``) and, with gas cavities, the office's
+(phase 20).  The last line is ``{"ok": true, "device": {...}}``;
 any failed check raises and the script exits non-zero.
 """
 
@@ -282,8 +328,56 @@ CAV_GRAD_DAYS = 2  # the glazed city's gradient paths, in 2 chunks
 # it on one window (scripts/torch_cavity_f32_diag.py).  An adjoint that drops
 # the cavity U's dU/dT parts from the full one by 3.4e-2, 5.0e-2 on the cavity
 # lanes (the same script, 1,000 zones, f64): the bound fails it 6-10x over,
-# where 2e-4 would fail the f32 plain version itself.
+# where 2e-4 would fail the f32 plain version itself.  Phase 16b holds the
+# f32 parity adjoint to the f64 kernel with it over its daytime window.
 CAV_PARITY_ADJ_F32_RL2 = 5e-3
+# Phase 16b's daytime window (hours 8-14) of the glazed city, the f32 kernels
+# against their f32 plain versions, both from the kernel's state at 8 h.
+# Measured on an H100 80GB HBM3 at 700 W in two runs: T 2.44e-4 K both
+# times, q_front 9.4e-4 and 1.0e-3 W/m2, the adjoint 3.9e-3 and 1.9e-3
+# relative L2 over all lanes, 5.2e-3 and 2.5e-3 on the cavity lanes
+# (d_ir_front).  Against the f64 kernel from the same state both f32 versions
+# part alike: T 2.08e-4 K (kernel, both runs) and 1.87e-4 and 2.08e-4 K
+# (plain); the adjoint 2.43e-3 (kernel, both runs) and 4.5e-3 and 2.4e-3
+# (plain).  It is the f32 round-off of the sunlit glazing, which the bounds
+# above, read where the day's sun has decayed, do not allow for; the plain
+# version's f32 zone sums (index_add_) move it from run to run.  The f32
+# kernel against the f64 kernel, both deterministic, is held too (T to
+# CAV_WINDOW_T_TOL, the adjoint to CAV_PARITY_ADJ_F32_RL2): a fault of the
+# kernel's own in daylight fails there.
+CAV_WINDOW_T_TOL = 5e-4  # K: T, zT, the zone history
+CAV_WINDOW_HQ_TOL = 2e-3  # W/m2K and W/m2: h and q
+CAV_WINDOW_ADJ_RL2 = 1e-2  # relative L2 per adjoint output, all lanes and the cavity lanes
+# Phases 16b and 19c compare the parity kernels with their f32 plain versions
+# over PARITY_PLAIN_HOURS of the day-launch only, from hour
+# PARITY_WINDOW_START, both sides started from the kernel's state there (a
+# whole day of the plain parity adjoint took 207 s on the glazed city on an
+# H100): the sun is up through the whole window on the bench weather, so the
+# solar terms and their cotangents are in the comparison.  The launches are
+# timed whole; phase 14b compares the whole day.
+PARITY_PLAIN_HOURS = 6
+PARITY_WINDOW_START = 8
+PARITY_WINDOW = [PARITY_WINDOW_START, PARITY_WINDOW_START + PARITY_PLAIN_HOURS]  # the kernels line's plain_hours
+# Interior MRT (phases 18-20).  The Carroll network's fixed point, counted
+# from day_common.cuh mrt_network: ~12 operations per network face and
+# iteration (the linearized conductance and its cube, w ts, the face's share
+# of its zone's two sums and the gather of the node), MRT_ITERS iterations
+# per evaluation; its reverse (mrt_network_adj) ~20 more per face and
+# iteration.
+MRT_OPS = 12
+MRT_ADJ_OPS = 20
+MRT_ITERS = 4
+# The MRT city's f32 kernel against the f64 plain version (zone and
+# operative T, 48 h) and against its f32 plain version (one day), K.
+# Measured on an H100 80GB HBM3 at 700 W, the same in two runs: 6.2e-5 on
+# zone T, 6.4e-5 on operative T, 5.3e-5 kernel vs plain.
+MRT_F32_TOL = 2e-4
+# The MRT adjoints (the city's TR-BDF2 day, the office's TR-BDF2 and parity
+# days) against their f32 plain versions, relative L2 per output.  Measured
+# on the same card in two runs: 2.5e-3 and 3.2e-3 (the city), 2.1e-4 and
+# 2.6e-4, 7.1e-4 and 1.1e-3 (the office): the plain adjoint's f32 zone sums
+# (index_add_) move from run to run.
+MRT_ADJ_F32_RL2 = 1e-2
 # Published H100 SXM rates (NVIDIA H100 datasheet): HBM bytes/s and the
 # f32 FLOP/s outside the tensor cores (the kernels run no matrix products).
 HBM_BPS = 3.35e12
@@ -414,6 +508,8 @@ def param_tensors(params):
         out += [m.ptr, m.src, m.vol, m.t_ptr, m.t_dst, m.t_vol]
     if params.cav is not None:
         out.append(params.cav)
+    if params.mrt is not None:
+        out += [params.mrt, params.mrt_ptr, params.mrt_faces]
     return out
 
 
@@ -588,7 +684,7 @@ def phase7_adjoint_f64(torch, day_march, day_adjoint, testing, SimConfig, compil
 
 
 def grad_workload(torch, ThermalModel, SimConfig, testing, dtype, days, chunks, demand=False,
-                  mode="trbdf2_refresh", config_kw=None, u_scale=1.2, build=None):
+                  mode="trbdf2_refresh", config_kw=None, u_scale=1.2, build=None, eps_scale=None):
     """bench.py's gradient rows through the port: returns (a callable running
     the chunked value_and_grad, the runner, its input sequence).
 
@@ -602,7 +698,10 @@ def grad_workload(torch, ThermalModel, SimConfig, testing, dtype, days, chunks, 
     ``mode="parity"`` runs either at the building's stability sub-step count
     (``config_kw`` then carries ``nomass_fixed_iters``).  ``u_scale`` is
     the conductance scale the run starts from (bench.py: 1.2); ``build``
-    replaces the function that builds the city (the glazed city of phase 16)."""
+    replaces the function that builds the city (the glazed city of phase 16);
+    ``eps_scale`` adds a third parameter, a scale of the back faces'
+    emissivities (the interior faces of the MRT city, phase 19), which the
+    callable's result then ends with."""
     from heatx_torch.engine.adjoint import chunked_value_and_grad, tree_map
 
     build = build or (testing.build_demand_city if demand else testing.build_city_model)
@@ -625,6 +724,7 @@ def grad_workload(torch, ThermalModel, SimConfig, testing, dtype, days, chunks, 
     sb0 = b.surfaces
     seg_u0 = torch.as_tensor(sb0.seg_u, device="cuda")
     alphas0 = torch.as_tensor(sb0.front_alphas, device="cuda")
+    eps_b0 = torch.as_tensor(sb0.eps_back, device="cuda")
     heat0 = torch.as_tensor(b.ctl_heat_sp, device="cuda")
     second = "sp_shift" if demand else "alpha_scale"
 
@@ -633,6 +733,8 @@ def grad_workload(torch, ThermalModel, SimConfig, testing, dtype, days, chunks, 
             sb = dataclasses.replace(sb0, seg_u=seg_u0 * p["u_scale"])
             return dataclasses.replace(b, surfaces=sb, ctl_heat_sp=heat0 + p["sp_shift"])
         sb = dataclasses.replace(sb0, seg_u=seg_u0 * p["u_scale"], front_alphas=alphas0 * p["alpha_scale"])
+        if eps_scale is not None:
+            sb = dataclasses.replace(sb, eps_back=eps_b0 * p["eps_scale"])
         return dataclasses.replace(b, surfaces=sb)
 
     def loss_zt(zt, xs):
@@ -651,10 +753,13 @@ def grad_workload(torch, ThermalModel, SimConfig, testing, dtype, days, chunks, 
     st = tm.initial_state()
     params = {"u_scale": torch.tensor(u_scale, dtype=dtype, device="cuda"),
               second: torch.tensor(0.5 if demand else 0.8, dtype=dtype, device="cuda")}
+    if eps_scale is not None:
+        params["eps_scale"] = torch.tensor(eps_scale, dtype=dtype, device="cuda")
 
     def run():
         val, g = chunked_value_and_grad(None, params, st, xs, forward_fn=kf, backward_fn=kb)
-        return float(val), float(g["u_scale"]), float(g[second])
+        out = (float(val), float(g["u_scale"]), float(g[second]))
+        return out + ((float(g["eps_scale"]),) if eps_scale is not None else ())
 
     return run, fr, seq
 
@@ -802,13 +907,13 @@ def ptxas_table(log: str) -> str:
             sym = m.group(1)
             t = re.search(r"kernelI([fd])((?:Lb[01]E)+)", sym)
             flags = re.findall(r"Lb([01])E", t.group(2)) if t else []
-            # day_march_kernel<T, kExt, kParity, kCav>; the adjoints <T, kExt, kCav>
+            # day_march_kernel<T, kExt, kParity, kCav, kMrt>; the adjoints <T, kExt, kCav, kMrt>
             if "day_march_kernel" in sym:
-                ext, parity, cav = (flags + ["?"] * 3)[:3]
+                ext, parity, cav, mrt = (flags + ["?"] * 4)[:4]
             else:
-                (ext, cav), parity = (flags + ["?"] * 2)[:2], "1" if "parity_adjoint" in sym else "0"
+                (ext, cav, mrt), parity = (flags + ["?"] * 3)[:3], "1" if "parity_adjoint" in sym else "0"
             name = (f"{'f32' if t and t.group(1) == 'f' else 'f64'} ext={ext} parity={parity}"
-                    + (" cavities" if cav == "1" else ""))
+                    + (" cavities" if cav == "1" else "") + (" mrt" if mrt == "1" else ""))
             entry = {"name": name}
             out.append(entry)
             continue
@@ -1375,42 +1480,23 @@ def phase16_glazed_city(torch, ctx):
     hip = fr.kernel_inputs(tree_head(seq, CAV_GRAD_DAYS * 24, 24))[0]
     hm, params = fr.hour_march, fr.params
     check(hm.hours == 24 and sub == fr._tm.dt_subdivisions, f"the parity launch is {hm.hours} h x {sub}")
+    # The day-launches are timed whole; the plain versions, which take minutes
+    # a day here, are compared over the daytime window (daytime_window).
     p_ms = event_ms(torch, lambda: hm(params, Tp, zTp, hip), 3)
-    gotp = hm(params, Tp, zTp, hip)
+    got24 = hm(params, Tp, zTp, hip)
+    H, W0 = PARITY_PLAIN_HOURS, PARITY_WINDOW_START
+    hm6 = day_march.hour_march_for(fr._bb, mode="parity", hours=H)
+    Tw, zTw, hip6 = daytime_window(day_march, fr._bb, params, Tp, zTp, hip, sub)
+    gotp = hm6(params, Tw, zTw, hip6)
     torch.cuda.synchronize()
     t0 = time.time()
-    refp = hm.plain(params, Tp, zTp, hip)
+    refp = hm6.plain(params, Tw, zTw, hip6)
     torch.cuda.synchronize()
     p_plain_ms = (time.time() - t0) * 1e3
-    fwd_gaps = {name: float((a - b).abs().max()) for name, a, b in (
-        ("T", gotp[0], refp[0]), ("zT", gotp[1], refp[1]), ("zt_hist", gotp[3], refp[3]),
-        *((nm, gotp[2][j], refp[2][j]) for j, nm in enumerate(("h_front", "h_back", "q_front", "q_back"))))}
-    for name, err in fwd_gaps.items():
-        tol = PARITY_HQ_TOL if name[:2] in ("h_", "q_") else PARITY_DAY_TOL
-        check(err <= tol, f"glazed city parity f32 kernel vs plain twin, {name}: max |d| {err} > {tol}")
-    del refp
-    growth = parity_sensitivity(torch, hm, params, Tp, zTp, hip)
-    check(growth[0] <= PARITY_GROWTH_MAX, f"the glazed city's parity day carries a perturbation {growth[0]} x")
-    NBp, ZBp = fr._bb.n_blocks, fr._bb.zones_per_block
-    valid = torch.as_tensor(np.asarray(fr.layout.zone_table).reshape(NBp, ZBp) >= 0, device="cuda")
-    cotp = (torch.zeros_like(Tp), torch.zeros_like(zTp),
-            (2.0 * (gotp[3] - 21.0) * valid / (CAV_GRAD_DAYS * 24 * 1000)).contiguous())
-    adjp = day_adjoint.make_day_adjoint(fr._bb, substeps=sub, mode="parity", hours=24, device="cuda")
-    gp = flat_grads(adjp(params, Tp, zTp, hip, cotp))
-    pa_ms = event_ms(torch, lambda: adjp(params, Tp, zTp, hip, cotp), 1)
-    t0 = time.time()
-    gpp = flat_grads(adjp.plain(params, Tp, zTp, hip, cotp))
-    torch.cuda.synchronize()
-    pa_plain_ms = (time.time() - t0) * 1e3
-    what = "glazed city f32 parity adjoint kernel vs f32 plain adjoint"
-    cav_lanes = day_march.bit_rows(params, "cav_bits").any(0)
-    pgaps = rel_l2_gaps(torch, gp, gpp, what, CAV_PARITY_ADJ_F32_RL2)
-    pgaps_cav = rel_l2_gaps(torch, gp, gpp, what + ", cavity lanes", CAV_PARITY_ADJ_F32_RL2, lanes=cav_lanes)
-    pa_abs = max(float((gp[n] - r).abs().max()) for n, r in gpp.items())
-    # The same day on the f64 kernel, on the workload's scaled parameters
-    # (seg_u x 1.2, front_alphas x 0.8) blocked directly, and the same inputs:
-    # how much of that gap is the f32 kernel's round-off, and how much the f32
-    # plain version's.
+    # The same hours on the f64 kernel, on the workload's scaled parameters
+    # (seg_u x 1.2, front_alphas x 0.8) blocked directly, the same inputs and
+    # the same start state: how much of each gap below is the f32 kernel's
+    # round-off, and how much the f32 plain version's.
     b64 = ThermalModel(testing.build_glazed_city(1000, 10), n=1, device="cuda",
                        config=SimConfig(dtype=torch.float64, nomass_fixed_iters=PARITY_ITERS)).building
     sb64 = dataclasses.replace(b64.surfaces, seg_u=b64.surfaces.seg_u * 1.2,
@@ -1420,10 +1506,52 @@ def phase16_glazed_city(torch, ctx):
     check(fr64._substeps == sub, f"the f64 parity runner takes {fr64._substeps} sub-steps, not {sub}")
     seq64 = testing.bench_inputs(tmp64.building, CAV_GRAD_DAYS * 24, device="cuda")
     seq64 = seq64.replace(lum_power=torch.zeros_like(seq64.lum_power))  # as grad_workload's
-    Tp64, zTp64 = fr64.to_blocked(tmp64.initial_state())
-    hip64 = fr64.kernel_inputs(tree_head(seq64, CAV_GRAD_DAYS * 24, 24))[0]
-    adjp64 = day_adjoint.make_day_adjoint(fr64._bb, substeps=sub, mode="parity", hours=24, device="cuda")
-    g64 = flat_grads(adjp64(fr64.params, Tp64, zTp64, hip64, tuple(c.double() for c in cotp)))
+    hip64 = hour_window(fr64.kernel_inputs(tree_head(seq64, CAV_GRAD_DAYS * 24, 24))[0], W0, H, sub)
+    got64 = day_march.hour_march_for(fr64._bb, mode="parity", hours=H)(fr64.params, Tw.double(), zTw.double(),
+                                                                          hip64)
+
+    def outs(o):
+        return (("T", o[0]), ("zT", o[1]), ("zt_hist", o[3]),
+                *zip(("h_front", "h_back", "q_front", "q_back"), o[2]))
+
+    def max_gaps(a, b):
+        return {n: float((x.to(y.dtype) - y).abs().max()) for (n, x), (_, y) in zip(outs(a), outs(b))}
+
+    fwd_gaps = max_gaps(gotp, refp)
+    k64_gaps, p64_gaps = max_gaps(gotp, got64), max_gaps(refp, got64)
+    del got64
+    for name, err in fwd_gaps.items():
+        tol = CAV_WINDOW_HQ_TOL if name[:2] in ("h_", "q_") else CAV_WINDOW_T_TOL
+        check(err <= tol, f"glazed city parity f32 kernel vs plain twin, {name}: max |d| {err} > {tol}")
+    for name in ("T", "zT", "zt_hist"):
+        check(k64_gaps[name] <= CAV_WINDOW_T_TOL,
+              f"glazed city parity f32 kernel vs f64 kernel, {name}: max |d| {k64_gaps[name]} > {CAV_WINDOW_T_TOL}")
+    del refp
+    growth = parity_sensitivity(torch, hm, params, Tp, zTp, hip)
+    check(growth[0] <= PARITY_GROWTH_MAX, f"the glazed city's parity day carries a perturbation {growth[0]} x")
+    NBp, ZBp = fr._bb.n_blocks, fr._bb.zones_per_block
+    valid = torch.as_tensor(np.asarray(fr.layout.zone_table).reshape(NBp, ZBp) >= 0, device="cuda")
+    cot24 = (torch.zeros_like(Tp), torch.zeros_like(zTp),
+             (2.0 * (got24[3] - 21.0) * valid / (CAV_GRAD_DAYS * 24 * 1000)).contiguous())
+    adjp24 = day_adjoint.make_day_adjoint(fr._bb, substeps=sub, mode="parity", hours=24, device="cuda")
+    gp24 = flat_grads(adjp24(params, Tp, zTp, hip, cot24))
+    pa_ms = event_ms(torch, lambda: adjp24(params, Tp, zTp, hip, cot24), 1)
+    cotp = (cot24[0], cot24[1], cot24[2][W0:W0 + H].contiguous())
+    adjp = day_adjoint.make_day_adjoint(fr._bb, substeps=sub, mode="parity", hours=H, device="cuda")
+    gp = flat_grads(adjp(params, Tw, zTw, hip6, cotp))
+    check(float(gp["front_alphas"].abs().max()) > 0, "glazed city parity adjoint: no front_alphas gradient "
+          "over the daytime window")
+    t0 = time.time()
+    gpp = flat_grads(adjp.plain(params, Tw, zTw, hip6, cotp))
+    torch.cuda.synchronize()
+    pa_plain_ms = (time.time() - t0) * 1e3
+    what = "glazed city f32 parity adjoint kernel vs f32 plain adjoint"
+    cav_lanes = day_march.bit_rows(params, "cav_bits").any(0)
+    pgaps = rel_l2_gaps(torch, gp, gpp, what, CAV_WINDOW_ADJ_RL2)
+    pgaps_cav = rel_l2_gaps(torch, gp, gpp, what + ", cavity lanes", CAV_WINDOW_ADJ_RL2, lanes=cav_lanes)
+    pa_abs = max(float((gp[n] - r).abs().max()) for n, r in gpp.items())
+    adjp64 = day_adjoint.make_day_adjoint(fr64._bb, substeps=sub, mode="parity", hours=H, device="cuda")
+    g64 = flat_grads(adjp64(fr64.params, Tw.double(), zTw.double(), hip64, tuple(c.double() for c in cotp)))
     what = "glazed city f32 parity adjoint kernel vs f64 kernel"
     kgaps = rel_l2_gaps(torch, gp, g64, what, CAV_PARITY_ADJ_F32_RL2)
     kgaps_cav = rel_l2_gaps(torch, gp, g64, what + ", cavity lanes", CAV_PARITY_ADJ_F32_RL2, lanes=cav_lanes)
@@ -1442,14 +1570,20 @@ def phase16_glazed_city(torch, ctx):
           f"loss / dL/du / dL/dalpha " + " / ".join(f"{x:.6g}" for x in c_t["value"])
           + f"; parity {c_p['wall']:.3f} s, day march {c_p['march']}, adjoint {c_p['adjoint']}, "
           + " / ".join(f"{x:.6g}" for x in c_p["value"])
-          + f"; its first day-launch (24 h x {sub} sub-steps), f32, against the plain versions: day march "
-          f"{p_ms:.3f} ms vs {p_plain_ms:.1f} ms (host clock), max |d| "
+          + f"; its first day-launch (24 h x {sub} sub-steps), f32, {p_ms:.3f} ms, over hours {W0}-{W0 + H} against "
+          f"the plain versions (both from the kernel's state at {W0} h): day march {p_plain_ms:.1f} ms (host clock, "
+          f"the plain version's {H} h), max |d| "
           + ", ".join(f"{k} {v:.2e}" for k, v in fwd_gaps.items())
-          + f" (<= {PARITY_DAY_TOL:g} K, h/q <= {PARITY_HQ_TOL:g}); a start state moved by {PARITY_EPS:g} K ends the "
-          f"day {growth[0]:.3g} x as far apart on the nodes (<= {PARITY_GROWTH_MAX:g}); adjoint {pa_ms:.3f} ms vs "
-          f"{pa_plain_ms:.1f} ms, relative L2 worst {pgaps[pworst]:.3e} ({pworst}; <= {CAV_PARITY_ADJ_F32_RL2:g}), "
+          + f" (<= {CAV_WINDOW_T_TOL:g} K, h/q <= {CAV_WINDOW_HQ_TOL:g}); against the f64 kernel from the same state, the "
+          f"f32 kernel " + ", ".join(f"{k} {v:.2e}" for k, v in k64_gaps.items()) + f" (T, zT, zone history <= "
+          f"{CAV_WINDOW_T_TOL:g} K), the f32 plain version "
+          + ", ".join(f"{k} {v:.2e}" for k, v in p64_gaps.items())
+          + f"; a start state moved by {PARITY_EPS:g} K ends the "
+          f"day {growth[0]:.3g} x as far apart on the nodes (<= {PARITY_GROWTH_MAX:g}); adjoint {pa_ms:.3f} ms a "
+          f"day, the plain adjoint's {H} h {pa_plain_ms:.1f} ms, relative L2 worst {pgaps[pworst]:.3e} ({pworst}; <= {CAV_WINDOW_ADJ_RL2:g}), "
           f"max |d| {pa_abs:.3e}, on the cavity lanes alone {worst_of(pgaps_cav)}; f32 kernel vs f64 kernel "
-          f"{worst_of(kgaps)}, cavity lanes {worst_of(kgaps_cav)}; f32 plain adjoint vs f64 kernel "
+          f"{worst_of(kgaps)}, cavity lanes {worst_of(kgaps_cav)} (<= {CAV_PARITY_ADJ_F32_RL2:g}); f32 plain "
+          f"adjoint vs f64 kernel "
           f"{worst_of(plain_gaps)}, cavity lanes {worst_of(plain_gaps_cav)}", flush=True)
 
     def bounds(p, hours, sub, builds, fwd_ops, adj_ops, T_, zT_, hi_, outs, cots_, grads):
@@ -1464,7 +1598,7 @@ def phase16_glazed_city(torch, ctx):
                   adjoint_work(r32.params, 24, 8, 2), T, zT, hi, got, cots, g32)
     pb_builds = 24 * sub * (PARITY_ITERS + 1)
     b_pa = bounds(params, 24, sub, pb_builds, parity_day_work(params, 24, sub, PARITY_ITERS)[0],
-                  parity_adjoint_work(params, 24, sub, PARITY_ITERS), Tp, zTp, hip, gotp, cotp, gp)
+                  parity_adjoint_work(params, 24, sub, PARITY_ITERS), Tp, zTp, hip, got24, cot24, gp24)
     return SimpleNamespace(
         run_launches=run_launches, counts=counts, ms=ms, plain_ms=plain_ms, err32=err32, err48=err48,
         adj_ms=adj_ms, adj_plain_ms=adj_plain_ms, adj_abs=adj_abs, adj_rel=gaps[worst], p_ms=p_ms,
@@ -1539,6 +1673,605 @@ def phase17_office(torch, ctx):
                            err_z=err_z, err_l=err_l)
 
 
+def mrt_network_faces(params):
+    """The network faces of a launch (0 without the MRT statics)."""
+    return 0 if params.mrt is None else int(params.mrt_ptr[-1])
+
+
+def mrt_work(params, evaluations, adjoint=False):
+    """Operations of the MRT network over ``evaluations`` evaluations,
+    counted from day_common.cuh ``mrt_network``: MRT_OPS per network face and
+    iteration, MRT_ITERS iterations each, MRT_ADJ_OPS more per face and
+    iteration in an adjoint (``mrt_network_adj``)."""
+    per = MRT_OPS + (MRT_ADJ_OPS if adjoint else 0)
+    return mrt_network_faces(params) * MRT_ITERS * evaluations * per
+
+
+def hour_window(hi, start, hours, sub):
+    """Hours ``start`` to ``start + hours`` of a day-launch's hour inputs
+    (weather rows by sub-step, the rest by hour)."""
+    return tuple((x[start * sub:(start + hours) * sub] if i < 3 else x[start:start + hours]).contiguous()
+                 for i, x in enumerate(hi))
+
+
+def daytime_window(day_march, bb, params, T, zT, hi, sub):
+    """The parity kernel's state at PARITY_WINDOW_START h of a day-launch from
+    (T, zT) on the hour inputs ``hi``, and the inputs of the
+    PARITY_PLAIN_HOURS after it: the window over which phases 16b and 19c
+    hold the parity kernels against their plain versions, both sides started
+    from that state."""
+    s = PARITY_WINDOW_START
+    lead = day_march.hour_march_for(bb, mode="parity", hours=s)
+    Ts, zTs = lead(params, T, zT, hour_window(hi, 0, s, sub))[:2]
+    return Ts, zTs, hour_window(hi, s, PARITY_PLAIN_HOURS, sub)
+
+
+def mrt_rows(torch, day_march, bb, surf):
+    """The Carroll network's rows [2, SP] of the blocked surface rows
+    ``surf`` (day_march.mrt_eps_blocked, differentiable)."""
+    f = day_march.SURF_FIELDS.index
+    oh = [torch.as_tensor(o, dtype=surf.dtype, device=surf.device) for o in (bb.front_oh, bb.back_oh)]
+    part = torch.as_tensor(bb.mrt_part, device=surf.device)
+    return torch.stack(day_march.mrt_eps_blocked(surf[f("area")], surf[f("eps_front")], surf[f("eps_back")],
+                                                 part, *oh, bb.n_blocks, bb.zones_per_block))
+
+
+def office_model():
+    from heatx_torch.model.idf import load_idf
+
+    import os
+    return load_idf(os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", "data",
+                                 "office.idf")).model
+
+
+def mrt_bounds(p, hours, evals, fwd_ops, adj_ops, T_, zT_, hi_, outs, cots_, grads, cav_builds=None):
+    """((ops, bytes, bound_ms, bound_by) of the day march, the same of its
+    adjoint) for one MRT day-launch: ``fwd_ops``/``adj_ops`` the launch's
+    work without the network, ``evals`` the network's evaluations,
+    ``cav_builds`` the cavity U's (default ``evals``)."""
+    import torch
+
+    cb = evals if cav_builds is None else cav_builds
+    ops_f = fwd_ops + mrt_work(p, evals) + cavity_work(p, cb)
+    bytes_f = nbytes(*param_tensors(p), T_, zT_, *hi_) + nbytes(
+        outs[0], outs[1], *outs[2], *[o for o in outs[3:] if isinstance(o, torch.Tensor)])
+    ops_a = (adj_ops + mrt_work(p, evals) + mrt_work(p, evals, adjoint=True) + cavity_work(p, cb)
+             + cavity_work(p, cb, adjoint=True))
+    bytes_a = nbytes(*param_tensors(p), T_, zT_, *hi_, *[c for c in cots_ if c is not None]) + nbytes(
+        *grads.values())
+    return (ops_f, bytes_f) + bound(bytes_f, ops_f), (ops_a, bytes_a) + bound(bytes_a, ops_a)
+
+
+def phase18_mrt_f64(torch, ctx):
+    """The MRT bodies against their plain versions, f64, on the two-zone
+    building, the 4-zone city and the office (cavities and MRT); central
+    differences of the forward kernels (see the module docstring).  Returns
+    the worst gaps, the case count, how far the network moves the zones, and
+    the launch counts by instantiation."""
+    import dataclasses as dc
+
+    day_march, day_adjoint, testing = ctx.day_march, ctx.day_adjoint, ctx.testing
+    SimConfig, ThermalModel = ctx.SimConfig, ctx.ThermalModel
+    km, ka = day_march.day_march_kernel, day_adjoint.day_adjoint_kernel
+    rng = np.random.default_rng(18)
+    worst = dict(T=0.0, adj=0.0, fd=0.0)
+    models = {"two-zone building": testing.build_two_zone_model,
+              "4-zone city": lambda: testing.build_city_model(4, 10), "office": office_model}
+    bodies = (("trbdf2", None, None), ("trbdf2_refresh", 1, None), ("trbdf2_refresh", 2, None),
+              ("parity", None, 1), ("parity", None, 2))
+    cases, live = 0, 0.0
+    for label, build in models.items():
+        for mode, k, iters in bodies:
+            if label == "office" and (k == 1 or iters == 1):
+                continue
+            what = f"MRT, {label}, {mode} k={k} iters={iters}"
+            parity = mode == "parity"
+            cfg = (testing.coarse_config(torch.float64, iters, interior_mrt=True) if parity
+                   else SimConfig(dtype=torch.float64, interior_mrt=True))
+            tm = ThermalModel(build(), config=cfg, device="cuda")
+            hours = 2 if parity else 3
+            r = tm.fast_runner(mode=mode, hours=hours, substeps=None if parity else 8, refresh_every=k,
+                               collect_operative=True, collect_fluxes=True)
+            sub, bb = r._substeps, r._bb
+            seq = testing.bench_inputs(tm.building, hours, device="cuda")
+            sun = rng.uniform(50.0, 400.0, (hours, tm.building.n_surfaces))
+            seq = seq.replace(sol_front=torch.as_tensor(sun, device="cuda"))
+            hi = r.kernel_inputs(seq, interp_weather=True)[0]
+            T0, zT0 = r.to_blocked(tm.initial_state())
+            mask = day_march.bit_rows(r.params, "node_bits")
+            NB, ZB = r.params.n_blocks, r.params.zones_per_block
+
+            def rand(shape, scale=1.0):
+                return torch.as_tensor(rng.normal(size=tuple(shape)) * scale, device="cuda")
+
+            T0 = T0 + rand(T0.shape, 4.0) * mask
+            zT0 = zT0 + rand(zT0.shape, 0.5)
+            hm, params = r.hour_march, r.params
+            before = (km.mrt_launches, km.cavity_launches)
+            got = hm(params, T0, zT0, hi)
+            check((km.mrt_launches, km.cavity_launches) == (before[0] + 1, before[1] + int(params.cav is not None)),
+                  f"{what}: the launch did not count as an MRT launch")
+            ref = hm.plain(params, T0, zT0, hi)
+            outs = (("T", got[0], ref[0]), ("zT", got[1], ref[1]), ("zt_hist", got[3], ref[3]),
+                    *((f"hq{j}", got[2][j], ref[2][j]) for j in range(4)),
+                    *((f"hq_hist{j}", got[4][j], ref[4][j]) for j in range(4)), ("top", got[6], ref[6]))
+            for name, a, b in outs:
+                err = float((a - b).abs().max())
+                check(err <= F64_TOL, f"{what} {name}: max |d| {err} > {F64_TOL}")
+                worst["T"] = max(worst["T"], err)
+            check(float(got[5].sum()) == 0.0, f"{what}: non-finite state in the kernel")
+            off = copy.copy(hm)
+            off.config = hm.config.replace(interior_mrt=False)
+            live = max(live, float((off(params, T0, zT0, hi)[1] - got[1]).abs().max()))
+            cots = [rand(T0.shape) * mask, rand((NB, ZB)), rand((hours, NB, ZB))]
+            adj = day_adjoint.make_day_adjoint(bb, substeps=sub, mode=mode, hours=hours, refresh_every=k,
+                                               device="cuda")
+            n_adj = ka.mrt_launches
+            g, w = adjoint_vs_plain(torch, adj, params, T0, zT0, hi, cots, what)
+            check(ka.mrt_launches == n_adj + 1, f"{what}: the adjoint did not count as an MRT launch")
+            worst["adj"] = max(worst["adj"], w)
+            cases += 1
+
+            def loss(p, T):
+                out = hm(p, T, zT0, hi)
+                return float((out[0] * cots[0]).sum() + (out[1] * cots[1]).sum() + (out[3] * cots[2]).sum())
+
+            row = day_march.SURF_FIELDS.index
+            lanes = torch.as_tensor(np.asarray(bb.layout.surf_perm) >= 0, device="cuda")
+
+            def chained(name):
+                """Move a surface row and the network rows it builds."""
+                D = rand((params.surf.shape[1],)) * params.surf[row(name)] * lanes
+
+                def at(e):
+                    surf = params.surf.clone()
+                    surf[row(name)] += e * D
+                    return dc.replace(params, surf=surf, mrt=mrt_rows(torch, day_march, bb, surf))
+
+                def rows_of(x):
+                    surf = params.surf.clone()
+                    surf[row(name)] = x
+                    return mrt_rows(torch, day_march, bb, surf)
+
+                _, dm = torch.func.jvp(rows_of, (params.surf[row(name)],), (D,))
+                an = float((g[name] * D).sum() + (g["mrt_eps_f"] * dm[0]).sum() + (g["mrt_eps_b"] * dm[1]).sum())
+                return an, (lambda e: loss(at(e), T0))
+
+            D_T = rand(T0.shape) * mask
+            D_m = rand((params.surf.shape[1],)) * params.mrt[1]
+
+            def moved_mrt(e):
+                mrt = params.mrt.clone()
+                mrt[1] += e * D_m
+                return dc.replace(params, mrt=mrt)
+
+            eps = 1e-6
+            checks = [("T0", float((g["dT0"] * D_T).sum()), lambda e: loss(params, T0 + e * D_T)),
+                      ("mrt_eps_b", float((g["mrt_eps_b"] * D_m).sum()), lambda e: loss(moved_mrt(e), T0))]
+            checks += [(n, *chained(n)) for n in ("eps_back", "area")]
+            for name, an, f in checks:
+                fd = (f(eps) - f(-eps)) / (2 * eps)
+                rel = abs(fd - an) / max(abs(an), 1e-300)
+                check(an != 0 and rel <= FD_RTOL, f"{what} d/d{name}: FD {fd} vs adjoint {an} (rel {rel})")
+                worst["fd"] = max(worst["fd"], rel)
+    # The histories without MRT physics: the operative temperature as an
+    # observable alone (the network's statics, no physics), and the h/q
+    # history alone on a building without them (zero network rows).
+    for label, build, kw in (("two-zone building, operative only", testing.build_two_zone_model,
+                              dict(collect_operative=True, collect_fluxes=True)),
+                             ("4-zone city, h/q only", lambda: testing.build_city_model(4, 10),
+                              dict(collect_fluxes=True))):
+        tm = ThermalModel(build(), config=SimConfig(dtype=torch.float64), device="cuda")
+        r = tm.fast_runner(mode="trbdf2_refresh", hours=3, substeps=8, refresh_every=2, **kw)
+        hi = r.kernel_inputs(testing.bench_inputs(tm.building, 3, device="cuda"), interp_weather=True)[0]
+        T0, zT0 = r.to_blocked(tm.initial_state())
+        before = km.mrt_launches
+        got = r.hour_march(r.params, T0, zT0, hi)
+        check(km.mrt_launches == before + 1, f"{label}: not an MRT-instantiation launch")
+        ref = r.hour_march.plain(r.params, T0, zT0, hi)
+        flat = lambda o: [x for v in o for x in (v if isinstance(v, tuple) else (v,))]  # noqa: E731
+        for j, (a, b) in enumerate(zip(flat(got), flat(ref))):
+            err = float((a - b).abs().max())
+            check(err <= F64_TOL, f"{label} output {j}: max |d| {err} > {F64_TOL}")
+            worst["T"] = max(worst["T"], err)
+        cases += 1
+    check(live > 1e-3, f"the MRT network moved no zone ({live} K)")
+    return worst, cases, live
+
+
+def phase19_mrt_city(torch, ctx):
+    """The MRT bench city at full width, f32 (see the module docstring)."""
+    day_march, day_adjoint, testing = ctx.day_march, ctx.day_adjoint, ctx.testing
+    SimConfig, ThermalModel, smi = ctx.SimConfig, ctx.ThermalModel, ctx.smi
+    km, ka = day_march.day_march_kernel, day_adjoint.day_adjoint_kernel
+    model = testing.build_city_model(1000, 10)
+    kw = dict(mode="trbdf2_refresh", substeps=8, hours=24, refresh_every=2)
+    tm32 = ThermalModel(model, n=1, config=SimConfig(dtype=torch.float32, interior_mrt=True), device="cuda")
+    r32 = tm32.fast_runner(collect_operative=True, **kw)
+    faces = mrt_network_faces(r32.params)
+    check(faces == 10000, f"the MRT city has {faces} network faces, not 10,000")
+    st0 = tm32.initial_state()
+
+    # (a) 48 h: the f32 kernel against the f64 plain version, zone and operative T
+    km.launches = km.mrt_launches = 0
+    t0 = time.time()
+    fin32, z32, op32 = r32.run(st0, testing.bench_inputs(tm32.building, 48, device="cuda"), interp_weather=True,
+                               collect_operative=True)
+    torch.cuda.synchronize()
+    run48_s = time.time() - t0
+    run48_launches = km.mrt_launches
+    check((km.launches, run48_launches) == (2, 2), f"MRT city 48 h: {km.launches} launches, {run48_launches} MRT")
+    tm64 = ThermalModel(model, n=1, config=SimConfig(dtype=torch.float64, interior_mrt=True), device="cuda")
+    t0 = time.time()
+    _, z64, op64 = tm64.fast_runner(use_kernel=False, collect_operative=True, **kw).run(
+        tm64.initial_state(), testing.bench_inputs(tm64.building, 48, device="cuda"), interp_weather=True,
+        collect_operative=True)
+    torch.cuda.synchronize()
+    plain48_s = time.time() - t0
+    for name, v in (("zone_T", z32), ("operative", op32), ("node_T", fin32.node_T), ("zone_T f64", z64)):
+        check(bool(torch.isfinite(v).all()), f"MRT city {name} has non-finite values")
+    err_z = float((z32.double() - z64).abs().max())
+    err_op = float((op32.double() - op64).abs().max())
+    check(err_z <= MRT_F32_TOL and err_op <= MRT_F32_TOL,
+          f"MRT city f32 kernel vs f64 plain: zone_T {err_z}, operative {err_op} > {MRT_F32_TOL}")
+    moved = float((z32 - ctx.z32_trbdf2).abs().max())
+
+    # (b) one bench day: the TR-BDF2 MRT launch and its adjoint, timed, against their f32 plain versions
+    T, zT = r32.to_blocked(st0)
+    hi = r32.kernel_inputs(testing.bench_inputs(tm32.building, 24, device="cuda"), interp_weather=True)[0]
+    hm0 = r32.hour_march.without_observables()
+    ms = event_ms(torch, lambda: hm0(r32.params, T, zT, hi), 10)
+    ms_op = event_ms(torch, lambda: r32.hour_march(r32.params, T, zT, hi), 10)
+    t0 = time.time()
+    ref = hm0.plain(r32.params, T, zT, hi)
+    torch.cuda.synchronize()
+    plain_ms = (time.time() - t0) * 1e3
+    got = hm0(r32.params, T, zT, hi)
+    err32 = max(float((got[i] - ref[i]).abs().max()) for i in (0, 1, 3))
+    check(err32 <= MRT_F32_TOL, f"MRT city f32 day kernel vs plain: max |d| {err32} > {MRT_F32_TOL}")
+    adj32 = day_adjoint.make_day_adjoint(r32._bb, device="cuda", substeps=8, mode="trbdf2_refresh", hours=24,
+                                         refresh_every=2)
+    NB, ZB = r32._bb.n_blocks, r32._bb.zones_per_block
+    d_hist = np.random.default_rng(19).normal(size=(24, NB, ZB)) / (24 * 1000)
+    cots = (torch.zeros_like(T), torch.zeros_like(zT), torch.as_tensor(d_hist, dtype=torch.float32, device="cuda"))
+    g32 = flat_grads(adj32(r32.params, T, zT, hi, cots))
+    adj_ms = event_ms(torch, lambda: adj32(r32.params, T, zT, hi, cots), 5)
+    t0 = time.time()
+    g32p = flat_grads(adj32.plain(r32.params, T, zT, hi, cots))
+    torch.cuda.synchronize()
+    adj_plain_ms = (time.time() - t0) * 1e3
+    gaps = rel_l2_gaps(torch, g32, g32p, "MRT city f32 adjoint kernel vs f32 plain adjoint", MRT_ADJ_F32_RL2)
+    adj_abs = max(float((g32[n] - r).abs().max()) for n, r in g32p.items())
+    del g32p
+    print(f"phase 19a MRT city on {smi}: 10,000 surfaces, 10,000 network faces in 1,000 zones, trbdf2_refresh "
+          f"k=2, 48 h: {run48_launches} MRT launches, f32 run {run48_s:.3f} s (f64 plain {plain48_s:.1f} s); "
+          f"f32 kernel vs f64 plain max |d zone_T| {err_z:.3e} K, operative {err_op:.3e} K (<= {MRT_F32_TOL:g}); "
+          f"the network moves the zones up to {moved:.3e} K against the air bath (phase 4); operative T range "
+          f"[{float(op32.min()):.2f}, {float(op32.max()):.2f}] C; one bench-day launch {ms:.3f} ms, with the "
+          f"operative history {ms_op:.3f} ms (CUDA events; air bath {ctx.kernel_ms:.3f} ms) vs f32 plain "
+          f"{plain_ms:.1f} ms, max |d| {err32:.3e} K; adjoint {adj_ms:.3f} ms (air bath {ctx.adj_ms:.3f} ms) vs "
+          f"f32 plain {adj_plain_ms:.1f} ms, relative L2 worst {worst_of(gaps)} (<= {MRT_ADJ_F32_RL2:g}), "
+          f"d mrt_eps_b {gaps['mrt_eps_b']:.2e}, max |d| {adj_abs:.3e}", flush=True)
+
+    # (c) the annual run with the operative history; (d) 30 days of fluxes and the memory they hold
+    inputs_year = testing.bench_inputs(tm32.building, 8760, device="cuda")
+    km.launches = km.mrt_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    _, zy, opy = r32.run(st0, inputs_year, interp_weather=True, collect_operative=True)
+    torch.cuda.synchronize()
+    year_s = time.time() - t0
+    year_launches = (km.launches, km.mrt_launches)
+    check(year_launches == (365, 365), f"MRT city year: {year_launches} launches, expected 365 MRT launches")
+    check(bool(torch.isfinite(opy).all()) and tuple(opy.shape) == (8760, 1000), "annual operative history")
+    del inputs_year, zy, opy
+    rf = tm32.fast_runner(collect_fluxes=True, **kw)
+    inputs30 = testing.bench_inputs(tm32.building, 720, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    t0 = time.time()
+    _, _, flux = rf.run(st0, inputs30, interp_weather=True, collect_fluxes=True)
+    torch.cuda.synchronize()
+    flux_s = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() - base_mem
+    held = sum(v.numel() * v.element_size() for v in flux.values())
+    check(all(bool(torch.isfinite(v).all()) and tuple(v.shape) == (720, 10000) for v in flux.values()),
+          "30-day flux history")
+    del flux, inputs30
+
+    # (e) value_and_grad over 2 days with d/d eps_back, f32 against f64, launch counts
+    gw = dict(config_kw=dict(interior_mrt=True), eps_scale=0.9)
+    run32, _, _ = grad_workload(torch, ThermalModel, SimConfig, testing, torch.float32, 2, 2, **gw)
+    km.launches = km.mrt_launches = ka.launches = ka.mrt_launches = 0
+    t0 = time.time()
+    v32 = run32()
+    torch.cuda.synchronize()
+    grad_s = time.time() - t0
+    grad_counts = (km.launches, km.mrt_launches, ka.launches, ka.mrt_launches)
+    check(grad_counts == (4, 4, 2, 2), f"MRT city 2-day value_and_grad launches: {grad_counts}")
+    run64, _, _ = grad_workload(torch, ThermalModel, SimConfig, testing, torch.float64, 2, 2, **gw)
+    v64 = run64()
+    for name, a, b in zip(("loss", "dL/du", "dL/dalpha", "dL/deps_back"), v32, v64):
+        check(np.isfinite(a) and np.isfinite(b) and b != 0, f"MRT city 2-day {name}: {a}, {b}")
+        check(abs(a - b) <= GRAD_F32_RTOL * abs(b), f"MRT city 2-day {name}: f32 {a} vs f64 {b}")
+    print(f"phase 19b on {smi}: annual run with the operative history (8760 h, f32) {year_s:.3f} s (host clock), "
+          f"{year_launches[1]} MRT launches; 30 days with the h/q history {flux_s:.3f} s, the history holds "
+          f"{held / 1e6:.1f} MB, peak device memory of the run {peak / 1e6:.1f} MB above its start; 2-day "
+          f"value_and_grad (u_scale 1.2, alpha_scale 0.8, eps_scale 0.9 on eps_back) {grad_s:.3f} s f32, launches "
+          f"(march, MRT, adjoint, MRT) {grad_counts}; loss / dL/du / dL/dalpha / dL/deps f32 "
+          + " / ".join(f"{x:.6g}" for x in v32) + " vs f64 " + " / ".join(f"{x:.6g}" for x in v64)
+          + f" (relative <= {GRAD_F32_RTOL:g})", flush=True)
+
+    # (f) parity: the gradient workload in parity mode over 2 days (launch
+    # counts), then both MRT parity kernels against their f32 plain versions
+    # over the daytime window (daytime_window) at the stability sub-step
+    # count, on that workload's first-day operands (seg_u x 1.2, as phase
+    # 14b); one day-launch of each timed
+    gwp = dict(mode="parity", config_kw=dict(interior_mrt=True, nomass_fixed_iters=PARITY_ITERS), eps_scale=0.9)
+    runp, fp, seqp = grad_workload(torch, ThermalModel, SimConfig, testing, torch.float32, 2, 2, **gwp)
+    km.launches = km.parity_mrt_launches = ka.launches = ka.parity_mrt_launches = 0
+    t0 = time.time()
+    vp = runp()
+    torch.cuda.synchronize()
+    pgrad_s = time.time() - t0
+    pgrad_counts = (km.launches, km.parity_mrt_launches, ka.launches, ka.parity_mrt_launches)
+    check(pgrad_counts == (4, 4, 2, 2), f"MRT city parity 2-day value_and_grad launches: {pgrad_counts}")
+    check(all(np.isfinite(vp)) and all(x != 0 for x in vp[1:]), f"MRT city parity value_and_grad: {vp}")
+    sub = fp._substeps
+    Tp, zTp = fp.to_blocked(fp._tm.initial_state())
+    hip = fp.kernel_inputs(tree_head(seqp, 48, 24))[0]
+    p_ms = event_ms(torch, lambda: fp.hour_march(fp.params, Tp, zTp, hip), 3)
+    H, W0 = PARITY_PLAIN_HOURS, PARITY_WINDOW_START
+    hm6 = day_march.hour_march_for(fp._bb, mode="parity", hours=H)
+    Tw, zTw, hi6 = daytime_window(day_march, fp._bb, fp.params, Tp, zTp, hip, sub)
+    gotp = hm6(fp.params, Tw, zTw, hi6)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    refp = hm6.plain(fp.params, Tw, zTw, hi6)
+    torch.cuda.synchronize()
+    p_plain_ms = (time.time() - t0) * 1e3
+    fwd_gaps = {name: float((a - b_).abs().max()) for name, a, b_ in (
+        ("T", gotp[0], refp[0]), ("zT", gotp[1], refp[1]), ("zt_hist", gotp[3], refp[3]),
+        *((nm, gotp[2][j], refp[2][j]) for j, nm in enumerate(("h_front", "h_back", "q_front", "q_back"))))}
+    for name, err in fwd_gaps.items():
+        tol = PARITY_HQ_TOL if name[:2] in ("h_", "q_") else PARITY_DAY_TOL
+        check(err <= tol, f"MRT city parity f32 kernel vs plain, {name}: max |d| {err} > {tol}")
+    del refp
+    NBp, ZBp = fp._bb.n_blocks, fp._bb.zones_per_block
+    valid = torch.as_tensor(np.asarray(fp.layout.zone_table).reshape(NBp, ZBp) >= 0, device="cuda")
+    adj24 = day_adjoint.make_day_adjoint(fp._bb, substeps=sub, mode="parity", hours=24, device="cuda")
+    got24 = fp.hour_march(fp.params, Tp, zTp, hip)
+    cot24 = (torch.zeros_like(Tp), torch.zeros_like(zTp),
+             (2.0 * (got24[3] - 21.0) * valid / (2 * 24 * 1000)).contiguous())
+    pa_ms = event_ms(torch, lambda: adj24(fp.params, Tp, zTp, hip, cot24), 1)
+    gp24 = flat_grads(adj24(fp.params, Tp, zTp, hip, cot24))
+    adj6 = day_adjoint.make_day_adjoint(fp._bb, substeps=sub, mode="parity", hours=H, device="cuda")
+    cot6 = (torch.zeros_like(Tp), torch.zeros_like(zTp), cot24[2][W0:W0 + H].contiguous())
+    gp = flat_grads(adj6(fp.params, Tw, zTw, hi6, cot6))
+    check(float(gp["front_alphas"].abs().max()) > 0 and float(gp["mrt_eps_b"].abs().max()) > 0,
+          "MRT city parity adjoint: no front_alphas or mrt_eps_b gradient over the daytime window")
+    t0 = time.time()
+    gpp = flat_grads(adj6.plain(fp.params, Tw, zTw, hi6, cot6))
+    torch.cuda.synchronize()
+    pa_plain_ms = (time.time() - t0) * 1e3
+    pgaps = rel_l2_gaps(torch, gp, gpp, "MRT city f32 parity adjoint kernel vs f32 plain", PARITY_ADJ_F32_RL2)
+    pa_abs = max(float((gp[n] - r).abs().max()) for n, r in gpp.items())
+    del gpp
+    print(f"phase 19c MRT city in parity mode ({sub} sub-steps/h, nomass_fixed_iters={PARITY_ITERS}): 2-day "
+          f"value_and_grad {pgrad_s:.3f} s, launches (march, parity MRT, adjoint, parity MRT) {pgrad_counts}, "
+          f"loss / dL/du / dL/dalpha / dL/deps " + " / ".join(f"{x:.6g}" for x in vp)
+          + f"; on its first day (seg_u x 1.2, front_alphas x 0.8, eps_back x 0.9): one day-launch {p_ms:.3f} ms (bench city {ctx.parity_ms:.3f} ms), adjoint "
+          f"{pa_ms:.3f} ms (CUDA events); over hours {W0}-{W0 + H} x {sub} sub-steps, both from the kernel's state "
+          f"at {W0} h, against the f32 plain versions: day march "
+          f"max |d| " + ", ".join(f"{k} {v:.2e}" for k, v in fwd_gaps.items())
+          + f" (<= {PARITY_DAY_TOL:g} K, h/q <= {PARITY_HQ_TOL:g}), plain {p_plain_ms:.1f} ms; adjoint relative "
+          f"L2 worst {worst_of(pgaps)} (<= {PARITY_ADJ_F32_RL2:g}), max |d| {pa_abs:.3e}, plain {pa_plain_ms:.1f} ms",
+          flush=True)
+
+    b_tr = mrt_bounds(r32.params, 24, 24 * 8 // 2, day_work(r32.params, 24, 8, 2)[0], adjoint_work(r32.params, 24, 8, 2),
+                  T, zT, hi, got, cots, g32)
+    b_pa = mrt_bounds(fp.params, 24, 24 * sub, parity_day_work(fp.params, 24, sub, PARITY_ITERS)[0],
+                  parity_adjoint_work(fp.params, 24, sub, PARITY_ITERS), Tp, zTp, hip, got24, cot24, gp24)
+    return SimpleNamespace(
+        ms=ms, ms_op=ms_op, plain_ms=plain_ms, err32=err32, err_z=err_z, err_op=err_op, adj_ms=adj_ms,
+        adj_plain_ms=adj_plain_ms, adj_abs=adj_abs, adj_rel=max(gaps.values()), year_s=year_s,
+        year_launches=year_launches[1], grad_counts=grad_counts, pgrad_counts=pgrad_counts, p_ms=p_ms,
+        p_plain_ms=p_plain_ms,
+        p_err=max(fwd_gaps.values()), pa_ms=pa_ms, pa_plain_ms=pa_plain_ms, pa_abs=pa_abs,
+        pa_rel=max(pgaps.values()), peak=peak, held=held,
+        bounds=dict(march=b_tr[0], adjoint=b_tr[1], parity=b_pa[0], parity_adjoint=b_pa[1]),
+    )
+
+
+def phase20_office_mrt(torch, ctx, p17):
+    """The office IDF workflow with interior MRT (see the module docstring)."""
+    import os
+    import tempfile
+
+    from heatx_torch.model.idf import load_idf
+    from heatx_torch.weather.epw import read_epw
+
+    testing, SimConfig, ThermalModel, smi = ctx.testing, ctx.SimConfig, ctx.ThermalModel, ctx.smi
+    day_march, day_adjoint = ctx.day_march, ctx.day_adjoint
+    km, ka = day_march.day_march_kernel, day_adjoint.day_adjoint_kernel
+    with tempfile.TemporaryDirectory() as d:
+        w = read_epw(testing.write_synthetic_epw(os.path.join(d, "santiago_synthetic.epw"), seed=0))
+    loaded = load_idf(os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", "data", "office.idf"))
+    tm32 = ThermalModel(loaded.model, n=1, config=SimConfig(dtype=torch.float32, interior_mrt=True), device="cuda")
+    kw = dict(mode="trbdf2", substeps=8, hours=24, scheduled_setpoints="heat_sp" in loaded.hourly_channels(24))
+    fr = tm32.fast_runner(collect_operative=True, **kw)
+    faces = mrt_network_faces(fr.params)
+    seq, ground = testing.office_inputs(loaded, tm32, w, 8760)
+    st = tm32.initial_state()
+    km.launches = km.cavity_launches = km.mrt_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    final, zt, loads, op = fr.run(st, seq, ground_hourly=ground, collect_loads=True, collect_operative=True)
+    heat = float(loads.clamp(min=0).sum()) / 1000.0
+    cool = float(-loads.clamp(max=0).sum()) / 1000.0
+    wall = time.time() - t0
+    launches = (km.launches, km.cavity_launches, km.mrt_launches)
+    check(launches == (365, 365, 365), f"office MRT year: {launches} (all, cavity, MRT) launches, expected 365")
+    for name, v in (("zone_T", zt), ("loads", loads), ("operative", op), ("node_T", final.node_T)):
+        check(bool(torch.isfinite(v).all()), f"office MRT year {name} has non-finite values")
+    check(heat > 0 and cool > 0, f"office MRT year: heating {heat}, cooling {cool} kWh")
+    seq48, g48 = testing.office_inputs(loaded, tm32, w, 48)
+    _, z32, l32, o32 = fr.run(st, seq48, ground_hourly=g48, collect_loads=True, collect_operative=True)
+    tm64 = ThermalModel(loaded.model, n=1, config=SimConfig(dtype=torch.float64, interior_mrt=True), device="cuda")
+    s64, g64 = testing.office_inputs(loaded, tm64, w, 48)
+    _, z64, l64, o64 = tm64.fast_runner(use_kernel=False, collect_operative=True, **kw).run(
+        tm64.initial_state(), s64, ground_hourly=g64, collect_loads=True, collect_operative=True)
+    err_z = float((z32.double() - z64).abs().max())
+    err_o = float((o32.double() - o64).abs().max())
+    l_scale = float(l64.abs().max())
+    err_l = float((l32.double() - l64).abs().max())
+    check(err_z <= F32_TOL and err_o <= F32_TOL, f"office MRT f32 vs f64: zone_T {err_z}, operative {err_o}")
+    check(err_l <= LOAD_F32_RTOL * l_scale, f"office MRT f32 vs f64 loads: {err_l} W of {l_scale} W")
+
+    # One day-launch of each cavity-and-MRT instantiation, timed, against its
+    # f32 plain version (the gradient bodies and parity at the coarse
+    # discretization's sub-steps), and the office's 2-day value_and_grad
+    # through the TR-BDF2 adjoint.
+    T, zT = fr.to_blocked(st)
+    hi = fr.kernel_inputs(seq48)[0]
+    hm0 = fr.hour_march.without_observables()
+    ms = event_ms(torch, lambda: hm0(fr.params, T, zT, hi), 10)
+    t0 = time.time()
+    ref = hm0.plain(fr.params, T, zT, hi)
+    torch.cuda.synchronize()
+    plain_ms = (time.time() - t0) * 1e3
+    got = hm0(fr.params, T, zT, hi)
+    err32 = max(float((got[i] - ref[i]).abs().max()) for i in (0, 1, 3))
+    check(err32 <= F32_TOL, f"office MRT day kernel vs f32 plain: {err32}")
+    NB, ZB = fr._bb.n_blocks, fr._bb.zones_per_block
+    adj = day_adjoint.make_day_adjoint(fr._bb, substeps=8, mode="trbdf2", hours=24, device="cuda",
+                                       scheduled_setpoints=kw["scheduled_setpoints"])
+    check(adj._hm.substeps == 8 and adj._hm.refresh_every == 8, "the office adjoint is not the run's body")
+    cots = (torch.zeros_like(T), torch.zeros_like(zT),
+            torch.as_tensor(np.random.default_rng(20).normal(size=(24, NB, ZB)) / 24, dtype=torch.float32,
+                            device="cuda"),
+            torch.as_tensor(np.random.default_rng(21).normal(size=(24, NB, ZB)) / 2.4e4, dtype=torch.float32,
+                            device="cuda"))
+    ka.launches = ka.mrt_launches = ka.cavity_launches = 0
+    g32 = flat_grads(adj(fr.params, T, zT, hi, cots))
+    adj_counts = (ka.launches, ka.cavity_launches, ka.mrt_launches)
+    check(adj_counts == (1, 1, 1), f"office MRT adjoint launch counts {adj_counts}")
+    adj_ms = event_ms(torch, lambda: adj(fr.params, T, zT, hi, cots), 5)
+    t0 = time.time()
+    g32p = flat_grads(adj.plain(fr.params, T, zT, hi, cots))
+    torch.cuda.synchronize()
+    adj_plain_ms = (time.time() - t0) * 1e3
+    gaps = rel_l2_gaps(torch, g32, g32p, "office MRT f32 adjoint kernel vs f32 plain", MRT_ADJ_F32_RL2)
+    adj_abs = max(float((g32[n] - r).abs().max()) for n, r in g32p.items())
+    tmc = ThermalModel(loaded.model, n=1, device="cuda",
+                       config=testing.coarse_config(torch.float32, PARITY_ITERS, interior_mrt=True))
+    fpc = tmc.fast_runner(mode="parity", hours=24, scheduled_setpoints=kw["scheduled_setpoints"])
+    subc = fpc._substeps
+    seqc, _ = testing.office_inputs(loaded, tmc, w, 24)
+    Tc, zTc = fpc.to_blocked(tmc.initial_state())
+    hic = fpc.kernel_inputs(seqc)[0]
+    km.launches = km.parity_mrt_launches = km.cavity_launches = 0
+    gotc = fpc.hour_march(fpc.params, Tc, zTc, hic)
+    pc_counts = (km.launches, km.cavity_launches, km.parity_mrt_launches)
+    check(pc_counts == (1, 1, 1), f"office MRT parity launch counts {pc_counts}")
+    pc_ms = event_ms(torch, lambda: fpc.hour_march(fpc.params, Tc, zTc, hic), 5)
+    t0 = time.time()
+    refc = fpc.hour_march.plain(fpc.params, Tc, zTc, hic)
+    torch.cuda.synchronize()
+    pc_plain_ms = (time.time() - t0) * 1e3
+    pc_err = max(float((gotc[i] - refc[i]).abs().max()) for i in (0, 1, 3))
+    check(pc_err <= F32_TOL, f"office MRT parity day kernel vs f32 plain: {pc_err}")
+    adjc = day_adjoint.make_day_adjoint(fpc._bb, substeps=subc, mode="parity", hours=24, device="cuda",
+                                        scheduled_setpoints=kw["scheduled_setpoints"])
+    cotsc = (torch.zeros_like(Tc), torch.zeros_like(zTc)) + tuple(
+        c.reshape((24,) + tuple(zTc.shape)) for c in cots[2:])
+    ka.launches = ka.parity_mrt_launches = ka.cavity_launches = 0
+    gc = flat_grads(adjc(fpc.params, Tc, zTc, hic, cotsc))
+    pca_counts = (ka.launches, ka.cavity_launches, ka.parity_mrt_launches)
+    check(pca_counts == (1, 1, 1), f"office MRT parity adjoint launch counts {pca_counts}")
+    pca_ms = event_ms(torch, lambda: adjc(fpc.params, Tc, zTc, hic, cotsc), 3)
+    t0 = time.time()
+    gcp = flat_grads(adjc.plain(fpc.params, Tc, zTc, hic, cotsc))
+    torch.cuda.synchronize()
+    pca_plain_ms = (time.time() - t0) * 1e3
+    pgaps = rel_l2_gaps(torch, gc, gcp, "office MRT f32 parity adjoint kernel vs f32 plain", MRT_ADJ_F32_RL2)
+    pca_abs = max(float((gc[n] - r).abs().max()) for n, r in gcp.items())
+    print(f"phase 20 office IDF workflow with interior MRT on {smi}: {tm32.building.n_zones} zones, "
+          f"{tm32.building.n_surfaces} surfaces ({faces} network faces, "
+          f"{cavity_segments(fr.params)} gas cavities); annual run (trbdf2, 8 sub-steps, scheduled setpoints, monthly "
+          f"ground temperatures, collect_loads, collect_operative, f32) {wall:.3f} s (host clock), launches (all, "
+          f"cavity, MRT) {launches}; heating {heat:.1f} kWh, cooling {cool:.1f} kWh (air bath, phase 17: "
+          f"{p17.heat:.1f} / {p17.cool:.1f}); operative T range [{float(op.min()):.2f}, {float(op.max()):.2f}] C, "
+          f"air [{float(zt.min()):.2f}, {float(zt.max()):.2f}] C; 48 h f32 kernel vs f64 plain: max |d zone_T| "
+          f"{err_z:.3e} K, operative {err_o:.3e} K (<= {F32_TOL:g}), loads {err_l:.3e} W of {l_scale:.1f} W; "
+          f"one day-launch {ms:.3f} ms vs f32 plain {plain_ms:.1f} ms (max |d| {err32:.3e} K), adjoint "
+          f"{adj_ms:.3f} ms vs {adj_plain_ms:.1f} ms (relative L2 worst {worst_of(gaps)}, d mrt_eps_b "
+          f"{gaps['mrt_eps_b']:.2e}); parity at {subc} sub-steps/h (coarse discretization): day-launch "
+          f"{pc_ms:.3f} ms vs {pc_plain_ms:.1f} ms (max |d| {pc_err:.3e} K), adjoint {pca_ms:.3f} ms vs "
+          f"{pca_plain_ms:.1f} ms (relative L2 worst {worst_of(pgaps)})", flush=True)
+    b_tr = mrt_bounds(fr.params, 24, 24, day_work(fr.params, 24, 8, 8)[0], adjoint_work(fr.params, 24, 8, 8),
+                      T, zT, hi, got, cots, g32)
+    b_pa = mrt_bounds(fpc.params, 24, 24 * subc, parity_day_work(fpc.params, 24, subc, PARITY_ITERS)[0],
+                      parity_adjoint_work(fpc.params, 24, subc, PARITY_ITERS), Tc, zTc, hic, gotc, cotsc, gc,
+                      cav_builds=24 * subc * (PARITY_ITERS + 1))
+    return SimpleNamespace(
+        launches=launches, wall=wall, heat=heat, cool=cool, err_z=err_z, err_o=err_o, ms=ms, plain_ms=plain_ms,
+        err32=err32, adj_ms=adj_ms, adj_plain_ms=adj_plain_ms, adj_abs=adj_abs, adj_counts=adj_counts,
+        pc_ms=pc_ms, pc_plain_ms=pc_plain_ms, pc_err=pc_err, pc_counts=pc_counts, pca_ms=pca_ms,
+        pca_plain_ms=pca_plain_ms, pca_abs=pca_abs, pca_counts=pca_counts, subc=subc,
+        bounds=dict(march=b_tr[0], adjoint=b_tr[1], parity=b_pa[0], parity_adjoint=b_pa[1]),
+    )
+
+
+
+def mrt_kernel_entries(p19, p20):
+    """The kernels line's entries of the eight MRT instantiations (the four
+    bodies, without and with gas cavities)."""
+    def entry(name, source, replaces, launches, by_path, ms, plain_ms, err, b, **extra):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
+                "launches_by_path": by_path, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": b[2], "bound_by": b[3], "library_ms": None, **extra}
+
+    fwd = "heatx_torch/csrc/day_march.cu (network: heatx_torch/csrc/day_common.cuh mrt_network)"
+    adj = "heatx_torch/csrc/day_adjoint.cu (network: heatx_torch/csrc/day_common.cuh mrt_network_adj)"
+    k1_tr = "heatx/ops/pallas_step.py:1976 (body _hour_body_imp, pallas_step.py:777; _mrt_context :555, :840-858)"
+    k1_pa = "heatx/ops/pallas_step.py:1976 (body _hour_body, pallas_step.py:633; _mrt_context :555, :678-684)"
+    k2_tr = "heatx/ops/pallas_adjoint.py:717 (body _hour_body_imp; MRT_NAMES :204-208, :551-555)"
+    k2_pa = "heatx/ops/pallas_adjoint.py:717 (body _hour_body(unroll=True), :573; MRT_NAMES :204-208)"
+    b19, b20 = p19.bounds, p20.bounds
+    H = PARITY_WINDOW
+    return [
+        entry("day_march_mrt", fwd, k1_tr, p19.year_launches,
+              {"MRT city annual run with the operative history (phase 19b)": p19.year_launches,
+               "MRT city value_and_grad, 2 days (phase 19b)": p19.grad_counts[1]},
+              p19.ms, p19.plain_ms, p19.err32, b19["march"], ms_with_operative=p19.ms_op),
+        entry("day_adjoint_mrt", adj, k2_tr, p19.grad_counts[3],
+              {"MRT city value_and_grad, 2 days (phase 19b)": p19.grad_counts[3]},
+              p19.adj_ms, p19.adj_plain_ms, p19.adj_abs, b19["adjoint"], rel_l2_err=p19.adj_rel),
+        entry("day_march_parity_mrt", fwd + " and day_parity.cuh", k1_pa, p19.pgrad_counts[1],
+              {"MRT city parity value_and_grad, 2 days (phase 19c)": p19.pgrad_counts[1]},
+              p19.p_ms, p19.p_plain_ms, p19.p_err, b19["parity"], plain_hours=H),
+        entry("day_adjoint_parity_mrt", adj + " (parity_substep_adj)", k2_pa, p19.pgrad_counts[3],
+              {"MRT city parity value_and_grad, 2 days (phase 19c)": p19.pgrad_counts[3]},
+              p19.pa_ms, p19.pa_plain_ms, p19.pa_abs, b19["parity_adjoint"], rel_l2_err=p19.pa_rel,
+              plain_hours=H),
+        entry("day_march_cavity_mrt", fwd + " and cavity_u", k1_tr, p20.launches[2],
+              {"office IDF workflow with MRT, 8760 h (phase 20)": p20.launches[2]},
+              p20.ms, p20.plain_ms, p20.err32, b20["march"]),
+        entry("day_adjoint_cavity_mrt", adj + " and cavity_band_adj_tr", k2_tr, p20.adj_counts[2],
+              {"office with MRT, one day's adjoint (phase 20)": p20.adj_counts[2]},
+              p20.adj_ms, p20.adj_plain_ms, p20.adj_abs, b20["adjoint"]),
+        entry("day_march_parity_cavity_mrt", fwd + ", day_parity.cuh and cavity_u", k1_pa, p20.pc_counts[2],
+              {f"office with MRT in parity mode at {p20.subc} sub-steps/h, one day (phase 20)": p20.pc_counts[2]},
+              p20.pc_ms, p20.pc_plain_ms, p20.pc_err, b20["parity"]),
+        entry("day_adjoint_parity_cavity_mrt", adj + " and cavity_band_adj", k2_pa, p20.pca_counts[2],
+              {f"office with MRT in parity mode at {p20.subc} sub-steps/h, one day's adjoint (phase 20)":
+               p20.pca_counts[2]},
+              p20.pca_ms, p20.pca_plain_ms, p20.pca_abs, b20["parity_adjoint"]),
+    ]
+
+
 def tree_head(seq, T, hours):
     """The first ``hours`` of an input sequence whose time series have ``T``
     leading rows (the rest is passed on as it is)."""
@@ -1574,13 +2307,13 @@ def main() -> int:
     # 2. build: one nvcc per kernel source, all started together
     t0 = time.time()
     cuda_lib.build_many([
-        ("heatx_day_march", [day_march.KERNEL_SOURCE]),
-        ("heatx_day_adjoint", [day_adjoint.KERNEL_SOURCE]),
+        ("heatx_day_march", day_march.KERNEL_SOURCES),
+        ("heatx_day_adjoint", day_adjoint.KERNEL_SOURCES),
     ])
     day_march.load_kernel()
     day_adjoint.load_kernel()
     build_s = time.time() - t0
-    ptxas = ptxas_table(cuda_lib.build_log("heatx_day_march", [day_march.KERNEL_SOURCE]))
+    ptxas = ptxas_table(cuda_lib.build_log("heatx_day_march", day_march.KERNEL_SOURCES))
     print(f"phase 2 build: {build_s:.1f} s for both kernels (nvcc sm_90a, in parallel); "
           f"day_march ptxas: {ptxas}", flush=True)
 
@@ -1659,7 +2392,7 @@ def main() -> int:
           flush=True)
 
     # 6. the adjoint kernel's build (it ran in parallel with phase 2's)
-    ptxas_adj = ptxas_table(cuda_lib.build_log("heatx_day_adjoint", [day_adjoint.KERNEL_SOURCE]))
+    ptxas_adj = ptxas_table(cuda_lib.build_log("heatx_day_adjoint", day_adjoint.KERNEL_SOURCES))
     print(f"phase 6 build day_adjoint.cu (with phase 2's, {build_s:.1f} s for both); "
           f"ptxas: {ptxas_adj}", flush=True)
 
@@ -1914,6 +2647,7 @@ def main() -> int:
         ThermalModel=ThermalModel, smi=smi, model=model, z32_trbdf2=z32, kernel_ms=kernel_ms, adj_ms=adj_ms,
     )
     p13 = phase13_parity_run(torch, ctx)
+    ctx.parity_ms = p13.kernel_ms
     p14 = phase14_parity_grad(torch, ctx, p13)
 
     # 15-17. gas cavities: the four bodies small in f64, the glazed city at
@@ -1928,6 +2662,21 @@ def main() -> int:
           f"zones up to {live15:.3e} K against the static one", flush=True)
     p16 = phase16_glazed_city(torch, ctx)
     p17 = phase17_office(torch, ctx)
+
+    # 18-20. interior MRT: every MRT body small in f64, the MRT city at full
+    # width, the office with MRT (see the module docstring)
+    w18, n18, live18 = phase18_mrt_f64(torch, ctx)
+    print(f"phase 18 f64 MRT bodies, {n18} cases (testing.build_two_zone_model, the 4-zone city: trbdf2, "
+          f"trbdf2_refresh k=1 and k=2 at 8 sub-steps over 3 h, parity with 1 and 2 no-mass iterations at the "
+          f"coarse discretization over 2 h; the office with its gas cavities: k=2 and parity with 2; the "
+          f"histories without MRT physics on two more): forward "
+          f"kernel vs plain twin max |d| {w18['T']:.3e} K on T, zT, zone history, h/q, the h/q and operative "
+          f"histories (<= {F64_TOL:g}); adjoint kernel vs plain adjoint {w18['adj']:.3e} of max |ref| "
+          f"(<= {ADJ_F64_RTOL:g}), mrt_eps_* included; central differences of the forward kernel along T0, "
+          f"mrt_eps_b, and eps_back and area through the network's statics: worst relative error {w18['fd']:.3e} "
+          f"(<= {FD_RTOL:g}); the network moves the zones up to {live18:.3e} K against the air bath", flush=True)
+    p19 = phase19_mrt_city(torch, ctx)
+    p20 = phase20_office_mrt(torch, ctx, p17)
 
     # The kernels line: bounds from this run's shapes (f32 bench day; the
     # thermostat instantiation on the demand city's day, same mode).
@@ -1954,9 +2703,12 @@ def main() -> int:
     bytes_pa = nbytes(*param_tensors(p14.params), p14.T, p14.zT, *p14.hi, *p14.cots) + nbytes(*p14.g32.values())
     pa_bound, pa_by = bound(bytes_pa, ops_pa)
     cav_b = p16.bounds
-    print("bounds with gas cavities (f32 glazed city, the day-launches of phase 16): " + "; ".join(
-        f"{name} {b[1] / 1e6:.2f} MB, {b[0] / 1e9:.3f} GFLOP -> {b[2] * 1e3:.2f} us ({b[3]})"
-        for name, b in cav_b.items()), flush=True)
+    for what, bs in (("with gas cavities (f32 glazed city, the day-launches of phase 16)", cav_b),
+                     ("with interior MRT (f32 MRT city, the day-launches of phase 19)", p19.bounds),
+                     ("with gas cavities and MRT (f32 office, the day-launches of phase 20)", p20.bounds)):
+        print(f"bounds {what}: " + "; ".join(
+            f"{name} {b[1] / 1e6:.2f} MB, {b[0] / 1e9:.3f} GFLOP -> {b[2] * 1e3:.2f} us ({b[3]})"
+            for name, b in bs.items()), flush=True)
     print(f"bounds (f32 bench day, published H100 SXM rates): day_march {bytes_fwd / 1e6:.2f} MB, "
           f"{ops_fwd / 1e9:.3f} GFLOP -> {fwd_bound * 1e3:.2f} us ({fwd_by}); day_adjoint "
           f"{bytes_adj / 1e6:.2f} MB, {ops_adj / 1e9:.3f} GFLOP -> {adj_bound * 1e3:.2f} us ({adj_by}); "
@@ -2081,6 +2833,7 @@ def main() -> int:
         },
         {
             "name": "day_march_parity_cavity",
+            "plain_hours": PARITY_WINDOW,
             "route": "cuda",
             "source": "heatx_torch/csrc/day_march.cu (body: heatx_torch/csrc/day_parity.cuh cavity_k_rows)",
             "replaces": "heatx/ops/pallas_step.py:1976 (body _hour_body, pallas_step.py:633, with gas cavities)",
@@ -2097,6 +2850,7 @@ def main() -> int:
         },
         {
             "name": "day_adjoint_parity_cavity",
+            "plain_hours": PARITY_WINDOW,
             "route": "cuda",
             "source": "heatx_torch/csrc/day_adjoint.cu (cavity_band_adj in parity_substep_adj)",
             "replaces": "heatx/ops/pallas_adjoint.py:717 (body _hour_body(unroll=True), pallas_adjoint.py:573, "
@@ -2114,6 +2868,7 @@ def main() -> int:
             "bound_by": cav_b["parity_adjoint"][3],
             "library_ms": None,
         },
+        *mrt_kernel_entries(p19, p20),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -2,11 +2,14 @@
 
 PyTorch counterpart of ``heatx.api`` for the slice the port carries: a
 compiled building on a device (the card unless the caller asks for the
-CPU), its initial state and inputs; ``FastRunner.run``, which marches a
-whole hourly input sequence through the TR-BDF2 day march (the CUDA kernel
-on a GPU, its plain twin on the CPU), with the per-hour ideal loads of a
-building with thermostats, with setpoint schedules and with the ground faces'
-soil temperature swapped in month by month (``ground_hourly``); and
+CPU), its initial state and inputs, and its zone MRT (``zone_mrt``);
+``FastRunner.run``, which marches a whole hourly input sequence through the
+day march (the CUDA kernel on a GPU, its plain twin on the CPU), with the
+per-hour ideal loads of a building with thermostats, with setpoint
+schedules, with the ground faces' soil temperature swapped in month by
+month (``ground_hourly``), with interior MRT (``config.interior_mrt``), and
+with the per-hour h/q and operative-temperature histories
+(``collect_fluxes``, ``collect_operative``); and
 ``FastRunner.chunk_forward``/``chunk_grad``, the forward and backward sweeps
 of ``heatx_torch.engine.adjoint.chunked_value_and_grad`` (the day march and
 the adjoint day march), for zone-temperature and demand objectives.
@@ -24,6 +27,7 @@ import torch
 from heatx_torch.build.layout import B_GROUND, CompiledBuilding, compile_building
 from heatx_torch.config import DEFAULT_CONFIG, SimConfig
 from heatx_torch.constants import KELVIN
+from heatx_torch.engine import surface as surf_mod
 from heatx_torch.engine.adjoint import tree_flatten
 from heatx_torch.engine.state import SimState, StepInputs, default_inputs, initial_state
 from heatx_torch.model.building import BuildingModel
@@ -167,6 +171,23 @@ class ThermalModel:
     def initial_state(self, dtype=None) -> SimState:
         return initial_state(self.building, dtype=dtype, device=self.device)
 
+    def zone_mrt(self, state: SimState) -> torch.Tensor:
+        """Per-zone mean radiant temperature [Z] of a state (heatx
+        ``ThermalModel.zone_mrt``): the Carroll exchange node over the
+        zone's surface temperatures, a comfort observable whether or not
+        ``config.interior_mrt`` drives the physics (zone air where a zone has
+        no network).  Operative temperature is ``(zone_T + zone_mrt) / 2``."""
+        b = self.building
+        kw = dict(dtype=state.node_T.dtype, device=state.node_T.device)
+        sb = b.surfaces
+        view = SimpleNamespace(
+            node_mask=torch.as_tensor(sb.node_mask, device=kw["device"]),
+            **{k: torch.as_tensor(getattr(sb, k), **kw) for k in ("area", "eps_front", "eps_back")},
+            **{k: torch.as_tensor(getattr(sb, k), device=kw["device"])
+               for k in ("front_code", "back_code", "front_space", "back_space")},
+        )
+        return surf_mod.zone_mrt(view, state.node_T, state.zone_T, b.n_zones)
+
     def inputs(self, dtype=None, **overrides) -> StepInputs:
         return default_inputs(self.building, dtype=dtype, device=self.device, **overrides)
 
@@ -198,9 +219,10 @@ class ThermalModel:
         plain PyTorch twin even on a GPU: the reference the kernel is
         checked against.  ``scheduled_setpoints`` (buildings with
         thermostats) lets ``StepInputs.heat_sp``/``cool_sp`` override the
-        compiled setpoints hour by hour.
-        ``collect_fluxes``, ``collect_operative`` and ``mesh`` are not
-        ported yet and raise ``NotImplementedError``."""
+        compiled setpoints hour by hour.  ``collect_fluxes`` and
+        ``collect_operative`` let ``run`` return the per-hour h/q and
+        operative-temperature histories.  ``mesh`` is not ported yet and
+        raises ``NotImplementedError``."""
         return FastRunner(
             self, block_size=block_size, mode=mode, substeps=substeps,
             hours=hours, collect_fluxes=collect_fluxes,
@@ -229,27 +251,31 @@ class FastRunner:
         refresh_every: int = None,
         use_kernel: bool = True,
     ):
-        _unsupported(
-            collect_fluxes=(collect_fluxes, "ROADMAP A9/B5"),
-            mesh=(mesh is not None, "ROADMAP A12"),
-            collect_operative=(collect_operative, "ROADMAP A9/B5"),
-        )
+        _unsupported(mesh=(mesh is not None, "ROADMAP A12"))
         self._tm = tm
         self.device = tm.device
         building = tm.building
-        self._bb = day_march.block_building(building, block_size=block_size)
+        # The operative history needs the Carroll statics even without MRT physics.
+        self._bb = day_march.block_building(
+            building, block_size=block_size, mrt_statics=True if collect_operative else None
+        )
         self._hours = hours
         self.hour_march, self.params = day_march.make_hour_march(
             self._bb, substeps=substeps, mode=mode, hours=hours,
             refresh_every=refresh_every, collect_bad=True, device=self.device,
-            scheduled_setpoints=scheduled_setpoints,
+            scheduled_setpoints=scheduled_setpoints, collect_hq=collect_fluxes,
+            collect_operative=collect_operative,
         )
+        self._collect_hq = collect_fluxes
+        self._collect_op = collect_operative
         self._scheduled_sp = scheduled_setpoints
         self._has_loads = self.hour_march.collect_loads
         self._mode = mode
         self._substeps = self.hour_march.substeps
         self._use_kernel = use_kernel
         self._march = self.hour_march if use_kernel else self.hour_march.plain
+        grad_march = self.hour_march.without_observables()
+        self._grad_march = grad_march if use_kernel else grad_march.plain
         self._dtype = building.config.dtype
         # Differentiable gathers into the blocked layout (state, inputs and
         # the parameter rows alike).
@@ -518,13 +544,27 @@ class FastRunner:
         changes and :meth:`set_ground_temperature` swaps it in before each
         (the runner keeps the last value).
 
-        Returns ``(final SimState, zone_T [T, Z] or None)``, then the loads
-        with ``collect_loads``.
+        ``collect_fluxes`` (a runner built with ``collect_fluxes=True``)
+        returns the per-hour h/q history, each hour's last sub-step's, as a
+        dict of ``[T, S]`` tensors (``h_front``, ``h_back``, ``q_front``,
+        ``q_back``); ``collect_operative`` (a runner built with
+        ``collect_operative=True``) the per-hour operative temperature ``[T,
+        Z]``, ``(T_air + T_mrt)/2`` of each hour's final state.
+
+        Returns ``(final SimState, zone_T [T, Z] or None)``, then the fluxes
+        with ``collect_fluxes``, the loads with ``collect_loads`` and the
+        operative temperatures with ``collect_operative``, in that order
+        (heatx's).
         """
-        _unsupported(
-            collect_fluxes=(collect_fluxes, "ROADMAP A9/B5"),
-            collect_operative=(collect_operative, "ROADMAP A9/B5"),
-        )
+        if collect_fluxes and not self._collect_hq:
+            raise ValueError(
+                "construct the runner with collect_fluxes=True to collect the h/q history"
+            )
+        if collect_operative and not self._collect_op:
+            raise ValueError(
+                "construct the runner with collect_operative=True to collect the "
+                "operative-temperature history"
+            )
         if collect_loads and not self._has_loads:
             raise ValueError(
                 "collect_loads requires setpoint-driven HVAC "
@@ -569,7 +609,7 @@ class FastRunner:
                 f"{hour // 24}, block {bi}): {int(bad_np[ci, hi, bi])} bad values"
             )
 
-        hists, bads, loads = [], [], []
+        hists, bads, loads, hqhs, tops = [], [], [], [], []
         pending = None
         hq = last_ld = None
         for si, d0 in enumerate(starts):
@@ -578,7 +618,16 @@ class FastRunner:
                 self.set_ground_temperature(float(gday[d0]))
             hist_c, bad_c = [], []
             for hi in self._day_inputs(prep, d0, n_days):
-                Tb, zTb, hq, zt_hist, bad, *ld = self._march(self.params, Tb, zTb, hi)
+                Tb, zTb, hq, zt_hist, *rest = self._march(self.params, Tb, zTb, hi)
+                if self._collect_hq:
+                    hqh, *rest = rest
+                    if collect_fluxes:
+                        hqhs.append(torch.stack(hqh, dim=1))
+                if self._collect_op:
+                    *rest, top = rest
+                    if collect_operative:
+                        tops.append(top)
+                bad, *ld = rest
                 hist_c.append(zt_hist)
                 bad_c.append(bad)
                 if ld:
@@ -608,9 +657,15 @@ class FastRunner:
         if collect_zone_T:
             hist = torch.cat(hists, dim=0).reshape(T_steps, -1)
             zone_T = hist[:, self._zinv]
+        ret = (final, zone_T)
+        if collect_fluxes:
+            hqh = torch.cat(hqhs, dim=0)  # [T, 4, SP]
+            ret += (dict(zip(("h_front", "h_back", "q_front", "q_back"), hqh[:, :, self._inv].unbind(1))),)
         if collect_loads:
-            return final, zone_T, torch.cat(loads, dim=0).reshape(T_steps, -1)[:, self._zinv]
-        return final, zone_T
+            ret += (torch.cat(loads, dim=0).reshape(T_steps, -1)[:, self._zinv],)
+        if collect_operative:
+            ret += (torch.cat(tops, dim=0).reshape(T_steps, -1)[:, self._zinv],)
+        return ret
 
     # -- gradients ----------------------------------------------------------
 
@@ -660,10 +715,10 @@ class FastRunner:
                 self._sync_params(apply_params, params)
                 if schedule_fn is not None:
                     xs = xs.replace(**schedule_fn(params, xs))
-                if collect_loads:
-                    final, zt, ld = self.run(state, xs, collect_loads=True, **run_kw)
-                    return final, loss_fn(zt, ld, xs)
-                final, zt = self.run(state, xs, **run_kw)
+                out = self.run(state, xs, collect_loads=collect_loads, **run_kw)
+                final, zt = out[:2]
+                if collect_loads:  # after the fluxes dict, where there is one
+                    return final, loss_fn(zt, out[2 + bool(run_kw.get("collect_fluxes"))], xs)
                 return final, loss_fn(zt, xs)
 
         return forward_fn
@@ -795,8 +850,8 @@ class FastRunner:
                 hist, loads = [], []
                 for hi in self._day_inputs(prep, 0, prep.D):
                     outs = day_adjoint.DayMarchFn.apply(
-                        self._march, adjoint, p, p.node, p.surf, p.zone_volume,
-                        T, zT, *hi, ctl=p.ctl,
+                        self._grad_march, adjoint, p, p.node, p.surf, p.zone_volume,
+                        T, zT, *hi, ctl=p.ctl, mrt=p.mrt,
                     )
                     T, zT = outs[:2]
                     hist.append(outs[2])

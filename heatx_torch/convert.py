@@ -24,7 +24,7 @@ import torch
 from heatx_torch.build.layout import CompiledBuilding, SurfaceBatch
 from heatx_torch.config import SimConfig
 from heatx_torch.ops.day_march import (
-    CAV_FIELDS, SURF_FIELDS, DayMarchParams, mix_lists_from_dense, pack_params,
+    CAV_FIELDS, MRT_FIELDS, SURF_FIELDS, DayMarchParams, mix_lists_from_dense, pack_params,
 )
 from heatx_torch.physics.gas import GasProps
 
@@ -74,7 +74,10 @@ def params_from_kernel_operands(
     ``ctl_max_heat``, ``ctl_max_cool`` (zone rows like ``zone_volume``) and
     the dense mixing matrix ``mix_wt`` ([NB*ZB, ZB], ``[block*ZB + from,
     to]``), which becomes the port's entry lists, and the gas-cavity operands
-    ``seg_is_cavity`` and CAV_NAMES ([N, SP])."""
+    ``seg_is_cavity`` and CAV_NAMES ([N, SP]), and the Carroll network's
+    effective emissivities ``mrt_eps_f``/``mrt_eps_b`` ([1, SP]; heatx
+    leaves out a side on which no face takes part, which the port carries as
+    a zero row)."""
     node_mask = np.asarray(ops["node_mask"], bool)
     SP = node_mask.shape[1]
     ZB = np.asarray(ops["zone_volume"]).shape[-1]
@@ -96,6 +99,9 @@ def params_from_kernel_operands(
     cav = None
     if seg_is_cavity is not None and np.asarray(seg_is_cavity).any():
         cav = {k: np.asarray(ops[n]) for k, n in zip(CAV_FIELDS, CAV_NAMES)}
+    mrt = None
+    if "mrt_eps_f" in ops or "mrt_eps_b" in ops:
+        mrt = np.stack([np.asarray(ops.get(n, np.zeros(SP))).reshape(SP) for n in MRT_FIELDS])
     return pack_params(
         node_mask, massive, capacity, ops["seg_u"], ops["front_alphas"], ops["back_alphas"],
         {k: np.asarray(ops[k]).reshape(SP) for k in SURF_FIELDS},
@@ -103,5 +109,5 @@ def params_from_kernel_operands(
         np.asarray(ops["back_code"]).reshape(SP),
         ops.get("front_oh", zero_oh), ops.get("back_oh", zero_oh), zv, n_blocks,
         dtype=dtype, device=device, ctl=ctl, mix=mix, same_chunk=ops.get("same_chunk"),
-        seg_is_cavity=seg_is_cavity, cav=cav,
+        seg_is_cavity=seg_is_cavity, cav=cav, mrt=mrt,
     )

@@ -74,8 +74,17 @@
 //  * Parameter cotangents accumulate per thread in the working type over the
 //    whole day and are written once.
 
+#include <type_traits>
+
 #include "day_common.cuh"
 #include "day_parity.cuh"
+
+// The kMrt instantiations live in their own compilation unit
+// (day_adjoint_mrt.cu, which includes this file), as the day march's do
+// (day_march.cu): launched through the kMrt unit's function, which takes its
+// MrtAdjArgs by address.
+extern "C" int heatx_day_adjoint_mrt_f32(const void* g, void* stream);
+extern "C" int heatx_day_adjoint_mrt_f64(const void* g, void* stream);
 
 namespace {
 
@@ -107,6 +116,16 @@ struct AdjArgs {
   T* d_sp_cool;
   T* sub_ws;           // parity: [substeps, N, SP] workspace, an hour's sub-step starts
 };
+
+// The kMrt instantiations' arguments: the network's operands and their
+// cotangents beside the others' (whose layout stays as it was).
+template <typename T>
+struct MrtAdjArgs : AdjArgs<T> {
+  MrtArgs<T> net;
+  T* d_mrt;  // [2, SP] cotangents of the faces' effective emissivities
+};
+template <typename T, bool kMrt>
+using AdjArgsOf = std::conditional_t<kMrt, MrtAdjArgs<T>, AdjArgs<T>>;
 
 // Cotangents of one refresh group's operators.
 template <typename T>
@@ -274,8 +293,8 @@ __device__ __noinline__ void cavity_band_adj_tr(const T* cav, int N, int SP, uns
   }
 }
 
-template <typename T, bool kExt, bool kCav>
-__global__ void __launch_bounds__(kMaxLanes) day_adjoint_kernel(const AdjArgs<T> g) {
+template <typename T, bool kExt, bool kCav, bool kMrt>
+__global__ void __launch_bounds__(kMaxLanes) day_adjoint_kernel(const AdjArgsOf<T, kMrt> g) {
   const DayArgs<T>& a = g.in;
   const int N = a.N, SB = a.SB, ZB = a.ZB, NB = a.NB;
   const int sub = a.substeps, k = a.refresh_every;
@@ -301,8 +320,15 @@ __global__ void __launch_bounds__(kMaxLanes) day_adjoint_kernel(const AdjArgs<T>
   T* s_lld = s_lt + 2 * SB;                  // kExt: [ZB] cotangent of each sub-step's load (hour)
   T* s_dsh = s_lld + ZB;                     // kExt: [ZB] heating-setpoint cotangent (hour or day)
   T* s_dsc = s_dsh + ZB;                     // kExt: [ZB] cooling-setpoint cotangent
+  T* s_tm = s_dsc + ZB;                      // kMrt: [ZB] the zones' MRT nodes
+  T* s_lnum = s_tm + ZB;                     // kMrt: [ZB] cotangents of a zone's network sums
+  T* s_lden = s_lnum + ZB;
+  T* s_lm = s_lden + ZB;                     // kMrt: [ZB] cotangent of a zone's MRT node
+  T* s_lzf = s_lm + ZB;                      // kMrt: [ZB] the network's fallback cotangent
 
   const Lane<T> L(a, lane, kCav);
+  MrtLane<T> M;  // kMrt: launched with MRT physics only
+  if constexpr (kMrt) M = MrtLane<T>(a, g.net, lane);
   const Scheme<T> sc(a);
   T Tt[kTape], T1t[kTape];  // the hour's tape: T at sub-step starts (+ end), T1
   T cs[kMaxNodes], inv[kMaxNodes];
@@ -316,8 +342,16 @@ __global__ void __launch_bounds__(kMaxLanes) day_adjoint_kernel(const AdjArgs<T>
       const int w = h * sub + i0;
       T t_front, t_back;
       L.boundary(s_zT, a.t_out[w], t_front, t_back);
-      const Ops<T> o = build_ops(L, Tt + i0 * N, t_front, t_back, a.wind[w], a.wdir[w], hi,
-                                 a.amb_bug, sc.a_dt, cs, inv);
+      Ops<T> o;
+      if constexpr (kMrt) {
+        const MrtFace<T> mf =
+            mrt_context(a, g.net, L, M, b, tid, Tt + i0 * N, t_front, t_back, s_zT, s_ha, s_haT, s_tm);
+        o = build_ops<T, true>(L, Tt + i0 * N, t_front, t_back, a.wind[w], a.wdir[w], hi, a.amb_bug,
+                               sc.a_dt, cs, inv, &mf);
+      } else {
+        o = build_ops(L, Tt + i0 * N, t_front, t_back, a.wind[w], a.wdir[w], hi, a.amb_bug, sc.a_dt,
+                      cs, inv);
+      }
       for (int i = i0; i < i0 + k; ++i) {
         T* Tn = Tt + (i + 1) * N;
         for (int n = 0; n < N; ++n) Tn[n] = Tt[i * N + n];
@@ -379,7 +413,9 @@ __global__ void __launch_bounds__(kMaxLanes) day_adjoint_kernel(const AdjArgs<T>
     s_lz[z] = g.d_zT[b * ZB + z];
     s_dV[z] = T(0);
     if (kExt) s_dsh[z] = s_dsc[z] = T(0);
+    if constexpr (kMrt) s_lzf[z] = T(0);
   }
+  T d_mef = T(0), d_meb = T(0);  // kMrt: the effective emissivities' cotangents (day)
 
   for (int h = a.hours - 1; h >= 0; --h) {
     for (int n = 0; n < N; ++n) Tt[n] = g.T_ws[((size_t)h * N + n) * SP + lane];
@@ -402,7 +438,18 @@ __global__ void __launch_bounds__(kMaxLanes) day_adjoint_kernel(const AdjArgs<T>
       T tf0, tb0;
       L.boundary(s_zt + i0 * ZB, a.t_out[w], tf0, tb0);
       const T ws = a.wind[w], wd = a.wdir[w];
-      const Ops<T> o = build_ops(L, Tg, tf0, tb0, ws, wd, hi, a.amb_bug, sc.a_dt, cs, inv);
+      // The group's MRT context, recomputed from its start column, with the
+      // network's history for the reverse at the group start.
+      MrtFace<T> mf{};
+      T hist_f[4], hist_b[4];
+      Ops<T> o;
+      if constexpr (kMrt) {
+        mf = mrt_context(a, g.net, L, M, b, tid, Tg, tf0, tb0, s_zt + i0 * ZB, s_ha, s_haT, s_tm, hist_f,
+                         hist_b);
+        o = build_ops<T, true>(L, Tg, tf0, tb0, ws, wd, hi, a.amb_bug, sc.a_dt, cs, inv, &mf);
+      } else {
+        o = build_ops(L, Tg, tf0, tb0, ws, wd, hi, a.amb_bug, sc.a_dt, cs, inv);
+      }
       OpsGrad<T> og{T(0), T(0), T(0), T(0), T(0), T(0)};
       for (int n = 0; n < N; ++n) gKl[n] = gKd[n] = gKu[n] = T(0);
 
@@ -516,6 +563,8 @@ __global__ void __launch_bounds__(kMaxLanes) day_adjoint_kernel(const AdjArgs<T>
 
         if (i == i0) {
           // ---- the group's operator build, backwards -----------------------
+          // (kMrt: a network face's linearized radiation ran toward its
+          // zone's node, and the network runs backwards here.)
           // K's band -> U and the boundary coefficients.
           for (int n = 0; n < N; ++n) {
             if (!L.valid(n)) continue;
@@ -533,13 +582,29 @@ __global__ void __launch_bounds__(kMaxLanes) day_adjoint_kernel(const AdjArgs<T>
           }
           if (L.cav_bits) cavity_band_adj_tr(L.Cav, N, SP, L.cav_bits, Tg, gKl, gKd, gKu, lT);
           const FaceTemps<T> ft(L, Tg, tf0, tb0, hi, a.amb_bug);
-          // Linearized radiation 4 eps sigma x^3, x = K + (T_rad + T_s)/2.
-          const T xf = T(kKelvin) + (ft.front_rad + ft.front_surf) / T(2);
-          const T xb = T(kKelvin) + (ft.back_rad + ft.back_surf_eff) / T(2);
-          sg.v[SF_EPSF] += og.radf * T(4) * T(kSigma) * (xf * xf * xf);
-          sg.v[SF_EPSB] += og.radb * T(4) * T(kSigma) * (xb * xb * xb);
-          const T lxf = og.radf * T(12) * L.eps_f * T(kSigma) * (xf * xf);
-          const T lxb = og.radb * T(12) * L.eps_b * T(kSigma) * (xb * xb);
+          // Linearized radiation 4 eps sigma x^3, x = K + (T_rad + T_s)/2
+          // (kMrt: a network face's T_rad and eps are the MRT context's).
+          T rad_f = ft.front_rad, rad_b = ft.back_rad, eps_f = L.eps_f, eps_b = L.eps_b;
+          bool on_f = false, on_b = false;
+          if constexpr (kMrt) {
+            rad_view(L, ft, mf, rad_f, rad_b, eps_f, eps_b);
+            on_f = mf.ef > T(0);
+            on_b = mf.eb > T(0);
+          }
+          const T xf = T(kKelvin) + (rad_f + ft.front_surf) / T(2);
+          const T xb = T(kKelvin) + (rad_b + ft.back_surf_eff) / T(2);
+          const T l_epsf = og.radf * T(4) * T(kSigma) * (xf * xf * xf);
+          const T l_epsb = og.radb * T(4) * T(kSigma) * (xb * xb * xb);
+          if (kMrt && on_f)
+            d_mef += l_epsf;
+          else
+            sg.v[SF_EPSF] += l_epsf;
+          if (kMrt && on_b)
+            d_meb += l_epsb;
+          else
+            sg.v[SF_EPSB] += l_epsb;
+          const T lxf = og.radf * T(12) * eps_f * T(kSigma) * (xf * xf);
+          const T lxb = og.radb * T(12) * eps_b * T(kSigma) * (xb * xb);
           T l_frad = og.rad_ft + lxf / T(2), l_fs = lxf / T(2);
           T l_brad = og.rad_bt + lxb / T(2), l_bse = lxb / T(2);
           // Film coefficients: a fixed h takes the whole cotangent.
@@ -571,12 +636,18 @@ __global__ void __launch_bounds__(kMaxLanes) day_adjoint_kernel(const AdjArgs<T>
                            l_opp * T(1.81) / ((T(1.382) + ac) * (T(1.382) + ac))) *
                           m_sign(L.cos_t);
           // Radiant temperatures: outdoor IR, else the boundary air (the
-          // ambient-back quirk reads the front's).
-          if (L.f_out)
+          // ambient-back quirk reads the front's); a network face's is its
+          // zone's MRT node.
+          T l_tmf = T(0), l_tmb = T(0);
+          if (kMrt && on_f)
+            l_tmf = l_frad;
+          else if (L.f_out)
             l_rad_out_f += l_frad;
           else
             l_tf += l_frad;
-          if (L.b_out)
+          if (kMrt && on_b)
+            l_tmb = l_brad;
+          else if (L.b_out)
             l_rad_out_b += l_brad;
           else if (L.b_amb && a.amb_bug)
             l_tf += l_brad;
@@ -588,6 +659,15 @@ __global__ void __launch_bounds__(kMaxLanes) day_adjoint_kernel(const AdjArgs<T>
             l_fs += l_bse;
           else
             l_bs += l_bse;
+          if constexpr (kMrt) {  // the network, backwards, from the group's start column
+            T l_t0f = T(0), l_t0b = T(0), l_area = T(0);
+            mrt_network_adj(a, g.net, L, M, b, tid, Tg[0], L.last_node(Tg), hist_f, hist_b, l_tmf, l_tmb,
+                            l_fs, l_bs, l_t0f, l_t0b, d_mef, d_meb, l_area, s_ha, s_haT, s_lt,
+                            s_lnum, s_lden, s_lm, s_lzf);
+            l_tf += l_t0f;
+            l_tb += l_t0b;
+            sg.v[SF_AREA] += l_area;
+          }
           lT[0] += l_fs;
           for (int n = 0; n < N; ++n)
             if (L.last(n)) lT[n] += l_bs;
@@ -607,6 +687,10 @@ __global__ void __launch_bounds__(kMaxLanes) day_adjoint_kernel(const AdjArgs<T>
         for (int z = tid; z < ZB; z += SB) {
           const int gz = b * ZB + z;
           s_lz[z] += face_sum(a.zone_ptr, a.zone_faces, gz, s_lt);
+          if constexpr (kMrt) {  // the network's fallback onto the zone row
+            s_lz[z] += s_lzf[z];
+            s_lzf[z] = T(0);
+          }
           if (kExt && a.mixt_ptr) {
             // The transpose of the mixing sums: this zone as a source.
             const T zs = s_zt[i * ZB + z];
@@ -656,6 +740,10 @@ __global__ void __launch_bounds__(kMaxLanes) day_adjoint_kernel(const AdjArgs<T>
     g.d_node[(ND_FB * N + n) * SP + lane] = dFB[n];
   }
   for (int f = 0; f < SF_COUNT; ++f) g.d_surf[f * SP + lane] = f < SF_NX ? sg.v[f] : T(0);
+  if constexpr (kMrt) {
+    g.d_mrt[lane] = d_mef;
+    g.d_mrt[SP + lane] = d_meb;
+  }
   for (int z = tid; z < ZB; z += SB) {
     g.d_zT0[b * ZB + z] = s_lz[z];
     g.d_zv[b * ZB + z] = s_dV[z];
@@ -714,19 +802,38 @@ struct LaneGrad {
 // films (and, from the first evaluation, of the radiation coefficients and
 // radiant temperatures) onto the state (lT), the boundary temperatures, the
 // surface parameters and the hour's radiant channels; the forced term's share
-// goes to lbase.
-template <typename T>
+// goes to lbase.  kMrt: a network face's radiant temperature and emissivity
+// are the MRT context *m's, and their cotangents go to *mc (the zone node's
+// at the face and the effective emissivity's) instead of the boundary and
+// eps_front/back.
+template <typename T, bool kMrt = false>
 __device__ void film_rad_adj(const Lane<T>& L, const T* Tg, T tf0, T tb0, const HourIn<T>& hi,
                              int amb_bug, const OpsGrad<T>& og, LaneGrad<T>& G, T* lT, T& lt_f,
-                             T& lt_b, T& lbase) {
+                             T& lt_b, T& lbase, const MrtFace<T>* m = nullptr,
+                             MrtFace<T>* mc = nullptr) {
   SurfGrad<T>& sg = G.sg;
   const FaceTemps<T> ft(L, Tg, tf0, tb0, hi, amb_bug);
-  const T xf = T(kKelvin) + (ft.front_rad + ft.front_surf) / T(2);
-  const T xb = T(kKelvin) + (ft.back_rad + ft.back_surf_eff) / T(2);
-  sg.v[SF_EPSF] += og.radf * T(4) * T(kSigma) * (xf * xf * xf);
-  sg.v[SF_EPSB] += og.radb * T(4) * T(kSigma) * (xb * xb * xb);
-  const T lxf = og.radf * T(12) * L.eps_f * T(kSigma) * (xf * xf);
-  const T lxb = og.radb * T(12) * L.eps_b * T(kSigma) * (xb * xb);
+  T rad_f = ft.front_rad, rad_b = ft.back_rad, eps_f = L.eps_f, eps_b = L.eps_b;
+  bool on_f = false, on_b = false;
+  if constexpr (kMrt) {
+    rad_view(L, ft, *m, rad_f, rad_b, eps_f, eps_b);
+    on_f = m->ef > T(0);
+    on_b = m->eb > T(0);
+  }
+  const T xf = T(kKelvin) + (rad_f + ft.front_surf) / T(2);
+  const T xb = T(kKelvin) + (rad_b + ft.back_surf_eff) / T(2);
+  const T l_epsf = og.radf * T(4) * T(kSigma) * (xf * xf * xf);
+  const T l_epsb = og.radb * T(4) * T(kSigma) * (xb * xb * xb);
+  if (kMrt && on_f)
+    mc->ef += l_epsf;
+  else
+    sg.v[SF_EPSF] += l_epsf;
+  if (kMrt && on_b)
+    mc->eb += l_epsb;
+  else
+    sg.v[SF_EPSB] += l_epsb;
+  const T lxf = og.radf * T(12) * eps_f * T(kSigma) * (xf * xf);
+  const T lxb = og.radb * T(12) * eps_b * T(kSigma) * (xb * xb);
   T l_frad = og.rad_ft + lxf / T(2), l_fs = lxf / T(2);
   T l_brad = og.rad_bt + lxb / T(2), l_bse = lxb / T(2);
   // Film coefficients: a fixed h takes the whole cotangent.
@@ -746,12 +853,16 @@ __device__ void film_rad_adj(const Lane<T>& L, const T* Tg, T tf0, T tb0, const 
                    l_opp * T(1.81) / ((T(1.382) + ac) * (T(1.382) + ac))) *
                   m_sign(L.cos_t);
   // Radiant temperatures: outdoor IR, else the boundary air (the ambient-back
-  // quirk reads the front's).
-  if (L.f_out)
+  // quirk reads the front's); a network face's is its zone's MRT node.
+  if (kMrt && on_f)
+    mc->tmf += l_frad;
+  else if (L.f_out)
     G.l_rad_out_f += l_frad;
   else
     l_tf += l_frad;
-  if (L.b_out)
+  if (kMrt && on_b)
+    mc->tmb += l_brad;
+  else if (L.b_out)
     G.l_rad_out_b += l_brad;
   else if (L.b_amb && amb_bug)
     l_tf += l_brad;
@@ -1001,17 +1112,21 @@ __device__ void march_nomass_adj(const Chunks<T>& C, const ParityCfg<T>& pc, con
 // column, (tf, tb) its boundary temperatures, (la_f, lb_f, la_b, lb_b) the
 // cotangents of the a_z/b_z sums of the zones its faces bound (0 where
 // none).  lT holds the new column's cotangent in and the start column's out;
-// lt_f/lt_b return the boundary temperatures' cotangents.
-template <typename T>
+// lt_f/lt_b return the boundary temperatures' cotangents.  kMrt: the
+// sub-step's radiation runs toward the MRT context *m of its start state,
+// and the cotangents of m's zone nodes and effective emissivities come out in
+// *mc (the network's own reverse is the caller's: it is block-wide).
+template <typename T, bool kMrt = false>
 __device__ void parity_substep_adj(const Chunks<T>& C, const ParityCfg<T>& pc,
                                    const HourIn<T>& hi, const T* Ts, T tf, T tb, T ws, T wd,
                                    int amb_bug, T la_f, T lb_f, T la_b, T lb_b, ParityTape<T>& P,
-                                   T* lT, LaneGrad<T>& G, T& lt_f, T& lt_b) {
+                                   T* lT, LaneGrad<T>& G, T& lt_f, T& lt_b,
+                                   const MrtFace<T>* m = nullptr, MrtFace<T>* mc = nullptr) {
   const Lane<T>& L = C.L;
   const int N = L.N;
   // ---- the sub-step forward, keeping Tm and the stages --------------------
   const T base = forced_base(L, ws, wd);
-  const Ops<T> o = parity_ops(L, Ts, tf, tb, base, hi, amb_bug);
+  const Ops<T> o = parity_ops<T, kMrt>(L, Ts, tf, tb, base, hi, amb_bug, m);
   if (L.cav_bits) cavity_refresh(L, Ts);
   parity_k_rows(C, o.hf, o.hb, P.kl, P.kd, P.ku);
   for (int n = 0; n < N; ++n) P.Tm[n] = Ts[n];
@@ -1076,12 +1191,12 @@ __device__ void parity_substep_adj(const Chunks<T>& C, const ParityCfg<T>& pc,
     if (L.first(n)) og.hf -= gd;
     if (L.last(n)) og.hb -= gd;
   }
-  film_rad_adj(L, Ts, tf, tb, hi, amb_bug, og, G, lT, lt_f, lt_b, lbase);
+  film_rad_adj<T, kMrt>(L, Ts, tf, tb, hi, amb_bug, og, G, lT, lt_f, lt_b, lbase, m, mc);
   forced_base_adj(L, ws, wd, lbase, G.sg);
 }
 
-template <typename T, bool kExt, bool kCav>
-__global__ void __launch_bounds__(kMaxLanes) day_parity_adjoint_kernel(const AdjArgs<T> g) {
+template <typename T, bool kExt, bool kCav, bool kMrt>
+__global__ void __launch_bounds__(kMaxLanes) day_parity_adjoint_kernel(const AdjArgsOf<T, kMrt> g) {
   const DayArgs<T>& a = g.in;
   const int N = a.N, SB = a.SB, ZB = a.ZB, NB = a.NB;
   const int sub = a.substeps;
@@ -1107,8 +1222,15 @@ __global__ void __launch_bounds__(kMaxLanes) day_parity_adjoint_kernel(const Adj
   T* s_lld = s_lt + 2 * SB;                  // kExt: [ZB] cotangent of each sub-step's load (hour)
   T* s_dsh = s_lld + ZB;                     // kExt: [ZB] heating-setpoint cotangent (hour or day)
   T* s_dsc = s_dsh + ZB;                     // kExt: [ZB] cooling-setpoint cotangent
+  T* s_tm = s_dsc + ZB;                      // kMrt: [ZB] the zones' MRT nodes
+  T* s_lnum = s_tm + ZB;                     // kMrt: [ZB] cotangents of a zone's network sums
+  T* s_lden = s_lnum + ZB;
+  T* s_lm = s_lden + ZB;                     // kMrt: [ZB] cotangent of a zone's MRT node
+  T* s_lzf = s_lm + ZB;                      // kMrt: [ZB] the network's fallback cotangent
 
   const Lane<T> L(a, lane, kCav);
+  MrtLane<T> M;  // kMrt: launched with MRT physics only
+  if constexpr (kMrt) M = MrtLane<T>(a, g.net, lane);
   const Chunks<T> C(a, L, lane);
   const ParityCfg<T> pc(a);
   T Tn[kMaxNodes];
@@ -1128,8 +1250,14 @@ __global__ void __launch_bounds__(kMaxLanes) day_parity_adjoint_kernel(const Adj
       for (int z = tid; z < ZB; z += SB) s_zt[i * ZB + z] = s_zT[z];
       T t_front, t_back;
       L.boundary(s_zT, a.t_out[w], t_front, t_back);
-      const Ops<T> o = parity_substep(C, pc, hi, t_front, t_back, a.wind[w], a.wdir[w], a.amb_bug,
-                                      Tn, W);
+      Ops<T> o;
+      if constexpr (kMrt) {  // the network of the sub-step's start state
+        const MrtFace<T> mf = mrt_context(a, g.net, L, M, b, tid, Tn, t_front, t_back, s_zT, s_ha, s_haT, s_tm);
+        o = parity_substep<T, true>(C, pc, hi, t_front, t_back, a.wind[w], a.wdir[w], a.amb_bug, Tn, W,
+                                    &mf);
+      } else {
+        o = parity_substep(C, pc, hi, t_front, t_back, a.wind[w], a.wdir[w], a.amb_bug, Tn, W);
+      }
       const T ts_front = Tn[0];
       const T ts_back = L.last_node(Tn);
       const T haf = o.hf * L.area, hab = o.hb * L.area;
@@ -1181,7 +1309,9 @@ __global__ void __launch_bounds__(kMaxLanes) day_parity_adjoint_kernel(const Adj
     s_lz[z] = g.d_zT[b * ZB + z];
     s_dV[z] = T(0);
     if (kExt) s_dsh[z] = s_dsc[z] = T(0);
+    if constexpr (kMrt) s_lzf[z] = T(0);
   }
+  T d_mef = T(0), d_meb = T(0);  // kMrt: the effective emissivities' cotangents (day)
 
   for (int h = a.hours - 1; h >= 0; --h) {
     for (int n = 0; n < N; ++n) Tn[n] = g.T_ws[((size_t)h * N + n) * SP + lane];
@@ -1230,10 +1360,35 @@ __global__ void __launch_bounds__(kMaxLanes) day_parity_adjoint_kernel(const Adj
         T tf, tb, lt_f, lt_b;
         L.boundary(s_zt + i * ZB, a.t_out[w], tf, tb);
         const bool zf = L.zone_f >= 0, zb = L.zone_b >= 0;
-        parity_substep_adj(C, pc, hi, Tn, tf, tb, a.wind[w], a.wdir[w], a.amb_bug,
-                           zf ? s_laz[L.zone_f] : T(0), zf ? s_lbz[L.zone_f] : T(0),
-                           zb ? s_laz[L.zone_b] : T(0), zb ? s_lbz[L.zone_b] : T(0), P, lT, G,
-                           lt_f, lt_b);
+        if constexpr (kMrt) {
+          // The sub-step's network from its start column, the sub-step
+          // backwards on it, then the network backwards.
+          T hist_f[4], hist_b[4];
+          const MrtFace<T> mf = mrt_context(a, g.net, L, M, b, tid, Tn, tf, tb, s_zt + i * ZB, s_ha, s_haT,
+                                            s_tm, hist_f, hist_b);
+          MrtFace<T> mc{T(0), T(0), T(0), T(0)};
+          parity_substep_adj<T, true>(C, pc, hi, Tn, tf, tb, a.wind[w], a.wdir[w], a.amb_bug,
+                                      zf ? s_laz[L.zone_f] : T(0), zf ? s_lbz[L.zone_f] : T(0),
+                                      zb ? s_laz[L.zone_b] : T(0), zb ? s_lbz[L.zone_b] : T(0), P,
+                                      lT, G, lt_f, lt_b, &mf, &mc);
+          d_mef += mc.ef;
+          d_meb += mc.eb;
+          T l_fs = T(0), l_bs = T(0), l_t0f = T(0), l_t0b = T(0), l_area = T(0);
+          mrt_network_adj(a, g.net, L, M, b, tid, Tn[0], L.last_node(Tn), hist_f, hist_b, mc.tmf, mc.tmb,
+                          l_fs, l_bs, l_t0f, l_t0b, d_mef, d_meb, l_area, s_ha, s_haT, s_lt, s_lnum,
+                          s_lden, s_lm, s_lzf);
+          lT[0] += l_fs;
+          for (int n = 0; n < N; ++n)
+            if (L.last(n)) lT[n] += l_bs;
+          lt_f += l_t0f;
+          lt_b += l_t0b;
+          G.sg.v[SF_AREA] += l_area;
+        } else {
+          parity_substep_adj(C, pc, hi, Tn, tf, tb, a.wind[w], a.wdir[w], a.amb_bug,
+                             zf ? s_laz[L.zone_f] : T(0), zf ? s_lbz[L.zone_f] : T(0),
+                             zb ? s_laz[L.zone_b] : T(0), zb ? s_lbz[L.zone_b] : T(0), P, lT, G,
+                             lt_f, lt_b);
+        }
         // Boundary temperatures: zone air (summed per zone below), the fixed
         // ambient/ground temperature, or outdoor air (not differentiated).
         s_lt[2 * tid] = L.code_f == kSpace ? lt_f : T(0);
@@ -1247,6 +1402,10 @@ __global__ void __launch_bounds__(kMaxLanes) day_parity_adjoint_kernel(const Adj
       for (int z = tid; z < ZB; z += SB) {
         const int gz = b * ZB + z;
         s_lz[z] += face_sum(a.zone_ptr, a.zone_faces, gz, s_lt);
+        if constexpr (kMrt) {  // the network's fallback onto the zone row
+          s_lz[z] += s_lzf[z];
+          s_lzf[z] = T(0);
+        }
         if (kExt && a.mixt_ptr) {
           // The transpose of the mixing sums: this zone as a source.
           const T zs = s_zt[i * ZB + z];
@@ -1295,6 +1454,10 @@ __global__ void __launch_bounds__(kMaxLanes) day_parity_adjoint_kernel(const Adj
     g.d_node[(ND_FB * N + n) * SP + lane] = G.dFB[n];
   }
   for (int f = 0; f < SF_COUNT; ++f) g.d_surf[f * SP + lane] = f < SF_NX ? G.sg.v[f] : T(0);
+  if constexpr (kMrt) {
+    g.d_mrt[lane] = d_mef;
+    g.d_mrt[SP + lane] = d_meb;
+  }
   for (int z = tid; z < ZB; z += SB) {
     g.d_zT0[b * ZB + z] = s_lz[z];
     g.d_zv[b * ZB + z] = s_dV[z];
@@ -1305,13 +1468,14 @@ __global__ void __launch_bounds__(kMaxLanes) day_parity_adjoint_kernel(const Adj
   }
 }
 
-template <typename T, bool kExt, bool kParity, bool kCav = false>
-int launch_as(const AdjArgs<T>& g, cudaStream_t stream) {
+template <typename T, bool kExt, bool kParity, bool kCav = false, bool kMrt = false>
+int launch_as(const AdjArgsOf<T, kMrt>& g, cudaStream_t stream) {
   const DayArgs<T>& a = g.in;
-  const size_t smem = sizeof(T) * (static_cast<size_t>(a.ZB) * (3 * a.substeps + (kExt ? 11 : 8)) +
-                                   6 * static_cast<size_t>(a.SB));
-  const auto kernel =
-      kParity ? day_parity_adjoint_kernel<T, kExt, kCav> : day_adjoint_kernel<T, kExt, kCav>;
+  const size_t smem =
+      sizeof(T) * (static_cast<size_t>(a.ZB) * (3 * a.substeps + (kExt ? 11 : 8) + (kMrt ? 5 : 0)) +
+                   6 * static_cast<size_t>(a.SB));
+  const auto kernel = kParity ? day_parity_adjoint_kernel<T, kExt, kCav, kMrt>
+                              : day_adjoint_kernel<T, kExt, kCav, kMrt>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -1321,8 +1485,9 @@ int launch_as(const AdjArgs<T>& g, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+#ifndef HEATX_DAY_ADJOINT_KMRT_UNIT
 template <typename T>
-int launch(const AdjArgs<T>& g, cudaStream_t stream) {
+int launch(const MrtAdjArgs<T>& g, cudaStream_t stream) {
   const DayArgs<T>& a = g.in;
   if (a.N < 1 || a.N > kMaxNodes || a.SB < 1 || a.SB > kMaxLanes || a.NB < 1 || a.ZB < 1 ||
       a.hours < 1 || a.refresh_every < 1 || a.substeps % a.refresh_every ||
@@ -1340,21 +1505,29 @@ int launch(const AdjArgs<T>& g, cudaStream_t stream) {
       sched != (g.d_sp_cool != nullptr) || (a.mix_ptr != nullptr) != (a.mixt_ptr != nullptr) ||
       (a.cav != nullptr) != (a.cav_u != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  // MRT physics comes with the network's operands and its cotangents' output.
+  const bool mrt = g.net.phys != 0;
+  if (mrt != (g.net.mrt != nullptr) || mrt != (g.d_mrt != nullptr) || (mrt && !g.net.mrt_ptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   // Free-float buildings run the instantiation without the extra zone code;
-  // buildings with gas cavities the extended one with the cavity code (kCav).
+  // buildings with gas cavities the extended one with the cavity code (kCav);
+  // MRT physics the extended ones with the network (kMrt).
   const bool ext = ctl || a.mix_ptr;
+  if (mrt)
+    return std::is_same_v<T, float> ? heatx_day_adjoint_mrt_f32(&g, stream)
+                                    : heatx_day_adjoint_mrt_f64(&g, stream);
   if (a.cav)
     return a.parity ? launch_as<T, true, true, true>(g, stream) : launch_as<T, true, false, true>(g, stream);
   if (a.parity) return ext ? launch_as<T, true, true>(g, stream) : launch_as<T, false, true>(g, stream);
   return ext ? launch_as<T, true, false>(g, stream) : launch_as<T, false, false>(g, stream);
 }
 
-constexpr int kPointers = 46;
+constexpr int kPointers = 50;
 
 template <typename T>
 int day_adjoint(void* const* p, int n_ptrs, const int* ints, const double* reals, void* stream) {
   if (n_ptrs != kPointers) return static_cast<int>(cudaErrorInvalidValue);
-  AdjArgs<T> g;
+  MrtAdjArgs<T> g;  // the kMrt instantiations take it whole, the others its AdjArgs
   DayArgs<T>& a = g.in;
   int i = 0;
   a.node = static_cast<const T*>(p[i++]);
@@ -1403,6 +1576,10 @@ int day_adjoint(void* const* p, int n_ptrs, const int* ints, const double* reals
   g.sub_ws = static_cast<T*>(p[i++]);
   a.cav_u = static_cast<T*>(p[i++]);
   a.cav = static_cast<const T*>(p[i++]);
+  g.net.mrt = static_cast<const T*>(p[i++]);
+  g.net.mrt_ptr = static_cast<const int*>(p[i++]);
+  g.net.mrt_faces = static_cast<const int*>(p[i++]);
+  g.d_mrt = static_cast<T*>(p[i++]);
   a.N = ints[0];
   a.NB = ints[1];
   a.SB = ints[2];
@@ -1420,22 +1597,43 @@ int day_adjoint(void* const* p, int n_ptrs, const int* ints, const double* reals
   a.parity = ints[8];
   a.nomass_iters = ints[9];
   a.esc_after = ints[10];
+  g.net.phys = ints[11];
   a.nomass_tol = reals[6];
   a.nomass_tol_esc = reals[7];
   return launch<T>(g, static_cast<cudaStream_t>(stream));
 }
+#else
+// The kMrt unit: MRT physics, with the cavity code where the building has gas
+// cavities (kMrt implies kExt).
+template <typename T>
+int day_adjoint_mrt(const void* args, void* stream) {
+  const MrtAdjArgs<T>& g = *static_cast<const MrtAdjArgs<T>*>(args);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (g.in.cav)
+    return g.in.parity ? launch_as<T, true, true, true, true>(g, st)
+                       : launch_as<T, true, false, true, true>(g, st);
+  return g.in.parity ? launch_as<T, true, true, false, true>(g, st)
+                     : launch_as<T, true, false, false, true>(g, st);
+}
+#endif
 
 }  // namespace
 
+#ifdef HEATX_DAY_ADJOINT_KMRT_UNIT
+int heatx_day_adjoint_mrt_f32(const void* g, void* stream) { return day_adjoint_mrt<float>(g, stream); }
+int heatx_day_adjoint_mrt_f64(const void* g, void* stream) { return day_adjoint_mrt<double>(g, stream); }
+#else
+
 extern "C" {
 
-// Launch on `stream`.  `ptrs` holds the 46 device pointers in the order of
+// Launch on `stream`.  `ptrs` holds the 50 device pointers in the order of
 // DayAdjointKernel (operands, cotangents, workspace, outputs, then the
 // thermostat, schedule and mixing operands and outputs, null where the
-// building has none, the parity march's sub-step workspace and last the
-// gas-cavity U row and operands), `ints`
+// building has none, the parity march's sub-step workspace, the
+// gas-cavity U row and operands, and last the MRT network's operands and its
+// cotangents' output), `ints`
 // N, NB, SB, ZB, hours, substeps, refresh_every, amb_bug, parity,
-// nomass_iters, esc_after, `reals` dt, gamma dt/2, gamma dt, beta dt, c1, c2,
+// nomass_iters, esc_after, mrt_phys, `reals` dt, gamma dt/2, gamma dt, beta dt, c1, c2,
 // nomass_tol, nomass_tol_esc.  Returns cudaGetLastError() of the launch.
 int heatx_day_adjoint_f32(void* const* ptrs, int n_ptrs, const int* ints, const double* reals,
                           void* stream) {
@@ -1451,3 +1649,4 @@ const char* heatx_cuda_error_string(int err) {
 }
 
 }  // extern "C"
+#endif

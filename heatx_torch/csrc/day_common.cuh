@@ -5,7 +5,8 @@
 // (film coefficients, linearized radiation, the cavity U, the stage
 // matrix and its Thomas factors), one TR-BDF2 sub-step of a lane's node
 // column, the zone sums, the inter-zone mixing sums, the exact exponential
-// zone update and its setpoint-landing (thermostat) form.  Both kernels march
+// zone update and its setpoint-landing (thermostat) form, and the interior
+// MRT network (Carroll) with its reverse.  Both kernels march
 // with these functions, so the adjoint's recompute is the forward's
 // arithmetic.  The layout follows heatx_torch/ops/day_march.py (NODE_FIELDS,
 // SURF_FIELDS, LANE_FIELDS).
@@ -34,6 +35,7 @@ enum {
 };
 enum { LN_FCODE, LN_BCODE, LN_FZONE, LN_BZONE, LN_BITS, LN_MASS };
 constexpr int LN_CAV = LN_MASS + 2;  // after day_parity.cuh's chunk words
+constexpr int LN_MRT = LN_CAV + 1;   // bit 0: the front face is on the MRT network, bit 1: the back
 
 constexpr double kKelvin = 273.15;
 constexpr double kSigma = 5.670374419e-8;
@@ -441,13 +443,37 @@ __device__ __forceinline__ T m_lower(const Lane<T>& L, int i, T a_dt) {
   return L.valid(i) ? -a_dt * L.kl(i) : T(0);
 }
 
+// A lane's faces on the interior MRT network: their effective emissivities
+// (0 off the network) and, after the network's fixed point, their zones' MRT
+// nodes.  apply_interior_mrt: a face with a positive effective emissivity
+// radiates with it toward that node instead of its boundary's temperature.
+template <typename T>
+struct MrtFace {
+  T ef, eb, tmf, tmb;
+};
+
+// The radiant temperatures and emissivities of the linearized radiation:
+// the boundary's and the surface's, or the MRT context's on a network face.
+template <typename T>
+__device__ __forceinline__ void rad_view(const Lane<T>& L, const FaceTemps<T>& ft, const MrtFace<T>& m,
+                                         T& rad_f, T& rad_b, T& eps_f, T& eps_b) {
+  const bool on_f = m.ef > T(0), on_b = m.eb > T(0);
+  rad_f = on_f ? m.tmf : ft.front_rad;
+  rad_b = on_b ? m.tmb : ft.back_rad;
+  eps_f = on_f ? m.ef : L.eps_f;
+  eps_b = on_b ? m.eb : L.eps_b;
+}
+
 // Operators from the marching state (implicit.build_operators): film
 // coefficients, linearized radiation, the cavity U-values (segment_u), and
 // the Thomas factors (cs, inv) of the stage matrix C - (gamma dt/2) K,
-// identity rows on padded nodes.
-template <typename T>
+// identity rows on padded nodes.  kMrt: the linearized radiation of a face on
+// the MRT network runs toward the context *m (its zone's node, its effective
+// emissivity); only the kMrt instantiations' unit instantiates it.
+template <typename T, bool kMrt = false>
 __device__ Ops<T> build_ops(const Lane<T>& L, const T* Tn, T t_front, T t_back, T ws, T wd,
-                            const HourIn<T>& hi, int amb_bug, T a_dt, T* cs, T* inv) {
+                            const HourIn<T>& hi, int amb_bug, T a_dt, T* cs, T* inv,
+                            const MrtFace<T>* m = nullptr) {
   Ops<T> o;
   if (L.cav_bits) cavity_refresh(L, Tn);
   const FaceTemps<T> ft(L, Tn, t_front, t_back, hi, amb_bug);
@@ -457,12 +483,14 @@ __device__ Ops<T> build_ops(const Lane<T>& L, const T* Tn, T t_front, T t_back, 
   o.hb = natural_h(t_back, ft.back_surf_eff, L.cos_t, L.c_same, L.c_opp) + (L.b_out ? base : T(0));
   if (!is_nan(L.fix_hf)) o.hf = L.fix_hf;
   if (!is_nan(L.fix_hb)) o.hb = L.fix_hb;
-  const T xf = T(kKelvin) + (ft.front_rad + ft.front_surf) / T(2);
-  const T xb = T(kKelvin) + (ft.back_rad + ft.back_surf_eff) / T(2);
-  o.radf = T(4) * L.eps_f * T(kSigma) * (xf * xf * xf);
-  o.radb = T(4) * L.eps_b * T(kSigma) * (xb * xb * xb);
-  o.rad_ft = ft.front_rad;
-  o.rad_bt = ft.back_rad;
+  T rad_f = ft.front_rad, rad_b = ft.back_rad, eps_f = L.eps_f, eps_b = L.eps_b;
+  if constexpr (kMrt) rad_view(L, ft, *m, rad_f, rad_b, eps_f, eps_b);
+  const T xf = T(kKelvin) + (rad_f + ft.front_surf) / T(2);
+  const T xb = T(kKelvin) + (rad_b + ft.back_surf_eff) / T(2);
+  o.radf = T(4) * eps_f * T(kSigma) * (xf * xf * xf);
+  o.radb = T(4) * eps_b * T(kSigma) * (xb * xb * xb);
+  o.rad_ft = rad_f;
+  o.rad_bt = rad_b;
   for (int i = 0; i < L.N; ++i) {
     const bool v = L.valid(i);
     T kl, kd, ku;
@@ -647,6 +675,208 @@ __device__ __forceinline__ T zone_update(T zt, T az, T bz, T volume, T dt) {
   const T safe_b = ok ? bz : T(1);
   const T em = m_expm1(-(safe_b * dt / c_z));
   return ok ? zt - (az / safe_b - zt) * em : zt;
+}
+
+// ---------------------------------------------------------------------------
+// Interior MRT: the Carroll network (heatx _mrt_context, pallas_step.py:555),
+// in the kMrt instantiations only.  Blocks are zone-closed, so a zone's
+// network lies in one block.  Each of the four iterations: every lane writes
+// its network faces' linearized conductances w = 4 sigma eps_eff (K +
+// (tm_face + ts)/2)^3 A and w ts to two shared rows laid out like the zone
+// sums' (lane*2 + side); one thread per zone sums its network faces in the
+// fixed order of mrt_faces and writes the zone's node num/den (the zone air
+// where it has no conductance); every lane gathers its zones' nodes.  Eight
+// barriers, reached by every thread of the block (padded lanes too).
+// ---------------------------------------------------------------------------
+
+// The network's operands.  They ride beside DayArgs in the kMrt
+// instantiations' own argument structs (day_march.cu, day_adjoint.cu), so
+// the other instantiations keep their parameter layout and their code.
+template <typename T>
+struct MrtArgs {
+  const T* mrt;          // [2, SP]: the faces' effective emissivities (front row, back row)
+  const int* mrt_ptr;    // [NB*ZB + 1]: each zone slot's network faces,
+  const int* mrt_faces;  // block-local lane*2 + side, in zone_faces' order
+  int phys;              // whether the network drives the march (else only the operative history reads it)
+};
+
+// A lane's faces on the network (bit 0 front, bit 1 back) and their
+// effective emissivities (all 0 default-constructed).
+template <typename T>
+struct MrtLane {
+  unsigned bits = 0u;
+  T ef = T(0), eb = T(0);
+  MrtLane() = default;
+  __device__ MrtLane(const DayArgs<T>& a, const MrtArgs<T>& r, int lane) {
+    const int SP = a.NB * a.SB;
+    bits = static_cast<unsigned>(a.lane[LN_MRT * SP + lane]);
+    ef = r.mrt[lane];
+    eb = r.mrt[SP + lane];
+  }
+};
+
+// A face's conductance to its zone's node, linearized at (tm + ts)/2.
+template <typename T>
+__device__ __forceinline__ T mrt_weight(T eps, T area, T tm, T ts) {
+  const T x = T(kKelvin) + (tm + ts) / T(2);
+  return T(4) * T(kSigma) * eps * (x * x * x) * area;
+}
+
+// Zone slot gz's sums of w ts and w over its network faces, in list order.
+template <typename T>
+__device__ __forceinline__ void mrt_sums(const MrtArgs<T>& r, int gz, const T* s_wt, const T* s_w,
+                                         T& num, T& den) {
+  num = den = T(0);
+  for (int e = r.mrt_ptr[gz]; e < r.mrt_ptr[gz + 1]; ++e) {
+    const int f = r.mrt_faces[e];
+    num += s_wt[f];
+    den += s_w[f];
+  }
+}
+
+// Zone slot gz's sum of a per-face row over its network faces.
+template <typename T>
+__device__ __forceinline__ T mrt_face_sum(const MrtArgs<T>& r, int gz, const T* s_face) {
+  T s = T(0);
+  for (int e = r.mrt_ptr[gz]; e < r.mrt_ptr[gz + 1]; ++e) s += s_face[r.mrt_faces[e]];
+  return s;
+}
+
+// The network's fixed point from a state whose face temperatures are ts_f
+// (node 0) and ts_b (last node).  tm_f/tm_b hold the linearization's start
+// (the faces' boundary air temperatures) and return each face's zone node;
+// hist_f/hist_b (when given) keep the value before each iteration.  s_zT is
+// the block's zone row (the fallback), s_w/s_wt [2*SB] and s_tm [ZB] shared
+// work rows; s_tm holds the zones' nodes on return.
+template <typename T>
+__device__ void mrt_network(const DayArgs<T>& a, const MrtArgs<T>& r, const Lane<T>& L,
+                            const MrtLane<T>& M, int b, int tid, T ts_f, T ts_b, T& tm_f, T& tm_b,
+                            const T* s_zT, T* s_w,
+                            T* s_wt, T* s_tm, T* hist_f = nullptr, T* hist_b = nullptr) {
+  for (int it = 0; it < 4; ++it) {
+    if (hist_f) {
+      hist_f[it] = tm_f;
+      hist_b[it] = tm_b;
+    }
+    if (M.bits & 1u) {
+      const T w = mrt_weight(M.ef, L.area, tm_f, ts_f);
+      s_w[2 * tid] = w;
+      s_wt[2 * tid] = w * ts_f;
+    }
+    if (M.bits & 2u) {
+      const T w = mrt_weight(M.eb, L.area, tm_b, ts_b);
+      s_w[2 * tid + 1] = w;
+      s_wt[2 * tid + 1] = w * ts_b;
+    }
+    __syncthreads();
+    for (int z = tid; z < a.ZB; z += a.SB) {
+      T num, den;
+      mrt_sums(r, b * a.ZB + z, s_wt, s_w, num, den);
+      s_tm[z] = den > T(1e-30) ? num / den : s_zT[z];
+    }
+    __syncthreads();
+    tm_f = L.zone_f >= 0 ? s_tm[L.zone_f] : T(0);
+    tm_b = L.zone_b >= 0 ? s_tm[L.zone_b] : T(0);
+  }
+}
+
+// The lane's MRT context for an operator build from the node column Tn: the
+// block's network fixed point started at the faces' boundary air
+// temperatures (t_front, t_back), the zone row s_zT its fallback; every
+// thread of the block calls it (hist_f/hist_b: as mrt_network).
+template <typename T>
+__device__ MrtFace<T> mrt_context(const DayArgs<T>& a, const MrtArgs<T>& r, const Lane<T>& L,
+                                  const MrtLane<T>& M, int b, int tid, const T* Tn, T t_front,
+                                  T t_back, const T* s_zT, T* s_w, T* s_wt, T* s_tm,
+                                  T* hist_f = nullptr, T* hist_b = nullptr) {
+  MrtFace<T> f{M.ef, M.eb, t_front, t_back};
+  mrt_network(a, r, L, M, b, tid, Tn[0], L.last_node(Tn), f.tmf, f.tmb, s_zT, s_w, s_wt, s_tm,
+              hist_f, hist_b);
+  return f;
+}
+
+// The reverse of one face's share of an iteration: w = 4 sigma eps x^3 A,
+// x = K + (tm + ts)/2, num += w ts, den += w, given the cotangents of its
+// zone's sums (l_num, l_den).  Adds to l_ts, l_eps, l_area and returns the
+// cotangent of tm.
+template <typename T>
+__device__ __forceinline__ T mrt_face_adj(T eps, T area, T tm, T ts, T l_num, T l_den, T& l_ts,
+                                          T& l_eps, T& l_area) {
+  const T x = T(kKelvin) + (tm + ts) / T(2);
+  const T x3 = x * x * x;
+  const T w = T(4) * T(kSigma) * eps * x3 * area;
+  const T l_w = l_num * ts + l_den;
+  l_ts += l_num * w;
+  l_eps += l_w * T(4) * T(kSigma) * x3 * area;
+  l_area += l_w * T(4) * T(kSigma) * eps * x3;
+  const T l_x = l_w * T(12) * T(kSigma) * eps * (x * x) * area;
+  l_ts += l_x / T(2);
+  return l_x / T(2);
+}
+
+// The reverse of mrt_network from its history (hist_f/hist_b, the face
+// temperatures ts_f/ts_b and the zone row it fell back on): l_tm_f/l_tm_b
+// are the cotangents of the faces' final nodes.  Adds the cotangents of the
+// face temperatures (l_ts_*), of the linearization's start (l_t0_*, the
+// boundary air temperatures), of the effective emissivities (l_e*) and of
+// the area; s_lzf[z] accumulates the zone row's (the fallback's).  The
+// transpose of a face's gather of its zone's node is the zone's sum over
+// its network faces (mrt_face_sum), the transpose of the zone sums a
+// per-face read of the zone's cotangents.  Shared rows: s_w/s_wt/s_lt
+// [2*SB], s_lnum/s_lden/s_lm [ZB].  Thirteen barriers.
+template <typename T>
+__device__ void mrt_network_adj(const DayArgs<T>& a, const MrtArgs<T>& r, const Lane<T>& L,
+                                const MrtLane<T>& M, int b, int tid, T ts_f, T ts_b, const T* hist_f, const T* hist_b,
+                                T l_tm_f, T l_tm_b, T& l_ts_f, T& l_ts_b, T& l_t0_f, T& l_t0_b,
+                                T& l_ef, T& l_eb, T& l_area, T* s_w, T* s_wt, T* s_lt, T* s_lnum,
+                                T* s_lden, T* s_lm, T* s_lzf) {
+  const bool on_f = M.bits & 1u, on_b = (M.bits >> 1) & 1u;
+  if (on_f) s_lt[2 * tid] = l_tm_f;
+  if (on_b) s_lt[2 * tid + 1] = l_tm_b;
+  __syncthreads();
+  for (int z = tid; z < a.ZB; z += a.SB) s_lm[z] = mrt_face_sum(r, b * a.ZB + z, s_lt);
+  for (int k = 3; k >= 0; --k) {
+    if (on_f) {
+      const T w = mrt_weight(M.ef, L.area, hist_f[k], ts_f);
+      s_w[2 * tid] = w;
+      s_wt[2 * tid] = w * ts_f;
+    }
+    if (on_b) {
+      const T w = mrt_weight(M.eb, L.area, hist_b[k], ts_b);
+      s_w[2 * tid + 1] = w;
+      s_wt[2 * tid + 1] = w * ts_b;
+    }
+    __syncthreads();
+    for (int z = tid; z < a.ZB; z += a.SB) {
+      T num, den;
+      mrt_sums(r, b * a.ZB + z, s_wt, s_w, num, den);
+      const T lm = s_lm[z];
+      if (den > T(1e-30)) {
+        s_lnum[z] = lm / den;
+        s_lden[z] = -lm * (num / den) / den;
+      } else {
+        s_lnum[z] = s_lden[z] = T(0);
+        s_lzf[z] += lm;
+      }
+    }
+    __syncthreads();
+    T lf = T(0), lb = T(0);
+    if (on_f)
+      lf = mrt_face_adj(M.ef, L.area, hist_f[k], ts_f, s_lnum[L.zone_f], s_lden[L.zone_f], l_ts_f,
+                        l_ef, l_area);
+    if (on_b)
+      lb = mrt_face_adj(M.eb, L.area, hist_b[k], ts_b, s_lnum[L.zone_b], s_lden[L.zone_b], l_ts_b,
+                        l_eb, l_area);
+    if (k > 0) {
+      if (on_f) s_lt[2 * tid] = lf;
+      if (on_b) s_lt[2 * tid + 1] = lb;
+      __syncthreads();
+      for (int z = tid; z < a.ZB; z += a.SB) s_lm[z] = mrt_face_sum(r, b * a.ZB + z, s_lt);
+    } else {
+      l_t0_f += lf;
+      l_t0_b += lb;
+    }
+  }
 }
 
 }  // namespace heatx

@@ -63,9 +63,35 @@
 //    hour loop, zone phases and outputs around parity_substep, with the
 //    operators rebuilt every sub-step (refresh_every == 1), so the four
 //    TR-BDF2 instantiations keep their code.
+//  * Interior MRT (heatx _mrt_context) and the two per-hour histories are
+//    four more instantiations (kMrt, with kExt; TR-BDF2 and parity, with and
+//    without kCav), which every launch with MRT physics, the h/q history or
+//    the operative history takes.  The Carroll network's static part rides as
+//    operands (day_march.mrt_eps_blocked); its 4-iteration fixed point runs
+//    where the operators are built (TR-BDF2: each refresh group's start
+//    column; parity: each sub-step's start), block-local because blocks are
+//    zone-closed: per iteration each lane writes its network faces'
+//    conductances to the zone-sum rows, one thread per zone sums its network
+//    faces (mrt_ptr/mrt_faces, fixed order) into a shared row of zone nodes,
+//    each lane gathers them; eight barriers per evaluation.  The operative
+//    history is one more evaluation at each hour's end, from the zone air, on
+//    the hour's final state (a runtime flag: it needs no MRT physics); the h/q
+//    history is the hour's last h/q.  What bounds it is unchanged: the MRT
+//    phase adds ~12 operations per network face and iteration and its
+//    barriers to each operator build.
+
+#include <type_traits>
 
 #include "day_common.cuh"
 #include "day_parity.cuh"
+
+// The kMrt instantiations live in their own compilation unit
+// (day_march_mrt.cu, which includes this file): ptxas shares the out-of-line
+// device functions among the kernels of one unit, and the kMrt kernels beside
+// the others changed those others' registers and stack.  The units meet here,
+// at a launch function of the kMrt unit that takes its MrtMarchArgs by address.
+extern "C" int heatx_day_march_mrt_f32(const void* m, void* stream, int parity);
+extern "C" int heatx_day_march_mrt_f64(const void* m, void* stream, int parity);
 
 namespace {
 
@@ -82,15 +108,27 @@ struct MarchArgs {
   T* ld_hist;  // [hours, NB, ZB] mean ideal load per hour (thermostats), or null
 };
 
-template <typename T, bool kExt, bool kParity, bool kCav>
-__global__ void __launch_bounds__(kMaxLanes) day_march_kernel(const MarchArgs<T> m) {
+// The kMrt instantiations' arguments: the network's operands and the two
+// histories beside the others' (whose layout stays as it was).
+template <typename T>
+struct MrtMarchArgs : MarchArgs<T> {
+  MrtArgs<T> net;
+  T* hq_hist;  // [hours, 4, SP] each hour's last h/q, or null
+  T* top;      // [hours, NB, ZB] each hour's closing operative temperature, or null
+};
+template <typename T, bool kMrt>
+using MarchArgsOf = std::conditional_t<kMrt, MrtMarchArgs<T>, MarchArgs<T>>;
+
+template <typename T, bool kExt, bool kParity, bool kCav, bool kMrt>
+__global__ void __launch_bounds__(kMaxLanes) day_march_kernel(const MarchArgsOf<T, kMrt> m) {
   const DayArgs<T>& a = m.in;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* s_zT = reinterpret_cast<T*>(smem_raw);  // [ZB] zone air temperatures
-  T* s_haT = s_zT + a.ZB;                    // [2*SB] h*A*T_s per face
-  T* s_ha = s_haT + 2 * a.SB;                // [2*SB] h*A per face
+  T* s_haT = s_zT + a.ZB;                    // [2*SB] h*A*T_s per face (kMrt: also w*T_s)
+  T* s_ha = s_haT + 2 * a.SB;                // [2*SB] h*A per face (kMrt: also w)
   T* s_zN = s_ha + 2 * a.SB;                 // kExt: [ZB] the sub-step's new zone row
   T* s_ld = s_zN + a.ZB;                     // kExt: [ZB] the hour's load sum
+  T* s_tm = s_ld + a.ZB;                     // kMrt: [ZB] the zones' MRT nodes
   __shared__ int s_bad;
 
   const int N = a.N, SB = a.SB, ZB = a.ZB, NB = a.NB;
@@ -99,6 +137,8 @@ __global__ void __launch_bounds__(kMaxLanes) day_march_kernel(const MarchArgs<T>
   const int SP = NB * SB;
   const int lane = b * SB + tid;
   const Lane<T> L(a, lane, kCav);
+  MrtLane<T> M;
+  if constexpr (kMrt) M = MrtLane<T>(a, m.net, lane);
   const Scheme<T> sc(a);
 
   T Tn[kMaxNodes], T1[kMaxNodes], cs[kMaxNodes], inv[kMaxNodes];
@@ -120,15 +160,33 @@ __global__ void __launch_bounds__(kMaxLanes) day_march_kernel(const MarchArgs<T>
       T t_front, t_back;
       if (!kParity) {
         L.boundary(s_zT, a.t_out[w], t_front, t_back);
-        o = build_ops(L, Tn, t_front, t_back, a.wind[w], a.wdir[w], hi, a.amb_bug, sc.a_dt, cs, inv);
+        if constexpr (kMrt) {
+          // The network frozen with the operators, from the group's start
+          // (without MRT physics an empty context: the faces' own radiation).
+          MrtFace<T> mf{};
+          if (m.net.phys)
+            mf = mrt_context(a, m.net, L, M, b, tid, Tn, t_front, t_back, s_zT, s_ha, s_haT, s_tm);
+          o = build_ops<T, true>(L, Tn, t_front, t_back, a.wind[w], a.wdir[w], hi, a.amb_bug, sc.a_dt,
+                                 cs, inv, &mf);
+        } else {
+          o = build_ops(L, Tn, t_front, t_back, a.wind[w], a.wdir[w], hi, a.amb_bug, sc.a_dt, cs, inv);
+        }
       }
 
       for (int i = i0; i < i0 + a.refresh_every; ++i) {
         L.boundary(s_zT, a.t_out[h * a.substeps + i], t_front, t_back);
         if (kParity) {  // refresh_every is 1: the operators are the sub-step's own
           ParityWork<T> W;
-          o = parity_substep(Chunks<T>(a, L, lane), ParityCfg<T>(a), hi, t_front, t_back,
-                             a.wind[w], a.wdir[w], a.amb_bug, Tn, W);
+          if constexpr (kMrt) {  // the network of the sub-step's start state
+            MrtFace<T> mf{};
+            if (m.net.phys)
+              mf = mrt_context(a, m.net, L, M, b, tid, Tn, t_front, t_back, s_zT, s_ha, s_haT, s_tm);
+            o = parity_substep<T, true>(Chunks<T>(a, L, lane), ParityCfg<T>(a), hi, t_front, t_back,
+                                        a.wind[w], a.wdir[w], a.amb_bug, Tn, W, &mf);
+          } else {
+            o = parity_substep(Chunks<T>(a, L, lane), ParityCfg<T>(a), hi, t_front, t_back,
+                               a.wind[w], a.wdir[w], a.amb_bug, Tn, W);
+          }
         } else {
           march_substep(L, o, cs, inv, hi, t_front, t_back, sc, Tn, T1);
         }
@@ -171,7 +229,23 @@ __global__ void __launch_bounds__(kMaxLanes) day_march_kernel(const MarchArgs<T>
       }
     }
 
-    // ---- end of hour: zone history and the non-finite count ----------------
+    // ---- end of hour: the histories, the non-finite count -----------------
+    if constexpr (kMrt) {
+      if (m.hq_hist) {
+        T* hq_h = m.hq_hist + (size_t)h * 4 * SP + lane;
+        hq_h[0] = o.hf;
+        hq_h[SP] = o.hb;
+        hq_h[2 * SP] = qf;
+        hq_h[3 * SP] = qb;
+      }
+      if (m.top) {  // the zone-air-started network on the hour's final state
+        T t_front, t_back;
+        L.boundary(s_zT, a.t_out[h * a.substeps + a.substeps - 1], t_front, t_back);
+        mrt_context(a, m.net, L, M, b, tid, Tn, t_front, t_back, s_zT, s_ha, s_haT, s_tm);
+        for (int z = tid; z < ZB; z += SB)
+          m.top[(size_t)h * NB * ZB + b * ZB + z] = (s_zT[z] + s_tm[z]) / T(2);
+      }
+    }
     int cnt = 0;
     for (int i = 0; i < N; ++i)
       if (L.valid(i) && !is_finite(Tn[i])) ++cnt;
@@ -215,21 +289,22 @@ int check_args(const MarchArgs<T>& m) {
   return static_cast<int>(cudaSuccess);
 }
 
-template <typename T, bool kExt, bool kParity, bool kCav = false>
-int launch_as(const MarchArgs<T>& m, cudaStream_t stream) {
+template <typename T, bool kExt, bool kParity, bool kCav = false, bool kMrt = false>
+int launch_as(const MarchArgsOf<T, kMrt>& m, cudaStream_t stream) {
   const DayArgs<T>& a = m.in;
-  const size_t smem = sizeof(T) * (static_cast<size_t>(a.ZB) * (kExt ? 3 : 1) +
+  const size_t smem = sizeof(T) * (static_cast<size_t>(a.ZB) * (kMrt ? 4 : (kExt ? 3 : 1)) +
                                    4 * static_cast<size_t>(a.SB));
   if (smem > 48 * 1024) {
     const cudaError_t e =
-        cudaFuncSetAttribute(day_march_kernel<T, kExt, kParity, kCav>,
+        cudaFuncSetAttribute(day_march_kernel<T, kExt, kParity, kCav, kMrt>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  day_march_kernel<T, kExt, kParity, kCav><<<a.NB, a.SB, smem, stream>>>(m);
+  day_march_kernel<T, kExt, kParity, kCav, kMrt><<<a.NB, a.SB, smem, stream>>>(m);
   return static_cast<int>(cudaGetLastError());
 }
 
+#ifndef HEATX_DAY_MARCH_KMRT_UNIT
 template <typename T>
 int day_march(const void* node, const void* surf, const void* lane, const void* zone_volume,
               const void* zone_ptr, const void* zone_faces, const void* t_out, const void* wind,
@@ -238,12 +313,13 @@ int day_march(const void* node, const void* surf, const void* lane, const void* 
               const void* zT0, void* T_out, void* zT_out, void* hq, void* zt_hist, void* bad,
               void* ld_hist, const void* ctl, const void* sp_heat, const void* sp_cool,
               const void* mix_ptr, const void* mix_src, const void* mix_vol, void* cav_u, const void* cav,
+              const void* mrt, const void* mrt_ptr, const void* mrt_faces, void* hq_hist, void* top,
               int N,
               int NB, int SB, int ZB, int hours, int substeps, int refresh_every, int amb_bug,
-              int parity, int nomass_iters, int esc_after, double dt, double half_dt,
+              int parity, int nomass_iters, int esc_after, int mrt_phys, double dt, double half_dt,
               double gamma_dt, double beta_dt, double c1, double c2, double nomass_tol,
               double nomass_tol_esc, void* stream) {
-  MarchArgs<T> m;
+  MrtMarchArgs<T> m;  // the kMrt instantiations take it whole, the others its MarchArgs
   DayArgs<T>& a = m.in;
   a.node = static_cast<const T*>(node);
   a.surf = static_cast<const T*>(surf);
@@ -279,6 +355,12 @@ int day_march(const void* node, const void* surf, const void* lane, const void* 
   a.mixt_vol = nullptr;
   a.cav_u = static_cast<T*>(cav_u);
   a.cav = static_cast<const T*>(cav);
+  m.net.mrt = static_cast<const T*>(mrt);
+  m.net.mrt_ptr = static_cast<const int*>(mrt_ptr);
+  m.net.mrt_faces = static_cast<const int*>(mrt_faces);
+  m.net.phys = mrt_phys;
+  m.hq_hist = static_cast<T*>(hq_hist);
+  m.top = static_cast<T*>(top);
   a.N = N;
   a.NB = NB;
   a.SB = SB;
@@ -298,21 +380,54 @@ int day_march(const void* node, const void* surf, const void* lane, const void* 
   a.esc_after = esc_after;
   a.nomass_tol = nomass_tol;
   a.nomass_tol_esc = nomass_tol_esc;
-  const int err = check_args(m);
+  const int err = check_args<T>(m);
   if (err) return err;
+  // MRT physics and the histories take the network operands (an empty face
+  // list may come as a null pointer: it is never read).
+  if ((mrt_phys || m.top || m.hq_hist) && !(m.net.mrt && m.net.mrt_ptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   if ((a.cav != nullptr) != (a.cav_u != nullptr)) return static_cast<int>(cudaErrorInvalidValue);
   // Free-float buildings run the instantiation without the extra zone code;
   // buildings with gas cavities the extended one with the cavity code (kCav),
-  // whatever their zones have, so the others keep their code.
+  // whatever their zones have, so the others keep their code.  MRT physics
+  // and the histories take the extended instantiations with the network
+  // (kMrt), with the cavity code where the building has it.
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool ext = a.ctl || a.mix_ptr;
+  if (m.net.mrt)
+    return std::is_same_v<T, float> ? heatx_day_march_mrt_f32(&m, stream, parity)
+                                    : heatx_day_march_mrt_f64(&m, stream, parity);
+  const MarchArgs<T>& b = m;
   if (a.cav)
-    return parity ? launch_as<T, true, true, true>(m, st) : launch_as<T, true, false, true>(m, st);
-  if (parity) return ext ? launch_as<T, true, true>(m, st) : launch_as<T, false, true>(m, st);
-  return ext ? launch_as<T, true, false>(m, st) : launch_as<T, false, false>(m, st);
+    return parity ? launch_as<T, true, true, true>(b, st) : launch_as<T, true, false, true>(b, st);
+  if (parity) return ext ? launch_as<T, true, true>(b, st) : launch_as<T, false, true>(b, st);
+  return ext ? launch_as<T, true, false>(b, st) : launch_as<T, false, false>(b, st);
 }
+#else
+// The kMrt unit: MRT physics and the histories, with the cavity code where
+// the building has gas cavities (kMrt implies kExt).
+template <typename T>
+int day_march_mrt(const void* args, void* stream, int parity) {
+  const MrtMarchArgs<T>& m = *static_cast<const MrtMarchArgs<T>*>(args);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (m.in.cav)
+    return parity ? launch_as<T, true, true, true, true>(m, st)
+                  : launch_as<T, true, false, true, true>(m, st);
+  return parity ? launch_as<T, true, true, false, true>(m, st)
+                : launch_as<T, true, false, false, true>(m, st);
+}
+#endif
 
 }  // namespace
+
+#ifdef HEATX_DAY_MARCH_KMRT_UNIT
+int heatx_day_march_mrt_f32(const void* m, void* stream, int parity) {
+  return day_march_mrt<float>(m, stream, parity);
+}
+int heatx_day_march_mrt_f64(const void* m, void* stream, int parity) {
+  return day_march_mrt<double>(m, stream, parity);
+}
+#else
 
 #define HEATX_DAY_MARCH_ARGS                                                               \
   const void *node, const void *surf, const void *lane, const void *zone_volume,           \
@@ -322,16 +437,18 @@ int day_march(const void* node, const void* surf, const void* lane, const void* 
       const void *zT0, void *T_out, void *zT_out, void *hq, void *zt_hist, void *bad,      \
       void *ld_hist, const void *ctl, const void *sp_heat, const void *sp_cool,            \
       const void *mix_ptr, const void *mix_src, const void *mix_vol, void *cav_u, const void *cav,  \
+      const void *mrt, const void *mrt_ptr, const void *mrt_faces, void *hq_hist, void *top,  \
       int N,                                                                               \
       int NB, int SB, int ZB, int hours, int substeps, int refresh_every, int amb_bug,     \
-      int parity, int nomass_iters, int esc_after, double dt, double half_dt,              \
+      int parity, int nomass_iters, int esc_after, int mrt_phys, double dt, double half_dt, \
       double gamma_dt, double beta_dt, double c1, double c2, double nomass_tol,            \
       double nomass_tol_esc, void *stream
 #define HEATX_DAY_MARCH_CALL                                                               \
   node, surf, lane, zone_volume, zone_ptr, zone_faces, t_out, wind, wdir, sol_f, sol_b,    \
       ir_f, ir_b, a_extra, b_extra, T0, zT0, T_out, zT_out, hq, zt_hist, bad, ld_hist,     \
-      ctl, sp_heat, sp_cool, mix_ptr, mix_src, mix_vol, cav_u, cav, N, NB, SB, ZB, hours, \
-      substeps, refresh_every, amb_bug, parity, nomass_iters, esc_after, dt, half_dt,      \
+      ctl, sp_heat, sp_cool, mix_ptr, mix_src, mix_vol, cav_u, cav, mrt, mrt_ptr, mrt_faces, \
+      hq_hist, top, N, NB, SB, ZB, hours,                                                  \
+      substeps, refresh_every, amb_bug, parity, nomass_iters, esc_after, mrt_phys, dt, half_dt, \
       gamma_dt, beta_dt, c1, c2, nomass_tol, nomass_tol_esc, stream
 
 extern "C" {
@@ -345,3 +462,4 @@ const char* heatx_cuda_error_string(int err) {
 }
 
 }  // extern "C"
+#endif

@@ -81,19 +81,22 @@ __device__ __forceinline__ void film(const Lane<T>& L, const FaceTemps<T>& ft, T
 }
 
 // The sub-step's operators from its start state: films, linearized radiation
-// and radiant temperatures.
-template <typename T>
+// and radiant temperatures (kMrt: toward the MRT context *m on a network
+// face, as build_ops).
+template <typename T, bool kMrt = false>
 __device__ Ops<T> parity_ops(const Lane<T>& L, const T* Tn, T t_front, T t_back, T base,
-                             const HourIn<T>& hi, int amb_bug) {
+                             const HourIn<T>& hi, int amb_bug, const MrtFace<T>* m = nullptr) {
   Ops<T> o;
   const FaceTemps<T> ft(L, Tn, t_front, t_back, hi, amb_bug);
   film(L, ft, t_front, t_back, base, o.hf, o.hb);
-  const T xf = T(kKelvin) + (ft.front_rad + ft.front_surf) / T(2);
-  const T xb = T(kKelvin) + (ft.back_rad + ft.back_surf_eff) / T(2);
-  o.radf = T(4) * L.eps_f * T(kSigma) * (xf * xf * xf);
-  o.radb = T(4) * L.eps_b * T(kSigma) * (xb * xb * xb);
-  o.rad_ft = ft.front_rad;
-  o.rad_bt = ft.back_rad;
+  T rad_f = ft.front_rad, rad_b = ft.back_rad, eps_f = L.eps_f, eps_b = L.eps_b;
+  if constexpr (kMrt) rad_view(L, ft, *m, rad_f, rad_b, eps_f, eps_b);
+  const T xf = T(kKelvin) + (rad_f + ft.front_surf) / T(2);
+  const T xb = T(kKelvin) + (rad_b + ft.back_surf_eff) / T(2);
+  o.radf = T(4) * eps_f * T(kSigma) * (xf * xf * xf);
+  o.radb = T(4) * eps_b * T(kSigma) * (xb * xb * xb);
+  o.rad_ft = rad_f;
+  o.rad_bt = rad_b;
   return o;
 }
 
@@ -303,14 +306,15 @@ struct ParityWork {
 
 // One parity sub-step of the lane's node column Tn, in place.  Returns the
 // operators whose hf/hb are the films of the NEW temperatures (the ones the
-// zone sums and h/q read).
-template <typename T>
+// zone sums and h/q read).  kMrt: the radiation runs toward the MRT context
+// *m of the sub-step's start state.
+template <typename T, bool kMrt = false>
 __device__ Ops<T> parity_substep(const Chunks<T>& C, const ParityCfg<T>& pc, const HourIn<T>& hi,
                                  T t_front, T t_back, T ws, T wd, int amb_bug, T* Tn,
-                                 ParityWork<T>& W) {
+                                 ParityWork<T>& W, const MrtFace<T>* m = nullptr) {
   const Lane<T>& L = C.L;
   const T base = forced_base(L, ws, wd);
-  Ops<T> o = parity_ops(L, Tn, t_front, t_back, base, hi, amb_bug);
+  Ops<T> o = parity_ops<T, kMrt>(L, Tn, t_front, t_back, base, hi, amb_bug, m);
   if (L.cav_bits) cavity_refresh(L, Tn);
   parity_k_rows(C, o.hf, o.hb, W.kl, W.kd, W.ku);
   march_nomass(C, pc, o, hi, t_front, t_back, W.kl, W.kd, W.ku, Tn, W.w1, W.w2, W.w3);

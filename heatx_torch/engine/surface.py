@@ -14,8 +14,12 @@ statics, proven bit-identical and selected by identity guards on ``U``, ``K``
 and ``sb.has_cavity``; the port has the inline form only.  With gas cavities
 the parity integrator re-evaluates U, K and q on every no-mass iteration and
 again on the post-no-mass column before RK4, as heatx does.  The adaptive
-no-mass loop (``nomass_fixed_iters=None``) is ROADMAP B6/A10, the interior
-MRT network B5.
+no-mass loop (``nomass_fixed_iters=None``) is ROADMAP B6/A10.
+
+Interior longwave exchange (``config.interior_mrt``): Carroll's MRT network,
+``carroll_view_factors``, ``mrt_statics``, ``interior_mrt``, ``zone_mrt`` and
+``apply_interior_mrt``, with zone sums by ``index_add_`` where heatx takes
+``segment_sum``.  They read ``sb.front_space``/``sb.back_space`` [S].
 
 ``sb`` is any object with the ``SurfaceBatch`` attribute names holding
 tensors; ``normal`` is an ``(nx, ny)`` pair of ``[S]`` tensors, as on heatx's
@@ -35,7 +39,7 @@ from typing import NamedTuple
 
 import torch
 
-from heatx_torch.build.layout import B_AMBIENT, B_OUTDOOR
+from heatx_torch.build.layout import B_AMBIENT, B_OUTDOOR, B_SPACE
 from heatx_torch.config import SimConfig
 from heatx_torch.constants import KELVIN, SIGMA
 from heatx_torch.ops import tridiag
@@ -295,13 +299,115 @@ def _row_next(x):
     return torch.cat([x[1:], torch.zeros_like(x[:1])], dim=0)
 
 
+def segment_sum(x, idx, n: int):
+    """Sums of ``x`` over the segments ``idx`` (jax.ops.segment_sum), [n]."""
+    return torch.zeros(n, dtype=x.dtype, device=x.device).index_add_(0, idx, x)
+
+
+def carroll_view_factors(area, space, participating, n_zones, iters=20):
+    """Carroll (1980) MRT-network view factors, one per participating face:
+    ``F_i = 1 / (1 - A_i F_i / sum_{j in zone} A_j F_j)`` by the fixed point
+    from ``F = 1``, the denominator clamped at 0.05 (a face that holds most
+    of its zone's weighted area saturates).  Non-participating faces get 0."""
+    idx = torch.where(participating, space, n_zones).long()
+    F = torch.ones_like(area)
+    for _ in range(iters):
+        af = torch.where(participating, area * F, 0.0)
+        tot = segment_sum(af, idx, n_zones + 1)
+        denom = 1.0 - af / torch.clamp_min(tot[idx], 1e-30)
+        F = 1.0 / torch.clamp_min(denom, 0.05)
+    return torch.where(participating, F, 0.0)
+
+
+def mrt_statics(sb, n_zones):
+    """The static part of the Carroll network over the [2S] (front, back)
+    faces: ``(part, idx, eps_eff)``, the participation mask (a face bounds a
+    space, emits, and its zone has at least two such faces), the zone index
+    (``n_zones`` off the network) and the effective emissivity
+    ``eps F / (F (1 - eps) + eps)`` (0 off the network)."""
+    part = torch.cat([
+        (sb.front_code == B_SPACE) & (sb.eps_front > 1e-6),
+        (sb.back_code == B_SPACE) & (sb.eps_back > 1e-6),
+    ])
+    area = torch.cat([sb.area, sb.area])
+    space = torch.cat([sb.front_space, sb.back_space]).long()
+    eps = torch.cat([sb.eps_front, sb.eps_back])
+    idx = torch.where(part, space, n_zones)
+    count = segment_sum(part.to(area.dtype), idx, n_zones + 1)
+    part = part & (count[idx] >= 1.5)
+    idx = torch.where(part, space, n_zones)
+    F = carroll_view_factors(area, space, part, n_zones)
+    # The masked branch is guarded: F = eps = 0 off the network would make
+    # the quotient 0/0, whose NaN autograd carries through the where.
+    den = torch.where(part, F * (1.0 - eps) + eps, 1.0)
+    eps_eff = torch.where(part, eps * F / den, 0.0)
+    return part, idx, eps_eff
+
+
+def mrt_fixed_point(ts, area, part, idx, eps_eff, tm_face, z_fallback):
+    """The 4-iteration linearized fixed point of the MRT node: each face's
+    conductance ``4 sigma eps_eff (K + (tm_face + ts)/2)^3 A`` toward its
+    zone's node, the node at the conductance-weighted mean of its faces'
+    temperatures ``ts``, ``z_fallback`` where a zone has no conductance.
+    ``idx`` is each face's zone (``len(z_fallback)`` off the network),
+    ``tm_face`` the linearization's start.  Returns ``(tm [Z], tm_face)``."""
+    n = z_fallback.shape[0]
+    zpad = torch.cat([z_fallback, z_fallback.new_zeros(1)])
+    tm = z_fallback
+    for _ in range(4):
+        x = KELVIN + (tm_face + ts) / 2.0
+        w = torch.where(part, 4.0 * SIGMA * eps_eff * (x * x * x) * area, 0.0)
+        num = segment_sum(w * ts, idx, n + 1)
+        den = segment_sum(w, idx, n + 1)
+        tm = torch.where(den > 1e-30, num / torch.clamp_min(den, 1e-30), zpad)
+        tm_face = tm[idx]
+        tm = tm[:n]
+    return tm, tm_face
+
+
+def _mrt_solve(sb, node_T, zone_T, n_zones, statics=None, mrt_static=None):
+    """The Carroll network over the [2S] (front, back) faces from the state
+    (``interior_mrt``): ``(part, idx, eps_eff, ts, tm [Z], tm_face [2S])``,
+    the linearization started at the zone air temperature."""
+    ts = torch.cat([node_T[0], _last_node(sb, node_T, statics)])
+    if mrt_static is None:
+        mrt_static = mrt_statics(sb, n_zones)
+    part, idx, eps_eff = mrt_static
+    area = torch.cat([sb.area, sb.area])
+    zpad = torch.cat([zone_T, zone_T.new_zeros(1)])
+    tm, tm_face = mrt_fixed_point(ts, area, part, idx, eps_eff, zpad[idx], zone_T)
+    return part, idx, eps_eff, ts, tm, tm_face
+
+
+def interior_mrt(sb, node_T, zone_T, n_zones, statics=None, mrt_static=None):
+    """Interior longwave exchange context (``config.interior_mrt``): every
+    participating face exchanges with its zone's MRT node, from the current
+    state, through its effective emissivity.  Returns ``(mask_f, tm_f,
+    eps_f, mask_b, tm_b, eps_b)`` [S] each (masks False off the network)."""
+    part, _, eps_eff, _, _, tm_face = _mrt_solve(sb, node_T, zone_T, n_zones, statics, mrt_static)
+    S = sb.area.shape[0]
+    return part[:S], tm_face[:S], eps_eff[:S], part[S:], tm_face[S:], eps_eff[S:]
+
+
+def zone_mrt(sb, node_T, zone_T, n_zones, statics=None, mrt_static=None):
+    """Per-zone mean radiant temperature [Z] of a state, the Carroll node of
+    :func:`interior_mrt` as an observable (zone air where a zone has no
+    network).  Operative temperature is ``(zone_T + zone_mrt) / 2``."""
+    return _mrt_solve(sb, node_T, zone_T, n_zones, statics, mrt_static)[4]
+
+
 def apply_interior_mrt(sb, env_f: FaceEnv, env_b: FaceEnv, mrt):
-    """Merge an interior-MRT context into the face environments.  Only the
-    identity ``mrt=None`` is ported (the Carroll network is ROADMAP B5).
-    Returns ``(env_f, env_b, eps_front, eps_back)``."""
-    if mrt is not None:
-        raise NotImplementedError("the interior MRT network is ROADMAP B5 (not ported yet)")
-    return env_f, env_b, sb.eps_front, sb.eps_back
+    """Merge an :func:`interior_mrt` context into the face environments:
+    participating faces take the zone's MRT as radiant temperature and their
+    effective emissivity; the film coefficients are unchanged, and
+    ``mrt=None`` is the identity.  Returns ``(env_f, env_b, eps_front,
+    eps_back)``."""
+    if mrt is None:
+        return env_f, env_b, sb.eps_front, sb.eps_back
+    mf, tmf, ef, mb, tmb, eb = mrt
+    env_f = env_f._replace(rad=torch.where(mf, tmf, env_f.rad))
+    env_b = env_b._replace(rad=torch.where(mb, tmb, env_b.rad))
+    return env_f, env_b, torch.where(mf, ef, sb.eps_front), torch.where(mb, eb, sb.eps_back)
 
 
 def assemble_K(sb, U, env_f: FaceEnv, env_b: FaceEnv, statics: SurfaceStatics = None):

@@ -81,10 +81,12 @@ def _digest(sources) -> str:
 
 def build_many(specs) -> list:
     """Compile each ``(name, sources)`` of ``specs`` (paths under csrc/) into
-    ``lib<name>_<hash>.so`` unless that file exists, one nvcc per library,
-    all started together; returns their paths.  The compiler's output is
-    kept beside each library as ``.log``."""
-    outs, jobs = [], []
+    ``lib<name>_<hash>.so`` unless that file exists: one nvcc per source (a
+    library's sources are its compilation units), all started together, then
+    one link per library; returns their paths.  The compilers' output is kept
+    beside each library as ``.log``."""
+    outs, jobs, links = [], [], []
+    compile_flags = [f for f in nvcc_flags() if f != "-shared"]
     for name, sources in specs:
         sources = [Path(s) for s in sources]
         out = BUILD_DIR / f"lib{name}_{_digest(sources)}.so"
@@ -92,19 +94,33 @@ def build_many(specs) -> list:
         if out.exists():
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *nvcc_flags(), "-o", str(tmp), *map(str, sources)]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        jobs.append((name, out, tmp, proc))
-    failed = []
-    for name, out, tmp, proc in jobs:
+        objs = []
+        for src in sources:
+            obj = out.with_name(f"{out.stem}.{src.stem}.{os.getpid()}.o")
+            cmd = [nvcc_path(), *compile_flags, "-c", "-o", str(obj), str(src)]
+            jobs.append((name, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+            objs.append(obj)
+        links.append((name, out, objs))
+    logs, failed, broken = {}, [], set()
+    for name, proc in jobs:
         stdout, stderr = proc.communicate()
-        out.with_suffix(".log").write_text(stdout + stderr)
+        logs[name] = logs.get(name, "") + stdout + stderr
         if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
             failed.append(f"nvcc failed ({proc.returncode}) building {name}:\n{stderr[-4000:]}")
-        else:
-            os.replace(tmp, out)
+            broken.add(name)
+    for name, out, objs in links:
+        if name not in broken:
+            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            proc = subprocess.run([nvcc_path(), "-shared", "-o", str(tmp), *map(str, objs)],
+                                  capture_output=True, text=True)
+            logs[name] += proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}) linking {name}:\n{proc.stderr[-4000:]}")
+            else:
+                os.replace(tmp, out)
+        out.with_suffix(".log").write_text(logs[name])
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     if failed:
         raise RuntimeError("\n".join(failed))
     return outs

@@ -54,8 +54,16 @@ segment goes through dU/dT into that build's column and not to ``seg_u``,
 whose cotangent there is exactly 0; the gas operands and the cavity geometry
 are not differentiated (heatx pallas_adjoint.py:44-47).
 
-Not ported yet (raises ``NotImplementedError`` naming its ROADMAP item): the
-interior-MRT emissivities.
+Interior MRT: the Carroll network's effective emissivities are operands
+(``params.mrt``), and their cotangents come out as ``d_params["mrt_eps_f"]``
+/ ``["mrt_eps_b"]`` [SP] where the building runs MRT physics (heatx
+``MRT_NAMES``); ``FastRunner.chunk_grad`` pulls them back to ``area`` and the
+emissivities through ``day_march.mrt_eps_blocked``.  The kernel recomputes
+the network's four iterations from the column that built the operators (a
+TR-BDF2 refresh group's start, a parity sub-step's start) and walks them
+back: the transpose of a face's gather of its zone node is the zone's
+fixed-order face sum, the transpose of the zone sums a per-face read of the
+zone's cotangent.
 """
 
 from __future__ import annotations
@@ -87,7 +95,8 @@ NODE_ROW = {"seg_u": 0, "mass": 1, "front_alphas": 2, "back_alphas": 3}
 #: two stage states (csrc/day_adjoint.cu kTape).
 MAX_TAPE = 384
 
-KERNEL_SOURCE = cuda_lib.CSRC_DIR / "day_adjoint.cu"
+#: The adjoint's compilation units (as day_march.KERNEL_SOURCES).
+KERNEL_SOURCES = (cuda_lib.CSRC_DIR / "day_adjoint.cu", cuda_lib.CSRC_DIR / "day_adjoint_mrt.cu")
 
 
 def plain_day_adjoint(
@@ -105,7 +114,8 @@ def plain_day_adjoint(
     [N, SP], d_zT0 [NB, ZB], d_node [4, N, SP], d_surf [13, SP],
     d_zone_volume [NB, ZB], d_chan [4, hours, SP], d_a_extra, d_b_extra
     [hours, NB, ZB], d_ctl [4, NB, ZB], d_sp_heat, d_sp_cool [hours, NB,
-    ZB])``; ``d_node`` follows NODE_FIELDS with the capacity row holding the
+    ZB], d_mrt [2, SP])``; ``d_mrt`` (MRT_FIELDS) is None without MRT
+    physics; ``d_node`` follows NODE_FIELDS with the capacity row holding the
     ``mass`` cotangent, ``d_surf`` follows SURF_FIELDS (normal rows 0),
     ``d_chan`` follows DIFF_CHANNELS, ``d_ctl`` the thermostat rows (capacity
     rows 0; None without thermostats), ``d_sp_*`` None without a schedule."""
@@ -148,10 +158,13 @@ def plain_day_adjoint(
     surf = params.surf.detach().requires_grad_()
     zone_volume = params.zone_volume.detach().reshape(-1).requires_grad_()
     ctl = params.ctl.detach().requires_grad_() if has_ctl else None
-    p = replace(params, node=node, surf=surf, ctl=ctl)
+    has_mrt = bool(config.interior_mrt)
+    mrt = params.mrt.detach().requires_grad_() if has_mrt else params.mrt
+    p = replace(params, node=node, surf=surf, ctl=ctl, mrt=mrt)
     gT, gz = dT, d_zT.reshape(-1)
     g_node, g_surf, g_zv = (torch.zeros_like(x) for x in (node, surf, zone_volume))
     g_ctl = torch.zeros_like(ctl) if has_ctl else None
+    g_mrt = torch.zeros_like(mrt) if has_mrt else None
     g_chan = torch.zeros((4,) + tuple(sol_front.shape), dtype=T0.dtype, device=T0.device)
     g_a = torch.zeros_like(a_extra)
     g_b = torch.zeros_like(b_extra)
@@ -167,7 +180,7 @@ def plain_day_adjoint(
             sp_h = tuple(x.detach().requires_grad_() for x in sp_rows(h))
             T1, zT1, ld = hour(p, zone_volume, h, T, zT, chans, a_h, b_h, sp_h)
             leaves = (T, zT, node, surf, zone_volume, *chans, a_h, b_h) + sp_h
-            leaves += (ctl,) if has_ctl else ()
+            leaves += ((ctl,) if has_ctl else ()) + ((mrt,) if has_mrt else ())
             outs, cots = (T1, zT1), (gT, gz)
             if has_ctl:
                 outs, cots = outs + (ld,), cots + (d_ld_hist[h].reshape(-1),)
@@ -185,25 +198,27 @@ def plain_day_adjoint(
             g_sp[0][h] = grads[11].reshape(NB, ZB)
             g_sp[1][h] = grads[12].reshape(NB, ZB)
         if has_ctl:
-            g_ctl += grads[-1]
+            g_ctl += grads[-1 - has_mrt]
+        if has_mrt:
+            g_mrt += grads[-1]
     # The capacity row holds the mass cotangent: capacity = where(massive, mass, 0).
     g_node[1] = torch.where(day_march.bit_rows(params, "mass_bits"), g_node[1], 0.0)
     g_surf[SURF_FIELDS.index("normal_x"):] = 0.0
     if has_ctl:
         g_ctl[2:] = 0.0  # the capacities are not differentiated
     return (gT, gz.reshape(NB, ZB), g_node, g_surf, g_zv.reshape(NB, ZB), g_chan, g_a, g_b,
-            g_ctl, *g_sp)
+            g_ctl, *g_sp, g_mrt)
 
 
 # ---------------------------------------------------------------------------
 # The CUDA kernel wrapper
 # ---------------------------------------------------------------------------
 
-_N_PTRS = 46
+_N_PTRS = 50
 
 
 def _load_library():
-    lib = cuda_lib.load("heatx_day_adjoint", [KERNEL_SOURCE])
+    lib = cuda_lib.load("heatx_day_adjoint", KERNEL_SOURCES)
     if not getattr(lib, "_heatx_bound", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
         for fn in (lib.heatx_day_adjoint_f32, lib.heatx_day_adjoint_f64):
@@ -231,6 +246,8 @@ class DayAdjointKernel:
         self.parity_launches = 0  # those of ``launches`` that ran the parity kernel
         self.cavity_launches = 0  # those of ``launches`` on a building with gas cavities
         self.parity_cavity_launches = 0  # those of ``cavity_launches`` in parity mode
+        self.mrt_launches = 0  # those of ``launches`` with MRT physics
+        self.parity_mrt_launches = 0  # those of ``mrt_launches`` in parity mode
 
     def __call__(
         self, params: DayMarchParams, T0, zT0, t_out, wind, wdir, sol_front,
@@ -281,7 +298,9 @@ class DayAdjointKernel:
             torch.zeros((4, NB, ZB), **kw) if has_ctl else None,
             torch.empty((hours, NB, ZB), **kw) if sched else None,
             torch.empty((hours, NB, ZB), **kw) if sched else None,
+            torch.empty((2, SP), **kw) if config.interior_mrt else None,
         )
+        mrt = day_march.mrt_operands(params, config) if config.interior_mrt else (None,) * 3
         tensors = [
             params.node, params.surf, params.lane, params.zone_volume, params.zone_ptr,
             params.zone_faces, t_out, wind, wdir, sol_front, sol_back, ir_front, ir_back,
@@ -289,12 +308,12 @@ class DayAdjointKernel:
             d_ld_hist, params.ctl, sp_heat, sp_cool,
             *((None,) * 6 if mix is None
               else (mix.ptr, mix.src, mix.vol, mix.t_ptr, mix.t_dst, mix.t_vol)),
-            *outs[8:], sub_ws, day_march.cavity_u_row(params), params.cav,
+            *outs[8:11], sub_ws, day_march.cavity_u_row(params), params.cav, *mrt, outs[11],
         ]
         ptrs = (ctypes.c_void_p * _N_PTRS)(*[None if t is None else t.data_ptr() for t in tensors])
-        ints = (ctypes.c_int * 11)(
+        ints = (ctypes.c_int * 12)(
             N, NB, SB, ZB, hours, substeps, refresh_every, int(config.replicate_ambient_back_bug),
-            *day_march.parity_ints(config, parity),
+            *day_march.parity_ints(config, parity), int(config.interior_mrt),
         )
         reals = (ctypes.c_double * 8)(
             dt, imp_mod.GAMMA * dt / 2.0, imp_mod.GAMMA * dt, imp_mod.BETA * dt,
@@ -311,6 +330,8 @@ class DayAdjointKernel:
         self.parity_launches += int(parity)
         self.cavity_launches += int(params.cav is not None)
         self.parity_cavity_launches += int(parity and params.cav is not None)
+        self.mrt_launches += int(bool(config.interior_mrt))
+        self.parity_mrt_launches += int(parity and bool(config.interior_mrt))
         return outs
 
 
@@ -354,7 +375,7 @@ class DayAdjoint:
 
     def raw(self, params, T0, zT0, hour_inputs, cots, plain=False):
         args = self._args(params, T0, zT0, hour_inputs, cots)
-        kw = self._hm._kw()
+        kw = self._hm._kw(observables=False)
         if plain or T0.device.type == "cpu":
             return plain_day_adjoint(*args, **kw)
         if T0.device.type == "cuda":
@@ -363,9 +384,11 @@ class DayAdjoint:
 
     @staticmethod
     def _dict(outs):
-        dT0, d_zT0, d_node, d_surf, d_zv, d_chan, d_a, d_b, d_ctl, d_sph, d_spc = outs
+        dT0, d_zT0, d_node, d_surf, d_zv, d_chan, d_a, d_b, d_ctl, d_sph, d_spc, d_mrt = outs
         d_params = {name: d_node[NODE_ROW[name]] for name in DIFF_NODE}
         d_params.update({name: d_surf[SURF_FIELDS.index(name)] for name in DIFF_SURF})
+        if d_mrt is not None:
+            d_params.update(zip(day_march.MRT_FIELDS, d_mrt))
         out = {
             "dT0": dT0, "d_zT0": d_zT0, "d_params": d_params, "d_zone_volume": d_zv,
             **{"d_" + name: d_chan[i] for i, name in enumerate(DIFF_CHANNELS)},
@@ -424,15 +447,17 @@ def make_day_adjoint(
 
 class _DayMarch(torch.autograd.Function):
     """The autograd node behind :class:`DayMarchFn`: ``apply(hour_march,
-    day_adjoint, params, node, surf, zone_volume, ctl, T, zT,
-    *hour_inputs)``, ``ctl`` the thermostat rows or None."""
+    day_adjoint, params, node, surf, zone_volume, ctl, mrt, T, zT,
+    *hour_inputs)``, ``ctl`` the thermostat rows and ``mrt`` the Carroll
+    network's rows, or None."""
 
     @staticmethod
-    def forward(ctx, hour_march, day_adjoint, params, node, surf, zone_volume, ctl, T, zT, *hour_inputs):
-        p = replace(params, node=node, surf=surf, zone_volume=zone_volume, ctl=ctl)
+    def forward(ctx, hour_march, day_adjoint, params, node, surf, zone_volume, ctl, mrt, T, zT,
+                *hour_inputs):
+        p = replace(params, node=node, surf=surf, zone_volume=zone_volume, ctl=ctl, mrt=mrt)
         outs = hour_march(p, T, zT, hour_inputs)
         T1, zT1, hq, zt_hist = outs[:4]
-        ctx.save_for_backward(node, surf, zone_volume, ctl, T, zT, *hour_inputs)
+        ctx.save_for_backward(node, surf, zone_volume, ctl, mrt, T, zT, *hour_inputs)
         ctx.params = params
         ctx.adjoint = day_adjoint
         ctx.mark_non_differentiable(*hq)
@@ -441,15 +466,15 @@ class _DayMarch(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gT, gzT, g_hist, *rest):
-        node, surf, zone_volume, ctl, T, zT, *hour_inputs = ctx.saved_tensors
-        p = replace(ctx.params, node=node, surf=surf, zone_volume=zone_volume, ctl=ctl)
+        node, surf, zone_volume, ctl, mrt, T, zT, *hour_inputs = ctx.saved_tensors
+        p = replace(ctx.params, node=node, surf=surf, zone_volume=zone_volume, ctl=ctl, mrt=mrt)
         g_ld = rest[4] if ctl is not None else None
-        dT0, d_zT0, d_node, d_surf, d_zv, d_chan, d_a, d_b, d_ctl, d_sph, d_spc = ctx.adjoint(
+        dT0, d_zT0, d_node, d_surf, d_zv, d_chan, d_a, d_b, d_ctl, d_sph, d_spc, d_mrt = ctx.adjoint(
             p, T, zT, hour_inputs, (gT, gzT, g_hist, g_ld)
         )
         d_hi = (None, None, None, *d_chan, d_a, d_b, d_sph, d_spc)
         d_hi = tuple(None if d is None else d.reshape(x.shape) for d, x in zip(d_hi, hour_inputs))
-        return (None, None, None, d_node, d_surf, d_zv.reshape(zone_volume.shape), d_ctl,
+        return (None, None, None, d_node, d_surf, d_zv.reshape(zone_volume.shape), d_ctl, d_mrt,
                 dT0.reshape(T.shape), d_zT0.reshape(zT.shape)) + d_hi
 
 
@@ -471,12 +496,14 @@ class DayMarchFn:
     (0 on no-mass nodes, where the capacity is the constant 0); the
     thermostat capacities get none.  Under scheduled setpoints the 11-leaf
     ``hour_inputs`` carry the setpoint rows and receive their cotangents.
-    ``hour_march`` may be an HourMarch or its ``.plain``; ``day_adjoint``
+    ``mrt`` (a building with MRT physics) replaces the Carroll network's
+    rows and receives the ``mrt_eps_*`` cotangents.  ``hour_march`` may be an HourMarch or its ``.plain``; ``day_adjoint``
     ``DayAdjoint.raw`` or ``functools.partial(DayAdjoint.raw, plain=True)``.
     """
 
     @staticmethod
-    def apply(hour_march, day_adjoint, params, node, surf, zone_volume, T, zT, *hour_inputs, ctl=None):
+    def apply(hour_march, day_adjoint, params, node, surf, zone_volume, T, zT, *hour_inputs, ctl=None,
+              mrt=None):
         return _DayMarch.apply(
-            hour_march, day_adjoint, params, node, surf, zone_volume, ctl, T, zT, *hour_inputs
+            hour_march, day_adjoint, params, node, surf, zone_volume, ctl, mrt, T, zT, *hour_inputs
         )

@@ -96,13 +96,29 @@ K reads its segment U-values from a per-launch copy of the U row
 heatx's hoisted static-U forms and their ``has_cavity`` guards are not
 carried over.
 
-Not ported yet (each raises ``NotImplementedError``): interior
-MRT, in-run shading and vent gates (ROADMAP A9/B5),
-``collect_hq``/``collect_operative`` (A9) and sharding (A12).
+Interior MRT (``config.interior_mrt``): the Carroll network's static part
+(participation, view factors, effective emissivities) is computed at
+blocking time (:func:`_mrt_static_blocked`, and differentiably in ``area``
+and the emissivities by :func:`mrt_eps_blocked`) and rides as
+``DayMarchParams.mrt`` [2, SP]; the 4-iteration linearized fixed point of
+the zone MRT nodes runs in the march, frozen with the operators in TR-BDF2
+(evaluated at each refresh group's start column) and at each sub-step's
+start in parity mode, as heatx does.  Blocks are zone-closed, so the
+network is block-local: the kernel sums each zone's participating faces in
+the fixed order of a host-built list (``mrt_ptr``/``mrt_faces``) in shared
+memory, with barriers between the iterations.  ``collect_hq`` (the per-hour
+h/q history) and ``collect_operative`` (the per-hour operative temperature,
+the zone-air-started solve on each hour's final state) are outputs of the
+same instantiations (``kMrt``), which every launch with MRT physics or
+either history takes; the others keep their code.
+
+Not ported yet (each raises ``NotImplementedError``): in-run shading and
+vent gates (ROADMAP A9.2) and sharding (A12).
 """
 
 from __future__ import annotations
 
+import copy
 import ctypes
 import dataclasses
 from dataclasses import replace
@@ -139,8 +155,12 @@ SURF_FIELDS = (
 )
 LANE_FIELDS = (
     "front_code", "back_code", "front_zone", "back_zone", "node_bits", "mass_bits",
-    "chunk_bits", "cav_bits",
+    "chunk_bits", "cav_bits", "mrt_bits",
 )
+#: Row order of DayMarchParams.mrt: the faces' Carroll effective emissivities
+#: (heatx's operand names; 0 off the network).  Bit 0 (front) and bit 1
+#: (back) of a lane's ``mrt_bits`` mark its faces on the network.
+MRT_FIELDS = ("mrt_eps_f", "mrt_eps_b")
 #: Row order of DayMarchParams.cav: the gas polynomials (GasProps order), the
 #: cavity geometry and the emissivities of every gas-cavity segment.
 CAV_FIELDS = (
@@ -148,7 +168,9 @@ CAV_FIELDS = (
     "angle", "ein", "eout",
 )
 
-KERNEL_SOURCE = cuda_lib.CSRC_DIR / "day_march.cu"
+#: The day march's compilation units: the kernel with its instantiations, and
+#: its MRT instantiations apart (csrc/day_march_mrt.cu says why).
+KERNEL_SOURCES = (cuda_lib.CSRC_DIR / "day_march.cu", cuda_lib.CSRC_DIR / "day_march_mrt.cu")
 
 #: Values of the blocked parameter rows on padded lanes (0.0 for the rest).
 #: Area 1 keeps perimeter*v/area finite on a padded lane, and its
@@ -240,6 +262,11 @@ class BlockedBuilding:
     ctl: tuple = None
     #: Inter-zone mixing entries; None without mixing.
     mix: MixLists = None
+    #: The Carroll network's effective emissivities (front, back), each [SP]
+    #: float64, and its participation mask [2, NB, SB]; None without the
+    #: MRT statics.
+    mrt_eps: tuple = None
+    mrt_part: np.ndarray = None
 
     @property
     def config(self) -> SimConfig:
@@ -266,12 +293,10 @@ def _check_supported(building: CompiledBuilding):
     """Raise NotImplementedError (naming the ROADMAP item) for building
     features the day march does not carry yet."""
     missing = []
-    if building.config.interior_mrt:
-        missing.append("config.interior_mrt (ROADMAP A9/B5)")
     if building.has_zone_shading:
-        missing.append("in-run zone shading (ROADMAP A9/B5)")
+        missing.append("in-run zone shading (ROADMAP A9.2)")
     if building.has_vent_gates:
-        missing.append("ventilation gates (ROADMAP A9/B5)")
+        missing.append("ventilation gates (ROADMAP A9.2)")
     if building.max_nodes > MAX_NODES:
         missing.append(f"more than {MAX_NODES} nodes per surface (ROADMAP B1)")
     if missing:
@@ -294,14 +319,76 @@ def min_block_lanes(building: CompiledBuilding) -> int:
     return -(-largest // WARP) * WARP
 
 
+def _mrt_part_mask(sb, front_oh, back_oh, n_blocks, zones_per_block):
+    """The static participation mask [2, NB, SB] of the Carroll network
+    (numpy, heatx ``_mrt_part_mask``): a face bounds a space, emits
+    (eps > 1e-6), and its zone has at least two such faces."""
+    NB, ZB = n_blocks, zones_per_block
+    oh = np.stack([
+        np.asarray(front_oh, np.float64).reshape(NB, -1, ZB),
+        np.asarray(back_oh, np.float64).reshape(NB, -1, ZB),
+    ])  # [2, NB, SB, ZB]
+    part = np.stack([
+        (np.asarray(sb.front_code) == B_SPACE) & (np.asarray(sb.eps_front) > 1e-6),
+        (np.asarray(sb.back_code) == B_SPACE) & (np.asarray(sb.eps_back) > 1e-6),
+    ]).reshape(2, NB, -1)
+    count = np.einsum("fnsz,fns->nz", oh, part.astype(np.float64))
+    return part & (np.einsum("fnsz,nz->fns", oh, count) >= 1.5)
+
+
+def mrt_eps_blocked(area, eps_front, eps_back, part, front_oh, back_oh, n_blocks,
+                    zones_per_block, xp=torch):
+    """The Carroll view-factor fixed point and effective emissivities of a
+    blocked building (heatx ``mrt_eps_blocked_jnp``): ``area``/``eps_*`` are
+    [SP], ``part`` the static mask of :func:`_mrt_part_mask`, the one-hots
+    [SP, ZB].  ``xp=np`` is heatx's numpy path, bit for bit (the blocking
+    statics); ``xp=torch`` (tensors on one device) is differentiable in
+    ``area`` and the emissivities, and ``FastRunner.chunk_grad`` pulls the
+    adjoint's ``mrt_eps_*`` cotangents back through it.  Returns
+    ``(eps_eff_front, eps_eff_back)`` [SP] (0 off the network)."""
+    if xp is np:
+        where, maximum, ones_like, stack, bcast = np.where, np.maximum, np.ones_like, np.stack, np.broadcast_to
+    else:
+        where, maximum, ones_like, stack, bcast = (
+            torch.where, torch.clamp_min, torch.ones_like, torch.stack, torch.broadcast_to)
+    NB, ZB = n_blocks, zones_per_block
+    oh = stack([front_oh.reshape(NB, -1, ZB), back_oh.reshape(NB, -1, ZB)])  # [2, NB, SB, ZB]
+    a2 = bcast(area.reshape(1, NB, -1), tuple(part.shape))
+    F = ones_like(a2)
+    for _ in range(20):
+        af = where(part, a2 * F, 0.0)
+        tot = xp.einsum("fnsz,fns->nz", oh, af)
+        denom = 1.0 - af / maximum(xp.einsum("fnsz,nz->fns", oh, tot), 1e-30)
+        F = 1.0 / maximum(denom, 0.05)
+    F = where(part, F, 0.0)
+    eps = stack([eps_front, eps_back]).reshape(2, NB, -1)
+    denom = where(part, F * (1.0 - eps) + eps, 1.0)  # 0/0 off the network
+    eps_eff = where(part, eps * F / denom, 0.0)
+    SP = area.shape[0]
+    return eps_eff[0].reshape(SP), eps_eff[1].reshape(SP)
+
+
+def _mrt_static_blocked(sb, front_oh, back_oh, n_blocks, zones_per_block):
+    """The Carroll network's static data of a blocked building, numpy
+    (heatx ``_mrt_static_blocked``): ``(eps_eff_front, eps_eff_back)`` [SP]
+    float64 and the participation mask."""
+    part = _mrt_part_mask(sb, front_oh, back_oh, n_blocks, zones_per_block)
+    f64 = [np.asarray(a, np.float64) for a in (sb.area, sb.eps_front, sb.eps_back, front_oh, back_oh)]
+    eps = mrt_eps_blocked(*f64[:3], part, *f64[3:], n_blocks, zones_per_block, xp=np)
+    return tuple(np.asarray(e) for e in eps), part
+
+
 def block_building(
-    building: CompiledBuilding, block_size: int = None, node_split=None
+    building: CompiledBuilding, block_size: int = None, node_split=None, mrt_statics: bool = None
 ) -> BlockedBuilding:
     """Permute + pad a compiled building into zone-closed blocks of
     ``block_size`` lanes (heatx ``block_building`` with ``node_split=None``;
     the same arrays).  ``None`` picks :func:`min_block_lanes`: at bench scale
     the day kernel runs fastest with the fewest lanes per thread block
-    (PERF.md, H100 port)."""
+    (PERF.md, H100 port).  ``mrt_statics`` forces the Carroll network's
+    static data (the operative-temperature history needs it without MRT
+    physics); by default it is computed where ``config.interior_mrt`` is
+    set."""
     if node_split is not None:
         raise NotImplementedError(
             "the node-height split is a TPU lane optimisation; the CUDA day "
@@ -385,6 +472,11 @@ def block_building(
                  building.ctl_max_cool), CTL_FILL,
             )
         )
+    mrt_eps = mrt_part = None
+    if building.config.interior_mrt if mrt_statics is None else mrt_statics:
+        mrt_eps, mrt_part = _mrt_static_blocked(
+            new_sb, layout.front_oh, layout.back_oh, layout.n_blocks, layout.zones_per_block
+        )
     return BlockedBuilding(
         base=building,
         layout=layout,
@@ -395,6 +487,8 @@ def block_building(
         zone_valid=layout.zone_valid,
         ctl=ctl,
         mix=mix,
+        mrt_eps=mrt_eps,
+        mrt_part=mrt_part,
     )
 
 
@@ -424,6 +518,12 @@ class DayMarchParams:
     #: ``cav_bits`` marks segment i as a cavity), or None without cavities.
     #: Not differentiated, as in heatx.
     cav: torch.Tensor = None
+    #: The Carroll network (MRT_FIELDS rows [2, SP]) and each zone slot's
+    #: network faces (CSR like zone_ptr/zone_faces: [NB*ZB + 1], [E']), or
+    #: None without the MRT statics.
+    mrt: torch.Tensor = None
+    mrt_ptr: torch.Tensor = None
+    mrt_faces: torch.Tensor = None
 
     @property
     def n_blocks(self) -> int:
@@ -442,6 +542,8 @@ class DayMarchParams:
         return self.node.shape[1]
 
     def field(self, name: str) -> torch.Tensor:
+        if name in MRT_FIELDS:
+            return self.mrt[MRT_FIELDS.index(name)]
         if name in CAV_FIELDS:
             return self.cav[CAV_FIELDS.index(name)]
         if name in NODE_FIELDS:
@@ -469,7 +571,7 @@ def pack_params(
     node_mask, massive, capacity, seg_u, front_alphas, back_alphas, surf: dict,
     front_code, back_code, front_oh, back_oh, zone_volume, n_blocks,
     dtype=torch.float32, device="cpu", ctl=None, mix: MixLists = None, same_chunk=None,
-    seg_is_cavity=None, cav: dict = None,
+    seg_is_cavity=None, cav: dict = None, mrt=None, mrt_part=None,
 ) -> DayMarchParams:
     """Pack blocked numpy operands into :class:`DayMarchParams`.
 
@@ -481,7 +583,10 @@ def pack_params(
     ``ctl`` the four ``[NB, ZB]`` thermostat rows and ``mix`` the host-side
     mixing lists (None: absent); ``seg_is_cavity`` ``[N, SP]`` marks the
     gas-cavity segments and ``cav`` maps each CAV_FIELDS name to their
-    ``[N, SP]`` operands (both None without cavities).  Shared by
+    ``[N, SP]`` operands (both None without cavities); ``mrt`` holds the
+    MRT_FIELDS rows ``[2, SP]`` and ``mrt_part`` their static participation
+    mask ``[2, SP]`` (default ``mrt > 0``; both None without the MRT
+    statics).  Shared by
     :func:`make_hour_march` and ``heatx_torch.convert``."""
     node_mask = np.asarray(node_mask, bool)
     massive = np.asarray(massive, bool)
@@ -516,6 +621,17 @@ def pack_params(
     faces = (local * 2 + side)[order].astype(np.int32)
     counts = np.bincount(keys, minlength=NB * ZB)
     zone_ptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    # The Carroll network's faces per zone slot: the same order, filtered.
+    mrt_bits = np.zeros(SP, np.int32)
+    mrt_ptr = mrt_faces = None
+    if mrt is not None:
+        mrt = np.asarray(mrt, np.float64).reshape(2, SP)
+        part = (mrt > 0) if mrt_part is None else np.asarray(mrt_part, bool).reshape(2, SP)
+        part = part & (np.stack([fz, bz]) >= 0)
+        mrt_bits = (part[0].astype(np.int32) | (part[1].astype(np.int32) << 1))
+        sel = part[side[order], ((keys // ZB) * SB + local)[order]]
+        mrt_faces = faces[sel]
+        mrt_ptr = np.concatenate([[0], np.cumsum(np.bincount(keys[order][sel], minlength=NB * ZB))])
 
     def f(a):
         return torch.as_tensor(np.array(a, np.float64), dtype=dtype, device=device)
@@ -529,7 +645,7 @@ def pack_params(
         lane=i32(np.stack([
             np.asarray(front_code).reshape(SP), np.asarray(back_code).reshape(SP),
             fz, bz, _node_bits(node_mask), _node_bits(massive),
-            _node_bits(np.asarray(same_chunk, bool)), _node_bits(cav_mask),
+            _node_bits(np.asarray(same_chunk, bool)), _node_bits(cav_mask), mrt_bits,
         ])),
         zone_volume=f(np.asarray(zone_volume).reshape(NB, ZB)),
         zone_ptr=i32(zone_ptr),
@@ -539,6 +655,9 @@ def pack_params(
             i32(mix.ptr), i32(mix.src), f(mix.vol), i32(mix.t_ptr), i32(mix.t_dst), f(mix.t_vol)
         ),
         cav=f(np.stack([np.asarray(cav[k]) for k in CAV_FIELDS])) if has_cav else None,
+        mrt=None if mrt is None else f(mrt),
+        mrt_ptr=None if mrt is None else i32(mrt_ptr),
+        mrt_faces=None if mrt is None else i32(mrt_faces),
     )
 
 
@@ -555,8 +674,11 @@ class ParamBlocker:
     so the cotangents of the blocked rows flow back to them.  On a building
     with thermostats ``ctl_heat_sp``/``ctl_cool_sp`` [Z] re-block the two
     setpoint rows of ``params.ctl`` the same way (the capacity rows stay).
+    Where ``params`` carries the Carroll network, its effective
+    emissivities are recomputed from the blocked ``area`` and emissivities
+    by :func:`mrt_eps_blocked` (the participation mask stays the blocking's).
     With the building's own arrays the result equals
-    :func:`params_from_blocked`."""
+    :func:`params_from_blocked` (the network to round-off)."""
 
     def __init__(self, bb: BlockedBuilding, device):
         lay = bb.layout
@@ -569,6 +691,9 @@ class ParamBlocker:
         self.perm_c, self.perm_ok = dev(np.maximum(perm, 0)), dev(perm >= 0)
         self.zt_c, self.zt_ok = dev(np.maximum(zt, 0)), dev(zt >= 0)
         self.massive = dev(np.asarray(bb.surfaces.massive, bool))
+        self.nb_zb = (bb.n_blocks, bb.zones_per_block)
+        self.mrt_part = None if bb.mrt_part is None else dev(np.asarray(bb.mrt_part, bool))
+        self.oh = (np.asarray(bb.front_oh, np.float64), np.asarray(bb.back_oh, np.float64))
 
     def lanes(self, a: torch.Tensor, fill: float = 0.0) -> torch.Tensor:
         """[..., S] -> [..., SP], ``fill`` on padded lanes."""
@@ -594,6 +719,13 @@ class ParamBlocker:
             params.field(k) if k.startswith("normal") else get(k) for k in SURF_FIELDS
         ])
         zv = self.zones(torch.as_tensor(zone_volume, **kw), 1.0)
+        mrt = params.mrt
+        if mrt is not None:
+            oh = [torch.as_tensor(o, **kw) for o in self.oh]
+            mrt = torch.stack(mrt_eps_blocked(
+                surf[SURF_FIELDS.index("area")], surf[SURF_FIELDS.index("eps_front")],
+                surf[SURF_FIELDS.index("eps_back")], self.mrt_part, *oh, *self.nb_zb,
+            ))
         ctl = params.ctl
         if ctl is not None and ctl_heat_sp is not None:
             ctl = torch.stack([
@@ -601,7 +733,7 @@ class ParamBlocker:
                 self.zones(torch.as_tensor(ctl_cool_sp, **kw), CTL_FILL[1]),
                 ctl[2], ctl[3],
             ])
-        return replace(params, node=node, surf=surf, zone_volume=zv, ctl=ctl)
+        return replace(params, node=node, surf=surf, zone_volume=zv, ctl=ctl, mrt=mrt)
 
 
 def params_from_blocked(bb: BlockedBuilding, dtype, device) -> DayMarchParams:
@@ -623,6 +755,8 @@ def params_from_blocked(bb: BlockedBuilding, dtype, device) -> DayMarchParams:
         bb.n_blocks, dtype=dtype, device=device,
         ctl=None if bb.ctl is None else [np.asarray(c).astype(np_dtype) for c in bb.ctl],
         mix=bb.mix, same_chunk=sb.same_chunk, seg_is_cavity=sb.seg_is_cavity, cav=cav,
+        mrt=None if bb.mrt_eps is None else np.stack(bb.mrt_eps).astype(np_dtype),
+        mrt_part=None if bb.mrt_part is None else bb.mrt_part.reshape(2, -1),
     )
 
 
@@ -677,6 +811,10 @@ def _lanes(params: DayMarchParams, chunks: bool = False):
         return torch.where(local >= 0, block * ZB + local, local)
 
     v = {k: params.field(k) for k in NODE_FIELDS + SURF_FIELDS}
+    if params.mrt is not None:
+        bits = params.field("mrt_bits")
+        extra.update(mrt_ef=params.mrt[0], mrt_eb=params.mrt[1],
+                     mrt_part=torch.cat([(bits & 1) > 0, (bits & 2) > 0]))
     if params.cav is not None:
         seg_is_cavity = bit_rows(params, "cav_bits")
         extra.update(
@@ -758,6 +896,29 @@ def _mix_terms(a_z, b_z, zT, mix):
     return a_z, b_z
 
 
+def plain_mrt(sbv, st, T, zT, t_front, t_back):
+    """The blocked Carroll network from the state (heatx ``_mrt_context``):
+    the 4-iteration linearized fixed point over each zone slot's network
+    faces, started at the faces' boundary air temperatures (the zone air on
+    the network), from the node columns ``T`` and the zone row ``zT``
+    [NB*ZB] (the fallback where a slot has no network).  Returns ``(mrt,
+    tm)``: the ``engine.surface.apply_interior_mrt`` context of every lane
+    (a face takes its effective emissivity and zone MRT where the emissivity
+    is positive) and the slots' MRT nodes [NB*ZB]."""
+    if getattr(sbv, "mrt_ef", None) is None:
+        raise ValueError("the MRT network needs the blocked Carroll statics (DayMarchParams.mrt)")
+    SP = sbv.area.shape[0]
+    part = sbv.mrt_part
+    idx = torch.where(part, torch.cat([sbv.front_slot, sbv.back_slot]), zT.shape[0])
+    ts = torch.cat([T[0], surf_mod._last_node(sbv, T, st)])
+    tm, tm_face = surf_mod.mrt_fixed_point(
+        ts, torch.cat([sbv.area, sbv.area]), part, idx, torch.cat([sbv.mrt_ef, sbv.mrt_eb]),
+        torch.cat([t_front, t_back]), zT,
+    )
+    ef, eb = sbv.mrt_ef, sbv.mrt_eb
+    return (ef > 0, tm_face[:SP], ef, eb > 0, tm_face[SP:], eb), tm
+
+
 def _hour_body_imp(
     cfg: SimConfig, sbv, st, zone_volume, a_extra, b_extra, t_out_arr, wind_arr,
     wdir_arr, sol_front, sol_back, ir_front, ir_back, T0, zT0, substeps: int,
@@ -772,7 +933,9 @@ def _hour_body_imp(
     solves on that factorization, the zone sums (plus the mixing terms of
     ``mix = (src_slot, dst_slot, vol)``) and the zone update: free-float, or
     with ``ctl = (heat_sp, cool_sp, max_heat, max_cool)`` the setpoint-landing
-    control of :func:`heatx_torch.engine.zone.zone_update`.  Zone vectors are
+    control of :func:`heatx_torch.engine.zone.zone_update`.  With
+    ``cfg.interior_mrt`` the Carroll network (:func:`plain_mrt`) is frozen
+    with the operators, from the group's start state.  Zone vectors are
     flat ``[NB*ZB]``.  Returns ``(T, zT, hq, load)`` with ``load`` the hour's
     mean ideal-load power (None without ``ctl``)."""
     solar_q = surf_mod.absorbed_solar_q(sbv, sol_front, sol_back)
@@ -783,8 +946,10 @@ def _hour_body_imp(
         env_f0, env_b0 = surf_mod.border_conditions(
             sbv, T, t_front, t_back, wd, ws, ir_front, ir_back, cfg, statics=st
         )
-        rad_hs_f = surf_mod.linearized_rad_coefficient(sbv.eps_front, env_f0)
-        rad_hs_b = surf_mod.linearized_rad_coefficient(sbv.eps_back, env_b0)
+        mrt = plain_mrt(sbv, st, T, zT, t_front, t_back)[0] if cfg.interior_mrt else None
+        env_f0, env_b0, eps_f, eps_b = surf_mod.apply_interior_mrt(sbv, env_f0, env_b0, mrt)
+        rad_hs_f = surf_mod.linearized_rad_coefficient(eps_f, env_f0)
+        rad_hs_b = surf_mod.linearized_rad_coefficient(eps_b, env_b0)
         U = surf_mod.segment_u(sbv, T, env_b0.air)
         K = imp_mod._full_system_K(sbv, U, env_f0, env_b0, rad_hs_f, rad_hs_b, st)
         M1 = imp_mod._stage_matrix(sbv, K, sbv.capacity, a_dt)
@@ -836,8 +1001,9 @@ def plain_hour_parity(
     dt_sub: float, off: int, refresh_every: int = 1, ctl=None, mix=None,
 ):
     """One hour of reference-parity sub-steps for every block (heatx
-    ``_hour_body``, no interior MRT).  Per sub-step: the TARP
-    border conditions of the state, ``engine.surface.march_surfaces`` (the
+    ``_hour_body``).  Per sub-step: the TARP border conditions of the state
+    (with ``cfg.interior_mrt``, the Carroll network of the sub-step's start
+    state, :func:`plain_mrt`), ``engine.surface.march_surfaces`` (the
     relaxed no-mass solve, then RK4 on the massive nodes, flushing tiny stage
     values only where ``cfg.flush_tiny`` says so: :class:`HourMarch` turns it
     off, as the kernel never flushes), the border conditions again on the new temperatures with
@@ -857,9 +1023,11 @@ def plain_hour_parity(
         envs = surf_mod.border_conditions(
             sbv, T, t_front, t_back, wd, ws, ir_front, ir_back, cfg, **kw
         )
+        mrt = plain_mrt(sbv, st, T, zT, t_front, t_back)[0] if cfg.interior_mrt else None
         T = surf_mod.march_surfaces(
             sbv, T, t_front, t_back, wd, ws, sol_front, sol_back, ir_front, ir_back, dt_sub, cfg,
             has_massive=sbv.has_massive, statics=st, rad_out=rad_out, envs=envs, solar_q=solar_q,
+            mrt=mrt,
         )
         env_f, env_b = surf_mod.border_conditions(
             sbv, T, t_front, t_back, wd, ws, ir_front, ir_back, cfg, **kw
@@ -890,13 +1058,17 @@ def plain_day_march(
     params: DayMarchParams, T, zT, t_out, wind, wdir, sol_front, sol_back,
     ir_front, ir_back, a_extra, b_extra, sp_heat=None, sp_cool=None, *, hours: int,
     substeps: int, refresh_every: int, dt: float, config: SimConfig, parity: bool = False,
+    collect_hq: bool = False, collect_operative: bool = False,
 ):
     """The plain PyTorch day march on any device: the reference the CUDA
     kernel is held against.  Shapes as :func:`day_march_kernel`; returns
-    ``(T, zT, hq [4, SP], zt_hist, bad, ld_hist)`` with ``ld_hist`` None
-    when ``params`` has no thermostat rows.  ``parity`` marches the
-    reference-parity sub-steps (:func:`plain_hour_parity`) instead of
-    TR-BDF2."""
+    ``(T, zT, hq [4, SP], zt_hist, bad, ld_hist, hq_hist, top)`` with
+    ``ld_hist`` None when ``params`` has no thermostat rows, ``hq_hist``
+    [hours, 4, SP] each hour's last h/q with ``collect_hq`` (else None) and
+    ``top`` [hours, NB, ZB] the operative temperature ``(zT + T_mrt)/2`` of
+    each hour's final state with ``collect_operative`` (else None).
+    ``parity`` marches the reference-parity sub-steps
+    (:func:`plain_hour_parity`) instead of TR-BDF2."""
     sbv = _lanes(params, chunks=parity)
     st = surf_mod.compute_statics(sbv)
     NB, ZB = params.n_blocks, params.zones_per_block
@@ -904,7 +1076,7 @@ def plain_day_march(
     zT = zT.reshape(-1)
     mix = _mix_slots(params)
     ctl = None if params.ctl is None else tuple(params.ctl.reshape(4, -1))
-    hist, bad, loads = [], [], []
+    hist, bad, loads, hq_hist, top = [], [], [], [], []
     hq = None
     for h in range(hours):
         if ctl is not None and sp_heat is not None:
@@ -919,11 +1091,17 @@ def plain_day_march(
         hist.append(zT.reshape(NB, ZB))
         if ld is not None:
             loads.append(ld.reshape(NB, ZB))
+        if collect_hq:
+            hq_hist.append(torch.stack(hq))
+        if collect_operative:  # the zone-air-started solve on the hour's final state
+            tm = plain_mrt(sbv, st, T, zT, *_boundary_temps(sbv, zT, t_out[(h + 1) * substeps - 1]))[1]
+            top.append(((zT + tm) / 2.0).reshape(NB, ZB))
         node_bad = (sbv.node_mask & ~torch.isfinite(T)).sum(dim=0)
         count = node_bad.reshape(NB, -1).sum(dim=1) + (~torch.isfinite(zT)).reshape(NB, ZB).sum(dim=1)
         bad.append(count.to(T.dtype))
     return (T, zT.reshape(NB, ZB), torch.stack(hq), torch.stack(hist), torch.stack(bad),
-            torch.stack(loads) if loads else None)
+            torch.stack(loads) if loads else None, torch.stack(hq_hist) if collect_hq else None,
+            torch.stack(top) if collect_operative else None)
 
 
 # ---------------------------------------------------------------------------
@@ -932,11 +1110,11 @@ def plain_day_march(
 
 
 def _load_library():
-    lib = cuda_lib.load("heatx_day_march", [KERNEL_SOURCE])
+    lib = cuda_lib.load("heatx_day_march", KERNEL_SOURCES)
     if not getattr(lib, "_heatx_bound", False):
         vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
         for fn in (lib.heatx_day_march_f32, lib.heatx_day_march_f64):
-            fn.argtypes = [vp] * 31 + [ci] * 11 + [cd] * 8 + [vp]
+            fn.argtypes = [vp] * 36 + [ci] * 12 + [cd] * 8 + [vp]
             fn.restype = ci
         lib.heatx_cuda_error_string.argtypes = [ci]
         lib.heatx_cuda_error_string.restype = ctypes.c_char_p
@@ -957,19 +1135,24 @@ class DayMarchKernel:
     instantiation, gas cavities (``params.cav``) a third that also carries
     the cavity code; without them the free-float one runs.  ``parity`` selects
     the reference-parity kernel (again one instantiation of each kind), whose
-    no-mass iteration count and tolerances come from ``config``."""
+    no-mass iteration count and tolerances come from ``config``.  MRT
+    physics (``config.interior_mrt``), ``collect_hq`` and
+    ``collect_operative`` select the instantiations with the Carroll network
+    and the two histories (:func:`mrt_operands`)."""
 
     def __init__(self):
         self.launches = 0
         self.parity_launches = 0  # those of ``launches`` that ran the parity kernel
         self.cavity_launches = 0  # those of ``launches`` on a building with gas cavities
         self.parity_cavity_launches = 0  # those of ``cavity_launches`` in parity mode
+        self.mrt_launches = 0  # those of ``launches`` that ran an MRT instantiation
+        self.parity_mrt_launches = 0  # those of ``mrt_launches`` in parity mode
 
     def __call__(
         self, params: DayMarchParams, T, zT, t_out, wind, wdir, sol_front,
         sol_back, ir_front, ir_back, a_extra, b_extra, sp_heat=None, sp_cool=None, *,
         hours: int, substeps: int, refresh_every: int, dt: float, config: SimConfig,
-        parity: bool = False,
+        parity: bool = False, collect_hq: bool = False, collect_operative: bool = False,
     ):
         N, NB, ZB = params.max_nodes, params.n_blocks, params.zones_per_block
         SB = params.block_size
@@ -990,6 +1173,9 @@ class DayMarchKernel:
         zt_hist = torch.empty((hours, NB, ZB), **kw)
         bad = torch.empty((hours, NB), **kw)
         ld_hist = None if params.ctl is None else torch.empty((hours, NB, ZB), **kw)
+        hq_hist = torch.empty((hours, 4, SP), **kw) if collect_hq else None
+        top = torch.empty((hours, NB, ZB), **kw) if collect_operative else None
+        mrt = mrt_operands(params, config, collect_hq, collect_operative)
         mix = params.mix
         cav_u = cavity_u_row(params)
         ptrs = [None if t is None else t.data_ptr() for t in (
@@ -999,13 +1185,14 @@ class DayMarchKernel:
             T_out, zT_out, hq, zt_hist, bad,
             ld_hist, params.ctl, sp_heat, sp_cool,
             *((None,) * 3 if mix is None else (mix.ptr, mix.src, mix.vol)), cav_u, params.cav,
+            *mrt, hq_hist, top,
         )]
         with torch.cuda.device(T.device):
             stream = torch.cuda.current_stream().cuda_stream
             err = fn(
                 *ptrs, N, NB, SB, ZB, hours, substeps, refresh_every,
                 int(config.replicate_ambient_back_bug), *parity_ints(config, parity),
-                dt, imp_mod.GAMMA * dt / 2.0, imp_mod.GAMMA * dt,
+                int(config.interior_mrt), dt, imp_mod.GAMMA * dt / 2.0, imp_mod.GAMMA * dt,
                 imp_mod.BETA * dt, imp_mod.C1, imp_mod.C2,
                 config.nomass_tol, config.nomass_tol_escalated, stream,
             )
@@ -1016,7 +1203,29 @@ class DayMarchKernel:
         self.parity_launches += int(parity)
         self.cavity_launches += int(params.cav is not None)
         self.parity_cavity_launches += int(parity and params.cav is not None)
-        return T_out, zT_out, hq, zt_hist, bad, ld_hist
+        self.mrt_launches += int(mrt[0] is not None)
+        self.parity_mrt_launches += int(parity and mrt[0] is not None)
+        return T_out, zT_out, hq, zt_hist, bad, ld_hist, hq_hist, top
+
+
+def mrt_operands(params: DayMarchParams, config: SimConfig, collect_hq=False, collect_operative=False):
+    """The network operands of a launch ``(mrt, mrt_ptr, mrt_faces)``.  MRT
+    physics (``config.interior_mrt``) and either history take the
+    instantiations with the network and the histories: the params' rows
+    (zero rows and empty lists where the building has no network and only
+    the h/q history is asked for); other launches three Nones.  Raises where
+    MRT physics or the operative history has no network operands."""
+    if (config.interior_mrt or collect_operative) and params.mrt is None:
+        raise ValueError(
+            "interior MRT and the operative history need the blocked Carroll statics "
+            "(block_building(..., mrt_statics=True); automatic with config.interior_mrt)"
+        )
+    if not (config.interior_mrt or collect_hq or collect_operative):
+        return None, None, None
+    if params.mrt is not None:
+        return params.mrt, params.mrt_ptr, params.mrt_faces
+    z = params.zone_ptr
+    return params.surf.new_zeros((2, params.surf.shape[1])), torch.zeros_like(z), z[:1].clone()
 
 
 def cavity_u_row(params: DayMarchParams):
@@ -1089,6 +1298,10 @@ def launch_operands(
         out["sp_cool"] = (sp_cool, (hours, NB, ZB), dtype)
     if params.cav is not None:
         out["cav"] = (params.cav, (len(CAV_FIELDS), N, SP), dtype)
+    if params.mrt is not None:
+        out["mrt"] = (params.mrt, (len(MRT_FIELDS), SP), dtype)
+        out["mrt_ptr"] = (params.mrt_ptr, (NB * ZB + 1,), torch.int32)
+        out["mrt_faces"] = (params.mrt_faces, tuple(params.mrt_faces.shape), torch.int32)
     if params.mix is not None:
         m = params.mix
         n = tuple(m.src.shape)
@@ -1109,14 +1322,21 @@ class HourMarch:
     """``hour_march(params, T, zT_blocked, hour_inputs)`` (see the module
     docstring).  CUDA tensors launch the kernel, CPU tensors run the plain
     twin; :meth:`plain` runs the plain twin on any device.
-    ``collect_loads`` says whether the outputs end with ``ld_hist`` (the
+    ``collect_loads`` says whether the outputs carry ``ld_hist`` (the
     building has thermostats), ``scheduled_setpoints`` whether the march
     reads per-hour setpoint rows, ``parity`` whether it marches the
-    reference-parity sub-steps instead of TR-BDF2."""
+    reference-parity sub-steps instead of TR-BDF2, ``collect_hq`` and
+    ``collect_operative`` whether the outputs carry the per-hour h/q
+    history (4 x [hours, SP]) and operative temperature [hours, NB, ZB].
+    The outputs follow heatx's order: ``(T, zT, hq, zt_hist[, hq_hist][,
+    bad][, ld_hist][, top])``."""
 
     def __init__(self, bb: BlockedBuilding, substeps, hours, refresh_every, dt,
-                 collect_bad, scheduled_setpoints=False, parity=False):
+                 collect_bad, scheduled_setpoints=False, parity=False, collect_hq=False,
+                 collect_operative=False):
         self.parity = parity
+        self.collect_hq = collect_hq
+        self.collect_operative = collect_operative
         self.substeps = substeps
         self.hours = hours
         self.refresh_every = refresh_every
@@ -1130,6 +1350,13 @@ class HourMarch:
         self.n_blocks = bb.n_blocks
         self.zones_per_block = bb.zones_per_block
         self.padded_surfaces = bb.layout.padded_surfaces
+
+    def without_observables(self) -> "HourMarch":
+        """This march without the h/q and operative histories (the gradient
+        path's: its outputs carry neither)."""
+        out = copy.copy(self)
+        out.collect_hq = out.collect_operative = False
+        return out
 
     def _operands(self, params, T, zT_blocked, hour_inputs):
         hour_inputs = tuple(hour_inputs)
@@ -1156,20 +1383,29 @@ class HourMarch:
         ) + sp
 
     def _finish(self, outs):
-        T, zT, hq, zt_hist, bad, ld_hist = outs
+        T, zT, hq, zt_hist, bad, ld_hist, hq_hist, top = outs
         ret = (T, zT, tuple(hq.unbind(0)), zt_hist)
+        if self.collect_hq:
+            ret += (tuple(hq_hist.unbind(1)),)
         if self.collect_bad:
             ret += (bad,)
         if self.collect_loads:
             ret += (ld_hist,)
+        if self.collect_operative:
+            ret += (top,)
         return ret
 
-    def _kw(self):
-        return dict(
+    def _kw(self, observables=True):
+        """The keywords of either kernel and its plain version
+        (``observables``: with the march's history flags)."""
+        kw = dict(
             hours=self.hours, substeps=self.substeps,
             refresh_every=self.refresh_every, dt=self.dt, config=self.config,
             parity=self.parity,
         )
+        if observables:
+            kw.update(collect_hq=self.collect_hq, collect_operative=self.collect_operative)
+        return kw
 
     def __call__(self, params, T, zT_blocked, hour_inputs):
         ops = self._operands(params, T, zT_blocked, hour_inputs)
@@ -1187,12 +1423,18 @@ class HourMarch:
 def hour_march_for(
     bb: BlockedBuilding, substeps: int = None, mode: str = "trbdf2", hours: int = 1,
     refresh_every: int = None, collect_bad: bool = False,
-    scheduled_setpoints: bool = False,
+    scheduled_setpoints: bool = False, collect_hq: bool = False, collect_operative: bool = False,
 ) -> HourMarch:
     """The :class:`HourMarch` of :func:`make_hour_march`'s arguments, with
     the sub-step count and refresh cadence resolved (no operands)."""
     if mode not in ("parity", "trbdf2", "trbdf2_refresh"):
         raise ValueError(f"unknown hour-kernel mode {mode!r}")
+    if collect_operative and bb.mrt_eps is None:
+        raise ValueError(
+            "collect_operative needs the blocked Carroll statics: build with "
+            "block_building(..., mrt_statics=True) (automatic when config.interior_mrt is set)"
+        )
+    obs = dict(collect_hq=collect_hq, collect_operative=collect_operative)
     if refresh_every is not None and mode != "trbdf2_refresh":
         raise ValueError(
             f"refresh_every only applies to mode='trbdf2_refresh' (got mode={mode!r})"
@@ -1213,7 +1455,7 @@ def hour_march_for(
             )
         substeps = substeps or bb.base.dt_subdivisions
         return HourMarch(bb, substeps, hours, 1, bb.base.dt, collect_bad,
-                         scheduled_setpoints, parity=True)
+                         scheduled_setpoints, parity=True, **obs)
     substeps = substeps or 12
     if mode == "trbdf2":
         refresh_every = substeps
@@ -1222,7 +1464,7 @@ def hour_march_for(
     if refresh_every < 1 or substeps % refresh_every:
         raise ValueError(f"refresh_every {refresh_every} must divide substeps {substeps}")
     dt = 3600.0 / (bb.base.n_steps_per_hour * substeps)
-    return HourMarch(bb, substeps, hours, refresh_every, dt, collect_bad, scheduled_setpoints)
+    return HourMarch(bb, substeps, hours, refresh_every, dt, collect_bad, scheduled_setpoints, **obs)
 
 
 def make_hour_march(
@@ -1234,6 +1476,8 @@ def make_hour_march(
     collect_bad: bool = False,
     device="cuda",
     scheduled_setpoints: bool = False,
+    collect_hq: bool = False,
+    collect_operative: bool = False,
 ):
     """Build the day march: ``(hour_march, params)`` with ``params`` on
     ``device`` (the card unless the caller asks for another; ``"cuda"``
@@ -1245,7 +1489,11 @@ def make_hour_march(
     In the TR-BDF2 modes ``substeps`` defaults to 12, ``refresh_every=k``
     rebuilds the operators every k sub-steps (default 1 in refresh mode) and
     frozen mode is ``k = substeps``.  ``scheduled_setpoints`` (thermostat buildings) makes
-    the march read per-hour setpoint rows from the 11-leaf hour inputs."""
-    hm = hour_march_for(bb, substeps, mode, hours, refresh_every, collect_bad, scheduled_setpoints)
+    the march read per-hour setpoint rows from the 11-leaf hour inputs.
+    ``collect_hq`` adds the per-hour h/q history and ``collect_operative``
+    the per-hour operative temperature (the building blocked with the MRT
+    statics) to the outputs, in heatx's order (:class:`HourMarch`)."""
+    hm = hour_march_for(bb, substeps, mode, hours, refresh_every, collect_bad, scheduled_setpoints,
+                        collect_hq, collect_operative)
     params = params_from_blocked(bb, bb.config.dtype, cuda_lib.resolve_device(device))
     return hm, params

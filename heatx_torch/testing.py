@@ -11,7 +11,8 @@ every front face, 500 W per heater and 150 W per luminaire.
 per zone at 20/26 C, luminaires on, heaters off.  ``build_thermostat_model``
 is a small building that takes every branch of the thermostat update, and
 ``BranchCounter`` counts the zone-sub-steps a plain march puts on each.
-``build_nomass_run_model`` has no-mass runs of 3 and 4 nodes and
+``build_nomass_run_model`` has no-mass runs of 3 and 4 nodes,
+``build_two_zone_model`` interior-MRT networks on both faces of a partition, and
 ``coarse_config`` a discretization whose parity march is short.
 ``build_glazed_city`` is the city with argon double glazing (a gas cavity in
 every window), ``build_cavity_model`` a small building with cavities of every
@@ -231,6 +232,32 @@ def build_cavity_model(base=None, classes=building_mod):
     }
     for name, (kind, front, zone, verts) in walls.items():
         m.add_surface(classes.SurfaceDef(name, kind, front, B.space_(zone), vertices=verts))
+    return m
+
+
+def build_two_zone_model(classes=building_mod):
+    """heatx tests/test_mrt.py's interior-MRT building (``classes``: the
+    building module, the port's or heatx's): two zones of two massive and one
+    insulated outdoor wall each (two node heights), and a massive partition
+    between them, which takes part in both zones' MRT networks."""
+    m = classes.BuildingModel()
+    m.add_substance(classes.Substance("concrete", thermal_conductivity=0.816, density=1700.0,
+                                      specific_heat_capacity=800.0))
+    m.add_substance(classes.Substance("poly", thermal_conductivity=0.0252, density=17.5,
+                                      specific_heat_capacity=2400.0))
+    m.add_material(classes.Material("c15", "concrete", 0.15))
+    m.add_material(classes.Material("p2", "poly", 0.02))
+    m.add_construction(classes.Construction("wall", ["c15"]))
+    m.add_construction(classes.Construction("mixed", ["p2", "c15"]))
+    verts = np.array([[0, 0, 0], [5, 0, 0], [5, 0, 3], [0, 0, 3]], float)
+    B = classes.Boundary
+    for z in range(2):
+        m.add_space(classes.SpaceDef(f"z{z}", 200.0 + 50.0 * z))
+        for i, kind in enumerate(("wall", "wall", "mixed")):
+            m.add_surface(classes.SurfaceDef(f"s{z}_{i}", kind, B.outdoor(), B.space_(f"z{z}"),
+                                             vertices=verts))
+    m.add_surface(classes.SurfaceDef("partition", "wall", B.space_("z0"), B.space_("z1"),
+                                     vertices=verts))
     return m
 
 

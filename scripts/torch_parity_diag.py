@@ -162,8 +162,8 @@ def main():
         return 2
     print(cs.card_facts(), flush=True)
     t0 = time.time()
-    cuda_lib.build_many([("heatx_day_march", [day_march.KERNEL_SOURCE]),
-                         ("heatx_day_adjoint", [day_adjoint.KERNEL_SOURCE])])
+    cuda_lib.build_many([("heatx_day_march", day_march.KERNEL_SOURCES),
+                         ("heatx_day_adjoint", day_adjoint.KERNEL_SOURCES)])
     day_march.load_kernel()
     day_adjoint.load_kernel()
     print(f"build {time.time() - t0:.1f} s (flags: {' '.join(cuda_lib.nvcc_flags())})", flush=True)

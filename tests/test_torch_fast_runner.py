@@ -19,7 +19,7 @@ import bench
 import heatx
 from heatx.ops import pallas_step
 from heatx_torch import SimConfig, ThermalModel, convert, testing
-from heatx_torch.model.building import IdealHeaterCooler
+from heatx_torch.model.building import IdealHeaterCooler, ZoneShadingControl, ZoneVentilationControl
 
 torch.set_num_threads(1)
 
@@ -139,9 +139,17 @@ def test_nonfinite_state_raises_with_hour_and_block():
         runner.run(st, testing.bench_inputs(tm.building, HOURS))
 
 
-def _thermostat_model():
+def _thermostat_model(shaded=False):
     m = testing.build_city_model(2, 4)
     m.add_hvac(IdealHeaterCooler("t0", ["z0"], heat_setpoint=20.0, cool_setpoint=26.0))
+    if shaded:
+        m.add_zone_shading(ZoneShadingControl("s0_3", "z0", transmittance=0.3, setpoint=24.0))
+    return ThermalModel(m, config=SimConfig(dtype=torch.float64), device="cpu")
+
+
+def _gated_model():
+    m = testing.build_city_model(2, 4)
+    m.add_vent_control(ZoneVentilationControl("z1", min_indoor=18.0))
     return ThermalModel(m, config=SimConfig(dtype=torch.float64), device="cpu")
 
 
@@ -151,11 +159,13 @@ def _thermostat_model():
         # Parity mode is ported; its adaptive no-mass loop (the default
         # nomass_fixed_iters=None) is not, and heatx's kernel refuses it too.
         (lambda: _port_model().fast_runner(mode="parity"), ValueError, "nomass_fixed_iters.*ROADMAP"),
-        (lambda: _port_model().fast_runner(collect_fluxes=True, **KW), NotImplementedError, "ROADMAP"),
+        # The h/q history is ported; ventilation gates are not (ROADMAP A9.2).
+        (lambda: _gated_model().fast_runner(collect_fluxes=True, **KW), NotImplementedError, "A9.2"),
         (lambda: _port_model().fast_runner(block_size=512, **KW), NotImplementedError, "ROADMAP"),
-        # Thermostats are ported; the operative temperature they are judged by is not.
-        (lambda: _thermostat_model().fast_runner(collect_operative=True, **KW),
-         NotImplementedError, "ROADMAP"),
+        # Thermostats and the operative temperature they are judged by are
+        # ported; in-run window shading is not (ROADMAP A9.2).
+        (lambda: _thermostat_model(shaded=True).fast_runner(collect_operative=True, **KW),
+         NotImplementedError, "A9.2"),
         # Loads exist only with thermostats: heatx's ValueError, not a missing feature.
         (lambda: _port_model().fast_runner(**KW).run(
             _port_model().initial_state(), testing.bench_inputs(_port_model().building, 24),

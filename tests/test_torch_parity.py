@@ -561,6 +561,22 @@ def _cavity_model():
     return m
 
 
+def _shaded_model():
+    from heatx_torch.model.building import ZoneShadingControl
+
+    m = testing.build_city_model(2, 3)
+    m.add_zone_shading(ZoneShadingControl("s0_2", "z0", transmittance=0.3, setpoint=24.0))
+    return m
+
+
+def _gated_model():
+    from heatx_torch.model.building import ZoneVentilationControl
+
+    m = testing.build_city_model(2, 3)
+    m.add_vent_control(ZoneVentilationControl("z0", min_indoor=18.0))
+    return m
+
+
 @pytest.mark.parametrize(
     "make, exc, match",
     [
@@ -568,12 +584,15 @@ def _cavity_model():
         (lambda: _model(SimConfig(dtype=torch.float64)).fast_runner(mode="parity"),
          ValueError, "nomass_fixed_iters"),
         (lambda: _model().fast_runner(mode="parity", refresh_every=2), ValueError, "refresh_every"),
-        (lambda: _model(testing.coarse_config(interior_mrt=True)).fast_runner(mode="parity"),
-         NotImplementedError, "interior_mrt"),
+        # Interior MRT marches in parity mode; in-run shading does not (ROADMAP A9.2).
+        (lambda: _model(testing.coarse_config(interior_mrt=True), model=_shaded_model()).fast_runner(
+            mode="parity"), NotImplementedError, "A9.2"),
         # Gas cavities march in parity mode; the adaptive loop stays refused.
         (lambda: _model(SimConfig(dtype=torch.float64), model=_cavity_model()).fast_runner(
             mode="parity"), ValueError, "nomass_fixed_iters"),
-        (lambda: _model().fast_runner(mode="parity", collect_fluxes=True), NotImplementedError, "ROADMAP"),
+        # The h/q history is ported; ventilation gates are not (ROADMAP A9.2).
+        (lambda: _model(model=_gated_model()).fast_runner(mode="parity", collect_fluxes=True),
+         NotImplementedError, "A9.2"),
         (lambda: _model().fast_runner(mode="exponential"), ValueError, "unknown hour-kernel mode"),
     ],
     ids=["adaptive_loop", "refresh_every", "interior_mrt", "cavities", "collect_fluxes", "unknown_mode"],
@@ -589,8 +608,17 @@ def test_engine_refuses_adaptive_loop_and_mrt():
     with pytest.raises(NotImplementedError, match="B6/A10"):
         surf.march_nomass(port, t(T), *e.p_env, *e.p_rad, e.p_sq, SimConfig(dtype=torch.float64),
                           statics=e.pst)
-    with pytest.raises(NotImplementedError, match="B5"):
-        surf.apply_interior_mrt(port, *e.p_env, mrt=(None,) * 6)
+    # The interior-MRT merge is ported (tests/test_torch_mrt.py holds the
+    # network): on a seeded context it gives heatx's environments and
+    # emissivities, and None is the identity.
+    mf, mb = rng.uniform(size=S) < 0.5, rng.uniform(size=S) < 0.5
+    ctx = (mf, rng.uniform(10, 30, S), rng.uniform(0.3, 0.9, S),
+           mb, rng.uniform(10, 30, S), rng.uniform(0.3, 0.9, S))
+    ref = hx_surf.apply_interior_mrt(hx, *e.h_env, tuple(jnp.asarray(x) for x in ctx))
+    got = surf.apply_interior_mrt(port, *e.p_env, tuple(t(x) for x in ctx))
+    for r, g in zip((ref[0].rad, ref[1].rad, ref[2], ref[3]), (got[0].rad, got[1].rad, got[2], got[3])):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=RTOL)
+    assert surf.apply_interior_mrt(port, *e.p_env, None)[2] is port.eps_front
 
 
 def test_parity_substep_rules():
