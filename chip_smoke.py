@@ -187,6 +187,35 @@ Phases (one output line each, then a JSON line per contract):
    parity forward and adjoint at the coarse discretization) counted, timed and
    held against its f32 plain version.
 
+21. the in-run passive controls, f64, small: testing.build_controlled_city(2,
+   3) (one window shaded on its own zone's temperature, one on the other
+   zone's; ventilation gates in both zones), trbdf2_refresh k=2 at 8
+   sub-steps and parity at the coarse discretization, x {free-float,
+   thermostats, gas cavities, MRT with the operative history} x {shading,
+   ventilation gates, both}, GATE_CASE_HOURS in one launch each: the kernel
+   against its plain twin on every output (<= 1e-9 K), the launch counted as
+   gated (and as parity, cavity or MRT), each control toggling (between 5 and
+   95 % of its decisions on, rebuilt from the zone history); a +1e9 shading
+   setpoint series bit-equal to the uncontrolled building, a no-op
+   ventilation control within 1e-12 K of the ungated one, in both bodies.
+22. the controlled city at full width (testing.build_controlled_city(1000,
+   10): 1,000 shaded windows, 100 of them read by the next zone, ventilation
+   gates in every zone, outdoor and wind gates in some), f32: 48 h of
+   trbdf2_refresh k=2 through FastRunner.run against the f64 plain twin,
+   every decision rebuilt from both zone histories: a flip must lie within
+   FLIP_MARGIN of its threshold (round-off), the zones where all agree are
+   held to F32_TOL; one day-launch timed beside the ungated bench city's and
+   held against its f32 plain version the same way; the year (exactly 365
+   gated launches, finite); parity: 48 h through run (2 gated parity
+   launches), one day-launch timed, the kernel against its f32 plain version
+   over PARITY_WINDOW with the bounds of phase 14b.
+23. the controlled office IDF (testing.controlled_office_idf: the argon
+   window's OnIfHighZoneAirTemperature shade on a schedule, ventilation
+   limits; with cavities and thermostats): the year on the synthetic EPW of
+   phase 17 with its shading setpoint series (365 launches, each a cavity
+   and a gated one; heating and cooling kWh beside phase 17's), 48 h f32
+   against the f64 plain twin as in 22.
+
 Phases 16b and 19c hold the parity kernels against their plain versions over
 the daytime window PARITY_WINDOW (hours 8-14) of the day-launch; 16b held the
 whole day until the MRT phases came (its plain parity adjoint alone took 3.5
@@ -213,7 +242,10 @@ PARITY_WINDOW (``plain_hours``: first and last hour), their ``plain_ms`` the
 plain versions' time for it.  The eight ``*_mrt`` entries are the MRT
 instantiations: the MRT city's (phase 19; the parity ones held over
 PARITY_WINDOW, ``plain_hours``) and, with gas cavities, the office's
-(phase 20).  The last line is ``{"ok": true, "device": {...}}``;
+(phase 20).  The two ``day_march_gated*`` entries are the controlled
+city's (phase 22): its annual run's launches (TR-BDF2) and its 48 h parity
+run's, the day-launch timed beside ``ms_ungated_bench_day``, the parity one
+held over PARITY_WINDOW.  The last line is ``{"ok": true, "device": {...}}``;
 any failed check raises and the script exits non-zero.
 """
 
@@ -378,6 +410,23 @@ MRT_F32_TOL = 2e-4
 # 2.6e-4, 7.1e-4 and 1.1e-3 (the office): the plain adjoint's f32 zone sums
 # (index_add_) move from run to run.
 MRT_ADJ_F32_RL2 = 1e-2
+# In-run passive controls (phases 21-23).  Operations the gates add to a
+# day-launch, counted from day_march.cu (gate_work).
+GATE_LANE_OPS = 1
+GATE_PANE_OPS = 3
+GATE_ZONE_OPS = 6
+# Each small case's hours (one launch): long enough for every device and
+# vent to open and close.  A case must have this share of its decisions on.
+GATE_CASE_HOURS = 12
+GATE_SHARE = (0.05, 0.95)
+# A decision that two runs (f32 and f64, or the kernel and its plain version)
+# take apart must lie within round-off of its threshold: a first flip in a
+# zone group farther than this from it is a fault (phases 22-23).  Zones
+# where every decision agrees are held to the bounds of the ungated paths.
+FLIP_MARGIN = 1e-3  # K
+# The full-width controlled city's shading setpoints, spread over the range
+# its zones cross on the bench weather (12.8-23.1 C over 48 h).
+CITY_SHADE_SETPOINTS = (16.0, 26.0)
 # Published H100 SXM rates (NVIDIA H100 datasheet): HBM bytes/s and the
 # f32 FLOP/s outside the tensor cores (the kernels run no matrix products).
 HBM_BPS = 3.35e12
@@ -471,7 +520,7 @@ def day_work(params, hours, sub, k):
     if params.mix is not None:
         per_sub += 12 * params.mix.src.numel()
     per_refresh = 12 * valid + 50 * lanes
-    return hours * (sub * per_sub + (sub // k) * per_refresh), valid, lanes, zones
+    return hours * (sub * per_sub + (sub // k) * per_refresh) + gate_work(params, hours), valid, lanes, zones
 
 
 def adjoint_work(params, hours, sub, k):
@@ -510,6 +559,7 @@ def param_tensors(params):
         out.append(params.cav)
     if params.mrt is not None:
         out += [params.mrt, params.mrt_ptr, params.mrt_faces]
+    out += [t for t in (params.shade_slot, params.shade, params.vent) if t is not None]
     return out
 
 
@@ -951,7 +1001,7 @@ def parity_day_work(params, hours, sub, iters):
         per_sub += 45 * zones
     if params.mix is not None:
         per_sub += 12 * params.mix.src.numel()
-    return hours * sub * per_sub, valid, lanes, zones
+    return hours * sub * per_sub + gate_work(params, hours), valid, lanes, zones
 
 
 def parity_adjoint_work(params, hours, sub, iters):
@@ -1701,7 +1751,7 @@ def daytime_window(day_march, bb, params, T, zT, hi, sub):
     hold the parity kernels against their plain versions, both sides started
     from that state."""
     s = PARITY_WINDOW_START
-    lead = day_march.hour_march_for(bb, mode="parity", hours=s)
+    lead = day_march.hour_march_for(bb, mode="parity", hours=s, scheduled_shade_sp=bb.shade is not None)
     Ts, zTs = lead(params, T, zT, hour_window(hi, 0, s, sub))[:2]
     return Ts, zTs, hour_window(hi, s, PARITY_PLAIN_HOURS, sub)
 
@@ -2225,6 +2275,452 @@ def phase20_office_mrt(torch, ctx, p17):
 
 
 
+def gate_work(params, hours):
+    """Operations the in-run controls add to a day-launch, counted from
+    day_march.cu: per lane and hour GATE_LANE_OPS (the controlling slot's
+    test) and GATE_PANE_OPS more on a controlled pane (the compare, the
+    select, the multiply); per zone and hour GATE_ZONE_OPS with ventilation
+    gates (three compares, two adds, the select).  0 on ungated params."""
+    ops = 0
+    if params.shade_slot is not None:
+        panes = int((params.shade_slot >= 0).sum())
+        ops += hours * (GATE_LANE_OPS * params.surf.shape[1] + GATE_PANE_OPS * panes)
+    if params.vent is not None:
+        ops += hours * GATE_ZONE_OPS * params.zone_volume.numel()
+    return ops
+
+
+def zone_order(runner, hist):
+    """Blocked per-hour zone rows [T, NB, ZB] -> [T, Z] in zone order."""
+    return hist.reshape(hist.shape[0], -1)[:, runner._zinv]
+
+
+def decision_flips(testing, building, zt, zt_ref, t_out, wind, shade_sp=None, zone_T0=22.0):
+    """The in-run decisions of two runs of ``building`` rebuilt from their
+    zone histories [T, Z] (``zt_ref`` the reference: f64, or the plain
+    version), compared.  A group is a zone-connected component of blocking
+    (zones joined by a face, or by a shading control whose pane reads
+    another zone): one decision moves every temperature in it.  Returns
+    ``(agree [Z] bool, flips)``: the zones of groups where every decision
+    agrees, and for each group
+    with a flip its first one as ``(hour, margin)``, the margin the
+    reference's distance to the threshold there (later flips in the group
+    follow from the first)."""
+    kw = dict(shade_sp=shade_sp, zone_T0=zone_T0)
+    from heatx_torch.build.blocking import _union_find_components
+
+    got = testing.control_decisions(building, zt, t_out, wind, **kw)
+    ref = testing.control_decisions(building, zt_ref, t_out, wind, **kw)
+    group = np.asarray(_union_find_components(building))
+    owners = {}
+    if "shade" in ref:
+        from heatx_torch.build.layout import B_SPACE
+
+        sb = building.surfaces
+        panes = np.nonzero(np.asarray(building.shade_zone) >= 0)[0]
+        owners["shade"] = np.array([int(sb.back_space[s]) if int(sb.back_code[s]) == B_SPACE
+                                    else int(sb.front_space[s]) for s in panes])
+    if "vent" in ref:
+        lim = [np.asarray(v, np.float64) for v in (building.vent_min_tin, building.vent_max_tin,
+                                                   building.vent_delta, building.vent_min_tout,
+                                                   building.vent_max_tout, building.vent_max_wind)]
+        owners["vent"] = np.nonzero(np.any([lim[i] != d for i, d in enumerate((-100, 100, -100, -100, 100, 40))],
+                                           axis=0))[0]
+    first = {}
+    for kind, own in owners.items():
+        diff = got[kind] != ref[kind]
+        for h, j in zip(*np.nonzero(diff)):
+            g = group[own[j]]
+            m = float(ref[kind + "_margin"][h, j])
+            if g not in first or h < first[g][0] or (h == first[g][0] and m < first[g][1]):
+                first[g] = (int(h), m)
+    agree = ~np.isin(group, list(first))
+    return agree, sorted(first.values())
+
+
+def check_flips(flips, what):
+    bad = [f for f in flips if f[1] > FLIP_MARGIN]
+    check(not bad, f"{what}: decisions flip {bad} (hour, K from the threshold) farther than {FLIP_MARGIN} K "
+                   "from their thresholds: not round-off")
+
+
+def flips_text(flips):
+    if not flips:
+        return "no decision flips"
+    return (f"{len(flips)} groups with a flip, first flips' margins "
+            + ", ".join(f"{m:.2e} K (h {h})" for h, m in flips[:12]) + (" ..." if len(flips) > 12 else ""))
+
+
+def phase21_gates_f64(torch, ctx):
+    """The in-run controls in every day-march kind, f64, small (see the module
+    docstring).  Returns the worst gap, the case count and the shares."""
+    day_march, testing, ThermalModel, SimConfig = ctx.day_march, ctx.testing, ctx.ThermalModel, ctx.SimConfig
+    from heatx_torch.model import building as pmb
+
+    km = day_march.day_march_kernel
+    hours = GATE_CASE_HOURS
+    bodies = {"trbdf2_refresh k=2": (dict(mode="trbdf2_refresh", substeps=8, refresh_every=2), False),
+              "parity": (dict(mode="parity"), True)}
+
+    def thermostat(m):
+        m.add_hvac(pmb.IdealHeaterCooler("t0", ["z0"], heat_setpoint=19.0, cool_setpoint=25.0))
+        return m
+
+    kinds = {"free-float": (lambda: None, lambda m: m, {}),
+             "thermostats": (lambda: None, thermostat, {}),
+             "cavities": (lambda: testing.glaze_windows(testing.build_city_model(2, 3)), lambda m: m, {}),
+             "MRT": (lambda: None, lambda m: m, dict(interior_mrt=True))}
+    controls = {"shading": (True, False), "gates": (False, True), "both": (True, True)}
+    worst, cases, shares = 0.0, 0, {"shade": [], "vent": []}
+
+    def model(kind, shading, gates):
+        base, extra, cfg_kw = kinds[kind]
+        return extra(testing.build_controlled_city(2, 3, shading=shading, gates=gates, base=base())), cfg_kw
+
+    def config(parity, **cfg_kw):
+        return (testing.coarse_config(torch.float64, 2, **cfg_kw) if parity
+                else SimConfig(dtype=torch.float64, **cfg_kw))
+
+    for body, (rkw, parity) in bodies.items():
+        for kind in kinds:
+            for ctl, (shading, gates) in controls.items():
+                what = f"gates f64, {body}, {kind}, {ctl}"
+                m, cfg_kw = model(kind, shading, gates)
+                tm = ThermalModel(m, config=config(parity, **cfg_kw), device="cuda")
+                mrt = kind == "MRT"
+                r = tm.fast_runner(hours=hours, collect_operative=mrt, **rkw)
+                seq = testing.controlled_city_inputs(tm.building, hours, device="cuda")
+                hi = r.kernel_inputs(seq)[0]
+                T0, zT0 = r.to_blocked(tm.initial_state())
+                before = (km.launches, km.gated_launches, km.parity_gated_launches, km.cavity_launches,
+                          km.mrt_launches)
+                got = r.hour_march(r.params, T0, zT0, hi)
+                after = (km.launches, km.gated_launches, km.parity_gated_launches, km.cavity_launches,
+                         km.mrt_launches)
+                expect = tuple(b + d for b, d in zip(before, (1, 1, int(parity), int(kind == "cavities"),
+                                                              int(mrt))))
+                check(after == expect, f"{what}: launch counts {after}, expected {expect}")
+                ref = r.hour_march.plain(r.params, T0, zT0, hi)
+                flat = lambda o: [x for v in o for x in (v if isinstance(v, tuple) else (v,))]  # noqa: E731
+                for j, (a, b) in enumerate(zip(flat(got), flat(ref))):
+                    err = float((a - b).abs().max())
+                    check(err <= F64_TOL, f"{what} output {j}: max |d| {err} > {F64_TOL}")
+                    worst = max(worst, err)
+                d = testing.control_decisions(tm.building, zone_order(r, got[3]).cpu().numpy(),
+                                              seq.t_out.cpu().numpy(), seq.wind_speed.cpu().numpy())
+                for k in ("shade", "vent"):
+                    if k in d:
+                        share = float(d[k].mean())
+                        check(GATE_SHARE[0] < share < GATE_SHARE[1],
+                              f"{what}: {share:.0%} of the {k} decisions on: the case would not toggle")
+                        shares[k].append(share)
+                cases += 1
+
+    # +1e9 on the kernel is the uncontrolled building bit for bit; a no-op
+    # ventilation control is the ungated building within 1e-12 K.
+    equal = {}
+    for body, (rkw, parity) in bodies.items():
+        cfg = config(parity)
+        runs = {}
+        for label, m in (("never", testing.build_controlled_city(2, 3, gates=False)),
+                         ("uncontrolled", testing.build_city_model(2, 3)),
+                         ("no-op gate", testing.build_city_model(2, 3))):
+            if label == "no-op gate":
+                m.add_vent_control(pmb.ZoneVentilationControl("z0"))
+            tm = ThermalModel(m, config=cfg, device="cuda")
+            r = tm.fast_runner(hours=hours, **rkw)
+            seq = testing.controlled_city_inputs(tm.building, hours, device="cuda")
+            if label == "never":
+                seq = seq.replace(shade_sp=torch.full((hours, tm.building.n_surfaces), 1e9, dtype=torch.float64,
+                                                      device="cuda"))
+            T0, zT0 = r.to_blocked(tm.initial_state())
+            runs[label] = r.hour_march(r.params, T0, zT0, r.kernel_inputs(seq)[0])
+        for i, name in ((0, "T"), (1, "zT"), (3, "zt_hist")):
+            check(torch.equal(runs["never"][i], runs["uncontrolled"][i]),
+                  f"{body}: +1e9 shade_sp {name} is not bit-equal to the uncontrolled building: max |d| "
+                  f"{float((runs['never'][i] - runs['uncontrolled'][i]).abs().max())}")
+        gap = max(float((runs["no-op gate"][i] - runs["uncontrolled"][i]).abs().max()) for i in (0, 1, 3))
+        check(gap <= 1e-12, f"{body}: a no-op ventilation control moves the march by {gap} K")
+        equal[body] = gap
+    return worst, cases, shares, equal
+
+
+def agree_lanes(runner, building, agree):
+    """[SP] bool: the blocked lanes whose faces bound only zones of
+    ``agree`` (padded lanes and faces that bound no zone count as agreeing)."""
+    import torch
+    from heatx_torch.build.layout import B_SPACE
+
+    sb = building.surfaces
+    ok = np.ones(building.n_surfaces, bool)
+    for code, space in ((sb.front_code, sb.front_space), (sb.back_code, sb.back_space)):
+        on = np.asarray(code) == B_SPACE
+        ok &= ~on | agree[np.where(on, np.asarray(space), 0)]
+    dev = runner.params.surf.device
+    return runner._blocker.lanes(torch.as_tensor(ok, device=dev), True)
+
+
+def phase22_controlled_city(torch, ctx):
+    """The controlled city at full width, f32 (see the module docstring)."""
+    day_march, testing, SimConfig, ThermalModel, smi = (ctx.day_march, ctx.testing, ctx.SimConfig,
+                                                        ctx.ThermalModel, ctx.smi)
+    km = day_march.day_march_kernel
+    model = testing.build_controlled_city(1000, 10, setpoints=CITY_SHADE_SETPOINTS)
+    kw = dict(mode="trbdf2_refresh", substeps=8, hours=24, refresh_every=2)
+    tm32 = ThermalModel(model, n=1, config=SimConfig(dtype=torch.float32), device="cuda")
+    b = tm32.building
+    r32 = tm32.fast_runner(**kw)
+    st0 = tm32.initial_state()
+    n_zones = b.n_zones
+    panes = int((r32.params.shade_slot >= 0).sum())
+    own = torch.as_tensor(day_march.local_zone(r32._bb.back_oh), device="cuda")
+    remote = int(((r32.params.shade_slot >= 0) & (r32.params.shade_slot != own)).sum())
+    check(panes == n_zones and remote == sum(z % 10 == 1 for z in range(n_zones)),
+          f"controlled city: {panes} controlled panes, {remote} remote")
+
+    # (a) 48 h: the f32 kernel against the f64 plain version, decision by decision
+    seq32 = testing.controlled_city_inputs(b, 48, device="cuda")
+    km.launches = km.gated_launches = 0
+    t0 = time.time()
+    fin32, z32 = r32.run(st0, seq32, interp_weather=True)
+    torch.cuda.synchronize()
+    run48_s = time.time() - t0
+    run48 = (km.launches, km.gated_launches)
+    check(run48 == (2, 2), f"controlled city 48 h: {run48} (all, gated) launches, expected 2")
+    tm64 = ThermalModel(model, n=1, config=SimConfig(dtype=torch.float64), device="cuda")
+    seq64 = testing.controlled_city_inputs(tm64.building, 48, device="cuda")
+    t0 = time.time()
+    _, z64 = tm64.fast_runner(use_kernel=False, **kw).run(tm64.initial_state(), seq64, interp_weather=True)
+    torch.cuda.synchronize()
+    plain48_s = time.time() - t0
+    for name, v in (("zone_T", z32), ("node_T", fin32.node_T), ("zone_T f64", z64)):
+        check(bool(torch.isfinite(v).all()), f"controlled city {name} has non-finite values")
+    t_out, wind = seq64.t_out.cpu().numpy(), seq64.wind_speed.cpu().numpy()
+    agree, flips = decision_flips(testing, b, z32.double().cpu().numpy(), z64.cpu().numpy(), t_out, wind)
+    check_flips(flips, "controlled city 48 h f32 vs f64")
+    err_z = float((z32.double() - z64)[:, torch.as_tensor(agree, device="cuda")].abs().max())
+    check(err_z <= F32_TOL, f"controlled city f32 vs f64 zone_T on agreeing zones: {err_z} > {F32_TOL}")
+    d64 = testing.control_decisions(b, z64.cpu().numpy(), t_out, wind)
+    shares = {k: float(d64[k].mean()) for k in ("shade", "vent")}
+    for k, v in shares.items():
+        check(GATE_SHARE[0] < v < GATE_SHARE[1], f"controlled city 48 h: {v:.0%} of the {k} decisions on")
+
+    # (b) one day: the gated launch timed, against its f32 plain version
+    T, zT = r32.to_blocked(st0)
+    seq24 = testing.controlled_city_inputs(b, 24, device="cuda")
+    hi = r32.kernel_inputs(seq24, interp_weather=True)[0]
+    ms = event_ms(torch, lambda: r32.hour_march(r32.params, T, zT, hi), 10)
+    t0 = time.time()
+    ref = r32.hour_march.plain(r32.params, T, zT, hi)
+    torch.cuda.synchronize()
+    plain_ms = (time.time() - t0) * 1e3
+    got = r32.hour_march(r32.params, T, zT, hi)
+    t24, w24 = seq24.t_out.double().cpu().numpy(), seq24.wind_speed.double().cpu().numpy()
+    agree_d, flips_d = decision_flips(testing, b, zone_order(r32, got[3]).double().cpu().numpy(),
+                                      zone_order(r32, ref[3]).double().cpu().numpy(), t24, w24)
+    check_flips(flips_d, "controlled city day, f32 kernel vs f32 plain")
+    lanes = agree_lanes(r32, b, agree_d)
+    zones = r32._blocker.zones(torch.as_tensor(agree_d, device="cuda"), True)
+    err32 = max(float((got[0] - ref[0])[:, lanes].abs().max()), float((got[1] - ref[1])[zones].abs().max()),
+                float((got[3] - ref[3])[:, zones].abs().max()))
+    check(err32 <= F32_TOL, f"controlled city day kernel vs f32 plain: {err32} > {F32_TOL}")
+
+    # (c) the year through FastRunner.run
+    inputs_year = testing.controlled_city_inputs(b, 8760, device="cuda")
+    km.launches = km.gated_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    _, zy = r32.run(st0, inputs_year, interp_weather=True)
+    torch.cuda.synchronize()
+    year_s = time.time() - t0
+    year = (km.launches, km.gated_launches)
+    check(year == (365, 365), f"controlled city year: {year} (all, gated) launches, expected 365")
+    check(bool(torch.isfinite(zy).all()) and tuple(zy.shape) == (8760, n_zones), "controlled city year zone_T")
+    dy = testing.control_decisions(b, zy.double().cpu().numpy(), inputs_year.t_out.double().cpu().numpy(),
+                                   inputs_year.wind_speed.double().cpu().numpy())
+    year_shares = {k: float(dy[k].mean()) for k in ("shade", "vent")}
+    del inputs_year, zy, dy
+
+    # (d) parity: 48 h through FastRunner.run, one day-launch timed, the
+    # kernel against its f32 plain version over the daytime window
+    tmp = ThermalModel(model, n=1, config=SimConfig(dtype=torch.float32, nomass_fixed_iters=PARITY_ITERS),
+                       device="cuda")
+    fp = tmp.fast_runner(mode="parity", hours=24)
+    sub = fp._substeps
+    km.launches = km.parity_gated_launches = 0
+    _, zp = fp.run(tmp.initial_state(), seq32, interp_weather=True)
+    torch.cuda.synchronize()
+    p_counts = (km.launches, km.parity_gated_launches)
+    check(p_counts == (2, 2), f"controlled city parity 48 h: {p_counts} (all, gated parity) launches")
+    check(bool(torch.isfinite(zp).all()), "controlled city parity zone_T has non-finite values")
+    # The launch and the window on the gradient workload's scales (seg_u x
+    # 1.2, front_alphas x 0.8), as phases 14b and 19c: with one no-mass
+    # iteration the bench days' own operands put faces on the 2-cycle, which
+    # amplifies the f32 round-off of either version (PARITY_* above).
+    scale = torch.tensor([1.2, 1.0, 0.8, 1.0], device="cuda")[:, None, None]
+    fp.params = dataclasses.replace(fp.params, node=fp.params.node * scale)
+    Tp, zTp = fp.to_blocked(tmp.initial_state())
+    hip = fp.kernel_inputs(seq24, interp_weather=True)[0]
+    p_ms = event_ms(torch, lambda: fp.hour_march(fp.params, Tp, zTp, hip), 3)
+    H, W0 = PARITY_PLAIN_HOURS, PARITY_WINDOW_START
+    hm6 = day_march.hour_march_for(fp._bb, mode="parity", hours=H, scheduled_shade_sp=True)
+    Tw, zTw, hi6 = daytime_window(day_march, fp._bb, fp.params, Tp, zTp, hip, sub)
+    gotp = hm6(fp.params, Tw, zTw, hi6)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    refp = hm6.plain(fp.params, Tw, zTw, hi6)
+    torch.cuda.synchronize()
+    p_plain_ms = (time.time() - t0) * 1e3
+    z0w = zTw.reshape(-1)[fp._zinv].double().cpu().numpy()
+    agree_p, flips_p = decision_flips(testing, b, zone_order(fp, gotp[3]).double().cpu().numpy(),
+                                      zone_order(fp, refp[3]).double().cpu().numpy(), t24[W0:W0 + H],
+                                      w24[W0:W0 + H], zone_T0=z0w)
+    check_flips(flips_p, "controlled city parity window, f32 kernel vs f32 plain")
+    lanes_p = agree_lanes(fp, b, agree_p)
+    zones_p = fp._blocker.zones(torch.as_tensor(agree_p, device="cuda"), True)
+    fwd_gaps = {name: float(d.abs().max()) for name, d in (
+        ("T", (gotp[0] - refp[0])[:, lanes_p]), ("zT", (gotp[1] - refp[1])[zones_p]),
+        ("zt_hist", (gotp[3] - refp[3])[:, zones_p]),
+        *((nm, (gotp[2][j] - refp[2][j])[lanes_p]) for j, nm in enumerate(("h_front", "h_back", "q_front",
+                                                                          "q_back"))))}
+    for name, err in fwd_gaps.items():
+        tol = PARITY_HQ_TOL if name[:2] in ("h_", "q_") else PARITY_DAY_TOL
+        check(err <= tol, f"controlled city parity f32 kernel vs plain, {name}: max |d| {err} > {tol}")
+    del refp
+    print(f"phase 22a controlled city on {smi}: {b.n_surfaces} surfaces, {n_zones} zones, {panes} shaded windows "
+          f"({remote} read another zone), ventilation gates in every zone; trbdf2_refresh k=2, 48 h: {run48[1]} gated "
+          f"launches, f32 run {run48_s:.3f} s (f64 plain {plain48_s:.1f} s); decisions on over 48 h (f64): "
+          f"shading {shares['shade']:.1%}, ventilation {shares['vent']:.1%}; f32 kernel vs f64 plain: "
+          f"{flips_text(flips)} (<= {FLIP_MARGIN:g} K), max |d zone_T| {err_z:.3e} K on the {int(agree.sum())} "
+          f"agreeing zones (<= {F32_TOL:g})", flush=True)
+    print(f"phase 22b controlled city on {smi}: one gated day-launch {ms:.3f} ms (CUDA events; ungated bench city "
+          f"{ctx.kernel_ms:.3f} ms) vs f32 plain {plain_ms:.1f} ms, {flips_text(flips_d)}, max |d| {err32:.3e} K; "
+          f"annual run (8760 h, f32) {year_s:.3f} s (host clock), {year[1]} gated launches, decisions on over "
+          f"the year: shading {year_shares['shade']:.1%}, ventilation {year_shares['vent']:.1%}; parity "
+          f"({sub} sub-steps/h, nomass_fixed_iters={PARITY_ITERS}): 48 h run {p_counts[1]} gated parity "
+          f"launches; seg_u x 1.2, front_alphas x 0.8: one day-launch {p_ms:.3f} ms (bench city "
+          f"{ctx.parity_ms:.3f} ms); over hours {W0}-{W0 + H}, "
+          f"both from the kernel's state at {W0} h, against the f32 plain version ({p_plain_ms:.1f} ms): "
+          f"{flips_text(flips_p)}, max |d| " + ", ".join(f"{k} {v:.2e}" for k, v in fwd_gaps.items())
+          + f" (<= {PARITY_DAY_TOL:g} K, h/q <= {PARITY_HQ_TOL:g})", flush=True)
+    ops_f = day_work(r32.params, 24, 8, 2)[0]
+    bytes_f = nbytes(*param_tensors(r32.params), T, zT, *hi) + nbytes(got[0], got[1], *got[2], got[3], got[4])
+    ops_p = parity_day_work(fp.params, 24, sub, PARITY_ITERS)[0]
+    gotd = fp.hour_march(fp.params, Tp, zTp, hip)
+    bytes_p = nbytes(*param_tensors(fp.params), Tp, zTp, *hip) + nbytes(gotd[0], gotd[1], *gotd[2], gotd[3], gotd[4])
+    return SimpleNamespace(
+        run48=run48, err_z=err_z, flips=flips, shares=shares, ms=ms, plain_ms=plain_ms, err32=err32,
+        flips_d=flips_d, year_s=year_s, year_launches=year[1], year_shares=year_shares, p_counts=p_counts,
+        p_ms=p_ms, p_plain_ms=p_plain_ms, p_err=max(fwd_gaps.values()), flips_p=flips_p,
+        bounds=dict(march=(ops_f, bytes_f) + bound(bytes_f, ops_f), parity=(ops_p, bytes_p) + bound(bytes_p, ops_p)),
+    )
+
+
+def phase23_controlled_office(torch, ctx, p17):
+    """The controlled office IDF workflow for a year (see the module
+    docstring)."""
+    import os
+    import tempfile
+
+    from heatx_torch.model.idf import load_idf
+    from heatx_torch.weather.epw import read_epw
+
+    testing, SimConfig, ThermalModel, smi = ctx.testing, ctx.SimConfig, ctx.ThermalModel, ctx.smi
+    km = ctx.day_march.day_march_kernel
+    with tempfile.TemporaryDirectory() as d:
+        w = read_epw(testing.write_synthetic_epw(os.path.join(d, "santiago_synthetic.epw"), seed=0))
+    loaded = load_idf(testing.controlled_office_idf())
+    series = loaded.shading_setpoint_series(8760)
+    check(series is not None, "the controlled office's shade has no schedule")
+    kw = dict(mode="trbdf2", substeps=8, hours=24, scheduled_setpoints=True)
+
+    def inputs(tm, hours):
+        seq, ground = testing.office_inputs(loaded, tm, w, hours)
+        sp = torch.as_tensor(series[:hours], dtype=tm.building.config.dtype, device="cuda")
+        return seq.replace(shade_sp=sp), ground
+
+    tm32 = ThermalModel(loaded.model, n=1, config=SimConfig(dtype=torch.float32), device="cuda")
+    b = tm32.building
+    check(b.surfaces.has_cavity and b.has_zone_shading and b.has_vent_gates and b.has_ideal_hvac,
+          "the controlled office lacks cavities, shading, gates or thermostats")
+    fr = tm32.fast_runner(**kw)
+    seq, ground = inputs(tm32, 8760)
+    st = tm32.initial_state()
+    km.launches = km.cavity_launches = km.gated_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    final, zt, loads = fr.run(st, seq, ground_hourly=ground, collect_loads=True)
+    heat = float(loads.clamp(min=0).sum()) / 1000.0
+    cool = float(-loads.clamp(max=0).sum()) / 1000.0
+    wall = time.time() - t0
+    launches = (km.launches, km.cavity_launches, km.gated_launches)
+    check(launches == (365, 365, 365), f"controlled office year: {launches} (all, cavity, gated) launches")
+    check(len(fr.dispatch_starts) == 12, f"controlled office year: {len(fr.dispatch_starts)} dispatches")
+    for name, v in (("zone_T", zt), ("loads", loads), ("node_T", final.node_T)):
+        check(bool(torch.isfinite(v).all()), f"controlled office year {name} has non-finite values")
+    check(heat > 0 and cool > 0, f"controlled office year: heating {heat}, cooling {cool} kWh")
+    dy = testing.control_decisions(b, zt.double().cpu().numpy(), seq.t_out.double().cpu().numpy(),
+                                   seq.wind_speed.double().cpu().numpy(), shade_sp=series)
+    shares = {k: float(dy[k].mean()) for k in ("shade", "vent")}
+    for k, v in shares.items():
+        check(GATE_SHARE[0] < v < GATE_SHARE[1], f"controlled office year: {v:.0%} of the {k} decisions on")
+
+    seq48, g48 = inputs(tm32, 48)
+    _, z32, l32 = fr.run(st, seq48, ground_hourly=g48, collect_loads=True)
+    tm64 = ThermalModel(loaded.model, n=1, config=SimConfig(dtype=torch.float64), device="cuda")
+    s64, g64 = inputs(tm64, 48)
+    _, z64, l64 = tm64.fast_runner(use_kernel=False, **kw).run(tm64.initial_state(), s64, ground_hourly=g64,
+                                                              collect_loads=True)
+    agree, flips = decision_flips(testing, b, z32.double().cpu().numpy(), z64.cpu().numpy(),
+                                  s64.t_out.cpu().numpy(), s64.wind_speed.cpu().numpy(), shade_sp=series[:48])
+    check_flips(flips, "controlled office 48 h f32 vs f64")
+    ok = torch.as_tensor(agree, device="cuda")
+    err_z = float((z32.double() - z64)[:, ok].abs().max()) if agree.any() else 0.0
+    l_scale = float(l64.abs().max())
+    err_l = float((l32.double() - l64)[:, ok].abs().max()) if agree.any() else 0.0
+    check(err_z <= F32_TOL, f"controlled office f32 vs f64 zone_T: {err_z} > {F32_TOL}")
+    check(err_l <= LOAD_F32_RTOL * l_scale, f"controlled office f32 vs f64 loads: {err_l} W of {l_scale} W")
+    print(f"phase 23 controlled office IDF workflow on {smi}: examples/data/office.idf with an "
+          f"OnIfHighZoneAirTemperature shade (tau 0.3, 23 C, 8-18 h) on its argon window and ventilation limits "
+          f"(20 C indoors, delta 1.05 K) in its {b.n_zones} zones, synthetic Santiago EPW (seed 0); annual run "
+          f"(trbdf2, 8 sub-steps, scheduled setpoints and shading, monthly ground temperatures, collect_loads, "
+          f"f32) {wall:.3f} s (host clock; uncontrolled, phase 17: {p17.walls[0]:.3f} s), launches (all, cavity, "
+          f"gated) {launches}; heating {heat:.1f} kWh, cooling {cool:.1f} kWh (uncontrolled, phase 17: "
+          f"{p17.heat:.1f} / {p17.cool:.1f}); decisions on over the year: shading {shares['shade']:.1%}, "
+          f"ventilation {shares['vent']:.1%}; 48 h f32 kernel vs f64 plain: {flips_text(flips)}, max |d zone_T| "
+          f"{err_z:.3e} K (<= {F32_TOL:g}), loads {err_l:.3e} W of {l_scale:.1f} W (<= {LOAD_F32_RTOL:g}) on "
+          f"the {int(agree.sum())} agreeing zones", flush=True)
+    return SimpleNamespace(launches=launches, wall=wall, heat=heat, cool=cool, shares=shares, err_z=err_z,
+                           err_l=err_l, flips=flips)
+
+
+def gate_kernel_entries(ctx, p22, p23):
+    """The kernels line's entries of the gated launches (the in-run controls
+    in the day march's extended instantiations)."""
+    b = p22.bounds
+    fwd = "heatx_torch/csrc/day_march.cu (gates at the top of the hour loop; HourIn in day_common.cuh)"
+    return [
+        {"name": "day_march_gated", "route": "cuda", "source": fwd,
+         "replaces": "heatx/ops/pallas_step.py:1976 (body _hour_body_imp, pallas_step.py:777; zone shading "
+                     ":1576-1594, ventilation gates :1614-1635)",
+         "launches": p22.year_launches,
+         "launches_by_path": {"controlled city annual run (phase 22b)": p22.year_launches,
+                              "controlled city run, 48 h (phase 22a)": p22.run48[1],
+                              "controlled office IDF year, with gas cavities (phase 23)": p23.launches[2]},
+         "max_abs_err": p22.err32, "ms": p22.ms, "plain_ms": p22.plain_ms, "bound_ms": b["march"][2],
+         "bound_by": b["march"][3], "library_ms": None, "ms_ungated_bench_day": ctx.kernel_ms,
+         "decisions_on": p22.shares},
+        {"name": "day_march_gated_parity", "plain_hours": PARITY_WINDOW, "route": "cuda",
+         "source": fwd + " and day_parity.cuh",
+         "replaces": "heatx/ops/pallas_step.py:1976 (body _hour_body, pallas_step.py:633; zone shading "
+                     ":1576-1594, ventilation gates :1614-1635)",
+         "launches": p22.p_counts[1],
+         "launches_by_path": {"controlled city parity run, 48 h (phase 22b)": p22.p_counts[1]},
+         "max_abs_err": p22.p_err, "ms": p22.p_ms, "plain_ms": p22.p_plain_ms, "bound_ms": b["parity"][2],
+         "bound_by": b["parity"][3], "library_ms": None, "ms_ungated_bench_day": ctx.parity_ms},
+    ]
+
+
 def mrt_kernel_entries(p19, p20):
     """The kernels line's entries of the eight MRT instantiations (the four
     bodies, without and with gas cavities)."""
@@ -2678,6 +3174,22 @@ def main() -> int:
     p19 = phase19_mrt_city(torch, ctx)
     p20 = phase20_office_mrt(torch, ctx, p17)
 
+    # 21-23. the in-run passive controls: every kind small in f64, the
+    # controlled city at full width, the controlled office (see the module
+    # docstring)
+    w21, n21, shares21, equal21 = phase21_gates_f64(torch, ctx)
+    print(f"phase 21 f64 in-run controls, {n21} cases ({{trbdf2_refresh k=2 at 8 sub-steps, parity at the coarse "
+          f"discretization}} x {{free-float, thermostats, gas cavities, MRT with the operative history}} x "
+          f"{{shading, ventilation gates, both}}, testing.build_controlled_city(2, 3): one window read by the other "
+          f"zone; {GATE_CASE_HOURS} h, one launch each): kernel vs plain twin max |d| {w21:.3e} K on every output "
+          f"(<= {F64_TOL:g}); decisions on per case: shading {min(shares21['shade']):.0%}-"
+          f"{max(shares21['shade']):.0%}, ventilation {min(shares21['vent']):.0%}-{max(shares21['vent']):.0%}; "
+          f"a +1e9 shade_sp series bit-equal to the uncontrolled building in both bodies; a no-op ventilation "
+          f"control within " + ", ".join(f"{v:.1e} K ({k})" for k, v in equal21.items())
+          + " of the ungated building (<= 1e-12)", flush=True)
+    p22 = phase22_controlled_city(torch, ctx)
+    p23 = phase23_controlled_office(torch, ctx, p17)
+
     # The kernels line: bounds from this run's shapes (f32 bench day; the
     # thermostat instantiation on the demand city's day, same mode).
     def march_bound(params, T, zT, hi, outs):
@@ -2705,7 +3217,8 @@ def main() -> int:
     cav_b = p16.bounds
     for what, bs in (("with gas cavities (f32 glazed city, the day-launches of phase 16)", cav_b),
                      ("with interior MRT (f32 MRT city, the day-launches of phase 19)", p19.bounds),
-                     ("with gas cavities and MRT (f32 office, the day-launches of phase 20)", p20.bounds)):
+                     ("with gas cavities and MRT (f32 office, the day-launches of phase 20)", p20.bounds),
+                     ("with the in-run controls (f32 controlled city, the day-launches of phase 22)", p22.bounds)):
         print(f"bounds {what}: " + "; ".join(
             f"{name} {b[1] / 1e6:.2f} MB, {b[0] / 1e9:.3f} GFLOP -> {b[2] * 1e3:.2f} us ({b[3]})"
             for name, b in bs.items()), flush=True)
@@ -2869,6 +3382,7 @@ def main() -> int:
             "library_ms": None,
         },
         *mrt_kernel_entries(p19, p20),
+        *gate_kernel_entries(ctx, p22, p23),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -7,9 +7,10 @@ CPU), its initial state and inputs, and its zone MRT (``zone_mrt``);
 day march (the CUDA kernel on a GPU, its plain twin on the CPU), with the
 per-hour ideal loads of a building with thermostats, with setpoint
 schedules, with the ground faces' soil temperature swapped in month by
-month (``ground_hourly``), with interior MRT (``config.interior_mrt``), and
-with the per-hour h/q and operative-temperature histories
-(``collect_fluxes``, ``collect_operative``); and
+month (``ground_hourly``), with interior MRT (``config.interior_mrt``),
+with the in-run passive controls (zone shading with its ``shade_sp``
+schedules, ventilation gates), and with the per-hour h/q and
+operative-temperature histories (``collect_fluxes``, ``collect_operative``); and
 ``FastRunner.chunk_forward``/``chunk_grad``, the forward and backward sweeps
 of ``heatx_torch.engine.adjoint.chunked_value_and_grad`` (the day march and
 the adjoint day march), for zone-temperature and demand objectives.
@@ -260,11 +261,15 @@ class FastRunner:
             building, block_size=block_size, mrt_statics=True if collect_operative else None
         )
         self._hours = hours
+        # A zone-shaded building's march always takes the shading setpoint
+        # series (so run(shade_sp=...) needs no constructor flag); it defaults
+        # to the compiled setpoints (heatx api.py:512-514).
+        self._scheduled_shade = bool(building.has_zone_shading)
         self.hour_march, self.params = day_march.make_hour_march(
             self._bb, substeps=substeps, mode=mode, hours=hours,
             refresh_every=refresh_every, collect_bad=True, device=self.device,
             scheduled_setpoints=scheduled_setpoints, collect_hq=collect_fluxes,
-            collect_operative=collect_operative,
+            collect_operative=collect_operative, scheduled_shade_sp=self._scheduled_shade,
         )
         self._collect_hq = collect_fluxes
         self._collect_op = collect_operative
@@ -352,7 +357,13 @@ class FastRunner:
     def _gains(self, inputs_seq: StepInputs, T_steps):
         """Per-hour zone A/B gain terms [T, Z]: heater and luminaire power
         into A; infiltration and ventilation air exchange into A and B (the
-        logic of heatx ``FastRunner.hour_inputs``, without vent gates)."""
+        logic of heatx ``FastRunner.hour_inputs``).  On a building with
+        ventilation gates the whole ventilation channel goes to the three
+        gate rows instead (heatx api.py:1580-1602): ``a_vent``/``b_vent``
+        with the weather-only gates (outdoor temperature and wind, from each
+        hour's value of the hourly series, never the interpolated sub-steps)
+        applied here, and ``vent_thr = vent_delta + t_out``; infiltration is
+        never gated.  Returns ``(a_gain, b_gain, vent_rows or None)``."""
         b = self._tm.building
         Z = b.n_zones
         kw = dict(dtype=self._dtype, device=self.device)
@@ -374,9 +385,10 @@ class FastRunner:
                 seq(inputs_seq.lum_power, b.n_luminaires),
             )
         b_gain = torch.zeros((T_steps, Z), **kw)
-        for vol, temp, mask in (
-            (inputs_seq.inf_vol, inputs_seq.inf_temp, inputs_seq.inf_mask),
-            (inputs_seq.vent_vol, inputs_seq.vent_temp, inputs_seq.vent_mask),
+        vent_rows = None
+        for kind, (vol, temp, mask) in (
+            ("inf", (inputs_seq.inf_vol, inputs_seq.inf_temp, inputs_seq.inf_mask)),
+            ("vent", (inputs_seq.vent_vol, inputs_seq.vent_temp, inputs_seq.vent_mask)),
         ):
             vol, temp, mask = seq(vol, Z), seq(temp, Z), seq(mask, Z) > 0
             t_k = temp + KELVIN
@@ -384,10 +396,27 @@ class FastRunner:
                 mask, gas.density(gas.AIR, t_k) * vol * gas.heat_capacity(gas.AIR, t_k),
                 torch.zeros_like(vol),
             )
+            zero = torch.zeros_like(term)
+            if kind == "vent" and b.has_vent_gates:
+                def hourly(v):
+                    return torch.broadcast_to(torch.as_tensor(v, **kw), (T_steps,))[:, None]
+
+                def limit(v):
+                    return torch.as_tensor(v, **kw)[None]
+
+                t_o, wind = hourly(inputs_seq.t_out), hourly(inputs_seq.wind_speed)
+                out_ok = ((t_o > limit(b.vent_min_tout)) & (t_o < limit(b.vent_max_tout))
+                          & (wind < limit(b.vent_max_wind)))
+                vent_rows = (
+                    torch.where(mask & out_ok, term * temp, zero),
+                    torch.where(out_ok, term, zero),
+                    torch.broadcast_to(limit(b.vent_delta) + t_o, (T_steps, Z)),
+                )
+                continue
             # Masked product too: a masked-off channel may carry NaN temperatures.
-            a_gain = a_gain + torch.where(mask, term * temp, torch.zeros_like(term))
+            a_gain = a_gain + torch.where(mask, term * temp, zero)
             b_gain = b_gain + term
-        return a_gain, b_gain
+        return a_gain, b_gain, vent_rows
 
     def _surf_xs(self, v, time_leading, d0, n_days):
         """A per-surface channel ([T, S], [T], [S] or scalar) -> the blocked
@@ -427,9 +456,10 @@ class FastRunner:
             sh = tuple(np.shape(v))
             return len(sh) in (1, 2) and sh[0] == T_steps
 
-        a_gain, b_gain = self._gains(inputs_seq, T_steps)
+        a_gain, b_gain, vent = self._gains(inputs_seq, T_steps)
         return SimpleNamespace(
             T_steps=T_steps, D=T_steps // self._hours, sp=self._setpoints(inputs_seq, T_steps),
+            shade=self._shade_series(inputs_seq, T_steps), vent=vent,
             weather=tuple(
                 self._weather_xs(v, T_steps, interp_weather)
                 for v in (inputs_seq.t_out, inputs_seq.wind_speed, inputs_seq.wind_direction)
@@ -479,6 +509,33 @@ class FastRunner:
 
         return series(heat, b.ctl_heat_sp), series(cool, b.ctl_cool_sp)
 
+    def _shade_series(self, inputs_seq: StepInputs, T_steps):
+        """The shading setpoints of a zone-shaded building as ``(is_series,
+        tensor)``: ``inputs_seq.shade_sp`` as a ``[T, S]`` series or an
+        ``[S]`` constant (scalar and ``[S]``), or the compiled setpoints where
+        it is None (heatx api.py:1901-1930).  None on other buildings, which
+        refuse the channel."""
+        b = self._tm.building
+        sv = inputs_seq.shade_sp
+        if sv is not None and not self._scheduled_shade:
+            raise ValueError(
+                "StepInputs.shade_sp requires in-run zone-shading controls "
+                "(BuildingModel.add_zone_shading)"
+            )
+        if not self._scheduled_shade:
+            return None
+        S = b.n_surfaces
+        a = torch.as_tensor(b.shade_sp if sv is None else sv, dtype=self._dtype, device=self.device)
+        sh = tuple(a.shape)
+        if len(sh) == 2 and sh == (T_steps, S):
+            return True, a
+        if len(sh) == 0 or sh in ((1,), (S,)):
+            return False, torch.broadcast_to(a, (S,))
+        raise ValueError(
+            f"shade_sp schedule shape {sh} not understood: pass scalar, [S], or [T, S] "
+            f"(T={T_steps}, S={S})"
+        )
+
     def _day_inputs(self, prep, d0: int, n_days: int):
         """The hour_march inputs of days [d0, d0 + n_days), blocked on the
         device for this chunk only (an annual [T, SP] buffer per channel
@@ -486,6 +543,8 @@ class FastRunner:
         surf = [self._surf_xs(v, ts, d0, n_days) for v, ts in zip(prep.surf, prep.surf_ts)]
         a_c = self._zone_xs(prep.a_gain, d0, n_days)
         b_c = self._zone_xs(prep.b_gain, d0, n_days)
+        vent = [] if prep.vent is None else [self._zone_xs(v, d0, n_days) for v in prep.vent]
+        shade = [] if prep.shade is None else [self._surf_xs(prep.shade[1], prep.shade[0], d0, n_days)]
         w = prep.weather
         sp = []
         if prep.sp is not None:
@@ -493,10 +552,12 @@ class FastRunner:
             for is_series, a in prep.sp:  # padded zone slots read 0, as in heatx
                 a = a[d0 * H:(d0 + n_days) * H] if is_series else a
                 sp.append(self._zone_xs(torch.broadcast_to(a, (n_days * H, Z)), 0, n_days))
+        # heatx's order: the 9 leaves, the gated rows, the setpoints, the
+        # shading setpoint series.
         return [
             (w[0][d0 + d], w[1][d0 + d], w[2][d0 + d],
              surf[0][d], surf[1][d], surf[2][d], surf[3][d], a_c[d], b_c[d])
-            + tuple(x[d] for x in sp)
+            + tuple(x[d] for x in vent + sp + shade)
             for d in range(n_days)
         ]
 
@@ -538,11 +599,15 @@ class FastRunner:
         ``ideal_load``.  On a ``scheduled_setpoints`` runner
         ``inputs_seq.heat_sp``/``cool_sp`` may be scalar, ``[Z]``, ``[1, Z]``,
         ``[T]`` or ``[T, Z]``; other runners raise ``ValueError`` on them.
-        ``ground_hourly`` ``[T]`` is the soil temperature of the ground faces
-        hour by hour, constant within each ``hours`` chunk (monthly values
-        from ``EPWData.ground_temperature``): the dispatches split where it
-        changes and :meth:`set_ground_temperature` swaps it in before each
-        (the runner keeps the last value).
+        On a building with in-run zone shading ``inputs_seq.shade_sp`` may
+        be scalar, ``[S]`` or ``[T, S]`` (+1e9 where a schedule forbids
+        deployment; None: the compiled setpoints); other buildings raise
+        ``ValueError`` on it.  ``ground_hourly`` ``[T]`` is the soil
+        temperature of the ground faces hour by hour, constant within each
+        ``hours`` chunk (monthly values from ``EPWData.ground_temperature``):
+        the dispatches split where it changes and
+        :meth:`set_ground_temperature` swaps it in before each (the runner
+        keeps the last value).
 
         ``collect_fluxes`` (a runner built with ``collect_fluxes=True``)
         returns the per-hour h/q history, each hour's last sub-step's, as a
@@ -804,12 +869,18 @@ class FastRunner:
         or ``schedule_fn`` presence, or with trajectory-changing options;
         ``collect_loads`` without thermostats, ``schedule_fn`` without a
         scheduled runner; ``apply_params`` feeding non-differentiated fields
-        (checked on every call)."""
+        (checked on every call); a building with in-run shading or
+        ventilation gates (heatx's adjoint refuses both)."""
         unsupported = set(run_kw) - TRAJECTORY_NEUTRAL
         if unsupported:
             raise ValueError(
                 f"chunk_grad: run options {sorted(unsupported)} change the forward "
                 "trajectory in ways the backward does not recompute"
+            )
+        if self._scheduled_shade:
+            raise ValueError(
+                "chunk_grad: in-run zone shading is not supported (heatx's XLA backward, "
+                "ROADMAP A10, is not ported)"
             )
         self._check_chunk_options("chunk_grad", collect_loads, schedule_fn)
         fw = getattr(self, "_fw_contract", None)

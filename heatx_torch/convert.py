@@ -24,7 +24,8 @@ import torch
 from heatx_torch.build.layout import CompiledBuilding, SurfaceBatch
 from heatx_torch.config import SimConfig
 from heatx_torch.ops.day_march import (
-    CAV_FIELDS, MRT_FIELDS, SURF_FIELDS, DayMarchParams, mix_lists_from_dense, pack_params,
+    CAV_FIELDS, MRT_FIELDS, SHADE_FIELDS, SURF_FIELDS, DayMarchParams, local_zone,
+    mix_lists_from_dense, pack_params,
 )
 from heatx_torch.physics.gas import GasProps
 
@@ -77,7 +78,12 @@ def params_from_kernel_operands(
     ``seg_is_cavity`` and CAV_NAMES ([N, SP]), and the Carroll network's
     effective emissivities ``mrt_eps_f``/``mrt_eps_b`` ([1, SP]; heatx
     leaves out a side on which no face takes part, which the port carries as
-    a zero row)."""
+    a zero row), and the in-run controls: the zone-shading gather
+    ``shade_ohT`` ([NB*ZB, SB], heatx's transposed one-hot of each lane's
+    controlling zone, which becomes the port's block-local slot per lane)
+    with its ``shade_tau``/``shade_sp`` rows ([1, SP]), and the ventilation
+    gates' indoor limits ``vent_min``/``vent_max`` (zone rows like
+    ``zone_volume``)."""
     node_mask = np.asarray(ops["node_mask"], bool)
     SP = node_mask.shape[1]
     ZB = np.asarray(ops["zone_volume"]).shape[-1]
@@ -99,6 +105,11 @@ def params_from_kernel_operands(
     cav = None
     if seg_is_cavity is not None and np.asarray(seg_is_cavity).any():
         cav = {k: np.asarray(ops[n]) for k, n in zip(CAV_FIELDS, CAV_NAMES)}
+    shade = None
+    if "shade_ohT" in ops:
+        oh = np.asarray(ops["shade_ohT"]).reshape(n_blocks, ZB, -1).transpose(0, 2, 1).reshape(SP, ZB)
+        shade = (local_zone(oh), *(np.asarray(ops[k]).reshape(SP) for k in SHADE_FIELDS))
+    vent = [zone_rows(ops[k]) for k in ("vent_min", "vent_max")] if "vent_min" in ops else None
     mrt = None
     if "mrt_eps_f" in ops or "mrt_eps_b" in ops:
         mrt = np.stack([np.asarray(ops.get(n, np.zeros(SP))).reshape(SP) for n in MRT_FIELDS])
@@ -109,5 +120,5 @@ def params_from_kernel_operands(
         np.asarray(ops["back_code"]).reshape(SP),
         ops.get("front_oh", zero_oh), ops.get("back_oh", zero_oh), zv, n_blocks,
         dtype=dtype, device=device, ctl=ctl, mix=mix, same_chunk=ops.get("same_chunk"),
-        seg_is_cavity=seg_is_cavity, cav=cav, mrt=mrt,
+        seg_is_cavity=seg_is_cavity, cav=cav, mrt=mrt, shade=shade, vent=vent,
     )

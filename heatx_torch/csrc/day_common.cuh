@@ -262,6 +262,22 @@ struct DayArgs {
   // (day_march.CAV_FIELDS), read only.
   T* cav_u;
   const T* cav;
+  // In-run passive controls (null without; the day march's extended
+  // instantiations read them, nothing else does).  Zone shading: per lane
+  // the block-local slot of the controlling zone (-1: uncontrolled), the
+  // deployed transmittance, and hour h's setpoint at shade_sp[h *
+  // shade_sp_stride + lane] (stride 0: the compiled row; SP: a per-hour
+  // series).  Ventilation gates: the indoor limits [NB, ZB] and the hour's
+  // gated ventilation terms and delta threshold [hours, NB, ZB].
+  const int* shade_slot = nullptr;
+  const T* shade_tau = nullptr;
+  const T* shade_sp = nullptr;
+  int shade_sp_stride = 0;
+  const T* vent_min = nullptr;
+  const T* vent_max = nullptr;
+  const T* a_vent = nullptr;
+  const T* b_vent = nullptr;
+  const T* vent_thr = nullptr;
   int N, NB, SB, ZB, hours, substeps, refresh_every, amb_bug;
   double dt, half_dt, gamma_dt, beta_dt, c1, c2;
   // The reference-parity march (day_parity.cuh): whether it runs instead of
@@ -365,13 +381,15 @@ struct Lane {
 };
 
 // The hour's per-lane forcing: clamped solar irradiance and the outdoor
-// radiant temperatures from the incident IR.
+// radiant temperatures from the incident IR.  `shade` scales the incident
+// front solar before the clamp (in-run zone shading: the deployed device's
+// transmittance, else 1), heatx's order.
 template <typename T>
 struct HourIn {
   T sol_f, sol_b, rad_out_f, rad_out_b;
-  __device__ HourIn(const DayArgs<T>& a, int h, int lane) {
+  __device__ HourIn(const DayArgs<T>& a, int h, int lane, T shade = T(1)) {
     const int SP = a.NB * a.SB;
-    const T sfr = a.sol_f[h * SP + lane], sbr = a.sol_b[h * SP + lane];
+    const T sfr = a.sol_f[h * SP + lane] * shade, sbr = a.sol_b[h * SP + lane];
     sol_f = (is_nan(sfr) || sfr < T(0)) ? T(0) : sfr;
     sol_b = is_nan(sbr) ? T(0) : sbr;
     rad_out_f = m_pow(m_max(a.ir_f[h * SP + lane], T(1e-30)) / T(kSigma), T(0.25)) - T(kKelvin);

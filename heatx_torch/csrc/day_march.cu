@@ -6,7 +6,9 @@
 // body `_hour_body_imp`, and in mode parity, body `_hour_body` (kParity; the
 // sub-step itself is in day_parity.cuh), with gas cavities or without,
 // free-float, or with thermostats (`_zone_update_ctl`, the per-hour mean load
-// history), per-hour setpoint schedules and inter-zone mixing.
+// history), per-hour setpoint schedules, inter-zone mixing, and the in-run
+// passive controls (zone shading and ventilation gates, pallas_step.py
+// :1576-1594 and :1614-1635).
 // One launch marches `hours` hours of `substeps` sub-steps per sub-step
 // operator group of `refresh_every` (frozen mode: refresh_every == substeps).
 //
@@ -79,6 +81,19 @@
 //    history is the hour's last h/q.  What bounds it is unchanged: the MRT
 //    phase adds ~12 operations per network face and iteration and its
 //    barriers to each operator build.
+//  * In-run zone shading and ventilation gates are code of the kExt
+//    instantiations (a gated building takes one, and so does every kCav and
+//    kMrt kind), at the top of the hour loop: one kernel "hour" is one main
+//    step, and both decisions read the zone carry s_zT at its start, before
+//    the first sub-step's barrier (the last barrier of the previous hour, or
+//    the one after the start state's load, made the row whole).  Shading: a
+//    controlled lane reads its controlling zone's slot and scales the hour's
+//    front solar by the device's transmittance (scale, then clamp; heatx's
+//    order).  Gates: each zone's owner thread writes a_extra (+ a_vent) and
+//    b_extra (+ b_vent) into two shared rows once per hour, and the same
+//    thread reads them in every sub-step's zone sums, so no barrier is
+//    added; the decision is held even as s_zT moves.  O(lanes + zones) per
+//    hour against O(sub-steps x nodes).
 
 #include <type_traits>
 
@@ -129,6 +144,8 @@ __global__ void __launch_bounds__(kMaxLanes) day_march_kernel(const MarchArgsOf<
   T* s_zN = s_ha + 2 * a.SB;                 // kExt: [ZB] the sub-step's new zone row
   T* s_ld = s_zN + a.ZB;                     // kExt: [ZB] the hour's load sum
   T* s_tm = s_ld + a.ZB;                     // kMrt: [ZB] the zones' MRT nodes
+  T* s_ga = s_tm + (kMrt ? a.ZB : 0);        // kExt, gated: [ZB] the hour's gated a_extra
+  T* s_gb = s_ga + a.ZB;                     // kExt, gated: [ZB] the hour's gated b_extra
   __shared__ int s_bad;
 
   const int N = a.N, SB = a.SB, ZB = a.ZB, NB = a.NB;
@@ -152,9 +169,27 @@ __global__ void __launch_bounds__(kMaxLanes) day_march_kernel(const MarchArgsOf<
   Ops<T> o{};
   T qf = T(0), qb = T(0);
   for (int h = 0; h < a.hours; ++h) {
-    const HourIn<T> hi(a, h, lane);
+    // The in-run controls at the main step's start (see the design notes).
+    T shade = T(1);
+    if (kExt && a.shade_slot) {
+      const int z = a.shade_slot[lane];
+      if (z >= 0 && s_zT[z] > a.shade_sp[(size_t)h * a.shade_sp_stride + lane])
+        shade = a.shade_tau[lane];
+    }
+    const HourIn<T> hi(a, h, lane, shade);
     const T* a_ex = a.a_extra + (size_t)h * NB * ZB + b * ZB;
     const T* b_ex = a.b_extra + (size_t)h * NB * ZB + b * ZB;
+    const bool gated = kExt && a.vent_min;
+    if (gated) {
+      const size_t row = (size_t)h * NB * ZB + b * ZB;
+      for (int z = tid; z < ZB; z += SB) {
+        const int gz = b * ZB + z;
+        const T zt = s_zT[z];
+        const bool on = zt > a.vent_min[gz] && zt < a.vent_max[gz] && zt > a.vent_thr[row + z];
+        s_ga[z] = a_ex[z] + (on ? a.a_vent[row + z] : T(0));
+        s_gb[z] = b_ex[z] + (on ? a.b_vent[row + z] : T(0));
+      }
+    }
     for (int i0 = 0; i0 < a.substeps; i0 += a.refresh_every) {
       const int w = h * a.substeps + i0;
       T t_front, t_back;
@@ -205,7 +240,8 @@ __global__ void __launch_bounds__(kMaxLanes) day_march_kernel(const MarchArgsOf<
         for (int z = tid; z < ZB; z += SB) {
           const int gz = b * ZB + z;
           T az, bz;
-          zone_sums(a.zone_ptr, a.zone_faces, gz, s_haT, s_ha, a_ex[z], b_ex[z], az, bz);
+          zone_sums(a.zone_ptr, a.zone_faces, gz, s_haT, s_ha, gated ? s_ga[z] : a_ex[z],
+                    gated ? s_gb[z] : b_ex[z], az, bz);
           if (kExt) {
             if (a.mix_ptr) mix_sums(a, gz, s_zT, az, bz);
             if (a.ctl) {
@@ -286,13 +322,18 @@ int check_args(const MarchArgs<T>& m) {
   if ((a.ctl != nullptr) != (m.ld_hist != nullptr) ||
       (a.sp_heat != nullptr) != (a.sp_cool != nullptr) || (a.sp_heat && !a.ctl))
     return static_cast<int>(cudaErrorInvalidValue);
+  // Shading comes with its transmittances and setpoints, gates with their rows.
+  if ((a.shade_slot != nullptr) != (a.shade_tau != nullptr) ||
+      (a.vent_min != nullptr) != (a.a_vent && a.b_vent && a.vent_thr))
+    return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaSuccess);
 }
 
 template <typename T, bool kExt, bool kParity, bool kCav = false, bool kMrt = false>
 int launch_as(const MarchArgsOf<T, kMrt>& m, cudaStream_t stream) {
   const DayArgs<T>& a = m.in;
-  const size_t smem = sizeof(T) * (static_cast<size_t>(a.ZB) * (kMrt ? 4 : (kExt ? 3 : 1)) +
+  const size_t smem = sizeof(T) * (static_cast<size_t>(a.ZB) * ((kMrt ? 4 : (kExt ? 3 : 1)) +
+                                                                 (kExt && a.vent_min ? 2 : 0)) +
                                    4 * static_cast<size_t>(a.SB));
   if (smem > 48 * 1024) {
     const cudaError_t e =
@@ -314,7 +355,8 @@ int day_march(const void* node, const void* surf, const void* lane, const void* 
               void* ld_hist, const void* ctl, const void* sp_heat, const void* sp_cool,
               const void* mix_ptr, const void* mix_src, const void* mix_vol, void* cav_u, const void* cav,
               const void* mrt, const void* mrt_ptr, const void* mrt_faces, void* hq_hist, void* top,
-              int N,
+              const void* shade_slot, const void* shade, const void* shade_sp, const void* vent,
+              const void* a_vent, const void* b_vent, const void* vent_thr, int N,
               int NB, int SB, int ZB, int hours, int substeps, int refresh_every, int amb_bug,
               int parity, int nomass_iters, int esc_after, int mrt_phys, double dt, double half_dt,
               double gamma_dt, double beta_dt, double c1, double c2, double nomass_tol,
@@ -361,6 +403,18 @@ int day_march(const void* node, const void* surf, const void* lane, const void* 
   m.net.phys = mrt_phys;
   m.hq_hist = static_cast<T*>(hq_hist);
   m.top = static_cast<T*>(top);
+  // shade [2, SP]: the transmittances, then the compiled setpoints (read
+  // when no per-hour series comes); vent [2, NB, ZB]: the indoor limits.
+  a.shade_slot = static_cast<const int*>(shade_slot);
+  a.shade_tau = static_cast<const T*>(shade);
+  a.shade_sp = shade_sp ? static_cast<const T*>(shade_sp)
+                        : (shade ? a.shade_tau + static_cast<size_t>(NB) * SB : nullptr);
+  a.shade_sp_stride = shade_sp ? NB * SB : 0;
+  a.vent_min = static_cast<const T*>(vent);
+  a.vent_max = vent ? a.vent_min + static_cast<size_t>(NB) * ZB : nullptr;
+  a.a_vent = static_cast<const T*>(a_vent);
+  a.b_vent = static_cast<const T*>(b_vent);
+  a.vent_thr = static_cast<const T*>(vent_thr);
   a.N = N;
   a.NB = NB;
   a.SB = SB;
@@ -387,13 +441,14 @@ int day_march(const void* node, const void* surf, const void* lane, const void* 
   if ((mrt_phys || m.top || m.hq_hist) && !(m.net.mrt && m.net.mrt_ptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if ((a.cav != nullptr) != (a.cav_u != nullptr)) return static_cast<int>(cudaErrorInvalidValue);
-  // Free-float buildings run the instantiation without the extra zone code;
-  // buildings with gas cavities the extended one with the cavity code (kCav),
-  // whatever their zones have, so the others keep their code.  MRT physics
-  // and the histories take the extended instantiations with the network
-  // (kMrt), with the cavity code where the building has it.
+  // Free-float buildings run the instantiation without the extra zone code
+  // (thermostats, mixing, in-run shading and gates); buildings with gas
+  // cavities the extended one with the cavity code (kCav), whatever their
+  // zones have, so the others keep their code.  MRT physics and the
+  // histories take the extended instantiations with the network (kMrt),
+  // with the cavity code where the building has it.
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool ext = a.ctl || a.mix_ptr;
+  const bool ext = a.ctl || a.mix_ptr || a.shade_slot || a.vent_min;
   if (m.net.mrt)
     return std::is_same_v<T, float> ? heatx_day_march_mrt_f32(&m, stream, parity)
                                     : heatx_day_march_mrt_f64(&m, stream, parity);
@@ -438,7 +493,8 @@ int heatx_day_march_mrt_f64(const void* m, void* stream, int parity) {
       void *ld_hist, const void *ctl, const void *sp_heat, const void *sp_cool,            \
       const void *mix_ptr, const void *mix_src, const void *mix_vol, void *cav_u, const void *cav,  \
       const void *mrt, const void *mrt_ptr, const void *mrt_faces, void *hq_hist, void *top,  \
-      int N,                                                                               \
+      const void *shade_slot, const void *shade, const void *shade_sp, const void *vent,  \
+      const void *a_vent, const void *b_vent, const void *vent_thr, int N,                 \
       int NB, int SB, int ZB, int hours, int substeps, int refresh_every, int amb_bug,     \
       int parity, int nomass_iters, int esc_after, int mrt_phys, double dt, double half_dt, \
       double gamma_dt, double beta_dt, double c1, double c2, double nomass_tol,            \
@@ -447,7 +503,7 @@ int heatx_day_march_mrt_f64(const void* m, void* stream, int parity) {
   node, surf, lane, zone_volume, zone_ptr, zone_faces, t_out, wind, wdir, sol_f, sol_b,    \
       ir_f, ir_b, a_extra, b_extra, T0, zT0, T_out, zT_out, hq, zt_hist, bad, ld_hist,     \
       ctl, sp_heat, sp_cool, mix_ptr, mix_src, mix_vol, cav_u, cav, mrt, mrt_ptr, mrt_faces, \
-      hq_hist, top, N, NB, SB, ZB, hours,                                                  \
+      hq_hist, top, shade_slot, shade, shade_sp, vent, a_vent, b_vent, vent_thr, N, NB, SB, ZB, hours, \
       substeps, refresh_every, amb_bug, parity, nomass_iters, esc_after, mrt_phys, dt, half_dt, \
       gamma_dt, beta_dt, c1, c2, nomass_tol, nomass_tol_esc, stream
 

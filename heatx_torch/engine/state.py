@@ -39,9 +39,11 @@ class StepInputs:
     Weather entries may be scalars (held over the sub-steps) or per-hour
     series.  ``heat_sp``/``cool_sp`` are optional thermostat setpoint
     schedules for a ``scheduled_setpoints`` runner (None: the compiled
-    setpoints).  heatx's other optional channels (``mix_vol``, ``shade_sp``)
-    come with the slices that use them (ROADMAP A9, A10): the day march
-    mixes at the compiled flows.
+    setpoints).  ``shade_sp`` overrides the compiled setpoints of the
+    in-run zone-shading controls (scalar, ``[S]`` or ``[T, S]``; a schedule
+    gate passes +1e9 on blocked hours; None: the compiled setpoints).
+    heatx's ``mix_vol`` comes with the slice that uses it (ROADMAP A10): the
+    day march mixes at the compiled flows.
     """
 
     t_out: torch.Tensor  # scalar or [T]
@@ -61,6 +63,7 @@ class StepInputs:
     vent_mask: torch.Tensor  # [Z] bool
     heat_sp: torch.Tensor = None  # scalar, [Z], [1, Z], [T] or [T, Z] heating setpoints, C
     cool_sp: torch.Tensor = None
+    shade_sp: torch.Tensor = None  # scalar, [S] or [T, S] zone-shading setpoints, C
 
     def replace(self, **kw) -> "StepInputs":
         return dataclasses.replace(self, **kw)

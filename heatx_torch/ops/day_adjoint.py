@@ -347,12 +347,13 @@ class DayAdjoint:
     :meth:`raw` returns the kernel's tuple instead of the dict."""
 
     def __init__(self, hour_march: day_march.HourMarch):
+        refuse_gates(hour_march.shaded, hour_march.vent_gated)
         self._hm = hour_march
         self.hours = hour_march.hours
         self.substeps = hour_march.substeps
 
     def _args(self, params, T0, zT0, hour_inputs, cots):
-        T0, zT0, *hi = self._hm._operands(params, T0, zT0, hour_inputs)
+        (T0, zT0, *hi), _ = self._hm._operands(params, T0, zT0, hour_inputs)
         sp = tuple(hi[9:]) if self._hm.scheduled_setpoints else (None, None)
         cots = tuple(cots) + (None,) * (4 - len(cots))
         dT, d_zT, d_zth, d_ld = cots
@@ -407,6 +408,21 @@ class DayAdjoint:
         return self._dict(self.raw(params, T0, zT0, hour_inputs, cots, plain=True))
 
 
+def refuse_gates(shaded: bool, vent_gated: bool):
+    """heatx's refusals (pallas_adjoint.py:162-171): the adjoint does not
+    differentiate in-run zone shading or ventilation gates."""
+    if shaded:
+        raise ValueError(
+            "adjoint kernel: in-run zone shading is not supported (heatx's XLA backward, "
+            "ROADMAP A10, is not ported)"
+        )
+    if vent_gated:
+        raise ValueError(
+            "adjoint kernel: in-run ventilation gates are not supported (heatx's XLA backward, "
+            "ROADMAP A10, is not ported)"
+        )
+
+
 def make_day_adjoint(
     bb: BlockedBuilding,
     substeps: int = None,
@@ -422,7 +438,8 @@ def make_day_adjoint(
     ``make_hour_march`` returns for the same arguments (with
     ``scheduled_setpoints``, the 11-leaf hour inputs too).  ``device`` is
     checked as ``make_hour_march`` checks it (``"cuda"``, the default,
-    raises without a GPU)."""
+    raises without a GPU).  A building with in-run shading or ventilation
+    gates raises heatx's ``ValueError``: neither is differentiated."""
     if mode == "parity":
         # heatx's rules (pallas_adjoint.py:150-161): the sub-step length is
         # 3600 / (steps per hour x substeps), so the count must be given, and
@@ -438,6 +455,7 @@ def make_day_adjoint(
                 f"({bb.base.dt_subdivisions}); the march it differentiates steps by the "
                 "building's dt"
             )
+    refuse_gates(bb.shade is not None, bb.vent is not None)
     day_march._check_supported(bb.base)
     cuda_lib.resolve_device(device)
     return DayAdjoint(day_march.hour_march_for(
@@ -466,6 +484,7 @@ class _DayMarch(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gT, gzT, g_hist, *rest):
+        refuse_gates(ctx.params.shade_slot is not None, ctx.params.vent is not None)
         node, surf, zone_volume, ctl, mrt, T, zT, *hour_inputs = ctx.saved_tensors
         p = replace(ctx.params, node=node, surf=surf, zone_volume=zone_volume, ctl=ctl, mrt=mrt)
         g_ld = rest[4] if ctl is not None else None

@@ -112,8 +112,26 @@ the zone-air-started solve on each hour's final state) are outputs of the
 same instantiations (``kMrt``), which every launch with MRT physics or
 either history takes; the others keep their code.
 
-Not ported yet (each raises ``NotImplementedError``): in-run shading and
-vent gates (ROADMAP A9.2) and sharding (A12).
+In-run passive controls (heatx ``bb.shade``/``bb.vent``, the hour loop's
+gates at pallas_step.py:1576-1594 and :1614-1635): each kernel "hour" is one
+main step, and both gates read the zone carry at its start.  Zone shading
+scales a controlled pane's incident front solar by the device's
+transmittance wherever its controlling zone (a block-local slot per lane,
+``DayMarchParams.shade_slot``; heatx's one-hot gather is not ported) is
+warmer than the setpoint: the lane's compiled one (``shade[1]``) or, with
+``scheduled_shade_sp``, the hour's row of an optional trailing ``shade_sp
+[hours, SP]`` hour input.  Ventilation gates add the hour's ventilation
+terms ``a_vent``/``b_vent`` to ``a_extra``/``b_extra`` only where the zone's
+temperature lies inside (``vent[0]``, ``vent[1]``) and above the hour's
+``vent_thr``; a gated march takes heatx's 12-leaf hour inputs, the three
+``[hours, NB, ZB]`` rows after ``b_extra`` (the weather-only gates are the
+host's, ``FastRunner``).  In the kernel the gates are code of the ``kExt``
+instantiations, read from shared memory once per hour and held.  Neither
+gate is differentiated: heatx's adjoint refuses both, and so does the port
+(``day_adjoint.make_day_adjoint``, ``DayMarchFn``, and autograd through a
+gated plain march).
+
+Not ported yet: sharding (ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -161,6 +179,9 @@ LANE_FIELDS = (
 #: (heatx's operand names; 0 off the network).  Bit 0 (front) and bit 1
 #: (back) of a lane's ``mrt_bits`` mark its faces on the network.
 MRT_FIELDS = ("mrt_eps_f", "mrt_eps_b")
+#: Row order of DayMarchParams.shade: the deployed transmittance and the
+#: zone-air setpoint of each lane's in-run shading control.
+SHADE_FIELDS = ("shade_tau", "shade_sp")
 #: Row order of DayMarchParams.cav: the gas polynomials (GasProps order), the
 #: cavity geometry and the emissivities of every gas-cavity segment.
 CAV_FIELDS = (
@@ -267,6 +288,14 @@ class BlockedBuilding:
     #: MRT statics.
     mrt_eps: tuple = None
     mrt_part: np.ndarray = None
+    #: In-run zone shading (slot, tau, sp): per lane the block-local slot of
+    #: the controlling zone (-1 where the pane is uncontrolled or padded)
+    #: [SP] int32, the deployed transmittance (1 where uncontrolled) and the
+    #: setpoint (1e9 where uncontrolled) [SP] float64; None without shading.
+    shade: tuple = None
+    #: Ventilation gates: the indoor limits (vent_min, vent_max), each
+    #: [n_blocks, ZB] (-100/100 in padded slots); None without gates.
+    vent: tuple = None
 
     @property
     def config(self) -> SimConfig:
@@ -293,10 +322,6 @@ def _check_supported(building: CompiledBuilding):
     """Raise NotImplementedError (naming the ROADMAP item) for building
     features the day march does not carry yet."""
     missing = []
-    if building.has_zone_shading:
-        missing.append("in-run zone shading (ROADMAP A9.2)")
-    if building.has_vent_gates:
-        missing.append("ventilation gates (ROADMAP A9.2)")
     if building.max_nodes > MAX_NODES:
         missing.append(f"more than {MAX_NODES} nodes per surface (ROADMAP B1)")
     if missing:
@@ -477,6 +502,31 @@ def block_building(
         mrt_eps, mrt_part = _mrt_static_blocked(
             new_sb, layout.front_oh, layout.back_oh, layout.n_blocks, layout.zones_per_block
         )
+    shade = None
+    if building.has_zone_shading:
+        # Blocking unions the controlling zone into the pane's component
+        # (build_blocks), so it is block-local here.
+        sz = np.where(layout.surf_valid, perm(np.asarray(building.shade_zone, np.int64), -1), -1)
+        tau = np.where(sz >= 0, perm(building.shade_tau, 1.0), 1.0).astype(np.float64)
+        sp = np.where(sz >= 0, perm(building.shade_sp, 1e9), 1e9).astype(np.float64)
+        zt = np.asarray(layout.zone_table)
+        slot = np.full(sz.shape, -1, np.int32)
+        for i in np.nonzero(sz >= 0)[0]:
+            bi = i // layout.block_size
+            loc = np.nonzero(zt[bi] == sz[i])[0]
+            if loc.size == 0:  # defensive: blocking guarantees locality
+                raise AssertionError(
+                    f"zone-shading control zone {int(sz[i])} not in block {bi}'s zone table "
+                    "(blocking invariant violated)"
+                )
+            slot[i] = loc[0]
+        shade = (slot, tau, sp)
+    vent = None
+    if building.has_vent_gates:
+        vent = tuple(
+            np.where(layout.zone_valid, layout.zones_to_blocked(np.asarray(v), fill=fill), fill)
+            for v, fill in ((building.vent_min_tin, -100.0), (building.vent_max_tin, 100.0))
+        )
     return BlockedBuilding(
         base=building,
         layout=layout,
@@ -489,6 +539,8 @@ def block_building(
         mix=mix,
         mrt_eps=mrt_eps,
         mrt_part=mrt_part,
+        shade=shade,
+        vent=vent,
     )
 
 
@@ -524,6 +576,19 @@ class DayMarchParams:
     mrt: torch.Tensor = None
     mrt_ptr: torch.Tensor = None
     mrt_faces: torch.Tensor = None
+    #: In-run zone shading: per lane the block-local slot of the controlling
+    #: zone (-1: uncontrolled) [SP] int32 and the rows (tau, sp) [2, SP]
+    #: (SHADE_FIELDS); None without shading.  Not differentiated, as in heatx.
+    shade_slot: torch.Tensor = None
+    shade: torch.Tensor = None
+    #: Ventilation gates: the indoor limits (vent_min, vent_max) [2, NB, ZB];
+    #: None without gates.  Not differentiated.
+    vent: torch.Tensor = None
+
+    @property
+    def gated(self) -> bool:
+        """Whether the march runs in-run shading or ventilation gates."""
+        return self.shade_slot is not None or self.vent is not None
 
     @property
     def n_blocks(self) -> int:
@@ -542,6 +607,8 @@ class DayMarchParams:
         return self.node.shape[1]
 
     def field(self, name: str) -> torch.Tensor:
+        if name in SHADE_FIELDS:
+            return self.shade[SHADE_FIELDS.index(name)]
         if name in MRT_FIELDS:
             return self.mrt[MRT_FIELDS.index(name)]
         if name in CAV_FIELDS:
@@ -553,7 +620,7 @@ class DayMarchParams:
         return self.lane[LANE_FIELDS.index(name)]
 
 
-def _local_zone(oh: np.ndarray) -> np.ndarray:
+def local_zone(oh: np.ndarray) -> np.ndarray:
     """[SP, ZB] one-hot rows -> block-local zone index per lane (-1: none)."""
     oh = np.asarray(oh)
     return np.where(oh.any(axis=1), oh.argmax(axis=1), -1).astype(np.int32)
@@ -571,7 +638,7 @@ def pack_params(
     node_mask, massive, capacity, seg_u, front_alphas, back_alphas, surf: dict,
     front_code, back_code, front_oh, back_oh, zone_volume, n_blocks,
     dtype=torch.float32, device="cpu", ctl=None, mix: MixLists = None, same_chunk=None,
-    seg_is_cavity=None, cav: dict = None, mrt=None, mrt_part=None,
+    seg_is_cavity=None, cav: dict = None, mrt=None, mrt_part=None, shade=None, vent=None,
 ) -> DayMarchParams:
     """Pack blocked numpy operands into :class:`DayMarchParams`.
 
@@ -586,8 +653,10 @@ def pack_params(
     ``[N, SP]`` operands (both None without cavities); ``mrt`` holds the
     MRT_FIELDS rows ``[2, SP]`` and ``mrt_part`` their static participation
     mask ``[2, SP]`` (default ``mrt > 0``; both None without the MRT
-    statics).  Shared by
-    :func:`make_hour_march` and ``heatx_torch.convert``."""
+    statics); ``shade`` holds the in-run shading's ``(slot [SP] block-local
+    controlling zone or -1, tau [SP], sp [SP])`` and ``vent`` the gates'
+    indoor limits ``(vent_min, vent_max)`` ``[NB, ZB]`` (both None without).
+    Shared by :func:`make_hour_march` and ``heatx_torch.convert``."""
     node_mask = np.asarray(node_mask, bool)
     massive = np.asarray(massive, bool)
     N, SP = node_mask.shape
@@ -599,8 +668,8 @@ def pack_params(
     NB = int(n_blocks)
     SB = SP // NB
     ZB = np.asarray(zone_volume).shape[-1]
-    fz = _local_zone(front_oh)
-    bz = _local_zone(back_oh)
+    fz = local_zone(front_oh)
+    bz = local_zone(back_oh)
     has_cav = seg_is_cavity is not None and np.asarray(seg_is_cavity, bool).any()
     cav_mask = np.asarray(seg_is_cavity, bool) if has_cav else np.zeros_like(node_mask)
     if (cav_mask & ~(node_mask & np.roll(node_mask, -1, axis=0))).any() or cav_mask[-1].any():
@@ -658,6 +727,9 @@ def pack_params(
         mrt=None if mrt is None else f(mrt),
         mrt_ptr=None if mrt is None else i32(mrt_ptr),
         mrt_faces=None if mrt is None else i32(mrt_faces),
+        shade_slot=None if shade is None else i32(np.asarray(shade[0]).reshape(SP)),
+        shade=None if shade is None else f(np.stack([np.asarray(x).reshape(SP) for x in shade[1:]])),
+        vent=None if vent is None else f(np.stack([np.asarray(v).reshape(NB, ZB) for v in vent])),
     )
 
 
@@ -757,6 +829,8 @@ def params_from_blocked(bb: BlockedBuilding, dtype, device) -> DayMarchParams:
         mix=bb.mix, same_chunk=sb.same_chunk, seg_is_cavity=sb.seg_is_cavity, cav=cav,
         mrt=None if bb.mrt_eps is None else np.stack(bb.mrt_eps).astype(np_dtype),
         mrt_part=None if bb.mrt_part is None else bb.mrt_part.reshape(2, -1),
+        shade=None if bb.shade is None else (bb.shade[0], *(np.asarray(x).astype(np_dtype) for x in bb.shade[1:])),
+        vent=None if bb.vent is None else [np.asarray(v).astype(np_dtype) for v in bb.vent],
     )
 
 
@@ -796,20 +870,12 @@ def _lanes(params: DayMarchParams, chunks: bool = False):
     and the gas-cavity operands where the building has them.
     ``chunks`` adds what the parity integrator reads: ``massive``, ``mass``
     (the capacity row: the mass on massive nodes) and the no-mass chunks."""
-    SP = params.surf.shape[1]
     node_mask = bit_rows(params, "node_bits")
     extra = {}
     if chunks:
         extra = _chunk_view(node_mask, bit_rows(params, "mass_bits"), bit_rows(params, "chunk_bits"))
         extra["nomass_chunk_count"] = extra["nomass_chunk_count"].to(params.node.dtype)
         extra["mass"] = params.field("capacity")
-    block = torch.arange(SP, device=node_mask.device) // params.block_size
-    ZB = params.zones_per_block
-
-    def slot(local):
-        local = local.to(torch.int64)
-        return torch.where(local >= 0, block * ZB + local, local)
-
     v = {k: params.field(k) for k in NODE_FIELDS + SURF_FIELDS}
     if params.mrt is not None:
         bits = params.field("mrt_bits")
@@ -829,8 +895,8 @@ def _lanes(params: DayMarchParams, chunks: bool = False):
         normal=(v["normal_x"], v["normal_y"]),
         **{k: v[k] for k in SURF_FIELDS if not k.startswith("normal")},
         front_code=params.field("front_code"), back_code=params.field("back_code"),
-        front_slot=slot(params.field("front_zone")),
-        back_slot=slot(params.field("back_zone")),
+        front_slot=_zone_slots(params, params.field("front_zone")),
+        back_slot=_zone_slots(params, params.field("back_zone")),
         has_cavity=params.cav is not None,
         **extra,
     )
@@ -1054,11 +1120,57 @@ def hour_body(parity: bool, sbv, st, **kw):
     return (plain_hour_parity if parity else _hour_body_imp)(sbv=sbv, st=st, **kw)
 
 
+def _zone_slots(params: DayMarchParams, local) -> torch.Tensor:
+    """A lane row of block-local zone slots (-1: none) as global slots
+    ``block*ZB + local`` (-1 kept)."""
+    local = local.to(torch.int64)
+    block = torch.arange(local.numel(), device=local.device) // params.block_size
+    return torch.where(local >= 0, block * params.zones_per_block + local, local)
+
+
+def gate_hour(params: DayMarchParams, zT, h, sol_front, a_extra, b_extra, shade_sp=None, a_vent=None,
+              b_vent=None, vent_thr=None):
+    """The in-run controls at the start of hour (main step) ``h`` (heatx's
+    hour loop, pallas_step.py:1576-1594 and :1614-1635), from the zone carry
+    ``zT`` [NB*ZB] at that start: the hour's front solar row [SP] scaled by
+    the deployed transmittance where the controlling zone is warmer than the
+    setpoint (``shade_sp`` [hours, SP], else the compiled row), and the zone
+    gain rows [NB*ZB] with the hour's ventilation terms added where the
+    indoor gates pass.  Returns ``(sol_front, a_extra, b_extra)``."""
+    if params.shade_slot is not None:
+        slot = _zone_slots(params, params.shade_slot)
+        t_ctl = torch.where(slot >= 0, zT[slot.clamp_min(0)], torch.zeros_like(sol_front))
+        sp_row = params.shade[1] if shade_sp is None else shade_sp[h]
+        sol_front = sol_front * torch.where(t_ctl > sp_row, params.shade[0], torch.ones_like(sol_front))
+    if params.vent is not None:
+        vmin, vmax = params.vent.reshape(2, -1)
+        on = (zT > vmin) & (zT < vmax) & (zT > vent_thr[h].reshape(-1))
+        zero = torch.zeros_like(a_extra)
+        a_extra = a_extra + torch.where(on, a_vent[h].reshape(-1), zero)
+        b_extra = b_extra + torch.where(on, b_vent[h].reshape(-1), zero)
+    return sol_front, a_extra, b_extra
+
+
+def _refuse_gated_grad(params: DayMarchParams, *tensors):
+    """Raise where autograd would differentiate through the in-run gates
+    (heatx's adjoint refuses them, pallas_adjoint.py:162-171): a gradient that
+    holds each decision fixed is not the gradient of the march."""
+    if not (params.gated and torch.is_grad_enabled()):
+        return
+    leaves = [params.node, params.surf, params.zone_volume, params.ctl, params.mrt, *tensors]
+    if any(isinstance(t, torch.Tensor) and t.requires_grad for t in leaves):
+        raise ValueError(
+            "gradients through in-run zone shading and ventilation gates are not supported "
+            "(heatx's adjoint refuses them too)"
+        )
+
+
 def plain_day_march(
     params: DayMarchParams, T, zT, t_out, wind, wdir, sol_front, sol_back,
     ir_front, ir_back, a_extra, b_extra, sp_heat=None, sp_cool=None, *, hours: int,
     substeps: int, refresh_every: int, dt: float, config: SimConfig, parity: bool = False,
-    collect_hq: bool = False, collect_operative: bool = False,
+    collect_hq: bool = False, collect_operative: bool = False, shade_sp=None, a_vent=None,
+    b_vent=None, vent_thr=None,
 ):
     """The plain PyTorch day march on any device: the reference the CUDA
     kernel is held against.  Shapes as :func:`day_march_kernel`; returns
@@ -1068,7 +1180,14 @@ def plain_day_march(
     ``top`` [hours, NB, ZB] the operative temperature ``(zT + T_mrt)/2`` of
     each hour's final state with ``collect_operative`` (else None).
     ``parity`` marches the reference-parity sub-steps
-    (:func:`plain_hour_parity`) instead of TR-BDF2."""
+    (:func:`plain_hour_parity`) instead of TR-BDF2.  The in-run controls of
+    a gated building (:func:`gate_hour`) apply at each hour's start, with
+    the shading setpoint series ``shade_sp`` [hours, SP] (None: the compiled
+    setpoints) and, on a building with ventilation gates, the gated rows
+    ``a_vent``, ``b_vent``, ``vent_thr`` [hours, NB, ZB]; autograd through a
+    gated march raises."""
+    gates = dict(shade_sp=shade_sp, a_vent=a_vent, b_vent=b_vent, vent_thr=vent_thr)
+    _refuse_gated_grad(params, T, zT, sol_front, a_extra, b_extra, *gates.values())
     sbv = _lanes(params, chunks=parity)
     st = surf_mod.compute_statics(sbv)
     NB, ZB = params.n_blocks, params.zones_per_block
@@ -1081,10 +1200,12 @@ def plain_day_march(
     for h in range(hours):
         if ctl is not None and sp_heat is not None:
             ctl = (sp_heat[h].reshape(-1), sp_cool[h].reshape(-1)) + ctl[2:]
+        sol_f, a_h, b_h = gate_hour(params, zT, h, sol_front[h], a_extra[h].reshape(-1),
+                                    b_extra[h].reshape(-1), **gates)
         T, zT, hq, ld = hour_body(
             parity, sbv, st, cfg=config, zone_volume=zone_volume,
-            a_extra=a_extra[h].reshape(-1), b_extra=b_extra[h].reshape(-1), t_out_arr=t_out,
-            wind_arr=wind, wdir_arr=wdir, sol_front=sol_front[h], sol_back=sol_back[h],
+            a_extra=a_h, b_extra=b_h, t_out_arr=t_out,
+            wind_arr=wind, wdir_arr=wdir, sol_front=sol_f, sol_back=sol_back[h],
             ir_front=ir_front[h], ir_back=ir_back[h], T0=T, zT0=zT, substeps=substeps,
             dt_sub=dt, off=h * substeps, refresh_every=refresh_every, ctl=ctl, mix=mix,
         )
@@ -1114,7 +1235,7 @@ def _load_library():
     if not getattr(lib, "_heatx_bound", False):
         vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
         for fn in (lib.heatx_day_march_f32, lib.heatx_day_march_f64):
-            fn.argtypes = [vp] * 36 + [ci] * 12 + [cd] * 8 + [vp]
+            fn.argtypes = [vp] * 43 + [ci] * 12 + [cd] * 8 + [vp]
             fn.restype = ci
         lib.heatx_cuda_error_string.argtypes = [ci]
         lib.heatx_cuda_error_string.restype = ctypes.c_char_p
@@ -1138,7 +1259,9 @@ class DayMarchKernel:
     no-mass iteration count and tolerances come from ``config``.  MRT
     physics (``config.interior_mrt``), ``collect_hq`` and
     ``collect_operative`` select the instantiations with the Carroll network
-    and the two histories (:func:`mrt_operands`)."""
+    and the two histories (:func:`mrt_operands`).  In-run shading and
+    ventilation gates (``params.shade_slot``, ``params.vent``) run in the
+    extended instantiations (:func:`gate_hour` has their meaning)."""
 
     def __init__(self):
         self.launches = 0
@@ -1147,12 +1270,15 @@ class DayMarchKernel:
         self.parity_cavity_launches = 0  # those of ``cavity_launches`` in parity mode
         self.mrt_launches = 0  # those of ``launches`` that ran an MRT instantiation
         self.parity_mrt_launches = 0  # those of ``mrt_launches`` in parity mode
+        self.gated_launches = 0  # those of ``launches`` with in-run shading or ventilation gates
+        self.parity_gated_launches = 0  # those of ``gated_launches`` in parity mode
 
     def __call__(
         self, params: DayMarchParams, T, zT, t_out, wind, wdir, sol_front,
         sol_back, ir_front, ir_back, a_extra, b_extra, sp_heat=None, sp_cool=None, *,
         hours: int, substeps: int, refresh_every: int, dt: float, config: SimConfig,
         parity: bool = False, collect_hq: bool = False, collect_operative: bool = False,
+        shade_sp=None, a_vent=None, b_vent=None, vent_thr=None,
     ):
         N, NB, ZB = params.max_nodes, params.n_blocks, params.zones_per_block
         SB = params.block_size
@@ -1163,6 +1289,7 @@ class DayMarchKernel:
             a_extra, b_extra, sp_heat, sp_cool, hours=hours, substeps=substeps,
             refresh_every=refresh_every,
         )
+        expect.update(gate_operands(params, hours, dtype, shade_sp, a_vent, b_vent, vent_thr))
         cuda_lib.check_operands(expect, T.device)
         lib = _load_library()
         fn = lib.heatx_day_march_f32 if dtype == torch.float32 else lib.heatx_day_march_f64
@@ -1185,7 +1312,8 @@ class DayMarchKernel:
             T_out, zT_out, hq, zt_hist, bad,
             ld_hist, params.ctl, sp_heat, sp_cool,
             *((None,) * 3 if mix is None else (mix.ptr, mix.src, mix.vol)), cav_u, params.cav,
-            *mrt, hq_hist, top,
+            *mrt, hq_hist, top, params.shade_slot, params.shade, shade_sp, params.vent,
+            a_vent, b_vent, vent_thr,
         )]
         with torch.cuda.device(T.device):
             stream = torch.cuda.current_stream().cuda_stream
@@ -1205,7 +1333,35 @@ class DayMarchKernel:
         self.parity_cavity_launches += int(parity and params.cav is not None)
         self.mrt_launches += int(mrt[0] is not None)
         self.parity_mrt_launches += int(parity and mrt[0] is not None)
+        self.gated_launches += int(params.gated)
+        self.parity_gated_launches += int(parity and params.gated)
         return T_out, zT_out, hq, zt_hist, bad, ld_hist, hq_hist, top
+
+
+def gate_operands(params: DayMarchParams, hours: int, dtype, shade_sp=None, a_vent=None, b_vent=None,
+                  vent_thr=None) -> dict:
+    """What a launch reads of the in-run controls, as
+    ``cuda_lib.check_operands`` takes it.  Raises where the operands do not
+    match the building's controls: a shading series without shading, the
+    gated rows without ventilation gates or a gated launch without all
+    three."""
+    NB, ZB, SP = params.n_blocks, params.zones_per_block, params.surf.shape[1]
+    rows = (a_vent, b_vent, vent_thr)
+    if shade_sp is not None and params.shade_slot is None:
+        raise ValueError("a shading setpoint series needs in-run zone shading (params.shade_slot)")
+    if any((r is None) != (params.vent is None) for r in rows):
+        raise ValueError("a ventilation-gated march takes a_vent, b_vent and vent_thr, and only it")
+    out = {}
+    if params.shade_slot is not None:
+        out["shade_slot"] = (params.shade_slot, (SP,), torch.int32)
+        out["shade"] = (params.shade, (len(SHADE_FIELDS), SP), dtype)
+    if shade_sp is not None:
+        out["shade_sp"] = (shade_sp, (hours, SP), dtype)
+    if params.vent is not None:
+        out["vent"] = (params.vent, (2, NB, ZB), dtype)
+        out.update({name: (r, (hours, NB, ZB), dtype)
+                    for name, r in zip(("a_vent", "b_vent", "vent_thr"), rows)})
+    return out
 
 
 def mrt_operands(params: DayMarchParams, config: SimConfig, collect_hq=False, collect_operative=False):
@@ -1329,12 +1485,18 @@ class HourMarch:
     ``collect_operative`` whether the outputs carry the per-hour h/q
     history (4 x [hours, SP]) and operative temperature [hours, NB, ZB].
     The outputs follow heatx's order: ``(T, zT, hq, zt_hist[, hq_hist][,
-    bad][, ld_hist][, top])``."""
+    bad][, ld_hist][, top])``.  ``vent_gated`` (the building has ventilation
+    gates) says that the hour inputs carry the three gated rows after
+    ``b_extra``, and ``scheduled_shade_sp`` (a building with in-run
+    shading) that they may end with a shading setpoint series."""
 
     def __init__(self, bb: BlockedBuilding, substeps, hours, refresh_every, dt,
                  collect_bad, scheduled_setpoints=False, parity=False, collect_hq=False,
-                 collect_operative=False):
+                 collect_operative=False, scheduled_shade_sp=False):
         self.parity = parity
+        self.shaded = bb.shade is not None
+        self.vent_gated = bb.vent is not None
+        self.scheduled_shade_sp = scheduled_shade_sp
         self.collect_hq = collect_hq
         self.collect_operative = collect_operative
         self.substeps = substeps
@@ -1359,6 +1521,12 @@ class HourMarch:
         return out
 
     def _operands(self, params, T, zT_blocked, hour_inputs):
+        """(the positional operands of either kernel and its plain version,
+        the in-run control operands as keywords).  heatx's arity rules
+        (pallas_step.py:1996-2017): a trailing shading setpoint series
+        (``scheduled_shade_sp``) is told by the tuple's length, then a
+        ventilation-gated march takes the 12-leaf tuple, then the setpoint
+        pair of a scheduled march."""
         hour_inputs = tuple(hour_inputs)
         H, sub, SP = self.hours, self.substeps, self.padded_surfaces
         NB, ZB = self.n_blocks, self.zones_per_block
@@ -1367,6 +1535,20 @@ class HourMarch:
             a = torch.as_tensor(a, dtype=T.dtype, device=T.device)
             return a.reshape(shape).contiguous()
 
+        gates = {}
+        n_base = 12 if self.vent_gated else 9
+        if self.scheduled_shade_sp and len(hour_inputs) in (n_base + 1, n_base + 3):
+            gates["shade_sp"] = cast(hour_inputs[-1], (H, SP))
+            hour_inputs = hour_inputs[:-1]
+        if self.vent_gated:
+            if len(hour_inputs) < n_base:
+                raise ValueError(
+                    "vent-gated kernels take the 12-leaf hour-input tuple "
+                    "(..., a_extra, b_extra, a_vent, b_vent, vent_thr)"
+                )
+            gates.update(zip(("a_vent", "b_vent", "vent_thr"),
+                             (cast(a, (H, NB, ZB)) for a in hour_inputs[9:12])))
+            hour_inputs = hour_inputs[:9] + hour_inputs[12:]
         sp = ()
         if self.scheduled_setpoints:
             if len(hour_inputs) == 11:
@@ -1380,7 +1562,7 @@ class HourMarch:
             cast(t_o, (H * sub,)), cast(wnd, (H * sub,)), cast(wdr, (H * sub,)),
             cast(sol_f, (H, SP)), cast(sol_b, (H, SP)), cast(ir_f, (H, SP)),
             cast(ir_b, (H, SP)), cast(a_extra, (H, NB, ZB)), cast(b_extra, (H, NB, ZB)),
-        ) + sp
+        ) + sp, gates
 
     def _finish(self, outs):
         T, zT, hq, zt_hist, bad, ld_hist, hq_hist, top = outs
@@ -1408,22 +1590,23 @@ class HourMarch:
         return kw
 
     def __call__(self, params, T, zT_blocked, hour_inputs):
-        ops = self._operands(params, T, zT_blocked, hour_inputs)
+        ops, gates = self._operands(params, T, zT_blocked, hour_inputs)
         if T.device.type == "cuda":
-            return self._finish(day_march_kernel(params, *ops, **self._kw()))
+            return self._finish(day_march_kernel(params, *ops, **self._kw(), **gates))
         if T.device.type == "cpu":
-            return self._finish(plain_day_march(params, *ops, **self._kw()))
+            return self._finish(plain_day_march(params, *ops, **self._kw(), **gates))
         raise ValueError(f"no day march for device {T.device}")
 
     def plain(self, params, T, zT_blocked, hour_inputs):
-        ops = self._operands(params, T, zT_blocked, hour_inputs)
-        return self._finish(plain_day_march(params, *ops, **self._kw()))
+        ops, gates = self._operands(params, T, zT_blocked, hour_inputs)
+        return self._finish(plain_day_march(params, *ops, **self._kw(), **gates))
 
 
 def hour_march_for(
     bb: BlockedBuilding, substeps: int = None, mode: str = "trbdf2", hours: int = 1,
     refresh_every: int = None, collect_bad: bool = False,
     scheduled_setpoints: bool = False, collect_hq: bool = False, collect_operative: bool = False,
+    scheduled_shade_sp: bool = False,
 ) -> HourMarch:
     """The :class:`HourMarch` of :func:`make_hour_march`'s arguments, with
     the sub-step count and refresh cadence resolved (no operands)."""
@@ -1434,7 +1617,8 @@ def hour_march_for(
             "collect_operative needs the blocked Carroll statics: build with "
             "block_building(..., mrt_statics=True) (automatic when config.interior_mrt is set)"
         )
-    obs = dict(collect_hq=collect_hq, collect_operative=collect_operative)
+    obs = dict(collect_hq=collect_hq, collect_operative=collect_operative,
+               scheduled_shade_sp=scheduled_shade_sp)
     if refresh_every is not None and mode != "trbdf2_refresh":
         raise ValueError(
             f"refresh_every only applies to mode='trbdf2_refresh' (got mode={mode!r})"
@@ -1443,6 +1627,11 @@ def hour_march_for(
         raise ValueError(
             "scheduled_setpoints requires setpoint-driven HVAC "
             "(IdealHeaterCooler with heat_setpoint/cool_setpoint)"
+        )
+    if scheduled_shade_sp and bb.shade is None:
+        raise ValueError(
+            "scheduled_shade_sp requires in-run zone-shading controls "
+            "(BuildingModel.add_zone_shading)"
         )
     if mode == "parity":
         # heatx's rules (pallas_step.py:1345-1355): the building's own
@@ -1478,6 +1667,7 @@ def make_hour_march(
     scheduled_setpoints: bool = False,
     collect_hq: bool = False,
     collect_operative: bool = False,
+    scheduled_shade_sp: bool = False,
 ):
     """Build the day march: ``(hour_march, params)`` with ``params`` on
     ``device`` (the card unless the caller asks for another; ``"cuda"``
@@ -1492,8 +1682,12 @@ def make_hour_march(
     the march read per-hour setpoint rows from the 11-leaf hour inputs.
     ``collect_hq`` adds the per-hour h/q history and ``collect_operative``
     the per-hour operative temperature (the building blocked with the MRT
-    statics) to the outputs, in heatx's order (:class:`HourMarch`)."""
+    statics) to the outputs, in heatx's order (:class:`HourMarch`).  A
+    building with ventilation gates takes heatx's 12-leaf hour inputs, and
+    ``scheduled_shade_sp`` (buildings with in-run shading) lets them end
+    with a shading setpoint series ``[hours, SP]`` (see the module
+    docstring)."""
     hm = hour_march_for(bb, substeps, mode, hours, refresh_every, collect_bad, scheduled_setpoints,
-                        collect_hq, collect_operative)
+                        collect_hq, collect_operative, scheduled_shade_sp)
     params = params_from_blocked(bb, bb.config.dtype, cuda_lib.resolve_device(device))
     return hm, params

@@ -18,10 +18,16 @@ is a small building that takes every branch of the thermostat update, and
 every window), ``build_cavity_model`` a small building with cavities of every
 tilt branch.  ``write_synthetic_epw`` writes a seeded EPW file, and
 ``office_inputs`` turns it into the office IDF workflow's inputs (bench.py's
-``run_office_bench``).
+``run_office_bench``).  ``build_controlled_city`` and
+``controlled_city_inputs`` are the city with in-run window shading and
+ventilation gates in every zone, ``controlled_office_idf`` the office IDF
+with an ``OnIfHighZoneAirTemperature`` shade on its argon window and
+ventilation temperature limits.
 """
 
 from __future__ import annotations
+
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -108,6 +114,128 @@ def build_demand_city(n_zones: int, surfaces_per_zone: int):
     for z in range(n_zones):
         m.add_hvac(IdealHeaterCooler(f"tstat{z}", [f"z{z}"], heat_setpoint=20.0, cool_setpoint=26.0))
     return m
+
+
+def build_controlled_city(n_zones: int, surfaces_per_zone: int, setpoints=(18.0, 30.0),
+                          shading: bool = True, gates: bool = True, base=None, classes=building_mod):
+    """:func:`build_city_model` with the in-run passive controls in every
+    zone.  Every window (``s{z}_{surfaces_per_zone - 1}``) gets a
+    ``ZoneShadingControl`` of transmittance 0.3 whose setpoint is spread
+    over ``setpoints`` from zone to zone (a golden-ratio sequence), so that
+    deployment toggles during a run; the window of every zone ``z`` with ``z
+    % 10 == 1`` is controlled by the next zone instead of its own, which
+    blocking must place in the pane's block.  Every zone gets a
+    ``ZoneVentilationControl(min_indoor=18, delta=2)``; every third zone also
+    a ``max_outdoor`` of 15.5 C and every fourth (from zone 1) a ``max_wind``
+    of 4 m/s, gates the host applies (off the bench weather's values, so that
+    float32 and float64 open them alike).  ``shading``/``gates`` leave either
+    kind out; ``base`` is the city to control (default
+    ``build_city_model(n_zones, surfaces_per_zone)``) and ``classes`` the
+    module of its model classes (heatx's, for the reference's twin)."""
+    m = build_city_model(n_zones, surfaces_per_zone) if base is None else base
+    lo, hi = setpoints
+    for z in range(n_zones):
+        if shading:
+            ctl_zone = (z + 1) % n_zones if z % 10 == 1 else z
+            sp = lo + (hi - lo) * ((z * 0.6180339887498949) % 1.0)
+            m.add_zone_shading(classes.ZoneShadingControl(
+                f"s{z}_{surfaces_per_zone - 1}", f"z{ctl_zone}", 0.3, sp))
+        if gates:
+            m.add_vent_control(classes.ZoneVentilationControl(
+                f"z{z}", min_indoor=18.0, delta=2.0,
+                max_outdoor=15.5 if z % 3 == 0 else 100.0, max_wind=4.0 if z % 4 == 1 else 40.0,
+            ))
+    return m
+
+
+def controlled_city_inputs(building, hours: int, dtype=None, device="cpu") -> StepInputs:
+    """:func:`bench_inputs` with 0.1 m3/s of ventilation per zone at the
+    outdoor temperature (the channel the gates switch)."""
+    seq = bench_inputs(building, hours, dtype=dtype, device=device)
+    Z = building.n_zones
+    return seq.replace(
+        vent_vol=torch.full((Z,), 0.1, dtype=seq.t_out.dtype, device=device),
+        vent_temp=seq.t_out[:, None].expand(hours, Z).contiguous(),
+        vent_mask=torch.ones((Z,), dtype=torch.bool, device=device),
+    )
+
+
+def control_decisions(building, zone_T, t_out, wind_speed, shade_sp=None, zone_T0=22.0) -> dict:
+    """The in-run controls' decisions of a run, rebuilt from its hourly zone
+    history ``zone_T`` [T, Z] (each main step decides on the zone carry at
+    its start: ``zone_T0`` at the first, the previous hour's value after).
+    ``shade`` [T, P] is whether each controlled pane's device is deployed
+    (``shade_sp``: the run's setpoints, [T, S], [S] or scalar; None: the
+    compiled ones), ``vent`` [T, Zc] whether each gated zone's ventilation is
+    on (the indoor gates, the delta gate on the hourly ``t_out`` and the
+    host's outdoor and wind gates); ``*_margin`` is each decision's distance
+    to the nearest threshold it compares the zone temperature with, K."""
+    b = building
+    zt = np.asarray(zone_T, np.float64)
+    T, Z = zt.shape
+    start = np.vstack([np.broadcast_to(np.asarray(zone_T0, np.float64), (1, Z)), zt[:-1]])
+    out = {}
+    if b.has_zone_shading:
+        panes = np.nonzero(np.asarray(b.shade_zone) >= 0)[0]
+        sp = np.broadcast_to(np.asarray(b.shade_sp if shade_sp is None else shade_sp, np.float64),
+                             (T, b.n_surfaces))[:, panes]
+        t = start[:, np.asarray(b.shade_zone)[panes]]
+        out["shade"], out["shade_margin"] = t > sp, np.abs(t - sp)
+    if b.has_vent_gates:
+        lim = [np.asarray(v, np.float64) for v in (b.vent_min_tin, b.vent_max_tin, b.vent_delta,
+                                                   b.vent_min_tout, b.vent_max_tout, b.vent_max_wind)]
+        gated = np.nonzero(np.any([lim[i] != d for i, d in enumerate((-100, 100, -100, -100, 100, 40))],
+                                  axis=0))[0]
+        lo, hi, delta, lo_o, hi_o, wmax = (v[gated] for v in lim)
+        t = start[:, gated]
+        t_o = np.broadcast_to(np.asarray(t_out, np.float64), (T,))[:, None]
+        w = np.broadcast_to(np.asarray(wind_speed, np.float64), (T,))[:, None]
+        thr = delta + t_o
+        out["vent"] = (t > lo) & (t < hi) & (t > thr) & (t_o > lo_o) & (t_o < hi_o) & (w < wmax)
+        out["vent_margin"] = np.minimum(np.minimum(np.abs(t - lo), np.abs(t - hi)), np.abs(t - thr))
+    return out
+
+
+#: The repository's office IDF, from which :func:`controlled_office_idf` starts.
+OFFICE_IDF = Path(__file__).resolve().parent.parent / "examples" / "data" / "office.idf"
+
+#: What :func:`controlled_office_idf` adds to the office: a shade, the hours
+#: it may deploy, and an ``OnIfHighZoneAirTemperature`` control of the south
+#: zone's argon window (9.0+ schema: zone, sequence, shading type,
+#: construction, control type, schedule, setpoint, is scheduled, glare,
+#: device, slat angle type and schedule, setpoint 2, daylighting, multiple
+#: surface control, fenestrations).
+_OFFICE_CONTROLS = """
+WindowMaterial:Shade, OfficeShade, 0.3, 0.5, 0.1, 0.1, 0.9, 0.0, 0.003, 0.1;
+Schedule:Compact, ShadeAvail, Fraction,
+    Through: 12/31,
+    For: AllDays,
+    Until: 8:00, 0, Until: 18:00, 1, Until: 24:00, 0;
+WindowShadingControl, SouthShade, South, 1, InteriorShade, , OnIfHighZoneAirTemperature,
+    ShadeAvail, 23.0, Yes, No, OfficeShade, FixedSlatAngle, , , , Sequential, S-Win;
+"""
+
+
+def controlled_office_idf() -> str:
+    """The text of ``examples/data/office.idf`` with in-run passive controls
+    (read from the repository and changed at run time): a
+    ``WindowMaterial:Shade`` of solar transmittance 0.3 deployed on the
+    argon window ``S-Win`` while the South zone's air is above 23 C, from
+    8:00 to 18:00 (a scheduled control:
+    ``LoadedIdf.shading_setpoint_series`` gives the ``shade_sp`` series), and
+    the office ventilation's Minimum Indoor Temperature (20 C) and Delta
+    Temperature (1.05 K) fields (``ZoneVentilationControl``s of its three
+    zones).
+    The one building where gas cavities, thermostats and both gates meet
+    (and MRT, with ``interior_mrt``).  The delta lies off the weather
+    file's 0.1 K grid: with a delta of 1.0, an outdoor 20.0 C puts
+    the delta gate's threshold on the 21 C that the thermostat holds the
+    zone at, and the decision is a tie that round-off settles either way."""
+    text = OFFICE_IDF.read_text()
+    vent = "0, 0, 0, 1.5, Natural;"
+    if text.count(vent) != 1:
+        raise ValueError(f"{OFFICE_IDF}: the ventilation object's flow fields changed")
+    return text.replace(vent, "0, 0, 0, 1.5, Natural, 0, 1, 1, 0, 0, 0, 20.0, , 100, , 1.05;") + _OFFICE_CONTROLS
 
 
 def build_thermostat_model(uncontrolled: bool = True):

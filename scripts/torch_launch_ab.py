@@ -1,0 +1,133 @@
+#!/usr/bin/env python3
+"""One f32 day-launch of each existing day-march kind, timed in two or more
+checkouts of heatx_torch on the same card in one command, so that a change
+to the shared kernel code is measured against its parent and not against
+another day's clocks.  Run from the repository root with the checkouts to
+compare (each a directory holding heatx_torch/), in the order to time them:
+
+    python3 scripts/torch_launch_ab.py build/parent . . build/parent
+
+It builds each distinct checkout's kernel libraries (one nvcc per source, all
+started together, into that checkout's heatx_torch/_build; prints every
+ptxas line of a later checkout that differs from the first's), then, one process
+per argument in the order given, times with CUDA events (after a warm-up
+launch) one day-launch of bench.py's workloads at full width, each on its
+first day's inputs: the bench city in trbdf2_refresh k=2 at 8 sub-steps
+(free-float kind, 10 reps) and in parity mode at 118 sub-steps/h with one
+no-mass iteration (3 reps), the demand city in trbdf2 at 8 sub-steps
+(thermostats, 10 reps), the glazed city in trbdf2_refresh k=2 (gas
+cavities, 10 reps) and in parity (3 reps), and the bench city with interior
+MRT in trbdf2_refresh k=2 (10 reps) and in parity (3 reps), and, in a
+checkout that has it, chip_smoke.py's controlled city (the in-run controls)
+in both modes.  It prints one line per checkout and a table of each kind's
+ms per run and the change of the mean of the later checkouts' runs against
+the first's.
+"""
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+TIMER = r"""
+import json, sys
+import torch
+from heatx_torch import SimConfig, ThermalModel, testing
+
+def event_ms(fn, reps):
+    fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+k2 = dict(mode="trbdf2_refresh", substeps=8, refresh_every=2)
+parity = dict(mode="parity")
+f32 = dict(dtype=torch.float32)
+p32 = dict(dtype=torch.float32, nomass_fixed_iters=1)
+cases = [
+    ("bench k=2", testing.build_city_model, f32, k2, testing.bench_inputs, 10),
+    ("bench parity", testing.build_city_model, p32, parity, testing.bench_inputs, 3),
+    ("demand trbdf2", testing.build_demand_city, f32, dict(mode="trbdf2", substeps=8), testing.demand_inputs, 10),
+    ("glazed k=2", testing.build_glazed_city, f32, k2, testing.bench_inputs, 10),
+    ("glazed parity", testing.build_glazed_city, p32, parity, testing.bench_inputs, 3),
+    ("MRT k=2", testing.build_city_model, dict(f32, interior_mrt=True), k2, testing.bench_inputs, 10),
+    ("MRT parity", testing.build_city_model, dict(p32, interior_mrt=True), parity, testing.bench_inputs, 3),
+]
+if hasattr(testing, "build_controlled_city"):
+    from chip_smoke import CITY_SHADE_SETPOINTS
+
+    def controlled(n, s):
+        return testing.build_controlled_city(n, s, setpoints=CITY_SHADE_SETPOINTS)
+
+    cases += [("controlled k=2", controlled, f32, k2, testing.controlled_city_inputs, 10),
+              ("controlled parity", controlled, p32, parity, testing.controlled_city_inputs, 3)]
+out = {}
+for name, build, cfg, kw, inputs, reps in cases:
+    tm = ThermalModel(build(1000, 10), config=SimConfig(**cfg), device="cuda")
+    fr = tm.fast_runner(hours=24, **kw)
+    T, zT = fr.to_blocked(tm.initial_state())
+    hi = fr.kernel_inputs(inputs(tm.building, 24, device="cuda"), interp_weather=True)[0]
+    out[name] = event_ms(lambda: fr.hour_march(fr.params, T, zT, hi), reps)
+print(json.dumps(out))
+"""
+
+BUILDER = r"""
+import json
+from chip_smoke import ptxas_table
+from heatx_torch.ops import cuda_lib, day_adjoint, day_march
+cuda_lib.build_many([("heatx_day_march", day_march.KERNEL_SOURCES),
+                     ("heatx_day_adjoint", day_adjoint.KERNEL_SOURCES)])
+print(json.dumps({name: ptxas_table(cuda_lib.build_log(lib, mod.KERNEL_SOURCES))
+                  for name, lib, mod in (("day_march", "heatx_day_march", day_march),
+                                         ("day_adjoint", "heatx_day_adjoint", day_adjoint))}))
+"""
+
+
+def main() -> int:
+    trees = [str(Path(t).resolve()) for t in sys.argv[1:]] or ["."]
+    t0 = time.time()
+    builds = {t: subprocess.Popen([sys.executable, "-c", BUILDER], cwd=t, stdout=subprocess.PIPE, text=True)
+              for t in dict.fromkeys(trees)}
+    ptxas = {}
+    for t, p in builds.items():
+        out, _ = p.communicate()
+        if p.returncode:
+            print(f"torch_launch_ab: the build in {t} failed", file=sys.stderr)
+            return 1
+        ptxas[t] = {k: dict(e.split(": ", 1) for e in v.split(" | ")) for k, v in
+                    json.loads(out.strip().splitlines()[-1]).items()}
+    print(f"builds {time.time() - t0:.1f} s", flush=True)
+    first = trees[0]
+    for t in ptxas:
+        if t != first:
+            for lib, lines in ptxas[t].items():
+                moved = [f"{k}: {ptxas[first][lib].get(k, 'absent')} -> {v}" for k, v in lines.items()
+                         if ptxas[first][lib].get(k) != v]
+                print(f"ptxas {lib}, {t} against {first}: "
+                      + ("every line equal" if not moved else "; ".join(moved)), flush=True)
+    runs = []
+    for t in trees:
+        res = subprocess.run([sys.executable, "-c", TIMER], cwd=t, capture_output=True, text=True)
+        if res.returncode:
+            print(res.stderr[-3000:], file=sys.stderr)
+            return 1
+        runs.append(json.loads(res.stdout.strip().splitlines()[-1]))
+        print(f"{t}: " + ", ".join(f"{k} {v:.3f} ms" for k, v in runs[-1].items()), flush=True)
+    for name in runs[0]:
+        base = [r[name] for t, r in zip(trees, runs) if t == first]
+        other = [r[name] for t, r in zip(trees, runs) if t != first and name in r]
+        if other:
+            b, o = sum(base) / len(base), sum(other) / len(other)
+            print(f"{name}: {first} " + " / ".join(f"{x:.3f}" for x in base) + " ms, other "
+                  + " / ".join(f"{x:.3f}" for x in other) + f" ms: {100 * (o / b - 1):+.2f} %", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -159,13 +159,15 @@ def _gated_model():
         # Parity mode is ported; its adaptive no-mass loop (the default
         # nomass_fixed_iters=None) is not, and heatx's kernel refuses it too.
         (lambda: _port_model().fast_runner(mode="parity"), ValueError, "nomass_fixed_iters.*ROADMAP"),
-        # The h/q history is ported; ventilation gates are not (ROADMAP A9.2).
-        (lambda: _gated_model().fast_runner(collect_fluxes=True, **KW), NotImplementedError, "A9.2"),
+        # The h/q history and the ventilation gates run; their gradient does
+        # not (heatx's adjoint refuses the gates too).
+        (lambda: _gated_model().fast_runner(collect_fluxes=True, **KW).chunk_grad(
+            lambda p: None, lambda zt, xs: zt.sum()), ValueError, "in-run ventilation gates are not supported"),
         (lambda: _port_model().fast_runner(block_size=512, **KW), NotImplementedError, "ROADMAP"),
-        # Thermostats and the operative temperature they are judged by are
-        # ported; in-run window shading is not (ROADMAP A9.2).
-        (lambda: _thermostat_model(shaded=True).fast_runner(collect_operative=True, **KW),
-         NotImplementedError, "A9.2"),
+        # Thermostats, the operative temperature they are judged by and in-run
+        # window shading run; the shading's gradient does not (heatx refuses it).
+        (lambda: _thermostat_model(shaded=True).fast_runner(collect_operative=True, **KW).chunk_grad(
+            lambda p: None, lambda zt, xs: zt.sum()), ValueError, "chunk_grad: in-run zone shading"),
         # Loads exist only with thermostats: heatx's ValueError, not a missing feature.
         (lambda: _port_model().fast_runner(**KW).run(
             _port_model().initial_state(), testing.bench_inputs(_port_model().building, 24),

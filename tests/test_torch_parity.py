@@ -584,15 +584,18 @@ def _gated_model():
         (lambda: _model(SimConfig(dtype=torch.float64)).fast_runner(mode="parity"),
          ValueError, "nomass_fixed_iters"),
         (lambda: _model().fast_runner(mode="parity", refresh_every=2), ValueError, "refresh_every"),
-        # Interior MRT marches in parity mode; in-run shading does not (ROADMAP A9.2).
+        # Interior MRT and in-run shading march in parity mode; the shading's
+        # gradient is refused, as in heatx.
         (lambda: _model(testing.coarse_config(interior_mrt=True), model=_shaded_model()).fast_runner(
-            mode="parity"), NotImplementedError, "A9.2"),
+            mode="parity").chunk_grad(lambda p: None, lambda zt, xs: zt.sum()), ValueError,
+         "chunk_grad: in-run zone shading"),
         # Gas cavities march in parity mode; the adaptive loop stays refused.
         (lambda: _model(SimConfig(dtype=torch.float64), model=_cavity_model()).fast_runner(
             mode="parity"), ValueError, "nomass_fixed_iters"),
-        # The h/q history is ported; ventilation gates are not (ROADMAP A9.2).
-        (lambda: _model(model=_gated_model()).fast_runner(mode="parity", collect_fluxes=True),
-         NotImplementedError, "A9.2"),
+        # The h/q history and the ventilation gates march in parity mode; the
+        # gates' gradient is refused, as in heatx.
+        (lambda: _model(model=_gated_model()).fast_runner(mode="parity", collect_fluxes=True).chunk_grad(
+            lambda p: None, lambda zt, xs: zt.sum()), ValueError, "in-run ventilation gates are not supported"),
         (lambda: _model().fast_runner(mode="exponential"), ValueError, "unknown hour-kernel mode"),
     ],
     ids=["adaptive_loop", "refresh_every", "interior_mrt", "cavities", "collect_fluxes", "unknown_mode"],
