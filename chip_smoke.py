@@ -216,6 +216,38 @@ Phases (one output line each, then a JSON line per contract):
    and a gated one; heating and cooling kWh beside phase 17's), 48 h f32
    against the f64 plain twin as in 22.
 
+24. the adaptive no-mass loop (heatx's default ``nomass_fixed_iters=None``,
+   run by the kernels with ``HEATX_KERNEL_WHILE=1``), f64, small, in every
+   kind's parity body: the 4-zone city (free-float), the controlled city
+   (2, 3) (``kExt``, gated), testing.build_cavity_model (``kCav``),
+   testing.build_two_zone_model with ``interior_mrt`` (``kMrt``) and the
+   cavity building with it (``kMrt`` + ``kCav``), ADAPTIVE_HOURS at the
+   coarse discretization: the kernel against its plain twin from a scattered
+   state (<= F64_TOL on T, zT, the zone history, h/q; the launch counted in
+   its kind, the runs' stopping iterations printed), and the kernel route
+   (FastRunner.run) against the port's XLA path (ThermalModel.run) on the
+   card from the initial state (<= ADAPTIVE_XLA_TOL, heatx's own bound).
+25. the adaptive loop at full width: the bench city, f32, 118 sub-steps/h:
+   48 h through FastRunner.run (exactly 2 parity launches, finite); one
+   bench-day launch timed (CUDA events) between two of phase 13's
+   fixed-iteration launch on the same operands; over PARITY_WINDOW, every
+   side from the kernel's state at its start: the f64 kernel against the
+   f64 plain version off the runs with a stop decision within ADAPTIVE_NEAR
+   of its threshold and off their zones (<= F64_TOL), the f64 kernels with
+   one and two iterations beside it (they must fail that bound); the f32
+   kernel against the f64 plain version (zone-T RMSE <= ADAPTIVE_RMSE; off
+   the runs whose stopping iteration differs between the f32 and the f64
+   plain versions, T <= PARITY_DAY_TOL and the zone history of the zones
+   they do not touch <= CAV_WINDOW_T_TOL, which the one- and two-iteration
+   kernels must fail on T) and the f32 plain version, the differing runs
+   counted, and the distribution of the iterations (f64: mean, p99, max, the
+   shares that reach 100 and 500 and that stop on the increase-break).
+26. ThermalModel.run, the XLA-path integrators, at full width: the bench
+   city, f32, ADAPTIVE_RUN_HOURS from midnight in each mode (parity with the
+   adaptive loop and with one iteration, trbdf2, trbdf2_refresh k=2, exp),
+   its wall time (host clock), finite; the one-iteration parity run and the
+   k=2 run held against the kernel route on the same inputs (<= F32_TOL).
+
 Phases 16b and 19c hold the parity kernels against their plain versions over
 the daytime window PARITY_WINDOW (hours 8-14) of the day-launch; 16b held the
 whole day until the MRT phases came (its plain parity adjoint alone took 3.5
@@ -245,7 +277,11 @@ PARITY_WINDOW, ``plain_hours``) and, with gas cavities, the office's
 (phase 20).  The two ``day_march_gated*`` entries are the controlled
 city's (phase 22): its annual run's launches (TR-BDF2) and its 48 h parity
 run's, the day-launch timed beside ``ms_ungated_bench_day``, the parity one
-held over PARITY_WINDOW.  The last line is ``{"ok": true, "device": {...}}``;
+held over PARITY_WINDOW.  ``day_march_parity_adaptive`` is the parity body
+with the adaptive loop on the bench city (phase 25): its 48 h run's
+launches, the bench-day launch beside the fixed-iteration one
+(``ms_fixed_iters``), held and its plain version timed over PARITY_WINDOW,
+the bound's operations scaled by the window's mean iterations.  The last line is ``{"ok": true, "device": {...}}``;
 any failed check raises and the script exits non-zero.
 """
 
@@ -427,6 +463,37 @@ FLIP_MARGIN = 1e-3  # K
 # The full-width controlled city's shading setpoints, spread over the range
 # its zones cross on the bench weather (12.8-23.1 C over 48 h).
 CITY_SHADE_SETPOINTS = (16.0, 26.0)
+# The adaptive no-mass loop (phases 24-26; heatx's default
+# nomass_fixed_iters=None, run by the kernels with HEATX_KERNEL_WHILE=1).
+# heatx holds its in-kernel loop to its XLA path within 5e-8 K
+# (tests/test_pallas_hour.py:167-173); the port's kernel route is held to
+# the port's ThermalModel.march on the card the same way.
+ADAPTIVE_XLA_TOL = 5e-8  # K
+ADAPTIVE_HOURS = 2  # phase 24's small buildings, at the coarse discretization
+# A loop that stops on thresholds (mean |dT| < 0.01 K, an error that grew)
+# can stop an iteration apart in f32 and f64 near either, which moves that
+# no-mass node by up to ~tol/2: phase 25 counts those runs, and holds the
+# f32 kernel's zone temperatures over the window to heatx's own f32 parity
+# error against its adaptive-loop golden, 0.0065 K RMSE (BENCH_r05.json
+# accuracy_parity_rmse_K: a TPU v5e record of the JAX package, not the
+# port's number).
+ADAPTIVE_RMSE = 0.0065  # K
+# That bound passes a kernel that ignores the adaptive stop: the f64 kernels
+# with one and two iterations are 5.3e-4 and 7.6e-4 K from the adaptive f64
+# plain version on the window's zone history, 2.7e-3 and 5.7e-3 K on T
+# (measured on an H100 80GB HBM3 at 700 W).  So phase 25 also holds the f64
+# kernel to its f64 plain version at F64_TOL (5.7e-14 K measured) off the
+# runs whose stop decision the plain version took within ADAPTIVE_NEAR of a
+# threshold (round-off may take it the other way; none did in the window),
+# and the f32 kernel to the f64 plain version off the runs whose stopping
+# iteration differs between the f32 and the f64 plain versions: T at
+# PARITY_DAY_TOL (7.9e-5 K measured), the zone history of the zones they do
+# not touch at CAV_WINDOW_T_TOL (2.4e-4 K measured: the f32 round-off of the
+# sunlit window, as in phase 16b, stop or no stop).  The one- and
+# two-iteration f64 kernels, on the same window, must fail the F64_TOL bound
+# and the T bound.
+ADAPTIVE_NEAR = 1e-10  # K
+ADAPTIVE_RUN_HOURS = 2  # phase 26: ThermalModel.run at full width, the XLA path
 # Published H100 SXM rates (NVIDIA H100 datasheet): HBM bytes/s and the
 # f32 FLOP/s outside the tensor cores (the kernels run no matrix products).
 HBM_BPS = 3.35e12
@@ -2460,6 +2527,23 @@ def agree_lanes(runner, building, agree):
     return runner._blocker.lanes(torch.as_tensor(ok, device=dev), True)
 
 
+def clean_lanes(runner, building, lanes):
+    """``(lanes [SP] bool, zones [Z] bool numpy)``: the zones none of whose
+    faces lies off ``lanes`` ([SP] bool), and the lanes of ``lanes`` whose
+    faces bound only such zones (a face off ``lanes`` moves its zones'
+    temperatures, and they move every face of the zone)."""
+    import torch
+    from heatx_torch.build.layout import B_SPACE
+
+    sb = building.surfaces
+    ok = lanes[runner._inv].cpu().numpy()
+    zones = np.ones(building.n_zones, bool)
+    for code, space in ((sb.front_code, sb.front_space), (sb.back_code, sb.back_space)):
+        on = np.asarray(code) == B_SPACE
+        zones[np.asarray(space)[on & ~ok]] = False
+    return lanes & agree_lanes(runner, building, zones), zones
+
+
 def phase22_controlled_city(torch, ctx):
     """The controlled city at full width, f32 (see the module docstring)."""
     day_march, testing, SimConfig, ThermalModel, smi = (ctx.day_march, ctx.testing, ctx.SimConfig,
@@ -2768,6 +2852,289 @@ def mrt_kernel_entries(p19, p20):
     ]
 
 
+def stop_stats(rec):
+    """The no-mass runs' stopping iterations of a ``record_nomass_stops``
+    recorder: ``(iters, present, broke, closest)`` as numpy ``[calls, C, SP]``,
+    and a summary of the runs that exist (mean, p99, max, the shares that
+    reach 100 and 500 iterations and that stopped on the increase-break)."""
+    it, present, broke, closest = rec.stacked()
+    runs = it[present]
+    return it, present, broke, closest, dict(
+        runs=int(runs.size), mean=float(runs.mean()), p99=float(np.percentile(runs, 99)),
+        max=int(runs.max()), ge100=float((runs >= 100).mean()), at500=float((runs >= 500).mean()),
+        broke=float(broke[present].mean()),
+    )
+
+
+def stats_text(st):
+    return (f"{st['runs']:,} runs x sub-steps: iterations mean {st['mean']:.3f}, p99 {st['p99']:.0f}, max "
+            f"{st['max']}, >= 100 {st['ge100']:.2e}, 500 {st['at500']:.2e}, stopped on the increase-break "
+            f"{st['broke']:.2e}")
+
+
+def phase24_adaptive_f64(torch, ctx):
+    """The adaptive no-mass loop in every kind's parity body, f64, small
+    buildings at the coarse discretization over ADAPTIVE_HOURS: the kernel
+    against its plain twin from a scattered state (<= F64_TOL on T, zT, the
+    zone history and h/q), and the kernel route (FastRunner.run) against the
+    port's XLA path (ThermalModel.run) on the card from the initial state
+    (<= ADAPTIVE_XLA_TOL).  Returns ``(worst, rows)``."""
+    import os
+
+    from heatx_torch.engine import surface as surf
+
+    day_march, testing, ThermalModel = ctx.day_march, ctx.testing, ctx.ThermalModel
+    os.environ["HEATX_KERNEL_WHILE"] = "1"
+    hours = ADAPTIVE_HOURS
+    rng = np.random.default_rng(24)
+    k = day_march.day_march_kernel
+    cases = {
+        "free-float (4-zone city)": (lambda: testing.build_city_model(4, 10), {}, testing.bench_inputs, None),
+        "kExt, gated (controlled city)": (lambda: testing.build_controlled_city(2, 3), {},
+                                          testing.controlled_city_inputs, "parity_gated_launches"),
+        "kCav (cavity building)": (testing.build_cavity_model, {}, testing.bench_inputs, "parity_cavity_launches"),
+        "kMrt (two-zone building)": (testing.build_two_zone_model, dict(interior_mrt=True), testing.bench_inputs,
+                                     "parity_mrt_launches"),
+        "kMrt + kCav (cavity building with MRT)": (testing.build_cavity_model, dict(interior_mrt=True),
+                                                   testing.bench_inputs, "parity_mrt_launches"),
+    }
+    worst, rows = dict(T=0.0, xla=0.0), []
+    for label, (build, extra, inputs, counter) in cases.items():
+        what = f"adaptive parity {label}"
+        tm = ThermalModel(build(), config=testing.coarse_config(torch.float64, None, **extra), device="cuda")
+        r = tm.fast_runner(mode="parity", hours=hours)
+        check(r.hour_march.adaptive and r._substeps <= 8, f"{what}: not the adaptive loop")
+        seq = inputs(tm.building, hours, device="cuda")
+        # The weather starts at midnight: give the two hours some sun.
+        sun = rng.uniform(50.0, 400.0, (hours, tm.building.n_surfaces))
+        seq = seq.replace(sol_front=torch.as_tensor(sun, device="cuda"))
+        hi = r.kernel_inputs(seq)[0]
+        st0 = tm.initial_state()
+        T0, zT0 = r.to_blocked(st0)
+        mask = day_march.bit_rows(r.params, "node_bits")
+        noise = torch.as_tensor(rng.normal(size=tuple(T0.shape)) * 2.0, device="cuda")
+        Tn, zTn = T0 + noise * mask, zT0 + torch.as_tensor(rng.normal(size=tuple(zT0.shape)) * 0.5, device="cuda")
+        c0 = (k.parity_launches, getattr(k, counter) if counter else 0)
+        got = r.hour_march(r.params, Tn, zTn, hi)
+        check((k.parity_launches - c0[0], (getattr(k, counter) if counter else 1) - c0[1]) == (1, 1),
+              f"{what}: the launch did not run the kind's parity body")
+        with surf.record_nomass_stops() as rec:
+            ref = r.hour_march.plain(r.params, Tn, zTn, hi)
+        for name, a, b in (("T", got[0], ref[0]), ("zT", got[1], ref[1]), ("zt_hist", got[3], ref[3]),
+                           *((f"hq{j}", got[2][j], ref[2][j]) for j in range(4))):
+            err = float((a - b).abs().max())
+            check(err <= F64_TOL, f"{what} {name}: max |d| {err} > {F64_TOL}")
+            worst["T"] = max(worst["T"], err)
+        check(float(got[4].sum()) == 0.0, f"{what}: non-finite state in the kernel")
+        st = stop_stats(rec)[-1]
+        check(st["max"] > 2 and st["at500"] == 0.0, f"{what}: the loop ran {st['max']} iterations at most")
+        # The kernel route against the XLA path, from the initial state.
+        kf, kz = r.run(st0, seq)[:2]
+        fields = {f.name: getattr(seq, f.name) for f in dataclasses.fields(seq) if getattr(seq, f.name) is not None}
+        xf, xz = tm.run(st0, tm.inputs_sequence(hours, **fields))
+        valid = torch.as_tensor(tm.building.surfaces.node_mask, device="cuda")
+        err = max(float((kz - xz).abs().max()), float(((kf.node_T - xf.node_T) * valid).abs().max()))
+        check(err <= ADAPTIVE_XLA_TOL, f"{what}: kernel route vs ThermalModel.run max |d| {err} > {ADAPTIVE_XLA_TOL}")
+        worst["xla"] = max(worst["xla"], err)
+        rows.append(f"{label} max {st['max']} mean {st['mean']:.2f} iterations, {st['broke']:.1%} broke")
+    return worst, rows
+
+
+def phase25_adaptive_city(torch, ctx, p13):
+    """The adaptive loop at full width: the bench city, f32 (see the module
+    docstring).  Returns what the kernels line and PERF.md need."""
+    from heatx_torch.engine import surface as surf
+
+    day_march, testing, SimConfig, ThermalModel = ctx.day_march, ctx.testing, ctx.SimConfig, ctx.ThermalModel
+    smi = ctx.smi
+    tm32 = ThermalModel(ctx.model, n=1, config=SimConfig(dtype=torch.float32, nomass_fixed_iters=None),
+                        device="cuda")
+    r32 = tm32.fast_runner(mode="parity", hours=24)
+    sub = r32._substeps
+    check(r32.hour_march.adaptive and sub == p13.sub, "the adaptive runner is not the bench city's parity march")
+    st0 = tm32.initial_state()
+    k = day_march.day_march_kernel
+    k.launches = k.parity_launches = 0
+    t0 = time.time()
+    fin, z48 = r32.run(st0, testing.bench_inputs(tm32.building, 48, device="cuda"), interp_weather=True)
+    torch.cuda.synchronize()
+    run_s = time.time() - t0
+    launches = (k.launches, k.parity_launches)
+    check(launches == (2, 2), f"adaptive main path: {launches} (all, parity) launches, expected (2, 2)")
+    check(bool(torch.isfinite(z48).all() and torch.isfinite(fin.node_T).all()), "adaptive 48 h run not finite")
+
+    # One bench-day launch, beside the fixed-iteration one on the same operands (in turns).
+    T, zT = r32.to_blocked(st0)
+    hi = r32.kernel_inputs(testing.bench_inputs(tm32.building, 24, device="cuda"), interp_weather=True)[0]
+    rp = p13.runner
+
+    def fixed():
+        return rp.hour_march(rp.params, p13.T, p13.zT, p13.hi)
+
+    def adaptive():
+        return r32.hour_march(r32.params, T, zT, hi)
+
+    ms_fixed = [event_ms(torch, fixed, 2)]
+    ms = event_ms(torch, adaptive, 3)
+    ms_fixed.append(event_ms(torch, fixed, 2))
+    day = adaptive()
+    check(float(day[4].sum()) == 0.0, "the adaptive bench-day launch is not finite")
+
+    # The daytime window, every side from the kernel's state at its start.
+    H, W0 = PARITY_PLAIN_HOURS, PARITY_WINDOW_START
+    Tw, zTw, hiw = daytime_window(day_march, r32._bb, r32.params, T, zT, hi, sub)
+    hm = day_march.hour_march_for(r32._bb, mode="parity", hours=H)
+    got = hm(r32.params, Tw, zTw, hiw)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with surf.record_nomass_stops() as rec32:
+        ref32 = hm.plain(r32.params, Tw, zTw, hiw)
+    torch.cuda.synchronize()
+    plain_ms = (time.time() - t0) * 1e3
+    w64 = (Tw.double(), zTw.double(), tuple(x.double() for x in hiw))
+    hm64 = {}
+    for iters in (None, 1, 2):  # the adaptive loop, and two kernels that ignore its stop
+        r = ThermalModel(ctx.model, n=1, config=SimConfig(dtype=torch.float64, nomass_fixed_iters=iters),
+                         device="cuda").fast_runner(mode="parity", hours=24)
+        hm64[iters] = (day_march.hour_march_for(r._bb, mode="parity", hours=H), r.params)
+    t0 = time.time()
+    with surf.record_nomass_stops() as rec64:
+        ref64 = hm64[None][0].plain(hm64[None][1], *w64)
+    torch.cuda.synchronize()
+    plain64_s = time.time() - t0
+    zinv = r32._zinv
+    zk = got[3].reshape(H, -1)[:, zinv].double()
+    z64 = ref64[3].reshape(H, -1)[:, zinv]
+    dz = (zk - z64).abs()
+    rmse = float((dz ** 2).mean().sqrt())
+    check(rmse <= ADAPTIVE_RMSE, f"adaptive window, f32 kernel vs f64 plain: zone T RMSE {rmse} > {ADAPTIVE_RMSE}")
+    err32 = max(float((got[i] - ref32[i]).abs().max()) for i in (0, 1, 3))
+    it32, pres, _, _, st32 = stop_stats(rec32)
+    it64, pres64, _, closest64, st64 = stop_stats(rec64)
+    near64 = (closest64 <= ADAPTIVE_NEAR) & pres64
+    check(it32.shape == it64.shape and (pres == pres64).all(), "the f32 and f64 windows ran different runs")
+    nodes = day_march.bit_rows(r32.params, "node_bits").any(0)
+
+    def gaps(out, lanes, zones):
+        """max |d T| on ``lanes`` at the window's end and max |d| of the zone
+        history on ``zones``, a window's outputs against the f64 plain version."""
+        dT = float((out[0].double() - ref64[0])[:, lanes].abs().max())
+        dh = (out[3].reshape(H, -1)[:, zinv].double() - z64)[:, torch.as_tensor(zones, device=z64.device)]
+        return dT, float(dh.abs().max()) if dh.numel() else 0.0
+
+    # The f64 kernel against its plain version, off the runs whose stop
+    # decision the plain version took within ADAPTIVE_NEAR of a threshold
+    # (where round-off may decide it the other way) and off their zones; the
+    # fixed-iteration bodies on the same window show what the bound rejects.
+    lanes64, zones64 = clean_lanes(r32, tm32.building, nodes & torch.as_tensor(
+        ~near64.any(axis=(0, 1)), device="cuda"))
+    got64 = {iters: hm_(p_, *w64) for iters, (hm_, p_) in hm64.items()}
+    gap64 = {iters: gaps(o, lanes64, zones64) for iters, o in got64.items()}
+    # The f32 kernel against the f64 plain version, off the runs whose
+    # stopping iteration differs between the f32 and the f64 plain versions
+    # (T) and off their zones (the zone history).
+    differ = (it32 != it64) & pres
+    lanes = nodes & torch.as_tensor(~differ.any(axis=(0, 1)), device="cuda")
+    zones = clean_lanes(r32, tm32.building, lanes)[1]
+    outside, z_outside = gaps(got, lanes, zones)
+    gap1, gap2 = gaps(got64[1], lanes, zones), gaps(got64[2], lanes, zones)
+    del ref32, ref64, got64
+    checks = [
+        (int(zones64.sum()) >= tm32.building.n_zones // 2,
+         f"adaptive window: {int((~zones64).sum())} zones hold a stop decision within round-off of its threshold"),
+        (max(gap64[None]) <= F64_TOL, f"adaptive window, f64 kernel vs f64 plain: max |d| {gap64[None]} > {F64_TOL}"),
+        *((max(gap64[i]) > 1e3 * F64_TOL, f"adaptive window: a {i}-iteration f64 kernel is within {gap64[i]} K of "
+           "the adaptive plain version, which the f64 bound cannot tell apart") for i in (1, 2)),
+        (outside <= PARITY_DAY_TOL and z_outside <= CAV_WINDOW_T_TOL, f"adaptive window, f32 kernel vs f64 plain "
+         f"off the differing stops: max |d T| {outside} > {PARITY_DAY_TOL} or zone history {z_outside} > "
+         f"{CAV_WINDOW_T_TOL}"),
+        *((g[0] > PARITY_DAY_TOL, f"adaptive window: a {i}-iteration f64 kernel is within {g[0]} K on T of the "
+           "adaptive plain version off the differing stops, which PARITY_DAY_TOL cannot tell apart")
+          for i, g in ((1, gap1), (2, gap2))),
+    ]
+    print(f"phase 25a adaptive parity on {smi}: the bench city, f32, {sub} sub-steps/h, 48 h through run: "
+          f"{launches[0]} launches ({launches[1]} parity) in {run_s:.3f} s, finite; one bench-day launch "
+          f"{ms:.3f} ms (CUDA events) beside the fixed-iteration one {ms_fixed[0]:.3f} / {ms_fixed[1]:.3f} ms "
+          f"(nomass_fixed_iters={PARITY_ITERS}, same operands, in turns)", flush=True)
+    print(f"phase 25b adaptive window hours {W0}-{W0 + H} from the kernel's state at {W0} h, against the f64 "
+          f"plain version: the f64 kernel max |d T| {gap64[None][0]:.3e} K, zone history {gap64[None][1]:.3e} K "
+          f"(<= {F64_TOL:g}) off {int(near64.sum()):,} runs x sub-steps with a stop decision within "
+          f"{ADAPTIVE_NEAR:g} K of its threshold ({int((~lanes64.cpu().numpy() & nodes.cpu().numpy()).sum()):,} "
+          f"lanes, {int((~zones64).sum()):,} zones left out); the f64 kernel with nomass_fixed_iters=1 "
+          f"{gap64[1][0]:.3e} / {gap64[1][1]:.3e} K, =2 {gap64[2][0]:.3e} / {gap64[2][1]:.3e} K (> "
+          f"{1e3 * F64_TOL:g}); the f32 kernel zone T RMSE {rmse:.3e} K (<= {ADAPTIVE_RMSE:g}: heatx's f32 "
+          f"parity RMSE against its adaptive golden, BENCH_r05, a TPU v5e record), max |d| {float(dz.max()):.3e} "
+          f"K; runs whose stopping iteration differs between the f32 and f64 plain versions "
+          f"{int(differ.sum()):,} of {int(pres.sum()):,} ({int((~lanes.cpu().numpy() & nodes.cpu().numpy()).sum()):,} "
+          f"lanes, {int((~zones).sum()):,} zones); off them the f32 kernel max |d T| {outside:.3e} K (<= "
+          f"{PARITY_DAY_TOL:g}), zone history {z_outside:.3e} K (<= {CAV_WINDOW_T_TOL:g}), the f64 kernel with "
+          f"nomass_fixed_iters=1 {gap1[0]:.3e} / {gap1[1]:.3e} K, =2 {gap2[0]:.3e} / {gap2[1]:.3e} K; f32 kernel vs f32 plain "
+          f"{err32:.3e} K; plain f32 {plain_ms:.1f} ms, f64 {plain64_s:.1f} s; f64 {stats_text(st64)}; f32 mean "
+          f"{st32['mean']:.3f}, max {st32['max']}", flush=True)
+    for ok, msg in checks:
+        check(ok, msg)
+    ops = parity_day_work(r32.params, 24, sub, st64["mean"])[0]
+    moved = nbytes(*param_tensors(r32.params), T, zT, *hi) + nbytes(day[0], day[1], *day[2], day[3], day[4])
+    return SimpleNamespace(launches=launches, run_s=run_s, ms=ms, ms_fixed=ms_fixed, rmse=rmse, dz=float(dz.max()),
+                           err32=err32, plain_ms=plain_ms, plain64_s=plain64_s, stats=st64, differ=int(differ.sum()),
+                           outside=outside, z_outside=z_outside, gap64=gap64[None],
+                           bound=(ops, moved) + bound(moved, ops))
+
+
+def phase26_xla_run(torch, ctx):
+    """ThermalModel.run, the XLA-path integrators, at full width on the card
+    (see the module docstring).  Returns the rows printed."""
+    testing, SimConfig, ThermalModel = ctx.testing, ctx.SimConfig, ctx.ThermalModel
+    H = ADAPTIVE_RUN_HOURS
+    k2 = dict(mode="trbdf2_refresh", substeps=8, refresh_every=2)
+    modes = (
+        ("parity, adaptive", None, dict(mode="parity"), None),
+        (f"parity, nomass_fixed_iters={PARITY_ITERS}", PARITY_ITERS, dict(mode="parity"), dict(mode="parity")),
+        ("trbdf2, 8 sub-steps", PARITY_ITERS, dict(mode="trbdf2"), None),
+        ("trbdf2_refresh k=2", PARITY_ITERS, k2, k2),
+        ("exp, 8 sub-steps", PARITY_ITERS, dict(mode="exp"), None),
+    )
+    rows = []
+    for label, iters, kw, fast_kw in modes:
+        tm = ThermalModel(ctx.model, n=1, config=SimConfig(dtype=torch.float32, nomass_fixed_iters=iters),
+                          device="cuda")
+        seq = testing.bench_inputs(tm.building, H, device="cuda")
+        fields = {f.name: getattr(seq, f.name) for f in dataclasses.fields(seq) if getattr(seq, f.name) is not None}
+        xs = tm.inputs_sequence(H, **fields)
+        st0 = tm.initial_state()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        final, zt = tm.run(st0, xs, **kw)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        check(bool(torch.isfinite(zt).all() and torch.isfinite(final.node_T).all()), f"run({label}) not finite")
+        row = f"{label} {wall:.3f} s"
+        if fast_kw is not None:
+            kf, kz = tm.fast_runner(hours=H, **fast_kw).run(st0, seq)
+            gap = float((kz - zt).abs().max())
+            check(gap <= F32_TOL, f"run({label}) vs the kernel route: max |d zone_T| {gap} > {F32_TOL}")
+            row += f" (kernel route {gap:.2e} K apart)"
+        rows.append(row)
+    return rows
+
+
+def adaptive_kernel_entry(p25):
+    """The kernels line's entry of the adaptive loop in the parity body."""
+    b = p25.bound
+    return {
+        "name": "day_march_parity_adaptive", "route": "cuda",
+        "source": "heatx_torch/csrc/day_march.cu (body: heatx_torch/csrc/day_parity.cuh march_nomass, "
+                  "nomass_iters -1)",
+        "replaces": "heatx/ops/pallas_step.py:1976 (body _hour_body, pallas_step.py:633; the adaptive loop "
+                    ":1345-1353, heatx/engine/surface.py:814-825)",
+        "launches": p25.launches[1],
+        "launches_by_path": {"adaptive parity run, 48 h (phase 25a)": p25.launches[1]},
+        "max_abs_err": p25.err32, "ms": p25.ms, "plain_ms": p25.plain_ms, "plain_hours": PARITY_WINDOW,
+        "bound_ms": b[2], "bound_by": b[3], "library_ms": None, "ms_fixed_iters": p25.ms_fixed,
+        "mean_iterations": p25.stats["mean"],
+    }
+
+
 def tree_head(seq, T, hours):
     """The first ``hours`` of an input sequence whose time series have ``T``
     leading rows (the rest is passed on as it is)."""
@@ -2777,6 +3144,7 @@ def tree_head(seq, T, hours):
 
 
 def main() -> int:
+    t_start = time.time()
     try:
         import torch
     except ImportError:
@@ -3190,6 +3558,19 @@ def main() -> int:
     p22 = phase22_controlled_city(torch, ctx)
     p23 = phase23_controlled_office(torch, ctx, p17)
 
+    # 24-26. the adaptive no-mass loop and the XLA-path integrators (see the
+    # module docstring)
+    w24, rows24 = phase24_adaptive_f64(torch, ctx)
+    print(f"phase 24 f64 adaptive no-mass loop in every kind's parity body ({ADAPTIVE_HOURS} h at the coarse "
+          f"discretization; {'; '.join(rows24)}): kernel vs plain twin max |d| {w24['T']:.3e} K on T, zT, zone "
+          f"history, h/q (<= {F64_TOL:g}); the kernel route vs ThermalModel.run on the card {w24['xla']:.3e} K "
+          f"(<= {ADAPTIVE_XLA_TOL:g}, heatx's own bound)", flush=True)
+    p25 = phase25_adaptive_city(torch, ctx, p13)
+    rows26 = phase26_xla_run(torch, ctx)
+    print(f"phase 26 ThermalModel.run on {smi}, the bench city at full width, f32, {ADAPTIVE_RUN_HOURS} h from "
+          f"midnight (host clock): " + "; ".join(rows26) + f"; chip_smoke.py so far {time.time() - t_start:.1f} s "
+          "(host clock, from its start)", flush=True)
+
     # The kernels line: bounds from this run's shapes (f32 bench day; the
     # thermostat instantiation on the demand city's day, same mode).
     def march_bound(params, T, zT, hi, outs):
@@ -3383,6 +3764,7 @@ def main() -> int:
         },
         *mrt_kernel_entries(p19, p20),
         *gate_kernel_entries(ctx, p22, p23),
+        adaptive_kernel_entry(p25),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

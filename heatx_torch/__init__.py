@@ -15,6 +15,11 @@ per dispatch), and its gradient through
 objectives).  The EnergyPlus front end is here too: ``model.idf.load_idf``
 (IDF files), ``weather.epw.read_epw`` and ``weather.solar`` (EPW weather,
 computed solar and longwave), so bench.py's office workflow runs end to end.
+heatx's XLA-path integrators run too, as plain tensor code on the device:
+``ThermalModel.run`` (heatx's default exact parity march with the adaptive
+no-mass loop, and the fast modes), ``march``, ``run_checked``, ``warmup``,
+``march_imp`` and ``march_exp``; the day march runs the adaptive loop with
+``HEATX_KERNEL_WHILE=1``, as heatx's kernel does.
 Both day kernels are written in CUDA for Hopper
 (``heatx_torch/csrc/day_march.cu``, ``day_adjoint.cu``) with plain PyTorch
 versions beside them.  Models live on the card (``device="cuda"``) unless

@@ -2,8 +2,11 @@
 
 PyTorch counterpart of ``heatx.api`` for the slice the port carries: a
 compiled building on a device (the card unless the caller asks for the
-CPU), its initial state and inputs, and its zone MRT (``zone_mrt``);
-``FastRunner.run``, which marches a whole hourly input sequence through the
+CPU), its initial state and inputs (``inputs``, ``inputs_sequence``), its
+zone MRT (``zone_mrt``); the XLA-path integrators, plain tensor code on the
+device: ``march`` and ``run`` (the reference-parity march, or the fast modes
+``trbdf2``, ``trbdf2_refresh`` and ``exp``), ``run_checked``, ``warmup``,
+``march_imp`` and ``march_exp``; ``FastRunner.run``, which marches a whole hourly input sequence through the
 day march (the CUDA kernel on a GPU, its plain twin on the CPU), with the
 per-hour ideal loads of a building with thermostats, with setpoint
 schedules, with the ground faces' soil temperature swapped in month by
@@ -28,6 +31,9 @@ import torch
 from heatx_torch.build.layout import B_GROUND, CompiledBuilding, compile_building
 from heatx_torch.config import DEFAULT_CONFIG, SimConfig
 from heatx_torch.constants import KELVIN
+from heatx_torch.engine import exponential as exp_mod
+from heatx_torch.engine import implicit as imp_mod
+from heatx_torch.engine import step as step_mod
 from heatx_torch.engine import surface as surf_mod
 from heatx_torch.engine.adjoint import tree_flatten
 from heatx_torch.engine.state import SimState, StepInputs, default_inputs, initial_state
@@ -138,6 +144,7 @@ class ThermalModel:
     ):
         self.device = resolve_device(device)
         self.building: CompiledBuilding = compile_building(model, n=n, config=config)
+        self._device_building = None
 
     @classmethod
     def from_building(cls, building: CompiledBuilding, device="cuda") -> "ThermalModel":
@@ -146,7 +153,25 @@ class ThermalModel:
         tm = cls.__new__(cls)
         tm.device = resolve_device(device)
         tm.building = building
+        tm._device_building = None
         return tm
+
+    def _device(self):
+        """The building as tensors on the model's device in the config's
+        dtype (``engine.step.device_building``), made at first use so that
+        host-side edits before it are picked up; call :meth:`invalidate`
+        after later edits."""
+        if self._device_building is None:
+            self._device_building = step_mod.device_building(self.building, device=self.device)
+        return self._device_building
+
+    def invalidate(self):
+        """Forget the device copy of the building (after editing it)."""
+        self._device_building = None
+
+    @property
+    def surfaces(self):
+        return self.building.surfaces
 
     @property
     def dt(self) -> float:
@@ -168,6 +193,7 @@ class ThermalModel:
             raise ValueError("model has no ground boundaries")
         sb.front_temp[front] = value
         sb.back_temp[back] = value
+        self.invalidate()
 
     def initial_state(self, dtype=None) -> SimState:
         return initial_state(self.building, dtype=dtype, device=self.device)
@@ -178,19 +204,163 @@ class ThermalModel:
         zone's surface temperatures, a comfort observable whether or not
         ``config.interior_mrt`` drives the physics (zone air where a zone has
         no network).  Operative temperature is ``(zone_T + zone_mrt) / 2``."""
-        b = self.building
-        kw = dict(dtype=state.node_T.dtype, device=state.node_T.device)
-        sb = b.surfaces
-        view = SimpleNamespace(
-            node_mask=torch.as_tensor(sb.node_mask, device=kw["device"]),
-            **{k: torch.as_tensor(getattr(sb, k), **kw) for k in ("area", "eps_front", "eps_back")},
-            **{k: torch.as_tensor(getattr(sb, k), device=kw["device"])
-               for k in ("front_code", "back_code", "front_space", "back_space")},
-        )
-        return surf_mod.zone_mrt(view, state.node_T, state.zone_T, b.n_zones)
+        b = self._device()
+        if b.dtype != state.node_T.dtype:
+            b = step_mod.device_building(self.building, state.node_T.dtype, state.node_T.device)
+        return surf_mod.zone_mrt(b.surfaces, state.node_T, state.zone_T, b.n_zones)
 
     def inputs(self, dtype=None, **overrides) -> StepInputs:
         return default_inputs(self.building, dtype=dtype, device=self.device, **overrides)
+
+    def inputs_sequence(self, T: int, dtype=None, **overrides) -> StepInputs:
+        """A ``[T, ...]`` StepInputs sequence for :meth:`run`/:meth:`run_checked`
+        (heatx ``ThermalModel.inputs_sequence``).
+
+        Each channel may be static (its :meth:`inputs` shape, held over the
+        ``T`` main steps) or per-step (a leading axis of length ``T``).  The
+        weather scalars may also carry a trailing ``[dt_subdivisions]`` axis
+        of sub-step values (``[T, sub]`` per step, ``[sub]`` static); a 1-D
+        weather array of length T is a per-step series.  Per-step values of
+        other channels broadcast from the left (a ``[T]`` series is one value
+        per step for all elements).  ``mix_vol``/``heat_sp``/``cool_sp``/
+        ``shade_sp`` keep their static-or-scheduled forms (:meth:`run` lifts
+        them)."""
+        base = default_inputs(self.building, dtype=dtype, device=self.device)
+        weather = ("t_out", "wind_speed", "wind_direction")
+        upd = {}
+        for f in dataclasses.fields(StepInputs):
+            name = f.name
+            given = overrides.get(name)
+            b0 = getattr(base, name)
+            if name in ("mix_vol", "heat_sp", "cool_sp", "shade_sp"):
+                if given is not None:
+                    upd[name] = torch.as_tensor(given, dtype=base.t_out.dtype, device=self.device)
+                continue
+            if given is None:  # absent or an explicit None: the default
+                upd[name] = b0[None].expand((T,) + tuple(b0.shape))
+                continue
+            v = torch.as_tensor(given, dtype=b0.dtype, device=self.device)
+            if v.ndim >= 1 and v.shape[0] == T:
+                if name in weather and v.ndim <= 2:
+                    upd[name] = v
+                else:
+                    tail = tuple(v.shape[1:])
+                    v = v.reshape((T,) + tail + (1,) * (b0.ndim - len(tail)))
+                    upd[name] = v.expand((T,) + tuple(b0.shape))
+            elif name in weather and v.ndim == 1:  # [sub] static sub-step values
+                upd[name] = v[None].expand((T,) + tuple(v.shape))
+            else:
+                upd[name] = v.expand(b0.shape)[None].expand((T,) + tuple(b0.shape))
+        return base.replace(**upd)
+
+    def warmup(self, state: SimState, inputs_period: StepInputs, max_repeats: int = 25,
+               tol: float = 0.01, run=None):
+        """EnergyPlus-style warm-up (heatx ``ThermalModel.warmup``): march one
+        period of inputs repeatedly from ``state`` until the largest zone- or
+        node-temperature change between consecutive repeats is below ``tol``
+        K, or ``max_repeats`` times.  Returns ``(state, repeats_run)``.
+        ``run(state) -> state`` replaces the period integrator (default:
+        :meth:`run` without history; a FastRunner closure warms up through
+        the day march)."""
+        if run is None:
+            def run(s):
+                return self.run(s, inputs_period, collect_zone_T=False)[0]
+
+        mask = np.asarray(self.building.surfaces.node_mask)
+        prev_z = prev_n = None
+        for d in range(max_repeats):
+            state = run(state)
+            zt = _np(state.zone_T)
+            nt = np.where(mask, _np(state.node_T), 0.0)
+            if prev_z is not None:
+                dz = float(np.max(np.abs(zt - prev_z))) if zt.size else 0.0
+                dn = float(np.max(np.abs(nt - prev_n)))
+                if max(dz, dn) < tol:
+                    return state, d + 1
+            prev_z, prev_n = zt, nt
+        return state, max_repeats
+
+    # -- the XLA-path integrators --------------------------------------------
+
+    def march(self, state: SimState, inputs: StepInputs) -> SimState:
+        """One main timestep (= dt_subdivisions reference-parity sub-steps),
+        plain tensor code on the model's device (``engine.step.march``)."""
+        _check_setpoint_order(self.building, inputs.heat_sp, inputs.cool_sp)
+        return step_mod.march(self._device(), state, inputs)
+
+    def run(
+        self,
+        state: SimState,
+        inputs_seq: StepInputs,
+        collect_zone_T: bool = True,
+        collect_loads: bool = False,
+        collect_operative: bool = False,
+        mode: str = "parity",
+        substeps: int = None,
+        refresh_every: int = None,
+    ):
+        """March a whole ``[T, ...]`` input sequence (heatx
+        ``ThermalModel.run``; ``engine.step.run``) on the model's device.
+
+        ``mode`` is ``"parity"`` (default: the reference's sub-step count and
+        no-mass solve, the adaptive loop unless ``config.nomass_fixed_iters``
+        is set), or the fast modes ``"trbdf2"``, ``"trbdf2_refresh"`` (with
+        ``refresh_every``) and ``"exp"`` at ``substeps`` sub-steps per main
+        step (default 8), step for step what a loop of :meth:`march_imp`/
+        :meth:`march_exp` gives.  With ``collect_loads`` (thermostats only)
+        the history is ``(zone_T_hist, ideal_load_hist)``;
+        ``collect_operative`` appends the ``[T, Z]`` operative-temperature
+        history."""
+        _check_setpoint_order(self.building, inputs_seq.heat_sp, inputs_seq.cool_sp)
+        if refresh_every is not None and mode != "trbdf2_refresh":
+            raise ValueError("refresh_every applies to mode='trbdf2_refresh'")
+        if mode == "parity":
+            march_fn = None
+            if substeps is not None:
+                raise ValueError(
+                    "substeps applies to the fast modes; the parity "
+                    "integrator's sub-step count is stability-dictated"
+                )
+        else:
+            substeps = 8 if substeps is None else int(substeps)
+            if substeps < 1:
+                raise ValueError(f"substeps must be >= 1, got {substeps}")
+            if mode in ("trbdf2", "trbdf2_refresh"):
+                march_fn = functools.partial(
+                    imp_mod.imp_march, substeps=substeps, refresh_h=(mode == "trbdf2_refresh"),
+                    refresh_every=refresh_every,
+                )
+            elif mode == "exp":
+                march_fn = functools.partial(exp_mod.exp_march, substeps=substeps)
+            else:
+                raise ValueError(f"unknown mode {mode!r}")
+        return step_mod.run(
+            self._device(), state, inputs_seq, collect_zone_T=collect_zone_T,
+            collect_loads=collect_loads, collect_operative=collect_operative, march_fn=march_fn,
+        )
+
+    def run_checked(self, state: SimState, inputs_seq: StepInputs, collect_zone_T: bool = True):
+        """Like :meth:`run` in parity mode, with a finiteness check after
+        every main step (the reference's NaN asserts, model.rs:416-419): raises
+        ``FloatingPointError`` on the first non-finite state, naming the main
+        step and the zone."""
+        return step_mod.make_checked_run_fn(collect_zone_T)(self._device(), state, inputs_seq)
+
+    def march_exp(self, state: SimState, inputs: StepInputs, substeps: int = 12) -> SimState:
+        """One main timestep in exponential-integrator fast mode
+        (``engine.exponential``): coefficients frozen for the step, the
+        massive nodes advanced by the exact matrix exponential of the frozen
+        system, ``substeps`` sub-steps."""
+        return exp_mod.exp_march(self._device(), state, inputs, substeps=substeps)
+
+    def march_imp(self, state: SimState, inputs: StepInputs, substeps: int = 12,
+                  refresh_h: bool = False, refresh_every: int = None) -> SimState:
+        """One main timestep in TR-BDF2 fast mode (``engine.implicit``):
+        coefficients frozen for the step (``refresh_h``: rebuilt every
+        sub-step; ``refresh_every=k``: every k sub-steps)."""
+        _check_setpoint_order(self.building, inputs.heat_sp, inputs.cool_sp)
+        return imp_mod.imp_march(self._device(), state, inputs, substeps=substeps,
+                                 refresh_h=refresh_h, refresh_every=refresh_every)
 
     def fast_runner(
         self,
@@ -212,8 +382,9 @@ class ThermalModel:
         default 1), both with ``substeps`` defaulting to 12 per hour, or
         ``"parity"`` (heatx's default: the reference-parity sub-step at the
         building's own ``dt`` and ``dt_subdivisions`` sub-steps per hour,
-        118 at the default discretization; a building with no-mass nodes
-        needs ``config.nomass_fixed_iters``).  ``block_size`` is
+        118 at the default discretization; on a building with no-mass nodes
+        the adaptive loop, ``config.nomass_fixed_iters=None``, runs only with
+        ``HEATX_KERNEL_WHILE=1``, as in heatx, and has no gradient).  ``block_size`` is
         the number of surface lanes per zone-closed block, one CUDA thread
         block each (at most 256; default: the largest zone-connected
         component rounded up to a warp).  ``use_kernel=False`` runs the

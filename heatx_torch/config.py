@@ -32,8 +32,8 @@ class SimConfig:
 
     # No-mass fixed-point solve of the parity integrator (surface.rs:808-896):
     # mean-error tolerance, escalated tolerance after `escalate_after`
-    # iterations, and a hard iteration cap for the adaptive loop (the loop is
-    # not ported yet, ROADMAP B6/A10: ``nomass_max_iter`` is carried for it).
+    # iterations, and a hard iteration cap for the adaptive loop (the
+    # reference loops unbounded with an assert bomb at surface.rs:869-877).
     nomass_tol: float = 0.01
     nomass_tol_escalated: float = 0.5
     nomass_escalate_after: int = 100
@@ -41,8 +41,8 @@ class SimConfig:
 
     # Run exactly this many relaxed fixed-point iterations per sub-step, with
     # the same per-chunk update/convergence masking, instead of iterating to
-    # tolerance.  The parity day march requires it (None, the adaptive loop,
-    # is not ported: ROADMAP B6/A10).
+    # tolerance.  None = the reference-exact adaptive loop; the parity day
+    # march runs it only with HEATX_KERNEL_WHILE=1, as heatx's kernel does.
     nomass_fixed_iters: Optional[int] = None
 
     # Flush RK4 stage values below 1e-25 to zero: read by
@@ -63,7 +63,7 @@ class SimConfig:
     ground_contact_h: float = 20.0
 
     # Interior longwave exchange through Carroll's MRT network (heatx
-    # extension).  Not ported yet: the day march raises on it (ROADMAP A9).
+    # extension): every integrator, the day march's kernels included.
     interior_mrt: bool = False
 
     def replace(self, **kw) -> "SimConfig":

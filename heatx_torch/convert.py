@@ -7,7 +7,11 @@ the two packages compute on the very same operands.
 * :func:`building_from_arrays` rebuilds a :class:`CompiledBuilding` from the
   fields of heatx's ``CompiledBuilding`` (``surfaces`` given as a dict of the
   ``SurfaceBatch`` fields, ``cav_gas`` as its 7 arrays; ``config`` as a dict
-  of ``SimConfig`` fields with a numpy ``dtype``).
+  of ``SimConfig`` fields with a numpy ``dtype``: the no-mass loop's
+  ``nomass_fixed_iters``, ``nomass_max_iter`` and tolerances among them).
+* :func:`inputs_from_arrays` rebuilds a :class:`StepInputs` (one main step
+  or a ``[T, ...]`` sequence) from the fields of heatx's ``StepInputs``
+  (``mix_vol`` and the optional schedules included; absent ones None).
 * :func:`params_from_kernel_operands` turns heatx's ``make_hour_march``
   operands (a single node-height part, i.e. ``block_building(...,
   node_split=None)``), named by heatx's operand names, into the port's
@@ -23,6 +27,7 @@ import torch
 
 from heatx_torch.build.layout import CompiledBuilding, SurfaceBatch
 from heatx_torch.config import SimConfig
+from heatx_torch.engine.state import StepInputs
 from heatx_torch.ops.day_march import (
     CAV_FIELDS, MRT_FIELDS, SHADE_FIELDS, SURF_FIELDS, DayMarchParams, local_zone,
     mix_lists_from_dense, pack_params,
@@ -56,6 +61,18 @@ def building_from_arrays(fields: dict) -> CompiledBuilding:
     fields["config"] = config_from_dict(fields["config"])
     fields.setdefault("discretizations", [])
     return CompiledBuilding(surfaces=SurfaceBatch(**sb), **fields)
+
+
+def inputs_from_arrays(fields: dict, dtype=torch.float64, device="cpu") -> StepInputs:
+    """StepInputs from heatx StepInputs fields (numpy arrays or scalars; the
+    ``*_mask`` channels boolean, the others in ``dtype``; None stays None)."""
+    out = {}
+    for f in dataclasses.fields(StepInputs):
+        v = fields.get(f.name)
+        if v is not None:
+            kind = torch.bool if f.name.endswith("mask") else dtype
+            out[f.name] = torch.as_tensor(np.array(v), dtype=kind, device=device)
+    return StepInputs(**out)
 
 
 def params_from_kernel_operands(

@@ -281,8 +281,10 @@ struct DayArgs {
   int N, NB, SB, ZB, hours, substeps, refresh_every, amb_bug;
   double dt, half_dt, gamma_dt, beta_dt, c1, c2;
   // The reference-parity march (day_parity.cuh): whether it runs instead of
-  // TR-BDF2, and its no-mass iteration count, escalation and tolerances.
+  // TR-BDF2, and its no-mass iteration count (-1: the adaptive loop, at
+  // most nomass_max_iter iterations), escalation and tolerances.
   int parity, nomass_iters, esc_after;
+  int nomass_max_iter = 0;
   double nomass_tol, nomass_tol_esc;
 };
 

@@ -315,8 +315,10 @@ int check_args(const MarchArgs<T>& m) {
   if (a.N < 1 || a.N > kMaxNodes || a.SB < 1 || a.SB > kMaxLanes || a.NB < 1 ||
       a.ZB < 1 || a.hours < 1 || a.refresh_every < 1 || a.substeps % a.refresh_every)
     return static_cast<int>(cudaErrorInvalidValue);
-  // The parity march rebuilds its operators every sub-step.
-  if (a.parity && (a.refresh_every != 1 || a.nomass_iters < 0))
+  // The parity march rebuilds its operators every sub-step; nomass_iters -1
+  // is the adaptive loop, capped at nomass_max_iter iterations.
+  if (a.parity && (a.refresh_every != 1 || a.nomass_iters < -1 ||
+                   (a.nomass_iters < 0 && a.nomass_max_iter < 1)))
     return static_cast<int>(cudaErrorInvalidValue);
   // Thermostat rows come with a load history; schedules need the rows.
   if ((a.ctl != nullptr) != (m.ld_hist != nullptr) ||
@@ -358,9 +360,9 @@ int day_march(const void* node, const void* surf, const void* lane, const void* 
               const void* shade_slot, const void* shade, const void* shade_sp, const void* vent,
               const void* a_vent, const void* b_vent, const void* vent_thr, int N,
               int NB, int SB, int ZB, int hours, int substeps, int refresh_every, int amb_bug,
-              int parity, int nomass_iters, int esc_after, int mrt_phys, double dt, double half_dt,
-              double gamma_dt, double beta_dt, double c1, double c2, double nomass_tol,
-              double nomass_tol_esc, void* stream) {
+              int parity, int nomass_iters, int esc_after, int nomass_max_iter, int mrt_phys,
+              double dt, double half_dt, double gamma_dt, double beta_dt, double c1, double c2,
+              double nomass_tol, double nomass_tol_esc, void* stream) {
   MrtMarchArgs<T> m;  // the kMrt instantiations take it whole, the others its MarchArgs
   DayArgs<T>& a = m.in;
   a.node = static_cast<const T*>(node);
@@ -432,6 +434,7 @@ int day_march(const void* node, const void* surf, const void* lane, const void* 
   a.parity = parity;
   a.nomass_iters = nomass_iters;
   a.esc_after = esc_after;
+  a.nomass_max_iter = nomass_max_iter;
   a.nomass_tol = nomass_tol;
   a.nomass_tol_esc = nomass_tol_esc;
   const int err = check_args<T>(m);
@@ -496,16 +499,16 @@ int heatx_day_march_mrt_f64(const void* m, void* stream, int parity) {
       const void *shade_slot, const void *shade, const void *shade_sp, const void *vent,  \
       const void *a_vent, const void *b_vent, const void *vent_thr, int N,                 \
       int NB, int SB, int ZB, int hours, int substeps, int refresh_every, int amb_bug,     \
-      int parity, int nomass_iters, int esc_after, int mrt_phys, double dt, double half_dt, \
-      double gamma_dt, double beta_dt, double c1, double c2, double nomass_tol,            \
-      double nomass_tol_esc, void *stream
+      int parity, int nomass_iters, int esc_after, int nomass_max_iter, int mrt_phys,      \
+      double dt, double half_dt, double gamma_dt, double beta_dt, double c1, double c2,   \
+      double nomass_tol, double nomass_tol_esc, void *stream
 #define HEATX_DAY_MARCH_CALL                                                               \
   node, surf, lane, zone_volume, zone_ptr, zone_faces, t_out, wind, wdir, sol_f, sol_b,    \
       ir_f, ir_b, a_extra, b_extra, T0, zT0, T_out, zT_out, hq, zt_hist, bad, ld_hist,     \
       ctl, sp_heat, sp_cool, mix_ptr, mix_src, mix_vol, cav_u, cav, mrt, mrt_ptr, mrt_faces, \
       hq_hist, top, shade_slot, shade, shade_sp, vent, a_vent, b_vent, vent_thr, N, NB, SB, ZB, hours, \
-      substeps, refresh_every, amb_bug, parity, nomass_iters, esc_after, mrt_phys, dt, half_dt, \
-      gamma_dt, beta_dt, c1, c2, nomass_tol, nomass_tol_esc, stream
+      substeps, refresh_every, amb_bug, parity, nomass_iters, esc_after, nomass_max_iter,  \
+      mrt_phys, dt, half_dt, gamma_dt, beta_dt, c1, c2, nomass_tol, nomass_tol_esc, stream
 
 extern "C" {
 

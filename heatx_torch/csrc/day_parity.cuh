@@ -5,7 +5,8 @@
 //   2. K (U couplings inside a chunk, every neighbour and the films on the
 //      diagonal) and the forcing q (solar, the faces' convection and
 //      radiation, the couplings across chunks as frozen sources),
-//   3. the relaxed fixed-iteration solve K x = -q(T) on the no-mass nodes,
+//   3. the relaxed solve K x = -q(T) on the no-mass nodes, a fixed number of
+//      iterations or the adaptive loop,
 //   4. RK4 on the massive nodes with K and q(T) scaled row-wise by dt/C,
 //   5. the film coefficients again on the new temperatures, with the same
 //      forced-convection term: they enter the zone sums and h/q.
@@ -35,13 +36,15 @@ namespace heatx {
 constexpr int LN_CHUNK = LN_MASS + 1;  // the lane row of the chunk words
 
 // The no-mass iteration's and the march's parameters, in the working type.
+// iters is the fixed iteration count, or -1 for the adaptive loop of at most
+// max_iter iterations.
 template <typename T>
 struct ParityCfg {
-  int iters, esc_after;
+  int iters, esc_after, max_iter;
   T tol, tol_esc, dt;
   __device__ explicit ParityCfg(const DayArgs<T>& a)
-      : iters(a.nomass_iters), esc_after(a.esc_after), tol(T(a.nomass_tol)),
-        tol_esc(T(a.nomass_tol_esc)), dt(T(a.dt)) {}
+      : iters(a.nomass_iters), esc_after(a.esc_after), max_iter(a.nomass_max_iter),
+        tol(T(a.nomass_tol)), tol_esc(T(a.nomass_tol_esc)), dt(T(a.dt)) {}
 };
 
 // The chunk structure of one lane.
@@ -166,7 +169,8 @@ __device__ void nomass_solve(const Chunks<T>& C, const Ops<T>& o, const HourIn<T
 
 // Per-run state of the masked no-mass iteration, kept at each run's first
 // node: the last accepted error, the count of iterations it stayed active
-// and whether it still is.
+// and whether it still is (act has a bit only at runs' first nodes, so it is
+// 0 once every run has stopped).
 template <typename T>
 struct NomassState {
   T oerr[kMaxNodes];
@@ -177,7 +181,7 @@ struct NomassState {
     for (int i = 0; i < C.L.N; ++i) {
       oerr[i] = T(99999.0);
       cnt[i] = 0;
-      if (C.sel(i)) act |= 1u << i;  // every run's first node among them
+      if (C.sel(i) && !(i > 0 && C.sel(i - 1) && C.joined(i - 1))) act |= 1u << i;
     }
   }
 };
@@ -229,6 +233,16 @@ __device__ unsigned nomass_step(const Chunks<T>& C, const ParityCfg<T>& pc, Noma
 // columns.  One iteration is a relaxed solve on every no-mass node; K's rows
 // (kl, kd, ku) are those of Tn, and a cavity lane rebuilds them at each later
 // iteration's input.
+//
+// The adaptive loop (pc.iters == -1, heatx march_nomass's while_loop) stops
+// when this lane's runs are all inactive or after pc.max_iter iterations.
+// heatx stops when no run of the whole building is active, and that gives
+// the same answer: an inactive run is never updated again (nomass_step
+// relaxes only active runs) and its state does not move, so the iterations
+// heatx runs after a lane's last run stopped leave the lane as it is; the
+// cap counts iterations, which both forms run in step.  The loop holds no
+// barrier: the block's barriers come after the surface march, which every
+// thread reaches whatever its count.
 template <typename T>
 __device__ void march_nomass(const Chunks<T>& C, const ParityCfg<T>& pc, const Ops<T>& o,
                              const HourIn<T>& hi, T t_front, T t_back, T* kl, T* kd, T* ku, T* Tn,
@@ -242,7 +256,9 @@ __device__ void march_nomass(const Chunks<T>& C, const ParityCfg<T>& pc, const O
   }
   NomassState<T> st;
   st.init(C);
-  for (int it = 0; it < pc.iters; ++it) {
+  const bool adaptive = pc.iters < 0;
+  const int n = adaptive ? pc.max_iter : pc.iters;
+  for (int it = 0; it < n && (!adaptive || st.act); ++it) {
     if (it > 0 && C.L.cav_bits) {
       cavity_k_rows(C, o, Tn, kl, kd, ku);
       nomass_factor(C, kl, kd, ku, cs, inv);

@@ -34,16 +34,18 @@ class SimState:
 @dataclasses.dataclass
 class StepInputs:
     """Exogenous inputs for one main timestep, or — with a leading [T] axis
-    on each channel — for a sequence (``FastRunner.run``).
+    on each channel — for a sequence (``FastRunner.run``,
+    ``ThermalModel.run``; ``ThermalModel.inputs_sequence`` builds one).
 
-    Weather entries may be scalars (held over the sub-steps) or per-hour
-    series.  ``heat_sp``/``cool_sp`` are optional thermostat setpoint
-    schedules for a ``scheduled_setpoints`` runner (None: the compiled
-    setpoints).  ``shade_sp`` overrides the compiled setpoints of the
-    in-run zone-shading controls (scalar, ``[S]`` or ``[T, S]``; a schedule
-    gate passes +1e9 on blocked hours; None: the compiled setpoints).
-    heatx's ``mix_vol`` comes with the slice that uses it (ROADMAP A10): the
-    day march mixes at the compiled flows.
+    Weather entries may be scalars (held over the sub-steps), per-sub-step
+    ``[dt_subdivisions]`` arrays in one main step, or per-hour series.
+    ``mix_vol`` carries the inter-zone mixing flows ``[M]`` (a ``[T, M]``
+    schedule on the XLA-path integrators; the day march mixes at the
+    compiled flows, as heatx's kernel does).  ``heat_sp``/``cool_sp`` are
+    optional thermostat setpoint schedules (None: the compiled setpoints).
+    ``shade_sp`` overrides the compiled setpoints of the in-run zone-shading
+    controls (scalar, ``[S]`` or ``[T, S]``; a schedule gate passes +1e9 on
+    blocked hours; None: the compiled setpoints).
     """
 
     t_out: torch.Tensor  # scalar or [T]
@@ -61,6 +63,7 @@ class StepInputs:
     vent_vol: torch.Tensor  # [Z]
     vent_temp: torch.Tensor  # [Z]
     vent_mask: torch.Tensor  # [Z] bool
+    mix_vol: torch.Tensor = None  # [M] inter-zone mixing flows, m3/s (heatx extension)
     heat_sp: torch.Tensor = None  # scalar, [Z], [1, Z], [T] or [T, Z] heating setpoints, C
     cool_sp: torch.Tensor = None
     shade_sp: torch.Tensor = None  # scalar, [S] or [T, S] zone-shading setpoints, C
@@ -110,6 +113,7 @@ def default_inputs(building, dtype=None, device="cpu", **overrides) -> StepInput
         vent_vol=torch.zeros((Z,), **kw),
         vent_temp=torch.zeros((Z,), **kw),
         vent_mask=torch.zeros((Z,), dtype=torch.bool, device=device),
+        mix_vol=torch.as_tensor(building.mix_vol, **kw),
     )
     upd = {}
     for k, v in overrides.items():

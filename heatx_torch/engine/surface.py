@@ -6,7 +6,7 @@ temperatures, the TARP border conditions, the linearized radiation
 coefficient, the segment U-values (with the ISO 15099 U-value of gas
 cavities at the working temperatures), the absorbed solar forcing, and the
 reference-parity integrator: ``assemble_K``/``assemble_q``, the relaxed
-fixed-iteration no-mass solve ``march_nomass``, the RK4 march
+no-mass solve ``march_nomass``, the RK4 march
 ``march_massive`` and ``march_surfaces``, one sub-step of every surface.
 
 heatx keeps two forms of the K/q assembly, inline and hoisted into its
@@ -39,7 +39,7 @@ from typing import NamedTuple
 
 import torch
 
-from heatx_torch.build.layout import B_AMBIENT, B_OUTDOOR, B_SPACE
+from heatx_torch.build.layout import B_AMBIENT, B_GROUND, B_OUTDOOR, B_SPACE
 from heatx_torch.config import SimConfig
 from heatx_torch.constants import KELVIN, SIGMA
 from heatx_torch.ops import tridiag
@@ -126,6 +126,21 @@ def compute_statics(sb) -> SurfaceStatics:
         nat_coeffs=tarp_natural_coeffs(sb.cos_tilt),
         **chunks,
     )
+
+
+def boundary_temperatures(sb, zone_T, t_out):
+    """Air temperature on each side of each surface (model.rs:79-96
+    get_boundary_temperature): outdoor air, the air of the zone a space face
+    bounds, or the fixed temperature of an ambient or ground boundary."""
+    zone_padded = torch.cat([zone_T, zone_T.new_zeros(1)])
+    t_out = torch.as_tensor(t_out, dtype=zone_T.dtype, device=zone_T.device)
+
+    def side(code, space, temp):
+        t = torch.where(code == B_OUTDOOR, t_out, torch.zeros_like(temp))
+        t = torch.where(code == B_SPACE, zone_padded[space.long()], t)
+        return torch.where((code == B_AMBIENT) | (code == B_GROUND), temp, t)
+
+    return side(sb.front_code, sb.front_space, sb.front_temp), side(sb.back_code, sb.back_space, sb.back_temp)
 
 
 def _last_node(sb, T, statics: SurfaceStatics = None):
@@ -455,30 +470,84 @@ def _ftz(x, threshold=1e-25):
     return torch.where(torch.abs(x) < threshold, torch.zeros_like(x), x)
 
 
+#: Names of the gradient refusal for the adaptive no-mass loop (heatx
+#: pallas_adjoint.py:156-161): the loop's data-dependent stop has no
+#: reverse-mode rule, in heatx (``lax.while_loop``) or here.
+ADAPTIVE_GRAD_REFUSAL = (
+    "parity adjoint requires config.nomass_fixed_iters (the adaptive while_loop fixed point "
+    "has no reverse-mode rule; the fixed-iteration composition unrolls instead)"
+)
+
+#: The recorders :func:`record_nomass_stops` installs (a stack, innermost last).
+_STOP_RECORDERS = []
+
+
+class NomassStops:
+    """What :func:`march_nomass` reports while installed
+    (``with record_nomass_stops() as rec:``): per call, ``rec.iters`` gets
+    the ``[C, S]`` count of iterations each no-mass run stayed active (0 on
+    an absent run; with the adaptive loop the iteration at which the run
+    stopped), ``rec.counts`` the ``[C, S]`` run lengths, ``rec.broke`` the
+    ``[C, S]`` runs stopped by the error-increase break, ``rec.closest``
+    the ``[C, S]`` distance (K) of each run's closest stop decision to its
+    threshold (the mean error to the tolerance, or the error to the last
+    accepted one; inf where the run took none), and ``rec.loops`` the number
+    of iterations the call ran.  The tensors stay on their device until
+    read."""
+
+    def __init__(self):
+        self.iters, self.counts, self.broke, self.closest, self.loops = [], [], [], [], []
+
+    def __enter__(self):
+        _STOP_RECORDERS.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        _STOP_RECORDERS.remove(self)
+
+    def stacked(self):
+        """``(iters, present, broke, closest)``, each ``[calls, C, S]`` numpy."""
+        it = torch.stack(self.iters).cpu().numpy()
+        return (it, torch.stack(self.counts).cpu().numpy() > 0,
+                torch.stack(self.broke).cpu().numpy(), torch.stack(self.closest).cpu().numpy())
+
+
+def record_nomass_stops() -> NomassStops:
+    """A context manager that records the no-mass runs' stopping iterations
+    of every :func:`march_nomass` call made inside it, and how close each
+    run's stop decisions came to their thresholds (:class:`NomassStops`)."""
+    return NomassStops()
+
+
 def march_nomass(
     sb, T0, env_f: FaceEnv, env_b: FaceEnv, rad_hs_f, rad_hs_b, solar_q, config: SimConfig,
     solver=None, statics: SurfaceStatics = None, K=None,
 ):
-    """The relaxed fixed-point solve of all no-mass chunks (surface.rs:790-898)
-    in its fixed-iteration forms: ``config.nomass_fixed_iters`` iterations of
-    ``T <- (T + T_solve)/2`` on the steady-state system ``K x = -q(T)``, with
-    the per-chunk convergence test on the mean |dT| (``nomass_tol``, escalated
-    after ``nomass_escalate_after`` iterations) and the reference's
-    error-increase break, which discards the increasing update.  One
-    iteration is one relaxed solve on every valid no-mass node.
+    """The relaxed fixed-point solve of all no-mass chunks (surface.rs:790-898):
+    iterations of ``T <- (T + T_solve)/2`` on the steady-state system
+    ``K x = -q(T)``, with the per-chunk convergence test on the mean |dT|
+    (``nomass_tol``, escalated after ``nomass_escalate_after`` iterations) and
+    the reference's error-increase break, which discards the increasing
+    update.  One iteration is one relaxed solve on every valid no-mass node.
+
+    ``config.nomass_fixed_iters`` runs that many iterations; None runs heatx's
+    adaptive loop: iterate while any chunk is active and fewer than
+    ``nomass_max_iter`` iterations have run.  The loop stops on a host check
+    of ``active.any()`` (one synchronize per iteration on a GPU).  Autograd
+    through the adaptive loop raises (heatx has no reverse rule for it).
 
     ``solver(lower, diag, upper, rhs)`` defaults to the Thomas solve; when
     every no-mass run has at most 2 nodes (``sb.max_nomass_run``) the
     closed-form pair solve takes its place, whatever the caller supplied.
     ``K`` is the sub-step's K where U is static; with gas cavities each
     iteration assembles K and q at its own U (and ``K`` is not read).
-    The adaptive loop (``nomass_fixed_iters=None``) raises (ROADMAP B6/A10).
     """
-    if config.nomass_fixed_iters is None:
-        raise NotImplementedError(
-            "the adaptive no-mass loop (config.nomass_fixed_iters=None) is ROADMAP B6/A10 "
-            "(not ported yet); set nomass_fixed_iters"
-        )
+    adaptive = config.nomass_fixed_iters is None
+    if adaptive and torch.is_grad_enabled() and any(
+        isinstance(x, torch.Tensor) and x.requires_grad
+        for x in (T0, rad_hs_f, rad_hs_b, solar_q, sb.seg_u, *env_f, *env_b)
+    ):
+        raise ValueError(ADAPTIVE_GRAD_REFUSAL)
     st = statics if statics is not None else compute_statics(sb)
     sel = st.nomass_sel
     chunk_n = sb.nomass_chunk_count
@@ -505,14 +574,24 @@ def march_nomass(
     elif K is None:
         K = assemble_K(sb, sb.seg_u, env_f, env_b, st)
 
+    recorders = list(_STOP_RECORDERS)
     if config.nomass_fixed_iters == 1:
+        for r in recorders:
+            r.iters.append((chunk_n > 0).to(chunk_n.dtype))
+            r.counts.append(chunk_n)
+            r.broke.append(torch.zeros_like(chunk_n, dtype=torch.bool))
+            r.closest.append(torch.full_like(chunk_n, torch.inf))
+            r.loops.append(1)
         return torch.where(sel, 0.5 * (T0 + one_iteration(T0, K)), T0)
 
     T = T0
     old_err = torch.full_like(chunk_n, 99999.0)
     count = torch.zeros_like(chunk_n)
     active = chunk_n > 0
-    for _ in range(config.nomass_fixed_iters):
+    if recorders:
+        ran, broke, closest = torch.zeros_like(chunk_n), torch.zeros_like(active), torch.full_like(chunk_n, torch.inf)
+    it, cap = 0, config.nomass_max_iter if adaptive else config.nomass_fixed_iters
+    while it < cap and (not adaptive or bool(active.any())):
         T_sol = one_iteration(T, K)
         err_node = _ftz(torch.where(sel, torch.abs(T_sol - T), zero))
         err_chunk = torch.stack(
@@ -530,9 +609,21 @@ def march_nomass(
             torch.full_like(count, config.nomass_tol_escalated),
         )
         converged = err_chunk / torch.clamp_min(chunk_n, 1.0) < tol
+        if recorders:
+            ran = ran + active.to(ran.dtype)
+            broke = broke | (active & increase)
+            gap = torch.minimum((err_chunk / torch.clamp_min(chunk_n, 1.0) - tol).abs(), (err_chunk - old_err).abs())
+            closest = torch.where(active, torch.minimum(closest, gap), closest)
         active = active & ~increase & ~converged
         old_err = torch.where(upd_chunk, err_chunk, old_err)
         count = count + active.to(count.dtype)
+        it += 1
+    for r in recorders:
+        r.iters.append(ran)
+        r.counts.append(chunk_n)
+        r.broke.append(broke)
+        r.closest.append(closest)
+        r.loops.append(it)
     return T
 
 
@@ -578,7 +669,7 @@ def march_surfaces(
     distribution, then the no-mass chunks, then the massive chunks.  Returns
     the new node temperatures.  ``envs`` passes the border conditions of the
     current state and ``solar_q`` the absorbed solar forcing where the
-    caller has them; ``mrt`` must be None."""
+    caller has them; ``mrt`` is an :func:`interior_mrt` context or None."""
     if statics is None:
         statics = compute_statics(sb)
     if envs is not None:

@@ -313,7 +313,7 @@ class DayAdjointKernel:
         ptrs = (ctypes.c_void_p * _N_PTRS)(*[None if t is None else t.data_ptr() for t in tensors])
         ints = (ctypes.c_int * 12)(
             N, NB, SB, ZB, hours, substeps, refresh_every, int(config.replicate_ambient_back_bug),
-            *day_march.parity_ints(config, parity), int(config.interior_mrt),
+            *day_march.parity_ints(config, parity)[:3], int(config.interior_mrt),
         )
         reals = (ctypes.c_double * 8)(
             dt, imp_mod.GAMMA * dt / 2.0, imp_mod.GAMMA * dt, imp_mod.BETA * dt,
@@ -439,7 +439,9 @@ def make_day_adjoint(
     ``scheduled_setpoints``, the 11-leaf hour inputs too).  ``device`` is
     checked as ``make_hour_march`` checks it (``"cuda"``, the default,
     raises without a GPU).  A building with in-run shading or ventilation
-    gates raises heatx's ``ValueError``: neither is differentiated."""
+    gates raises heatx's ``ValueError``: neither is differentiated; so does
+    the adaptive no-mass loop (``nomass_fixed_iters=None``) in parity mode
+    on a building with no-mass nodes."""
     if mode == "parity":
         # heatx's rules (pallas_adjoint.py:150-161): the sub-step length is
         # 3600 / (steps per hour x substeps), so the count must be given, and
@@ -455,6 +457,8 @@ def make_day_adjoint(
                 f"({bb.base.dt_subdivisions}); the march it differentiates steps by the "
                 "building's dt"
             )
+        if bb.surfaces.has_nomass and bb.config.nomass_fixed_iters is None:
+            raise ValueError(surf_mod.ADAPTIVE_GRAD_REFUSAL)
     refuse_gates(bb.shade is not None, bb.vent is not None)
     day_march._check_supported(bb.base)
     cuda_lib.resolve_device(device)
@@ -472,6 +476,8 @@ class _DayMarch(torch.autograd.Function):
     @staticmethod
     def forward(ctx, hour_march, day_adjoint, params, node, surf, zone_volume, ctl, mrt, T, zT,
                 *hour_inputs):
+        if getattr(getattr(hour_march, "__self__", hour_march), "adaptive", False):
+            raise ValueError(surf_mod.ADAPTIVE_GRAD_REFUSAL)
         p = replace(params, node=node, surf=surf, zone_volume=zone_volume, ctl=ctl, mrt=mrt)
         outs = hour_march(p, T, zT, hour_inputs)
         T1, zT1, hq, zt_hist = outs[:4]

@@ -2,7 +2,7 @@
 
 Counterpart of ``heatx.ops.pallas_step`` for modes ``trbdf2``,
 ``trbdf2_refresh`` and ``parity`` (the reference-parity sub-step: RK4 on the
-massive nodes after a relaxed fixed-iteration no-mass solve), on free-float
+massive nodes after a relaxed no-mass solve, fixed or adaptive), on free-float
 buildings and on buildings with thermostats (setpoint-driven ideal loads),
 scheduled setpoints, inter-zone mixing and gas cavities.  :func:`make_hour_march` returns ``(hour_march, params)``
 with heatx's call signature and output layout: ``hour_march(params, T [N,
@@ -72,9 +72,15 @@ Design, and what of heatx's kernel is deliberately not carried over:
   building's config says (heatx's kernel path does the same on hardware that
   flushes subnormals; nvcc without fast-math keeps them, and chip_smoke.py
   shows in f32 at full width that a twin which flushes differs by round-off).
-  ``SimConfig.flush_tiny`` is read by ``engine.surface.march_surfaces``.  The adaptive no-mass
-  loop (``nomass_fixed_iters=None``, ``HEATX_KERNEL_WHILE``) raises: ROADMAP
-  B6/A10.
+  ``SimConfig.flush_tiny`` is read by ``engine.surface.march_surfaces``.
+* The adaptive no-mass loop (``nomass_fixed_iters=None``) runs, as in heatx,
+  only with ``HEATX_KERNEL_WHILE=1`` (otherwise heatx's ``ValueError``).  In
+  the kernel each lane iterates until its own runs are inactive or
+  ``nomass_max_iter`` iterations have run; the plain twin iterates the whole
+  building until none is active, which leaves every lane where its own stop
+  does (``csrc/day_parity.cuh`` has the argument).  Neither has a gradient:
+  the adjoint, ``DayMarchFn`` and autograd through the plain march raise
+  heatx's refusal.
 
 Frozen mode (``trbdf2``) is the refresh kernel with ``refresh_every =
 substeps``: heatx proves the two bit-identical (test_pallas_imp.py).
@@ -139,6 +145,7 @@ from __future__ import annotations
 import copy
 import ctypes
 import dataclasses
+import os
 from dataclasses import replace
 from types import SimpleNamespace
 
@@ -1185,7 +1192,8 @@ def plain_day_march(
     the shading setpoint series ``shade_sp`` [hours, SP] (None: the compiled
     setpoints) and, on a building with ventilation gates, the gated rows
     ``a_vent``, ``b_vent``, ``vent_thr`` [hours, NB, ZB]; autograd through a
-    gated march raises."""
+    gated march, or through the adaptive no-mass loop
+    (``surface.march_nomass``), raises."""
     gates = dict(shade_sp=shade_sp, a_vent=a_vent, b_vent=b_vent, vent_thr=vent_thr)
     _refuse_gated_grad(params, T, zT, sol_front, a_extra, b_extra, *gates.values())
     sbv = _lanes(params, chunks=parity)
@@ -1235,7 +1243,7 @@ def _load_library():
     if not getattr(lib, "_heatx_bound", False):
         vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
         for fn in (lib.heatx_day_march_f32, lib.heatx_day_march_f64):
-            fn.argtypes = [vp] * 43 + [ci] * 12 + [cd] * 8 + [vp]
+            fn.argtypes = [vp] * 43 + [ci] * 13 + [cd] * 8 + [vp]
             fn.restype = ci
         lib.heatx_cuda_error_string.argtypes = [ci]
         lib.heatx_cuda_error_string.restype = ctypes.c_char_p
@@ -1397,11 +1405,17 @@ def cavity_u_row(params: DayMarchParams):
 
 def parity_ints(config: SimConfig, parity: bool) -> tuple:
     """The integer arguments that select and steer the parity kernels:
-    ``(parity, nomass_fixed_iters, nomass_escalate_after)``.  Raises where
-    the march needs the adaptive no-mass loop."""
-    if parity and config.nomass_fixed_iters is None:
-        raise ValueError("the parity kernels require config.nomass_fixed_iters")
-    return int(parity), int(config.nomass_fixed_iters or 0), int(config.nomass_escalate_after)
+    ``(parity, nomass_iters, nomass_escalate_after, nomass_max_iter)`` with
+    ``nomass_iters`` the fixed iteration count, or -1 for the adaptive loop
+    (``config.nomass_fixed_iters=None``), which stops a run's iterations at
+    convergence or after ``nomass_max_iter``."""
+    iters = -1 if config.nomass_fixed_iters is None else int(config.nomass_fixed_iters)
+    return int(parity), iters, int(config.nomass_escalate_after), int(config.nomass_max_iter)
+
+
+def adaptive_parity(config: SimConfig, parity: bool) -> bool:
+    """Whether a march runs the adaptive no-mass loop (which has no gradient)."""
+    return bool(parity) and config.nomass_fixed_iters is None
 
 
 def launch_operands(
@@ -1494,6 +1508,8 @@ class HourMarch:
                  collect_bad, scheduled_setpoints=False, parity=False, collect_hq=False,
                  collect_operative=False, scheduled_shade_sp=False):
         self.parity = parity
+        # The adaptive no-mass loop runs (and no gradient may go through it).
+        self.adaptive = adaptive_parity(bb.config, parity) and bb.surfaces.has_nomass
         self.shaded = bb.shade is not None
         self.vent_gated = bb.vent is not None
         self.scheduled_shade_sp = scheduled_shade_sp
@@ -1636,12 +1652,16 @@ def hour_march_for(
     if mode == "parity":
         # heatx's rules (pallas_step.py:1345-1355): the building's own
         # stability sub-step count and sub-step length, and a fixed number of
-        # no-mass iterations wherever there is a no-mass node.
+        # no-mass iterations wherever there is a no-mass node unless
+        # HEATX_KERNEL_WHILE=1 admits the adaptive loop.
         if bb.config.nomass_fixed_iters is None and bb.surfaces.has_nomass:
-            raise ValueError(
-                "the parity day march requires config.nomass_fixed_iters (the adaptive "
-                "no-mass loop is ROADMAP B6/A10, not ported yet)"
-            )
+            if os.environ.get("HEATX_KERNEL_WHILE", "0") != "1":
+                raise ValueError(
+                    "the parity hour kernel requires config.nomass_fixed_iters"
+                    " (data-dependent while_loop in the fused pipeline is"
+                    " experimental: set HEATX_KERNEL_WHILE=1 to try the exact"
+                    " adaptive loop in-kernel)"
+                )
         substeps = substeps or bb.base.dt_subdivisions
         return HourMarch(bb, substeps, hours, 1, bb.base.dt, collect_bad,
                          scheduled_setpoints, parity=True, **obs)
@@ -1675,7 +1695,8 @@ def make_hour_march(
     ``make_hour_march``).  ``mode="parity"`` marches the reference-parity
     sub-steps: ``substeps`` defaults to the building's ``dt_subdivisions``,
     the sub-step length is the building's ``dt`` whatever ``substeps`` says,
-    and a building with no-mass nodes needs ``config.nomass_fixed_iters``.
+    and a building with no-mass nodes needs ``config.nomass_fixed_iters``
+    or, for the adaptive loop, ``HEATX_KERNEL_WHILE=1``.
     In the TR-BDF2 modes ``substeps`` defaults to 12, ``refresh_every=k``
     rebuilds the operators every k sub-steps (default 1 in refresh mode) and
     frozen mode is ``k = substeps``.  ``scheduled_setpoints`` (thermostat buildings) makes

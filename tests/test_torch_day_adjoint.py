@@ -260,10 +260,10 @@ def test_make_day_adjoint_refuses_what_is_not_ported(buildings):
     bb = day_march.block_building(pb, block_size=16)
     # Parity mode is ported, with heatx's rules: the sub-step count must be
     # given (and be the building's), and the adaptive no-mass loop of the
-    # default config is ROADMAP B6/A10.
+    # default config has no adjoint (heatx's refusal).
     with pytest.raises(ValueError, match="dt_subdivisions"):
         day_adjoint.make_day_adjoint(bb, substeps=SUB, mode="parity", device="cpu")
-    with pytest.raises(ValueError, match="nomass_fixed_iters.*ROADMAP"):
+    with pytest.raises(ValueError, match="nomass_fixed_iters.*no reverse-mode rule"):
         day_adjoint.make_day_adjoint(bb, substeps=pb.dt_subdivisions, mode="parity", device="cpu")
     adj = day_adjoint.make_day_adjoint(bb, substeps=SUB, hours=HOURS, device="cpu")
     _, params = day_march.make_hour_march(bb, substeps=SUB, hours=HOURS, device="cpu")

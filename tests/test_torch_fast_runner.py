@@ -157,8 +157,9 @@ def _gated_model():
     "make, exc, match",
     [
         # Parity mode is ported; its adaptive no-mass loop (the default
-        # nomass_fixed_iters=None) is not, and heatx's kernel refuses it too.
-        (lambda: _port_model().fast_runner(mode="parity"), ValueError, "nomass_fixed_iters.*ROADMAP"),
+        # nomass_fixed_iters=None) runs only with HEATX_KERNEL_WHILE=1, as
+        # heatx's kernel does.
+        (lambda: _port_model().fast_runner(mode="parity"), ValueError, "nomass_fixed_iters.*HEATX_KERNEL_WHILE"),
         # The h/q history and the ventilation gates run; their gradient does
         # not (heatx's adjoint refuses the gates too).
         (lambda: _gated_model().fast_runner(collect_fluxes=True, **KW).chunk_grad(

@@ -580,7 +580,8 @@ def _gated_model():
 @pytest.mark.parametrize(
     "make, exc, match",
     [
-        # The adaptive no-mass loop: heatx's kernel refuses it too.
+        # The adaptive no-mass loop without HEATX_KERNEL_WHILE=1: heatx's
+        # kernel refuses it too.
         (lambda: _model(SimConfig(dtype=torch.float64)).fast_runner(mode="parity"),
          ValueError, "nomass_fixed_iters"),
         (lambda: _model().fast_runner(mode="parity", refresh_every=2), ValueError, "refresh_every"),
@@ -589,7 +590,8 @@ def _gated_model():
         (lambda: _model(testing.coarse_config(interior_mrt=True), model=_shaded_model()).fast_runner(
             mode="parity").chunk_grad(lambda p: None, lambda zt, xs: zt.sum()), ValueError,
          "chunk_grad: in-run zone shading"),
-        # Gas cavities march in parity mode; the adaptive loop stays refused.
+        # Gas cavities march in parity mode; the adaptive loop is refused
+        # without HEATX_KERNEL_WHILE=1.
         (lambda: _model(SimConfig(dtype=torch.float64), model=_cavity_model()).fast_runner(
             mode="parity"), ValueError, "nomass_fixed_iters"),
         # The h/q history and the ventilation gates march in parity mode; the
@@ -608,9 +610,16 @@ def test_parity_refusals(make, exc, match):
 def test_engine_refuses_adaptive_loop_and_mrt():
     hx, port, T, rng = _chunked_batch(5, False)
     e = _envs(hx, port, T, rng)
-    with pytest.raises(NotImplementedError, match="B6/A10"):
-        surf.march_nomass(port, t(T), *e.p_env, *e.p_rad, e.p_sq, SimConfig(dtype=torch.float64),
-                          statics=e.pst)
+    # The adaptive no-mass loop (the default config) is heatx's, and has no
+    # gradient, as heatx's while_loop has none.
+    ref = hx_surf.march_nomass(hx, T, *e.h_env, *e.h_rad, e.h_sq, heatx.SimConfig(dtype=jnp.float64),
+                               statics=e.hst)
+    got = surf.march_nomass(port, t(T), *e.p_env, *e.p_rad, e.p_sq, SimConfig(dtype=torch.float64),
+                            statics=e.pst)
+    close(got, ref)
+    with pytest.raises(ValueError, match="no reverse-mode rule"):
+        surf.march_nomass(port, t(T).requires_grad_(), *e.p_env, *e.p_rad, e.p_sq,
+                          SimConfig(dtype=torch.float64), statics=e.pst)
     # The interior-MRT merge is ported (tests/test_torch_mrt.py holds the
     # network): on a seeded context it gives heatx's environments and
     # emissivities, and None is the identity.
