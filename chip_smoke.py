@@ -10,12 +10,21 @@ Phases (one output line each, then a JSON line per contract):
 
 1. device: the CUDA device's name, and its name and power limit as
    ``nvidia-smi`` reports them.  Exits non-zero without a CUDA device.
-2. build: compiles the day-march kernel (heatx_torch/csrc/day_march.cu)
-   from the checkout with nvcc and prints the build time.
+2. build: compiles the day-march kernels (the TR-BDF2 body in
+   heatx_torch/csrc/day_march_tr.cu with several threads per surface, the
+   parity body in day_march.cu) from the checkout with nvcc and prints the
+   build time and every instantiation's ptxas line.
 3. f64 check on a 4-zone city (40 surfaces), 3 h, modes trbdf2_refresh
    (k=2, k=8) and trbdf2: the CUDA kernel against its plain PyTorch twin on
    the same inputs, max |dT| <= 1e-9 K on T, zT and the zone history (the
    two differ only in summation order and fused multiply-adds).
+3b. B1's edge (testing.build_wide_zone_model: one zone bounded by 256
+   surfaces, one block of 256 lanes, and a 32-node wall; and one bounded by
+   50, a 64-lane block), 3 h, free-float in k=2 and with a thermostat in
+   trbdf2: the TR-BDF2 kernel (4 threads per surface, 1024 and 256 a block)
+   in f64 against its plain twin, every output <= 1e-9 K, and in f32 against
+   the f64 plain twin, temperatures <= 1e-2 K and loads <= 1e-3 of their
+   largest magnitude.
 4. the main path at full width: build_city_model(1000, 10) (10,000
    surfaces, 1,000 zones), trbdf2_refresh k=2, 8 sub-steps, hours=24,
    bench weather, 48 h through ThermalModel(..., device="cuda")
@@ -23,9 +32,11 @@ Phases (one output line each, then a JSON line per contract):
    twice), f64 on the plain twin; every value finite, the [48, 1000] zone
    temperatures within 1e-2 K (f32 round-off against f64).
 5. timing on the card, f32 at full width: 30 days through the kernel path,
-   one day-kernel launch (CUDA events) at several lanes per block, and one
-   day through the plain twin; the kernel against the plain twin on the
-   same day's inputs (max |dT| <= 1e-2 K, f32 summation-order round-off).
+   one day-kernel launch (CUDA events) and one day through the plain twin;
+   the kernel against the plain twin on the same day's inputs (max |dT| <=
+   1e-2 K, f32 summation-order round-off); the day-launch at each number of
+   threads per surface of the TR-BDF2 kernel (day_march.GROUP_MAX_THREADS),
+   f32 and f64.
 
 6. build (the adjoint): the day-adjoint kernel (heatx_torch/csrc/
    day_adjoint.cu), compiled by its own nvcc started together with phase 2's;
@@ -171,7 +182,9 @@ Phases (one output line each, then a JSON line per contract):
    48 h of trbdf2_refresh k=2 through ``run(collect_operative=True)`` against
    the f64 plain twin (zone and operative T, MRT_F32_TOL; exactly 2 MRT
    launches); one bench-day launch with and without the operative history and
-   its adjoint timed and held against their f32 plain versions; the annual run
+   its adjoint timed, the launch held against the f64 plain version
+   (MRT_F32_TOL) and compared with the f32 one, the adjoint held against its
+   f32 plain version; the annual run
    with the operative history (exactly 365 MRT launches); 30 days with the h/q
    history and the device memory it holds; the gradient workload with a scale
    of eps_back as a third parameter, 2 days f32 against f64 with exact launch
@@ -265,7 +278,10 @@ the TR-BDF2 entries the 30-day demand gradient of phase 11;
 (CUDA events), ``plain_ms`` its f32 plain version on the same inputs,
 ``max_abs_err`` the f32 kernel against that plain version, ``bound_ms`` the
 bound from this run's shapes; ``thermostat`` holds the same five numbers
-for the thermostat instantiation on the demand city's day (same mode, k=2).
+for the thermostat instantiation on the demand city's day (same mode, k=2);
+``threads_per_surface`` is the TR-BDF2 kernel's default group on that day
+and ``ms_by_threads_per_surface`` / ``ms_f64_by_threads_per_surface`` the
+day-launch at each group (phase 5).
 The two ``*_parity`` entries are the parity kernels on the first day-launch
 of the 10-day parity gradient (24 h x 118 sub-steps, phase 14b), held against
 their f32 plain versions there; ``ms_bench_day`` is the same launch on the
@@ -298,7 +314,6 @@ import numpy as np
 
 F64_TOL = 1e-9  # K: kernel vs plain twin, f64, same inputs
 F32_TOL = 1e-2  # K: f32 against f64, or f32 kernel vs f32 twin, full width
-BLOCK_SIZES = (32, 64, 128, 256)
 ADJ_F64_RTOL = 1e-9  # of max |ref|: adjoint kernel vs plain adjoint, f64, same inputs
 FD_RTOL = 1e-5  # central differences of the f64 forward kernel vs the adjoint kernel
 # f32 adjoint kernel vs f64 plain adjoint, one bench day, relative L2 per
@@ -436,9 +451,10 @@ MRT_OPS = 12
 MRT_ADJ_OPS = 20
 MRT_ITERS = 4
 # The MRT city's f32 kernel against the f64 plain version (zone and
-# operative T, 48 h) and against its f32 plain version (one day), K.
+# operative T, 48 h) and on one day (T, zT, the zone history), K.
 # Measured on an H100 80GB HBM3 at 700 W, the same in two runs: 6.2e-5 on
-# zone T, 6.4e-5 on operative T, 5.3e-5 kernel vs plain.
+# zone T, 6.4e-5 on operative T, 5.3e-5 kernel vs plain (the one-thread
+# kernel, which shared the f32 plain version's operation order).
 MRT_F32_TOL = 2e-4
 # The MRT adjoints (the city's TR-BDF2 day, the office's TR-BDF2 and parity
 # days) against their f32 plain versions, relative L2 per output.  Measured
@@ -561,13 +577,66 @@ def phase3_f64_check(torch, day_march, testing, SimConfig, compile_building):
     return worst
 
 
+def phase3b_b1_edge(torch, day_march, testing, ThermalModel, SimConfig):
+    """The TR-BDF2 kernel at B1's edge and between its launch bounds: one
+    zone bounded by 256 surfaces (one block of the most lanes a block takes)
+    and one bounded by 50 (a 64-lane block), each with a 32-node wall (the
+    most nodes per surface), free-float in k=2 and with a thermostat in
+    frozen mode (the extended kind), 3 h.  f64 against the plain version
+    (every output <= F64_TOL; loads relative to their largest magnitude);
+    f32 against the f64 plain version (T, zT and the zone history <=
+    F32_TOL, loads <= LOAD_F32_RTOL of their largest magnitude, no
+    non-finite value).  Returns the worst f64 and f32 gaps and, per
+    building, its surfaces, its block's lanes, its nodes and the threads per
+    surface the launches took."""
+    hours, worst64, worst32, shapes = 3, 0.0, 0.0, []
+    for surfaces in (256, 50):
+        for thermostat, kw, inputs in ((False, dict(mode="trbdf2_refresh", refresh_every=2), testing.bench_inputs),
+                                       (True, dict(mode="trbdf2"), testing.demand_inputs)):
+            what = f"B1 edge ({surfaces} surfaces, thermostat={thermostat})"
+            model = testing.build_wide_zone_model(surfaces, thermostat=thermostat)
+            outs = {}
+            for dtype in (torch.float64, torch.float32):
+                tm = ThermalModel(model, n=1, config=SimConfig(dtype=dtype), device="cuda")
+                r = tm.fast_runner(substeps=8, hours=hours, **kw)
+                T, zT = r.to_blocked(tm.initial_state())
+                hi = r.kernel_inputs(inputs(tm.building, hours, device="cuda"))[0]
+                before = day_march.day_march_kernel.launches
+                outs[dtype] = r.hour_march(r.params, T, zT, hi)
+                if dtype == torch.float64:
+                    ref = r.hour_march.plain(r.params, T, zT, hi)
+                torch.cuda.synchronize()
+                check(day_march.day_march_kernel.launches == before + 1, f"{what}: the kernel did not launch")
+            for i, (x, y, z) in enumerate(zip(outs[torch.float64], ref, outs[torch.float32])):
+                if isinstance(x, tuple):
+                    x, y, z = torch.stack(x), torch.stack(y), torch.stack(z)
+                load = thermostat and i == len(ref) - 1  # the load history, W
+                scale = max(float(y.abs().max()), 1e-30) if load else 1.0
+                d = float((x - y).abs().max()) / scale
+                check(d <= F64_TOL, f"{what} f64 output {i}: max |d| {d} > {F64_TOL}")
+                worst64 = max(worst64, d)
+                if i in (0, 1, 3) or load:
+                    d32 = float((z.double() - y).abs().max()) / scale
+                    tol = LOAD_F32_RTOL if load else F32_TOL
+                    check(d32 <= tol, f"{what} f32 output {i} vs f64 plain: max |d| {d32} > {tol}")
+                    if not load:
+                        worst32 = max(worst32, d32)
+            check(bool(torch.isfinite(outs[torch.float32][0]).all()) and float(outs[torch.float32][4].sum()) == 0.0,
+                  f"{what} f32: non-finite state")
+        lanes = r.params.block_size
+        shapes.append((surfaces, lanes, r.params.max_nodes, day_march.threads_per_surface(lanes)))
+    return worst64, worst32, shapes
+
+
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def day_work(params, hours, sub, k):
-    """Operations of one day-march launch, counted from day_march.cu on this
-    run's shapes (transcendentals count as one): per valid node and sub-step
+    """Operations of one day-march launch, counted from the TR-BDF2 march's
+    arithmetic on this run's shapes with the stage solves as Thomas sweeps
+    (the partitioned solve of day_march_tr.cu does more; transcendentals
+    count as one): per valid node and sub-step
     32 (two fused right-hand-side/forward sweeps and two back
     substitutions), per valid node and refresh 12 (K row, stage row, Thomas
     factor), per lane and sub-step 10 (face sums), per lane and refresh 50
@@ -639,22 +708,24 @@ def bound(bytes_moved, ops):
 
 def device_time(torch, fn):
     """Run ``fn`` once under torch.profiler: (the device's busy ms, {kernel:
-    its ms}) for the day_march and day_adjoint kernels.  One stream, so the
-    sum of the device events is the busy time."""
+    its ms}) for the day-march kernels (the TR-BDF2 and parity bodies) and
+    the day_adjoint kernel.  One stream, so the sum of the device events is
+    the busy time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    busy, kern = 0.0, {"day_march": 0.0, "day_adjoint": 0.0}
+    names = {"day_march": ("day_march_kernel", "day_march_tr_kernel"), "day_adjoint": ("day_adjoint_kernel",)}
+    busy, kern = 0.0, dict.fromkeys(names, 0.0)
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
         us = e.self_device_time_total
         busy += us
-        for name in kern:
-            if f"{name}_kernel" in e.key:
+        for name, keys in names.items():
+            if any(k in e.key for k in keys):
                 kern[name] += us
     return busy / 1e3, {k: v / 1e3 for k, v in kern.items()}
 
@@ -1014,7 +1085,8 @@ def event_ms(torch, fn, reps):
 def ptxas_table(log: str) -> str:
     """ptxas's lines of a build log, one entry per kernel instantiation:
     ``f32 ext=0 parity=1: 96 registers, 1200 B stack, spills 0/0 B`` (the
-    instantiations with the gas-cavity code are marked ``cavities``)."""
+    instantiations with the gas-cavity code are marked ``cavities``, the
+    TR-BDF2 ones ``G=<threads per surface>/<launch bound>/<blocks per SM>``)."""
     import re
 
     out, name = [], None
@@ -1022,14 +1094,18 @@ def ptxas_table(log: str) -> str:
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
             sym = m.group(1)
-            t = re.search(r"kernelI([fd])((?:Lb[01]E)+)", sym)
-            flags = re.findall(r"Lb([01])E", t.group(2)) if t else []
-            # day_march_kernel<T, kExt, kParity, kCav, kMrt>; the adjoints <T, kExt, kCav, kMrt>
-            if "day_march_kernel" in sym:
-                ext, parity, cav, mrt = (flags + ["?"] * 4)[:4]
-            else:
+            t = re.search(r"kernelI([fd])((?:Li\d+E)*)((?:Lb[01]E)+)", sym)
+            flags = re.findall(r"Lb([01])E", t.group(3)) if t else []
+            ints = re.findall(r"Li(\d+)E", t.group(2)) if t else []
+            group = ""
+            if "day_march_tr_kernel" in sym:  # <T, G, kThreads, kMinBlocks, kExt, kCav, kMrt>
+                (ext, cav, mrt), parity = (flags + ["?"] * 3)[:3], "0"
+                group = " G=" + "/".join(ints)
+            elif "day_march_kernel" in sym:  # the parity body <T, kExt, kCav, kMrt>
+                (ext, cav, mrt), parity = (flags + ["?"] * 3)[:3], "1"
+            else:  # the adjoints <T, kExt, kCav, kMrt>
                 (ext, cav, mrt), parity = (flags + ["?"] * 3)[:3], "1" if "parity_adjoint" in sym else "0"
-            name = (f"{'f32' if t and t.group(1) == 'f' else 'f64'} ext={ext} parity={parity}"
+            name = (f"{'f32' if t and t.group(1) == 'f' else 'f64'} ext={ext} parity={parity}{group}"
                     + (" cavities" if cav == "1" else "") + (" mrt" if mrt == "1" else ""))
             entry = {"name": name}
             out.append(entry)
@@ -2045,7 +2121,17 @@ def phase19_mrt_city(torch, ctx):
     plain_ms = (time.time() - t0) * 1e3
     got = hm0(r32.params, T, zT, hi)
     err32 = max(float((got[i] - ref[i]).abs().max()) for i in (0, 1, 3))
-    check(err32 <= MRT_F32_TOL, f"MRT city f32 day kernel vs plain: max |d| {err32} > {MRT_F32_TOL}")
+    # The TR-BDF2 kernel's partitioned solve rounds otherwise than the plain
+    # version's Thomas sweeps, so in f32 the two part by both their round-off
+    # (the f32 plain version is itself farther from f64 on the node columns
+    # of this day than the kernel; both printed): the day is held to f64.
+    r64 = tm64.fast_runner(**kw)
+    T64, zT64 = r64.to_blocked(tm64.initial_state())
+    hi64 = r64.kernel_inputs(testing.bench_inputs(tm64.building, 24, device="cuda"), interp_weather=True)[0]
+    ref64 = r64.hour_march.without_observables().plain(r64.params, T64, zT64, hi64)
+    err64 = max(float((got[i].double() - ref64[i]).abs().max()) for i in (0, 1, 3))
+    plain64 = max(float((ref[i].double() - ref64[i]).abs().max()) for i in (0, 1, 3))
+    check(err64 <= MRT_F32_TOL, f"MRT city f32 day kernel vs f64 plain: max |d| {err64} > {MRT_F32_TOL}")
     adj32 = day_adjoint.make_day_adjoint(r32._bb, device="cuda", substeps=8, mode="trbdf2_refresh", hours=24,
                                          refresh_every=2)
     NB, ZB = r32._bb.n_blocks, r32._bb.zones_per_block
@@ -2066,7 +2152,8 @@ def phase19_mrt_city(torch, ctx):
           f"the network moves the zones up to {moved:.3e} K against the air bath (phase 4); operative T range "
           f"[{float(op32.min()):.2f}, {float(op32.max()):.2f}] C; one bench-day launch {ms:.3f} ms, with the "
           f"operative history {ms_op:.3f} ms (CUDA events; air bath {ctx.kernel_ms:.3f} ms) vs f32 plain "
-          f"{plain_ms:.1f} ms, max |d| {err32:.3e} K; adjoint {adj_ms:.3f} ms (air bath {ctx.adj_ms:.3f} ms) vs "
+          f"{plain_ms:.1f} ms, max |d| {err32:.3e} K, against the f64 plain version {err64:.3e} K "
+          f"(<= {MRT_F32_TOL:g}; the f32 plain version {plain64:.3e} K); adjoint {adj_ms:.3f} ms (air bath {ctx.adj_ms:.3f} ms) vs "
           f"f32 plain {adj_plain_ms:.1f} ms, relative L2 worst {worst_of(gaps)} (<= {MRT_ADJ_F32_RL2:g}), "
           f"d mrt_eps_b {gaps['mrt_eps_b']:.2e}, max |d| {adj_abs:.3e}", flush=True)
 
@@ -2783,8 +2870,9 @@ def gate_kernel_entries(ctx, p22, p23):
     in the day march's extended instantiations)."""
     b = p22.bounds
     fwd = "heatx_torch/csrc/day_march.cu (gates at the top of the hour loop; HourIn in day_common.cuh)"
+    tr = "heatx_torch/csrc/day_march_tr.cu (gates at the top of the hour loop; device code in day_tr.cuh)"
     return [
-        {"name": "day_march_gated", "route": "cuda", "source": fwd,
+        {"name": "day_march_gated", "route": "cuda", "source": tr,
          "replaces": "heatx/ops/pallas_step.py:1976 (body _hour_body_imp, pallas_step.py:777; zone shading "
                      ":1576-1594, ventilation gates :1614-1635)",
          "launches": p22.year_launches,
@@ -2814,6 +2902,7 @@ def mrt_kernel_entries(p19, p20):
                 "bound_ms": b[2], "bound_by": b[3], "library_ms": None, **extra}
 
     fwd = "heatx_torch/csrc/day_march.cu (network: heatx_torch/csrc/day_common.cuh mrt_network)"
+    tr = "heatx_torch/csrc/day_march_tr_mrt.cu (network: heatx_torch/csrc/day_tr.cuh mrt_face_node)"
     adj = "heatx_torch/csrc/day_adjoint.cu (network: heatx_torch/csrc/day_common.cuh mrt_network_adj)"
     k1_tr = "heatx/ops/pallas_step.py:1976 (body _hour_body_imp, pallas_step.py:777; _mrt_context :555, :840-858)"
     k1_pa = "heatx/ops/pallas_step.py:1976 (body _hour_body, pallas_step.py:633; _mrt_context :555, :678-684)"
@@ -2822,7 +2911,7 @@ def mrt_kernel_entries(p19, p20):
     b19, b20 = p19.bounds, p20.bounds
     H = PARITY_WINDOW
     return [
-        entry("day_march_mrt", fwd, k1_tr, p19.year_launches,
+        entry("day_march_mrt", tr, k1_tr, p19.year_launches,
               {"MRT city annual run with the operative history (phase 19b)": p19.year_launches,
                "MRT city value_and_grad, 2 days (phase 19b)": p19.grad_counts[1]},
               p19.ms, p19.plain_ms, p19.err32, b19["march"], ms_with_operative=p19.ms_op),
@@ -2836,7 +2925,7 @@ def mrt_kernel_entries(p19, p20):
               {"MRT city parity value_and_grad, 2 days (phase 19c)": p19.pgrad_counts[3]},
               p19.pa_ms, p19.pa_plain_ms, p19.pa_abs, b19["parity_adjoint"], rel_l2_err=p19.pa_rel,
               plain_hours=H),
-        entry("day_march_cavity_mrt", fwd + " and cavity_u", k1_tr, p20.launches[2],
+        entry("day_march_cavity_mrt", tr + " and cavity_u", k1_tr, p20.launches[2],
               {"office IDF workflow with MRT, 8760 h (phase 20)": p20.launches[2]},
               p20.ms, p20.plain_ms, p20.err32, b20["march"]),
         entry("day_adjoint_cavity_mrt", adj + " and cavity_band_adj_tr", k2_tr, p20.adj_counts[2],
@@ -3185,6 +3274,12 @@ def main() -> int:
     err64 = phase3_f64_check(torch, day_march, testing, SimConfig, compile_building)
     print(f"phase 3 f64 4-zone 3 h kernel vs plain twin: max |d| {err64:.3e} K "
           f"(<= {F64_TOL:g}) in trbdf2_refresh k=2, k=8 and trbdf2", flush=True)
+    e3b, e3b32, shapes3b = phase3b_b1_edge(torch, day_march, testing, ThermalModel, SimConfig)
+    print("phase 3b B1's edge (" + "; ".join(f"one zone of {s} surfaces in one block of {b} lanes, a {n}-node "
+                                             f"wall, {g} threads per surface, {b * g} a block"
+                                             for s, b, n, g in shapes3b)
+          + f"), 3 h, free-float k=2 and a thermostat in trbdf2: f64 kernel vs plain twin max |d| {e3b:.3e} K "
+          f"(<= {F64_TOL:g}); f32 kernel vs f64 plain max |d| {e3b32:.3e} K (<= {F32_TOL:g})", flush=True)
 
     # 4. the main path at full width
     model = testing.build_city_model(1000, 10)
@@ -3243,16 +3338,23 @@ def main() -> int:
     err32 = max(float((got[i] - ref[i]).abs().max()) for i in (0, 1, 3))
     check(err32 <= F32_TOL, f"f32 day kernel vs plain twin: max |d| {err32} > {F32_TOL}")
 
+    # The threads per surface of the TR-BDF2 kernel, f32 and f64, on the
+    # bench day's launch (the default block: 32 lanes).
+    runner64k = tm64.fast_runner(**kw)
+    T64, zT64 = runner64k.to_blocked(tm64.initial_state())
+    hi64 = runner64k.kernel_inputs(testing.bench_inputs(tm64.building, 24, device="cuda"), interp_weather=True)[0]
     sweep = {}
-    for bs in BLOCK_SIZES:
-        r = tm32.fast_runner(block_size=bs, **kw)
-        Tb, zTb, hib = day_operands(r)
-        sweep[bs] = (r.layout.n_blocks, event_ms(torch, lambda: r.hour_march(r.params, Tb, zTb, hib), 10))
+    for g in day_march.GROUP_MAX_THREADS:
+        day_march.day_march_kernel.group = g
+        sweep[g] = (event_ms(torch, lambda: runner.hour_march(runner.params, T, zT, hi), 10),
+                    event_ms(torch, lambda: runner64k.hour_march(runner64k.params, T64, zT64, hi64), 10))
+    day_march.day_march_kernel.group = None
+    group = day_march.threads_per_surface(runner.layout.block_size)
     print(f"phase 5 timing on {smi}: 30 days kernel path {wall30:.3f} s "
           f"({wall30 / 30 * 1e3:.2f} ms/day, host clock); one day-kernel launch "
-          f"{kernel_ms:.3f} ms vs plain twin {plain_ms:.1f} ms (CUDA events, default {runner.layout.block_size} lanes/block); "
-          f"f32 kernel vs plain max |d| {err32:.3e} K; lanes/block -> (blocks, ms/day): "
-          + ", ".join(f"{bs}: ({nb}, {ms:.3f})" for bs, (nb, ms) in sweep.items()),
+          f"{kernel_ms:.3f} ms vs plain twin {plain_ms:.1f} ms (CUDA events, {runner.layout.block_size} lanes/block, "
+          f"{group} threads per surface); f32 kernel vs plain max |d| {err32:.3e} K; threads per surface -> "
+          "(f32, f64 ms/day): " + ", ".join(f"{g}: ({a:.3f}, {b:.3f})" for g, (a, b) in sweep.items()),
           flush=True)
 
     # 6. the adjoint kernel's build (it ran in parallel with phase 2's)
@@ -3616,7 +3718,7 @@ def main() -> int:
         {
             "name": "day_march",
             "route": "cuda",
-            "source": "heatx_torch/csrc/day_march.cu",
+            "source": "heatx_torch/csrc/day_march_tr.cu (device code: heatx_torch/csrc/day_tr.cuh)",
             "replaces": "heatx/ops/pallas_step.py:1976",
             "launches": launches_dfwd,
             "launches_by_path": {
@@ -3635,6 +3737,9 @@ def main() -> int:
             "library_ms": None,
             "thermostat": {"ms": tstat_ms, "plain_ms": tstat_plain_ms, "max_abs_err": tstat_err,
                            "max_abs_err_load_w": tstat_ld_err, "bound_ms": tf_bound, "bound_by": tf_by},
+            "threads_per_surface": group,
+            "ms_by_threads_per_surface": {str(g): v[0] for g, v in sweep.items()},
+            "ms_f64_by_threads_per_surface": {str(g): v[1] for g, v in sweep.items()},
         },
         {
             "name": "day_adjoint",
@@ -3693,7 +3798,7 @@ def main() -> int:
         {
             "name": "day_march_cavity",
             "route": "cuda",
-            "source": "heatx_torch/csrc/day_march.cu (cavity U: heatx_torch/csrc/day_common.cuh cavity_u)",
+            "source": "heatx_torch/csrc/day_march_tr.cu (cavity U: heatx_torch/csrc/day_common.cuh cavity_u)",
             "replaces": "heatx/ops/pallas_step.py:1976 (body _hour_body_imp, pallas_step.py:777, with gas "
                         "cavities, :1497-1529)",
             "launches": p17.launches,

@@ -657,6 +657,9 @@ struct Setpoints {
     max_heat = a.ctl[2 * NZ + gz];
     max_cool = a.ctl[3 * NZ + gz];
   }
+  // From values staged elsewhere (the TR-BDF2 kernel's shared rows).
+  __device__ Setpoints(T heat_, T cool_, T max_heat_, T max_cool_)
+      : heat(heat_), cool(cool_), max_heat(max_heat_), max_cool(max_cool_) {}
 };
 
 // The power that lands the exact exponential update on t_set:

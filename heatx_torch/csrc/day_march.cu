@@ -1,33 +1,32 @@
-// The day march for NVIDIA Hopper (sm_90a), bound through a plain C
-// interface (ctypes; see heatx_torch/ops/day_march.py).
+// The day march's parity body for NVIDIA Hopper (sm_90a), bound through a
+// plain C interface (ctypes; see heatx_torch/ops/day_march.py), and the C
+// entry of every day-march launch.
 //
 // Replaces heatx/ops/pallas_step.py::make_hour_march -> `kernel` (the
-// pl.pallas_call at pallas_step.py:1976) in modes trbdf2 / trbdf2_refresh,
-// body `_hour_body_imp`, and in mode parity, body `_hour_body` (kParity; the
-// sub-step itself is in day_parity.cuh), with gas cavities or without,
-// free-float, or with thermostats (`_zone_update_ctl`, the per-hour mean load
-// history), per-hour setpoint schedules, inter-zone mixing, and the in-run
-// passive controls (zone shading and ventilation gates, pallas_step.py
-// :1576-1594 and :1614-1635).
-// One launch marches `hours` hours of `substeps` sub-steps per sub-step
-// operator group of `refresh_every` (frozen mode: refresh_every == substeps).
+// pl.pallas_call at pallas_step.py:1976) in mode parity, body `_hour_body`
+// (the sub-step itself is in day_parity.cuh), with gas cavities or without, free-float, or with thermostats (`_zone_update_ctl`, the per-hour
+// mean load history), per-hour setpoint schedules, inter-zone mixing, and the
+// in-run passive controls (zone shading and ventilation gates, pallas_step.py
+// :1576-1594 and :1614-1635).  Modes trbdf2 / trbdf2_refresh (body
+// `_hour_body_imp`) run in a kernel of their own with several threads per
+// surface (day_march_tr.cu, day_tr.cuh); the C entry below hands them over.
+// One launch marches `hours` hours of `substeps` sub-steps, each with its own
+// operators.
 //
 // What bounds it: per-thread serial FLOPs and latency, not bytes.  The state
 // at bench scale (10,752 lanes x 25 nodes) is about 1 MB in f32, and each
-// sub-step is a chain of dependent Thomas sweeps down each surface's node
-// column, so the time is the length of that chain times the latency of its
-// steps.
+// sub-step is a chain of dependent sweeps down each surface's node column
+// (the relaxed no-mass solve, four RK4 stages), so the time is the length of
+// that chain times the latency of its steps.
 //
 // Design:
 //  * One CTA per zone-closed block, one thread per surface lane (blockDim ==
 //    lanes per block, at most 256).  Blocks are independent: zones never
 //    cross blocks, so nothing is shared across the grid.
-//  * Each thread keeps its surface's node column (N <= 32) in per-thread
-//    arrays: the state, the stage-1 result and the pre-factored stage
-//    matrix (modified upper coefficients and pivot reciprocals).  The
-//    static node data (U, capacity, solar absorption fractions) is re-read
-//    from global memory, coalesced across the lanes.  Local-memory spills
-//    are accepted in this first version.
+//  * Each thread keeps its surface's node column (N <= 32) in a per-thread
+//    array; the static node data is re-read from global memory, coalesced
+//    across the lanes.  Local-memory spills are accepted in this first
+//    version.
 //  * Zone coupling in shared memory: boundary temperatures are indexed reads
 //    of the block's zone row s_zT[ZB] through a block-local zone index per
 //    face (-1: the face bounds no zone).  The zone A/B sums are one thread
@@ -48,39 +47,24 @@
 //    solar/IR per lane and the zone gains come from device memory.  Outputs:
 //    final T and zT, the last h/q, the per-hour zone history and the
 //    per-hour non-finite count.
-//  * The device functions (lane statics, operator build, one sub-step, zone
-//    sums and update) live in day_common.cuh, shared with the adjoint kernel
-//    (day_adjoint.cu), whose recompute is therefore this kernel's arithmetic.
 //  * Gas cavities: a cavity lane's K reads its segment U-values from a
 //    per-launch copy of the U row (cav_u, written by the wrapper) whose
-//    cavity segments an out-of-line device function rewrites at every
-//    operator build.  That code is compiled only into two more
-//    instantiations (kCav, with kExt, TR-BDF2 and parity), which every
-//    building with a cavity takes: without kCav the lane's cavity word is
-//    the constant 0, the cavity branches fold away, and the other
-//    instantiations keep their code and their ptxas lines (a call to the
-//    out-of-line function alone raised the TR-BDF2 kernel from 77 to 112
-//    registers).
-//  * The parity march is two more instantiations (kParity x kExt): the same
-//    hour loop, zone phases and outputs around parity_substep, with the
-//    operators rebuilt every sub-step (refresh_every == 1), so the four
-//    TR-BDF2 instantiations keep their code.
-//  * Interior MRT (heatx _mrt_context) and the two per-hour histories are
-//    four more instantiations (kMrt, with kExt; TR-BDF2 and parity, with and
-//    without kCav), which every launch with MRT physics, the h/q history or
-//    the operative history takes.  The Carroll network's static part rides as
+//    cavity segments an out-of-line device function rewrites (kCav, with
+//    kExt); without kCav the lane's cavity word is the constant 0 and the
+//    cavity branches fold away.
+//  * Interior MRT (heatx _mrt_context) and the two per-hour histories are two
+//    more instantiations (kMrt, with kExt, with and without kCav) in their own
+//    unit, which every launch with MRT physics, the h/q history or the
+//    operative history takes.  The Carroll network's static part rides as
 //    operands (day_march.mrt_eps_blocked); its 4-iteration fixed point runs
-//    where the operators are built (TR-BDF2: each refresh group's start
-//    column; parity: each sub-step's start), block-local because blocks are
-//    zone-closed: per iteration each lane writes its network faces'
-//    conductances to the zone-sum rows, one thread per zone sums its network
-//    faces (mrt_ptr/mrt_faces, fixed order) into a shared row of zone nodes,
-//    each lane gathers them; eight barriers per evaluation.  The operative
-//    history is one more evaluation at each hour's end, from the zone air, on
-//    the hour's final state (a runtime flag: it needs no MRT physics); the h/q
-//    history is the hour's last h/q.  What bounds it is unchanged: the MRT
-//    phase adds ~12 operations per network face and iteration and its
-//    barriers to each operator build.
+//    at each sub-step's start, block-local because blocks are zone-closed:
+//    per iteration each lane writes its network faces' conductances to the
+//    zone-sum rows, one thread per zone sums its network faces
+//    (mrt_ptr/mrt_faces, fixed order) into a shared row of zone nodes, each
+//    lane gathers them; eight barriers per evaluation.  The operative history
+//    is one more evaluation at each hour's end, from the zone air, on the
+//    hour's final state (a runtime flag: it needs no MRT physics); the h/q
+//    history is the hour's last h/q.
 //  * In-run zone shading and ventilation gates are code of the kExt
 //    instantiations (a gated building takes one, and so does every kCav and
 //    kMrt kind), at the top of the hour loop: one kernel "hour" is one main
@@ -92,12 +76,12 @@
 //    order).  Gates: each zone's owner thread writes a_extra (+ a_vent) and
 //    b_extra (+ b_vent) into two shared rows once per hour, and the same
 //    thread reads them in every sub-step's zone sums, so no barrier is
-//    added; the decision is held even as s_zT moves.  O(lanes + zones) per
-//    hour against O(sub-steps x nodes).
+//    added; the decision is held even as s_zT moves.
 
 #include <type_traits>
 
 #include "day_common.cuh"
+#include "day_march_args.cuh"
 #include "day_parity.cuh"
 
 // The kMrt instantiations live in their own compilation unit
@@ -105,36 +89,17 @@
 // device functions among the kernels of one unit, and the kMrt kernels beside
 // the others changed those others' registers and stack.  The units meet here,
 // at a launch function of the kMrt unit that takes its MrtMarchArgs by address.
-extern "C" int heatx_day_march_mrt_f32(const void* m, void* stream, int parity);
-extern "C" int heatx_day_march_mrt_f64(const void* m, void* stream, int parity);
+extern "C" int heatx_day_march_mrt_f32(const void* m, void* stream);
+extern "C" int heatx_day_march_mrt_f64(const void* m, void* stream);
+// The TR-BDF2 kinds' unit (day_march_tr.cu), with `group` threads per surface.
+extern "C" int heatx_day_march_tr_f32(const void* m, void* stream, int group);
+extern "C" int heatx_day_march_tr_f64(const void* m, void* stream, int group);
 
 namespace {
 
 using namespace heatx;
 
-template <typename T>
-struct MarchArgs {
-  DayArgs<T> in;
-  T* T_out;    // [N, SP]
-  T* zT_out;   // [NB, ZB]
-  T* hq;       // [4, SP]: h_front, h_back, q_front, q_back
-  T* zt_hist;  // [hours, NB, ZB]
-  T* bad;      // [hours, NB]
-  T* ld_hist;  // [hours, NB, ZB] mean ideal load per hour (thermostats), or null
-};
-
-// The kMrt instantiations' arguments: the network's operands and the two
-// histories beside the others' (whose layout stays as it was).
-template <typename T>
-struct MrtMarchArgs : MarchArgs<T> {
-  MrtArgs<T> net;
-  T* hq_hist;  // [hours, 4, SP] each hour's last h/q, or null
-  T* top;      // [hours, NB, ZB] each hour's closing operative temperature, or null
-};
-template <typename T, bool kMrt>
-using MarchArgsOf = std::conditional_t<kMrt, MrtMarchArgs<T>, MarchArgs<T>>;
-
-template <typename T, bool kExt, bool kParity, bool kCav, bool kMrt>
+template <typename T, bool kExt, bool kCav, bool kMrt>
 __global__ void __launch_bounds__(kMaxLanes) day_march_kernel(const MarchArgsOf<T, kMrt> m) {
   const DayArgs<T>& a = m.in;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -158,7 +123,7 @@ __global__ void __launch_bounds__(kMaxLanes) day_march_kernel(const MarchArgsOf<
   if constexpr (kMrt) M = MrtLane<T>(a, m.net, lane);
   const Scheme<T> sc(a);
 
-  T Tn[kMaxNodes], T1[kMaxNodes], cs[kMaxNodes], inv[kMaxNodes];
+  T Tn[kMaxNodes];
   for (int i = 0; i < N; ++i) Tn[i] = a.T0[i * SP + lane];
   for (int z = tid; z < ZB; z += SB) {
     s_zT[z] = a.zT0[b * ZB + z];
@@ -193,37 +158,19 @@ __global__ void __launch_bounds__(kMaxLanes) day_march_kernel(const MarchArgsOf<
     for (int i0 = 0; i0 < a.substeps; i0 += a.refresh_every) {
       const int w = h * a.substeps + i0;
       T t_front, t_back;
-      if (!kParity) {
-        L.boundary(s_zT, a.t_out[w], t_front, t_back);
-        if constexpr (kMrt) {
-          // The network frozen with the operators, from the group's start
-          // (without MRT physics an empty context: the faces' own radiation).
+      for (int i = i0; i < i0 + a.refresh_every; ++i) {
+        L.boundary(s_zT, a.t_out[h * a.substeps + i], t_front, t_back);
+        // refresh_every is 1: the operators are the sub-step's own
+        ParityWork<T> W;
+        if constexpr (kMrt) {  // the network of the sub-step's start state
           MrtFace<T> mf{};
           if (m.net.phys)
             mf = mrt_context(a, m.net, L, M, b, tid, Tn, t_front, t_back, s_zT, s_ha, s_haT, s_tm);
-          o = build_ops<T, true>(L, Tn, t_front, t_back, a.wind[w], a.wdir[w], hi, a.amb_bug, sc.a_dt,
-                                 cs, inv, &mf);
+          o = parity_substep<T, true>(Chunks<T>(a, L, lane), ParityCfg<T>(a), hi, t_front, t_back,
+                                      a.wind[w], a.wdir[w], a.amb_bug, Tn, W, &mf);
         } else {
-          o = build_ops(L, Tn, t_front, t_back, a.wind[w], a.wdir[w], hi, a.amb_bug, sc.a_dt, cs, inv);
-        }
-      }
-
-      for (int i = i0; i < i0 + a.refresh_every; ++i) {
-        L.boundary(s_zT, a.t_out[h * a.substeps + i], t_front, t_back);
-        if (kParity) {  // refresh_every is 1: the operators are the sub-step's own
-          ParityWork<T> W;
-          if constexpr (kMrt) {  // the network of the sub-step's start state
-            MrtFace<T> mf{};
-            if (m.net.phys)
-              mf = mrt_context(a, m.net, L, M, b, tid, Tn, t_front, t_back, s_zT, s_ha, s_haT, s_tm);
-            o = parity_substep<T, true>(Chunks<T>(a, L, lane), ParityCfg<T>(a), hi, t_front, t_back,
-                                        a.wind[w], a.wdir[w], a.amb_bug, Tn, W, &mf);
-          } else {
-            o = parity_substep(Chunks<T>(a, L, lane), ParityCfg<T>(a), hi, t_front, t_back,
-                               a.wind[w], a.wdir[w], a.amb_bug, Tn, W);
-          }
-        } else {
-          march_substep(L, o, cs, inv, hi, t_front, t_back, sc, Tn, T1);
+          o = parity_substep(Chunks<T>(a, L, lane), ParityCfg<T>(a), hi, t_front, t_back,
+                             a.wind[w], a.wdir[w], a.amb_bug, Tn, W);
         }
         const T ts_front = Tn[0];
         const T ts_back = L.last_node(Tn);
@@ -331,19 +278,17 @@ int check_args(const MarchArgs<T>& m) {
   return static_cast<int>(cudaSuccess);
 }
 
-template <typename T, bool kExt, bool kParity, bool kCav = false, bool kMrt = false>
+template <typename T, bool kExt, bool kCav = false, bool kMrt = false>
 int launch_as(const MarchArgsOf<T, kMrt>& m, cudaStream_t stream) {
   const DayArgs<T>& a = m.in;
-  const size_t smem = sizeof(T) * (static_cast<size_t>(a.ZB) * ((kMrt ? 4 : (kExt ? 3 : 1)) +
-                                                                 (kExt && a.vent_min ? 2 : 0)) +
-                                   4 * static_cast<size_t>(a.SB));
+  const size_t smem = march_smem<T, kExt, kMrt>(a);
   if (smem > 48 * 1024) {
     const cudaError_t e =
-        cudaFuncSetAttribute(day_march_kernel<T, kExt, kParity, kCav, kMrt>,
+        cudaFuncSetAttribute(day_march_kernel<T, kExt, kCav, kMrt>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  day_march_kernel<T, kExt, kParity, kCav, kMrt><<<a.NB, a.SB, smem, stream>>>(m);
+  day_march_kernel<T, kExt, kCav, kMrt><<<a.NB, a.SB, smem, stream>>>(m);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -361,7 +306,7 @@ int day_march(const void* node, const void* surf, const void* lane, const void* 
               const void* a_vent, const void* b_vent, const void* vent_thr, int N,
               int NB, int SB, int ZB, int hours, int substeps, int refresh_every, int amb_bug,
               int parity, int nomass_iters, int esc_after, int nomass_max_iter, int mrt_phys,
-              double dt, double half_dt, double gamma_dt, double beta_dt, double c1, double c2,
+              int group, double dt, double half_dt, double gamma_dt, double beta_dt, double c1, double c2,
               double nomass_tol, double nomass_tol_esc, void* stream) {
   MrtMarchArgs<T> m;  // the kMrt instantiations take it whole, the others its MarchArgs
   DayArgs<T>& a = m.in;
@@ -443,6 +388,11 @@ int day_march(const void* node, const void* surf, const void* lane, const void* 
   // list may come as a null pointer: it is never read).
   if ((mrt_phys || m.top || m.hq_hist) && !(m.net.mrt && m.net.mrt_ptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  // The TR-BDF2 modes run in their own kernel, `group` threads per surface
+  // (day_march_tr.cu), which keeps a cavity lane's U in registers.
+  if (!parity)
+    return std::is_same_v<T, float> ? heatx_day_march_tr_f32(&m, stream, group)
+                                    : heatx_day_march_tr_f64(&m, stream, group);
   if ((a.cav != nullptr) != (a.cav_u != nullptr)) return static_cast<int>(cudaErrorInvalidValue);
   // Free-float buildings run the instantiation without the extra zone code
   // (thermostats, mixing, in-run shading and gates); buildings with gas
@@ -453,38 +403,28 @@ int day_march(const void* node, const void* surf, const void* lane, const void* 
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool ext = a.ctl || a.mix_ptr || a.shade_slot || a.vent_min;
   if (m.net.mrt)
-    return std::is_same_v<T, float> ? heatx_day_march_mrt_f32(&m, stream, parity)
-                                    : heatx_day_march_mrt_f64(&m, stream, parity);
+    return std::is_same_v<T, float> ? heatx_day_march_mrt_f32(&m, stream)
+                                    : heatx_day_march_mrt_f64(&m, stream);
   const MarchArgs<T>& b = m;
-  if (a.cav)
-    return parity ? launch_as<T, true, true, true>(b, st) : launch_as<T, true, false, true>(b, st);
-  if (parity) return ext ? launch_as<T, true, true>(b, st) : launch_as<T, false, true>(b, st);
-  return ext ? launch_as<T, true, false>(b, st) : launch_as<T, false, false>(b, st);
+  if (a.cav) return launch_as<T, true, true>(b, st);
+  return ext ? launch_as<T, true>(b, st) : launch_as<T, false>(b, st);
 }
 #else
-// The kMrt unit: MRT physics and the histories, with the cavity code where
-// the building has gas cavities (kMrt implies kExt).
+// The kMrt unit: MRT physics and the histories in the parity body, with the
+// cavity code where the building has gas cavities (kMrt implies kExt).
 template <typename T>
-int day_march_mrt(const void* args, void* stream, int parity) {
+int day_march_mrt(const void* args, void* stream) {
   const MrtMarchArgs<T>& m = *static_cast<const MrtMarchArgs<T>*>(args);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (m.in.cav)
-    return parity ? launch_as<T, true, true, true, true>(m, st)
-                  : launch_as<T, true, false, true, true>(m, st);
-  return parity ? launch_as<T, true, true, false, true>(m, st)
-                : launch_as<T, true, false, false, true>(m, st);
+  return m.in.cav ? launch_as<T, true, true, true>(m, st) : launch_as<T, true, false, true>(m, st);
 }
 #endif
 
 }  // namespace
 
 #ifdef HEATX_DAY_MARCH_KMRT_UNIT
-int heatx_day_march_mrt_f32(const void* m, void* stream, int parity) {
-  return day_march_mrt<float>(m, stream, parity);
-}
-int heatx_day_march_mrt_f64(const void* m, void* stream, int parity) {
-  return day_march_mrt<double>(m, stream, parity);
-}
+int heatx_day_march_mrt_f32(const void* m, void* stream) { return day_march_mrt<float>(m, stream); }
+int heatx_day_march_mrt_f64(const void* m, void* stream) { return day_march_mrt<double>(m, stream); }
 #else
 
 #define HEATX_DAY_MARCH_ARGS                                                               \
@@ -500,7 +440,7 @@ int heatx_day_march_mrt_f64(const void* m, void* stream, int parity) {
       const void *a_vent, const void *b_vent, const void *vent_thr, int N,                 \
       int NB, int SB, int ZB, int hours, int substeps, int refresh_every, int amb_bug,     \
       int parity, int nomass_iters, int esc_after, int nomass_max_iter, int mrt_phys,      \
-      double dt, double half_dt, double gamma_dt, double beta_dt, double c1, double c2,   \
+      int group, double dt, double half_dt, double gamma_dt, double beta_dt, double c1, double c2,   \
       double nomass_tol, double nomass_tol_esc, void *stream
 #define HEATX_DAY_MARCH_CALL                                                               \
   node, surf, lane, zone_volume, zone_ptr, zone_faces, t_out, wind, wdir, sol_f, sol_b,    \
@@ -508,7 +448,7 @@ int heatx_day_march_mrt_f64(const void* m, void* stream, int parity) {
       ctl, sp_heat, sp_cool, mix_ptr, mix_src, mix_vol, cav_u, cav, mrt, mrt_ptr, mrt_faces, \
       hq_hist, top, shade_slot, shade, shade_sp, vent, a_vent, b_vent, vent_thr, N, NB, SB, ZB, hours, \
       substeps, refresh_every, amb_bug, parity, nomass_iters, esc_after, nomass_max_iter,  \
-      mrt_phys, dt, half_dt, gamma_dt, beta_dt, c1, c2, nomass_tol, nomass_tol_esc, stream
+      mrt_phys, group, dt, half_dt, gamma_dt, beta_dt, c1, c2, nomass_tol, nomass_tol_esc, stream
 
 extern "C" {
 

@@ -20,15 +20,17 @@ falls back to the compiled rows ``params.ctl``).
 
 Dispatch is by device, with no fallback: on CPU tensors the call runs the
 plain PyTorch twin (:func:`plain_day_march`); on CUDA tensors it launches the
-hand-written kernel in ``heatx_torch/csrc/day_march.cu`` or raises.
+hand-written kernels or raises: the TR-BDF2 modes in
+``heatx_torch/csrc/day_march_tr.cu``, parity in ``day_march.cu``.
 
 Design, and what of heatx's kernel is deliberately not carried over:
 
-* One CUDA thread block per zone-closed block, one thread per surface lane
-  (at most 256 lanes per block).  Blocks are laid out with
-  ``node_split=None``: a thread marches its surface's whole node column, so
-  the node-height split that saves padded rows on the TPU's vector lanes has
-  nothing to save here.
+* One CUDA thread block per zone-closed block (at most 256 lanes per
+  block), laid out with ``node_split=None``: the TPU's node-height split
+  that saves padded rows on its vector lanes has nothing to save here.  The
+  TR-BDF2 kernel runs G threads per surface lane (:func:`threads_per_surface`
+  picks G from the block's lanes), each owning 32/G consecutive node rows in
+  registers; the parity kernel one thread per lane with the whole column.
 * Zone coupling goes through shared memory: boundary air temperatures are
   indexed reads of the block's zone row (``front_zone``/``back_zone``, -1 for
   a face that bounds no zone), and the zone A/B sums are a fixed-order sum
@@ -48,9 +50,12 @@ Design, and what of heatx's kernel is deliberately not carried over:
   zone rows, the 8-row zone padding (``zone_spec``/``_pad_zone_rows``) and
   the HR8 hour padding, full-block broadcast writes, ``vmem_limit_mb`` /
   ``HEATX_KERNEL_VMEM_MB``.
-* Solver selection is gone: the stage matrix is factored once per operator
-  refresh with the Thomas sweeps (heatx's ``factor``/``solve_factored``),
-  which is the natural per-thread solver; ``HEATX_KERNEL_SOLVER``,
+* Solver selection is gone: the TR-BDF2 kernel factors the stage matrix
+  once per operator refresh with a partitioned solve (each thread's rows
+  eliminated locally, the group's reduced system by parallel cyclic
+  reduction over warp shuffles; ``tridiag.partition_factor``/
+  ``partition_solve`` state it plainly), and the plain twin keeps heatx's
+  Thomas sweeps (``factor``/``solve_factored``); ``HEATX_KERNEL_SOLVER``,
   ``HEATX_KERNEL_LOOP`` and the scratch-ref ``_make_ref_thomas`` are not
   ported.  The PCR twins stay in ``heatx_torch.ops.tridiag``.
 * bench.py's dispatch chunking against a remote watchdog has no counterpart
@@ -96,9 +101,11 @@ segments at every operator build (TR-BDF2: from the refresh group's start
 column; parity: on each no-mass iteration and on the post-no-mass column, as
 heatx's ``march_surfaces``) in an out-of-line device function, compiled
 into instantiations of their own (``kCav``) that every building with a
-cavity takes, so the others run the code they ran before.  A cavity lane's
-K reads its segment U-values from a per-launch copy of the U row
-(``cavity_u_row``) that the kernel rewrites, and ``params.cav`` in place;
+cavity takes, so the others run the code they ran before.  In the TR-BDF2
+kernel a cavity segment's U lives in a register of the thread that owns its
+first row; in the parity kernel and the adjoints a cavity lane's K reads its
+segment U-values from a per-launch copy of the U row (``cavity_u_row``)
+that the kernel rewrites, and ``params.cav`` in place;
 heatx's hoisted static-U forms and their ``has_cavity`` guards are not
 carried over.
 
@@ -112,7 +119,9 @@ the zone MRT nodes runs in the march, frozen with the operators in TR-BDF2
 start in parity mode, as heatx does.  Blocks are zone-closed, so the
 network is block-local: the kernel sums each zone's participating faces in
 the fixed order of a host-built list (``mrt_ptr``/``mrt_faces``) in shared
-memory, with barriers between the iterations.  ``collect_hq`` (the per-hour
+memory, with barriers between the iterations (in the TR-BDF2 kernel each
+lane's front face on its group's first thread, its back face on the
+others).  ``collect_hq`` (the per-hour
 h/q history) and ``collect_operative`` (the per-hour operative temperature,
 the zone-air-started solve on each hour's final state) are outputs of the
 same instantiations (``kMrt``), which every launch with MRT physics or
@@ -169,6 +178,12 @@ MAX_NODES = 32
 MAX_BLOCK_LANES = 256
 #: Lane granularity of a block: one warp.
 WARP = 32
+#: Threads per surface lane of the TR-BDF2 kernel (csrc/day_march_tr.cu):
+#: each instantiated group size with the most threads per block its launch
+#: bounds take (groups of 4 up to 1024: blocks of up to MAX_BLOCK_LANES), and
+#: the default, the fastest at bench width (PERF.md).
+GROUP_MAX_THREADS = {4: 1024, 8: 256, 16: 512}
+DEFAULT_GROUP = 4
 
 # Row order of DayMarchParams.node / .surf / .lane — the CUDA kernel indexes
 # these rows by the same order (enum ND_*, SF_*, LN_* in csrc/day_march.cu).
@@ -196,9 +211,11 @@ CAV_FIELDS = (
     "angle", "ein", "eout",
 )
 
-#: The day march's compilation units: the kernel with its instantiations, and
-#: its MRT instantiations apart (csrc/day_march_mrt.cu says why).
-KERNEL_SOURCES = (cuda_lib.CSRC_DIR / "day_march.cu", cuda_lib.CSRC_DIR / "day_march_mrt.cu")
+#: The day march's compilation units: the parity body with the C entry, the
+#: TR-BDF2 body (several threads per surface), and each one's MRT kinds apart
+#: (csrc/day_march_mrt.cu says why).
+KERNEL_SOURCES = tuple(cuda_lib.CSRC_DIR / f for f in (
+    "day_march.cu", "day_march_mrt.cu", "day_march_tr.cu", "day_march_tr_mrt.cu"))
 
 #: Values of the blocked parameter rows on padded lanes (0.0 for the rest).
 #: Area 1 keeps perimeter*v/area finite on a padded lane, and its
@@ -1238,12 +1255,26 @@ def plain_day_march(
 # ---------------------------------------------------------------------------
 
 
+def threads_per_surface(block_lanes: int, group: int = None) -> int:
+    """The TR-BDF2 kernel's threads per surface for blocks of ``block_lanes``
+    lanes: ``group`` (default :data:`DEFAULT_GROUP`) where the block's
+    ``block_lanes * group`` threads fit its launch bounds
+    (:data:`GROUP_MAX_THREADS`), else 4, which takes every block of up to
+    :data:`MAX_BLOCK_LANES` lanes."""
+    group = DEFAULT_GROUP if group is None else group
+    if group not in GROUP_MAX_THREADS:
+        raise ValueError(f"{group} threads per surface: the kernel has {tuple(GROUP_MAX_THREADS)}")
+    if block_lanes > MAX_BLOCK_LANES:
+        raise ValueError(f"block of {block_lanes} lanes > {MAX_BLOCK_LANES}")
+    return group if block_lanes * group <= GROUP_MAX_THREADS[group] else 4
+
+
 def _load_library():
     lib = cuda_lib.load("heatx_day_march", KERNEL_SOURCES)
     if not getattr(lib, "_heatx_bound", False):
         vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
         for fn in (lib.heatx_day_march_f32, lib.heatx_day_march_f64):
-            fn.argtypes = [vp] * 43 + [ci] * 13 + [cd] * 8 + [vp]
+            fn.argtypes = [vp] * 43 + [ci] * 14 + [cd] * 8 + [vp]
             fn.restype = ci
         lib.heatx_cuda_error_string.argtypes = [ci]
         lib.heatx_cuda_error_string.restype = ctypes.c_char_p
@@ -1257,9 +1288,11 @@ def load_kernel() -> None:
 
 
 class DayMarchKernel:
-    """Launches ``day_march.cu`` on CUDA tensors.  ``launches`` counts the
-    launches made through this wrapper (and nothing else).  Arguments and
-    returns as :func:`plain_day_march`.  Thermostat rows (``params.ctl``),
+    """Launches the day march on CUDA tensors: the TR-BDF2 modes in
+    ``day_march_tr.cu`` with :func:`threads_per_surface` threads per surface
+    (``group`` overrides the default), parity in ``day_march.cu``.
+    ``launches`` counts the launches made through this wrapper (and nothing
+    else).  Arguments and returns as :func:`plain_day_march`.  Thermostat rows (``params.ctl``),
     per-hour setpoints and mixing lists select the kernel's second
     instantiation, gas cavities (``params.cav``) a third that also carries
     the cavity code; without them the free-float one runs.  ``parity`` selects
@@ -1272,6 +1305,7 @@ class DayMarchKernel:
     extended instantiations (:func:`gate_hour` has their meaning)."""
 
     def __init__(self):
+        self.group = None  # threads per surface of TR-BDF2 launches (None: the default)
         self.launches = 0
         self.parity_launches = 0  # those of ``launches`` that ran the parity kernel
         self.cavity_launches = 0  # those of ``launches`` on a building with gas cavities
@@ -1312,7 +1346,8 @@ class DayMarchKernel:
         top = torch.empty((hours, NB, ZB), **kw) if collect_operative else None
         mrt = mrt_operands(params, config, collect_hq, collect_operative)
         mix = params.mix
-        cav_u = cavity_u_row(params)
+        cav_u = cavity_u_row(params) if parity else None
+        group = 0 if parity else threads_per_surface(SB, self.group)
         ptrs = [None if t is None else t.data_ptr() for t in (
             params.node, params.surf, params.lane, params.zone_volume,
             params.zone_ptr, params.zone_faces, t_out, wind, wdir, sol_front,
@@ -1328,7 +1363,7 @@ class DayMarchKernel:
             err = fn(
                 *ptrs, N, NB, SB, ZB, hours, substeps, refresh_every,
                 int(config.replicate_ambient_back_bug), *parity_ints(config, parity),
-                int(config.interior_mrt), dt, imp_mod.GAMMA * dt / 2.0, imp_mod.GAMMA * dt,
+                int(config.interior_mrt), group, dt, imp_mod.GAMMA * dt / 2.0, imp_mod.GAMMA * dt,
                 imp_mod.BETA * dt, imp_mod.C1, imp_mod.C2,
                 config.nomass_tol, config.nomass_tol_escalated, stream,
             )
@@ -1393,11 +1428,12 @@ def mrt_operands(params: DayMarchParams, config: SimConfig, collect_hq=False, co
 
 
 def cavity_u_row(params: DayMarchParams):
-    """The kernels' segment U-values on a building with gas cavities
-    ``[N, SP]``, or None without: a fresh copy of ``params.node``'s U row
-    per launch, whose cavity segments the kernel rewrites at every operator
-    build (a cavity lane's K reads them there; the cavity operands stay in
-    ``params.cav``, read only)."""
+    """The parity kernel's and the adjoint kernels' segment U-values on a
+    building with gas cavities ``[N, SP]``, or None without: a fresh copy of
+    ``params.node``'s U row per launch, whose cavity segments the kernel
+    rewrites at every operator build (a cavity lane's K reads them there; the
+    cavity operands stay in ``params.cav``, read only).  The TR-BDF2 kernel
+    keeps them in registers."""
     if params.cav is None:
         return None
     return params.node[0].clone()

@@ -152,3 +152,83 @@ def pcr_apply(levels, inv_b, rhs):
         r = r + alpha * _shift_up(r, d, 0.0) + gamma * _shift_dn(r, d, 0.0)
         d *= 2
     return r * inv_b
+
+
+def partition_factor(lower, diag, upper, groups: int):
+    """Pre-factor a tridiagonal system for the partitioned solve of the
+    TR-BDF2 day-march kernel (``csrc/day_tr.cuh``), written out with the
+    kernel's ``groups`` threads per system as a batch axis; the kernel's
+    plain statement, used by the tests.
+
+    The rows (padded with identity rows to ``groups * M``) are cut into
+    ``groups`` chunks of ``M`` consecutive rows, one per thread.  Each chunk
+    eliminates its own rows (a forward and a backward sweep) until every
+    interior row reads ``x_i + A_i x_first + C_i x_last = D_i``; its first
+    and last rows then couple only to the neighbouring chunks' last and first
+    rows, a tridiagonal reduced system of ``2 * groups`` rows (``groups``
+    when ``M == 1``) in the order first_0, last_0, first_1, ...  that
+    parallel cyclic reduction solves (:func:`pcr_factor`).  Identity rows
+    stay identity rows.  Returns the factors; use with
+    :func:`partition_solve`."""
+    n = diag.shape[0]
+    m = -(-n // groups)
+    pad = groups * m - n
+    if pad:
+        def ext(x, fill):
+            return torch.cat([x, torch.full_like(x[:1], fill).expand((pad,) + tuple(x.shape[1:]))])
+        lower, diag, upper = ext(lower, 0.0), ext(diag, 1.0), ext(upper, 0.0)
+    a, b, c = (x.reshape((groups, m) + tuple(x.shape[1:])) for x in (lower, diag, upper))
+    f, A, C = [], [], []
+    for j in range(m):
+        if j < 2:  # rows 0 and 1 are only normalized: row 1 couples to x_first
+            f.append(1.0 / b[:, j])
+            A.append(a[:, j] * f[j])
+        else:
+            f.append(1.0 / (b[:, j] - a[:, j] * C[j - 1]))
+            A.append(-a[:, j] * A[j - 1] * f[j])
+        C.append(c[:, j] * f[j])
+    cf = list(C)  # the forward sweep's upper coefficients
+    for j in range(m - 3, 0, -1):
+        A[j] = A[j] - cf[j] * A[j + 1]
+        C[j] = -cf[j] * C[j + 1]
+    einv = None
+    if m >= 3:  # row 0 takes row 1 out: it then couples to x_last
+        einv = 1.0 / (1.0 - cf[0] * A[1])
+        A[0] = A[0] * einv
+        C[0] = -cf[0] * C[1] * einv
+    red = (groups * (2 if m > 1 else 1),) + tuple(a.shape[2:])
+    ra = (torch.stack([A[0], A[m - 1]], dim=1) if m > 1 else A[0]).reshape(red)
+    rc = (torch.stack([C[0], C[m - 1]], dim=1) if m > 1 else C[0]).reshape(red)
+    levels, inv_b = pcr_factor(ra, torch.ones_like(ra), rc)
+    return dict(n=n, m=m, groups=groups, lower=a, f=f, cf=cf, einv=einv, A=A, C=C,
+                levels=levels, inv_b=inv_b)
+
+
+def partition_solve(fac, rhs):
+    """Solve with a :func:`partition_factor` result: each chunk's forward and
+    backward sweeps on the right-hand side, the reduced system by PCR, then
+    each chunk's interior rows from its first and last."""
+    n, m, groups = fac["n"], fac["m"], fac["groups"]
+    pad = groups * m - n
+    if pad:
+        rhs = torch.cat([rhs, torch.zeros_like(rhs[:1]).expand((pad,) + tuple(rhs.shape[1:]))])
+    d = rhs.reshape((groups, m) + tuple(rhs.shape[1:]))
+    a, f, cf = fac["lower"], fac["f"], fac["cf"]
+    D = []
+    for j in range(m):
+        D.append(d[:, j] * f[j] if j < 2 else (d[:, j] - a[:, j] * D[j - 1]) * f[j])
+    for j in range(m - 3, 0, -1):
+        D[j] = D[j] - cf[j] * D[j + 1]
+    if m >= 3:
+        D[0] = (D[0] - cf[0] * D[1]) * fac["einv"]
+    red = (groups * (2 if m > 1 else 1),) + tuple(d.shape[2:])
+    r = (torch.stack([D[0], D[m - 1]], dim=1) if m > 1 else D[0]).reshape(red)
+    xr = pcr_apply(fac["levels"], fac["inv_b"], r)
+    if m == 1:
+        x = xr.reshape(d.shape)
+    else:
+        xr = xr.reshape((groups, 2) + tuple(d.shape[2:]))
+        xf, xl = xr[:, 0], xr[:, 1]
+        rows = [xf] + [D[j] - fac["A"][j] * xf - fac["C"][j] * xl for j in range(1, m - 1)] + [xl]
+        x = torch.stack(rows, dim=1)
+    return x.reshape((groups * m,) + tuple(d.shape[2:]))[:n]

@@ -27,6 +27,7 @@ ventilation temperature limits.
 
 from __future__ import annotations
 
+import dataclasses
 from pathlib import Path
 
 import numpy as np
@@ -113,6 +114,22 @@ def build_demand_city(n_zones: int, surfaces_per_zone: int):
     m = build_city_model(n_zones, surfaces_per_zone)
     for z in range(n_zones):
         m.add_hvac(IdealHeaterCooler(f"tstat{z}", [f"z{z}"], heat_setpoint=20.0, cool_setpoint=26.0))
+    return m
+
+
+def build_wide_zone_model(surfaces: int = 256, thermostat: bool = False):
+    """The edge of the day march's limits (ROADMAP B1): one zone bounded by
+    ``surfaces`` surfaces, the most one block takes
+    (``day_march.MAX_BLOCK_LANES``), one of them a 32-node wall (20 mm of
+    polystyrene on each side of 265 mm of concrete; ``day_march.MAX_NODES``).
+    With ``thermostat`` an ideal heater-cooler holds the zone at 20/26 C (the
+    extended kernel kind)."""
+    m = build_city_model(1, surfaces)
+    m.add_material(Material("c265", "concrete", 0.265))
+    m.add_construction(Construction("deep", ["p2", "c265", "p2"]))
+    m.surfaces[0] = dataclasses.replace(m.surfaces[0], construction="deep")
+    if thermostat:
+        m.add_hvac(IdealHeaterCooler("tstat0", ["z0"], heat_setpoint=20.0, cool_setpoint=26.0))
     return m
 
 
