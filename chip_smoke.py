@@ -11,9 +11,10 @@ Phases (one output line each, then a JSON line per contract):
 1. device: the CUDA device's name, and its name and power limit as
    ``nvidia-smi`` reports them.  Exits non-zero without a CUDA device.
 2. build: compiles the day-march kernels (the TR-BDF2 body in
-   heatx_torch/csrc/day_march_tr.cu with several threads per surface, the
-   parity body in day_march.cu) from the checkout with nvcc and prints the
-   build time and every instantiation's ptxas line.
+   heatx_torch/csrc/day_march_tr.cu, the parity body in day_march_parity.cu,
+   each four threads per surface in three launch variants, and the C entry
+   in day_march.cu) from the checkout with nvcc and prints the build time
+   and every instantiation's ptxas line.
 3. f64 check on a 4-zone city (40 surfaces), 3 h, modes trbdf2_refresh
    (k=2, k=8) and trbdf2: the CUDA kernel against its plain PyTorch twin on
    the same inputs, max |dT| <= 1e-9 K on T, zT and the zone history (the
@@ -24,7 +25,11 @@ Phases (one output line each, then a JSON line per contract):
    trbdf2: the TR-BDF2 kernel (4 threads per surface, 1024 and 256 a block)
    in f64 against its plain twin, every output <= 1e-9 K, and in f32 against
    the f64 plain twin, temperatures <= 1e-2 K and loads <= 1e-3 of their
-   largest magnitude.
+   largest magnitude; then the same buildings at the coarse discretization
+   (testing.coarse_config: 6 sub-steps an hour, an 8-node wall) in parity
+   mode, one no-mass iteration, 2 h, free-float and with the thermostat,
+   held to the same bounds: every launch variant of both kernels on the
+   card in both types.
 4. the main path at full width: build_city_model(1000, 10) (10,000
    surfaces, 1,000 zones), trbdf2_refresh k=2, 8 sub-steps, hours=24,
    bench weather, 48 h through ThermalModel(..., device="cuda")
@@ -34,9 +39,7 @@ Phases (one output line each, then a JSON line per contract):
 5. timing on the card, f32 at full width: 30 days through the kernel path,
    one day-kernel launch (CUDA events) and one day through the plain twin;
    the kernel against the plain twin on the same day's inputs (max |dT| <=
-   1e-2 K, f32 summation-order round-off); the day-launch at each number of
-   threads per surface of the TR-BDF2 kernel (day_march.GROUP_MAX_THREADS),
-   f32 and f64.
+   1e-2 K, f32 summation-order round-off); the launch variant it ran in.
 
 6. build (the adjoint): the day-adjoint kernel (heatx_torch/csrc/
    day_adjoint.cu), compiled by its own nvcc started together with phase 2's;
@@ -153,7 +156,12 @@ Phases (one output line each, then a JSON line per contract):
    (CAV_WINDOW_ADJ_RL2, over all lanes and over the cavity lanes alone)
    against their f32 plain versions; both f32 versions against the f64
    kernel from the same state, the kernel held to CAV_WINDOW_T_TOL on T, zT
-   and the zone history and to CAV_PARITY_ADJ_F32_RL2 on the adjoint; the
+   and the zone history; the gradient path's two parity adjoint launches
+   (day 1 from the initial state, day 2 from the f32 forward kernel's state
+   at midnight) against the f64 adjoint kernel from the same states, held to
+   CAV_PARITY_ADJ_F32_RL2; the window's f32 adjoint kernel and f32 plain
+   adjoint from the f32 kernel's state, and the adjoint kernel from the f64
+   kernel's state (rounded), against the f64 adjoint kernel, printed; the
    day-launches timed.
 17. the office IDF workflow (bench.py run_office_bench): a seeded synthetic
    EPW file at Santiago's location (testing.write_synthetic_epw, written to a
@@ -278,10 +286,9 @@ the TR-BDF2 entries the 30-day demand gradient of phase 11;
 (CUDA events), ``plain_ms`` its f32 plain version on the same inputs,
 ``max_abs_err`` the f32 kernel against that plain version, ``bound_ms`` the
 bound from this run's shapes; ``thermostat`` holds the same five numbers
-for the thermostat instantiation on the demand city's day (same mode, k=2);
-``threads_per_surface`` is the TR-BDF2 kernel's default group on that day
-and ``ms_by_threads_per_surface`` / ``ms_f64_by_threads_per_surface`` the
-day-launch at each group (phase 5).
+for the thermostat instantiation on the demand city's day (same mode, k=2).
+Each day-march entry timed at full width names its launch ``variant``
+(``G=4/<threads a block>``, as the wrapper read it back).
 The two ``*_parity`` entries are the parity kernels on the first day-launch
 of the 10-day parity gradient (24 h x 118 sub-steps, phase 14b), held against
 their f32 plain versions there; ``ms_bench_day`` is the same launch on the
@@ -412,12 +419,31 @@ CAV_GRAD_DAYS = 2  # the glazed city's gradient paths, in 2 chunks
 # the cavity U's dU/dT parts from the full one by 3.4e-2, 5.0e-2 on the cavity
 # lanes (the same script, 1,000 zones, f64): the bound fails it 6-10x over,
 # where 2e-4 would fail the f32 plain version itself.  Phase 16b holds the
-# f32 parity adjoint to the f64 kernel with it over its daytime window.
+# gradient path's two adjoint launches to it against the f64 adjoint kernel
+# from the same start states: day 1 from the initial state, day 2 from the
+# f32 forward kernel's state at midnight (2.750e-3 and 4.190e-5 on the
+# cavity lanes, d_ir_front).  It prints, and does not hold, the daytime
+# window's gaps from the f32 kernel's state at 8 h, where no launch of the
+# gradient path starts (6.361e-3 on the cavity lanes, the f32 plain adjoint
+# 7.840e-3).  There the gap is the f32 round-off of a branch, heatx's MIN_H
+# floor of the TARP natural h on the glazing's room face, max(1.31
+# |dT|^(1/3), 0.1), whose derivative drops from ~75 W/m2K2 to 0 at |dT| =
+# 4.4e-4 K: the inner pane passes the zone air at about 9 h, and the f32
+# and f64 marches take the floor on different sub-steps (157 decisions on
+# 86 lanes; no other branch differs).  99.6 % of the squared gap falls in
+# that hour, 81 % on one lane.  The unchanged adjoint's gap over the window
+# moves with the start state's last bit: 1.4e-3 to 8.5e-3 as the f32
+# kernel's state moves by one ulp, 2.2e-3 to 1.1e-2 for the f64 kernel's
+# rounded state, 2.2e-3 to 1.7e-2 for the one-thread parity kernel's state,
+# which also gives 1.6e-2 to 2.0e-2 from 6, 7 and 9 h; the f32 plain
+# adjoint was further in 5 of 6 states and 4 % nearer in one
+# (scripts/torch_parity_window_diag.py; measured on an H100 80GB HBM3 at
+# 700 W).
 CAV_PARITY_ADJ_F32_RL2 = 5e-3
 # Phase 16b's daytime window (hours 8-14) of the glazed city, the f32 kernels
 # against their f32 plain versions, both from the kernel's state at 8 h.
-# Measured on an H100 80GB HBM3 at 700 W in two runs: T 2.44e-4 K both
-# times, q_front 9.4e-4 and 1.0e-3 W/m2, the adjoint 3.9e-3 and 1.9e-3
+# Measured on an H100 80GB HBM3 at 700 W in two runs, with the one-thread
+# parity kernel: T 2.44e-4 K both times, q_front 9.4e-4 and 1.0e-3 W/m2, the adjoint 3.9e-3 and 1.9e-3
 # relative L2 over all lanes, 5.2e-3 and 2.5e-3 on the cavity lanes
 # (d_ir_front).  Against the f64 kernel from the same state both f32 versions
 # part alike: T 2.08e-4 K (kernel, both runs) and 1.87e-4 and 2.08e-4 K
@@ -425,9 +451,10 @@ CAV_PARITY_ADJ_F32_RL2 = 5e-3
 # (plain).  It is the f32 round-off of the sunlit glazing, which the bounds
 # above, read where the day's sun has decayed, do not allow for; the plain
 # version's f32 zone sums (index_add_) move it from run to run.  The f32
-# kernel against the f64 kernel, both deterministic, is held too (T to
-# CAV_WINDOW_T_TOL, the adjoint to CAV_PARITY_ADJ_F32_RL2): a fault of the
-# kernel's own in daylight fails there.
+# kernel against the f64 kernel, both deterministic, is held too on T, zT
+# and the zone history (CAV_WINDOW_T_TOL): a fault of the forward kernel's
+# own in daylight fails there.  The window's f32 adjoints against the f64
+# one are printed (see CAV_PARITY_ADJ_F32_RL2).
 CAV_WINDOW_T_TOL = 5e-4  # K: T, zT, the zone history
 CAV_WINDOW_HQ_TOL = 2e-3  # W/m2K and W/m2: h and q
 CAV_WINDOW_ADJ_RL2 = 1e-2  # relative L2 per adjoint output, all lanes and the cavity lanes
@@ -463,7 +490,7 @@ MRT_F32_TOL = 2e-4
 # (index_add_) move from run to run.
 MRT_ADJ_F32_RL2 = 1e-2
 # In-run passive controls (phases 21-23).  Operations the gates add to a
-# day-launch, counted from day_march.cu (gate_work).
+# day-launch, counted from day_march_tr.cu and day_march_parity.cu (gate_work).
 GATE_LANE_OPS = 1
 GATE_PANE_OPS = 3
 GATE_ZONE_OPS = 6
@@ -514,6 +541,15 @@ ADAPTIVE_RUN_HOURS = 2  # phase 26: ThermalModel.run at full width, the XLA path
 # f32 FLOP/s outside the tensor cores (the kernels run no matrix products).
 HBM_BPS = 3.35e12
 PEAK_F32_FLOPS = 67e12
+
+
+#: The launch variant each timed day-march kind ran in, as the wrapper read
+#: it back (``G=4/<threads a block>``), by its entry on the kernels line.
+VARIANTS = {}
+
+
+def note_variant(day_march, name):
+    VARIANTS[name] = f"G=4/{day_march.day_march_kernel.block_threads}"
 
 
 def card_facts():
@@ -578,53 +614,63 @@ def phase3_f64_check(torch, day_march, testing, SimConfig, compile_building):
 
 
 def phase3b_b1_edge(torch, day_march, testing, ThermalModel, SimConfig):
-    """The TR-BDF2 kernel at B1's edge and between its launch bounds: one
-    zone bounded by 256 surfaces (one block of the most lanes a block takes)
-    and one bounded by 50 (a 64-lane block), each with a 32-node wall (the
-    most nodes per surface), free-float in k=2 and with a thermostat in
-    frozen mode (the extended kind), 3 h.  f64 against the plain version
-    (every output <= F64_TOL; loads relative to their largest magnitude);
-    f32 against the f64 plain version (T, zT and the zone history <=
-    F32_TOL, loads <= LOAD_F32_RTOL of their largest magnitude, no
-    non-finite value).  Returns the worst f64 and f32 gaps and, per
-    building, its surfaces, its block's lanes, its nodes and the threads per
-    surface the launches took."""
-    hours, worst64, worst32, shapes = 3, 0.0, 0.0, []
+    """Both day-march kernels at B1's edge and between their launch bounds:
+    one zone bounded by 256 surfaces (one block of the most lanes a block
+    takes, 1024 threads) and one bounded by 50 (a 64-lane block, 256
+    threads), each with a 32-node wall (the most nodes per surface).  The
+    TR-BDF2 kernel free-float in k=2 and with a thermostat in frozen mode
+    (the extended kind), 3 h; the parity kernel at the coarse discretization
+    (6 sub-steps an hour; the wall then has 8 nodes), one no-mass
+    iteration, free-float and with the thermostat, 2 h.  f64 against the
+    plain version (every output <= F64_TOL; loads relative to their largest
+    magnitude); f32 against the f64 plain version (T, zT and the zone
+    history <= F32_TOL, loads <= LOAD_F32_RTOL of their largest magnitude,
+    no non-finite value).  Returns the worst f64 and f32 gaps and, per
+    building and mode, its surfaces, its block's lanes, its nodes and the
+    launch variant the launches took."""
+    worst64, worst32, shapes = 0.0, 0.0, []
+    modes = (
+        ("trbdf2", 3, lambda dtype: SimConfig(dtype=dtype),
+         ((False, dict(mode="trbdf2_refresh", substeps=8, refresh_every=2), testing.bench_inputs),
+          (True, dict(mode="trbdf2", substeps=8), testing.demand_inputs))),
+        ("parity", 2, lambda dtype: testing.coarse_config(dtype, 1),
+         ((False, dict(mode="parity"), testing.bench_inputs), (True, dict(mode="parity"), testing.demand_inputs))),
+    )
     for surfaces in (256, 50):
-        for thermostat, kw, inputs in ((False, dict(mode="trbdf2_refresh", refresh_every=2), testing.bench_inputs),
-                                       (True, dict(mode="trbdf2"), testing.demand_inputs)):
-            what = f"B1 edge ({surfaces} surfaces, thermostat={thermostat})"
-            model = testing.build_wide_zone_model(surfaces, thermostat=thermostat)
-            outs = {}
-            for dtype in (torch.float64, torch.float32):
-                tm = ThermalModel(model, n=1, config=SimConfig(dtype=dtype), device="cuda")
-                r = tm.fast_runner(substeps=8, hours=hours, **kw)
-                T, zT = r.to_blocked(tm.initial_state())
-                hi = r.kernel_inputs(inputs(tm.building, hours, device="cuda"))[0]
-                before = day_march.day_march_kernel.launches
-                outs[dtype] = r.hour_march(r.params, T, zT, hi)
-                if dtype == torch.float64:
-                    ref = r.hour_march.plain(r.params, T, zT, hi)
-                torch.cuda.synchronize()
-                check(day_march.day_march_kernel.launches == before + 1, f"{what}: the kernel did not launch")
-            for i, (x, y, z) in enumerate(zip(outs[torch.float64], ref, outs[torch.float32])):
-                if isinstance(x, tuple):
-                    x, y, z = torch.stack(x), torch.stack(y), torch.stack(z)
-                load = thermostat and i == len(ref) - 1  # the load history, W
-                scale = max(float(y.abs().max()), 1e-30) if load else 1.0
-                d = float((x - y).abs().max()) / scale
-                check(d <= F64_TOL, f"{what} f64 output {i}: max |d| {d} > {F64_TOL}")
-                worst64 = max(worst64, d)
-                if i in (0, 1, 3) or load:
-                    d32 = float((z.double() - y).abs().max()) / scale
-                    tol = LOAD_F32_RTOL if load else F32_TOL
-                    check(d32 <= tol, f"{what} f32 output {i} vs f64 plain: max |d| {d32} > {tol}")
-                    if not load:
-                        worst32 = max(worst32, d32)
-            check(bool(torch.isfinite(outs[torch.float32][0]).all()) and float(outs[torch.float32][4].sum()) == 0.0,
-                  f"{what} f32: non-finite state")
-        lanes = r.params.block_size
-        shapes.append((surfaces, lanes, r.params.max_nodes, day_march.threads_per_surface(lanes)))
+        for mode, hours, config, kinds in modes:
+            for thermostat, kw, inputs in kinds:
+                what = f"B1 edge ({surfaces} surfaces, {mode}, thermostat={thermostat})"
+                model = testing.build_wide_zone_model(surfaces, thermostat=thermostat)
+                outs = {}
+                for dtype in (torch.float64, torch.float32):
+                    tm = ThermalModel(model, n=1, config=config(dtype), device="cuda")
+                    r = tm.fast_runner(hours=hours, **kw)
+                    T, zT = r.to_blocked(tm.initial_state())
+                    hi = r.kernel_inputs(inputs(tm.building, hours, device="cuda"))[0]
+                    before = day_march.day_march_kernel.launches
+                    outs[dtype] = r.hour_march(r.params, T, zT, hi)
+                    if dtype == torch.float64:
+                        ref = r.hour_march.plain(r.params, T, zT, hi)
+                    torch.cuda.synchronize()
+                    check(day_march.day_march_kernel.launches == before + 1, f"{what}: the kernel did not launch")
+                for i, (x, y, z) in enumerate(zip(outs[torch.float64], ref, outs[torch.float32])):
+                    if isinstance(x, tuple):
+                        x, y, z = torch.stack(x), torch.stack(y), torch.stack(z)
+                    load = thermostat and i == len(ref) - 1  # the load history, W
+                    scale = max(float(y.abs().max()), 1e-30) if load else 1.0
+                    d = float((x - y).abs().max()) / scale
+                    check(d <= F64_TOL, f"{what} f64 output {i}: max |d| {d} > {F64_TOL}")
+                    worst64 = max(worst64, d)
+                    if i in (0, 1, 3) or load:
+                        d32 = float((z.double() - y).abs().max()) / scale
+                        tol = LOAD_F32_RTOL if load else F32_TOL
+                        check(d32 <= tol, f"{what} f32 output {i} vs f64 plain: max |d| {d32} > {tol}")
+                        if not load:
+                            worst32 = max(worst32, d32)
+                check(bool(torch.isfinite(outs[torch.float32][0]).all())
+                      and float(outs[torch.float32][4].sum()) == 0.0, f"{what} f32: non-finite state")
+            shapes.append((surfaces, mode, r.params.block_size, r.params.max_nodes,
+                           day_march.day_march_kernel.block_threads))
     return worst64, worst32, shapes
 
 
@@ -1084,9 +1130,10 @@ def event_ms(torch, fn, reps):
 
 def ptxas_table(log: str) -> str:
     """ptxas's lines of a build log, one entry per kernel instantiation:
-    ``f32 ext=0 parity=1: 96 registers, 1200 B stack, spills 0/0 B`` (the
-    instantiations with the gas-cavity code are marked ``cavities``, the
-    TR-BDF2 ones ``G=<threads per surface>/<launch bound>/<blocks per SM>``)."""
+    ``f32 ext=0 parity=1 G=4/128/3: 96 registers, 0 B stack, spills 0/0 B``
+    (the instantiations with the gas-cavity code are marked ``cavities``,
+    the day-march kernels' launch variants ``G=<threads per surface>/<launch
+    bound>/<blocks per SM>``)."""
     import re
 
     out, name = [], None
@@ -1101,8 +1148,9 @@ def ptxas_table(log: str) -> str:
             if "day_march_tr_kernel" in sym:  # <T, G, kThreads, kMinBlocks, kExt, kCav, kMrt>
                 (ext, cav, mrt), parity = (flags + ["?"] * 3)[:3], "0"
                 group = " G=" + "/".join(ints)
-            elif "day_march_kernel" in sym:  # the parity body <T, kExt, kCav, kMrt>
+            elif "day_march_parity_kernel" in sym:  # <T, kThreads, kMinBlocks, kExt, kCav, kMrt>, G = 4
                 (ext, cav, mrt), parity = (flags + ["?"] * 3)[:3], "1"
+                group = " G=4/" + "/".join(ints)
             else:  # the adjoints <T, kExt, kCav, kMrt>
                 (ext, cav, mrt), parity = (flags + ["?"] * 3)[:3], "1" if "parity_adjoint" in sym else "0"
             name = (f"{'f32' if t and t.group(1) == 'f' else 'f64'} ext={ext} parity={parity}{group}"
@@ -1317,6 +1365,7 @@ def phase13_parity_run(torch, ctx):
     T, zT = rp.to_blocked(st0)
     hi = rp.kernel_inputs(testing.bench_inputs(tm32.building, 24, device="cuda"), interp_weather=True)[0]
     kernel_ms = event_ms(torch, lambda: rp.hour_march(rp.params, T, zT, hi), 3)
+    note_variant(day_march, "day_march_parity")
     growth = parity_sensitivity(torch, rp.hour_march, rp.params, T, zT, hi)
     check(all(np.isfinite(growth)), f"the bench day's parity launch is not finite: {growth}")
     r2 = tm32.fast_runner(mode="parity", hours=2)
@@ -1676,6 +1725,7 @@ def phase16_glazed_city(torch, ctx):
     # The day-launches are timed whole; the plain versions, which take minutes
     # a day here, are compared over the daytime window (daytime_window).
     p_ms = event_ms(torch, lambda: hm(params, Tp, zTp, hip), 3)
+    note_variant(day_march, "day_march_parity_cavity")
     got24 = hm(params, Tp, zTp, hip)
     H, W0 = PARITY_PLAIN_HOURS, PARITY_WINDOW_START
     hm6 = day_march.hour_march_for(fr._bb, mode="parity", hours=H)
@@ -1699,9 +1749,14 @@ def phase16_glazed_city(torch, ctx):
     check(fr64._substeps == sub, f"the f64 parity runner takes {fr64._substeps} sub-steps, not {sub}")
     seq64 = testing.bench_inputs(tmp64.building, CAV_GRAD_DAYS * 24, device="cuda")
     seq64 = seq64.replace(lum_power=torch.zeros_like(seq64.lum_power))  # as grad_workload's
-    hip64 = hour_window(fr64.kernel_inputs(tree_head(seq64, CAV_GRAD_DAYS * 24, 24))[0], W0, H, sub)
+    hid64 = fr64.kernel_inputs(tree_head(seq64, CAV_GRAD_DAYS * 24, 24))[0]
+    hip64 = hour_window(hid64, W0, H, sub)
     got64 = day_march.hour_march_for(fr64._bb, mode="parity", hours=H)(fr64.params, Tw.double(), zTw.double(),
                                                                           hip64)
+    # The f64 kernel's own state at W0 h, rounded to f32: where the f32
+    # adjoints are held to the f64 one (see CAV_PARITY_ADJ_F32_RL2).
+    lead64 = day_march.hour_march_for(fr64._bb, mode="parity", hours=W0)
+    Ts, zTs = (x.float() for x in lead64(fr64.params, Tp.double(), zTp.double(), hour_window(hid64, 0, W0, sub))[:2])
 
     def outs(o):
         return (("T", o[0]), ("zT", o[1]), ("zt_hist", o[3]),
@@ -1743,15 +1798,44 @@ def phase16_glazed_city(torch, ctx):
     pgaps = rel_l2_gaps(torch, gp, gpp, what, CAV_WINDOW_ADJ_RL2)
     pgaps_cav = rel_l2_gaps(torch, gp, gpp, what + ", cavity lanes", CAV_WINDOW_ADJ_RL2, lanes=cav_lanes)
     pa_abs = max(float((gp[n] - r).abs().max()) for n, r in gpp.items())
+    # The gradient path's two adjoint launches, each held against the f64
+    # adjoint kernel from the same start state (see CAV_PARITY_ADJ_F32_RL2):
+    # day 1 from the initial state (gp24 above), day 2 from the f32 forward
+    # kernel's state at midnight, each with the loss's cotangent on its own
+    # day's zone history.
+    t_held = time.time()
+    adjp64_24 = day_adjoint.make_day_adjoint(fr64._bb, substeps=sub, mode="parity", hours=24, device="cuda")
+
+    def dbl(xs):
+        return tuple(x.double() for x in xs)
+
+    g64 = flat_grads(adjp64_24(fr64.params, Tp.double(), zTp.double(), hid64, dbl(cot24)))
+    what = "glazed city f32 parity adjoint kernel vs f64 kernel, the gradient path's day 1"
+    day_gaps = [rel_l2_gaps(torch, gp24, g64, what, CAV_PARITY_ADJ_F32_RL2),
+                rel_l2_gaps(torch, gp24, g64, what + ", cavity lanes", CAV_PARITY_ADJ_F32_RL2, lanes=cav_lanes)]
+    T24, zT24 = got24[0], got24[1]
+    hip2 = fr.kernel_inputs(tree_rows(seq, CAV_GRAD_DAYS * 24, 24, 24))[0]
+    hid64_2 = fr64.kernel_inputs(tree_rows(seq64, CAV_GRAD_DAYS * 24, 24, 24))[0]
+    cot2 = (torch.zeros_like(Tp), torch.zeros_like(zTp),
+            (2.0 * (hm(params, T24, zT24, hip2)[3] - 21.0) * valid / (CAV_GRAD_DAYS * 24 * 1000)).contiguous())
+    g2 = flat_grads(adjp24(params, T24, zT24, hip2, cot2))
+    g64 = flat_grads(adjp64_24(fr64.params, T24.double(), zT24.double(), hid64_2, dbl(cot2)))
+    what = "glazed city f32 parity adjoint kernel vs f64 kernel, the gradient path's day 2"
+    day_gaps += [rel_l2_gaps(torch, g2, g64, what, CAV_PARITY_ADJ_F32_RL2),
+                 rel_l2_gaps(torch, g2, g64, what + ", cavity lanes", CAV_PARITY_ADJ_F32_RL2, lanes=cav_lanes)]
+    # Printed: the daytime window's f32 adjoints against the f64 one from the
+    # f32 kernel's state at W0 h and from the f64 kernel's state (rounded).
     adjp64 = day_adjoint.make_day_adjoint(fr64._bb, substeps=sub, mode="parity", hours=H, device="cuda")
-    g64 = flat_grads(adjp64(fr64.params, Tw.double(), zTw.double(), hip64, tuple(c.double() for c in cotp)))
-    what = "glazed city f32 parity adjoint kernel vs f64 kernel"
-    kgaps = rel_l2_gaps(torch, gp, g64, what, CAV_PARITY_ADJ_F32_RL2)
-    kgaps_cav = rel_l2_gaps(torch, gp, g64, what + ", cavity lanes", CAV_PARITY_ADJ_F32_RL2, lanes=cav_lanes)
-    what = "glazed city f32 plain parity adjoint vs f64 kernel"
-    plain_gaps = rel_l2_gaps(torch, gpp, g64, what, float("inf"))
-    plain_gaps_cav = rel_l2_gaps(torch, gpp, g64, what + ", cavity lanes", float("inf"), lanes=cav_lanes)
-    del g64, fr64, tmp64, b64
+    cot64 = dbl(cotp)
+    win = {}
+    for start, (T_, zT_), outs_ in (("f32", (Tw, zTw), (("kernel", gp), ("plain", gpp))),
+                                    ("f64", (Ts, zTs), (("kernel", None),))):
+        g64 = flat_grads(adjp64(fr64.params, T_.double(), zT_.double(), hip64, cot64))
+        for who, x in outs_:
+            x = x if x is not None else flat_grads(adjp(params, T_, zT_, hip6, cotp))
+            win[start, who] = [rel_l2_gaps(torch, x, g64, "window", float("inf"), lanes=m) for m in (None, cav_lanes)]
+    held_s = time.time() - t_held
+    del g64, g2, fr64, tmp64, b64
     check(float(gp["seg_u"][day_march.bit_rows(params, "cav_bits")].abs().max()) == 0.0,
           "glazed city parity adjoint: seg_u cotangent on a cavity segment")
     del gpp
@@ -1774,10 +1858,13 @@ def phase16_glazed_city(torch, ctx):
           + f"; a start state moved by {PARITY_EPS:g} K ends the "
           f"day {growth[0]:.3g} x as far apart on the nodes (<= {PARITY_GROWTH_MAX:g}); adjoint {pa_ms:.3f} ms a "
           f"day, the plain adjoint's {H} h {pa_plain_ms:.1f} ms, relative L2 worst {pgaps[pworst]:.3e} ({pworst}; <= {CAV_WINDOW_ADJ_RL2:g}), "
-          f"max |d| {pa_abs:.3e}, on the cavity lanes alone {worst_of(pgaps_cav)}; f32 kernel vs f64 kernel "
-          f"{worst_of(kgaps)}, cavity lanes {worst_of(kgaps_cav)} (<= {CAV_PARITY_ADJ_F32_RL2:g}); f32 plain "
-          f"adjoint vs f64 kernel "
-          f"{worst_of(plain_gaps)}, cavity lanes {worst_of(plain_gaps_cav)}", flush=True)
+          f"max |d| {pa_abs:.3e}, on the cavity lanes alone {worst_of(pgaps_cav)}; the gradient path's adjoint "
+          f"launches against the f64 kernel from the same start states (<= {CAV_PARITY_ADJ_F32_RL2:g}): day 1 "
+          f"{worst_of(day_gaps[0])}, cavity lanes {worst_of(day_gaps[1])}; day 2 {worst_of(day_gaps[2])}, cavity "
+          f"lanes {worst_of(day_gaps[3])}; over hours {W0}-{W0 + H}, against the f64 kernel (not held; these "
+          f"comparisons with the gradient path's took {held_s:.1f} s): "
+          + "; ".join(f"from the {st} kernel's state, the f32 {who} adjoint {worst_of(v[0])}, cavity lanes "
+                      f"{worst_of(v[1])}" for (st, who), v in win.items()), flush=True)
 
     def bounds(p, hours, sub, builds, fwd_ops, adj_ops, T_, zT_, hi_, outs, cots_, grads):
         ops_f = fwd_ops + cavity_work(p, builds)
@@ -2226,6 +2313,7 @@ def phase19_mrt_city(torch, ctx):
     Tp, zTp = fp.to_blocked(fp._tm.initial_state())
     hip = fp.kernel_inputs(tree_head(seqp, 48, 24))[0]
     p_ms = event_ms(torch, lambda: fp.hour_march(fp.params, Tp, zTp, hip), 3)
+    note_variant(day_march, "day_march_parity_mrt")
     H, W0 = PARITY_PLAIN_HOURS, PARITY_WINDOW_START
     hm6 = day_march.hour_march_for(fp._bb, mode="parity", hours=H)
     Tw, zTw, hi6 = daytime_window(day_march, fp._bb, fp.params, Tp, zTp, hip, sub)
@@ -2380,6 +2468,7 @@ def phase20_office_mrt(torch, ctx, p17):
     pc_counts = (km.launches, km.cavity_launches, km.parity_mrt_launches)
     check(pc_counts == (1, 1, 1), f"office MRT parity launch counts {pc_counts}")
     pc_ms = event_ms(torch, lambda: fpc.hour_march(fpc.params, Tc, zTc, hic), 5)
+    note_variant(day_march, "day_march_parity_cavity_mrt")
     t0 = time.time()
     refc = fpc.hour_march.plain(fpc.params, Tc, zTc, hic)
     torch.cuda.synchronize()
@@ -2431,7 +2520,7 @@ def phase20_office_mrt(torch, ctx, p17):
 
 def gate_work(params, hours):
     """Operations the in-run controls add to a day-launch, counted from
-    day_march.cu: per lane and hour GATE_LANE_OPS (the controlling slot's
+    the day-march kernels: per lane and hour GATE_LANE_OPS (the controlling slot's
     test) and GATE_PANE_OPS more on a controlled pane (the compare, the
     select, the multiply); per zone and hour GATE_ZONE_OPS with ventilation
     gates (three compares, two adds, the select).  0 on ungated params."""
@@ -2733,6 +2822,7 @@ def phase22_controlled_city(torch, ctx):
     Tp, zTp = fp.to_blocked(tmp.initial_state())
     hip = fp.kernel_inputs(seq24, interp_weather=True)[0]
     p_ms = event_ms(torch, lambda: fp.hour_march(fp.params, Tp, zTp, hip), 3)
+    note_variant(day_march, "day_march_gated_parity")
     H, W0 = PARITY_PLAIN_HOURS, PARITY_WINDOW_START
     hm6 = day_march.hour_march_for(fp._bb, mode="parity", hours=H, scheduled_shade_sp=True)
     Tw, zTw, hi6 = daytime_window(day_march, fp._bb, fp.params, Tp, zTp, hip, sub)
@@ -2869,7 +2959,7 @@ def gate_kernel_entries(ctx, p22, p23):
     """The kernels line's entries of the gated launches (the in-run controls
     in the day march's extended instantiations)."""
     b = p22.bounds
-    fwd = "heatx_torch/csrc/day_march.cu (gates at the top of the hour loop; HourIn in day_common.cuh)"
+    fwd = "heatx_torch/csrc/day_march_parity.cu (gates at the top of the hour loop; device code in day_parity_rows.cuh)"
     tr = "heatx_torch/csrc/day_march_tr.cu (gates at the top of the hour loop; device code in day_tr.cuh)"
     return [
         {"name": "day_march_gated", "route": "cuda", "source": tr,
@@ -2883,7 +2973,7 @@ def gate_kernel_entries(ctx, p22, p23):
          "bound_by": b["march"][3], "library_ms": None, "ms_ungated_bench_day": ctx.kernel_ms,
          "decisions_on": p22.shares},
         {"name": "day_march_gated_parity", "plain_hours": PARITY_WINDOW, "route": "cuda",
-         "source": fwd + " and day_parity.cuh",
+         "source": fwd,
          "replaces": "heatx/ops/pallas_step.py:1976 (body _hour_body, pallas_step.py:633; zone shading "
                      ":1576-1594, ventilation gates :1614-1635)",
          "launches": p22.p_counts[1],
@@ -2901,7 +2991,7 @@ def mrt_kernel_entries(p19, p20):
                 "launches_by_path": by_path, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": b[2], "bound_by": b[3], "library_ms": None, **extra}
 
-    fwd = "heatx_torch/csrc/day_march.cu (network: heatx_torch/csrc/day_common.cuh mrt_network)"
+    fwd = "heatx_torch/csrc/day_march_parity_mrt.cu (network: heatx_torch/csrc/day_tr.cuh mrt_face_node)"
     tr = "heatx_torch/csrc/day_march_tr_mrt.cu (network: heatx_torch/csrc/day_tr.cuh mrt_face_node)"
     adj = "heatx_torch/csrc/day_adjoint.cu (network: heatx_torch/csrc/day_common.cuh mrt_network_adj)"
     k1_tr = "heatx/ops/pallas_step.py:1976 (body _hour_body_imp, pallas_step.py:777; _mrt_context :555, :840-858)"
@@ -2918,7 +3008,7 @@ def mrt_kernel_entries(p19, p20):
         entry("day_adjoint_mrt", adj, k2_tr, p19.grad_counts[3],
               {"MRT city value_and_grad, 2 days (phase 19b)": p19.grad_counts[3]},
               p19.adj_ms, p19.adj_plain_ms, p19.adj_abs, b19["adjoint"], rel_l2_err=p19.adj_rel),
-        entry("day_march_parity_mrt", fwd + " and day_parity.cuh", k1_pa, p19.pgrad_counts[1],
+        entry("day_march_parity_mrt", fwd, k1_pa, p19.pgrad_counts[1],
               {"MRT city parity value_and_grad, 2 days (phase 19c)": p19.pgrad_counts[1]},
               p19.p_ms, p19.p_plain_ms, p19.p_err, b19["parity"], plain_hours=H),
         entry("day_adjoint_parity_mrt", adj + " (parity_substep_adj)", k2_pa, p19.pgrad_counts[3],
@@ -2931,7 +3021,7 @@ def mrt_kernel_entries(p19, p20):
         entry("day_adjoint_cavity_mrt", adj + " and cavity_band_adj_tr", k2_tr, p20.adj_counts[2],
               {"office with MRT, one day's adjoint (phase 20)": p20.adj_counts[2]},
               p20.adj_ms, p20.adj_plain_ms, p20.adj_abs, b20["adjoint"]),
-        entry("day_march_parity_cavity_mrt", fwd + ", day_parity.cuh and cavity_u", k1_pa, p20.pc_counts[2],
+        entry("day_march_parity_cavity_mrt", fwd + " and cavity_u", k1_pa, p20.pc_counts[2],
               {f"office with MRT in parity mode at {p20.subc} sub-steps/h, one day (phase 20)": p20.pc_counts[2]},
               p20.pc_ms, p20.pc_plain_ms, p20.pc_err, b20["parity"]),
         entry("day_adjoint_parity_cavity_mrt", adj + " and cavity_band_adj", k2_pa, p20.pca_counts[2],
@@ -3065,6 +3155,7 @@ def phase25_adaptive_city(torch, ctx, p13):
 
     ms_fixed = [event_ms(torch, fixed, 2)]
     ms = event_ms(torch, adaptive, 3)
+    note_variant(day_march, "day_march_parity_adaptive")
     ms_fixed.append(event_ms(torch, fixed, 2))
     day = adaptive()
     check(float(day[4].sum()) == 0.0, "the adaptive bench-day launch is not finite")
@@ -3212,8 +3303,8 @@ def adaptive_kernel_entry(p25):
     b = p25.bound
     return {
         "name": "day_march_parity_adaptive", "route": "cuda",
-        "source": "heatx_torch/csrc/day_march.cu (body: heatx_torch/csrc/day_parity.cuh march_nomass, "
-                  "nomass_iters -1)",
+        "source": "heatx_torch/csrc/day_march_parity.cu (the no-mass loop, nomass_iters -1; device code in "
+                  "day_parity_rows.cuh)",
         "replaces": "heatx/ops/pallas_step.py:1976 (body _hour_body, pallas_step.py:633; the adaptive loop "
                     ":1345-1353, heatx/engine/surface.py:814-825)",
         "launches": p25.launches[1],
@@ -3224,12 +3315,17 @@ def adaptive_kernel_entry(p25):
     }
 
 
-def tree_head(seq, T, hours):
-    """The first ``hours`` of an input sequence whose time series have ``T``
-    leading rows (the rest is passed on as it is)."""
+def tree_rows(seq, T, start, hours):
+    """Hours ``start`` to ``start + hours`` of an input sequence whose time
+    series have ``T`` leading rows (the rest is passed on as it is)."""
     from heatx_torch.engine.adjoint import tree_map
 
-    return tree_map(lambda v: v[:hours] if v.ndim and v.shape[0] == T else v, seq)
+    return tree_map(lambda v: v[start:start + hours] if v.ndim and v.shape[0] == T else v, seq)
+
+
+def tree_head(seq, T, hours):
+    """The first ``hours`` of an input sequence (:func:`tree_rows`)."""
+    return tree_rows(seq, T, 0, hours)
 
 
 def main() -> int:
@@ -3275,10 +3371,11 @@ def main() -> int:
     print(f"phase 3 f64 4-zone 3 h kernel vs plain twin: max |d| {err64:.3e} K "
           f"(<= {F64_TOL:g}) in trbdf2_refresh k=2, k=8 and trbdf2", flush=True)
     e3b, e3b32, shapes3b = phase3b_b1_edge(torch, day_march, testing, ThermalModel, SimConfig)
-    print("phase 3b B1's edge (" + "; ".join(f"one zone of {s} surfaces in one block of {b} lanes, a {n}-node "
-                                             f"wall, {g} threads per surface, {b * g} a block"
-                                             for s, b, n, g in shapes3b)
-          + f"), 3 h, free-float k=2 and a thermostat in trbdf2: f64 kernel vs plain twin max |d| {e3b:.3e} K "
+    print("phase 3b B1's edge (" + "; ".join(f"one zone of {s} surfaces in {m}, one block of {b} lanes, a {n}-node "
+                                             f"wall, 4 threads per surface, {t} a block"
+                                             for s, m, b, n, t in shapes3b)
+          + f"), trbdf2 3 h free-float k=2 and a thermostat in trbdf2, parity 2 h at 6 sub-steps/h, one no-mass "
+          f"iteration, free-float and a thermostat: f64 kernel vs plain twin max |d| {e3b:.3e} K "
           f"(<= {F64_TOL:g}); f32 kernel vs f64 plain max |d| {e3b32:.3e} K (<= {F32_TOL:g})", flush=True)
 
     # 4. the main path at full width
@@ -3338,24 +3435,11 @@ def main() -> int:
     err32 = max(float((got[i] - ref[i]).abs().max()) for i in (0, 1, 3))
     check(err32 <= F32_TOL, f"f32 day kernel vs plain twin: max |d| {err32} > {F32_TOL}")
 
-    # The threads per surface of the TR-BDF2 kernel, f32 and f64, on the
-    # bench day's launch (the default block: 32 lanes).
-    runner64k = tm64.fast_runner(**kw)
-    T64, zT64 = runner64k.to_blocked(tm64.initial_state())
-    hi64 = runner64k.kernel_inputs(testing.bench_inputs(tm64.building, 24, device="cuda"), interp_weather=True)[0]
-    sweep = {}
-    for g in day_march.GROUP_MAX_THREADS:
-        day_march.day_march_kernel.group = g
-        sweep[g] = (event_ms(torch, lambda: runner.hour_march(runner.params, T, zT, hi), 10),
-                    event_ms(torch, lambda: runner64k.hour_march(runner64k.params, T64, zT64, hi64), 10))
-    day_march.day_march_kernel.group = None
-    group = day_march.threads_per_surface(runner.layout.block_size)
+    note_variant(day_march, "day_march")
     print(f"phase 5 timing on {smi}: 30 days kernel path {wall30:.3f} s "
           f"({wall30 / 30 * 1e3:.2f} ms/day, host clock); one day-kernel launch "
           f"{kernel_ms:.3f} ms vs plain twin {plain_ms:.1f} ms (CUDA events, {runner.layout.block_size} lanes/block, "
-          f"{group} threads per surface); f32 kernel vs plain max |d| {err32:.3e} K; threads per surface -> "
-          "(f32, f64 ms/day): " + ", ".join(f"{g}: ({a:.3f}, {b:.3f})" for g, (a, b) in sweep.items()),
-          flush=True)
+          f"launch variant {VARIANTS['day_march']}); f32 kernel vs plain max |d| {err32:.3e} K", flush=True)
 
     # 6. the adjoint kernel's build (it ran in parallel with phase 2's)
     ptxas_adj = ptxas_table(cuda_lib.build_log("heatx_day_adjoint", day_adjoint.KERNEL_SOURCES))
@@ -3714,7 +3798,7 @@ def main() -> int:
           f"{bytes_pf / 1e6:.2f} MB, {ops_pf / 1e9:.3f} GFLOP -> {pf_bound * 1e3:.2f} us ({pf_by}); day_adjoint "
           f"{bytes_pa / 1e6:.2f} MB, {ops_pa / 1e9:.3f} GFLOP -> {pa_bound * 1e3:.2f} us ({pa_by})", flush=True)
 
-    print(json.dumps({"kernels": [
+    kernels = [
         {
             "name": "day_march",
             "route": "cuda",
@@ -3737,9 +3821,6 @@ def main() -> int:
             "library_ms": None,
             "thermostat": {"ms": tstat_ms, "plain_ms": tstat_plain_ms, "max_abs_err": tstat_err,
                            "max_abs_err_load_w": tstat_ld_err, "bound_ms": tf_bound, "bound_by": tf_by},
-            "threads_per_surface": group,
-            "ms_by_threads_per_surface": {str(g): v[0] for g, v in sweep.items()},
-            "ms_f64_by_threads_per_surface": {str(g): v[1] for g, v in sweep.items()},
         },
         {
             "name": "day_adjoint",
@@ -3764,7 +3845,7 @@ def main() -> int:
         {
             "name": "day_march_parity",
             "route": "cuda",
-            "source": "heatx_torch/csrc/day_march.cu (body: heatx_torch/csrc/day_parity.cuh)",
+            "source": "heatx_torch/csrc/day_march_parity.cu (device code: heatx_torch/csrc/day_parity_rows.cuh)",
             "replaces": "heatx/ops/pallas_step.py:1976 (body _hour_body, pallas_step.py:633)",
             "launches": p14.counts[1],
             "launches_by_path": {
@@ -3834,7 +3915,8 @@ def main() -> int:
             "name": "day_march_parity_cavity",
             "plain_hours": PARITY_WINDOW,
             "route": "cuda",
-            "source": "heatx_torch/csrc/day_march.cu (body: heatx_torch/csrc/day_parity.cuh cavity_k_rows)",
+            "source": "heatx_torch/csrc/day_march_parity.cu (kCav: the cavity U in registers, day_common.cuh "
+                      "cavity_u)",
             "replaces": "heatx/ops/pallas_step.py:1976 (body _hour_body, pallas_step.py:633, with gas cavities)",
             "launches": p16.counts["parity"]["march"][2],
             "launches_by_path": {
@@ -3870,7 +3952,11 @@ def main() -> int:
         *mrt_kernel_entries(p19, p20),
         *gate_kernel_entries(ctx, p22, p23),
         adaptive_kernel_entry(p25),
-    ]}))
+    ]
+    for k in kernels:
+        if k["name"] in VARIANTS:
+            k["variant"] = VARIANTS[k["name"]]
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}))

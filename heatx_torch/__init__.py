@@ -21,7 +21,8 @@ no-mass loop, and the fast modes), ``march``, ``run_checked``, ``warmup``,
 ``march_imp`` and ``march_exp``; the day march runs the adaptive loop with
 ``HEATX_KERNEL_WHILE=1``, as heatx's kernel does.
 Both day kernels are written in CUDA for Hopper
-(``heatx_torch/csrc/day_march.cu``, ``day_adjoint.cu``) with plain PyTorch
+(``heatx_torch/csrc/day_march_tr.cu``, ``day_march_parity.cu``,
+``day_adjoint.cu``) with plain PyTorch
 versions beside them.  Models live on the card (``device="cuda"``) unless
 the caller asks for ``device="cpu"``, where the plain versions run.
 """

@@ -58,8 +58,8 @@
 // chain, plus the transposed sweeps.
 //
 // Design:
-//  * One CTA per zone-closed block, one thread per surface lane, as the
-//    forward kernel.
+//  * One CTA per zone-closed block, one thread per surface lane (the
+//    forward kernels now run four).
 //  * Pass 1 marches the day, writing each hour's start state to a workspace
 //    the wrapper allocates ([hours, N, SP] and [hours, NB, ZB]; the kernel
 //    allocates nothing).
@@ -81,8 +81,8 @@
 
 // The kMrt instantiations live in their own compilation unit
 // (day_adjoint_mrt.cu, which includes this file), as the day march's do
-// (day_march.cu): launched through the kMrt unit's function, which takes its
-// MrtAdjArgs by address.
+// (day_march_tr_mrt.cu, day_march_parity_mrt.cu): launched through the kMrt
+// unit's function, which takes its MrtAdjArgs by address.
 extern "C" int heatx_day_adjoint_mrt_f32(const void* g, void* stream);
 extern "C" int heatx_day_adjoint_mrt_f64(const void* g, void* stream);
 

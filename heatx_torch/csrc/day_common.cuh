@@ -1,4 +1,4 @@
-// Device code shared by the day march (day_march.cu) and its adjoint
+// Device code shared by the day march (day_march_tr.cu, day_march_parity.cu) and its adjoint
 // (day_adjoint.cu), in TR-BDF2 and (with day_parity.cuh) reference-parity
 // mode: the packed-operand layout, one surface lane's statics, the ISO 15099
 // gas-cavity U-value and its two partial derivatives, the operator build
@@ -81,7 +81,7 @@ __device__ __forceinline__ T m_sign(T x) { return x > T(0) ? T(1) : (x < T(0) ? 
 // the linearized radiation between its panes.  Only the tilt band's own
 // correlation is evaluated (heatx evaluates all five and selects); its
 // derivative in Ra comes with it.  Out of line, and called only from the
-// kCav instantiations (day_march.cu), so the others keep their code.
+// kCav instantiations, so the others keep their code.
 // ---------------------------------------------------------------------------
 
 // max(x1, x2) with its derivative; a tie takes the mean, as torch.maximum's.
@@ -713,7 +713,7 @@ __device__ __forceinline__ T zone_update(T zt, T az, T bz, T volume, T dt) {
 // ---------------------------------------------------------------------------
 
 // The network's operands.  They ride beside DayArgs in the kMrt
-// instantiations' own argument structs (day_march.cu, day_adjoint.cu), so
+// instantiations' own argument structs (day_march_args.cuh, day_adjoint.cu), so
 // the other instantiations keep their parameter layout and their code.
 template <typename T>
 struct MrtArgs {

@@ -1,8 +1,8 @@
-// The day march's launch arguments, shared by its two kernels: the parity
-// body (day_march.cu, day_march_mrt.cu) and the TR-BDF2 body
-// (day_march_tr.cu, day_march_tr_mrt.cu).  day_march.cu fills one
-// MrtMarchArgs per launch and hands it to the unit that runs the launch's
-// kind; the instantiations without the network take its MarchArgs.
+// The day march's launch arguments and launch variants, shared by its two
+// kernels: the parity body (day_march_parity.cu, day_march_parity_mrt.cu) and
+// the TR-BDF2 body (day_march_tr.cu, day_march_tr_mrt.cu).  day_march.cu
+// fills one MrtMarchArgs per launch and hands it to the unit that runs the
+// launch's kind; the instantiations without the network take its MarchArgs.
 #pragma once
 
 #include <type_traits>
@@ -33,13 +33,27 @@ struct MrtMarchArgs : MarchArgs<T> {
 template <typename T, bool kMrt>
 using MarchArgsOf = std::conditional_t<kMrt, MrtMarchArgs<T>, MarchArgs<T>>;
 
-// Bytes of dynamic shared memory of a block: the zone row, the two per-face
-// rows, and with kExt the new zone row and the load sums, with kMrt the
-// zones' MRT nodes, with gates the gated rows.
-template <typename T, bool kExt, bool kMrt>
-size_t march_smem(const DayArgs<T>& a) {
-  return sizeof(T) * (static_cast<size_t>(a.ZB) * ((kMrt ? 4 : (kExt ? 3 : 1)) + (kExt && a.vent_min ? 2 : 0)) +
-                      4 * static_cast<size_t>(a.SB));
+// The launch variants of both day-march kernels, G = kGroup threads a
+// surface lane: the most lanes a block of each takes, its threads (the
+// launch bound) and, in f32, the blocks an SM must hold (f64: one).  The
+// 128-thread variant with three f32 blocks an SM runs the bench city's 334
+// blocks of 32 lanes in one wave on 132 SMs; the 1024-thread one takes B1's
+// edge (256 lanes) at 64 registers a thread.  launch_variant picks the first
+// that takes a block's lanes; the C entry (day_march.cu) writes back the
+// threads of the one that ran.
+constexpr int kGroup = 4;
+struct LaunchVariant {
+  int lanes, threads, f32_blocks;
+};
+constexpr LaunchVariant kLaunchVariants[] = {{32, 128, 3}, {64, 256, 1}, {256, 1024, 1}};
+constexpr int kVariants = sizeof(kLaunchVariants) / sizeof(kLaunchVariants[0]);
+// The variant that takes a block of `lanes` lanes, or -1 for none.
+constexpr int launch_variant(int lanes) {
+  for (int v = 0; v < kVariants; ++v)
+    if (lanes >= 1 && lanes <= kLaunchVariants[v].lanes) return v;
+  return -1;
 }
+template <typename T, int kV>
+constexpr int kVariantBlocks = sizeof(T) == 4 ? kLaunchVariants[kV].f32_blocks : 1;
 
 }  // namespace heatx

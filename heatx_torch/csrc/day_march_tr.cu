@@ -1,4 +1,4 @@
-// The TR-BDF2 day march for NVIDIA Hopper (sm_90a): several threads per
+// The TR-BDF2 day march for NVIDIA Hopper (sm_90a): four threads per
 // surface.  day_march.cu's C entry hands every trbdf2 / trbdf2_refresh launch
 // to heatx_day_march_tr_f32/_f64 here (ctypes; heatx_torch/ops/day_march.py).
 //
@@ -10,8 +10,8 @@
 // (kMrt, in day_march_tr_mrt.cu).  One launch marches `hours` hours of
 // `substeps` sub-steps per operator group of `refresh_every`.
 //
-// What bounded the first design (one thread per surface, day_march.cu up to
-// its parity-only form): a serial latency chain.  A sub-step is two stage
+// What bounded the first design (one thread per surface, day_march.cu before
+// it held only the C entry): a serial latency chain.  A sub-step is two stage
 // solves of ~25 rows, four sweeps of about 100 dependent row steps, and every
 // step re-read statics from device memory (capacity, U through the K rows,
 // the solar fractions through the forcing, a cavity lane's U from a global
@@ -21,12 +21,12 @@
 // day-launch took 2.980 ms against a bound of 0.0094 ms by operations.
 //
 // This design:
-//  * G threads per surface lane (G a template parameter: 4, 8 or 16; blockDim
-//    = lanes x G), thread `rank` owning the M = 32/G consecutive node rows
-//    [rank*M, rank*M + M) in unrolled register arrays: no runtime-indexed
-//    per-thread array, no local memory.  The block is still one zone-closed
-//    block of block_building; the wrapper picks G per launch so that lanes x
-//    G stays within an instantiation's launch bound (below).
+//  * G = 4 threads per surface lane (kGroup; blockDim = lanes x G; groups of
+//    8 and 16 were slower in every kind and type), thread `rank` owning the
+//    M = 32/G consecutive node rows [rank*M, rank*M + M) in unrolled register
+//    arrays: no runtime-indexed per-thread array, no local memory.  The block
+//    is still one zone-closed block of block_building; the launch variant
+//    (kLaunchVariants, day_march_args.cuh) follows from its lanes.
 //  * Statics loaded once per launch: each row's valid/first/last bits in
 //    registers, its capacity and U to the row above in shared memory (read by
 //    its thread only: registers go to the column, its stage-1 operator and
@@ -54,7 +54,7 @@
 //    the lane's rows of the shared face sums.
 //  * The zone phase keeps its meaning and its determinism: no float atomics,
 //    two barriers per sub-step; mixing, thermostats, the swap of the two
-//    zone rows, shading and the gates at the hour's top are day_march.cu's.
+//    zone rows, shading and the gates at the hour's top are day_march_parity.cu's.
 //    A warp sums each zone (when the block is whole warps): lane l adds the
 //    entries l, l+32, ... of the host's fixed-order face list, and a fixed
 //    xor tree over the 32 lanes adds the lanes' sums, so the order of the
@@ -72,25 +72,19 @@
 
 // The kMrt kinds live in their own compilation unit (day_march_tr_mrt.cu,
 // which includes this file), as the parity body's do.
-extern "C" int heatx_day_march_tr_mrt_f32(const void* m, void* stream, int group);
-extern "C" int heatx_day_march_tr_mrt_f64(const void* m, void* stream, int group);
+extern "C" int heatx_day_march_tr_mrt_f32(const void* m, void* stream);
+extern "C" int heatx_day_march_tr_mrt_f64(const void* m, void* stream);
 
 namespace {
 
 using namespace heatx;
 
-// Launch bounds (threads per block, and in f32 the blocks an SM must hold):
-// G = 4 at 128 and three blocks (blocks of up to 32 lanes, such as the bench
-// city's: its 334 blocks then run in one wave on 132 SMs), at 256 (up to 64
-// lanes) and at 1024 (up to 256 lanes, 64 registers a thread); G = 8 at 256
-// and three blocks; G = 16 at 512.
-constexpr int kG4 = 128;
-constexpr int kG4Mid = 256;
-constexpr int kG8 = 256;
-constexpr int kG16 = 512;
+// The launch variants are day_march_args.cuh's table (kLaunchVariants, the
+// parity kernel's too): G = 4 at 128 threads and three f32 blocks an SM
+// (blocks of up to 32 lanes, such as the bench city's: its 334 blocks then run
+// in one wave on 132 SMs), at 256 (up to 64 lanes) and at 1024 (up to 256
+// lanes, 64 registers a thread).
 constexpr int kWide = 1024;
-template <typename T>
-constexpr int kThree = sizeof(T) == 4 ? 3 : 1;
 // Whether a variant keeps each thread's rows' capacities, solar forcing and
 // U in shared memory (the 1024-thread one, whose blocks may need more than a
 // block's 227 KB for them in f64, keeps them in its registers).
@@ -236,7 +230,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_march_tr_kernel(cons
   T e[M], ml[M], mu_last = T(0);
   if (g.rank == 0) s_q[2 * slot] = s_q[2 * slot + 1] = T(0);
   for (int h = 0; h < a.hours; ++h) {
-    // The in-run controls at the main step's start (day_march.cu's notes).
+    // The in-run controls at the main step's start (day_march_parity.cu's notes).
     T shade = T(1);
     if (kExt && a.shade_slot) {
       const int z = a.shade_slot[lane];
@@ -492,18 +486,15 @@ int launch_tr(const MarchArgsOf<T, kMrt>& m, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// The kind's kernel with `group` threads per surface whose launch bound holds
-// lanes x group threads (day_march.threads_per_surface picks the group from
-// day_march.GROUP_MAX_THREADS, which tests/test_torch_partitioned_solve.py
-// holds to these lines).
+// The kind's kernel in the launch variant that takes the block's lanes
+// (launch_variant; tests/test_torch_partitioned_solve.py holds the table).
 template <typename T, bool kExt, bool kCav, bool kMrt>
-int launch_group(const MarchArgsOf<T, kMrt>& m, int group, cudaStream_t st) {
-  const int threads = m.in.SB * group;
-  if (group == 4 && threads <= kG4) return launch_tr<T, 4, kG4, kThree<T>, kExt, kCav, kMrt>(m, st);
-  if (group == 4 && threads <= kG4Mid) return launch_tr<T, 4, kG4Mid, 1, kExt, kCav, kMrt>(m, st);
-  if (group == 4 && threads <= kWide) return launch_tr<T, 4, kWide, 1, kExt, kCav, kMrt>(m, st);
-  if (group == 8 && threads <= kG8) return launch_tr<T, 8, kG8, kThree<T>, kExt, kCav, kMrt>(m, st);
-  if (group == 16 && threads <= kG16) return launch_tr<T, 16, kG16, 1, kExt, kCav, kMrt>(m, st);
+int launch_kind(const MarchArgsOf<T, kMrt>& m, cudaStream_t st) {
+  switch (launch_variant(m.in.SB)) {
+    case 0: return launch_tr<T, kGroup, kLaunchVariants[0].threads, kVariantBlocks<T, 0>, kExt, kCav, kMrt>(m, st);
+    case 1: return launch_tr<T, kGroup, kLaunchVariants[1].threads, kVariantBlocks<T, 1>, kExt, kCav, kMrt>(m, st);
+    case 2: return launch_tr<T, kGroup, kLaunchVariants[2].threads, kVariantBlocks<T, 2>, kExt, kCav, kMrt>(m, st);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -513,26 +504,24 @@ int launch_group(const MarchArgsOf<T, kMrt>& m, int group, cudaStream_t st) {
 // one with the cavity code (kCav); MRT physics and the histories the kMrt
 // unit's kinds.
 template <typename T>
-int day_march_tr(const void* args, void* stream, int group) {
+int day_march_tr(const void* args, void* stream) {
   const MrtMarchArgs<T>& m = *static_cast<const MrtMarchArgs<T>*>(args);
   const DayArgs<T>& a = m.in;
   if (m.net.mrt)
-    return std::is_same_v<T, float> ? heatx_day_march_tr_mrt_f32(args, stream, group)
-                                    : heatx_day_march_tr_mrt_f64(args, stream, group);
+    return std::is_same_v<T, float> ? heatx_day_march_tr_mrt_f32(args, stream)
+                                    : heatx_day_march_tr_mrt_f64(args, stream);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const MarchArgs<T>& base = m;
-  if (a.cav) return launch_group<T, true, true, false>(base, group, st);
+  if (a.cav) return launch_kind<T, true, true, false>(base, st);
   const bool ext = a.ctl || a.mix_ptr || a.shade_slot || a.vent_min;
-  return ext ? launch_group<T, true, false, false>(base, group, st)
-             : launch_group<T, false, false, false>(base, group, st);
+  return ext ? launch_kind<T, true, false, false>(base, st) : launch_kind<T, false, false, false>(base, st);
 }
 #else
 template <typename T>
-int day_march_tr_mrt(const void* args, void* stream, int group) {
+int day_march_tr_mrt(const void* args, void* stream) {
   const MrtMarchArgs<T>& m = *static_cast<const MrtMarchArgs<T>*>(args);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return m.in.cav ? launch_group<T, true, true, true>(m, group, st)
-                  : launch_group<T, true, false, true>(m, group, st);
+  return m.in.cav ? launch_kind<T, true, true, true>(m, st) : launch_kind<T, true, false, true>(m, st);
 }
 #endif
 
@@ -540,18 +529,10 @@ int day_march_tr_mrt(const void* args, void* stream, int group) {
 
 extern "C" {
 #ifndef HEATX_DAY_MARCH_TR_KMRT_UNIT
-int heatx_day_march_tr_f32(const void* m, void* stream, int group) {
-  return day_march_tr<float>(m, stream, group);
-}
-int heatx_day_march_tr_f64(const void* m, void* stream, int group) {
-  return day_march_tr<double>(m, stream, group);
-}
+int heatx_day_march_tr_f32(const void* m, void* stream) { return day_march_tr<float>(m, stream); }
+int heatx_day_march_tr_f64(const void* m, void* stream) { return day_march_tr<double>(m, stream); }
 #else
-int heatx_day_march_tr_mrt_f32(const void* m, void* stream, int group) {
-  return day_march_tr_mrt<float>(m, stream, group);
-}
-int heatx_day_march_tr_mrt_f64(const void* m, void* stream, int group) {
-  return day_march_tr_mrt<double>(m, stream, group);
-}
+int heatx_day_march_tr_mrt_f32(const void* m, void* stream) { return day_march_tr_mrt<float>(m, stream); }
+int heatx_day_march_tr_mrt_f64(const void* m, void* stream) { return day_march_tr_mrt<double>(m, stream); }
 #endif
 }  // extern "C"

@@ -1,5 +1,7 @@
-// Device code of the reference-parity sub-step, shared by the day march
-// (day_march.cu) and its adjoint (day_adjoint.cu): heatx `_hour_body`
+// Device code of the reference-parity sub-step on one thread per surface,
+// which the parity adjoint (day_adjoint.cu) runs to recompute its forward
+// sweep (the day march has its own four-thread form, day_march_parity.cu,
+// which takes ParityCfg and the chunk word from here): heatx `_hour_body`
 // (heatx/ops/pallas_step.py:633) per surface lane.  One sub-step is
 //   1. the TARP film coefficients and the linearized radiation of the state,
 //   2. K (U couplings inside a chunk, every neighbour and the films on the

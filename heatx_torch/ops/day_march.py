@@ -21,66 +21,58 @@ falls back to the compiled rows ``params.ctl``).
 Dispatch is by device, with no fallback: on CPU tensors the call runs the
 plain PyTorch twin (:func:`plain_day_march`); on CUDA tensors it launches the
 hand-written kernels or raises: the TR-BDF2 modes in
-``heatx_torch/csrc/day_march_tr.cu``, parity in ``day_march.cu``.
+``heatx_torch/csrc/day_march_tr.cu``, parity in ``day_march_parity.cu``,
+both through the C entry in ``day_march.cu``.
 
 Design, and what of heatx's kernel is deliberately not carried over:
 
 * One CUDA thread block per zone-closed block (at most 256 lanes per
   block), laid out with ``node_split=None``: the TPU's node-height split
-  that saves padded rows on its vector lanes has nothing to save here.  The
-  TR-BDF2 kernel runs G threads per surface lane (:func:`threads_per_surface`
-  picks G from the block's lanes), each owning 32/G consecutive node rows in
-  registers; the parity kernel one thread per lane with the whole column.
+  that saves padded rows on its vector lanes has nothing to save here.  Both
+  kernels run 4 threads per surface lane, each owning 8 consecutive node
+  rows in registers, in the launch variant that the C side's one table
+  (``kLaunchVariants``, ``csrc/day_march_args.cuh``) picks from the block's
+  lanes; :class:`DayMarchKernel` reads back which one ran.
 * Zone coupling goes through shared memory: boundary air temperatures are
   indexed reads of the block's zone row (``front_zone``/``back_zone``, -1 for
   a face that bounds no zone), and the zone A/B sums are a fixed-order sum
   per zone over a lane list built on the host (``zone_ptr``/``zone_faces``),
-  so two runs give the same bits.  heatx's one-hot matmuls (and their
-  transposed copies) are not ported.
-* The zone update uses ``expm1``; heatx's ``_expm1_neg`` series exists only
-  because Mosaic has no expm1.
+  a warp per zone, so two runs give the same bits.  heatx's one-hot matmuls
+  (and their transposed copies) are not ported.  The zone update uses
+  ``expm1`` (heatx's ``_expm1_neg`` series exists because Mosaic has none).
 * Inter-zone mixing keeps the meaning of heatx's dense ``mix_wt[b*ZB + from,
   to]`` as per-block entry lists (:class:`MixLists`): grouped by destination
   zone in a fixed order for the march, and by source zone for the adjoint's
   transpose.  A zone reads its sources' sub-step-start temperatures, so the
   kernel writes the new zone row into a second shared row and swaps the two.
-* The thermostat, schedule and mixing code is a second instantiation of the
-  kernel template: free-float buildings run the code they ran before.
+* Each building runs the kind of kernel its zones and surfaces need
+  (free-float; thermostats, schedules, mixing and the controls; gas
+  cavities; interior MRT), so a free-float building runs none of the rest.
 * Mosaic layout workarounds are gone: ``_row01`` and the rank-2 ``[1, ZB]``
   zone rows, the 8-row zone padding (``zone_spec``/``_pad_zone_rows``) and
   the HR8 hour padding, full-block broadcast writes, ``vmem_limit_mb`` /
-  ``HEATX_KERNEL_VMEM_MB``.
-* Solver selection is gone: the TR-BDF2 kernel factors the stage matrix
-  once per operator refresh with a partitioned solve (each thread's rows
-  eliminated locally, the group's reduced system by parallel cyclic
-  reduction over warp shuffles; ``tridiag.partition_factor``/
-  ``partition_solve`` state it plainly), and the plain twin keeps heatx's
-  Thomas sweeps (``factor``/``solve_factored``); ``HEATX_KERNEL_SOLVER``,
-  ``HEATX_KERNEL_LOOP`` and the scratch-ref ``_make_ref_thomas`` are not
-  ported.  The PCR twins stay in ``heatx_torch.ops.tridiag``.
-* bench.py's dispatch chunking against a remote watchdog has no counterpart
-  (a parity day-launch runs for ~0.14 s on an H100, an adjoint one for ~1.6 s).
-* Parity mode (``csrc/day_parity.cuh``, the plain twin
-  :func:`plain_hour_parity`) is a further instantiation of each kernel
-  template, so the TR-BDF2 code keeps its registers and times.  Not carried
-  over from heatx's parity path: the hoisted static-U forms of K and q and
-  the identity guards that select them (one inline form here); the solver
-  choice for the no-mass system (heatx: the closed-form pair solve when no
-  run is longer than 2 nodes, else PCR compiled and Thomas interpreted;
-  ``HEATX_NOMASS_PAIRS``, ``HEATX_KERNEL_SOLVER``, ``HEATX_KERNEL_LOOP``):
-  the kernel runs the Thomas sweeps over the identity-padded column per
-  thread, and the plain twin keeps heatx's choice (``tridiag.solve_runs2`` or
-  ``tridiag.solve``); ``unroll_fixed_loops``/``kernel_mode``; chunk ids and
-  counts as operands (a lane's ``chunk_bits`` word and its masks give them).
-  The kernel never flushes tiny RK4 stage values to zero, and
+  ``HEATX_KERNEL_VMEM_MB``; so is bench.py's dispatch chunking against a
+  remote watchdog.
+* Solver selection: the TR-BDF2 kernel factors the stage matrix once per
+  operator refresh with a partitioned solve (``tridiag.partition_factor``/
+  ``partition_solve`` state it plainly; the plain twin keeps heatx's Thomas
+  sweeps).  The parity kernel keeps heatx's choice for the no-mass system:
+  the closed-form solve of runs of one or two nodes (``tridiag.solve_runs2``)
+  and Thomas where a run is longer (per block in the kernel, per building in
+  heatx and the plain twin: the same to rounding); ``HEATX_NOMASS_PAIRS``,
+  ``HEATX_KERNEL_SOLVER``, ``HEATX_KERNEL_LOOP``, ``unroll_fixed_loops`` and
+  ``kernel_mode`` are not ported.  It hoists heatx's static forms (dt/C and
+  the scaled K rows once per launch) into registers; chunk ids and counts
+  ride as a lane's ``chunk_bits`` word.  ``tests/torch_parity_rows_plain.py``
+  states its row plan plainly.
+* Parity's RK4 never flushes tiny stage values to zero, and
   :class:`HourMarch` gives its twin ``flush_tiny=False`` whatever the
   building's config says (heatx's kernel path does the same on hardware that
-  flushes subnormals; nvcc without fast-math keeps them, and chip_smoke.py
-  shows in f32 at full width that a twin which flushes differs by round-off).
-  ``SimConfig.flush_tiny`` is read by ``engine.surface.march_surfaces``.
+  flushes subnormals); ``SimConfig.flush_tiny`` is read by
+  ``engine.surface.march_surfaces``.
 * The adaptive no-mass loop (``nomass_fixed_iters=None``) runs, as in heatx,
   only with ``HEATX_KERNEL_WHILE=1`` (otherwise heatx's ``ValueError``).  In
-  the kernel each lane iterates until its own runs are inactive or
+  the kernel each warp iterates until none of its lanes has an active run or
   ``nomass_max_iter`` iterations have run; the plain twin iterates the whole
   building until none is active, which leaves every lane where its own stop
   does (``csrc/day_parity.cuh`` has the argument).  Neither has a gradient:
@@ -97,17 +89,13 @@ sweep (the adjoint kernel and ``DayMarchFn``).
 Gas cavities: a lane's ``cav_bits`` word marks its gas-cavity segments, and
 ``DayMarchParams.cav`` holds their gas polynomials, geometry and
 emissivities.  The kernels re-evaluate the ISO 15099 cavity U of those
-segments at every operator build (TR-BDF2: from the refresh group's start
-column; parity: on each no-mass iteration and on the post-no-mass column, as
-heatx's ``march_surfaces``) in an out-of-line device function, compiled
-into instantiations of their own (``kCav``) that every building with a
-cavity takes, so the others run the code they ran before.  In the TR-BDF2
-kernel a cavity segment's U lives in a register of the thread that owns its
-first row; in the parity kernel and the adjoints a cavity lane's K reads its
-segment U-values from a per-launch copy of the U row (``cavity_u_row``)
-that the kernel rewrites, and ``params.cav`` in place;
-heatx's hoisted static-U forms and their ``has_cavity`` guards are not
-carried over.
+segments where heatx does (TR-BDF2: at every operator build, from the
+refresh group's start column; parity: on each no-mass iteration's input and
+on the post-no-mass column) in an out-of-line device function, compiled into
+kinds of their own (``kCav``) that every building with a cavity takes; in
+both day-march kernels a cavity segment's U lives in a register of the
+thread that owns its first row.  The adjoints read a per-launch copy of the
+U row (``cavity_u_row``) that the kernel rewrites.
 
 Interior MRT (``config.interior_mrt``): the Carroll network's static part
 (participation, view factors, effective emissivities) is computed at
@@ -119,9 +107,8 @@ the zone MRT nodes runs in the march, frozen with the operators in TR-BDF2
 start in parity mode, as heatx does.  Blocks are zone-closed, so the
 network is block-local: the kernel sums each zone's participating faces in
 the fixed order of a host-built list (``mrt_ptr``/``mrt_faces``) in shared
-memory, with barriers between the iterations (in the TR-BDF2 kernel each
-lane's front face on its group's first thread, its back face on the
-others).  ``collect_hq`` (the per-hour
+memory, with barriers between the iterations (each lane's front face on its
+group's first thread, its back face on the others).  ``collect_hq`` (the per-hour
 h/q history) and ``collect_operative`` (the per-hour operative temperature,
 the zone-air-started solve on each hour's final state) are outputs of the
 same instantiations (``kMrt``), which every launch with MRT physics or
@@ -178,15 +165,8 @@ MAX_NODES = 32
 MAX_BLOCK_LANES = 256
 #: Lane granularity of a block: one warp.
 WARP = 32
-#: Threads per surface lane of the TR-BDF2 kernel (csrc/day_march_tr.cu):
-#: each instantiated group size with the most threads per block its launch
-#: bounds take (groups of 4 up to 1024: blocks of up to MAX_BLOCK_LANES), and
-#: the default, the fastest at bench width (PERF.md).
-GROUP_MAX_THREADS = {4: 1024, 8: 256, 16: 512}
-DEFAULT_GROUP = 4
-
 # Row order of DayMarchParams.node / .surf / .lane — the CUDA kernel indexes
-# these rows by the same order (enum ND_*, SF_*, LN_* in csrc/day_march.cu).
+# these rows by the same order (enum ND_*, SF_*, LN_* in csrc/day_common.cuh).
 NODE_FIELDS = ("seg_u", "capacity", "front_alphas", "back_alphas")
 SURF_FIELDS = (
     "area", "perimeter", "cos_tilt", "wind_mod", "eps_front", "eps_back", "rf",
@@ -211,11 +191,12 @@ CAV_FIELDS = (
     "angle", "ein", "eout",
 )
 
-#: The day march's compilation units: the parity body with the C entry, the
-#: TR-BDF2 body (several threads per surface), and each one's MRT kinds apart
-#: (csrc/day_march_mrt.cu says why).
+#: The day march's compilation units: the C entry, the parity body and the
+#: TR-BDF2 body (each four threads per surface), and each body's MRT kinds
+#: apart (csrc/day_march_parity_mrt.cu says why).
 KERNEL_SOURCES = tuple(cuda_lib.CSRC_DIR / f for f in (
-    "day_march.cu", "day_march_mrt.cu", "day_march_tr.cu", "day_march_tr_mrt.cu"))
+    "day_march.cu", "day_march_parity.cu", "day_march_parity_mrt.cu", "day_march_tr.cu",
+    "day_march_tr_mrt.cu"))
 
 #: Values of the blocked parameter rows on padded lanes (0.0 for the rest).
 #: Area 1 keeps perimeter*v/area finite on a padded lane, and its
@@ -1255,26 +1236,12 @@ def plain_day_march(
 # ---------------------------------------------------------------------------
 
 
-def threads_per_surface(block_lanes: int, group: int = None) -> int:
-    """The TR-BDF2 kernel's threads per surface for blocks of ``block_lanes``
-    lanes: ``group`` (default :data:`DEFAULT_GROUP`) where the block's
-    ``block_lanes * group`` threads fit its launch bounds
-    (:data:`GROUP_MAX_THREADS`), else 4, which takes every block of up to
-    :data:`MAX_BLOCK_LANES` lanes."""
-    group = DEFAULT_GROUP if group is None else group
-    if group not in GROUP_MAX_THREADS:
-        raise ValueError(f"{group} threads per surface: the kernel has {tuple(GROUP_MAX_THREADS)}")
-    if block_lanes > MAX_BLOCK_LANES:
-        raise ValueError(f"block of {block_lanes} lanes > {MAX_BLOCK_LANES}")
-    return group if block_lanes * group <= GROUP_MAX_THREADS[group] else 4
-
-
 def _load_library():
     lib = cuda_lib.load("heatx_day_march", KERNEL_SOURCES)
     if not getattr(lib, "_heatx_bound", False):
         vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
         for fn in (lib.heatx_day_march_f32, lib.heatx_day_march_f64):
-            fn.argtypes = [vp] * 43 + [ci] * 14 + [cd] * 8 + [vp]
+            fn.argtypes = [vp] * 42 + [ci] * 13 + [cd] * 8 + [vp, vp]
             fn.restype = ci
         lib.heatx_cuda_error_string.argtypes = [ci]
         lib.heatx_cuda_error_string.restype = ctypes.c_char_p
@@ -1289,23 +1256,24 @@ def load_kernel() -> None:
 
 class DayMarchKernel:
     """Launches the day march on CUDA tensors: the TR-BDF2 modes in
-    ``day_march_tr.cu`` with :func:`threads_per_surface` threads per surface
-    (``group`` overrides the default), parity in ``day_march.cu``.
-    ``launches`` counts the launches made through this wrapper (and nothing
-    else).  Arguments and returns as :func:`plain_day_march`.  Thermostat rows (``params.ctl``),
-    per-hour setpoints and mixing lists select the kernel's second
-    instantiation, gas cavities (``params.cav``) a third that also carries
-    the cavity code; without them the free-float one runs.  ``parity`` selects
-    the reference-parity kernel (again one instantiation of each kind), whose
-    no-mass iteration count and tolerances come from ``config``.  MRT
-    physics (``config.interior_mrt``), ``collect_hq`` and
-    ``collect_operative`` select the instantiations with the Carroll network
-    and the two histories (:func:`mrt_operands`).  In-run shading and
+    ``day_march_tr.cu``, parity in ``day_march_parity.cu``, both four
+    threads per surface in the launch variant that the C entry picks from the
+    block's lanes (``block_threads`` reads back the threads of a block of the
+    last launch's).  ``launches`` counts the launches made through this
+    wrapper (and nothing else).  Arguments and returns as
+    :func:`plain_day_march`.  Thermostat rows (``params.ctl``), per-hour
+    setpoints and mixing lists select the kernels' second kind, gas cavities
+    (``params.cav``) a third that also carries the cavity code; without them
+    the free-float one runs.  ``parity`` selects the reference-parity kernel
+    (in the same kinds), whose no-mass iteration count and tolerances come
+    from ``config``.  MRT physics (``config.interior_mrt``), ``collect_hq``
+    and ``collect_operative`` select the kinds with the Carroll network and
+    the two histories (:func:`mrt_operands`).  In-run shading and
     ventilation gates (``params.shade_slot``, ``params.vent``) run in the
-    extended instantiations (:func:`gate_hour` has their meaning)."""
+    extended kinds (:func:`gate_hour` has their meaning)."""
 
     def __init__(self):
-        self.group = None  # threads per surface of TR-BDF2 launches (None: the default)
+        self.block_threads = None  # threads per block of the last launch's variant
         self.launches = 0
         self.parity_launches = 0  # those of ``launches`` that ran the parity kernel
         self.cavity_launches = 0  # those of ``launches`` on a building with gas cavities
@@ -1346,30 +1314,30 @@ class DayMarchKernel:
         top = torch.empty((hours, NB, ZB), **kw) if collect_operative else None
         mrt = mrt_operands(params, config, collect_hq, collect_operative)
         mix = params.mix
-        cav_u = cavity_u_row(params) if parity else None
-        group = 0 if parity else threads_per_surface(SB, self.group)
         ptrs = [None if t is None else t.data_ptr() for t in (
             params.node, params.surf, params.lane, params.zone_volume,
             params.zone_ptr, params.zone_faces, t_out, wind, wdir, sol_front,
             sol_back, ir_front, ir_back, a_extra, b_extra, T, zT,
             T_out, zT_out, hq, zt_hist, bad,
             ld_hist, params.ctl, sp_heat, sp_cool,
-            *((None,) * 3 if mix is None else (mix.ptr, mix.src, mix.vol)), cav_u, params.cav,
+            *((None,) * 3 if mix is None else (mix.ptr, mix.src, mix.vol)), params.cav,
             *mrt, hq_hist, top, params.shade_slot, params.shade, shade_sp, params.vent,
             a_vent, b_vent, vent_thr,
         )]
+        ran = ctypes.c_int(0)
         with torch.cuda.device(T.device):
             stream = torch.cuda.current_stream().cuda_stream
             err = fn(
                 *ptrs, N, NB, SB, ZB, hours, substeps, refresh_every,
                 int(config.replicate_ambient_back_bug), *parity_ints(config, parity),
-                int(config.interior_mrt), group, dt, imp_mod.GAMMA * dt / 2.0, imp_mod.GAMMA * dt,
+                int(config.interior_mrt), dt, imp_mod.GAMMA * dt / 2.0, imp_mod.GAMMA * dt,
                 imp_mod.BETA * dt, imp_mod.C1, imp_mod.C2,
-                config.nomass_tol, config.nomass_tol_escalated, stream,
+                config.nomass_tol, config.nomass_tol_escalated, ctypes.byref(ran), stream,
             )
         if err != 0:
             msg = lib.heatx_cuda_error_string(err).decode()
             raise RuntimeError(f"day_march kernel launch failed: CUDA error {err} ({msg})")
+        self.block_threads = ran.value
         self.launches += 1
         self.parity_launches += int(parity)
         self.cavity_launches += int(params.cav is not None)
@@ -1428,12 +1396,12 @@ def mrt_operands(params: DayMarchParams, config: SimConfig, collect_hq=False, co
 
 
 def cavity_u_row(params: DayMarchParams):
-    """The parity kernel's and the adjoint kernels' segment U-values on a
-    building with gas cavities ``[N, SP]``, or None without: a fresh copy of
-    ``params.node``'s U row per launch, whose cavity segments the kernel
-    rewrites at every operator build (a cavity lane's K reads them there; the
-    cavity operands stay in ``params.cav``, read only).  The TR-BDF2 kernel
-    keeps them in registers."""
+    """The adjoint kernels' segment U-values on a building with gas cavities
+    ``[N, SP]``, or None without: a fresh copy of ``params.node``'s U row per
+    launch, whose cavity segments the kernel rewrites at every operator build
+    (a cavity lane's K reads them there; the cavity operands stay in
+    ``params.cav``, read only).  The day-march kernels keep them in
+    registers."""
     if params.cav is None:
         return None
     return params.node[0].clone()

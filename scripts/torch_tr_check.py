@@ -1,7 +1,6 @@
 #!/usr/bin/env python3
 """The TR-BDF2 day-march kernel (heatx_torch/csrc/day_march_tr.cu) on one
-NVIDIA GPU, every kind at every group size, in f64 against its plain
-version: the quickest check after a change to the kernel.  Run from the
+NVIDIA GPU, every kind in f64 against its plain version: the quickest check after a change to the kernel.  Run from the
 repository root:
 
     python3 scripts/torch_tr_check.py
@@ -13,9 +12,7 @@ warps in a block), each kind (free-float, thermostats and mixing, schedules,
 gas cavities, interior MRT with the h/q and operative histories, MRT with
 cavities, the in-run shading and ventilation gates, one zone of 50
 surfaces (a 64-lane block) and one of 256 surfaces, each with a 32-node
-wall, free-float and with a thermostat) and each
-group size of ``day_march.GROUP_MAX_THREADS`` (the wrapper takes 4 where a
-group does not fit the block), marches 3 h on the card and on the plain
+wall, free-float and with a thermostat), marches 3 h on the card and on the plain
 version from the same state and inputs and holds every output to 1e-9 K
 (loads to 1e-9 of their largest magnitude).  Exits non-zero on a failed
 check.  ~2 min on an H100, most of it the build and the plain versions.
@@ -78,44 +75,45 @@ def main() -> int:
     table = ptxas_table(cuda_lib.build_log("heatx_day_march", day_march.KERNEL_SOURCES))
     print(f"build {time.time() - t0:.1f} s; TR-BDF2 ptxas: "
           + " | ".join(e for e in table.split(" | ") if "parity=0" in e), flush=True)
+    worst = check(torch, testing, ThermalModel, SimConfig, day_march)
+    print(f"torch_tr_check: every kind within {TOL:g} (worst {worst:.3e})", flush=True)
+    return 0
+
+
+def check(torch, testing, ThermalModel, SimConfig, day_march, device="cuda", log=print):
+    """Every case, kernel against plain in f64; returns the worst gap."""
     kern = day_march.day_march_kernel
     worst = 0.0
     for name, model, cfg, kw, (inputs, runkw, extra) in cases(torch, testing, SimConfig):
-        tm = ThermalModel(model, n=1, config=SimConfig(**cfg), device="cuda")
+        tm = ThermalModel(model, n=1, config=SimConfig(**cfg), device=device)
         r = tm.fast_runner(hours=HOURS, **kw)
-        seq = inputs(tm.building, HOURS, device="cuda").replace(**extra)
+        seq = inputs(tm.building, HOURS, device=device).replace(**extra)
         T, zT = r.to_blocked(tm.initial_state())
         hi = r.kernel_inputs(seq, **runkw)[0]
         ops, gates = r.hour_march._operands(r.params, T, zT, hi)
         ref = day_march.plain_day_march(r.params, *ops, **r.hour_march._kw(), **gates)
-        row = []
-        for group in day_march.GROUP_MAX_THREADS:
-            kern.group = group
-            before = kern.launches
-            got = kern(r.params, *ops, **r.hour_march._kw(), **gates)
+        before = kern.launches
+        got = kern(r.params, *ops, **r.hour_march._kw(), **gates)
+        if device != "cpu":
             torch.cuda.synchronize()
-            if kern.launches != before + 1:
-                raise AssertionError(f"{name}: the kernel did not launch")
-            err = 0.0
-            for i, (x, y) in enumerate(zip(got, ref)):
-                if (x is None) != (y is None):
-                    raise AssertionError(f"{name}: output {i} present on one side only")
-                if x is None:
-                    continue
-                d = float((x - y).abs().max())
-                if i == 5:  # the load history, W: relative to its largest magnitude
-                    d /= max(float(y.abs().max()), 1e-30)
-                err = max(err, d)
-            if not err <= TOL:
-                raise AssertionError(f"{name}, G={group}: kernel vs plain max |d| {err:.3e} > {TOL:g}")
-            used = day_march.threads_per_surface(r.params.block_size, group)
-            row.append(f"G={group}" + (f" (ran {used})" if used != group else "") + f" {err:.3e}")
-            worst = max(worst, err)
-        kern.group = None
-        print(f"{name} ({r.params.block_size} lanes x {r.params.n_blocks} blocks, N={r.params.max_nodes}): "
-              + ", ".join(row), flush=True)
-    print(f"torch_tr_check: every kind at every group within {TOL:g} (worst {worst:.3e})", flush=True)
-    return 0
+        if kern.launches != before + 1:
+            raise AssertionError(f"{name}: the kernel did not launch")
+        err = 0.0
+        for i, (x, y) in enumerate(zip(got, ref)):
+            if (x is None) != (y is None):
+                raise AssertionError(f"{name}: output {i} present on one side only")
+            if x is None:
+                continue
+            d = float((x - y).abs().max())
+            if i == 5:  # the load history, W: relative to its largest magnitude
+                d /= max(float(y.abs().max()), 1e-30)
+            err = max(err, d)
+        if not err <= TOL:
+            raise AssertionError(f"{name}: kernel vs plain max |d| {err:.3e} > {TOL:g}")
+        worst = max(worst, err)
+        log(f"{name} ({r.params.block_size} lanes x {r.params.n_blocks} blocks, N={r.params.max_nodes}, "
+            f"{kern.block_threads} threads a block): {err:.3e}", flush=True)
+    return worst
 
 
 if __name__ == "__main__":

@@ -59,9 +59,8 @@ def main() -> int:
     y = np.array([ms for *_, ms in rows])
     coef, *_ = np.linalg.lstsq(A, y, rcond=None)
     resid = float(np.abs(A @ coef - y).max())
-    group = day_march.threads_per_surface(r.layout.block_size)
-    print(f"1. bench city f32, {r.layout.n_blocks} blocks x {r.layout.block_size} lanes, {group} threads per "
-          "surface; day-launch ms by (sub-steps, operator builds): "
+    print(f"1. bench city f32, {r.layout.n_blocks} blocks x {r.layout.block_size} lanes, launch variant "
+          f"G=4/{day_march.day_march_kernel.block_threads}; day-launch ms by (sub-steps, operator builds): "
           + ", ".join(f"({s}, {b}) {ms:.3f}" for s, b, ms in rows)
           + f"; fit: {coef[0] * 1e3:.1f} us + {coef[1] * 1e3:.3f} us per sub-step + {coef[2] * 1e3:.3f} us per "
           f"operator build (largest residual {resid * 1e3:.1f} us)", flush=True)

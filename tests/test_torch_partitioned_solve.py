@@ -2,7 +2,7 @@
 (csrc/day_tr.cuh), in its plain statement (heatx_torch.ops.tridiag
 partition_factor / partition_solve, the kernel's G threads per surface as a
 batch axis), against heatx's Thomas solve and the port's, in f64; and the
-kernel wrapper's choice of threads per surface at B1's edge."""
+day-march kernels' launch variants up to B1's edge."""
 
 import re
 
@@ -65,44 +65,41 @@ def test_partitioned_solve_matches_thomas(n, groups, seed):
     assert np.array_equal(got[ident], rhs[ident])
 
 
-def kernel_launch_bounds() -> dict:
-    """The TR-BDF2 kernel's launch-bound variants as its C entry dispatches
-    them (``launch_group`` in csrc/day_march_tr.cu): {G: [the most threads
-    a block of each G-variant takes]}."""
-    src = (cuda_lib.CSRC_DIR / "day_march_tr.cu").read_text()
-    consts = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
-    body = src[src.index("int launch_group("):]
-    body = body[:body.index("\n}\n")]
-    bounds = {}
-    for g, bound, tg, tb in re.findall(
-            r"if \(group == (\d+) && threads <= (k\w+)\) return launch_tr<T, (\d+), (k\w+),", body):
-        assert (g, bound) == (tg, tb)
-        bounds.setdefault(int(g), []).append(consts[bound])
-    return bounds
+def launch_variants() -> list:
+    """The day-march kernels' launch variants as the C side declares them
+    (``kLaunchVariants`` in csrc/day_march_args.cuh): [(most lanes, threads,
+    f32 blocks per SM)], and G."""
+    src = (cuda_lib.CSRC_DIR / "day_march_args.cuh").read_text()
+    table = re.search(r"kLaunchVariants\[\] = \{(.*?)\};", src).group(1)
+    group = int(re.search(r"constexpr int kGroup = (\d+);", src).group(1))
+    return [tuple(int(v) for v in row.split(",")) for row in re.findall(r"\{([\d, ]+)\}", table)], group
 
 
 def test_group_choice_fits_every_block():
-    """Every block the day march takes (up to MAX_BLOCK_LANES lanes) gets a
-    group that the kernel's C entry launches: for every requested group,
-    the request where one of its variants takes the block's lanes x G
-    threads, else 4; each within 1024 threads.  The wrapper's table is the C
-    side's bounds.  And one zone of 256 surfaces with a 32-node wall still
-    blocks and packs."""
-    bounds = kernel_launch_bounds()
-    assert day_march.GROUP_MAX_THREADS == {g: max(b) for g, b in bounds.items()}
+    """Every block the day march takes (up to MAX_BLOCK_LANES lanes) runs in
+    a launch variant of the one table both kernels read: the first whose
+    lanes take the block's, G = 4 threads a lane within its launch bound and
+    within 1024 threads; both kernels dispatch every variant of the table
+    through launch_variant and nothing else, and the C entry writes back the
+    variant's threads.  And one zone of 256 surfaces with a 32-node wall
+    still blocks and packs."""
+    variants, group = launch_variants()
+    assert group == 4 and [v[0] for v in variants] == sorted(v[0] for v in variants)
     for sb in range(1, day_march.MAX_BLOCK_LANES + 1):
-        for req in (None,) + tuple(bounds):
-            g = day_march.threads_per_surface(sb, req)
-            want = day_march.DEFAULT_GROUP if req is None else req
-            assert sb * g <= 1024
-            assert any(sb * g <= b for b in bounds[g])
-            assert g == (want if any(sb * want <= b for b in bounds[want]) else 4)
-    assert day_march.threads_per_surface(32) == day_march.DEFAULT_GROUP
-    assert day_march.threads_per_surface(256) == 4
-    with pytest.raises(ValueError):
-        day_march.threads_per_surface(day_march.MAX_BLOCK_LANES + 1)
-    with pytest.raises(ValueError):
-        day_march.threads_per_surface(32, 32)
+        lanes, threads, _ = next(v for v in variants if sb <= v[0])
+        assert sb * group <= lanes * group <= threads <= 1024
+    assert variants[-1][0] == day_march.MAX_BLOCK_LANES
+    assert next(v for v in variants if 32 <= v[0]) == (32, 128, 3)  # the bench city's blocks, one wave
+    for name in ("day_march_tr.cu", "day_march_parity.cu"):
+        src = (cuda_lib.CSRC_DIR / name).read_text()
+        body = src[src.index("int launch_kind("):]
+        body = body[:body.index("\n}\n")]
+        assert "switch (launch_variant(m.in.SB))" in body
+        assert re.findall(r"case (\d+):", body) == [str(v) for v in range(len(variants))], name
+        assert "group" not in body
+    entry = (cuda_lib.CSRC_DIR / "day_march.cu").read_text()
+    assert "*block_threads = kLaunchVariants[v].threads" in entry and "int group" not in entry
+    assert not hasattr(day_march, "GROUP_MAX_THREADS") and not hasattr(day_march.day_march_kernel, "group")
 
     building = compile_building(testing.build_wide_zone_model(), n=1,
                                 config=SimConfig(dtype=torch.float64))
@@ -111,4 +108,4 @@ def test_group_choice_fits_every_block():
     assert bb.block_size == day_march.MAX_BLOCK_LANES
     params = day_march.params_from_blocked(bb, torch.float64, torch.device("cpu"))
     assert tuple(params.node.shape) == (4, day_march.MAX_NODES, bb.layout.padded_surfaces)
-    assert day_march.threads_per_surface(params.block_size) * params.block_size == 1024
+    assert next(v for v in variants if params.block_size <= v[0])[1] == params.block_size * group == 1024
