@@ -29,7 +29,14 @@ Phases (one output line each, then a JSON line per contract):
    (testing.coarse_config: 6 sub-steps an hour, an 8-node wall) in parity
    mode, one no-mass iteration, 2 h, free-float and with the thermostat,
    held to the same bounds: every launch variant of both kernels on the
-   card in both types.
+   card in both types.  The TR-BDF2 adjoint kernel on the f64 TR-BDF2
+   launches (k=2 free-float, frozen with the thermostat; its 1024- and
+   256-thread variants) against the plain adjoint on seeded cotangents,
+   every output <= 1e-9 of its max |ref|.
+3c. the TR-BDF2 adjoint with the most zone rows of an hour a block held
+   (testing.build_zone_chain_model: 64 zones in one 64-lane block, 2-node
+   panes, a thermostat each, 144 sub-steps an hour), f64, 2 h, k=2 and
+   frozen, against the plain adjoint, every output <= 1e-9 of its max |ref|.
 4. the main path at full width: build_city_model(1000, 10) (10,000
    surfaces, 1,000 zones), trbdf2_refresh k=2, 8 sub-steps, hours=24,
    bench weather, 48 h through ThermalModel(..., device="cuda")
@@ -41,9 +48,11 @@ Phases (one output line each, then a JSON line per contract):
    the kernel against the plain twin on the same day's inputs (max |dT| <=
    1e-2 K, f32 summation-order round-off); the launch variant it ran in.
 
-6. build (the adjoint): the day-adjoint kernel (heatx_torch/csrc/
-   day_adjoint.cu), compiled by its own nvcc started together with phase 2's;
-   its ptxas registers/stack/spill lines.
+6. build (the adjoint): the day-adjoint kernels (the TR-BDF2 body in
+   heatx_torch/csrc/day_adjoint_tr.cu, four threads per surface in three
+   launch variants, the parity body and the C entry in day_adjoint.cu, each
+   with its kMrt unit), one nvcc per unit started together with phase 2's;
+   their ptxas registers/stack/spill lines.
 7. f64 on the 4-zone city, 3 h, k=2, k=8 and frozen: the adjoint kernel
    against its plain PyTorch version (autograd through the plain day march)
    on seeded cotangents, max |d| <= 1e-9 max |ref| for every output; and a
@@ -54,7 +63,10 @@ Phases (one output line each, then a JSON line per contract):
    partition, ambient back face), k=1, k=2 and frozen.
 8. the gradient path at full width (bench city, f32, trbdf2_refresh k=2, 8
    sub-steps, hours=24): one day's adjoint on the kernel against the f64
-   plain adjoint (relative L2 gap per output <= 1e-2); bench.py's
+   plain adjoint (relative L2 gap per output <= 1e-2), the largest gap
+   between the adjoint's recomputed hour starts and the forward kernel's
+   states at the same hours (f32 and f64, printed), and its launch variant;
+   bench.py's
    run_grad_bench workload (its inputs, conductance and solar-absorptance
    scales, mean((zt - 21)^2)) through chunked_value_and_grad with
    FastRunner.chunk_forward/chunk_grad over 30 days in 2 chunks, f32 against
@@ -88,9 +100,12 @@ Phases (one output line each, then a JSON line per contract):
    1e-4 mean(zt)/C, trbdf2_refresh k=2): 30 days in 2 chunks, f32 against
    f64 on the kernels, exactly 60 day-march and 30 adjoint launches, dL/dsp
    != 0; one day's f32 adjoint (seeded load cotangent) against the f64
-   plain adjoint; the annual run in 5 chunks of 73 days once by the host
-   clock, and once under torch.profiler for the device's busy share and
-   each kernel's part of it.
+   plain adjoint re-run from the forward kernel's hour starts, every zone
+   (relative L2 <= 2e-2; along the f64 march's own printed; at most
+   TSTAT_PARTED_MAX zones whose hourly loads part from f64, each within
+   FLIP_MARGIN of a setpoint); the annual run in 5 chunks of 73 days once by
+   the host clock, and once under torch.profiler for the device's busy share
+   and each kernel's part of it.
 
 12. parity mode, f64, small (``testing.coarse_config``: 6 stability
    sub-steps per hour): the 4-zone city, testing.build_mixed_model,
@@ -323,6 +338,11 @@ F64_TOL = 1e-9  # K: kernel vs plain twin, f64, same inputs
 F32_TOL = 1e-2  # K: f32 against f64, or f32 kernel vs f32 twin, full width
 ADJ_F64_RTOL = 1e-9  # of max |ref|: adjoint kernel vs plain adjoint, f64, same inputs
 FD_RTOL = 1e-5  # central differences of the f64 forward kernel vs the adjoint kernel
+# Phase 3c's sub-steps an hour, even for k=2: the one-thread TR-BDF2 adjoint
+# took at most 145 on a block of 64 zones and 64 lanes with a thermostat each
+# in f64 (its shared memory, 8 (64 (3 substeps + 11) + 6 x 64) bytes, passes a
+# block's 227 KB on the H100 at 146; its tape, (substeps + 1) x 2 nodes, 384).
+ZONE_ROWS_SUBSTEPS = 144
 # f32 adjoint kernel vs f64 plain adjoint, one bench day, relative L2 per
 # output: f32 round-off carried through 192 sub-steps of forward and
 # reverse sweeps; 2.3e-3 at most measured on an H100 80GB HBM3 at 700 W (PERF.md), bound 4x that.
@@ -349,8 +369,24 @@ LOAD_F32_RTOL = 1e-3
 # (d_sol_back) measured on an H100 80GB HBM3 at 700 W, against the free-float
 # day's 2.2e-3 (a zone held on its setpoint passes little of the zone
 # cotangent on to the surfaces, so their outputs are small differences;
-# presumed, not examined); bound ~3x the measurement.
+# presumed, not examined); bound ~3x the measurement.  A thermostat branch is
+# a decision as FLIP_MARGIN's are: the f32 adjoint differentiates the f32
+# forward kernel's march, whose zone may land on its setpoint a sub-step
+# before or after the f64 march's where the f64 free-float temperature passes
+# within f32 round-off of the setpoint (the bench day: one zone, 5.0e-5 K
+# above it at the end of hour 18, the f32 zone 8.9e-5 K lower), and there the
+# two adjoints take different branches' derivatives (2.2e-2 over the day).
+# So the bound holds, on every zone and lane, the f64 plain adjoint re-run
+# from the forward kernel's hour starts (the march the f32 adjoint
+# differentiates); the gap along the f64 plain march's own is printed, and a
+# zone whose f32 kernel and f64 hourly loads part (0 on one side only) must
+# have come within FLIP_MARGIN of a setpoint in the f64 march, as phases 22-23
+# hold the controls' flips, and at most TSTAT_PARTED_MAX zones may part.
 ADJ_F32_RL2_TSTAT = 2e-2
+# The most of phase 11a's 1,000 thermostat zones whose f32 and f64 decisions
+# may part: 1 measured on an H100 80GB HBM3 at 700 W (PERF.md), of the 204
+# that come within FLIP_MARGIN of a setpoint.
+TSTAT_PARTED_MAX = 5
 # Parity mode at full width (nomass_fixed_iters=1, 118 sub-steps per hour).
 # With one relaxed no-mass iteration per sub-step the iteration runs on from
 # sub-step to sub-step, and it is not a contraction everywhere: K's diagonal
@@ -552,6 +588,47 @@ def note_variant(day_march, name):
     VARIANTS[name] = f"G=4/{day_march.day_march_kernel.block_threads}"
 
 
+def note_adjoint_variant(day_adjoint, name):
+    """The TR-BDF2 adjoint's launch variant, as its wrapper read it back."""
+    VARIANTS[name] = f"G=4/{day_adjoint.day_adjoint_kernel.block_threads}"
+
+
+def hour_slices(hi, h, sub):
+    """Hour h of a day's kernel inputs: the weather's sub-steps, the rest's row."""
+    return tuple(x[h * sub:(h + 1) * sub] if i < 3 else x[h:h + 1] for i, x in enumerate(hi))
+
+
+def forward_hour_starts(torch, r24, r1, T, zT, hi):
+    """The forward kernel's state at each hour's start of runner ``r24``'s
+    day from (T, zT) on ``hi``: [(T [N, SP], zT [NB, ZB])] per hour, marched
+    hour by hour through the one-hour runner ``r1``, whose one-hour launches
+    must end bit-equal to ``r24``'s one-day launch."""
+    hm = r24.hour_march
+    day = hm(r24.params, T, zT, hi)
+    starts, t, z = [], T, zT
+    for h in range(hm.hours):
+        starts.append((t, z))
+        t, z = r1.hour_march(r1.params, t, z, hour_slices(hi, h, hm.substeps))[:2]
+    check(torch.equal(t, day[0]) and torch.equal(z, day[1]),
+          "the forward's one-hour launches do not end on its one-day launch")
+    return starts
+
+
+def recompute_gap(torch, day_adjoint, adj, r24, r1, T, zT, hi, cots):
+    """The largest |d| between the TR-BDF2 adjoint's recomputed hour-start
+    states (its hour-start workspace) and the forward kernel's states at the
+    same hours (forward_hour_starts through the one-hour runner ``r1``),
+    node T and zone T, for one launch of ``adj`` (the day adjoint of runner
+    ``r24``) from (T, zT) on ``hi``."""
+    starts = forward_hour_starts(torch, r24, r1, T, zT, hi)
+    _, (T_ws, zT_ws) = day_adjoint.day_adjoint_kernel._launch(
+        *adj._args(r24.params, T, zT, hi, cots), **adj._hm._kw(observables=False))
+    torch.cuda.synchronize()
+    gap_T = max(float((T_ws[h] - t).abs().max()) for h, (t, _) in enumerate(starts))
+    gap_z = max(float((zT_ws[h] - z).abs().max()) for h, (_, z) in enumerate(starts))
+    return gap_T, gap_z
+
+
 def card_facts():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -613,7 +690,7 @@ def phase3_f64_check(torch, day_march, testing, SimConfig, compile_building):
     return worst
 
 
-def phase3b_b1_edge(torch, day_march, testing, ThermalModel, SimConfig):
+def phase3b_b1_edge(torch, day_march, day_adjoint, testing, ThermalModel, SimConfig):
     """Both day-march kernels at B1's edge and between their launch bounds:
     one zone bounded by 256 surfaces (one block of the most lanes a block
     takes, 1024 threads) and one bounded by 50 (a 64-lane block, 256
@@ -625,10 +702,13 @@ def phase3b_b1_edge(torch, day_march, testing, ThermalModel, SimConfig):
     plain version (every output <= F64_TOL; loads relative to their largest
     magnitude); f32 against the f64 plain version (T, zT and the zone
     history <= F32_TOL, loads <= LOAD_F32_RTOL of their largest magnitude,
-    no non-finite value).  Returns the worst f64 and f32 gaps and, per
-    building and mode, its surfaces, its block's lanes, its nodes and the
-    launch variant the launches took."""
-    worst64, worst32, shapes = 0.0, 0.0, []
+    no non-finite value).  The TR-BDF2 adjoint kernel on the same f64
+    launches (k=2 free-float, frozen with the thermostat) against the plain
+    adjoint on seeded cotangents, every output <= ADJ_F64_RTOL of its max
+    |ref|.  Returns the worst f64 and f32 gaps, the worst adjoint gap and,
+    per building and mode, its surfaces, its block's lanes, its nodes and the
+    launch variant the launches took (the adjoint's for TR-BDF2)."""
+    worst64, worst32, worst_adj, shapes = 0.0, 0.0, 0.0, []
     modes = (
         ("trbdf2", 3, lambda dtype: SimConfig(dtype=dtype),
          ((False, dict(mode="trbdf2_refresh", substeps=8, refresh_every=2), testing.bench_inputs),
@@ -653,6 +733,21 @@ def phase3b_b1_edge(torch, day_march, testing, ThermalModel, SimConfig):
                         ref = r.hour_march.plain(r.params, T, zT, hi)
                     torch.cuda.synchronize()
                     check(day_march.day_march_kernel.launches == before + 1, f"{what}: the kernel did not launch")
+                    if dtype == torch.float64 and mode == "trbdf2":
+                        adj = day_adjoint.make_day_adjoint(r._bb, hours=hours, **kw)
+                        rng = np.random.default_rng(surfaces)
+                        NB, ZB = r._bb.n_blocks, r._bb.zones_per_block
+
+                        def cot(shape, scale=1.0):
+                            return torch.as_tensor(rng.normal(size=shape) * scale, dtype=dtype, device="cuda")
+
+                        cots = (cot(T.shape), cot(zT.shape), cot((hours, NB, ZB))) + (
+                            (cot((hours, NB, ZB), 1e-3),) if thermostat else ())
+                        before = day_adjoint.day_adjoint_kernel.launches
+                        _, w = adjoint_vs_plain(torch, adj, r.params, T, zT, hi, cots, what)
+                        check(day_adjoint.day_adjoint_kernel.launches == before + 1,
+                              f"{what}: the adjoint kernel did not launch")
+                        worst_adj = max(worst_adj, w)
                 for i, (x, y, z) in enumerate(zip(outs[torch.float64], ref, outs[torch.float32])):
                     if isinstance(x, tuple):
                         x, y, z = torch.stack(x), torch.stack(y), torch.stack(z)
@@ -670,8 +765,39 @@ def phase3b_b1_edge(torch, day_march, testing, ThermalModel, SimConfig):
                 check(bool(torch.isfinite(outs[torch.float32][0]).all())
                       and float(outs[torch.float32][4].sum()) == 0.0, f"{what} f32: non-finite state")
             shapes.append((surfaces, mode, r.params.block_size, r.params.max_nodes,
-                           day_march.day_march_kernel.block_threads))
-    return worst64, worst32, shapes
+                           day_march.day_march_kernel.block_threads,
+                           day_adjoint.day_adjoint_kernel.block_threads if mode == "trbdf2" else None))
+    return worst64, worst32, worst_adj, shapes
+
+
+def phase3c_zone_rows(torch, day_adjoint, testing, ThermalModel, SimConfig):
+    """The TR-BDF2 adjoint where a block holds the most zone rows of an hour:
+    testing.build_zone_chain_model (64 zones in one 64-lane block, 2-node
+    panes, a thermostat per zone) at ZONE_ROWS_SUBSTEPS sub-steps an hour,
+    f64, 2 h, k=2 and frozen, against the plain adjoint on seeded
+    cotangents, every output <= ADJ_F64_RTOL of its max |ref|.  Returns the
+    worst gap and the block's lanes, zones and nodes and the launch variants
+    the two launches took."""
+    tm = ThermalModel(testing.build_zone_chain_model(), n=1, config=SimConfig(dtype=torch.float64), device="cuda")
+    worst, variants, hours = 0.0, [], 2
+    for kw in (dict(mode="trbdf2_refresh", substeps=ZONE_ROWS_SUBSTEPS, refresh_every=2),
+               dict(mode="trbdf2", substeps=ZONE_ROWS_SUBSTEPS)):
+        what = f"zone chain, {kw['mode']}, {ZONE_ROWS_SUBSTEPS} sub-steps"
+        r = tm.fast_runner(hours=hours, **kw)
+        T, zT = r.to_blocked(tm.initial_state())
+        hi = r.kernel_inputs(testing.demand_inputs(tm.building, hours, device="cuda"))[0]
+        adj = day_adjoint.make_day_adjoint(r._bb, hours=hours, **kw)
+        NB, ZB = r._bb.n_blocks, r._bb.zones_per_block
+        rng = np.random.default_rng(ZB)
+        cots = tuple(torch.as_tensor(rng.normal(size=shape) * scale, dtype=torch.float64, device="cuda")
+                     for shape, scale in ((T.shape, 1.0), (zT.shape, 1.0), ((hours, NB, ZB), 1.0),
+                                          ((hours, NB, ZB), 1e-3)))
+        before = day_adjoint.day_adjoint_kernel.launches
+        _, w = adjoint_vs_plain(torch, adj, r.params, T, zT, hi, cots, what)
+        check(day_adjoint.day_adjoint_kernel.launches == before + 1, f"{what}: the adjoint kernel did not launch")
+        worst = max(worst, w)
+        variants.append(f"G=4/{day_adjoint.day_adjoint_kernel.block_threads}")
+    return worst, (r.params.block_size, r.params.zones_per_block, r.params.max_nodes, variants)
 
 
 def nbytes(*tensors):
@@ -706,7 +832,7 @@ def day_work(params, hours, sub, k):
 
 
 def adjoint_work(params, hours, sub, k):
-    """Operations the day's adjoint needs, counted from day_adjoint.cu: one
+    """Operations the day's adjoint needs, counted from day_adjoint_tr.cu: one
     forward march of the day, then the reverse sweep's own work, per valid
     node and sub-step 60 (two transposed solves, two band cotangents, the
     right-hand sides and forcing backwards), per valid node and refresh 12
@@ -755,7 +881,7 @@ def bound(bytes_moved, ops):
 def device_time(torch, fn):
     """Run ``fn`` once under torch.profiler: (the device's busy ms, {kernel:
     its ms}) for the day-march kernels (the TR-BDF2 and parity bodies) and
-    the day_adjoint kernel.  One stream, so the sum of the device events is
+    the day adjoint's (both bodies).  One stream, so the sum of the device events is
     the busy time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -763,7 +889,8 @@ def device_time(torch, fn):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    names = {"day_march": ("day_march_kernel", "day_march_tr_kernel"), "day_adjoint": ("day_adjoint_kernel",)}
+    names = {"day_march": ("day_march_kernel", "day_march_tr_kernel"),
+             "day_adjoint": ("day_adjoint_kernel", "day_adjoint_tr_kernel")}
     busy, kern = 0.0, dict.fromkeys(names, 0.0)
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
@@ -822,6 +949,63 @@ def rel_l2_gaps(torch, got, ref, what, bound, lanes=None):
     bad = {name: gap for name, gap in gaps.items() if gap > bound}
     check(not bad, f"{what}: relative L2 above {bound}: {bad}; all: {gaps}")
     return gaps
+
+
+class SetpointMargins:
+    """Over every ``engine.zone.zone_update`` call made while it is installed
+    (``with SetpointMargins(torch) as m:`` around a plain day march), each
+    zone's smallest distance of its free-float temperature from a setpoint
+    its thermostat can act on (heating where max_heat > 0, cooling where
+    max_cool > 0; inf for a zone with neither): ``m.margin`` [zones], K."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.margin = None
+
+    def __enter__(self):
+        from heatx_torch.engine import zone as zone_mod
+
+        torch, orig = self.torch, zone_mod.zone_update
+        self._zone_mod, self._orig = zone_mod, orig
+
+        def recorded(zone_T, a, b, c, dt, heat_sp, cool_sp, max_heat, max_cool):
+            with torch.no_grad():
+                t_free = zone_mod.future_zone_temperatures(zone_T, a, b, c, dt)
+                inf = torch.full_like(t_free, float("inf"))
+                d = torch.minimum(torch.where(max_heat > 0, (t_free - heat_sp).abs(), inf),
+                                  torch.where(max_cool > 0, (t_free - cool_sp).abs(), inf))
+                d = torch.where(b.abs() > zone_mod.SMALL_B, d, inf)
+                self.margin = d if self.margin is None else torch.minimum(self.margin, d)
+            return orig(zone_T, a, b, c, dt, heat_sp, cool_sp, max_heat, max_cool)
+
+        zone_mod.zone_update = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self._zone_mod.zone_update = self._orig
+
+
+def parted_thermostat_zones(torch, r64, T, zT, hi, ld32):
+    """The zones of runner ``r64``'s building whose hourly loads ``ld32`` (an
+    f32 march of the day from (T, zT) on ``hi``) and the f64 plain march's
+    part, 0 on one side only ([NB, ZB] bool), after checking that each came
+    within FLIP_MARGIN of a setpoint in the f64 march (else a fault) and that
+    at most TSTAT_PARTED_MAX part; the parted zones' margins (K); the number
+    of zones within FLIP_MARGIN of a setpoint, and of zones whose thermostat
+    acts at all."""
+    with SetpointMargins(torch) as sm:
+        ld64 = r64.hour_march.plain(r64.params, T, zT, hi)[-1]
+    NB, ZB = r64._bb.n_blocks, r64._bb.zones_per_block
+    margin = sm.margin.reshape(NB, ZB)
+    near = margin < FLIP_MARGIN
+    parted = ((ld32 == 0) != (ld64 == 0)).any(dim=0)
+    check(not bool((parted & ~near).any()),
+          f"zones {parted.nonzero().tolist()} part from f64 with no setpoint within {FLIP_MARGIN} K "
+          f"(their margins {margin[parted].tolist()} K)")
+    check(int(parted.sum()) <= TSTAT_PARTED_MAX,
+          f"{int(parted.sum())} thermostat zones part from f64 (> {TSTAT_PARTED_MAX}); margins "
+          f"{sorted(margin[parted].tolist())} K")
+    return parted, sorted(float(x) for x in margin[parted]), int(near.sum()), int(torch.isfinite(margin).sum())
 
 
 def phase7_adjoint_f64(torch, day_march, day_adjoint, testing, SimConfig, compile_building):
@@ -1132,8 +1316,8 @@ def ptxas_table(log: str) -> str:
     """ptxas's lines of a build log, one entry per kernel instantiation:
     ``f32 ext=0 parity=1 G=4/128/3: 96 registers, 0 B stack, spills 0/0 B``
     (the instantiations with the gas-cavity code are marked ``cavities``,
-    the day-march kernels' launch variants ``G=<threads per surface>/<launch
-    bound>/<blocks per SM>``)."""
+    the day-march kernels' and the TR-BDF2 adjoint's launch variants
+    ``G=<threads per surface>/<launch bound>/<blocks per SM>``)."""
     import re
 
     out, name = [], None
@@ -1150,6 +1334,9 @@ def ptxas_table(log: str) -> str:
                 group = " G=" + "/".join(ints)
             elif "day_march_parity_kernel" in sym:  # <T, kThreads, kMinBlocks, kExt, kCav, kMrt>, G = 4
                 (ext, cav, mrt), parity = (flags + ["?"] * 3)[:3], "1"
+                group = " G=4/" + "/".join(ints)
+            elif "day_adjoint_tr_kernel" in sym:  # <T, kThreads, kMinBlocks, kExt, kCav, kMrt>, G = 4
+                (ext, cav, mrt), parity = (flags + ["?"] * 3)[:3], "0"
                 group = " G=4/" + "/".join(ints)
             else:  # the adjoints <T, kExt, kCav, kMrt>
                 (ext, cav, mrt), parity = (flags + ["?"] * 3)[:3], "1" if "parity_adjoint" in sym else "0"
@@ -1670,6 +1857,7 @@ def phase16_glazed_city(torch, ctx):
     cgaps = rel_l2_gaps(torch, g32, g64p, what + ", cavity lanes", CAV_ADJ_F32_RL2, lanes=cav_lanes)
     del g64p
     adj_ms = event_ms(torch, lambda: adj32(r32.params, T, zT, hi, cots), 5)
+    note_adjoint_variant(day_adjoint, "day_adjoint_cavity")
     t0 = time.time()
     g32p = flat_grads(adj32.plain(r32.params, T, zT, hi, cots))
     torch.cuda.synchronize()
@@ -2226,6 +2414,7 @@ def phase19_mrt_city(torch, ctx):
     cots = (torch.zeros_like(T), torch.zeros_like(zT), torch.as_tensor(d_hist, dtype=torch.float32, device="cuda"))
     g32 = flat_grads(adj32(r32.params, T, zT, hi, cots))
     adj_ms = event_ms(torch, lambda: adj32(r32.params, T, zT, hi, cots), 5)
+    note_adjoint_variant(day_adjoint, "day_adjoint_mrt")
     t0 = time.time()
     g32p = flat_grads(adj32.plain(r32.params, T, zT, hi, cots))
     torch.cuda.synchronize()
@@ -2450,6 +2639,7 @@ def phase20_office_mrt(torch, ctx, p17):
     adj_counts = (ka.launches, ka.cavity_launches, ka.mrt_launches)
     check(adj_counts == (1, 1, 1), f"office MRT adjoint launch counts {adj_counts}")
     adj_ms = event_ms(torch, lambda: adj(fr.params, T, zT, hi, cots), 5)
+    note_adjoint_variant(day_adjoint, "day_adjoint_cavity_mrt")
     t0 = time.time()
     g32p = flat_grads(adj.plain(fr.params, T, zT, hi, cots))
     torch.cuda.synchronize()
@@ -2994,6 +3184,7 @@ def mrt_kernel_entries(p19, p20):
     fwd = "heatx_torch/csrc/day_march_parity_mrt.cu (network: heatx_torch/csrc/day_tr.cuh mrt_face_node)"
     tr = "heatx_torch/csrc/day_march_tr_mrt.cu (network: heatx_torch/csrc/day_tr.cuh mrt_face_node)"
     adj = "heatx_torch/csrc/day_adjoint.cu (network: heatx_torch/csrc/day_common.cuh mrt_network_adj)"
+    adj_tr = "heatx_torch/csrc/day_adjoint_tr_mrt.cu (network: heatx_torch/csrc/day_tr_adj.cuh mrt_face_node_adj)"
     k1_tr = "heatx/ops/pallas_step.py:1976 (body _hour_body_imp, pallas_step.py:777; _mrt_context :555, :840-858)"
     k1_pa = "heatx/ops/pallas_step.py:1976 (body _hour_body, pallas_step.py:633; _mrt_context :555, :678-684)"
     k2_tr = "heatx/ops/pallas_adjoint.py:717 (body _hour_body_imp; MRT_NAMES :204-208, :551-555)"
@@ -3005,7 +3196,7 @@ def mrt_kernel_entries(p19, p20):
               {"MRT city annual run with the operative history (phase 19b)": p19.year_launches,
                "MRT city value_and_grad, 2 days (phase 19b)": p19.grad_counts[1]},
               p19.ms, p19.plain_ms, p19.err32, b19["march"], ms_with_operative=p19.ms_op),
-        entry("day_adjoint_mrt", adj, k2_tr, p19.grad_counts[3],
+        entry("day_adjoint_mrt", adj_tr, k2_tr, p19.grad_counts[3],
               {"MRT city value_and_grad, 2 days (phase 19b)": p19.grad_counts[3]},
               p19.adj_ms, p19.adj_plain_ms, p19.adj_abs, b19["adjoint"], rel_l2_err=p19.adj_rel),
         entry("day_march_parity_mrt", fwd, k1_pa, p19.pgrad_counts[1],
@@ -3018,7 +3209,7 @@ def mrt_kernel_entries(p19, p20):
         entry("day_march_cavity_mrt", tr + " and cavity_u", k1_tr, p20.launches[2],
               {"office IDF workflow with MRT, 8760 h (phase 20)": p20.launches[2]},
               p20.ms, p20.plain_ms, p20.err32, b20["march"]),
-        entry("day_adjoint_cavity_mrt", adj + " and cavity_band_adj_tr", k2_tr, p20.adj_counts[2],
+        entry("day_adjoint_cavity_mrt", adj_tr + " and cavity_u", k2_tr, p20.adj_counts[2],
               {"office with MRT, one day's adjoint (phase 20)": p20.adj_counts[2]},
               p20.adj_ms, p20.adj_plain_ms, p20.adj_abs, b20["adjoint"]),
         entry("day_march_parity_cavity_mrt", fwd + " and cavity_u", k1_pa, p20.pc_counts[2],
@@ -3370,13 +3561,21 @@ def main() -> int:
     err64 = phase3_f64_check(torch, day_march, testing, SimConfig, compile_building)
     print(f"phase 3 f64 4-zone 3 h kernel vs plain twin: max |d| {err64:.3e} K "
           f"(<= {F64_TOL:g}) in trbdf2_refresh k=2, k=8 and trbdf2", flush=True)
-    e3b, e3b32, shapes3b = phase3b_b1_edge(torch, day_march, testing, ThermalModel, SimConfig)
+    e3b, e3b32, e3b_adj, shapes3b = phase3b_b1_edge(torch, day_march, day_adjoint, testing, ThermalModel, SimConfig)
     print("phase 3b B1's edge (" + "; ".join(f"one zone of {s} surfaces in {m}, one block of {b} lanes, a {n}-node "
                                              f"wall, 4 threads per surface, {t} a block"
-                                             for s, m, b, n, t in shapes3b)
+                                             + ("" if ta is None else f", the adjoint {ta}")
+                                             for s, m, b, n, t, ta in shapes3b)
           + f"), trbdf2 3 h free-float k=2 and a thermostat in trbdf2, parity 2 h at 6 sub-steps/h, one no-mass "
           f"iteration, free-float and a thermostat: f64 kernel vs plain twin max |d| {e3b:.3e} K "
-          f"(<= {F64_TOL:g}); f32 kernel vs f64 plain max |d| {e3b32:.3e} K (<= {F32_TOL:g})", flush=True)
+          f"(<= {F64_TOL:g}); f32 kernel vs f64 plain max |d| {e3b32:.3e} K (<= {F32_TOL:g}); the TR-BDF2 "
+          f"adjoint kernel vs plain adjoint, f64, seeded cotangents: worst max |d| / max |ref| {e3b_adj:.3e} "
+          f"(<= {ADJ_F64_RTOL:g})", flush=True)
+    e3c, (sb3c, zb3c, n3c, var3c) = phase3c_zone_rows(torch, day_adjoint, testing, ThermalModel, SimConfig)
+    print(f"phase 3c the TR-BDF2 adjoint with the most zone rows a block held: {zb3c} zones in one block of {sb3c} "
+          f"lanes, {n3c}-node panes, a thermostat each, {ZONE_ROWS_SUBSTEPS} sub-steps/h, f64, 2 h, k=2 and frozen "
+          f"(launch variants {', '.join(var3c)}): adjoint kernel vs plain adjoint, seeded cotangents, worst max |d| "
+          f"/ max |ref| {e3c:.3e} (<= {ADJ_F64_RTOL:g})", flush=True)
 
     # 4. the main path at full width
     model = testing.build_city_model(1000, 10)
@@ -3443,7 +3642,8 @@ def main() -> int:
 
     # 6. the adjoint kernel's build (it ran in parallel with phase 2's)
     ptxas_adj = ptxas_table(cuda_lib.build_log("heatx_day_adjoint", day_adjoint.KERNEL_SOURCES))
-    print(f"phase 6 build day_adjoint.cu (with phase 2's, {build_s:.1f} s for both); "
+    print(f"phase 6 build the day adjoint (day_adjoint.cu with the parity body, day_adjoint_tr.cu with the "
+          f"TR-BDF2 body, each with its kMrt unit; with phase 2's, {build_s:.1f} s for both libraries); "
           f"ptxas: {ptxas_adj}", flush=True)
 
     # 7. f64: adjoint kernel vs plain adjoint, and vs finite differences of the forward kernel
@@ -3471,6 +3671,13 @@ def main() -> int:
     gaps = rel_l2_gaps(torch, g32, g64p, "f32 adjoint kernel vs f64 plain adjoint", ADJ_F32_RL2)
     worst_gap = max(gaps, key=gaps.get)
     adj_ms = event_ms(torch, lambda: adj32(runner.params, T, zT, hi, cots32), 10)
+    note_adjoint_variant(day_adjoint, "day_adjoint")
+    # The recompute: the adjoint's hour starts against the forward kernel's
+    # states at the same hours (the same device code in the same order).
+    gap32 = recompute_gap(torch, day_adjoint, adj32, runner, tm32.fast_runner(**dict(kw, hours=1)), T, zT, hi,
+                          cots32)
+    gap64 = recompute_gap(torch, day_adjoint, adj64, r64, tm64.fast_runner(**dict(kw, hours=1)), T64, zT64, hi64,
+                          cots64)
     t0 = time.time()
     g32p = flat_grads(adj32.plain(runner.params, T, zT, hi, cots32))
     torch.cuda.synchronize()
@@ -3480,7 +3687,10 @@ def main() -> int:
                     for n, ref in g32p.items())
     print(f"phase 8a one bench day, f32 adjoint kernel vs f64 plain adjoint: relative L2 gap "
           f"worst {gaps[worst_gap]:.3e} ({worst_gap}; <= {ADJ_F32_RL2:g}), "
-          + ", ".join(f"{n} {v:.2e}" for n, v in gaps.items()), flush=True)
+          + ", ".join(f"{n} {v:.2e}" for n, v in gaps.items())
+          + f"; the adjoint's recomputed hour starts vs the forward kernel's states at the same hours, max |d| "
+          f"T / zone T: f32 {gap32[0]:.3e} / {gap32[1]:.3e} K, f64 {gap64[0]:.3e} / {gap64[1]:.3e} K; launch "
+          f"variant {VARIANTS['day_adjoint']}", flush=True)
 
     # 8b. the gradient main path: 30 days in 2 chunks, f32 and f64 on the kernels
     run32, fr32, seq32 = grad_workload(torch, ThermalModel, SimConfig, testing, torch.float32, 30, 2)
@@ -3625,11 +3835,22 @@ def main() -> int:
                 torch.as_tensor(rng_d.normal(size=shape_d) / (24 * 1000 * 1e3), dtype=torch.float32, device="cuda"))
     Tt64, zTt64 = frd64.to_blocked(frd64._tm.initial_state())
     hit64 = frd64.kernel_inputs(testing.demand_inputs(frd64._tm.building, 24, device="cuda"))[0]
+    cots_d64 = tuple(c.double() for c in cots_d32)
     gd32 = flat_grads(adjd32(frd32.params, Tt, zTt, hit, cots_d32))
-    gd64p = flat_grads(adjd64.plain(frd64.params, Tt64, zTt64, hit64, tuple(c.double() for c in cots_d32)))
-    gaps_d = rel_l2_gaps(torch, gd32, gd64p, "f32 demand adjoint kernel vs f64 plain adjoint", ADJ_F32_RL2_TSTAT)
+    # The f64 plain adjoint re-run from the forward kernel's hour starts (the
+    # march the f32 adjoint differentiates), every zone and lane held; and
+    # along the f64 plain march's own, printed.
+    r1d32 = frd32._tm.fast_runner(mode="trbdf2_refresh", refresh_every=2, substeps=8, hours=1)
+    starts_d = forward_hour_starts(torch, frd32, r1d32, Tt, zTt, hit)
+    gd64k = flat_grads(adjd64.plain(frd64.params, Tt64, zTt64, hit64, cots_d64, starts=starts_d))
+    gaps_d = rel_l2_gaps(torch, gd32, gd64k, "f32 demand adjoint kernel vs f64 plain adjoint from the forward "
+                         "kernel's hour starts", ADJ_F32_RL2_TSTAT)
     worst_gap_d = max(gaps_d, key=gaps_d.get)
+    gd64p = flat_grads(adjd64.plain(frd64.params, Tt64, zTt64, hit64, cots_d64))
+    gaps_own = rel_l2_gaps(torch, gd32, gd64p, "f32 demand adjoint kernel vs f64 plain adjoint", float("inf"))
+    parted, parted_margins, n_near, n_ctl = parted_thermostat_zones(torch, frd64, Tt64, zTt64, hit64, got_t[-1])
     tstat_adj_ms = event_ms(torch, lambda: adjd32(frd32.params, Tt, zTt, hit, cots_d32), 10)
+    tstat_adj_variant = f"G=4/{day_adjoint.day_adjoint_kernel.block_threads}"
     t0 = time.time()
     gd32p = flat_grads(adjd32.plain(frd32.params, Tt, zTt, hit, cots_d32))
     torch.cuda.synchronize()
@@ -3639,10 +3860,14 @@ def main() -> int:
           f"{tstat_plain_ms:.1f} ms (free-float {kernel_ms:.3f} ms), kernel vs plain max |d| {tstat_err:.3e} K, "
           f"loads {tstat_ld_err:.3e} W of max {tstat_ld_scale:.1f} W; thermostat adjoint day-launch "
           f"{tstat_adj_ms:.3f} ms vs f32 plain adjoint {tstat_adj_plain_ms:.1f} ms (free-float {adj_ms:.3f} ms); "
-          f"f32 adjoint kernel vs f64 plain adjoint, seeded load cotangent: relative L2 gap worst "
-          f"{gaps_d[worst_gap_d]:.3e} ({worst_gap_d}; <= {ADJ_F32_RL2_TSTAT:g}), d_ctl_heat "
-          f"{gaps_d['d_ctl_heat']:.2e}, d_zone_volume {gaps_d['d_zone_volume']:.2e}, seg_u {gaps_d['seg_u']:.2e}",
-          flush=True)
+          f"f32 adjoint kernel vs f64 plain adjoint from the forward kernel's hour starts, seeded load cotangent, "
+          f"every zone: relative L2 gap worst {gaps_d[worst_gap_d]:.3e} ({worst_gap_d}; <= {ADJ_F32_RL2_TSTAT:g}), "
+          f"d_ctl_heat {gaps_d['d_ctl_heat']:.2e}, d_zone_volume {gaps_d['d_zone_volume']:.2e}, seg_u "
+          f"{gaps_d['seg_u']:.2e}; along the f64 plain march {worst_of(gaps_own)}; {int(parted.sum())} of {n_ctl} "
+          f"thermostat zones whose f32 kernel and f64 hourly loads part (0 on one side only; <= "
+          f"{TSTAT_PARTED_MAX}), their f64 free-float temperatures within "
+          + ", ".join(f"{m:.2e}" for m in parted_margins)
+          + f" K of a setpoint (<= {FLIP_MARGIN:g}; {n_near} zones come that close)", flush=True)
 
     # 11b. the demand gradient main path: 30 days in 2 chunks, f32 and f64 on the kernels
     day_march.day_march_kernel.launches = 0
@@ -3825,7 +4050,8 @@ def main() -> int:
         {
             "name": "day_adjoint",
             "route": "cuda",
-            "source": "heatx_torch/csrc/day_adjoint.cu",
+            "source": "heatx_torch/csrc/day_adjoint_tr.cu (device code: heatx_torch/csrc/day_tr_adj.cuh, "
+                      "day_tr.cuh; C entry: day_adjoint.cu)",
             "replaces": "heatx/ops/pallas_adjoint.py:717",
             "launches": launches_dadj,
             "launches_by_path": {
@@ -3840,7 +4066,7 @@ def main() -> int:
             "bound_by": adj_by,
             "library_ms": None,
             "thermostat": {"ms": tstat_adj_ms, "plain_ms": tstat_adj_plain_ms, "max_abs_err": tstat_adj_abs,
-                           "bound_ms": ta_bound, "bound_by": ta_by},
+                           "bound_ms": ta_bound, "bound_by": ta_by, "variant": tstat_adj_variant},
         },
         {
             "name": "day_march_parity",
@@ -3898,7 +4124,8 @@ def main() -> int:
         {
             "name": "day_adjoint_cavity",
             "route": "cuda",
-            "source": "heatx_torch/csrc/day_adjoint.cu (cavity_band_adj_tr; day_common.cuh cavity_u)",
+            "source": "heatx_torch/csrc/day_adjoint_tr.cu (kCav: the cavity U's dU/dT on the segment's first "
+                      "row; day_common.cuh cavity_u)",
             "replaces": "heatx/ops/pallas_adjoint.py:717 (body _hour_body_imp, cavity operands :401-425)",
             "launches": p16.counts["trbdf2"]["adjoint"][1],
             "launches_by_path": {

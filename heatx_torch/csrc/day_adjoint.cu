@@ -1,6 +1,6 @@
-// Adjoint (reverse sweep) of the TR-BDF2 day march for NVIDIA Hopper
-// (sm_90a), bound through a plain C interface (ctypes; see
-// heatx_torch/ops/day_adjoint.py).
+// The day adjoints for NVIDIA Hopper (sm_90a), bound through a plain C
+// interface (ctypes; see heatx_torch/ops/day_adjoint.py): the C entry for
+// both, and the reference-parity body.
 //
 // Replaces heatx/ops/pallas_adjoint.py::make_day_adjoint -> `kernel` (the
 // pl.pallas_call at pallas_adjoint.py:717) in modes trbdf2 / trbdf2_refresh
@@ -15,8 +15,8 @@
 // (heatx_torch/ops/day_march.py) gives.
 //
 // heatx builds the reverse pass with jax.vjp at trace time.  CUDA has no
-// such thing, so every primitive's adjoint is written here by hand, as the
-// transpose of the device function in day_common.cuh that the forward uses:
+// such thing, so every primitive's adjoint is written by hand, as the
+// transpose of the device function that the forward uses:
 //  * zone update: exact exponential in a_z, b_z and zT, with the air
 //    capacity's dependence on zT; |b_z| <= 1e-9 passes the cotangent
 //    through to zT;
@@ -32,140 +32,47 @@
 //  * zone sums: the transpose of the fixed-order sum is a gather (each face
 //    reads its zone's cotangent from shared memory), and the transpose of the
 //    boundary-temperature gather is the same fixed-order face sum the
-//    forward uses.  Per-lane cotangents stay in the lane's thread and
-//    per-zone ones in one thread per zone: no float atomics, deterministic;
-//  * the two stage solves: transposed tridiagonal solves on the same Thomas
-//    factors (M = L U, so M^T y = g is U^T then L^T), and the band cotangent
-//    -lambda x^T of both stages and every sub-step of a refresh group,
-//    chained through the stage matrix, K and the forcing, then the
-//    linearized radiation and the TARP/forced film coefficients (with
-//    autograd's subgradients: |x|' = sign(x), 0 at 0; clamp and where pass
-//    or stop the cotangent as their forward branch does), to the
-//    parameters, the IR channels and the group-start state;
+//    forward uses.  Per-zone cotangents stay in one thread per zone: no
+//    float atomics, deterministic;
 //  * gas cavities: a cavity segment's U is a function of its two node
-//    temperatures at the operator build (day_common.cuh cavity_u), so its
-//    share of K's band cotangent goes through dU/dT to those nodes of the
-//    group-start column (the tape holds it: Tt + i0*N), not to seg_u, whose
-//    cotangent there is exactly 0 (heatx: jnp.where(seg_is_cavity, ...)).
-//    The gas operands and the cavity geometry are not differentiated, as in
-//    heatx (pallas_adjoint.py:44-47).  Like the forward, this code is in the
-//    kCav instantiations only (x kExt, both kernels), which every building
-//    with a cavity takes.
-//
-// What bounds it: like the forward, per-thread serial latency.  It re-marches
-// the day (to store each hour's start state), re-marches each hour again
-// with a tape, and sweeps it backwards: about 3x the forward's sub-step
-// chain, plus the transposed sweeps.
-//
-// Design:
-//  * One CTA per zone-closed block, one thread per surface lane (the
-//    forward kernels now run four).
-//  * Pass 1 marches the day, writing each hour's start state to a workspace
-//    the wrapper allocates ([hours, N, SP] and [hours, NB, ZB]; the kernel
-//    allocates nothing).
-//  * Pass 2 walks the hours backwards.  Per hour it reloads the start state,
-//    re-marches the hour keeping a per-thread tape of T at every sub-step
-//    boundary and the stage-1 result T1 of every sub-step ((substeps + 1) *
-//    N <= kTape values each; the zone temperatures and a_z/b_z per sub-step
-//    go to shared memory), then sweeps the refresh groups backwards: it
-//    rebuilds the group's operators from the tape, reverses each sub-step,
-//    and at the group start pulls the accumulated operator cotangents back
-//    through the operator build.
-//  * Parameter cotangents accumulate per thread in the working type over the
-//    whole day and are written once.
+//    temperatures at each operator build (day_common.cuh cavity_u), so its
+//    share of K's band cotangent goes through dU/dT to those nodes, not to
+//    seg_u, whose cotangent there is exactly 0 (heatx: jnp.where(
+//    seg_is_cavity, ...)).  The gas operands and the cavity geometry are not
+//    differentiated, as in heatx (pallas_adjoint.py:44-47).  This code is in
+//    the kCav instantiations only (x kExt), which every building with a
+//    cavity takes.
+// The TR-BDF2 body (day_adjoint_tr.cu, day_adjoint_tr_mrt.cu; device code in
+// day_tr_adj.cuh) runs four threads per surface on the forward kernel's own
+// device code; the C entry below hands it every trbdf2 / trbdf2_refresh
+// launch.
 
 #include <type_traits>
 
+#include "day_adjoint_args.cuh"
 #include "day_common.cuh"
 #include "day_parity.cuh"
 
 // The kMrt instantiations live in their own compilation unit
 // (day_adjoint_mrt.cu, which includes this file), as the day march's do
 // (day_march_tr_mrt.cu, day_march_parity_mrt.cu): launched through the kMrt
-// unit's function, which takes its MrtAdjArgs by address.
+// unit's function, which takes its MrtAdjArgs by address.  The TR-BDF2 body's
+// units are entered the same way.
 extern "C" int heatx_day_adjoint_mrt_f32(const void* g, void* stream);
 extern "C" int heatx_day_adjoint_mrt_f64(const void* g, void* stream);
+extern "C" int heatx_day_adjoint_tr_f32(const void* g, void* stream, int* block_threads);
+extern "C" int heatx_day_adjoint_tr_f64(const void* g, void* stream, int* block_threads);
 
 namespace {
 
 using namespace heatx;
 
-constexpr int kTape = 384;  // day_adjoint.MAX_TAPE
-
-template <typename T>
-struct AdjArgs {
-  DayArgs<T> in;
-  const T* dT;         // [N, SP] cotangent of the day's final T
-  const T* d_zT;       // [NB, ZB] cotangent of the final zone T
-  const T* d_zt_hist;  // [hours, NB, ZB] cotangent of the zone history
-  T* T_ws;             // [hours, N, SP] workspace: hour-start node T
-  T* zT_ws;            // [hours, NB, ZB] workspace: hour-start zone T
-  T* dT0;              // [N, SP]
-  T* d_zT0;            // [NB, ZB]
-  T* d_node;           // [4, N, SP]: seg_u, mass (0 off massive nodes), FA, FB
-  T* d_surf;           // [13, SP]: SURF_FIELDS order, normal rows 0
-  T* d_zv;             // [NB, ZB]
-  T* d_chan;           // [4, hours, SP]: sol_f, sol_b, ir_f, ir_b
-  T* d_a;              // [hours, NB, ZB]
-  T* d_b;              // [hours, NB, ZB]
-  // Thermostats (null without): the load history's cotangent in; out the
-  // setpoint rows' cotangents, and the schedule rows' where scheduled.
-  const T* d_ld_hist;  // [hours, NB, ZB]
-  T* d_ctl;            // [4, NB, ZB]; rows 0 (heat_sp) and 1 (cool_sp) written
-  T* d_sp_heat;        // [hours, NB, ZB]
-  T* d_sp_cool;
-  T* sub_ws;           // parity: [substeps, N, SP] workspace, an hour's sub-step starts
-};
-
-// The kMrt instantiations' arguments: the network's operands and their
-// cotangents beside the others' (whose layout stays as it was).
-template <typename T>
-struct MrtAdjArgs : AdjArgs<T> {
-  MrtArgs<T> net;
-  T* d_mrt;  // [2, SP] cotangents of the faces' effective emissivities
-};
-template <typename T, bool kMrt>
-using AdjArgsOf = std::conditional_t<kMrt, MrtAdjArgs<T>, AdjArgs<T>>;
-
-// Cotangents of one refresh group's operators.
+// Cotangents of one sub-step's operators (films, linearized radiation,
+// radiant temperatures).
 template <typename T>
 struct OpsGrad {
   T hf, hb, radf, radb, rad_ft, rad_bt;
 };
-
-// Cotangents of the lane's surface parameters (SURF_FIELDS rows 0-10).
-template <typename T>
-struct SurfGrad {
-  T v[SF_NX];
-};
-
-// Solve M^T y = g with the Thomas factors of the stage matrix M = L U
-// (L lower bidiagonal: diagonal 1/inv, sub-diagonal the stage matrix's lower
-// band; U unit upper: super-diagonal cs).
-template <typename T>
-__device__ void solve_transposed(const Lane<T>& L, T a_dt, const T* cs, const T* inv,
-                                 const T* g, T* y) {
-  const int N = L.N;
-  y[0] = g[0];
-  for (int i = 1; i < N; ++i) y[i] = g[i] - cs[i - 1] * y[i - 1];
-  y[N - 1] *= inv[N - 1];
-  for (int i = N - 2; i >= 0; --i) y[i] = (y[i] - m_lower(L, i + 1, a_dt) * y[i + 1]) * inv[i];
-}
-
-// The band cotangent -lr x^T of one stage solve x = M^{-1} r, mapped through
-// M = C - (gamma dt/2) K onto the capacity and K's band.
-template <typename T>
-__device__ void band_adj(const Lane<T>& L, T a_dt, const T* lr, const T* x, T* gKl, T* gKd,
-                         T* gKu, T* dCap) {
-  for (int n = 0; n < L.N; ++n) {
-    if (!L.valid(n)) continue;
-    const T l = a_dt * lr[n];
-    gKd[n] += l * x[n];
-    dCap[n] -= lr[n] * x[n];
-    if (L.left(n)) gKl[n] += l * x[n - 1];
-    if (L.right(n)) gKu[n] += l * x[n + 1];
-  }
-}
 
 // Adjoint of natural_h: the cotangent lh of h pulled back to the air and
 // surface temperatures and the two TARP branch coefficients.
@@ -190,568 +97,6 @@ __device__ void natural_h_adj(T lh, T air, T surf, T cos_eff, T c_same, T c_opp,
   const T ldT = (adt >= T(1e-30) ? lx : T(0)) * m_sign(dT);
   l_air += ldT;
   l_surf -= ldT;
-}
-
-// Adjoint of zone_update: lz (cotangent of the new zone T) pulled back to
-// a_z, b_z, the old zone T and the zone volume.
-template <typename T>
-__device__ void zone_update_adj(T zt, T az, T bz, T volume, T dt, T lz, T& laz, T& lbz, T& lzt,
-                                T& lvol) {
-  if (!(m_abs(bz) > T(1e-9))) {
-    laz = lbz = lvol = T(0);
-    lzt = lz;
-    return;
-  }
-  const T t_k = zt + T(kKelvin);
-  const T rho = T(kRhoNum) / (T(kGasR) * t_k);
-  const T cp = T(kAirCp0) + T(kAirCp1) * t_k;
-  const T c_z = volume * rho * cp;
-  const T x = bz * dt / c_z;
-  const T em = m_expm1(-x);
-  const T ratio = az / bz;
-  laz = -lz * em / bz;
-  const T l_x = lz * (ratio - zt) * (em + T(1));
-  lbz = lz * (ratio / bz) * em + l_x * dt / c_z;
-  const T l_cz = -l_x * x / c_z;
-  lzt = lz * (T(1) + em) + l_cz * volume * rho * (T(kAirCp1) - cp / t_k);
-  lvol = l_cz * rho * cp;
-}
-
-// Adjoint of zone_update_ctl: lz (cotangent of the new zone T) and lload
-// (cotangent of this sub-step's load) pulled back to a_z, b_z, the old zone T,
-// the zone volume and the active setpoint (l_heat or l_cool; the other is 0).
-template <typename T>
-__device__ void zone_update_ctl_adj(T zt, T az, T bz, T volume, T dt, const Setpoints<T>& sp, T lz,
-                                    T lload, T& laz, T& lbz, T& lzt, T& lvol, T& l_heat,
-                                    T& l_cool) {
-  l_heat = l_cool = T(0);
-  if (m_abs(bz) <= T(1e-9)) {
-    laz = lbz = lvol = T(0);
-    lzt = lz;
-    return;
-  }
-  const T t_k = zt + T(kKelvin);
-  const T rho = T(kRhoNum) / (T(kGasR) * t_k);
-  const T cp = T(kAirCp0) + T(kAirCp1) * t_k;
-  const T c_z = volume * rho * cp;
-  const T x = bz * dt / c_z;
-  const T em = m_expm1(-x);
-  const T t_free = zt - (az / bz - zt) * em;
-  const bool heat = t_free < sp.heat;
-  const bool cool = !heat && t_free > sp.cool;
-  T load = T(0), t_set = T(0);
-  bool live = false;  // the clamp passes the cotangent (autograd: lo <= x <= hi)
-  if (heat || cool) {
-    t_set = heat ? sp.heat : sp.cool;
-    const T lo = heat ? T(0) : -sp.max_cool, hi = heat ? sp.max_heat : T(0);
-    const T xr = landing_power(zt, az, bz, em, t_set);
-    load = m_min(m_max(xr, lo), hi);
-    live = xr >= lo && xr <= hi;
-  }
-  if (load == T(0)) {  // the free-float value was returned
-    zone_update_adj(zt, az, bz, volume, dt, lz, laz, lbz, lzt, lvol);
-    return;
-  }
-  zone_update_adj(zt, az + load, bz, volume, dt, lz, laz, lbz, lzt, lvol);
-  if (!live) return;  // a clamped load is a constant
-  const T lx = lload + laz;  // the load enters its own history and a_z + load
-  // load = b u / em - a, u = zT (1 + em) - t_set.
-  const T u = zt * (T(1) + em) - t_set;
-  const T l_u = lx * bz / em;
-  laz -= lx;
-  lbz += lx * u / em;
-  lzt += l_u * (T(1) + em);
-  const T l_em = l_u * zt - lx * bz * u / (em * em);
-  // em = expm1(-x), x = b dt / c_z, c_z = V rho(zT) cp(zT).
-  const T l_x = -l_em * (em + T(1));
-  lbz += l_x * dt / c_z;
-  const T l_cz = -l_x * x / c_z;
-  lzt += l_cz * volume * rho * (T(kAirCp1) - cp / t_k);
-  lvol += l_cz * rho * cp;
-  if (heat)
-    l_heat = -l_u;
-  else
-    l_cool = -l_u;
-}
-
-// The cavity chain of one TR-BDF2 operator build: each cavity segment's
-// share of K's band cotangent (what the build's band-to-U loop adds to
-// dU[s]) pulled back through dU/dT to nodes s and s+1 of the group-start
-// column Tg.  cav is the lane's column of the cavity operands.
-template <typename T>
-__device__ __noinline__ void cavity_band_adj_tr(const T* cav, int N, int SP, unsigned cav_bits,
-                                                const T* Tg, const T* gKl, const T* gKd,
-                                                const T* gKu, T* lT) {
-  const size_t ns = static_cast<size_t>(N) * SP;
-  for (int s = 0; s + 1 < N; ++s) {
-    if (!((cav_bits >> s) & 1u)) continue;
-    const T gu = (gKu[s] - gKd[s]) + (gKl[s + 1] - gKd[s + 1]);
-    T d_f, d_b;
-    cavity_u(cav + s * SP, ns, Tg[s], Tg[s + 1], &d_f, &d_b);
-    lT[s] += gu * d_f;
-    lT[s + 1] += gu * d_b;
-  }
-}
-
-template <typename T, bool kExt, bool kCav, bool kMrt>
-__global__ void __launch_bounds__(kMaxLanes) day_adjoint_kernel(const AdjArgsOf<T, kMrt> g) {
-  const DayArgs<T>& a = g.in;
-  const int N = a.N, SB = a.SB, ZB = a.ZB, NB = a.NB;
-  const int sub = a.substeps, k = a.refresh_every;
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int SP = NB * SB;
-  const int lane = b * SB + tid;
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* s_zT = reinterpret_cast<T*>(smem_raw);  // [ZB] marching zone T
-  T* s_zt = s_zT + ZB;                       // [(sub+1)*ZB] zone T at each sub-step start
-  T* s_az = s_zt + (sub + 1) * ZB;           // [sub*ZB] a_z of each sub-step
-  T* s_bz = s_az + sub * ZB;                 // [sub*ZB] b_z of each sub-step
-  T* s_lz = s_bz + sub * ZB;                 // [ZB] zone-T cotangent
-  T* s_laz = s_lz + ZB;                      // [ZB] a_z cotangent
-  T* s_lbz = s_laz + ZB;                     // [ZB] b_z cotangent
-  T* s_dV = s_lbz + ZB;                      // [ZB] zone-volume cotangent (day)
-  T* s_da = s_dV + ZB;                       // [ZB] a_extra cotangent (hour)
-  T* s_db = s_da + ZB;                       // [ZB] b_extra cotangent (hour)
-  T* s_haT = s_db + ZB;                      // [2*SB] h*A*T_s per face
-  T* s_ha = s_haT + 2 * SB;                  // [2*SB] h*A per face
-  T* s_lt = s_ha + 2 * SB;                   // [2*SB] boundary-T cotangent per face
-  T* s_lld = s_lt + 2 * SB;                  // kExt: [ZB] cotangent of each sub-step's load (hour)
-  T* s_dsh = s_lld + ZB;                     // kExt: [ZB] heating-setpoint cotangent (hour or day)
-  T* s_dsc = s_dsh + ZB;                     // kExt: [ZB] cooling-setpoint cotangent
-  T* s_tm = s_dsc + ZB;                      // kMrt: [ZB] the zones' MRT nodes
-  T* s_lnum = s_tm + ZB;                     // kMrt: [ZB] cotangents of a zone's network sums
-  T* s_lden = s_lnum + ZB;
-  T* s_lm = s_lden + ZB;                     // kMrt: [ZB] cotangent of a zone's MRT node
-  T* s_lzf = s_lm + ZB;                      // kMrt: [ZB] the network's fallback cotangent
-
-  const Lane<T> L(a, lane, kCav);
-  MrtLane<T> M;  // kMrt: launched with MRT physics only
-  if constexpr (kMrt) M = MrtLane<T>(a, g.net, lane);
-  const Scheme<T> sc(a);
-  T Tt[kTape], T1t[kTape];  // the hour's tape: T at sub-step starts (+ end), T1
-  T cs[kMaxNodes], inv[kMaxNodes];
-
-  // March hour h from (Tt[0:N], s_zT), writing the tape.
-  auto march_hour = [&](int h) {
-    const HourIn<T> hi(a, h, lane);
-    const T* a_ex = a.a_extra + (size_t)h * NB * ZB + b * ZB;
-    const T* b_ex = a.b_extra + (size_t)h * NB * ZB + b * ZB;
-    for (int i0 = 0; i0 < sub; i0 += k) {
-      const int w = h * sub + i0;
-      T t_front, t_back;
-      L.boundary(s_zT, a.t_out[w], t_front, t_back);
-      Ops<T> o;
-      if constexpr (kMrt) {
-        const MrtFace<T> mf =
-            mrt_context(a, g.net, L, M, b, tid, Tt + i0 * N, t_front, t_back, s_zT, s_ha, s_haT, s_tm);
-        o = build_ops<T, true>(L, Tt + i0 * N, t_front, t_back, a.wind[w], a.wdir[w], hi, a.amb_bug,
-                               sc.a_dt, cs, inv, &mf);
-      } else {
-        o = build_ops(L, Tt + i0 * N, t_front, t_back, a.wind[w], a.wdir[w], hi, a.amb_bug, sc.a_dt,
-                      cs, inv);
-      }
-      for (int i = i0; i < i0 + k; ++i) {
-        T* Tn = Tt + (i + 1) * N;
-        for (int n = 0; n < N; ++n) Tn[n] = Tt[i * N + n];
-        for (int z = tid; z < ZB; z += SB) s_zt[i * ZB + z] = s_zT[z];
-        L.boundary(s_zT, a.t_out[h * sub + i], t_front, t_back);
-        march_substep(L, o, cs, inv, hi, t_front, t_back, sc, Tn, T1t + i * N);
-        const T ts_front = Tn[0];
-        const T ts_back = L.last_node(Tn);
-        const T haf = o.hf * L.area, hab = o.hb * L.area;
-        s_haT[2 * tid] = haf * ts_front;
-        s_ha[2 * tid] = haf;
-        s_haT[2 * tid + 1] = hab * ts_back;
-        s_ha[2 * tid + 1] = hab;
-        __syncthreads();
-        for (int z = tid; z < ZB; z += SB) {
-          const int gz = b * ZB + z;
-          T az, bz;
-          zone_sums(a.zone_ptr, a.zone_faces, gz, s_haT, s_ha, a_ex[z], b_ex[z], az, bz);
-          // Mixing reads the sub-step-start row s_zt[i], which no thread
-          // writes here, so s_zT updates in place.
-          if (kExt && a.mix_ptr) mix_sums(a, gz, s_zt + i * ZB, az, bz);
-          s_az[i * ZB + z] = az;
-          s_bz[i * ZB + z] = bz;
-          if (kExt && a.ctl) {
-            T load;
-            s_zT[z] = zone_update_ctl(s_zT[z], az, bz, a.zone_volume[gz], sc.dt,
-                                      Setpoints<T>(a, h, gz), load);
-          } else {
-            s_zT[z] = zone_update(s_zT[z], az, bz, a.zone_volume[gz], sc.dt);
-          }
-        }
-        __syncthreads();
-      }
-    }
-  };
-
-  // ---- pass 1: march the day, storing each hour's start state -------------
-  for (int n = 0; n < N; ++n) Tt[n] = a.T0[n * SP + lane];
-  for (int z = tid; z < ZB; z += SB) s_zT[z] = a.zT0[b * ZB + z];
-  __syncthreads();
-  for (int h = 0; h < a.hours; ++h) {
-    for (int n = 0; n < N; ++n) g.T_ws[((size_t)h * N + n) * SP + lane] = Tt[n];
-    for (int z = tid; z < ZB; z += SB) g.zT_ws[(size_t)h * NB * ZB + b * ZB + z] = s_zT[z];
-    march_hour(h);
-    for (int n = 0; n < N; ++n) Tt[n] = Tt[sub * N + n];
-  }
-
-  // ---- pass 2: the hours backwards ----------------------------------------
-  T lT[kMaxNodes], lr[kMaxNodes], lA[kMaxNodes], lq[kMaxNodes], lT1[kMaxNodes];
-  T gKl[kMaxNodes], gKd[kMaxNodes], gKu[kMaxNodes];
-  T dU[kMaxNodes], dCap[kMaxNodes], dFA[kMaxNodes], dFB[kMaxNodes];
-  SurfGrad<T> sg;
-  for (int f = 0; f < SF_NX; ++f) sg.v[f] = T(0);
-  for (int n = 0; n < N; ++n) {
-    lT[n] = g.dT[n * SP + lane];
-    dU[n] = dCap[n] = dFA[n] = dFB[n] = T(0);
-  }
-  for (int z = tid; z < ZB; z += SB) {
-    s_lz[z] = g.d_zT[b * ZB + z];
-    s_dV[z] = T(0);
-    if (kExt) s_dsh[z] = s_dsc[z] = T(0);
-    if constexpr (kMrt) s_lzf[z] = T(0);
-  }
-  T d_mef = T(0), d_meb = T(0);  // kMrt: the effective emissivities' cotangents (day)
-
-  for (int h = a.hours - 1; h >= 0; --h) {
-    for (int n = 0; n < N; ++n) Tt[n] = g.T_ws[((size_t)h * N + n) * SP + lane];
-    for (int z = tid; z < ZB; z += SB) {
-      s_zT[z] = g.zT_ws[(size_t)h * NB * ZB + b * ZB + z];
-      s_lz[z] += g.d_zt_hist[(size_t)h * NB * ZB + b * ZB + z];
-      s_da[z] = s_db[z] = T(0);
-      // The hour's load is the mean over its sub-steps.
-      if (kExt && a.ctl)
-        s_lld[z] = g.d_ld_hist[(size_t)h * NB * ZB + b * ZB + z] / T(sub);
-    }
-    __syncthreads();
-    march_hour(h);
-
-    const HourIn<T> hi(a, h, lane);
-    T l_sol_f = T(0), l_sol_b = T(0), l_rad_out_f = T(0), l_rad_out_b = T(0);
-    for (int i0 = ((sub - 1) / k) * k; i0 >= 0; i0 -= k) {
-      const int w = h * sub + i0;
-      const T* Tg = Tt + i0 * N;
-      T tf0, tb0;
-      L.boundary(s_zt + i0 * ZB, a.t_out[w], tf0, tb0);
-      const T ws = a.wind[w], wd = a.wdir[w];
-      // The group's MRT context, recomputed from its start column, with the
-      // network's history for the reverse at the group start.
-      MrtFace<T> mf{};
-      T hist_f[4], hist_b[4];
-      Ops<T> o;
-      if constexpr (kMrt) {
-        mf = mrt_context(a, g.net, L, M, b, tid, Tg, tf0, tb0, s_zt + i0 * ZB, s_ha, s_haT, s_tm, hist_f,
-                         hist_b);
-        o = build_ops<T, true>(L, Tg, tf0, tb0, ws, wd, hi, a.amb_bug, sc.a_dt, cs, inv, &mf);
-      } else {
-        o = build_ops(L, Tg, tf0, tb0, ws, wd, hi, a.amb_bug, sc.a_dt, cs, inv);
-      }
-      OpsGrad<T> og{T(0), T(0), T(0), T(0), T(0), T(0)};
-      for (int n = 0; n < N; ++n) gKl[n] = gKd[n] = gKu[n] = T(0);
-
-      for (int i = i0 + k - 1; i >= i0; --i) {
-        // (a) zone update, one thread per zone.
-        for (int z = tid; z < ZB; z += SB) {
-          const int gz = b * ZB + z;
-          T laz, lbz, lzt, lvol;
-          if (kExt && a.ctl) {
-            T l_heat, l_cool;
-            zone_update_ctl_adj(s_zt[i * ZB + z], s_az[i * ZB + z], s_bz[i * ZB + z],
-                                a.zone_volume[gz], sc.dt, Setpoints<T>(a, h, gz), s_lz[z],
-                                s_lld[z], laz, lbz, lzt, lvol, l_heat, l_cool);
-            s_dsh[z] += l_heat;
-            s_dsc[z] += l_cool;
-          } else {
-            zone_update_adj(s_zt[i * ZB + z], s_az[i * ZB + z], s_bz[i * ZB + z],
-                            a.zone_volume[gz], sc.dt, s_lz[z], laz, lbz, lzt, lvol);
-          }
-          s_laz[z] = laz;
-          s_lbz[z] = lbz;
-          s_lz[z] = lzt;
-          s_dV[z] += lvol;
-          s_da[z] += laz;
-          s_db[z] += lbz;
-        }
-        __syncthreads();
-
-        // (b) the lane's sub-step, backwards.
-        const T* Ts = Tt + i * N;
-        const T* Tnew = Tt + (i + 1) * N;
-        const T* T1s = T1t + i * N;
-        T tf, tb;
-        L.boundary(s_zt + i * ZB, a.t_out[h * sub + i], tf, tb);
-        // Zone sums: a_z += h A T_s, b_z += h A.
-        if (L.zone_f >= 0) {
-          const T la = s_laz[L.zone_f], lb = s_lbz[L.zone_f];
-          lT[0] += la * (o.hf * L.area);
-          const T lha = la * Tnew[0] + lb;
-          og.hf += lha * L.area;
-          sg.v[SF_AREA] += lha * o.hf;
-        }
-        if (L.zone_b >= 0) {
-          const T la = s_laz[L.zone_b], lb = s_lbz[L.zone_b];
-          const T hab = o.hb * L.area;
-          for (int n = 0; n < N; ++n)
-            if (L.last(n)) lT[n] += la * hab;
-          const T lha = la * L.last_node(Tnew) + lb;
-          og.hb += lha * L.area;
-          sg.v[SF_AREA] += lha * o.hb;
-        }
-        // Stage 2: Tnew = M^{-1} (c1 C T1 - c2 C T + beta dt q).
-        solve_transposed(L, sc.a_dt, cs, inv, lT, lr);
-        band_adj(L, sc.a_dt, lr, Tnew, gKl, gKd, gKu, dCap);
-        for (int n = 0; n < N; ++n) {
-          if (L.valid(n)) {
-            const T cap = L.Cap[n * SP];
-            lT1[n] = sc.c1 * cap * lr[n];
-            lA[n] = -sc.c2 * cap * lr[n];
-            dCap[n] += lr[n] * (sc.c1 * T1s[n] - sc.c2 * Ts[n]);
-            lq[n] = sc.b_dt * lr[n];
-          } else {
-            lT1[n] = T(0);
-            lA[n] = lr[n];
-            lq[n] = T(0);
-          }
-        }
-        // Stage 1: T1 = M^{-1} (C T + (gamma dt/2) K T + gamma dt q).
-        solve_transposed(L, sc.a_dt, cs, inv, lT1, lr);
-        band_adj(L, sc.a_dt, lr, T1s, gKl, gKd, gKu, dCap);
-        for (int n = 0; n < N; ++n) {
-          if (!L.valid(n)) {
-            lA[n] += lr[n];
-            continue;
-          }
-          const T lk = sc.a_dt * lr[n];
-          T kl, kd, ku;
-          k_row(L, o, n, kl, kd, ku);
-          lA[n] += L.Cap[n * SP] * lr[n] + kd * lk;
-          if (n > 0) lA[n - 1] += kl * lk;
-          if (n + 1 < N) lA[n + 1] += ku * lk;
-          dCap[n] += lr[n] * Ts[n];
-          lq[n] += sc.g_dt * lr[n];
-          gKd[n] += lk * Ts[n];
-          if (L.left(n)) gKl[n] += lk * Ts[n - 1];
-          if (L.right(n)) gKu[n] += lk * Ts[n + 1];
-        }
-        // Forcing q: absorbed solar and the faces' sources.
-        T lt_f = T(0), lt_b = T(0);
-        for (int n = 0; n < N; ++n) {
-          if (!L.valid(n)) continue;
-          const T l = lq[n];
-          dFA[n] += l * hi.sol_f;
-          dFB[n] += l * hi.sol_b;
-          l_sol_f += l * L.FA[n * SP];
-          l_sol_b += l * L.FB[n * SP];
-          if (L.first(n)) {
-            lt_f += l * o.hf;
-            og.hf += l * tf;
-            og.radf += l * o.rad_ft;
-            og.rad_ft += l * o.radf;
-          }
-          if (L.last(n)) {
-            lt_b += l * o.hb;
-            og.hb += l * tb;
-            og.radb += l * o.rad_bt;
-            og.rad_bt += l * o.radb;
-          }
-        }
-        for (int n = 0; n < N; ++n) lT[n] = lA[n];
-
-        if (i == i0) {
-          // ---- the group's operator build, backwards -----------------------
-          // (kMrt: a network face's linearized radiation ran toward its
-          // zone's node, and the network runs backwards here.)
-          // K's band -> U and the boundary coefficients.
-          for (int n = 0; n < N; ++n) {
-            if (!L.valid(n)) continue;
-            const T gd = gKd[n];
-            if (L.left(n)) dU[n - 1] += gKl[n] - gd;
-            if (L.right(n)) dU[n] += gKu[n] - gd;
-            if (L.first(n)) {
-              og.hf -= gd;
-              og.radf -= gd;
-            }
-            if (L.last(n)) {
-              og.hb -= gd;
-              og.radb -= gd;
-            }
-          }
-          if (L.cav_bits) cavity_band_adj_tr(L.Cav, N, SP, L.cav_bits, Tg, gKl, gKd, gKu, lT);
-          const FaceTemps<T> ft(L, Tg, tf0, tb0, hi, a.amb_bug);
-          // Linearized radiation 4 eps sigma x^3, x = K + (T_rad + T_s)/2
-          // (kMrt: a network face's T_rad and eps are the MRT context's).
-          T rad_f = ft.front_rad, rad_b = ft.back_rad, eps_f = L.eps_f, eps_b = L.eps_b;
-          bool on_f = false, on_b = false;
-          if constexpr (kMrt) {
-            rad_view(L, ft, mf, rad_f, rad_b, eps_f, eps_b);
-            on_f = mf.ef > T(0);
-            on_b = mf.eb > T(0);
-          }
-          const T xf = T(kKelvin) + (rad_f + ft.front_surf) / T(2);
-          const T xb = T(kKelvin) + (rad_b + ft.back_surf_eff) / T(2);
-          const T l_epsf = og.radf * T(4) * T(kSigma) * (xf * xf * xf);
-          const T l_epsb = og.radb * T(4) * T(kSigma) * (xb * xb * xb);
-          if (kMrt && on_f)
-            d_mef += l_epsf;
-          else
-            sg.v[SF_EPSF] += l_epsf;
-          if (kMrt && on_b)
-            d_meb += l_epsb;
-          else
-            sg.v[SF_EPSB] += l_epsb;
-          const T lxf = og.radf * T(12) * eps_f * T(kSigma) * (xf * xf);
-          const T lxb = og.radb * T(12) * eps_b * T(kSigma) * (xb * xb);
-          T l_frad = og.rad_ft + lxf / T(2), l_fs = lxf / T(2);
-          T l_brad = og.rad_bt + lxb / T(2), l_bse = lxb / T(2);
-          // Film coefficients: a fixed h takes the whole cotangent.
-          const T lhf = is_nan(L.fix_hf) ? og.hf : T(0);
-          const T lhb = is_nan(L.fix_hb) ? og.hb : T(0);
-          if (!is_nan(L.fix_hf)) sg.v[SF_FIXHF] += og.hf;
-          if (!is_nan(L.fix_hb)) sg.v[SF_FIXHB] += og.hb;
-          // Forced part 2.537 W rf sqrt(P v / A) on outdoor faces.
-          const T lbase = (L.f_out ? lhf : T(0)) + (L.b_out ? lhb : T(0));
-          const T pva = L.perim * (ws * L.wmod) / L.area;
-          if (pva > T(0)) {
-            const T wf = L.windward(wd) ? T(1) : T(0.5);
-            const T sq = m_sqrt(pva);
-            sg.v[SF_RF] += lbase * T(2.537) * wf * sq;
-            const T lpva = lbase * T(2.537) * wf * L.rf / (T(2) * sq);
-            sg.v[SF_PERIM] += lpva * (ws * L.wmod) / L.area;
-            sg.v[SF_WMOD] += lpva * L.perim * ws / L.area;
-            sg.v[SF_AREA] -= lpva * pva / L.area;
-          }
-          // Natural part, and the TARP coefficients' dependence on |cos|.
-          T l_tf = T(0), l_tb = T(0), l_same = T(0), l_opp = T(0);
-          const T front_cos = L.f_out ? -L.cos_t : L.cos_t;
-          natural_h_adj(lhf, tf0, ft.front_surf, front_cos, L.c_same, L.c_opp, l_tf, l_fs,
-                        l_same, l_opp);
-          natural_h_adj(lhb, tb0, ft.back_surf_eff, L.cos_t, L.c_same, L.c_opp, l_tb, l_bse,
-                        l_same, l_opp);
-          const T ac = m_abs(L.cos_t);
-          sg.v[SF_COS] += (l_same * T(9.482) / ((T(7.238) - ac) * (T(7.238) - ac)) -
-                           l_opp * T(1.81) / ((T(1.382) + ac) * (T(1.382) + ac))) *
-                          m_sign(L.cos_t);
-          // Radiant temperatures: outdoor IR, else the boundary air (the
-          // ambient-back quirk reads the front's); a network face's is its
-          // zone's MRT node.
-          T l_tmf = T(0), l_tmb = T(0);
-          if (kMrt && on_f)
-            l_tmf = l_frad;
-          else if (L.f_out)
-            l_rad_out_f += l_frad;
-          else
-            l_tf += l_frad;
-          if (kMrt && on_b)
-            l_tmb = l_brad;
-          else if (L.b_out)
-            l_rad_out_b += l_brad;
-          else if (L.b_amb && a.amb_bug)
-            l_tf += l_brad;
-          else
-            l_tb += l_brad;
-          // Surface temperatures: node 0 and the last node (the quirk again).
-          T l_bs = T(0);
-          if (L.b_amb && a.amb_bug)
-            l_fs += l_bse;
-          else
-            l_bs += l_bse;
-          if constexpr (kMrt) {  // the network, backwards, from the group's start column
-            T l_t0f = T(0), l_t0b = T(0), l_area = T(0);
-            mrt_network_adj(a, g.net, L, M, b, tid, Tg[0], L.last_node(Tg), hist_f, hist_b, l_tmf, l_tmb,
-                            l_fs, l_bs, l_t0f, l_t0b, d_mef, d_meb, l_area, s_ha, s_haT, s_lt,
-                            s_lnum, s_lden, s_lm, s_lzf);
-            l_tf += l_t0f;
-            l_tb += l_t0b;
-            sg.v[SF_AREA] += l_area;
-          }
-          lT[0] += l_fs;
-          for (int n = 0; n < N; ++n)
-            if (L.last(n)) lT[n] += l_bs;
-          lt_f += l_tf;
-          lt_b += l_tb;
-        }
-
-        // Boundary temperatures: zone air (summed per zone below), the fixed
-        // ambient/ground temperature, or outdoor air (not differentiated).
-        s_lt[2 * tid] = L.code_f == kSpace ? lt_f : T(0);
-        s_lt[2 * tid + 1] = L.code_b == kSpace ? lt_b : T(0);
-        if (L.code_f != kSpace && !L.f_out) sg.v[SF_TEMPF] += lt_f;
-        if (L.code_b != kSpace && !L.b_out) sg.v[SF_TEMPB] += lt_b;
-        __syncthreads();
-
-        // (c) the faces' boundary cotangents into their zones.
-        for (int z = tid; z < ZB; z += SB) {
-          const int gz = b * ZB + z;
-          s_lz[z] += face_sum(a.zone_ptr, a.zone_faces, gz, s_lt);
-          if constexpr (kMrt) {  // the network's fallback onto the zone row
-            s_lz[z] += s_lzf[z];
-            s_lzf[z] = T(0);
-          }
-          if (kExt && a.mixt_ptr) {
-            // The transpose of the mixing sums: this zone as a source.
-            const T zs = s_zt[i * ZB + z];
-            const T s0 = air_rho_cp(zs), ds0 = air_rho_cp_dt(zs);
-            T lm = T(0);
-            for (int e = a.mixt_ptr[gz]; e < a.mixt_ptr[gz + 1]; ++e) {
-              const int to = a.mixt_dst[e];
-              lm += a.mixt_vol[e] * (s_laz[to] * (s0 + zs * ds0) + s_lbz[to] * ds0);
-            }
-            s_lz[z] += lm;
-          }
-        }
-        __syncthreads();
-      }
-    }
-
-    // ---- end of hour: the channel and gain cotangents ----------------------
-    const T sfr = a.sol_f[h * SP + lane], sbr = a.sol_b[h * SP + lane];
-    const T irf = a.ir_f[h * SP + lane], irb = a.ir_b[h * SP + lane];
-    T* dc = g.d_chan + (size_t)h * SP + lane;
-    const size_t row = (size_t)a.hours * SP;
-    dc[0] = (is_nan(sfr) || sfr < T(0)) ? T(0) : l_sol_f;
-    dc[row] = is_nan(sbr) ? T(0) : l_sol_b;
-    dc[2 * row] = irf >= T(1e-30)
-                      ? l_rad_out_f * T(0.25) * m_pow(irf / T(kSigma), T(-0.75)) / T(kSigma)
-                      : T(0);
-    dc[3 * row] = irb >= T(1e-30)
-                      ? l_rad_out_b * T(0.25) * m_pow(irb / T(kSigma), T(-0.75)) / T(kSigma)
-                      : T(0);
-    for (int z = tid; z < ZB; z += SB) {
-      g.d_a[(size_t)h * NB * ZB + b * ZB + z] = s_da[z];
-      g.d_b[(size_t)h * NB * ZB + b * ZB + z] = s_db[z];
-      if (kExt && a.sp_heat) {  // scheduled: the hour's rows take the cotangents
-        g.d_sp_heat[(size_t)h * NB * ZB + b * ZB + z] = s_dsh[z];
-        g.d_sp_cool[(size_t)h * NB * ZB + b * ZB + z] = s_dsc[z];
-        s_dsh[z] = s_dsc[z] = T(0);
-      }
-    }
-  }
-
-  // ---- outputs ------------------------------------------------------------
-  for (int n = 0; n < N; ++n) {
-    g.dT0[n * SP + lane] = lT[n];
-    g.d_node[(ND_U * N + n) * SP + lane] = ((L.cav_bits >> n) & 1u) ? T(0) : dU[n];
-    g.d_node[(ND_CAP * N + n) * SP + lane] = ((L.mass_bits >> n) & 1u) ? dCap[n] : T(0);
-    g.d_node[(ND_FA * N + n) * SP + lane] = dFA[n];
-    g.d_node[(ND_FB * N + n) * SP + lane] = dFB[n];
-  }
-  for (int f = 0; f < SF_COUNT; ++f) g.d_surf[f * SP + lane] = f < SF_NX ? sg.v[f] : T(0);
-  if constexpr (kMrt) {
-    g.d_mrt[lane] = d_mef;
-    g.d_mrt[SP + lane] = d_meb;
-  }
-  for (int z = tid; z < ZB; z += SB) {
-    g.d_zT0[b * ZB + z] = s_lz[z];
-    g.d_zv[b * ZB + z] = s_dV[z];
-    if (kExt && a.ctl) {  // the compiled rows (0 where the march was scheduled)
-      g.d_ctl[b * ZB + z] = s_dsh[z];
-      g.d_ctl[NB * ZB + b * ZB + z] = s_dsc[z];
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -786,8 +131,8 @@ __global__ void __launch_bounds__(kMaxLanes) day_adjoint_kernel(const AdjArgsOf<
 //    segments' share through dU/dT into its own input column (the lane's
 //    day accumulator of a cavity segment's seg_u cotangent is scratch,
 //    emptied after each instance, and written out as 0).
-// Zone coupling, thermostat, mixing and the end-of-hour outputs are those of
-// the TR-BDF2 adjoint above.
+// Zone coupling, thermostat, mixing and the end-of-hour outputs are the
+// TR-BDF2 adjoint's (day_adjoint_tr.cu), one thread per zone.
 
 // The lane's parameter cotangents: the day's node rows and surface rows, the
 // hour's channel sums.
@@ -1468,14 +813,13 @@ __global__ void __launch_bounds__(kMaxLanes) day_parity_adjoint_kernel(const Adj
   }
 }
 
-template <typename T, bool kExt, bool kParity, bool kCav = false, bool kMrt = false>
-int launch_as(const AdjArgsOf<T, kMrt>& g, cudaStream_t stream) {
+template <typename T, bool kExt, bool kCav = false, bool kMrt = false>
+int launch_parity(const AdjArgsOf<T, kMrt>& g, cudaStream_t stream) {
   const DayArgs<T>& a = g.in;
   const size_t smem =
       sizeof(T) * (static_cast<size_t>(a.ZB) * (3 * a.substeps + (kExt ? 11 : 8) + (kMrt ? 5 : 0)) +
                    6 * static_cast<size_t>(a.SB));
-  const auto kernel = kParity ? day_parity_adjoint_kernel<T, kExt, kCav, kMrt>
-                              : day_adjoint_kernel<T, kExt, kCav, kMrt>;
+  const auto kernel = day_parity_adjoint_kernel<T, kExt, kCav, kMrt>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -1487,15 +831,15 @@ int launch_as(const AdjArgsOf<T, kMrt>& g, cudaStream_t stream) {
 
 #ifndef HEATX_DAY_ADJOINT_KMRT_UNIT
 template <typename T>
-int launch(const MrtAdjArgs<T>& g, cudaStream_t stream) {
+int launch(const MrtAdjArgs<T>& g, cudaStream_t stream, int* block_threads) {
   const DayArgs<T>& a = g.in;
   if (a.N < 1 || a.N > kMaxNodes || a.SB < 1 || a.SB > kMaxLanes || a.NB < 1 || a.ZB < 1 ||
-      a.hours < 1 || a.refresh_every < 1 || a.substeps % a.refresh_every ||
-      (!a.parity && (a.substeps + 1) * a.N > kTape))
+      a.hours < 1 || a.refresh_every < 1 || a.substeps % a.refresh_every)
     return static_cast<int>(cudaErrorInvalidValue);
   // The parity march rebuilds its operators every sub-step and tapes an hour
-  // of sub-step starts in the workspace.
-  if (a.parity && (a.refresh_every != 1 || a.nomass_iters < 0 || g.sub_ws == nullptr))
+  // of sub-step starts in its workspace; the TR-BDF2 body tapes an hour of
+  // sub-step states in its own.
+  if (a.parity ? (a.refresh_every != 1 || a.nomass_iters < 0 || g.sub_ws == nullptr) : g.tape == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   // Thermostat rows come with the load cotangent and the rows' output;
   // schedule rows with theirs; mixing with both groupings of its entries.
@@ -1509,23 +853,27 @@ int launch(const MrtAdjArgs<T>& g, cudaStream_t stream) {
   const bool mrt = g.net.phys != 0;
   if (mrt != (g.net.mrt != nullptr) || mrt != (g.d_mrt != nullptr) || (mrt && !g.net.mrt_ptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  // Free-float buildings run the instantiation without the extra zone code;
-  // buildings with gas cavities the extended one with the cavity code (kCav);
-  // MRT physics the extended ones with the network (kMrt).
+  // The TR-BDF2 body picks its kind in its own units.  Parity: free-float
+  // buildings run the instantiation without the extra zone code; buildings
+  // with gas cavities the extended one with the cavity code (kCav); MRT
+  // physics the extended ones with the network (kMrt).
+  if (!a.parity)
+    return std::is_same_v<T, float> ? heatx_day_adjoint_tr_f32(&g, stream, block_threads)
+                                    : heatx_day_adjoint_tr_f64(&g, stream, block_threads);
   const bool ext = ctl || a.mix_ptr;
   if (mrt)
     return std::is_same_v<T, float> ? heatx_day_adjoint_mrt_f32(&g, stream)
                                     : heatx_day_adjoint_mrt_f64(&g, stream);
-  if (a.cav)
-    return a.parity ? launch_as<T, true, true, true>(g, stream) : launch_as<T, true, false, true>(g, stream);
-  if (a.parity) return ext ? launch_as<T, true, true>(g, stream) : launch_as<T, false, true>(g, stream);
-  return ext ? launch_as<T, true, false>(g, stream) : launch_as<T, false, false>(g, stream);
+  if (a.cav) return launch_parity<T, true, true>(g, stream);
+  return ext ? launch_parity<T, true>(g, stream) : launch_parity<T, false>(g, stream);
 }
 
-constexpr int kPointers = 50;
+constexpr int kPointers = 51;
 
 template <typename T>
-int day_adjoint(void* const* p, int n_ptrs, const int* ints, const double* reals, void* stream) {
+int day_adjoint(void* const* p, int n_ptrs, const int* ints, const double* reals, int* block_threads,
+                void* stream) {
+  if (block_threads) *block_threads = 0;
   if (n_ptrs != kPointers) return static_cast<int>(cudaErrorInvalidValue);
   MrtAdjArgs<T> g;  // the kMrt instantiations take it whole, the others its AdjArgs
   DayArgs<T>& a = g.in;
@@ -1580,6 +928,7 @@ int day_adjoint(void* const* p, int n_ptrs, const int* ints, const double* reals
   g.net.mrt_ptr = static_cast<const int*>(p[i++]);
   g.net.mrt_faces = static_cast<const int*>(p[i++]);
   g.d_mrt = static_cast<T*>(p[i++]);
+  g.tape = static_cast<T*>(p[i++]);
   a.N = ints[0];
   a.NB = ints[1];
   a.SB = ints[2];
@@ -1600,20 +949,16 @@ int day_adjoint(void* const* p, int n_ptrs, const int* ints, const double* reals
   g.net.phys = ints[11];
   a.nomass_tol = reals[6];
   a.nomass_tol_esc = reals[7];
-  return launch<T>(g, static_cast<cudaStream_t>(stream));
+  return launch<T>(g, static_cast<cudaStream_t>(stream), block_threads);
 }
 #else
-// The kMrt unit: MRT physics, with the cavity code where the building has gas
-// cavities (kMrt implies kExt).
+// The kMrt unit: the parity body with MRT physics, with the cavity code
+// where the building has gas cavities (kMrt implies kExt).
 template <typename T>
 int day_adjoint_mrt(const void* args, void* stream) {
   const MrtAdjArgs<T>& g = *static_cast<const MrtAdjArgs<T>*>(args);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (g.in.cav)
-    return g.in.parity ? launch_as<T, true, true, true, true>(g, st)
-                       : launch_as<T, true, false, true, true>(g, st);
-  return g.in.parity ? launch_as<T, true, true, false, true>(g, st)
-                     : launch_as<T, true, false, false, true>(g, st);
+  return g.in.cav ? launch_parity<T, true, true, true>(g, st) : launch_parity<T, true, false, true>(g, st);
 }
 #endif
 
@@ -1626,22 +971,24 @@ int heatx_day_adjoint_mrt_f64(const void* g, void* stream) { return day_adjoint_
 
 extern "C" {
 
-// Launch on `stream`.  `ptrs` holds the 50 device pointers in the order of
+// Launch on `stream`.  `ptrs` holds the 51 device pointers in the order of
 // DayAdjointKernel (operands, cotangents, workspace, outputs, then the
 // thermostat, schedule and mixing operands and outputs, null where the
 // building has none, the parity march's sub-step workspace, the
-// gas-cavity U row and operands, and last the MRT network's operands and its
-// cotangents' output), `ints`
+// gas-cavity U row and operands, the MRT network's operands and its
+// cotangents' output, and last the TR-BDF2 body's tape workspace), `ints`
 // N, NB, SB, ZB, hours, substeps, refresh_every, amb_bug, parity,
 // nomass_iters, esc_after, mrt_phys, `reals` dt, gamma dt/2, gamma dt, beta dt, c1, c2,
-// nomass_tol, nomass_tol_esc.  Returns cudaGetLastError() of the launch.
+// nomass_tol, nomass_tol_esc.  Writes the threads of a block of the launch
+// variant a TR-BDF2 launch ran in to *block_threads (0 for the parity body).
+// Returns cudaGetLastError() of the launch.
 int heatx_day_adjoint_f32(void* const* ptrs, int n_ptrs, const int* ints, const double* reals,
-                          void* stream) {
-  return day_adjoint<float>(ptrs, n_ptrs, ints, reals, stream);
+                          int* block_threads, void* stream) {
+  return day_adjoint<float>(ptrs, n_ptrs, ints, reals, block_threads, stream);
 }
 int heatx_day_adjoint_f64(void* const* ptrs, int n_ptrs, const int* ints, const double* reals,
-                          void* stream) {
-  return day_adjoint<double>(ptrs, n_ptrs, ints, reals, stream);
+                          int* block_threads, void* stream) {
+  return day_adjoint<double>(ptrs, n_ptrs, ints, reals, block_threads, stream);
 }
 
 const char* heatx_cuda_error_string(int err) {

@@ -1,0 +1,7 @@
+// The TR-BDF2 day adjoint's kMrt kinds (interior MRT: the network's reverse
+// and the effective emissivities' cotangents; day_adjoint_tr.cu has the
+// kernel), compiled as a unit of their own so that the other kinds keep their
+// code, as the day march's kMrt units do.  day_adjoint_tr.cu launches them
+// through heatx_day_adjoint_tr_mrt_f32/_f64.
+#define HEATX_DAY_ADJOINT_TR_KMRT_UNIT
+#include "day_adjoint_tr.cu"

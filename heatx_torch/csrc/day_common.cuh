@@ -1,15 +1,14 @@
-// Device code shared by the day march (day_march_tr.cu, day_march_parity.cu) and its adjoint
-// (day_adjoint.cu), in TR-BDF2 and (with day_parity.cuh) reference-parity
-// mode: the packed-operand layout, one surface lane's statics, the ISO 15099
-// gas-cavity U-value and its two partial derivatives, the operator build
-// (film coefficients, linearized radiation, the cavity U, the stage
-// matrix and its Thomas factors), one TR-BDF2 sub-step of a lane's node
-// column, the zone sums, the inter-zone mixing sums, the exact exponential
-// zone update and its setpoint-landing (thermostat) form, and the interior
-// MRT network (Carroll) with its reverse.  Both kernels march
-// with these functions, so the adjoint's recompute is the forward's
-// arithmetic.  The layout follows heatx_torch/ops/day_march.py (NODE_FIELDS,
-// SURF_FIELDS, LANE_FIELDS).
+// Device code shared by the day march (day_march_tr.cu, day_march_parity.cu) and its adjoints
+// (day_adjoint_tr.cu, day_adjoint.cu), in TR-BDF2 and (with day_parity.cuh)
+// reference-parity mode: the packed-operand layout, one surface lane's
+// statics, the ISO 15099 gas-cavity U-value and its two partial derivatives,
+// the faces' temperatures and the film and radiation terms the one-thread
+// parity sub-step reads, the zone sums, the inter-zone mixing sums, the
+// exact exponential zone update and its setpoint-landing (thermostat) form,
+// and the interior MRT network (Carroll) with its reverse.  The four-thread
+// TR-BDF2 code is day_tr.cuh's (forward) and day_tr_adj.cuh's (reverse).  The
+// layout follows heatx_torch/ops/day_march.py (NODE_FIELDS, SURF_FIELDS,
+// LANE_FIELDS).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -356,10 +355,6 @@ struct Lane {
   __device__ bool right(int i) const { return valid(i) && valid(i + 1); }
   __device__ bool first(int i) const { return valid(i) && !valid(i - 1); }
   __device__ bool last(int i) const { return valid(i) && !valid(i + 1); }
-  // K's off-diagonals of row i (U of the segments to the row's neighbours).
-  __device__ T kl(int i) const { return left(i) ? U[(i - 1) * SP] : T(0); }
-  __device__ T ku(int i) const { return right(i) ? U[i * SP] : T(0); }
-
   // The masked sum of x over the last valid nodes (engine.surface._last_node).
   __device__ T last_node(const T* x) const {
     T s = T(0);
@@ -426,7 +421,7 @@ struct Ops {
 };
 
 // The faces' radiant and surface temperatures (border_conditions with the
-// ambient-back quirk): shared by the operator build and its adjoint.
+// ambient-back quirk): shared by the parity sub-step and its adjoint.
 template <typename T>
 struct FaceTemps {
   T front_surf, back_surf, front_rad, back_rad, back_surf_eff;
@@ -449,20 +444,6 @@ __device__ __forceinline__ T forced_base(const Lane<T>& L, T ws, T wd) {
   return T(2.537) * (L.windward(wd) ? T(1) : T(0.5)) * L.rf * (pva > T(0) ? m_sqrt(pva) : T(0));
 }
 
-// Row i of K (kl, kd, ku) with the group's film and radiation coefficients.
-template <typename T>
-__device__ __forceinline__ void k_row(const Lane<T>& L, const Ops<T>& o, int i, T& kl, T& kd, T& ku) {
-  kl = L.kl(i);
-  ku = L.ku(i);
-  kd = -(kl + ku + (L.first(i) ? o.hf + o.radf : T(0)) + (L.last(i) ? o.hb + o.radb : T(0)));
-}
-
-// Stage matrix lower diagonal of row i: -(gamma dt/2) kl (0 on padded rows).
-template <typename T>
-__device__ __forceinline__ T m_lower(const Lane<T>& L, int i, T a_dt) {
-  return L.valid(i) ? -a_dt * L.kl(i) : T(0);
-}
-
 // A lane's faces on the interior MRT network: their effective emissivities
 // (0 off the network) and, after the network's fixed point, their zones' MRT
 // nodes.  apply_interior_mrt: a face with a positive effective emissivity
@@ -482,92 +463,6 @@ __device__ __forceinline__ void rad_view(const Lane<T>& L, const FaceTemps<T>& f
   rad_b = on_b ? m.tmb : ft.back_rad;
   eps_f = on_f ? m.ef : L.eps_f;
   eps_b = on_b ? m.eb : L.eps_b;
-}
-
-// Operators from the marching state (implicit.build_operators): film
-// coefficients, linearized radiation, the cavity U-values (segment_u), and
-// the Thomas factors (cs, inv) of the stage matrix C - (gamma dt/2) K,
-// identity rows on padded nodes.  kMrt: the linearized radiation of a face on
-// the MRT network runs toward the context *m (its zone's node, its effective
-// emissivity); only the kMrt instantiations' unit instantiates it.
-template <typename T, bool kMrt = false>
-__device__ Ops<T> build_ops(const Lane<T>& L, const T* Tn, T t_front, T t_back, T ws, T wd,
-                            const HourIn<T>& hi, int amb_bug, T a_dt, T* cs, T* inv,
-                            const MrtFace<T>* m = nullptr) {
-  Ops<T> o;
-  if (L.cav_bits) cavity_refresh(L, Tn);
-  const FaceTemps<T> ft(L, Tn, t_front, t_back, hi, amb_bug);
-  const T front_cos = L.f_out ? -L.cos_t : L.cos_t;
-  const T base = forced_base(L, ws, wd);
-  o.hf = natural_h(t_front, ft.front_surf, front_cos, L.c_same, L.c_opp) + (L.f_out ? base : T(0));
-  o.hb = natural_h(t_back, ft.back_surf_eff, L.cos_t, L.c_same, L.c_opp) + (L.b_out ? base : T(0));
-  if (!is_nan(L.fix_hf)) o.hf = L.fix_hf;
-  if (!is_nan(L.fix_hb)) o.hb = L.fix_hb;
-  T rad_f = ft.front_rad, rad_b = ft.back_rad, eps_f = L.eps_f, eps_b = L.eps_b;
-  if constexpr (kMrt) rad_view(L, ft, *m, rad_f, rad_b, eps_f, eps_b);
-  const T xf = T(kKelvin) + (rad_f + ft.front_surf) / T(2);
-  const T xb = T(kKelvin) + (rad_b + ft.back_surf_eff) / T(2);
-  o.radf = T(4) * eps_f * T(kSigma) * (xf * xf * xf);
-  o.radb = T(4) * eps_b * T(kSigma) * (xb * xb * xb);
-  o.rad_ft = rad_f;
-  o.rad_bt = rad_b;
-  for (int i = 0; i < L.N; ++i) {
-    const bool v = L.valid(i);
-    T kl, kd, ku;
-    k_row(L, o, i, kl, kd, ku);
-    const T md = v ? L.Cap[i * L.SP] - a_dt * kd : T(1);
-    const T ml = v ? -a_dt * kl : T(0);
-    const T mu = v ? -a_dt * ku : T(0);
-    const T iv = T(1) / (i == 0 ? md : md - ml * cs[i - 1]);
-    inv[i] = iv;
-    cs[i] = mu * iv;
-  }
-  return o;
-}
-
-// Node i's forcing q: absorbed solar plus, on a boundary node, the face's
-// convective and radiative sources.
-template <typename T>
-__device__ __forceinline__ T forcing(const Lane<T>& L, const Ops<T>& o, const HourIn<T>& hi,
-                                     int i, T src_f, T src_b) {
-  T q = L.FA[i * L.SP] * hi.sol_f + L.FB[i * L.SP] * hi.sol_b;
-  if (L.first(i)) q += src_f;
-  if (L.last(i)) q += src_b;
-  return q;
-}
-
-// One TR-BDF2 sub-step of the lane's node column on the group's factors:
-// stage 1 (rhs1 = C T + (gamma dt/2) K T + gamma dt q, fused with the forward
-// sweep) into T1, stage 2 (rhs2 = c1 C T1 - c2 C T + beta dt q) into Tn.
-template <typename T>
-__device__ void march_substep(const Lane<T>& L, const Ops<T>& o, const T* cs, const T* inv,
-                              const HourIn<T>& hi, T t_front, T t_back, const Scheme<T>& s,
-                              T* Tn, T* T1) {
-  const int N = L.N;
-  const T src_f = t_front * o.hf + o.radf * o.rad_ft;
-  const T src_b = t_back * o.hb + o.radb * o.rad_bt;
-  for (int n = 0; n < N; ++n) {
-    const bool v = L.valid(n);
-    const T q = forcing(L, o, hi, n, src_f, src_b);
-    T kl, kd, ku;
-    k_row(L, o, n, kl, kd, ku);
-    const T x_dn = n > 0 ? Tn[n - 1] : T(0);
-    const T x_up = n + 1 < N ? Tn[n + 1] : T(0);
-    const T kt = kd * Tn[n] + kl * x_dn + ku * x_up;
-    const T rhs = v ? L.Cap[n * L.SP] * Tn[n] + s.a_dt * kt + s.g_dt * q : Tn[n];
-    const T ml = v ? -s.a_dt * kl : T(0);
-    T1[n] = (n == 0 ? rhs : rhs - ml * T1[n - 1]) * inv[n];
-  }
-  for (int n = N - 2; n >= 0; --n) T1[n] = T1[n] - cs[n] * T1[n + 1];
-
-  for (int n = 0; n < N; ++n) {
-    const bool v = L.valid(n);
-    const T q = forcing(L, o, hi, n, src_f, src_b);
-    const T cap = L.Cap[n * L.SP];
-    const T rhs = v ? s.c1 * cap * T1[n] - s.c2 * cap * Tn[n] + s.b_dt * q : Tn[n];
-    Tn[n] = (n == 0 ? rhs : rhs - m_lower(L, n, s.a_dt) * Tn[n - 1]) * inv[n];
-  }
-  for (int n = N - 2; n >= 0; --n) Tn[n] = Tn[n] - cs[n] * Tn[n + 1];
 }
 
 // A zone's A/B sums: the gains plus its faces' h A T_s and h A, in the fixed

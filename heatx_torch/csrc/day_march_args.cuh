@@ -56,4 +56,19 @@ constexpr int launch_variant(int lanes) {
 template <typename T, int kV>
 constexpr int kVariantBlocks = sizeof(T) == 4 ? kLaunchVariants[kV].f32_blocks : 1;
 
+// The TR-BDF2 day adjoint's launch variants (day_adjoint_tr.cu), the same
+// G, lanes and threads as the day march's.  Its f32 128-thread variant asks
+// for three blocks an SM like the day march's (168 registers, some spilled):
+// at two (255 registers) the bench city's 334 blocks take two waves on 132
+// SMs, 18 % slower a day-launch.
+constexpr LaunchVariant kAdjLaunchVariants[] = {{32, 128, 3}, {64, 256, 1}, {256, 1024, 1}};
+constexpr int kAdjVariants = sizeof(kAdjLaunchVariants) / sizeof(kAdjLaunchVariants[0]);
+constexpr int adj_launch_variant(int lanes) {
+  for (int v = 0; v < kAdjVariants; ++v)
+    if (lanes >= 1 && lanes <= kAdjLaunchVariants[v].lanes) return v;
+  return -1;
+}
+template <typename T, int kV>
+constexpr int kAdjVariantBlocks = sizeof(T) == 4 ? kAdjLaunchVariants[kV].f32_blocks : 1;
+
 }  // namespace heatx

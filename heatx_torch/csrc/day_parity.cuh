@@ -87,7 +87,7 @@ __device__ __forceinline__ void film(const Lane<T>& L, const FaceTemps<T>& ft, T
 
 // The sub-step's operators from its start state: films, linearized radiation
 // and radiant temperatures (kMrt: toward the MRT context *m on a network
-// face, as build_ops).
+// face, as day_tr.cuh face_ops).
 template <typename T, bool kMrt = false>
 __device__ Ops<T> parity_ops(const Lane<T>& L, const T* Tn, T t_front, T t_back, T base,
                              const HourIn<T>& hi, int amb_bug, const MrtFace<T>* m = nullptr) {

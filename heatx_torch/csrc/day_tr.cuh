@@ -299,11 +299,11 @@ struct FaceOps {
 };
 
 // The operator work of face `back` (0 front, 1 back) of lane L from the
-// faces' surface temperatures and boundary air temperatures (build_ops's
-// film, TARP and linearized-radiation lines for one face; FaceTemps's
-// ambient-back quirk).  rad_out is the face's outdoor radiant temperature;
-// with kMrt a face with a positive effective emissivity me radiates toward
-// its zone's node tm.
+// faces' surface temperatures and boundary air temperatures (the film, TARP
+// and linearized-radiation terms of one face; FaceTemps's ambient-back
+// quirk; day_tr_adj.cuh face_ops_adj is its reverse).  rad_out is the face's
+// outdoor radiant temperature; with kMrt a face with a positive effective
+// emissivity me radiates toward its zone's node tm.
 template <typename T, bool kMrt>
 __device__ __forceinline__ FaceOps<T> face_ops(const Lane<T>& L, bool back, T ts_front, T ts_back,
                                                T t_front, T t_back, T rad_out, T ws, T wd, int amb_bug,
@@ -365,14 +365,16 @@ __device__ __forceinline__ void mrt_sums_shared(const int* s_mptr, const int* s_
 // network lists are in shared memory (s_mptr, s_mf), summed a warp per zone
 // when the block is whole warps (else a thread per zone).  Every thread of
 // the block calls it; s_tm holds the zones' nodes on return, and the return
-// value is the face's node.
-template <typename T>
+// value is the face's node.  kHist (the day adjoint's operator builds) keeps
+// the node before each iteration in hist[4].
+template <typename T, bool kHist = false>
 __device__ T mrt_face_node(int ZB, const int* s_mptr, const int* s_mf, int tid, int nthreads, bool writer,
                            bool on, int slot, int zone, T eps, T area, T ts, T tm0, const T* s_zT, T* s_w,
-                           T* s_wt, T* s_tm) {
+                           T* s_wt, T* s_tm, T* hist = nullptr) {
   const bool by_warp = (nthreads & 31) == 0;
   T tm = tm0;
   for (int it = 0; it < 4; ++it) {
+    if constexpr (kHist) hist[it] = tm;
     if (writer && on) {
       const T w = mrt_weight(eps, area, tm, ts);
       s_w[slot] = w;

@@ -36,13 +36,21 @@ cotangents of autograd through :func:`heatx_torch.ops.day_march.plain_day_march`
 forward is the day march and whose backward is the day adjoint, so a chain
 of days differentiates with ``torch.autograd`` (``FastRunner.chunk_grad``).
 
+The TR-BDF2 kernel (``csrc/day_adjoint_tr.cu``) runs four threads per
+surface on the forward kernel's device code and keeps one hour's tape
+(``[2 substeps + 1, 32, SP]``) in a wrapper-allocated workspace; a block
+whose rows would not fit shared memory in its 128- or 256-thread launch
+variant runs the 1024-thread one, which keeps the hour's zone rows and
+weather in that workspace too, so that its shared memory does not grow with
+the sub-steps: no building that the day march takes is refused for its
+sub-steps or nodes.
+
 Parity mode: heatx unrolls the sub-steps of ``_hour_body`` under its
 trace-time vjp, so its trace grows with the stability sub-step count.  The
 plain version here differentiates :func:`heatx_torch.ops.day_march.plain_hour_parity`
 hour by hour as it does the TR-BDF2 body, and the kernel reverses one sub-step
 at a time from sub-step-start columns kept in a wrapper-allocated workspace
-(``[substeps, N, SP]``; an hour of 118 sub-steps outgrows the per-thread tape
-of the TR-BDF2 kernel).  The no-mass iteration's update, increase and
+(``[substeps, N, SP]``).  The no-mass iteration's update, increase and
 convergence masks are piecewise constant and carry no cotangent, as under
 ``jax.vjp``.  ``substeps`` must be given and be the building's
 ``dt_subdivisions`` (heatx checks only that it is given; with another count
@@ -91,19 +99,17 @@ DIFF_CHANNELS = ("sol_front", "sol_back", "ir_front", "ir_back")
 #: The DayMarchParams.node row of each DIFF_NODE name (NODE_FIELDS order).
 NODE_ROW = {"seg_u": 0, "mass": 1, "front_alphas": 2, "back_alphas": 3}
 
-#: Largest per-thread tape, (substeps + 1) * max_nodes values of each of the
-#: two stage states (csrc/day_adjoint.cu kTape).
-MAX_TAPE = 384
-
-#: The adjoint's compilation units (as day_march.KERNEL_SOURCES).
-KERNEL_SOURCES = (cuda_lib.CSRC_DIR / "day_adjoint.cu", cuda_lib.CSRC_DIR / "day_adjoint_mrt.cu")
+#: The adjoint's compilation units (as day_march.KERNEL_SOURCES): the C entry
+#: and the parity body with its kMrt unit, the TR-BDF2 body with its kMrt unit.
+KERNEL_SOURCES = tuple(cuda_lib.CSRC_DIR / name for name in (
+    "day_adjoint.cu", "day_adjoint_mrt.cu", "day_adjoint_tr.cu", "day_adjoint_tr_mrt.cu"))
 
 
 def plain_day_adjoint(
     params: DayMarchParams, T0, zT0, t_out, wind, wdir, sol_front, sol_back,
     ir_front, ir_back, a_extra, b_extra, sp_heat, sp_cool, dT, d_zT, d_zt_hist,
     d_ld_hist, *, hours: int, substeps: int, refresh_every: int, dt: float, config,
-    parity: bool = False,
+    parity: bool = False, starts=None,
 ):
     """The plain PyTorch day adjoint on any device: the reference the CUDA
     kernel is held against (``parity``: of the reference-parity march).
@@ -118,7 +124,11 @@ def plain_day_adjoint(
     physics; ``d_node`` follows NODE_FIELDS with the capacity row holding the
     ``mass`` cotangent, ``d_surf`` follows SURF_FIELDS (normal rows 0),
     ``d_chan`` follows DIFF_CHANNELS, ``d_ctl`` the thermostat rows (capacity
-    rows 0; None without thermostats), ``d_sp_*`` None without a schedule."""
+    rows 0; None without thermostats), ``d_sp_*`` None without a schedule.
+    ``starts`` (``hours`` pairs ``(T [N, SP], zT [NB, ZB])``) re-runs each
+    hour from the given state in place of the plain march's own: the adjoint
+    along another march's hour starts (a kernel's, whose f32 thermostat may
+    land a sub-step apart from the plain march's)."""
     NB, ZB = params.n_blocks, params.zones_per_block
     has_ctl, sched = params.ctl is not None, sp_heat is not None
     mix = day_march._mix_slots(params)
@@ -145,14 +155,17 @@ def plain_day_adjoint(
         return (sp_heat[h].reshape(-1), sp_cool[h].reshape(-1)) if sched else ()
 
     channels = (sol_front, sol_back, ir_front, ir_back)
-    starts = []
-    with torch.no_grad():
-        T, zT = T0, zT0.reshape(-1)
-        for h in range(hours):
-            starts.append((T, zT))
-            T, zT, _ = hour(params, params.zone_volume.reshape(-1), h, T, zT,
-                            [c[h] for c in channels], a_extra[h].reshape(-1),
-                            b_extra[h].reshape(-1), sp_rows(h))
+    if starts is None:
+        starts = []
+        with torch.no_grad():
+            T, zT = T0, zT0.reshape(-1)
+            for h in range(hours):
+                starts.append((T, zT))
+                T, zT, _ = hour(params, params.zone_volume.reshape(-1), h, T, zT,
+                                [c[h] for c in channels], a_extra[h].reshape(-1),
+                                b_extra[h].reshape(-1), sp_rows(h))
+    else:
+        starts = [(T.to(T0.dtype), zT.to(T0.dtype).reshape(-1)) for T, zT in starts]
 
     node = params.node.detach().requires_grad_()
     surf = params.surf.detach().requires_grad_()
@@ -214,7 +227,7 @@ def plain_day_adjoint(
 # The CUDA kernel wrapper
 # ---------------------------------------------------------------------------
 
-_N_PTRS = 50
+_N_PTRS = 51
 
 
 def _load_library():
@@ -222,7 +235,7 @@ def _load_library():
     if not getattr(lib, "_heatx_bound", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
         for fn in (lib.heatx_day_adjoint_f32, lib.heatx_day_adjoint_f64):
-            fn.argtypes = [vp, ci, vp, vp, vp]
+            fn.argtypes = [vp, ci, vp, vp, ctypes.POINTER(ci), vp]
             fn.restype = ci
         lib.heatx_cuda_error_string.argtypes = [ci]
         lib.heatx_cuda_error_string.restype = ctypes.c_char_p
@@ -239,10 +252,13 @@ class DayAdjointKernel:
     """Launches ``day_adjoint.cu`` on CUDA tensors.  ``launches`` counts the
     launches made through this wrapper (and nothing else).  Arguments and
     returns as :func:`plain_day_adjoint`; of the cotangents only
-    ``d_ld_hist`` may be None here (and must be, without thermostats)."""
+    ``d_ld_hist`` may be None here (and must be, without thermostats).
+    ``block_threads`` reads back the threads of a block of the launch variant
+    the last TR-BDF2 launch ran in."""
 
     def __init__(self):
         self.launches = 0
+        self.block_threads = None
         self.parity_launches = 0  # those of ``launches`` that ran the parity kernel
         self.cavity_launches = 0  # those of ``launches`` on a building with gas cavities
         self.parity_cavity_launches = 0  # those of ``cavity_launches`` in parity mode
@@ -255,15 +271,25 @@ class DayAdjointKernel:
         d_zt_hist, d_ld_hist, *, hours: int, substeps: int, refresh_every: int,
         dt: float, config, parity: bool = False,
     ):
+        return self._launch(
+            params, T0, zT0, t_out, wind, wdir, sol_front, sol_back, ir_front, ir_back, a_extra,
+            b_extra, sp_heat, sp_cool, dT, d_zT, d_zt_hist, d_ld_hist, hours=hours,
+            substeps=substeps, refresh_every=refresh_every, dt=dt, config=config, parity=parity,
+        )[0]
+
+    def _launch(
+        self, params: DayMarchParams, T0, zT0, t_out, wind, wdir, sol_front,
+        sol_back, ir_front, ir_back, a_extra, b_extra, sp_heat, sp_cool, dT, d_zT,
+        d_zt_hist, d_ld_hist, *, hours: int, substeps: int, refresh_every: int,
+        dt: float, config, parity: bool = False,
+    ):
+        """One launch: returns ``(outs, (T_ws [hours, N, SP], zT_ws [hours,
+        NB, ZB]))``, the second the hour-start workspace (the recompute's
+        state at each hour's start)."""
         N, NB, ZB = params.max_nodes, params.n_blocks, params.zones_per_block
         SB = params.block_size
         SP = NB * SB
         dtype = T0.dtype
-        if not parity and (substeps + 1) * N > MAX_TAPE:
-            raise ValueError(
-                f"(substeps + 1) * nodes = {(substeps + 1) * N} > {MAX_TAPE}: the "
-                "adjoint kernel's per-thread tape holds one hour of sub-step states"
-            )
         has_ctl, sched, mix = params.ctl is not None, sp_heat is not None, params.mix
         if d_ld_hist is not None and not has_ctl:
             raise ValueError("d_ld_hist needs thermostat rows (params.ctl)")
@@ -283,11 +309,16 @@ class DayAdjointKernel:
         fn = lib.heatx_day_adjoint_f32 if dtype == torch.float32 else lib.heatx_day_adjoint_f64
         kw = dict(dtype=dtype, device=T0.device)
         # Workspace: each hour's start state (the kernel allocates nothing),
-        # and in parity mode one hour's sub-step-start node columns, which
-        # outgrow a per-thread tape at the stability sub-step count.
+        # in parity mode one hour's sub-step-start node columns, in TR-BDF2
+        # mode one hour's tape (each thread's rows of T at every sub-step
+        # start and of every sub-step's stage-1 state) and each block's zone
+        # rows and weather of the hour's sub-steps (csrc/day_adjoint_tr.cu:
+        # the only bound on the sub-steps is memory).
         T_ws = torch.empty((hours, N, SP), **kw)
         zT_ws = torch.empty((hours, NB, ZB), **kw)
         sub_ws = torch.empty((substeps, N, SP), **kw) if parity else None
+        tape = None if parity else torch.empty(
+            ((2 * substeps + 1) * day_march.MAX_NODES * SP + NB * ((3 * substeps + 1) * ZB + 3 * substeps),), **kw)
         outs = (
             torch.empty((N, SP), **kw), torch.empty((NB, ZB), **kw),
             torch.empty((4, N, SP), **kw), torch.empty((len(SURF_FIELDS), SP), **kw),
@@ -308,7 +339,7 @@ class DayAdjointKernel:
             d_ld_hist, params.ctl, sp_heat, sp_cool,
             *((None,) * 6 if mix is None
               else (mix.ptr, mix.src, mix.vol, mix.t_ptr, mix.t_dst, mix.t_vol)),
-            *outs[8:11], sub_ws, day_march.cavity_u_row(params), params.cav, *mrt, outs[11],
+            *outs[8:11], sub_ws, day_march.cavity_u_row(params), params.cav, *mrt, outs[11], tape,
         ]
         ptrs = (ctypes.c_void_p * _N_PTRS)(*[None if t is None else t.data_ptr() for t in tensors])
         ints = (ctypes.c_int * 12)(
@@ -319,20 +350,23 @@ class DayAdjointKernel:
             dt, imp_mod.GAMMA * dt / 2.0, imp_mod.GAMMA * dt, imp_mod.BETA * dt,
             imp_mod.C1, imp_mod.C2, config.nomass_tol, config.nomass_tol_escalated,
         )
+        ran = ctypes.c_int(0)
         with torch.cuda.device(T0.device):
             stream = torch.cuda.current_stream().cuda_stream
-            err = fn(ctypes.cast(ptrs, ctypes.c_void_p), len(tensors),
-                     ctypes.cast(ints, ctypes.c_void_p), ctypes.cast(reals, ctypes.c_void_p), stream)
+            err = fn(ctypes.cast(ptrs, ctypes.c_void_p), len(tensors), ctypes.cast(ints, ctypes.c_void_p),
+                     ctypes.cast(reals, ctypes.c_void_p), ctypes.byref(ran), stream)
         if err != 0:
             msg = lib.heatx_cuda_error_string(err).decode()
             raise RuntimeError(f"day_adjoint kernel launch failed: CUDA error {err} ({msg})")
+        if not parity:
+            self.block_threads = ran.value
         self.launches += 1
         self.parity_launches += int(parity)
         self.cavity_launches += int(params.cav is not None)
         self.parity_cavity_launches += int(parity and params.cav is not None)
         self.mrt_launches += int(bool(config.interior_mrt))
         self.parity_mrt_launches += int(parity and bool(config.interior_mrt))
-        return outs
+        return outs, (T_ws, zT_ws)
 
 
 #: The process's day-adjoint kernel wrapper (its ``launches`` counter is
@@ -404,8 +438,10 @@ class DayAdjoint:
     def __call__(self, params, T0, zT0, hour_inputs, cots):
         return self._dict(self.raw(params, T0, zT0, hour_inputs, cots))
 
-    def plain(self, params, T0, zT0, hour_inputs, cots):
-        return self._dict(self.raw(params, T0, zT0, hour_inputs, cots, plain=True))
+    def plain(self, params, T0, zT0, hour_inputs, cots, starts=None):
+        """The plain version's dict; ``starts`` as :func:`plain_day_adjoint`'s."""
+        args = self._args(params, T0, zT0, hour_inputs, cots)
+        return self._dict(plain_day_adjoint(*args, **self._hm._kw(observables=False), starts=starts))
 
 
 def refuse_gates(shaded: bool, vent_gated: bool):

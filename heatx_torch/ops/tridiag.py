@@ -2,7 +2,8 @@
 
 PyTorch twin of ``heatx.ops.tridiag`` for the day march: the mat-vec, the
 Thomas solve and its pre-factored sweeps, parallel cyclic reduction and its
-pre-factored form, and the closed-form solve of 1- and 2-node runs.  Arrays are node-major
+pre-factored form, the closed-form solve of 1- and 2-node runs, and the
+partitioned solve of the day kernels with its transpose.  Arrays are node-major
 ``[N, S]``; row ``i`` of each system is
 
     lower[i] * x[i-1] + diag[i] * x[i] + upper[i] * x[i+1] = rhs[i]
@@ -232,3 +233,59 @@ def partition_solve(fac, rhs):
         rows = [xf] + [D[j] - fac["A"][j] * xf - fac["C"][j] * xl for j in range(1, m - 1)] + [xl]
         x = torch.stack(rows, dim=1)
     return x.reshape((groups * m,) + tuple(d.shape[2:]))[:n]
+
+
+def pcr_apply_transposed(levels, inv_b, g):
+    """The transpose of :func:`pcr_apply`: ``y`` with ``pcr_apply``'s matrix
+    transposed applied to ``g``.  Each level's update ``r + alpha r[i-d] +
+    gamma r[i+d]`` turns around in reverse order: a row's cotangent takes
+    its neighbours' coefficients times their cotangents, the shifts in the
+    opposite direction."""
+    r = g * inv_b
+    d = 1 << (len(levels) - 1) if levels else 1
+    for alpha, gamma in reversed(levels):
+        r = r + _shift_dn(alpha * r, d, 0.0) + _shift_up(gamma * r, d, 0.0)
+        d //= 2
+    return r
+
+
+def partition_solve_transposed(fac, g):
+    """Solve ``M^T y = g`` with the :func:`partition_factor` result of ``M``:
+    the TR-BDF2 day adjoint's transposed stage solve (``csrc/day_tr_adj.cuh``)
+    in its plain statement, each step of :func:`partition_solve` transposed
+    and taken in reverse order.  The interior rows' back-substitution sends
+    their cotangents to the chunk's first and last rows, the reduced
+    system's PCR levels run backwards with their shifts reversed, then each
+    chunk's backward sweep and forward sweep run transposed (the backward
+    sweep from the chunk's top down, the forward sweep from its bottom up)."""
+    n, m, groups = fac["n"], fac["m"], fac["groups"]
+    pad = groups * m - n
+    if pad:
+        g = torch.cat([g, torch.zeros_like(g[:1]).expand((pad,) + tuple(g.shape[1:]))])
+    y = g.reshape((groups, m) + tuple(g.shape[1:]))
+    a, f, cf = fac["lower"], fac["f"], fac["cf"]
+    red = (groups * (2 if m > 1 else 1),) + tuple(y.shape[2:])
+    lD = [y[:, j] for j in range(m)]
+    if m == 1:
+        lr = pcr_apply_transposed(fac["levels"], fac["inv_b"], y[:, 0].reshape(red))
+        lD[0] = lr.reshape(y[:, 0].shape)
+    else:
+        lxf, lxl = y[:, 0], y[:, m - 1]
+        for j in range(1, m - 1):
+            lxf = lxf - fac["A"][j] * y[:, j]
+            lxl = lxl - fac["C"][j] * y[:, j]
+        lr = pcr_apply_transposed(fac["levels"], fac["inv_b"], torch.stack([lxf, lxl], dim=1).reshape(red))
+        lr = lr.reshape((groups, 2) + tuple(y.shape[2:]))
+        lD[0], lD[m - 1] = lr[:, 0], lr[:, 1]
+    if m >= 3:
+        lD[1] = lD[1] - cf[0] * fac["einv"] * lD[0]
+        lD[0] = lD[0] * fac["einv"]
+    for j in range(1, m - 2):
+        lD[j + 1] = lD[j + 1] - cf[j] * lD[j]
+    lx = [None] * m
+    for j in range(m - 1, -1, -1):
+        lx[j] = lD[j] * f[j]
+        if j >= 2:
+            lD[j - 1] = lD[j - 1] - a[:, j] * lx[j]
+    x = torch.stack(lx, dim=1)
+    return x.reshape((groups * m,) + tuple(y.shape[2:]))[:n]

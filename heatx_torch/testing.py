@@ -11,6 +11,7 @@ every front face, 500 W per heater and 150 W per luminaire.
 per zone at 20/26 C, luminaires on, heaters off.  ``build_thermostat_model``
 is a small building that takes every branch of the thermostat update, and
 ``BranchCounter`` counts the zone-sub-steps a plain march puts on each.
+``build_zone_chain_model`` puts many zones with short walls in one block.
 ``build_nomass_run_model`` has no-mass runs of 3 and 4 nodes,
 ``build_two_zone_model`` interior-MRT networks on both faces of a partition, and
 ``coarse_config`` a discretization whose parity march is short.
@@ -130,6 +131,28 @@ def build_wide_zone_model(surfaces: int = 256, thermostat: bool = False):
     m.surfaces[0] = dataclasses.replace(m.surfaces[0], construction="deep")
     if thermostat:
         m.add_hvac(IdealHeaterCooler("tstat0", ["z0"], heat_setpoint=20.0, cool_setpoint=26.0))
+    return m
+
+
+def build_zone_chain_model(zones: int = 64, thermostat: bool = True):
+    """Many zones in one block with a short wall: ``zones`` zones in a row,
+    the first behind the city's window (outdoor on its front), each next one
+    behind a window onto the one before (``zones - 1`` interior panes), so
+    that every zone lies in one zone-closed block of ``zones`` lanes and as
+    many zones, each surface a 2-node pane.  With ``thermostat`` an ideal
+    heater-cooler holds each zone at 20/26 C.  At many sub-steps an hour its
+    block holds the most zone rows of the hour that a block can hold (the
+    TR-BDF2 adjoint's shared-memory need grows with zones x sub-steps)."""
+    m = build_city_model(zones, 2)
+    panes = []
+    for s in m.surfaces:
+        z, si = (int(x) for x in s.name[1:].split("_"))
+        if si == 1:  # the window
+            panes.append(s if z == 0 else dataclasses.replace(s, front_boundary=Boundary.space_(f"z{z - 1}")))
+    m.surfaces = panes
+    if thermostat:
+        for z in range(zones):
+            m.add_hvac(IdealHeaterCooler(f"tstat{z}", [f"z{z}"], heat_setpoint=20.0, cool_setpoint=26.0))
     return m
 
 

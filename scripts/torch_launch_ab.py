@@ -5,7 +5,8 @@ to the shared kernel code is measured against its parent and not against
 another day's clocks.  Run from the repository root with the checkouts to
 compare (each a directory holding heatx_torch/), in the order to time them:
 
-    python3 scripts/torch_launch_ab.py [--f64] [--only TEXT] [--march-only] build/parent . . build/parent
+    python3 scripts/torch_launch_ab.py [--f64] [--only TEXT] [--march-only] [--adjoint] [--adjoint-lib] \
+        build/parent . . build/parent
 
 It builds each distinct checkout's kernel libraries (one nvcc per source, all
 started together, into that checkout's heatx_torch/_build; prints every
@@ -25,7 +26,11 @@ modes, and one zone of 50 surfaces (a 64-lane block) free-float in k=2 and
 with a thermostat in trbdf2, and one of 256 surfaces in k=2, each with a
 32-node wall.  ``--f64`` times each kind in f64 as well, ``--only TEXT``
 times only the kinds whose name holds TEXT, and ``--march-only`` builds the
-day-march library alone (no adjoint ptxas lines).  It prints one line per
+day-march library alone (no adjoint ptxas lines).  ``--adjoint`` times the
+TR-BDF2 day adjoint's day-launch of each TR-BDF2 kind instead (the
+controlled city's in-run controls have no adjoint): the cotangent of the
+day's zone history seeded, of its loads where the kind has thermostats;
+``--adjoint-lib`` builds the adjoint library alone.  It prints one line per
 checkout and a table of each kind's ms per run and the change of the mean of
 each later checkout's runs against the first's.
 """
@@ -38,6 +43,7 @@ from pathlib import Path
 
 TIMER = r"""
 import json, os, sys
+import numpy as np
 import torch
 from heatx_torch import SimConfig, ThermalModel, testing
 from heatx_torch.ops import day_march
@@ -87,7 +93,7 @@ cases = [
 ]
 out = {}
 for name, build, cfg, kw, inputs, reps in cases:
-    if opts["only"] not in name:
+    if opts["only"] not in name or (opts["adjoint"] and (kw["mode"] == "parity" or name.startswith("controlled"))):
         continue
     for dt in ("f32", "f64") if opts["f64"] else ("f32",):
         tm = ThermalModel(build(1000, 10), config=SimConfig(**dict(cfg, dtype=getattr(torch, dt.replace("f", "float")))),
@@ -97,7 +103,16 @@ for name, build, cfg, kw, inputs, reps in cases:
         hi = fr.kernel_inputs(inputs(tm.building, 24, device="cuda"), interp_weather=True)[0]
         if hasattr(kern, "group"):
             kern.group = None  # a checkout with a choice of threads per surface: its default
-        out[name + ("" if dt == "f32" else " f64")] = event_ms(lambda: fr.hour_march(fr.params, T, zT, hi), reps)
+        fn = lambda: fr.hour_march(fr.params, T, zT, hi)
+        if opts["adjoint"]:
+            from heatx_torch.ops import day_adjoint
+            adj = day_adjoint.make_day_adjoint(fr._bb, hours=24, **kw)
+            NB, ZB = fr._bb.n_blocks, fr._bb.zones_per_block
+            rng = np.random.default_rng(3)
+            cot = lambda: torch.as_tensor(rng.normal(size=(24, NB, ZB)) / (24 * NB * ZB), dtype=T.dtype, device="cuda")
+            cots = (torch.zeros_like(T), torch.zeros_like(zT), cot()) + ((cot(),) if fr.params.ctl is not None else ())
+            fn = lambda: adj(fr.params, T, zT, hi, cots)
+        out[name + ("" if dt == "f32" else " f64")] = event_ms(fn, reps)
 print(json.dumps(out))
 """
 
@@ -106,7 +121,7 @@ import json, sys
 from chip_smoke import ptxas_table
 from heatx_torch.ops import cuda_lib, day_adjoint, day_march
 libs = [("day_march", "heatx_day_march", day_march), ("day_adjoint", "heatx_day_adjoint", day_adjoint)]
-libs = libs[:1] if sys.argv[1] == "march" else libs
+libs = {"march": libs[:1], "adjoint": libs[1:]}.get(sys.argv[1], libs)
 cuda_lib.build_many([(lib, mod.KERNEL_SOURCES) for _, lib, mod in libs])
 print(json.dumps({name: ptxas_table(cuda_lib.build_log(lib, mod.KERNEL_SOURCES)) for name, lib, mod in libs}))
 """
@@ -114,12 +129,12 @@ print(json.dumps({name: ptxas_table(cuda_lib.build_log(lib, mod.KERNEL_SOURCES))
 
 def main() -> int:
     args = sys.argv[1:]
-    opts = {"f64": "--f64" in args, "only": ""}
-    which = "march" if "--march-only" in args else "both"
+    opts = {"f64": "--f64" in args, "only": "", "adjoint": "--adjoint" in args}
+    which = "march" if "--march-only" in args else "adjoint" if "--adjoint-lib" in args else "both"
     if "--only" in args:
         opts["only"] = args[args.index("--only") + 1]
         del args[args.index("--only"):args.index("--only") + 2]
-    args = [a for a in args if a not in ("--f64", "--march-only")]
+    args = [a for a in args if a not in ("--f64", "--march-only", "--adjoint", "--adjoint-lib")]
     trees = [str(Path(t).resolve()) for t in args] or ["."]
     t0 = time.time()
     builds = {t: subprocess.Popen([sys.executable, "-c", BUILDER, which], cwd=t, stdout=subprocess.PIPE, text=True)

@@ -279,6 +279,88 @@ def test_make_day_adjoint_refuses_what_is_not_ported(buildings):
             day_adjoint.make_day_adjoint(bb, substeps=SUB)
 
 
+def test_tr_adjoint_kernel_takes_any_substep_count():
+    """The TR-BDF2 adjoint kernel keeps its hour's tape in a workspace in
+    device memory ([2 substeps + 1, 32, SP] values), so no sub-step or node
+    count is refused for it (the one-thread kernel it replaced refused
+    (substeps + 1) * nodes > 384): at 47 sub-steps and 25 nodes the wrapper's
+    first refusal of CPU tensors is its device check."""
+    from heatx_torch import ThermalModel
+
+    sub = 47  # (47 + 1) * 25 = 1200 values an hour per surface
+    tm = ThermalModel(testing.build_city_model(2, 3), config=SimConfig(dtype=torch.float64), device="cpu")
+    r = tm.fast_runner(mode="trbdf2", substeps=sub, hours=1)
+    assert r.params.max_nodes == 25
+    T, zT = r.to_blocked(tm.initial_state())
+    hi = r.kernel_inputs(testing.bench_inputs(tm.building, 1), interp_weather=True)[0]
+    adj = day_adjoint.make_day_adjoint(r._bb, substeps=sub, mode="trbdf2", hours=1, device="cpu")
+    cots = (torch.zeros_like(T), torch.zeros_like(zT), torch.zeros((1, r._bb.n_blocks, r._bb.zones_per_block),
+                                                                  dtype=torch.float64))
+    assert not hasattr(day_adjoint, "MAX_TAPE")
+    with pytest.raises(ValueError, match="expected a tensor on cpu, got cpu"):
+        day_adjoint.day_adjoint_kernel(*adj._args(r.params, T, zT, hi, cots), **adj._hm._kw(observables=False))
+
+
+def _chain_day(zones, sub, mode, k, hours, device):
+    """One f64 day of testing.build_zone_chain_model (``zones`` zones in one
+    block, 2-node panes, a thermostat each) on the demand inputs: (model,
+    runner, T, zT, hour inputs, adjoint, seeded cotangents)."""
+    from heatx_torch import ThermalModel
+
+    tm = ThermalModel(testing.build_zone_chain_model(zones), n=1, config=SimConfig(dtype=torch.float64),
+                      device=device)
+    kw = dict(mode=mode, substeps=sub) if k is None else dict(mode=mode, substeps=sub, refresh_every=k)
+    r = tm.fast_runner(hours=hours, **kw)
+    T, zT = r.to_blocked(tm.initial_state())
+    hi = r.kernel_inputs(testing.demand_inputs(tm.building, hours, device=device))[0]
+    adj = day_adjoint.make_day_adjoint(r._bb, hours=hours, device=device, **kw)
+    NB, ZB = r._bb.n_blocks, r._bb.zones_per_block
+    rng = np.random.default_rng(zones)
+    cots = tuple(torch.as_tensor(rng.normal(size=shape) * scale, dtype=torch.float64, device=device)
+                 for shape, scale in ((T.shape, 1.0), (zT.shape, 1.0), ((hours, NB, ZB), 1.0),
+                                      ((hours, NB, ZB), 1e-3)))
+    return tm, r, T, zT, hi, adj, cots
+
+
+def test_plain_adjoint_from_given_hour_starts():
+    """plain_day_adjoint's ``starts``: given the plain march's own hour starts
+    it returns what it returns without them, bit for bit; given other starts
+    (cast to the adjoint's type) it re-runs the hours from those."""
+    hours, sub = 2, 4
+    tm, r, T, zT, hi, adj, cots = _chain_day(8, sub, "trbdf2_refresh", 2, hours, "cpu")
+    r1 = tm.fast_runner(mode="trbdf2_refresh", substeps=sub, refresh_every=2, hours=1)
+    starts, t, z = [], T, zT
+    for h in range(hours):
+        starts.append((t, z))
+        hour = tuple(x[h * sub:(h + 1) * sub] if i < 3 else x[h:h + 1] for i, x in enumerate(hi))
+        t, z = r1.hour_march.plain(r1.params, t, z, hour)[:2]
+    own = _flat(adj.plain(r.params, T, zT, hi, cots))
+    given = _flat(adj.plain(r.params, T, zT, hi, cots, starts=starts))
+    assert own.keys() == given.keys()
+    for name, ref in own.items():
+        assert torch.equal(given[name], ref), name
+    moved = _flat(adj.plain(r.params, T, zT, hi, cots, starts=[(t.float() + 0.5, z.float() + 0.5)
+                                                               for t, z in starts]))
+    assert all(v.dtype == torch.float64 and bool(torch.isfinite(v).all()) for v in moved.values())
+    assert not torch.equal(moved["dT0"], own["dT0"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,k", [("trbdf2_refresh", 2), ("trbdf2", None)])
+def test_cuda_tr_adjoint_most_zone_rows(mode, k):
+    """The TR-BDF2 adjoint kernel where a block holds the most zone rows of
+    an hour: 64 zones in one 64-lane block at 144 sub-steps an hour, the
+    most the one-thread kernel it replaced took there (its shared memory
+    grew with zones x sub-steps), against the plain adjoint, f64."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    _, r, T, zT, hi, adj, cots = _chain_day(64, 144, mode, k, 1, "cuda")
+    assert (r.params.block_size, r.params.zones_per_block) == (64, 64)
+    got, ref = _flat(adj(r.params, T, zT, hi, cots)), _flat(adj.plain(r.params, T, zT, hi, cots))
+    for name, x in ref.items():
+        assert float((got[name] - x).abs().max()) <= RTOL * float(x.abs().max()), name
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode,k", CASES + [("trbdf2_refresh", 2)])
 def test_cuda_adjoint_kernel_matches_plain(buildings, mode, k):

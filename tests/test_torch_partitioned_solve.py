@@ -1,7 +1,9 @@
 """The partitioned tridiagonal solve of the TR-BDF2 day-march kernel
 (csrc/day_tr.cuh), in its plain statement (heatx_torch.ops.tridiag
 partition_factor / partition_solve, the kernel's G threads per surface as a
-batch axis), against heatx's Thomas solve and the port's, in f64; and the
+batch axis), against heatx's Thomas solve and the port's, in f64; its
+transpose (partition_solve_transposed, the day adjoint's stage solve)
+against a dense solve of M^T and autograd through partition_solve; and the
 day-march kernels' launch variants up to B1's edge."""
 
 import re
@@ -65,6 +67,38 @@ def test_partitioned_solve_matches_thomas(n, groups, seed):
     assert np.array_equal(got[ident], rhs[ident])
 
 
+def dense(lower, diag, upper):
+    """The [lanes, n, n] matrices of the [n, lanes] bands."""
+    n, lanes = diag.shape
+    m = torch.diag_embed(diag.T)
+    if n > 1:
+        m = m + torch.diag_embed(lower.T[:, 1:], offset=-1) + torch.diag_embed(upper.T[:, :-1], offset=1)
+    return m
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("groups", [2, 4, 8])
+@pytest.mark.parametrize("n", [1, 2, 3, 5, 8, 17, 25, 32])
+def test_partitioned_transposed_solve(n, groups, seed):
+    """partition_solve_transposed on the stage systems (identity padding
+    rows, a shorter surface, decoupled runs, an all no-mass lane: weakly
+    dominant) against a dense solve of M^T and against autograd's
+    vector-Jacobian product through partition_solve, f64."""
+    lower, diag, upper, rhs = stage_systems(n, seed)
+    L, D, U, G = (torch.as_tensor(x, dtype=torch.float64) for x in (lower, diag, upper, rhs))
+    fac = tri.partition_factor(L, D, U, groups)
+    got = tri.partition_solve_transposed(fac, G)
+    ref = torch.linalg.solve(dense(L, D, U).transpose(1, 2), G.T.unsqueeze(-1)).squeeze(-1).T
+    r = torch.zeros_like(G, requires_grad=True)
+    (vjp,) = torch.autograd.grad(tri.partition_solve(fac, r), r, G)
+    scale = max(1.0, float(ref.abs().max()))
+    assert float((got - ref).abs().max()) <= TOL * scale
+    assert float((got - vjp).abs().max()) <= TOL * scale
+    # identity rows stay identity rows: their cotangent passes through
+    ident = (L == 0) & (U == 0) & (D == 1)
+    assert torch.equal(got[ident], G[ident])
+
+
 def launch_variants() -> list:
     """The day-march kernels' launch variants as the C side declares them
     (``kLaunchVariants`` in csrc/day_march_args.cuh): [(most lanes, threads,
@@ -109,3 +143,29 @@ def test_group_choice_fits_every_block():
     params = day_march.params_from_blocked(bb, torch.float64, torch.device("cpu"))
     assert tuple(params.node.shape) == (4, day_march.MAX_NODES, bb.layout.padded_surfaces)
     assert next(v for v in variants if params.block_size <= v[0])[1] == params.block_size * group == 1024
+
+
+def test_adjoint_launch_variants_fit_every_block():
+    """The TR-BDF2 day adjoint's launch variants (``kAdjLaunchVariants``,
+    beside the day march's in csrc/day_march_args.cuh): G = 4 threads a lane
+    like the day march's, the same lanes per variant, every block the day
+    march takes (up to MAX_BLOCK_LANES lanes) within one variant's launch
+    bound and within 1024 threads; the adjoint's dispatch (csrc/
+    day_adjoint_tr.cu) launches every variant of its table through
+    adj_launch_variant and nothing else, and the day march's table is not
+    the adjoint's."""
+    src = (cuda_lib.CSRC_DIR / "day_march_args.cuh").read_text()
+    table = re.search(r"kAdjLaunchVariants\[\] = \{(.*?)\};", src).group(1)
+    adj = [tuple(int(v) for v in row.split(",")) for row in re.findall(r"\{([\d, ]+)\}", table)]
+    march, group = launch_variants()
+    assert [v[:2] for v in adj] == [v[:2] for v in march]
+    assert all(1 <= v[2] <= w[2] for v, w in zip(adj, march))
+    for sb in range(1, day_march.MAX_BLOCK_LANES + 1):
+        lanes, threads, _ = next(v for v in adj if sb <= v[0])
+        assert sb * group <= threads <= 1024
+    body = (cuda_lib.CSRC_DIR / "day_adjoint_tr.cu").read_text()
+    body = body[body.index("int launch_kind("):]
+    body = body[:body.index("\n}\n")]
+    assert "adj_launch_variant(g.in.SB)" in body
+    assert re.findall(r"case (\d+):", body) == [str(v) for v in range(len(adj))]
+    assert re.findall(r"kAdjLaunchVariants\[(\d+)\]\.threads", body) == [str(v) for v in range(len(adj))]
