@@ -29,14 +29,16 @@ Phases (one output line each, then a JSON line per contract):
    (testing.coarse_config: 6 sub-steps an hour, an 8-node wall) in parity
    mode, one no-mass iteration, 2 h, free-float and with the thermostat,
    held to the same bounds: every launch variant of both kernels on the
-   card in both types.  The TR-BDF2 adjoint kernel on the f64 TR-BDF2
-   launches (k=2 free-float, frozen with the thermostat; its 1024- and
-   256-thread variants) against the plain adjoint on seeded cotangents,
-   every output <= 1e-9 of its max |ref|.
-3c. the TR-BDF2 adjoint with the most zone rows of an hour a block held
-   (testing.build_zone_chain_model: 64 zones in one 64-lane block, 2-node
-   panes, a thermostat each, 144 sub-steps an hour), f64, 2 h, k=2 and
-   frozen, against the plain adjoint, every output <= 1e-9 of its max |ref|.
+   card in both types.  Both adjoint kernels on the f64 launches (TR-BDF2
+   k=2 free-float and frozen with the thermostat, parity free-float and with
+   the thermostat; their 1024- and 256-thread variants) against the plain
+   adjoint on seeded cotangents, every output <= 1e-9 of its max |ref|.
+3c. each adjoint with the most zone rows of an hour a block held
+   (testing.build_zone_chain_model, 2-node panes, a thermostat each): the
+   TR-BDF2 adjoint on 64 zones in one 64-lane block at 144 sub-steps an
+   hour, k=2 and frozen, 2 h; the parity adjoint on 72 zones in one 96-lane
+   block at the chain's own 118 sub-steps, one no-mass iteration, 1 h; f64,
+   against the plain adjoint, every output <= 1e-9 of its max |ref|.
 4. the main path at full width: build_city_model(1000, 10) (10,000
    surfaces, 1,000 zones), trbdf2_refresh k=2, 8 sub-steps, hours=24,
    bench weather, 48 h through ThermalModel(..., device="cuda")
@@ -49,10 +51,11 @@ Phases (one output line each, then a JSON line per contract):
    1e-2 K, f32 summation-order round-off); the launch variant it ran in.
 
 6. build (the adjoint): the day-adjoint kernels (the TR-BDF2 body in
-   heatx_torch/csrc/day_adjoint_tr.cu, four threads per surface in three
-   launch variants, the parity body and the C entry in day_adjoint.cu, each
-   with its kMrt unit), one nvcc per unit started together with phase 2's;
-   their ptxas registers/stack/spill lines.
+   heatx_torch/csrc/day_adjoint_tr.cu and the parity body in
+   day_adjoint_parity.cu, each four threads per surface in three launch
+   variants and with its kMrt unit, and the C entry in day_adjoint.cu), one
+   nvcc per unit started together with phase 2's; their ptxas
+   registers/stack/spill lines.
 7. f64 on the 4-zone city, 3 h, k=2, k=8 and frozen: the adjoint kernel
    against its plain PyTorch version (autograd through the plain day march)
    on seeded cotangents, max |d| <= 1e-9 max |ref| for every output; and a
@@ -139,8 +142,10 @@ Phases (one output line each, then a JSON line per contract):
    (the conductance scale 1.2 keeps every face off the 2-cycle, which the
    phase measures): the day march on T, zT and the zone history (<= 2e-4 K)
    and on h/q (<= 1e-3), the adjoint on the loss's own cotangent, every output
-   (relative L2 <= 2e-4 against the f32 plain adjoint).  The bench day's adjoint launch is
-   timed and checked finite.  (The f64 plain adjoint, longer gradients and the
+   (relative L2 <= 2e-4 against the f32 plain adjoint re-run from the forward
+   kernel's hour starts).  The bench day's adjoint launch is
+   timed and checked finite; its recomputed hour starts are the forward
+   kernel's states at the same hours, f32 and f64, to the bit.  (The f64 plain adjoint, longer gradients and the
    2-cycles taken apart: scripts/torch_parity_diag.py; 73 days, one chunk of
    bench.py's five, take ~140 s on an H100.)
 
@@ -169,15 +174,18 @@ Phases (one output line each, then a JSON line per contract):
    workload's first-day operands (u_scale 1.2, alpha_scale 0.8), the
    forward (CAV_WINDOW_T_TOL, CAV_WINDOW_HQ_TOL) and the adjoint
    (CAV_WINDOW_ADJ_RL2, over all lanes and over the cavity lanes alone)
-   against their f32 plain versions; both f32 versions against the f64
+   against their f32 plain versions (the plain adjoint re-run from the f32
+   forward kernel's hour starts); both f32 versions against the f64
    kernel from the same state, the kernel held to CAV_WINDOW_T_TOL on T, zT
    and the zone history; the gradient path's two parity adjoint launches
    (day 1 from the initial state, day 2 from the f32 forward kernel's state
    at midnight) against the f64 adjoint kernel from the same states, held to
-   CAV_PARITY_ADJ_F32_RL2; the window's f32 adjoint kernel and f32 plain
-   adjoint from the f32 kernel's state, and the adjoint kernel from the f64
-   kernel's state (rounded), against the f64 adjoint kernel, printed; the
-   day-launches timed.
+   CAV_PARITY_ADJ_F32_RL2; the window's f32 adjoint kernel from the f32
+   kernel's state against the f64 plain adjoint re-run from the f32 forward
+   kernel's hour starts, held to CAV_PARITY_ADJ_F32_RL2 (ROADMAP C1); the
+   window's f32 adjoint kernel and f32 plain adjoint from the f32 kernel's
+   state, and the adjoint kernel from the f64 kernel's state (rounded),
+   against the f64 adjoint kernel, printed; the day-launches timed.
 17. the office IDF workflow (bench.py run_office_bench): a seeded synthetic
    EPW file at Santiago's location (testing.write_synthetic_epw, written to a
    temporary directory), examples/data/office.idf through load_idf, its
@@ -213,8 +221,9 @@ Phases (one output line each, then a JSON line per contract):
    of eps_back as a third parameter, 2 days f32 against f64 with exact launch
    counts; the same in parity mode (f32, launch counts), and both parity MRT
    kernels against their f32 plain versions over the daytime window
-   PARITY_WINDOW of its first day (the bounds of phase 14b), each day-launch
-   timed whole.
+   PARITY_WINDOW of its first day (the bounds of phase 14b; the plain adjoint
+   re-run from the forward kernel's hour starts), each day-launch timed
+   whole.
 20. the office IDF workflow with ``interior_mrt`` (gas cavities and MRT): the
    annual run with loads and the operative history (exactly 365 launches,
    each a cavity and an MRT launch), heating and cooling kWh beside phase
@@ -457,11 +466,17 @@ CAV_GRAD_DAYS = 2  # the glazed city's gradient paths, in 2 chunks
 # where 2e-4 would fail the f32 plain version itself.  Phase 16b holds the
 # gradient path's two adjoint launches to it against the f64 adjoint kernel
 # from the same start states: day 1 from the initial state, day 2 from the
-# f32 forward kernel's state at midnight (2.750e-3 and 4.190e-5 on the
-# cavity lanes, d_ir_front).  It prints, and does not hold, the daytime
-# window's gaps from the f32 kernel's state at 8 h, where no launch of the
-# gradient path starts (6.361e-3 on the cavity lanes, the f32 plain adjoint
-# 7.840e-3).  There the gap is the f32 round-off of a branch, heatx's MIN_H
+# f32 forward kernel's state at midnight (with the one-thread parity adjoint
+# 2.750e-3 and 4.190e-5 on the cavity lanes, d_ir_front; with the four-thread
+# one 1.015e-3 and 4.152e-5).  It also holds the daytime window, from the f32
+# kernel's state at 8 h, against the f64 plain adjoint re-run from the f32
+# forward kernel's hour starts (ROADMAP C1): the four-thread adjoint, whose
+# recompute is the forward kernel's march, reads 2.067e-3 there (2.727e-3 on
+# the cavity lanes) and 2.789e-3 against the f64 kernel from the same state;
+# the one-thread adjoint, whose recompute was another f32 march, read 6.361e-3
+# on the cavity lanes against the f64 kernel, the f32 plain adjoint 7.840e-3
+# (measured on an H100 80GB HBM3 at 700 W).  There the gap was the f32
+# round-off of a branch, heatx's MIN_H
 # floor of the TARP natural h on the glazing's room face, max(1.31
 # |dT|^(1/3), 0.1), whose derivative drops from ~75 W/m2K2 to 0 at |dT| =
 # 4.4e-4 K: the inner pane passes the zone air at about 9 h, and the f32
@@ -490,7 +505,16 @@ CAV_PARITY_ADJ_F32_RL2 = 5e-3
 # kernel against the f64 kernel, both deterministic, is held too on T, zT
 # and the zone history (CAV_WINDOW_T_TOL): a fault of the forward kernel's
 # own in daylight fails there.  The window's f32 adjoints against the f64
-# one are printed (see CAV_PARITY_ADJ_F32_RL2).
+# one are printed (see CAV_PARITY_ADJ_F32_RL2).  The four-thread parity
+# adjoint differentiates the f32 forward kernel's own march (its hour starts
+# are the kernel's to the bit), where the f32 plain adjoint re-marched each
+# hour from its own hour starts and took the glazing's MIN_H floor on other
+# sub-steps: against that plain adjoint it read 6.404e-3 and 8.447e-3 on the
+# cavity lanes (d_ir_front; the f32 plain adjoint itself 5.984e-3 and 7.893e-3
+# from the f64 kernel, the kernel 2.114e-3 and 2.789e-3), so the adjoint is
+# held against the f32 plain adjoint re-run from the f32 forward kernel's
+# hour starts (plain_day_adjoint's ``starts``), as phase 11a's thermostat day
+# is (measured on an H100 80GB HBM3 at 700 W).
 CAV_WINDOW_T_TOL = 5e-4  # K: T, zT, the zone history
 CAV_WINDOW_HQ_TOL = 2e-3  # W/m2K and W/m2: h and q
 CAV_WINDOW_ADJ_RL2 = 1e-2  # relative L2 per adjoint output, all lanes and the cavity lanes
@@ -500,16 +524,19 @@ CAV_WINDOW_ADJ_RL2 = 1e-2  # relative L2 per adjoint output, all lanes and the c
 # whole day of the plain parity adjoint took 207 s on the glazed city on an
 # H100): the sun is up through the whole window on the bench weather, so the
 # solar terms and their cotangents are in the comparison.  The launches are
-# timed whole; phase 14b compares the whole day.
+# timed whole; phase 14b compares the whole day.  Four hours (8-12) end at
+# the glazing's midday, where the f32 kernel and its plain twin part by
+# 5.6e-4 K on T against CAV_WINDOW_T_TOL (measured on an H100 80GB HBM3 at
+# 700 W): the window ends at 14 h.
 PARITY_PLAIN_HOURS = 6
 PARITY_WINDOW_START = 8
 PARITY_WINDOW = [PARITY_WINDOW_START, PARITY_WINDOW_START + PARITY_PLAIN_HOURS]  # the kernels line's plain_hours
 # Interior MRT (phases 18-20).  The Carroll network's fixed point, counted
-# from day_common.cuh mrt_network: ~12 operations per network face and
+# from day_tr.cuh mrt_face_node: ~12 operations per network face and
 # iteration (the linearized conductance and its cube, w ts, the face's share
 # of its zone's two sums and the gather of the node), MRT_ITERS iterations
-# per evaluation; its reverse (mrt_network_adj) ~20 more per face and
-# iteration.
+# per evaluation; its reverse (day_tr_adj.cuh mrt_face_node_adj) ~20 more per
+# face and iteration.
 MRT_OPS = 12
 MRT_ADJ_OPS = 20
 MRT_ITERS = 4
@@ -589,7 +616,7 @@ def note_variant(day_march, name):
 
 
 def note_adjoint_variant(day_adjoint, name):
-    """The TR-BDF2 adjoint's launch variant, as its wrapper read it back."""
+    """The day adjoint's launch variant, as its wrapper read it back."""
     VARIANTS[name] = f"G=4/{day_adjoint.day_adjoint_kernel.block_threads}"
 
 
@@ -614,6 +641,17 @@ def forward_hour_starts(torch, r24, r1, T, zT, hi):
     return starts
 
 
+def kernel_hour_starts(torch, day_march, bb, hm, params, T, zT, hi):
+    """The parity forward kernel's state at each hour's start of the launch
+    ``hm`` (an hour march of the blocked building ``bb`` on ``params``) from
+    (T, zT) on ``hi``: forward_hour_starts through a one-hour launch of the
+    same building.  The plain adjoint re-run from them (``starts``) follows
+    the march the adjoint kernel differentiates."""
+    hm1 = day_march.hour_march_for(bb, mode="parity", hours=1)
+    return forward_hour_starts(torch, SimpleNamespace(hour_march=hm, params=params),
+                               SimpleNamespace(hour_march=hm1, params=params), T, zT, hi)
+
+
 def recompute_gap(torch, day_adjoint, adj, r24, r1, T, zT, hi, cots):
     """The largest |d| between the TR-BDF2 adjoint's recomputed hour-start
     states (its hour-start workspace) and the forward kernel's states at the
@@ -627,6 +665,23 @@ def recompute_gap(torch, day_adjoint, adj, r24, r1, T, zT, hi, cots):
     gap_T = max(float((T_ws[h] - t).abs().max()) for h, (t, _) in enumerate(starts))
     gap_z = max(float((zT_ws[h] - z).abs().max()) for h, (_, z) in enumerate(starts))
     return gap_T, gap_z
+
+
+def parity_recompute_gap(torch, testing, SimConfig, ThermalModel, day_adjoint, model, dtype):
+    """The parity adjoint's recomputed hour-start states against the parity
+    forward kernel's at the same hours (recompute_gap), on the bench day of
+    ``model`` (one no-mass iteration, its own sub-steps, 24 h, seeded
+    hourly cotangents), in ``dtype``: (gap T, gap zT)."""
+    tm = ThermalModel(model, n=1, config=SimConfig(dtype=dtype, nomass_fixed_iters=PARITY_ITERS), device="cuda")
+    r24 = tm.fast_runner(mode="parity", hours=24)
+    T, zT = r24.to_blocked(tm.initial_state())
+    hi = r24.kernel_inputs(testing.bench_inputs(tm.building, 24, device="cuda"), interp_weather=True)[0]
+    adj = day_adjoint.make_day_adjoint(r24._bb, substeps=tm.dt_subdivisions, mode="parity", hours=24)
+    NB, ZB = r24._bb.n_blocks, r24._bb.zones_per_block
+    d_hist = torch.as_tensor(np.random.default_rng(3).normal(size=(24, NB, ZB)) / (24 * NB * ZB), dtype=dtype,
+                             device="cuda")
+    cots = (torch.zeros_like(T), torch.zeros_like(zT), d_hist)
+    return recompute_gap(torch, day_adjoint, adj, r24, tm.fast_runner(mode="parity", hours=1), T, zT, hi, cots)
 
 
 def card_facts():
@@ -702,12 +757,13 @@ def phase3b_b1_edge(torch, day_march, day_adjoint, testing, ThermalModel, SimCon
     plain version (every output <= F64_TOL; loads relative to their largest
     magnitude); f32 against the f64 plain version (T, zT and the zone
     history <= F32_TOL, loads <= LOAD_F32_RTOL of their largest magnitude,
-    no non-finite value).  The TR-BDF2 adjoint kernel on the same f64
-    launches (k=2 free-float, frozen with the thermostat) against the plain
-    adjoint on seeded cotangents, every output <= ADJ_F64_RTOL of its max
-    |ref|.  Returns the worst f64 and f32 gaps, the worst adjoint gap and,
-    per building and mode, its surfaces, its block's lanes, its nodes and the
-    launch variant the launches took (the adjoint's for TR-BDF2)."""
+    no non-finite value).  The adjoint kernel of each body on the same f64
+    launches (TR-BDF2 k=2 free-float and frozen with the thermostat, parity
+    free-float and with the thermostat) against the plain adjoint on seeded
+    cotangents, every output <= ADJ_F64_RTOL of its max |ref|.  Returns the
+    worst f64 and f32 gaps, the worst adjoint gap and, per building and mode,
+    its surfaces, its block's lanes, its nodes and the launch variants the
+    launches took (the day march's and the adjoint's)."""
     worst64, worst32, worst_adj, shapes = 0.0, 0.0, 0.0, []
     modes = (
         ("trbdf2", 3, lambda dtype: SimConfig(dtype=dtype),
@@ -733,8 +789,9 @@ def phase3b_b1_edge(torch, day_march, day_adjoint, testing, ThermalModel, SimCon
                         ref = r.hour_march.plain(r.params, T, zT, hi)
                     torch.cuda.synchronize()
                     check(day_march.day_march_kernel.launches == before + 1, f"{what}: the kernel did not launch")
-                    if dtype == torch.float64 and mode == "trbdf2":
-                        adj = day_adjoint.make_day_adjoint(r._bb, hours=hours, **kw)
+                    if dtype == torch.float64:
+                        akw = dict(kw, substeps=tm.dt_subdivisions) if mode == "parity" else kw
+                        adj = day_adjoint.make_day_adjoint(r._bb, hours=hours, **akw)
                         rng = np.random.default_rng(surfaces)
                         NB, ZB = r._bb.n_blocks, r._bb.zones_per_block
 
@@ -765,8 +822,7 @@ def phase3b_b1_edge(torch, day_march, day_adjoint, testing, ThermalModel, SimCon
                 check(bool(torch.isfinite(outs[torch.float32][0]).all())
                       and float(outs[torch.float32][4].sum()) == 0.0, f"{what} f32: non-finite state")
             shapes.append((surfaces, mode, r.params.block_size, r.params.max_nodes,
-                           day_march.day_march_kernel.block_threads,
-                           day_adjoint.day_adjoint_kernel.block_threads if mode == "trbdf2" else None))
+                           day_march.day_march_kernel.block_threads, day_adjoint.day_adjoint_kernel.block_threads))
     return worst64, worst32, worst_adj, shapes
 
 
@@ -798,6 +854,52 @@ def phase3c_zone_rows(torch, day_adjoint, testing, ThermalModel, SimConfig):
         worst = max(worst, w)
         variants.append(f"G=4/{day_adjoint.day_adjoint_kernel.block_threads}")
     return worst, (r.params.block_size, r.params.zones_per_block, r.params.max_nodes, variants)
+
+
+#: Phase 3c's parity zone chain: the most zones whose block the one-thread
+#: parity adjoint took at the chain's 118 sub-steps an hour (72 zones, 72 zone
+#: slots, 96 lanes: its shared memory 8 (72 (3 x 118 + 11) + 6 x 96) B = 215
+#: KB of the H100's 227 KB; 73 zones take 80 slots, 238 KB).
+PARITY_CHAIN_ZONES = 72
+
+
+def parity_zone_rows(torch, day_adjoint, testing, ThermalModel, SimConfig, device="cuda"):
+    """The parity adjoint where a block holds the most zone rows of an hour
+    that the one-thread kernel it replaced took: testing.build_zone_chain_model
+    (PARITY_CHAIN_ZONES zones in one block, 2-node panes, a thermostat each)
+    at its 118 sub-steps an hour, f64, one hour (the zone rows a block holds
+    are an hour's), from the initial state on the demand
+    inputs (a seeded random start puts zones on their setpoints and no-mass
+    panes on the 2-cycles, where the plain adjoint itself moves by 1e-9 to
+    order 1 with a 1e-12 K move of the start), seeded cotangents, every
+    output <= ADJ_F64_RTOL of the plain adjoint's max |ref|.  Returns the
+    worst gap and (lanes, zone slots, nodes, sub-steps, launch variant)."""
+    hours = 1
+    tm = ThermalModel(testing.build_zone_chain_model(PARITY_CHAIN_ZONES), n=1,
+                      config=SimConfig(dtype=torch.float64, nomass_fixed_iters=PARITY_ITERS), device=device)
+    r = tm.fast_runner(mode="parity", hours=hours)
+    T, zT = r.to_blocked(tm.initial_state())
+    hi = r.kernel_inputs(testing.demand_inputs(tm.building, hours, device=device), interp_weather=True)[0]
+    adj = day_adjoint.make_day_adjoint(r._bb, substeps=tm.dt_subdivisions, mode="parity", hours=hours,
+                                       device=device)
+    NB, ZB = r._bb.n_blocks, r._bb.zones_per_block
+    rng = np.random.default_rng(ZB)
+    cots = [torch.as_tensor(rng.normal(size=shape) * scale, dtype=torch.float64, device=device)
+            for shape, scale in ((T.shape, 1.0), (zT.shape, 1.0), ((hours, NB, ZB), 1.0), ((hours, NB, ZB), 1e-3))]
+    args, kw = adj._args(r.params, T, zT, hi, cots), adj._hm._kw(observables=False)
+    before = day_adjoint.day_adjoint_kernel.launches
+    got = day_adjoint.day_adjoint_kernel(*args, **kw)
+    ref = day_adjoint.plain_day_adjoint(*args, **kw)
+    check(day_adjoint.day_adjoint_kernel.launches == before + 1, "the parity zone chain's adjoint did not launch")
+    what = f"parity zone chain, {PARITY_CHAIN_ZONES} zones, {tm.dt_subdivisions} sub-steps"
+    worst = 0.0
+    for name, x, y in zip(("dT0", "d_zT0", "d_node", "d_surf", "d_zv", "d_chan", "d_a", "d_b", "d_ctl"), got, ref):
+        check(bool(torch.isfinite(x).all()), f"adjoint {what} {name}: non-finite")
+        scale, err = float(y.abs().max()), float((x - y).abs().max())
+        check(err <= ADJ_F64_RTOL * scale, f"adjoint {what} {name}: max |d| {err} > {ADJ_F64_RTOL} x {scale}")
+        worst = max(worst, err / scale if scale else err)
+    return worst, (r.params.block_size, ZB, r.params.max_nodes, tm.dt_subdivisions,
+                   f"G=4/{day_adjoint.day_adjoint_kernel.block_threads}")
 
 
 def nbytes(*tensors):
@@ -1316,8 +1418,8 @@ def ptxas_table(log: str) -> str:
     """ptxas's lines of a build log, one entry per kernel instantiation:
     ``f32 ext=0 parity=1 G=4/128/3: 96 registers, 0 B stack, spills 0/0 B``
     (the instantiations with the gas-cavity code are marked ``cavities``,
-    the day-march kernels' and the TR-BDF2 adjoint's launch variants
-    ``G=<threads per surface>/<launch bound>/<blocks per SM>``)."""
+    every kernel's launch variant ``G=<threads per surface>/<launch
+    bound>/<blocks per SM>``)."""
     import re
 
     out, name = [], None
@@ -1338,8 +1440,9 @@ def ptxas_table(log: str) -> str:
             elif "day_adjoint_tr_kernel" in sym:  # <T, kThreads, kMinBlocks, kExt, kCav, kMrt>, G = 4
                 (ext, cav, mrt), parity = (flags + ["?"] * 3)[:3], "0"
                 group = " G=4/" + "/".join(ints)
-            else:  # the adjoints <T, kExt, kCav, kMrt>
-                (ext, cav, mrt), parity = (flags + ["?"] * 3)[:3], "1" if "parity_adjoint" in sym else "0"
+            else:  # the parity adjoint <T, kThreads, kMinBlocks, kCav, kMrt>, G = 4, one kind with the thermostats
+                (ext, cav, mrt), parity = (["1"] + flags + ["?"] * 2)[:3], "1"
+                group = " G=4/" + "/".join(ints)
             name = (f"{'f32' if t and t.group(1) == 'f' else 'f64'} ext={ext} parity={parity}{group}"
                     + (" cavities" if cav == "1" else "") + (" mrt" if mrt == "1" else ""))
             entry = {"name": name}
@@ -1360,8 +1463,9 @@ def ptxas_table(log: str) -> str:
 
 
 def parity_day_work(params, hours, sub, iters):
-    """Operations of one parity day-march launch, counted from day_parity.cuh
-    on this run's shapes: per valid node and sub-step 65 + 16 per no-mass
+    """Operations of one parity day-march launch, counted from the parity
+    sub-step's arithmetic (the no-mass solve as Thomas sweeps) on this run's
+    shapes: per valid node and sub-step 65 + 16 per no-mass
     iteration (K's row 6; the forcing 10, once for RK4 and once per
     iteration; the no-mass factor 5 and its two sweeps 6 per iteration; four
     RK4 stages of 8 and their 12 combinations), per lane and sub-step 125
@@ -1384,7 +1488,7 @@ def parity_day_work(params, hours, sub, iters):
 
 def parity_adjoint_work(params, hours, sub, iters):
     """Operations the parity day's adjoint needs, counted from
-    day_adjoint.cu: one forward march of the day, then per valid node and
+    day_adjoint_parity.cu: one forward march of the day, then per valid node and
     sub-step 100 + 24 per no-mass iteration (four transposed RK4 stages of 14
     with their band cotangents, the forcing backwards twice, per iteration a
     transposed solve, its band cotangent and the forcing backwards), per lane
@@ -1657,17 +1761,21 @@ def phase14_parity_grad(torch, ctx, p13):
     adj = day_adjoint.make_day_adjoint(fr32._bb, substeps=sub, mode="parity", hours=24)
     g32 = flat_grads(adj(params, T, zT, hi, cots))
     adj_ms = event_ms(torch, lambda: adj(params, T, zT, hi, cots), 2)
+    note_adjoint_variant(day_adjoint, "day_adjoint_parity")
+    # The plain adjoint re-run from the forward kernel's hour starts (the march
+    # the kernel differentiates; it skips the plain version's own march).
+    starts = kernel_hour_starts(torch, day_march, fr32._bb, hm, params, T, zT, hi)
     t0 = time.time()
-    g32p = flat_grads(adj.plain(params, T, zT, hi, cots))
+    g32p = flat_grads(adj.plain(params, T, zT, hi, cots, starts=starts))
     torch.cuda.synchronize()
     adj_plain_ms = (time.time() - t0) * 1e3
-    gaps = rel_l2_gaps(torch, g32, g32p, "f32 parity adjoint kernel vs f32 plain adjoint over the main path's day",
-                       PARITY_ADJ_F32_RL2)
+    gaps = rel_l2_gaps(torch, g32, g32p, "f32 parity adjoint kernel vs f32 plain adjoint from its hour starts over "
+                       "the main path's day", PARITY_ADJ_F32_RL2)
     worst_gap = max(gaps, key=gaps.get)
     adj32_abs = max(float((g32[n] - ref).abs().max()) for n, ref in g32p.items())
     check(float(g32["seg_u"].abs().max()) > 0 and float(g32["front_alphas"].abs().max()) > 0,
           "the main path's day adjoint gives no gradient on seg_u or front_alphas")
-    del g32p
+    del g32p, starts
     torch.cuda.empty_cache()
 
     # The bench day itself (phase 13's operands): the adjoint's time, and that
@@ -1682,17 +1790,28 @@ def phase14_parity_grad(torch, ctx, p13):
         check(bool(torch.isfinite(v).all()), f"f32 parity bench-day adjoint {name}: non-finite")
     day_max = max(float(v.abs().max()) for v in g_day.values())
     del g_day
+    # The recompute's hour starts against the forward kernel's states, f32 and
+    # f64 (the adjoint differentiates the march the forward kernel took).
+    gaps_hs = {str(dt)[6:]: parity_recompute_gap(torch, testing, SimConfig, ThermalModel, day_adjoint, ctx.model, dt)
+               for dt in (torch.float32, torch.float64)}
+    for name, (gap_T, gap_z) in gaps_hs.items():
+        check(gap_T == 0.0 and gap_z == 0.0, f"the parity adjoint's {name} hour starts part from the forward "
+              f"kernel's states by {gap_T} K (nodes), {gap_z} K (zones)")
     print(f"phase 14b the main path's first day-launch (24 h x {sub} sub-steps, u_scale 1.2, alpha_scale 0.8), "
           f"f32, each parity kernel against its plain version: day march {kernel_ms:.3f} ms vs plain twin "
           f"{plain_ms:.1f} ms (host clock), max |d| " + ", ".join(f"{n} {v:.2e}" for n, v in fwd_gaps.items())
           + f" (<= {PARITY_DAY_TOL:g} K, h/q <= {PARITY_HQ_TOL:g}); a start state moved by {PARITY_EPS:g} K ends the day {growth[0]:.3g} x as "
           f"far apart on the nodes, {growth[1]:.3g} x on the zones (<= {PARITY_GROWTH_MAX:g}: no face 2-cycles); "
-          f"adjoint, the loss's own cotangent: {adj_ms:.3f} ms vs f32 plain adjoint {adj_plain_ms:.1f} ms "
-          f"(autograd per hour, host clock), max |d| {adj32_abs:.3e}, relative L2 worst {gaps[worst_gap]:.3e} "
+          f"adjoint, the loss's own cotangent: {adj_ms:.3f} ms vs f32 plain adjoint from the forward kernel's hour "
+          f"starts {adj_plain_ms:.1f} ms (autograd per hour, host clock), max |d| {adj32_abs:.3e}, relative L2 worst "
+          f"{gaps[worst_gap]:.3e} "
           f"({worst_gap}; <= {PARITY_ADJ_F32_RL2:g}), " + ", ".join(f"{n} {v:.2e}" for n, v in gaps.items())
           + f"; on the bench day (u_scale 1, seeded hourly cotangents): adjoint launch {bench_adj_ms:.3f} ms "
-          f"(trbdf2_refresh k=2 {ctx.adj_ms:.3f} ms), all finite, largest |value| {day_max:.3e} against "
-          f"{max(float(v.abs().max()) for v in g32.values()):.3e} on the main path's day", flush=True)
+          f"(trbdf2_refresh k=2 {ctx.adj_ms:.3f} ms, launch variant {VARIANTS['day_adjoint_parity']}), all finite, "
+          f"largest |value| {day_max:.3e} against {max(float(v.abs().max()) for v in g32.values()):.3e} on the main "
+          f"path's day; the adjoint's recomputed hour starts vs the forward kernel's states on the bench day, max |d| "
+          + ", ".join(f"{n} {t:.3e} / {z:.3e} K (nodes / zones)" for n, (t, z) in gaps_hs.items())
+          + " (== 0)", flush=True)
 
     return SimpleNamespace(
         counts=counts, kernel_ms=kernel_ms, plain_ms=plain_ms, err32=err32, adj_ms=adj_ms,
@@ -1972,16 +2091,22 @@ def phase16_glazed_city(torch, ctx):
     adjp24 = day_adjoint.make_day_adjoint(fr._bb, substeps=sub, mode="parity", hours=24, device="cuda")
     gp24 = flat_grads(adjp24(params, Tp, zTp, hip, cot24))
     pa_ms = event_ms(torch, lambda: adjp24(params, Tp, zTp, hip, cot24), 1)
+    note_adjoint_variant(day_adjoint, "day_adjoint_parity_cavity")
     cotp = (cot24[0], cot24[1], cot24[2][W0:W0 + H].contiguous())
     adjp = day_adjoint.make_day_adjoint(fr._bb, substeps=sub, mode="parity", hours=H, device="cuda")
     gp = flat_grads(adjp(params, Tw, zTw, hip6, cotp))
     check(float(gp["front_alphas"].abs().max()) > 0, "glazed city parity adjoint: no front_alphas gradient "
           "over the daytime window")
+    # The f32 plain adjoint re-run from the f32 forward kernel's hour starts,
+    # the march the kernel differentiates (its one-hour launches end on its
+    # window launch): from its own march's it takes the MIN_H floor of the
+    # glazing's room face on other sub-steps (ROADMAP C1).
+    starts = kernel_hour_starts(torch, day_march, fr._bb, hm6, params, Tw, zTw, hip6)
     t0 = time.time()
-    gpp = flat_grads(adjp.plain(params, Tw, zTw, hip6, cotp))
+    gpp = flat_grads(adjp.plain(params, Tw, zTw, hip6, cotp, starts=starts))
     torch.cuda.synchronize()
     pa_plain_ms = (time.time() - t0) * 1e3
-    what = "glazed city f32 parity adjoint kernel vs f32 plain adjoint"
+    what = "glazed city f32 parity adjoint kernel vs f32 plain adjoint from its hour starts"
     cav_lanes = day_march.bit_rows(params, "cav_bits").any(0)
     pgaps = rel_l2_gaps(torch, gp, gpp, what, CAV_WINDOW_ADJ_RL2)
     pgaps_cav = rel_l2_gaps(torch, gp, gpp, what + ", cavity lanes", CAV_WINDOW_ADJ_RL2, lanes=cav_lanes)
@@ -2015,6 +2140,13 @@ def phase16_glazed_city(torch, ctx):
     # f32 kernel's state at W0 h and from the f64 kernel's state (rounded).
     adjp64 = day_adjoint.make_day_adjoint(fr64._bb, substeps=sub, mode="parity", hours=H, device="cuda")
     cot64 = dbl(cotp)
+    # Held (ROADMAP C1): the window's f32 adjoint kernel against the f64 plain
+    # adjoint re-run from the f32 forward kernel's hour starts.
+    g64s = flat_grads(adjp64.plain(fr64.params, Tw.double(), zTw.double(), hip64, cot64, starts=starts))
+    what = "glazed city f32 parity adjoint kernel over the window vs the f64 plain adjoint from its hour starts"
+    c1_gaps = [rel_l2_gaps(torch, gp, g64s, what, CAV_PARITY_ADJ_F32_RL2),
+               rel_l2_gaps(torch, gp, g64s, what + ", cavity lanes", CAV_PARITY_ADJ_F32_RL2, lanes=cav_lanes)]
+    del g64s, starts
     win = {}
     for start, (T_, zT_), outs_ in (("f32", (Tw, zTw), (("kernel", gp), ("plain", gpp))),
                                     ("f64", (Ts, zTs), (("kernel", None),))):
@@ -2045,14 +2177,19 @@ def phase16_glazed_city(torch, ctx):
           + ", ".join(f"{k} {v:.2e}" for k, v in p64_gaps.items())
           + f"; a start state moved by {PARITY_EPS:g} K ends the "
           f"day {growth[0]:.3g} x as far apart on the nodes (<= {PARITY_GROWTH_MAX:g}); adjoint {pa_ms:.3f} ms a "
-          f"day, the plain adjoint's {H} h {pa_plain_ms:.1f} ms, relative L2 worst {pgaps[pworst]:.3e} ({pworst}; <= {CAV_WINDOW_ADJ_RL2:g}), "
+          f"day, the plain adjoint's {H} h from the forward kernel's hour starts {pa_plain_ms:.1f} ms, relative L2 "
+          f"worst {pgaps[pworst]:.3e} ({pworst}; <= {CAV_WINDOW_ADJ_RL2:g}), "
           f"max |d| {pa_abs:.3e}, on the cavity lanes alone {worst_of(pgaps_cav)}; the gradient path's adjoint "
           f"launches against the f64 kernel from the same start states (<= {CAV_PARITY_ADJ_F32_RL2:g}): day 1 "
           f"{worst_of(day_gaps[0])}, cavity lanes {worst_of(day_gaps[1])}; day 2 {worst_of(day_gaps[2])}, cavity "
-          f"lanes {worst_of(day_gaps[3])}; over hours {W0}-{W0 + H}, against the f64 kernel (not held; these "
-          f"comparisons with the gradient path's took {held_s:.1f} s): "
+          f"lanes {worst_of(day_gaps[3])}; over hours {W0}-{W0 + H} from the f32 kernel's state, the f32 adjoint kernel "
+          f"against the f64 plain adjoint re-run from the f32 forward kernel's hour starts (<= "
+          f"{CAV_PARITY_ADJ_F32_RL2:g}, ROADMAP C1) {worst_of(c1_gaps[0])}, cavity lanes {worst_of(c1_gaps[1])}; "
+          f"over the same hours against the f64 kernel (not held; these comparisons with the gradient path's took "
+          f"{held_s:.1f} s): "
           + "; ".join(f"from the {st} kernel's state, the f32 {who} adjoint {worst_of(v[0])}, cavity lanes "
-                      f"{worst_of(v[1])}" for (st, who), v in win.items()), flush=True)
+                      f"{worst_of(v[1])}" for (st, who), v in win.items())
+          + " (the f32 plain adjoint from the f32 forward kernel's hour starts)", flush=True)
 
     def bounds(p, hours, sub, builds, fwd_ops, adj_ops, T_, zT_, hi_, outs, cots_, grads):
         ops_f = fwd_ops + cavity_work(p, builds)
@@ -2148,9 +2285,9 @@ def mrt_network_faces(params):
 
 def mrt_work(params, evaluations, adjoint=False):
     """Operations of the MRT network over ``evaluations`` evaluations,
-    counted from day_common.cuh ``mrt_network``: MRT_OPS per network face and
+    counted from day_tr.cuh ``mrt_face_node``: MRT_OPS per network face and
     iteration, MRT_ITERS iterations each, MRT_ADJ_OPS more per face and
-    iteration in an adjoint (``mrt_network_adj``)."""
+    iteration in an adjoint (day_tr_adj.cuh ``mrt_face_node_adj``)."""
     per = MRT_OPS + (MRT_ADJ_OPS if adjoint else 0)
     return mrt_network_faces(params) * MRT_ITERS * evaluations * per
 
@@ -2526,17 +2663,20 @@ def phase19_mrt_city(torch, ctx):
     cot24 = (torch.zeros_like(Tp), torch.zeros_like(zTp),
              (2.0 * (got24[3] - 21.0) * valid / (2 * 24 * 1000)).contiguous())
     pa_ms = event_ms(torch, lambda: adj24(fp.params, Tp, zTp, hip, cot24), 1)
+    note_adjoint_variant(day_adjoint, "day_adjoint_parity_mrt")
     gp24 = flat_grads(adj24(fp.params, Tp, zTp, hip, cot24))
     adj6 = day_adjoint.make_day_adjoint(fp._bb, substeps=sub, mode="parity", hours=H, device="cuda")
     cot6 = (torch.zeros_like(Tp), torch.zeros_like(zTp), cot24[2][W0:W0 + H].contiguous())
     gp = flat_grads(adj6(fp.params, Tw, zTw, hi6, cot6))
     check(float(gp["front_alphas"].abs().max()) > 0 and float(gp["mrt_eps_b"].abs().max()) > 0,
           "MRT city parity adjoint: no front_alphas or mrt_eps_b gradient over the daytime window")
+    starts = kernel_hour_starts(torch, day_march, fp._bb, hm6, fp.params, Tw, zTw, hi6)
     t0 = time.time()
-    gpp = flat_grads(adj6.plain(fp.params, Tw, zTw, hi6, cot6))
+    gpp = flat_grads(adj6.plain(fp.params, Tw, zTw, hi6, cot6, starts=starts))
     torch.cuda.synchronize()
     pa_plain_ms = (time.time() - t0) * 1e3
-    pgaps = rel_l2_gaps(torch, gp, gpp, "MRT city f32 parity adjoint kernel vs f32 plain", PARITY_ADJ_F32_RL2)
+    pgaps = rel_l2_gaps(torch, gp, gpp, "MRT city f32 parity adjoint kernel vs f32 plain from its hour starts",
+                        PARITY_ADJ_F32_RL2)
     pa_abs = max(float((gp[n] - r).abs().max()) for n, r in gpp.items())
     del gpp
     print(f"phase 19c MRT city in parity mode ({sub} sub-steps/h, nomass_fixed_iters={PARITY_ITERS}): 2-day "
@@ -2674,6 +2814,7 @@ def phase20_office_mrt(torch, ctx, p17):
     pca_counts = (ka.launches, ka.cavity_launches, ka.parity_mrt_launches)
     check(pca_counts == (1, 1, 1), f"office MRT parity adjoint launch counts {pca_counts}")
     pca_ms = event_ms(torch, lambda: adjc(fpc.params, Tc, zTc, hic, cotsc), 3)
+    note_adjoint_variant(day_adjoint, "day_adjoint_parity_cavity_mrt")
     t0 = time.time()
     gcp = flat_grads(adjc.plain(fpc.params, Tc, zTc, hic, cotsc))
     torch.cuda.synchronize()
@@ -3183,7 +3324,7 @@ def mrt_kernel_entries(p19, p20):
 
     fwd = "heatx_torch/csrc/day_march_parity_mrt.cu (network: heatx_torch/csrc/day_tr.cuh mrt_face_node)"
     tr = "heatx_torch/csrc/day_march_tr_mrt.cu (network: heatx_torch/csrc/day_tr.cuh mrt_face_node)"
-    adj = "heatx_torch/csrc/day_adjoint.cu (network: heatx_torch/csrc/day_common.cuh mrt_network_adj)"
+    adj = "heatx_torch/csrc/day_adjoint_parity_mrt.cu (network: heatx_torch/csrc/day_tr_adj.cuh mrt_face_node_adj)"
     adj_tr = "heatx_torch/csrc/day_adjoint_tr_mrt.cu (network: heatx_torch/csrc/day_tr_adj.cuh mrt_face_node_adj)"
     k1_tr = "heatx/ops/pallas_step.py:1976 (body _hour_body_imp, pallas_step.py:777; _mrt_context :555, :840-858)"
     k1_pa = "heatx/ops/pallas_step.py:1976 (body _hour_body, pallas_step.py:633; _mrt_context :555, :678-684)"
@@ -3202,7 +3343,7 @@ def mrt_kernel_entries(p19, p20):
         entry("day_march_parity_mrt", fwd, k1_pa, p19.pgrad_counts[1],
               {"MRT city parity value_and_grad, 2 days (phase 19c)": p19.pgrad_counts[1]},
               p19.p_ms, p19.p_plain_ms, p19.p_err, b19["parity"], plain_hours=H),
-        entry("day_adjoint_parity_mrt", adj + " (parity_substep_adj)", k2_pa, p19.pgrad_counts[3],
+        entry("day_adjoint_parity_mrt", adj, k2_pa, p19.pgrad_counts[3],
               {"MRT city parity value_and_grad, 2 days (phase 19c)": p19.pgrad_counts[3]},
               p19.pa_ms, p19.pa_plain_ms, p19.pa_abs, b19["parity_adjoint"], rel_l2_err=p19.pa_rel,
               plain_hours=H),
@@ -3215,7 +3356,7 @@ def mrt_kernel_entries(p19, p20):
         entry("day_march_parity_cavity_mrt", fwd + " and cavity_u", k1_pa, p20.pc_counts[2],
               {f"office with MRT in parity mode at {p20.subc} sub-steps/h, one day (phase 20)": p20.pc_counts[2]},
               p20.pc_ms, p20.pc_plain_ms, p20.pc_err, b20["parity"]),
-        entry("day_adjoint_parity_cavity_mrt", adj + " and cavity_band_adj", k2_pa, p20.pca_counts[2],
+        entry("day_adjoint_parity_cavity_mrt", adj + " and cavity_u", k2_pa, p20.pca_counts[2],
               {f"office with MRT in parity mode at {p20.subc} sub-steps/h, one day's adjoint (phase 20)":
                p20.pca_counts[2]},
               p20.pca_ms, p20.pca_plain_ms, p20.pca_abs, b20["parity_adjoint"]),
@@ -3563,19 +3704,21 @@ def main() -> int:
           f"(<= {F64_TOL:g}) in trbdf2_refresh k=2, k=8 and trbdf2", flush=True)
     e3b, e3b32, e3b_adj, shapes3b = phase3b_b1_edge(torch, day_march, day_adjoint, testing, ThermalModel, SimConfig)
     print("phase 3b B1's edge (" + "; ".join(f"one zone of {s} surfaces in {m}, one block of {b} lanes, a {n}-node "
-                                             f"wall, 4 threads per surface, {t} a block"
-                                             + ("" if ta is None else f", the adjoint {ta}")
+                                             f"wall, 4 threads per surface, {t} a block, the adjoint {ta}"
                                              for s, m, b, n, t, ta in shapes3b)
           + f"), trbdf2 3 h free-float k=2 and a thermostat in trbdf2, parity 2 h at 6 sub-steps/h, one no-mass "
           f"iteration, free-float and a thermostat: f64 kernel vs plain twin max |d| {e3b:.3e} K "
-          f"(<= {F64_TOL:g}); f32 kernel vs f64 plain max |d| {e3b32:.3e} K (<= {F32_TOL:g}); the TR-BDF2 "
-          f"adjoint kernel vs plain adjoint, f64, seeded cotangents: worst max |d| / max |ref| {e3b_adj:.3e} "
+          f"(<= {F64_TOL:g}); f32 kernel vs f64 plain max |d| {e3b32:.3e} K (<= {F32_TOL:g}); both adjoint "
+          f"kernels vs the plain adjoint, f64, seeded cotangents: worst max |d| / max |ref| {e3b_adj:.3e} "
           f"(<= {ADJ_F64_RTOL:g})", flush=True)
     e3c, (sb3c, zb3c, n3c, var3c) = phase3c_zone_rows(torch, day_adjoint, testing, ThermalModel, SimConfig)
-    print(f"phase 3c the TR-BDF2 adjoint with the most zone rows a block held: {zb3c} zones in one block of {sb3c} "
+    e3cp, (sbp, zbp, np_, subp, varp) = parity_zone_rows(torch, day_adjoint, testing, ThermalModel, SimConfig)
+    print(f"phase 3c each adjoint with the most zone rows a block held: TR-BDF2 {zb3c} zones in one block of {sb3c} "
           f"lanes, {n3c}-node panes, a thermostat each, {ZONE_ROWS_SUBSTEPS} sub-steps/h, f64, 2 h, k=2 and frozen "
           f"(launch variants {', '.join(var3c)}): adjoint kernel vs plain adjoint, seeded cotangents, worst max |d| "
-          f"/ max |ref| {e3c:.3e} (<= {ADJ_F64_RTOL:g})", flush=True)
+          f"/ max |ref| {e3c:.3e}; parity {PARITY_CHAIN_ZONES} zones ({zbp} zone slots) in one block of {sbp} lanes, "
+          f"{np_}-node panes, a thermostat each, {subp} sub-steps/h, one no-mass iteration, f64, 1 h (launch variant "
+          f"{varp}): {e3cp:.3e} (<= {ADJ_F64_RTOL:g})", flush=True)
 
     # 4. the main path at full width
     model = testing.build_city_model(1000, 10)
@@ -3642,8 +3785,9 @@ def main() -> int:
 
     # 6. the adjoint kernel's build (it ran in parallel with phase 2's)
     ptxas_adj = ptxas_table(cuda_lib.build_log("heatx_day_adjoint", day_adjoint.KERNEL_SOURCES))
-    print(f"phase 6 build the day adjoint (day_adjoint.cu with the parity body, day_adjoint_tr.cu with the "
-          f"TR-BDF2 body, each with its kMrt unit; with phase 2's, {build_s:.1f} s for both libraries); "
+    print(f"phase 6 build the day adjoint (the C entry day_adjoint.cu, day_adjoint_parity.cu with the parity "
+          f"body, day_adjoint_tr.cu with the TR-BDF2 body, each with its kMrt unit; with phase 2's, {build_s:.1f} s "
+          f"for both libraries); "
           f"ptxas: {ptxas_adj}", flush=True)
 
     # 7. f64: adjoint kernel vs plain adjoint, and vs finite differences of the forward kernel
@@ -4089,7 +4233,8 @@ def main() -> int:
         {
             "name": "day_adjoint_parity",
             "route": "cuda",
-            "source": "heatx_torch/csrc/day_adjoint.cu (body: heatx_torch/csrc/day_parity.cuh)",
+            "source": "heatx_torch/csrc/day_adjoint_parity.cu (device code: heatx_torch/csrc/day_parity_adj.cuh, "
+                      "day_parity_rows.cuh)",
             "replaces": "heatx/ops/pallas_adjoint.py:717 (body _hour_body(unroll=True), pallas_adjoint.py:573)",
             "launches": p14.counts[3],
             "launches_by_path": {f"parity value_and_grad, {PARITY_GRAD_DAYS} days (phase 14a)": p14.counts[3]},
@@ -4160,7 +4305,8 @@ def main() -> int:
             "name": "day_adjoint_parity_cavity",
             "plain_hours": PARITY_WINDOW,
             "route": "cuda",
-            "source": "heatx_torch/csrc/day_adjoint.cu (cavity_band_adj in parity_substep_adj)",
+            "source": "heatx_torch/csrc/day_adjoint_parity.cu (kCav: the cavity U's dU/dT on the segment's first "
+                      "row; day_common.cuh cavity_u)",
             "replaces": "heatx/ops/pallas_adjoint.py:717 (body _hour_body(unroll=True), pallas_adjoint.py:573, "
                         "with gas cavities)",
             "launches": p16.counts["parity"]["adjoint"][2],

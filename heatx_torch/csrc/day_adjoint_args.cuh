@@ -1,5 +1,6 @@
 // What both day adjoints share (the TR-BDF2 body in day_adjoint_tr.cu and
-// day_tr_adj.cuh, the parity body in day_adjoint.cu): the launch arguments,
+// day_tr_adj.cuh, the parity body in day_adjoint_parity.cu and
+// day_parity_adj.cuh): the launch arguments,
 // which the C entry (day_adjoint.cu) fills once and hands to the unit that
 // runs the launch's kind, the surface parameters' cotangents, and the
 // reverse of the zone-air updates (day_common.cuh zone_update and
@@ -34,11 +35,12 @@ struct AdjArgs {
   T* d_ctl;            // [4, NB, ZB]; rows 0 (heat_sp) and 1 (cool_sp) written
   T* d_sp_heat;        // [hours, NB, ZB]
   T* d_sp_cool;
-  T* sub_ws;           // parity: [substeps, N, SP] workspace, an hour's sub-step starts
-  // TR-BDF2: workspace, an hour's tape ([2 substeps + 1, kMaxNodes, SP]: each
+  // Workspace, an hour's tape: TR-BDF2 [2 substeps + 1, kMaxNodes, SP] (each
   // thread's rows of T at every sub-step start (and the hour's end), then of
-  // each sub-step's stage-1 state T1), then [NB] blocks' hour zone rows and
-  // weather (hour_zone_rows, read by the 1024-thread variant; day_adjoint_tr.cu)
+  // each sub-step's stage-1 state T1), parity [substeps, kMaxNodes, SP] (each
+  // thread's rows at every sub-step start); then [NB] blocks' hour zone rows
+  // and weather, read by the 1024-thread variants (day_adjoint_tr.cu
+  // hour_zone_rows, day_adjoint_parity.cu parity_hour_rows)
   T* tape;
 };
 

@@ -1,14 +1,13 @@
 // Device code shared by the day march (day_march_tr.cu, day_march_parity.cu) and its adjoints
-// (day_adjoint_tr.cu, day_adjoint.cu), in TR-BDF2 and (with day_parity.cuh)
-// reference-parity mode: the packed-operand layout, one surface lane's
-// statics, the ISO 15099 gas-cavity U-value and its two partial derivatives,
-// the faces' temperatures and the film and radiation terms the one-thread
-// parity sub-step reads, the zone sums, the inter-zone mixing sums, the
-// exact exponential zone update and its setpoint-landing (thermostat) form,
-// and the interior MRT network (Carroll) with its reverse.  The four-thread
-// TR-BDF2 code is day_tr.cuh's (forward) and day_tr_adj.cuh's (reverse).  The
-// layout follows heatx_torch/ops/day_march.py (NODE_FIELDS, SURF_FIELDS,
-// LANE_FIELDS).
+// (day_adjoint_tr.cu, day_adjoint_parity.cu), in TR-BDF2 and reference-parity
+// mode: the packed-operand layout, one surface lane's statics, the ISO 15099
+// gas-cavity U-value and its two partial derivatives, TARP natural
+// convection, the inter-zone mixing sums, the exact exponential zone update
+// and its setpoint-landing (thermostat) form, and one face's share of the
+// interior MRT network (Carroll) and of its reverse.  The four-thread code is
+// day_tr.cuh's and day_parity_rows.cuh's (forward) and day_tr_adj.cuh's and
+// day_parity_adj.cuh's (reverse).  The layout follows
+// heatx_torch/ops/day_march.py (NODE_FIELDS, SURF_FIELDS, LANE_FIELDS).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -33,7 +32,7 @@ enum {
   SF_TEMPB, SF_FIXHF, SF_FIXHB, SF_NX, SF_NY, SF_COUNT
 };
 enum { LN_FCODE, LN_BCODE, LN_FZONE, LN_BZONE, LN_BITS, LN_MASS };
-constexpr int LN_CAV = LN_MASS + 2;  // after day_parity.cuh's chunk words
+constexpr int LN_CAV = LN_MASS + 2;  // after the chunk words (day_parity.cuh LN_CHUNK)
 constexpr int LN_MRT = LN_CAV + 1;   // bit 0: the front face is on the MRT network, bit 1: the back
 
 constexpr double kKelvin = 273.15;
@@ -212,18 +211,6 @@ __device__ __noinline__ T cavity_u(const T* p, size_t stride, T tf, T tb, T* d_t
   return rad + nu * lam / safe_th;
 }
 
-// Rewrite a cavity lane's cavity-segment U-values (u: the lane's column of
-// cav_u, rows of SP) from the node temperatures Tn; cav: the lane's column of
-// the cavity operands.
-template <typename T>
-__device__ __noinline__ void cavity_u_update(T* u, const T* cav, const T* Tn, int N, int SP,
-                                             unsigned cav_bits) {
-  const size_t ns = static_cast<size_t>(N) * SP;
-  for (int s = 0; s + 1 < N; ++s)
-    if ((cav_bits >> s) & 1u) u[s * SP] = cavity_u(cav + s * SP, ns, Tn[s], Tn[s + 1],
-                                                   static_cast<T*>(nullptr), static_cast<T*>(nullptr));
-}
-
 // The operands of one day march (both kernels read these).
 template <typename T>
 struct DayArgs {
@@ -255,11 +242,9 @@ struct DayArgs {
   const int* mixt_ptr;   // the same entries by source zone slot (the transpose)
   const int* mixt_dst;   // [M] block-local destination zone
   const T* mixt_vol;
-  // Gas cavities (null without): cav_u [N, SP] the segment U-values, a
-  // per-launch copy of the U row whose cavity segments the march rewrites at
-  // each operator build; cav [12, N, SP] the cavity operands
-  // (day_march.CAV_FIELDS), read only.
-  T* cav_u;
+  // Gas cavities (null without): cav [12, N, SP] the cavity operands
+  // (day_march.CAV_FIELDS), read only; a cavity segment's U is computed from
+  // them at each operator build.
   const T* cav;
   // In-run passive controls (null without; the day march's extended
   // instantiations read them, nothing else does).  Zone shading: per lane
@@ -301,19 +286,14 @@ template <typename T>
 struct Lane {
   T area, perim, cos_t, wmod, eps_f, eps_b, rf, temp_f, temp_b, fix_hf, fix_hb, nx, ny;
   T c_same, c_opp;  // TARP branch coefficients (|cos| is tilt-flip invariant)
-  int code_f, code_b, zone_f, zone_b, N, SP;
-  unsigned bits, mass_bits;
+  int code_f, code_b, zone_f, zone_b, SP;
   unsigned cav_bits;  // bit i: segment i is a gas cavity
   bool f_out, b_out, b_amb;
-  const T* U;  // node rows, stride SP
   const T* Cav;  // a cavity lane's cavity operands (rows of N x SP), else null
-  const T* Cap;
-  const T* FA;
-  const T* FB;
 
   // `cavities` is the kernel's compile-time kCav: without it cav_bits is the
   // constant 0 and every cavity branch folds away.
-  __device__ Lane(const DayArgs<T>& a, int lane, bool cavities) : N(a.N), SP(a.NB * a.SB) {
+  __device__ Lane(const DayArgs<T>& a, int lane, bool cavities) : SP(a.NB * a.SB) {
     const T* sf = a.surf + lane;
     area = sf[SF_AREA * SP];
     perim = sf[SF_PERIM * SP];
@@ -332,73 +312,19 @@ struct Lane {
     code_b = a.lane[LN_BCODE * SP + lane];
     zone_f = a.lane[LN_FZONE * SP + lane];
     zone_b = a.lane[LN_BZONE * SP + lane];
-    bits = static_cast<unsigned>(a.lane[LN_BITS * SP + lane]);
-    mass_bits = static_cast<unsigned>(a.lane[LN_MASS * SP + lane]);
     f_out = code_f == kOutdoor;
     b_out = code_b == kOutdoor;
     b_amb = code_b == kAmbient;
     c_same = T(9.482) / (T(7.238) - m_abs(cos_t));
     c_opp = T(1.81) / (T(1.382) + m_abs(cos_t));
-    U = a.node + (ND_U * N) * SP + lane;
-    // A cavity lane's K reads its segment U-values from cav_u, rewritten at
-    // each operator build.
     cav_bits = cavities ? static_cast<unsigned>(a.lane[LN_CAV * SP + lane]) : 0u;
     Cav = cav_bits ? a.cav + lane : nullptr;
-    if (cav_bits) U = a.cav_u + lane;
-    Cap = a.node + (ND_CAP * N) * SP + lane;
-    FA = a.node + (ND_FA * N) * SP + lane;
-    FB = a.node + (ND_FB * N) * SP + lane;
-  }
-
-  __device__ bool valid(int i) const { return i >= 0 && i < N && ((bits >> i) & 1u); }
-  __device__ bool left(int i) const { return valid(i) && valid(i - 1); }
-  __device__ bool right(int i) const { return valid(i) && valid(i + 1); }
-  __device__ bool first(int i) const { return valid(i) && !valid(i - 1); }
-  __device__ bool last(int i) const { return valid(i) && !valid(i + 1); }
-  // The masked sum of x over the last valid nodes (engine.surface._last_node).
-  __device__ T last_node(const T* x) const {
-    T s = T(0);
-    for (int i = 0; i < N; ++i)
-      if (last(i)) s += x[i];
-    return s;
-  }
-
-  // Boundary air temperatures: outdoor air, the face's zone air (zT is the
-  // block's zone row), or the fixed ambient/ground temperature.
-  __device__ void boundary(const T* zT, T t_out, T& t_front, T& t_back) const {
-    const T zf = zone_f >= 0 ? zT[zone_f] : T(0);
-    const T zb = zone_b >= 0 ? zT[zone_b] : T(0);
-    t_front = f_out ? t_out : (code_f == kSpace ? zf : temp_f);
-    t_back = b_out ? t_out : (code_b == kSpace ? zb : temp_b);
   }
 
   __device__ bool windward(T wd) const {
     return m_abs(cos_t) >= T(0.98) || (nx * m_sin(wd) + ny * m_cos(wd) > T(0));
   }
 };
-
-// The hour's per-lane forcing: clamped solar irradiance and the outdoor
-// radiant temperatures from the incident IR.  `shade` scales the incident
-// front solar before the clamp (in-run zone shading: the deployed device's
-// transmittance, else 1), heatx's order.
-template <typename T>
-struct HourIn {
-  T sol_f, sol_b, rad_out_f, rad_out_b;
-  __device__ HourIn(const DayArgs<T>& a, int h, int lane, T shade = T(1)) {
-    const int SP = a.NB * a.SB;
-    const T sfr = a.sol_f[h * SP + lane] * shade, sbr = a.sol_b[h * SP + lane];
-    sol_f = (is_nan(sfr) || sfr < T(0)) ? T(0) : sfr;
-    sol_b = is_nan(sbr) ? T(0) : sbr;
-    rad_out_f = m_pow(m_max(a.ir_f[h * SP + lane], T(1e-30)) / T(kSigma), T(0.25)) - T(kKelvin);
-    rad_out_b = m_pow(m_max(a.ir_b[h * SP + lane], T(1e-30)) / T(kSigma), T(0.25)) - T(kKelvin);
-  }
-};
-
-// The cavity segments' U-values of a cavity lane at the node temperatures Tn.
-template <typename T>
-__device__ __forceinline__ void cavity_refresh(const Lane<T>& L, const T* Tn) {
-  cavity_u_update(const_cast<T*>(L.U), L.Cav, Tn, L.N, L.SP, L.cav_bits);
-}
 
 // TARP natural convection (convection.rs:87-110) with hoisted branch
 // coefficients; cube root as pow(max(|dT|, 1e-30), 1/3), as in heatx's kernel.
@@ -419,88 +345,6 @@ struct Ops {
   T radf, radb;      // linearized radiation coefficients
   T rad_ft, rad_bt;  // radiant temperatures
 };
-
-// The faces' radiant and surface temperatures (border_conditions with the
-// ambient-back quirk): shared by the parity sub-step and its adjoint.
-template <typename T>
-struct FaceTemps {
-  T front_surf, back_surf, front_rad, back_rad, back_surf_eff;
-  __device__ FaceTemps(const Lane<T>& L, const T* Tn, T t_front, T t_back,
-                       const HourIn<T>& hi, int amb_bug) {
-    front_surf = Tn[0];
-    back_surf = L.last_node(Tn);
-    front_rad = L.f_out ? hi.rad_out_f : t_front;
-    const T amb_rad = amb_bug ? t_front : t_back;
-    const T amb_surf = amb_bug ? front_surf : back_surf;
-    back_rad = L.b_out ? hi.rad_out_b : (L.b_amb ? amb_rad : t_back);
-    back_surf_eff = L.b_amb ? amb_surf : back_surf;
-  }
-};
-
-// The forced-convection base term 2.537 W rf sqrt(P v / A) (zero at rest).
-template <typename T>
-__device__ __forceinline__ T forced_base(const Lane<T>& L, T ws, T wd) {
-  const T pva = L.perim * (ws * L.wmod) / L.area;
-  return T(2.537) * (L.windward(wd) ? T(1) : T(0.5)) * L.rf * (pva > T(0) ? m_sqrt(pva) : T(0));
-}
-
-// A lane's faces on the interior MRT network: their effective emissivities
-// (0 off the network) and, after the network's fixed point, their zones' MRT
-// nodes.  apply_interior_mrt: a face with a positive effective emissivity
-// radiates with it toward that node instead of its boundary's temperature.
-template <typename T>
-struct MrtFace {
-  T ef, eb, tmf, tmb;
-};
-
-// The radiant temperatures and emissivities of the linearized radiation:
-// the boundary's and the surface's, or the MRT context's on a network face.
-template <typename T>
-__device__ __forceinline__ void rad_view(const Lane<T>& L, const FaceTemps<T>& ft, const MrtFace<T>& m,
-                                         T& rad_f, T& rad_b, T& eps_f, T& eps_b) {
-  const bool on_f = m.ef > T(0), on_b = m.eb > T(0);
-  rad_f = on_f ? m.tmf : ft.front_rad;
-  rad_b = on_b ? m.tmb : ft.back_rad;
-  eps_f = on_f ? m.ef : L.eps_f;
-  eps_b = on_b ? m.eb : L.eps_b;
-}
-
-// A zone's A/B sums: the gains plus its faces' h A T_s and h A, in the fixed
-// order of the zone's face list (front faces, then back faces, ascending lane).
-template <typename T>
-__device__ __forceinline__ void zone_sums(const int* zone_ptr, const int* zone_faces, int gz,
-                                          const T* s_haT, const T* s_ha, T a_ex, T b_ex,
-                                          T& az, T& bz) {
-  T af = T(0), bf = T(0), ab = T(0), bb = T(0);
-  for (int e = zone_ptr[gz]; e < zone_ptr[gz + 1]; ++e) {
-    const int f = zone_faces[e];
-    if (f & 1) {
-      ab += s_haT[f];
-      bb += s_ha[f];
-    } else {
-      af += s_haT[f];
-      bf += s_ha[f];
-    }
-  }
-  az = (a_ex + af) + ab;
-  bz = (b_ex + bf) + bb;
-}
-
-// The fixed-order sum of a zone's per-face values (the transpose of the
-// boundary-temperature gather).
-template <typename T>
-__device__ __forceinline__ T face_sum(const int* zone_ptr, const int* zone_faces, int gz,
-                                      const T* s_face) {
-  T sf = T(0), sb = T(0);
-  for (int e = zone_ptr[gz]; e < zone_ptr[gz + 1]; ++e) {
-    const int f = zone_faces[e];
-    if (f & 1)
-      sb += s_face[f];
-    else
-      sf += s_face[f];
-  }
-  return sf + sb;
-}
 
 // Zone air heat capacity V rho(T) cp(T).
 template <typename T>
@@ -598,13 +442,13 @@ __device__ __forceinline__ T zone_update(T zt, T az, T bz, T volume, T dt) {
 // ---------------------------------------------------------------------------
 // Interior MRT: the Carroll network (heatx _mrt_context, pallas_step.py:555),
 // in the kMrt instantiations only.  Blocks are zone-closed, so a zone's
-// network lies in one block.  Each of the four iterations: every lane writes
-// its network faces' linearized conductances w = 4 sigma eps_eff (K +
-// (tm_face + ts)/2)^3 A and w ts to two shared rows laid out like the zone
-// sums' (lane*2 + side); one thread per zone sums its network faces in the
-// fixed order of mrt_faces and writes the zone's node num/den (the zone air
-// where it has no conductance); every lane gathers its zones' nodes.  Eight
-// barriers, reached by every thread of the block (padded lanes too).
+// network lies in one block.  Each of the four iterations: every face on the
+// network writes its linearized conductance w = 4 sigma eps_eff (K + (tm_face
+// + ts)/2)^3 A and w ts to two shared rows laid out like the zone sums'
+// (lane*2 + side); each zone sums its network faces in the fixed order of
+// mrt_faces and writes the zone's node num/den (the zone air where it has no
+// conductance); every face gathers its zone's node (day_tr.cuh mrt_face_node;
+// its reverse day_tr_adj.cuh mrt_face_node_adj).
 // ---------------------------------------------------------------------------
 
 // The network's operands.  They ride beside DayArgs in the kMrt
@@ -619,12 +463,11 @@ struct MrtArgs {
 };
 
 // A lane's faces on the network (bit 0 front, bit 1 back) and their
-// effective emissivities (all 0 default-constructed).
+// effective emissivities.
 template <typename T>
 struct MrtLane {
-  unsigned bits = 0u;
-  T ef = T(0), eb = T(0);
-  MrtLane() = default;
+  unsigned bits;
+  T ef, eb;
   __device__ MrtLane(const DayArgs<T>& a, const MrtArgs<T>& r, int lane) {
     const int SP = a.NB * a.SB;
     bits = static_cast<unsigned>(a.lane[LN_MRT * SP + lane]);
@@ -638,79 +481,6 @@ template <typename T>
 __device__ __forceinline__ T mrt_weight(T eps, T area, T tm, T ts) {
   const T x = T(kKelvin) + (tm + ts) / T(2);
   return T(4) * T(kSigma) * eps * (x * x * x) * area;
-}
-
-// Zone slot gz's sums of w ts and w over its network faces, in list order.
-template <typename T>
-__device__ __forceinline__ void mrt_sums(const MrtArgs<T>& r, int gz, const T* s_wt, const T* s_w,
-                                         T& num, T& den) {
-  num = den = T(0);
-  for (int e = r.mrt_ptr[gz]; e < r.mrt_ptr[gz + 1]; ++e) {
-    const int f = r.mrt_faces[e];
-    num += s_wt[f];
-    den += s_w[f];
-  }
-}
-
-// Zone slot gz's sum of a per-face row over its network faces.
-template <typename T>
-__device__ __forceinline__ T mrt_face_sum(const MrtArgs<T>& r, int gz, const T* s_face) {
-  T s = T(0);
-  for (int e = r.mrt_ptr[gz]; e < r.mrt_ptr[gz + 1]; ++e) s += s_face[r.mrt_faces[e]];
-  return s;
-}
-
-// The network's fixed point from a state whose face temperatures are ts_f
-// (node 0) and ts_b (last node).  tm_f/tm_b hold the linearization's start
-// (the faces' boundary air temperatures) and return each face's zone node;
-// hist_f/hist_b (when given) keep the value before each iteration.  s_zT is
-// the block's zone row (the fallback), s_w/s_wt [2*SB] and s_tm [ZB] shared
-// work rows; s_tm holds the zones' nodes on return.
-template <typename T>
-__device__ void mrt_network(const DayArgs<T>& a, const MrtArgs<T>& r, const Lane<T>& L,
-                            const MrtLane<T>& M, int b, int tid, T ts_f, T ts_b, T& tm_f, T& tm_b,
-                            const T* s_zT, T* s_w,
-                            T* s_wt, T* s_tm, T* hist_f = nullptr, T* hist_b = nullptr) {
-  for (int it = 0; it < 4; ++it) {
-    if (hist_f) {
-      hist_f[it] = tm_f;
-      hist_b[it] = tm_b;
-    }
-    if (M.bits & 1u) {
-      const T w = mrt_weight(M.ef, L.area, tm_f, ts_f);
-      s_w[2 * tid] = w;
-      s_wt[2 * tid] = w * ts_f;
-    }
-    if (M.bits & 2u) {
-      const T w = mrt_weight(M.eb, L.area, tm_b, ts_b);
-      s_w[2 * tid + 1] = w;
-      s_wt[2 * tid + 1] = w * ts_b;
-    }
-    __syncthreads();
-    for (int z = tid; z < a.ZB; z += a.SB) {
-      T num, den;
-      mrt_sums(r, b * a.ZB + z, s_wt, s_w, num, den);
-      s_tm[z] = den > T(1e-30) ? num / den : s_zT[z];
-    }
-    __syncthreads();
-    tm_f = L.zone_f >= 0 ? s_tm[L.zone_f] : T(0);
-    tm_b = L.zone_b >= 0 ? s_tm[L.zone_b] : T(0);
-  }
-}
-
-// The lane's MRT context for an operator build from the node column Tn: the
-// block's network fixed point started at the faces' boundary air
-// temperatures (t_front, t_back), the zone row s_zT its fallback; every
-// thread of the block calls it (hist_f/hist_b: as mrt_network).
-template <typename T>
-__device__ MrtFace<T> mrt_context(const DayArgs<T>& a, const MrtArgs<T>& r, const Lane<T>& L,
-                                  const MrtLane<T>& M, int b, int tid, const T* Tn, T t_front,
-                                  T t_back, const T* s_zT, T* s_w, T* s_wt, T* s_tm,
-                                  T* hist_f = nullptr, T* hist_b = nullptr) {
-  MrtFace<T> f{M.ef, M.eb, t_front, t_back};
-  mrt_network(a, r, L, M, b, tid, Tn[0], L.last_node(Tn), f.tmf, f.tmb, s_zT, s_w, s_wt, s_tm,
-              hist_f, hist_b);
-  return f;
 }
 
 // The reverse of one face's share of an iteration: w = 4 sigma eps x^3 A,
@@ -730,71 +500,6 @@ __device__ __forceinline__ T mrt_face_adj(T eps, T area, T tm, T ts, T l_num, T 
   const T l_x = l_w * T(12) * T(kSigma) * eps * (x * x) * area;
   l_ts += l_x / T(2);
   return l_x / T(2);
-}
-
-// The reverse of mrt_network from its history (hist_f/hist_b, the face
-// temperatures ts_f/ts_b and the zone row it fell back on): l_tm_f/l_tm_b
-// are the cotangents of the faces' final nodes.  Adds the cotangents of the
-// face temperatures (l_ts_*), of the linearization's start (l_t0_*, the
-// boundary air temperatures), of the effective emissivities (l_e*) and of
-// the area; s_lzf[z] accumulates the zone row's (the fallback's).  The
-// transpose of a face's gather of its zone's node is the zone's sum over
-// its network faces (mrt_face_sum), the transpose of the zone sums a
-// per-face read of the zone's cotangents.  Shared rows: s_w/s_wt/s_lt
-// [2*SB], s_lnum/s_lden/s_lm [ZB].  Thirteen barriers.
-template <typename T>
-__device__ void mrt_network_adj(const DayArgs<T>& a, const MrtArgs<T>& r, const Lane<T>& L,
-                                const MrtLane<T>& M, int b, int tid, T ts_f, T ts_b, const T* hist_f, const T* hist_b,
-                                T l_tm_f, T l_tm_b, T& l_ts_f, T& l_ts_b, T& l_t0_f, T& l_t0_b,
-                                T& l_ef, T& l_eb, T& l_area, T* s_w, T* s_wt, T* s_lt, T* s_lnum,
-                                T* s_lden, T* s_lm, T* s_lzf) {
-  const bool on_f = M.bits & 1u, on_b = (M.bits >> 1) & 1u;
-  if (on_f) s_lt[2 * tid] = l_tm_f;
-  if (on_b) s_lt[2 * tid + 1] = l_tm_b;
-  __syncthreads();
-  for (int z = tid; z < a.ZB; z += a.SB) s_lm[z] = mrt_face_sum(r, b * a.ZB + z, s_lt);
-  for (int k = 3; k >= 0; --k) {
-    if (on_f) {
-      const T w = mrt_weight(M.ef, L.area, hist_f[k], ts_f);
-      s_w[2 * tid] = w;
-      s_wt[2 * tid] = w * ts_f;
-    }
-    if (on_b) {
-      const T w = mrt_weight(M.eb, L.area, hist_b[k], ts_b);
-      s_w[2 * tid + 1] = w;
-      s_wt[2 * tid + 1] = w * ts_b;
-    }
-    __syncthreads();
-    for (int z = tid; z < a.ZB; z += a.SB) {
-      T num, den;
-      mrt_sums(r, b * a.ZB + z, s_wt, s_w, num, den);
-      const T lm = s_lm[z];
-      if (den > T(1e-30)) {
-        s_lnum[z] = lm / den;
-        s_lden[z] = -lm * (num / den) / den;
-      } else {
-        s_lnum[z] = s_lden[z] = T(0);
-        s_lzf[z] += lm;
-      }
-    }
-    __syncthreads();
-    T lf = T(0), lb = T(0);
-    if (on_f)
-      lf = mrt_face_adj(M.ef, L.area, hist_f[k], ts_f, s_lnum[L.zone_f], s_lden[L.zone_f], l_ts_f,
-                        l_ef, l_area);
-    if (on_b)
-      lb = mrt_face_adj(M.eb, L.area, hist_b[k], ts_b, s_lnum[L.zone_b], s_lden[L.zone_b], l_ts_b,
-                        l_eb, l_area);
-    if (k > 0) {
-      if (on_f) s_lt[2 * tid] = lf;
-      if (on_b) s_lt[2 * tid + 1] = lb;
-      __syncthreads();
-      for (int z = tid; z < a.ZB; z += a.SB) s_lm[z] = mrt_face_sum(r, b * a.ZB + z, s_lt);
-    } else {
-      l_t0_f += lf;
-      l_t0_b += lb;
-    }
-  }
 }
 
 }  // namespace heatx

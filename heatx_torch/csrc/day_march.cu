@@ -94,7 +94,6 @@ int day_march(const void* node, const void* surf, const void* lane, const void* 
   a.mixt_ptr = nullptr;  // the transposed lists are the adjoint's
   a.mixt_dst = nullptr;
   a.mixt_vol = nullptr;
-  a.cav_u = nullptr;  // the adjoints' per-launch U row: the march keeps a cavity's U in registers
   a.cav = static_cast<const T*>(cav);
   m.net.mrt = static_cast<const T*>(mrt);
   m.net.mrt_ptr = static_cast<const int*>(mrt_ptr);

@@ -200,7 +200,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_march_parity_kernel(
   const unsigned dyn = (((W.sel & (faces_w | (W.pair & (faces_w >> 1)))) >> row0) & own) & ~pt;
   // The back face's temperature: one shuffle from the owner of the column's
   // last valid row when every lane of the warp has one such row (the sum of
-  // the group's partial sums otherwise, as Lane::last_node sums them).
+  // the group's partial sums otherwise, as engine.surface._last_node sums them).
   const bool one_last = __all_sync(g.mask, __popc(W.last) <= 1);
   const int last_owner = W.last ? (31 - __clz(W.last)) / M : 0;
 
@@ -402,7 +402,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_march_parity_kernel(
       if (z >= 0 && s_zT[z] > a.shade_sp[(size_t)h * a.shade_sp_stride + lane])
         shade = a.shade_tau[lane];
     }
-    {  // the hour's clamped solar per row (HourIn; the fractions read once an hour)
+    {  // the hour's clamped solar per row (the fractions read once an hour)
       const T sfr = a.sol_f[h * SP + lane] * shade, sbr = a.sol_b[h * SP + lane];
       const T sol_f = (is_nan(sfr) || sfr < T(0)) ? T(0) : sfr;
       const T sol_b = is_nan(sbr) ? T(0) : sbr;

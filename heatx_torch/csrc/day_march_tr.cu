@@ -168,7 +168,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_march_tr_kernel(cons
   const unsigned cav = kCav ? (static_cast<unsigned>(a.lane[LN_CAV * SP + lane]) >> row0) & own : 0u;
   // The back face's temperature: one shuffle from the owner of the column's
   // last valid row when every lane of the warp has one such row (the sum of
-  // the group's partial sums otherwise, as Lane::last_node sums them).
+  // the group's partial sums otherwise, as engine.surface._last_node sums them).
   const bool one_last = __all_sync(g.mask, __popc(lasts) <= 1);
   const int last_owner = lasts ? (31 - __clz(lasts)) / M : 0;
   const T* U = a.node + (ND_U * N) * SP + lane;

@@ -22,7 +22,8 @@ struct FaceStatics {
       : cos_t(L.cos_t), c_same(L.c_same), c_opp(L.c_opp), eps_f(L.eps_f), eps_b(L.eps_b), fix_hf(L.fix_hf),
         fix_hb(L.fix_hb), perim(L.perim), wmod(L.wmod), area(L.area), rf(L.rf), nx(L.nx), ny(L.ny),
         f_out(L.f_out), b_out(L.b_out), b_amb(L.b_amb) {}
-  // forced_base, with the sub-step's sine and cosine of the wind direction.
+  // The forced term 2.537 W rf sqrt(P v / A), with the sub-step's sine and
+  // cosine of the wind direction.
   __device__ __forceinline__ T base(T ws, T sin_wd, T cos_wd) const {
     const T pva = perim * (ws * wmod) / area;
     const bool windward = m_abs(cos_t) >= T(0.98) || (nx * sin_wd + ny * cos_wd > T(0));
@@ -30,7 +31,7 @@ struct FaceStatics {
   }
 };
 
-// One face's film coefficient (film() of day_parity.cuh for one side): TARP
+// One face's film coefficient (surface.border_conditions for one side): TARP
 // natural convection with pow's cube root, the forced term `base` on an
 // outdoor face, the fixed coefficient where the face has one.
 template <typename T>
@@ -41,7 +42,7 @@ __device__ __forceinline__ T parity_face_h(const FaceStatics<T>& L, bool back, T
   return is_nan(fix) ? h : fix;
 }
 
-// One face's surface temperature as the films read it (FaceTemps: the
+// One face's surface temperature as the films read it (the quirk: the
 // back face of an ambient boundary reads the front surface with amb_bug).
 template <typename T>
 __device__ __forceinline__ T parity_face_surf(const FaceStatics<T>& L, bool back, T ts_front, T ts_back,
@@ -103,7 +104,7 @@ __device__ __forceinline__ unsigned group_or(const Group<G>& g, unsigned v) {
 }
 
 // A lane's rows as 32-bit words (bit i: row i) from its node, mass and chunk
-// words (day_parity.cuh Chunks; engine.surface.compute_statics): valid,
+// words (day_parity.cuh LN_CHUNK; engine.surface.compute_statics): valid,
 // first and last rows, the couplings inside a chunk and across chunks (the
 // frozen sources), massive and no-mass rows, and the no-mass runs: a row
 // that continues the run above it (no-mass, joined to a no-mass row), the

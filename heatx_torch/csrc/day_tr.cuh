@@ -209,7 +209,7 @@ struct Rows {
 };
 
 // What the sub-steps read of a lane's statics: its faces' boundaries
-// (Lane::boundary) and its area; the other statics are loaded again at each
+// (outdoor air, the zone's air or the fixed temperature) and its area; the other statics are loaded again at each
 // operator build, so that they hold no registers across the sub-steps.
 template <typename T>
 struct LaneBounds {
@@ -300,17 +300,18 @@ struct FaceOps {
 
 // The operator work of face `back` (0 front, 1 back) of lane L from the
 // faces' surface temperatures and boundary air temperatures (the film, TARP
-// and linearized-radiation terms of one face; FaceTemps's ambient-back
-// quirk; day_tr_adj.cuh face_ops_adj is its reverse).  rad_out is the face's
-// outdoor radiant temperature; with kMrt a face with a positive effective
+// and linearized-radiation terms of one face; border_conditions's
+// ambient-back quirk; day_tr_adj.cuh face_ops_adj is its reverse).  rad_out
+// is the face's outdoor radiant temperature; with kMrt a face with a positive effective
 // emissivity me radiates toward its zone's node tm.
 template <typename T, bool kMrt>
 __device__ __forceinline__ FaceOps<T> face_ops(const Lane<T>& L, bool back, T ts_front, T ts_back,
                                                T t_front, T t_back, T rad_out, T ws, T wd, int amb_bug,
                                                T me, T tm) {
-  // forced_base, with P v / A as a product with 1/A and the root of a
-  // positive argument: at rest (and on padded lanes) P v is 0, whose
-  // division and square root would take their slow paths.
+  // The forced term 2.537 W rf sqrt(P v / A), with P v / A as a product
+  // with 1/A and the root of a positive argument: at rest (and on padded
+  // lanes) P v is 0, whose division and square root would take their slow
+  // paths.
   const T pva = L.perim * (ws * L.wmod) * (T(1) / L.area);
   const T base = T(2.537) * (L.windward(wd) ? T(1) : T(0.5)) * L.rf *
                  (pva > T(0) ? m_sqrt(m_max(pva, T(1e-30))) : T(0));
@@ -357,7 +358,7 @@ __device__ __forceinline__ void mrt_sums_shared(const int* s_mptr, const int* s_
   den = warp_sum(den);
 }
 
-// The Carroll network's fixed point (mrt_network) with a lane's two faces
+// The Carroll network's fixed point (heatx mrt_network) with a lane's two faces
 // split over its group: each thread follows one face's node (`slot`: the
 // lane's front or back entry of the shared face rows) from tm0, its
 // boundary air temperature; the `writer` of the face (ranks 0 and 1) writes

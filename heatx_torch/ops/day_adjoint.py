@@ -36,21 +36,22 @@ cotangents of autograd through :func:`heatx_torch.ops.day_march.plain_day_march`
 forward is the day march and whose backward is the day adjoint, so a chain
 of days differentiates with ``torch.autograd`` (``FastRunner.chunk_grad``).
 
-The TR-BDF2 kernel (``csrc/day_adjoint_tr.cu``) runs four threads per
-surface on the forward kernel's device code and keeps one hour's tape
-(``[2 substeps + 1, 32, SP]``) in a wrapper-allocated workspace; a block
-whose rows would not fit shared memory in its 128- or 256-thread launch
-variant runs the 1024-thread one, which keeps the hour's zone rows and
-weather in that workspace too, so that its shared memory does not grow with
-the sub-steps: no building that the day march takes is refused for its
-sub-steps or nodes.
+Both kernels run four threads per surface on their forward kernel's device
+code (the TR-BDF2 body ``csrc/day_adjoint_tr.cu``, the parity body
+``csrc/day_adjoint_parity.cu``) and keep one hour's tape in a
+wrapper-allocated workspace (TR-BDF2 ``[2 substeps + 1, 32, SP]``, parity
+``[substeps, 32, SP]``); a block whose rows would not fit shared memory in its
+128- or 256-thread launch variant runs the 1024-thread one, which keeps the
+hour's zone rows and weather in that workspace too, so that its shared memory
+does not grow with the sub-steps: no building that the day march takes is
+refused for its sub-steps or nodes.
 
 Parity mode: heatx unrolls the sub-steps of ``_hour_body`` under its
 trace-time vjp, so its trace grows with the stability sub-step count.  The
 plain version here differentiates :func:`heatx_torch.ops.day_march.plain_hour_parity`
 hour by hour as it does the TR-BDF2 body, and the kernel reverses one sub-step
-at a time from sub-step-start columns kept in a wrapper-allocated workspace
-(``[substeps, N, SP]``).  The no-mass iteration's update, increase and
+at a time from the taped sub-step starts, recomputing each sub-step's forward
+on the parity march kernel's code.  The no-mass iteration's update, increase and
 convergence masks are piecewise constant and carry no cotangent, as under
 ``jax.vjp``.  ``substeps`` must be given and be the building's
 ``dt_subdivisions`` (heatx checks only that it is given; with another count
@@ -99,10 +100,11 @@ DIFF_CHANNELS = ("sol_front", "sol_back", "ir_front", "ir_back")
 #: The DayMarchParams.node row of each DIFF_NODE name (NODE_FIELDS order).
 NODE_ROW = {"seg_u": 0, "mass": 1, "front_alphas": 2, "back_alphas": 3}
 
-#: The adjoint's compilation units (as day_march.KERNEL_SOURCES): the C entry
-#: and the parity body with its kMrt unit, the TR-BDF2 body with its kMrt unit.
+#: The adjoint's compilation units (as day_march.KERNEL_SOURCES): the C entry,
+#: the parity body with its kMrt unit, the TR-BDF2 body with its kMrt unit.
 KERNEL_SOURCES = tuple(cuda_lib.CSRC_DIR / name for name in (
-    "day_adjoint.cu", "day_adjoint_mrt.cu", "day_adjoint_tr.cu", "day_adjoint_tr_mrt.cu"))
+    "day_adjoint.cu", "day_adjoint_parity.cu", "day_adjoint_parity_mrt.cu", "day_adjoint_tr.cu",
+    "day_adjoint_tr_mrt.cu"))
 
 
 def plain_day_adjoint(
@@ -227,7 +229,7 @@ def plain_day_adjoint(
 # The CUDA kernel wrapper
 # ---------------------------------------------------------------------------
 
-_N_PTRS = 51
+_N_PTRS = 49
 
 
 def _load_library():
@@ -254,7 +256,7 @@ class DayAdjointKernel:
     returns as :func:`plain_day_adjoint`; of the cotangents only
     ``d_ld_hist`` may be None here (and must be, without thermostats).
     ``block_threads`` reads back the threads of a block of the launch variant
-    the last TR-BDF2 launch ran in."""
+    the last launch ran in."""
 
     def __init__(self):
         self.launches = 0
@@ -309,16 +311,14 @@ class DayAdjointKernel:
         fn = lib.heatx_day_adjoint_f32 if dtype == torch.float32 else lib.heatx_day_adjoint_f64
         kw = dict(dtype=dtype, device=T0.device)
         # Workspace: each hour's start state (the kernel allocates nothing),
-        # in parity mode one hour's sub-step-start node columns, in TR-BDF2
-        # mode one hour's tape (each thread's rows of T at every sub-step
-        # start and of every sub-step's stage-1 state) and each block's zone
-        # rows and weather of the hour's sub-steps (csrc/day_adjoint_tr.cu:
-        # the only bound on the sub-steps is memory).
+        # then one hour's tape (each thread's rows at every sub-step start; in
+        # TR-BDF2 mode also of every sub-step's stage-1 state) and each block's
+        # zone rows and weather of the hour's sub-steps (csrc/day_adjoint_tr.cu,
+        # csrc/day_adjoint_parity.cu: the only bound on the sub-steps is memory).
         T_ws = torch.empty((hours, N, SP), **kw)
         zT_ws = torch.empty((hours, NB, ZB), **kw)
-        sub_ws = torch.empty((substeps, N, SP), **kw) if parity else None
-        tape = None if parity else torch.empty(
-            ((2 * substeps + 1) * day_march.MAX_NODES * SP + NB * ((3 * substeps + 1) * ZB + 3 * substeps),), **kw)
+        columns, weather = (substeps, 4 * substeps) if parity else (2 * substeps + 1, 3 * substeps)
+        tape = torch.empty((columns * day_march.MAX_NODES * SP + NB * ((3 * substeps + 1) * ZB + weather),), **kw)
         outs = (
             torch.empty((N, SP), **kw), torch.empty((NB, ZB), **kw),
             torch.empty((4, N, SP), **kw), torch.empty((len(SURF_FIELDS), SP), **kw),
@@ -339,7 +339,7 @@ class DayAdjointKernel:
             d_ld_hist, params.ctl, sp_heat, sp_cool,
             *((None,) * 6 if mix is None
               else (mix.ptr, mix.src, mix.vol, mix.t_ptr, mix.t_dst, mix.t_vol)),
-            *outs[8:11], sub_ws, day_march.cavity_u_row(params), params.cav, *mrt, outs[11], tape,
+            *outs[8:11], params.cav, *mrt, outs[11], tape,
         ]
         ptrs = (ctypes.c_void_p * _N_PTRS)(*[None if t is None else t.data_ptr() for t in tensors])
         ints = (ctypes.c_int * 12)(
@@ -358,8 +358,7 @@ class DayAdjointKernel:
         if err != 0:
             msg = lib.heatx_cuda_error_string(err).decode()
             raise RuntimeError(f"day_adjoint kernel launch failed: CUDA error {err} ({msg})")
-        if not parity:
-            self.block_threads = ran.value
+        self.block_threads = ran.value
         self.launches += 1
         self.parity_launches += int(parity)
         self.cavity_launches += int(params.cav is not None)

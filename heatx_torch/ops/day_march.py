@@ -94,8 +94,7 @@ refresh group's start column; parity: on each no-mass iteration's input and
 on the post-no-mass column) in an out-of-line device function, compiled into
 kinds of their own (``kCav``) that every building with a cavity takes; in
 both day-march kernels a cavity segment's U lives in a register of the
-thread that owns its first row.  The adjoints read a per-launch copy of the
-U row (``cavity_u_row``) that the kernel rewrites.
+thread that owns its first row, and so it is in both adjoints.
 
 Interior MRT (``config.interior_mrt``): the Carroll network's static part
 (participation, view factors, effective emissivities) is computed at
@@ -1393,18 +1392,6 @@ def mrt_operands(params: DayMarchParams, config: SimConfig, collect_hq=False, co
         return params.mrt, params.mrt_ptr, params.mrt_faces
     z = params.zone_ptr
     return params.surf.new_zeros((2, params.surf.shape[1])), torch.zeros_like(z), z[:1].clone()
-
-
-def cavity_u_row(params: DayMarchParams):
-    """The adjoint kernels' segment U-values on a building with gas cavities
-    ``[N, SP]``, or None without: a fresh copy of ``params.node``'s U row per
-    launch, whose cavity segments the kernel rewrites at every operator build
-    (a cavity lane's K reads them there; the cavity operands stay in
-    ``params.cav``, read only).  The day-march kernels keep them in
-    registers."""
-    if params.cav is None:
-        return None
-    return params.node[0].clone()
 
 
 def parity_ints(config: SimConfig, parity: bool) -> tuple:

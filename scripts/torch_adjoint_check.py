@@ -66,6 +66,7 @@ def operands(torch, day_march, day_adjoint, compile_building, model, config, mod
     """Seeded inputs, start state and cotangents of one case: (adjoint, its
     kernel arguments, its keywords)."""
     b = compile_building(model, n=1, config=config)
+    sub = sub or b.dt_subdivisions  # parity: the building's own
     bb = day_march.block_building(b, block_size=block_size) if block_size else day_march.block_building(b)
     lay, S, Z, mask = bb.layout, b.n_surfaces, b.n_zones, b.surfaces.node_mask
     rng = np.random.default_rng(seed)
@@ -99,9 +100,10 @@ def operands(torch, day_march, day_adjoint, compile_building, model, config, mod
     return adj, adj._args(params, T0, zT0, hi, cots), adj._hm._kw(observables=False)
 
 
-def check(torch, testing, SimConfig, compile_building, day_march, day_adjoint, device="cuda", log=print):
-    """Every case, the adjoint kernel against the plain adjoint in f64;
-    returns the worst gap (relative to each output's max |ref|)."""
+def check(torch, testing, SimConfig, compile_building, day_march, day_adjoint, device="cuda", log=print,
+          cases=cases):
+    """Every case of ``cases``, the adjoint kernel against the plain adjoint
+    in f64; returns the worst gap (relative to each output's max |ref|)."""
     kern = day_adjoint.day_adjoint_kernel
     worst = 0.0
     for name, model, config, (mode, k), block_size, hours, sub, sched in cases(torch, testing, SimConfig):

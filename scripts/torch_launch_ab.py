@@ -27,10 +27,10 @@ with a thermostat in trbdf2, and one of 256 surfaces in k=2, each with a
 32-node wall.  ``--f64`` times each kind in f64 as well, ``--only TEXT``
 times only the kinds whose name holds TEXT, and ``--march-only`` builds the
 day-march library alone (no adjoint ptxas lines).  ``--adjoint`` times the
-TR-BDF2 day adjoint's day-launch of each TR-BDF2 kind instead (the
-controlled city's in-run controls have no adjoint): the cotangent of the
-day's zone history seeded, of its loads where the kind has thermostats;
-``--adjoint-lib`` builds the adjoint library alone.  It prints one line per
+day adjoint's day-launch of each kind instead (at most 2 reps; the
+controlled city's in-run controls and the adaptive no-mass loop have no
+adjoint): the cotangent of the day's zone history seeded, of its loads where
+the kind has thermostats; ``--adjoint-lib`` builds the adjoint library alone.  It prints one line per
 checkout and a table of each kind's ms per run and the change of the mean of
 each later checkout's runs against the first's.
 """
@@ -93,7 +93,8 @@ cases = [
 ]
 out = {}
 for name, build, cfg, kw, inputs, reps in cases:
-    if opts["only"] not in name or (opts["adjoint"] and (kw["mode"] == "parity" or name.startswith("controlled"))):
+    # The in-run controls and the adaptive loop have no adjoint.
+    if opts["only"] not in name or (opts["adjoint"] and (name.startswith("controlled") or "adaptive" in name)):
         continue
     for dt in ("f32", "f64") if opts["f64"] else ("f32",):
         tm = ThermalModel(build(1000, 10), config=SimConfig(**dict(cfg, dtype=getattr(torch, dt.replace("f", "float")))),
@@ -106,13 +107,14 @@ for name, build, cfg, kw, inputs, reps in cases:
         fn = lambda: fr.hour_march(fr.params, T, zT, hi)
         if opts["adjoint"]:
             from heatx_torch.ops import day_adjoint
-            adj = day_adjoint.make_day_adjoint(fr._bb, hours=24, **kw)
+            akw = dict(kw, substeps=tm.dt_subdivisions) if kw["mode"] == "parity" else kw
+            adj = day_adjoint.make_day_adjoint(fr._bb, hours=24, **akw)
             NB, ZB = fr._bb.n_blocks, fr._bb.zones_per_block
             rng = np.random.default_rng(3)
             cot = lambda: torch.as_tensor(rng.normal(size=(24, NB, ZB)) / (24 * NB * ZB), dtype=T.dtype, device="cuda")
             cots = (torch.zeros_like(T), torch.zeros_like(zT), cot()) + ((cot(),) if fr.params.ctl is not None else ())
             fn = lambda: adj(fr.params, T, zT, hi, cots)
-        out[name + ("" if dt == "f32" else " f64")] = event_ms(fn, reps)
+        out[name + ("" if dt == "f32" else " f64")] = event_ms(fn, min(reps, 2) if opts["adjoint"] else reps)
 print(json.dumps(out))
 """
 
