@@ -292,6 +292,35 @@ Phases (one output line each, then a JSON line per contract):
    adaptive loop and with one iteration, trbdf2, trbdf2_refresh k=2, exp),
    its wall time (host clock), finite; the one-iteration parity run and the
    k=2 run held against the kernel route on the same inputs (<= F32_TOL).
+27. the command line and sizing on the card, in-process
+   (heatx_torch.cli.main, so the launches are counted): (a) ``simulate
+   examples/data/office.idf <synthetic EPW, seed 0> --engine kernel --mode
+   trbdf2`` for the whole year in f32 with CLI_WARMUP_DAYS warm-up days,
+   ``--loads-csv``, ``--comfort-csv`` (the operative history: the kMrt
+   instantiation with gas cavities), ``--fluxes-csv`` and
+   ``--summary-json``: exit code 0, exactly 365 day-march launches plus the
+   warm-up repeats it reports, every one on the cavity-and-MRT kind, every
+   CSV finite; the wall time, heating and cooling kWh printed; (b) the same
+   command in f64 over 48 h on the card and with ``--platform cpu`` (the
+   plain versions): every CSV to one unit of its last printed digit, the
+   summary JSON within 1e-9 relative (but the wall clock); (c)
+   ``sizing.annual_peak_loads(engine="kernel")`` on the office: the f32 year
+   on the card (365 launches plus the warm-up repeats it reports, peaks
+   finite, host clock), and f64 over a SIZING_CUT_HOURS cut of the weather
+   (at most SIZING_CUT_WARMUP warm-up days) on the card and on
+   ``device="cpu"`` (loads within 1e-9 of max |load|); (d)
+   ``FastRunner.update_building`` on the bench city: seg_u x 1.2 swapped
+   into the f32 runner of phase 4's mode, one day bit for bit equal to a
+   runner built on the scaled building; (e) ``FastRunner(hours=1).march``
+   on the bench city in f64, 24 times: exactly 24 launches, within F64_TOL
+   of one ``run`` of that day on a 24-hour runner; (f) ``size
+   examples/data/office.idf <the same EPW> --annual`` in f32: exit code 0,
+   the design days on the parity kind with cavities and MRT (the adaptive
+   no-mass loop; warm-up repeats + 1 launches a day) and the year on the
+   TR-BDF2 one, counted, every peak finite, the host-clock time printed;
+   then the winter design day in f64 at the coarse discretization
+   (SIZING_DD_WARMUP warm-up repeats): the kernel route on the card against
+   ``ThermalModel.run`` on the CPU, within 1e-9 of max |load|.
 
 Phases 16b and 19c hold the parity kernels against their plain versions over
 the daytime window PARITY_WINDOW (hours 8-14) of the day-launch; 16b held the
@@ -321,7 +350,9 @@ PARITY_WINDOW (``plain_hours``: first and last hour), their ``plain_ms`` the
 plain versions' time for it.  The eight ``*_mrt`` entries are the MRT
 instantiations: the MRT city's (phase 19; the parity ones held over
 PARITY_WINDOW, ``plain_hours``) and, with gas cavities, the office's
-(phase 20).  The two ``day_march_gated*`` entries are the controlled
+(phase 20); ``day_march_cavity_mrt`` also lists phase 27's command-line
+and sizing years, ``day_march`` phase 27's update_building day and its 24
+one-hour launches.  The two ``day_march_gated*`` entries are the controlled
 city's (phase 22): its annual run's launches (TR-BDF2) and its 48 h parity
 run's, the day-launch timed beside ``ms_ungated_bench_day``, the parity one
 held over PARITY_WINDOW.  ``day_march_parity_adaptive`` is the parity body
@@ -600,6 +631,11 @@ ADAPTIVE_RMSE = 0.0065  # K
 # and the T bound.
 ADAPTIVE_NEAR = 1e-10  # K
 ADAPTIVE_RUN_HOURS = 2  # phase 26: ThermalModel.run at full width, the XLA path
+CLI_WARMUP_DAYS = 3  # phase 27a: the CLI year's --warmup-days
+CLI_F64_HOURS = 48  # phase 27b: the CLI's f64 run, card against the CPU
+SIZING_CUT_HOURS = 168  # phase 27c: the f64 sizing run, card against the CPU,
+SIZING_CUT_WARMUP = 3  # with at most this many warm-up days
+SIZING_DD_WARMUP = 2  # phase 27f: the f64 design day's warm-up repeats, card against the CPU
 # Published H100 SXM rates (NVIDIA H100 datasheet): HBM bytes/s and the
 # f32 FLOP/s outside the tensor cores (the kernels run no matrix products).
 HBM_BPS = 3.35e12
@@ -3314,7 +3350,7 @@ def gate_kernel_entries(ctx, p22, p23):
     ]
 
 
-def mrt_kernel_entries(p19, p20):
+def mrt_kernel_entries(p19, p20, p27):
     """The kernels line's entries of the eight MRT instantiations (the four
     bodies, without and with gas cavities)."""
     def entry(name, source, replaces, launches, by_path, ms, plain_ms, err, b, **extra):
@@ -3348,13 +3384,17 @@ def mrt_kernel_entries(p19, p20):
               p19.pa_ms, p19.pa_plain_ms, p19.pa_abs, b19["parity_adjoint"], rel_l2_err=p19.pa_rel,
               plain_hours=H),
         entry("day_march_cavity_mrt", tr + " and cavity_u", k1_tr, p20.launches[2],
-              {"office IDF workflow with MRT, 8760 h (phase 20)": p20.launches[2]},
+              {"office IDF workflow with MRT, 8760 h (phase 20)": p20.launches[2],
+               "python -m heatx_torch simulate, office year (phase 27a)": p27.cli_launches,
+               "annual_peak_loads(engine='kernel'), office year (phase 27c)": p27.sizing_launches,
+               "python -m heatx_torch size --annual, the year (phase 27f)": p27.size_year_launches},
               p20.ms, p20.plain_ms, p20.err32, b20["march"]),
         entry("day_adjoint_cavity_mrt", adj_tr + " and cavity_u", k2_tr, p20.adj_counts[2],
               {"office with MRT, one day's adjoint (phase 20)": p20.adj_counts[2]},
               p20.adj_ms, p20.adj_plain_ms, p20.adj_abs, b20["adjoint"]),
         entry("day_march_parity_cavity_mrt", fwd + " and cavity_u", k1_pa, p20.pc_counts[2],
-              {f"office with MRT in parity mode at {p20.subc} sub-steps/h, one day (phase 20)": p20.pc_counts[2]},
+              {f"office with MRT in parity mode at {p20.subc} sub-steps/h, one day (phase 20)": p20.pc_counts[2],
+               "python -m heatx_torch size, the design days, adaptive loop (phase 27f)": p27.size_dd_launches},
               p20.pc_ms, p20.pc_plain_ms, p20.pc_err, b20["parity"]),
         entry("day_adjoint_parity_cavity_mrt", adj + " and cavity_u", k2_pa, p20.pca_counts[2],
               {f"office with MRT in parity mode at {p20.subc} sub-steps/h, one day's adjoint (phase 20)":
@@ -3628,6 +3668,241 @@ def phase26_xla_run(torch, ctx):
             row += f" (kernel route {gap:.2e} K apart)"
         rows.append(row)
     return rows
+
+
+def csv_table(path):
+    """(header, values [rows, columns]) of one of the command line's CSVs."""
+    import csv
+
+    with open(path) as f:
+        rows = list(csv.reader(f))
+    return rows[0], np.array([[float(v) for v in r] for r in rows[1:]])
+
+
+def json_gap(got, ref, what=""):
+    """The largest relative gap between two summary JSONs' numbers (the wall
+    clock left out); raises where their structure or other values differ."""
+    if isinstance(ref, dict):
+        check(sorted(got) == sorted(ref), f"summary keys differ at {what}")
+        return max([json_gap(got[k], ref[k], f"{what}.{k}") for k in ref if k != "wall_clock_s"], default=0.0)
+    if isinstance(ref, list):
+        check(len(got) == len(ref), f"summary lengths differ at {what}")
+        return max([json_gap(g, r, f"{what}[{i}]") for i, (g, r) in enumerate(zip(got, ref))], default=0.0)
+    if isinstance(ref, float):
+        return abs(got - ref) / max(abs(ref), 1e-300)
+    check(got == ref, f"summary differs at {what}: {got!r} != {ref!r}")
+    return 0.0
+
+
+def phase27_cli_sizing(torch, ctx):
+    """The command line and equipment sizing on the card, and FastRunner's
+    one-hour entry points and update_building at full width (see the module
+    docstring).  Returns the launch counts and the numbers printed."""
+    import contextlib
+    import io
+    import os
+    import re
+    import tempfile
+
+    from heatx_torch import cli, sizing
+    from heatx_torch.engine.adjoint import tree_map
+    from heatx_torch.model.idf import load_idf
+    from heatx_torch.weather.epw import read_epw
+
+    testing, SimConfig, ThermalModel, smi = ctx.testing, ctx.SimConfig, ctx.ThermalModel, ctx.smi
+    km = ctx.day_march.day_march_kernel
+    idf = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", "data", "office.idf")
+    t_phase = time.time()
+
+    def count_reset():
+        km.launches = km.cavity_launches = km.mrt_launches = km.parity_launches = 0
+
+    def counts():
+        return km.launches, km.cavity_launches, km.mrt_launches
+
+    def main(argv):
+        err = io.StringIO()
+        with contextlib.redirect_stdout(io.StringIO()) as out, contextlib.redirect_stderr(err):
+            rc = cli.main(argv)
+        return rc, out.getvalue(), err.getvalue()
+
+    with tempfile.TemporaryDirectory() as d:
+        epw_path = testing.write_synthetic_epw(os.path.join(d, "santiago_synthetic.epw"), seed=0)
+        flags = ["--engine", "kernel", "--mode", "trbdf2"]
+
+        def files(tag):
+            return ["-o", f"{d}/{tag}_z.csv", "--loads-csv", f"{d}/{tag}_l.csv", "--comfort-csv",
+                    f"{d}/{tag}_c.csv", "--fluxes-csv", f"{d}/{tag}_f", "--summary-json", f"{d}/{tag}_s.json"]
+
+        # (a) the year in f32 on the card
+        count_reset()
+        t0 = time.time()
+        rc, out_a, err_a = main(["simulate", idf, epw_path, *flags, "--warmup-days", str(CLI_WARMUP_DAYS),
+                                 *files("year")])
+        wall_a = time.time() - t0
+        check(rc == 0, f"CLI year: exit code {rc}: {err_a[-2000:]}")
+        m = re.search(r"# warm-up: (\d+) first-day repeats", err_a)
+        check(m is not None, "CLI year: no warm-up line")
+        reps = int(m.group(1))
+        got = counts()
+        check(got == (365 + reps,) * 3,
+              f"CLI year: {got} (all, cavity, MRT) day-march launches, expected {365 + reps} of each")
+        names = ["z.csv", "l.csv", "c.csv"] + [f"f_{c}.csv" for c in ("h_front", "h_back", "q_front", "q_back")]
+        for name in names:
+            hdr, v = csv_table(f"{d}/year_{name}")
+            check(v.shape[0] == 8760 and bool(np.isfinite(v).all()), f"CLI year {name}: {v.shape}, finite?")
+        with open(f"{d}/year_s.json") as f:
+            year = json.load(f)
+        demand = year["demand"]
+        check(demand["heating_kwh"] > 0 and demand["cooling_kwh"] > 0, f"CLI year demand {demand}")
+
+        # (b) 48 h in f64, the card against the plain versions on the CPU
+        base = ["simulate", idf, epw_path, *flags, "--f64", "--hours", str(CLI_F64_HOURS)]
+        rc_g, _, err_g = main(base + files("gpu"))
+        rc_c, _, err_c = main(base + ["--platform", "cpu"] + files("cpu"))
+        check(rc_g == rc_c == 0, f"CLI f64: exit codes {rc_g}, {rc_c}: {err_g[-1000:]} {err_c[-1000:]}")
+        units = {"z.csv": 1e-4, "l.csv": 0.1, "c.csv": None}
+        worst_units = 0.0
+        for name in names:
+            hg, g = csv_table(f"{d}/gpu_{name}")
+            hc, c = csv_table(f"{d}/cpu_{name}")
+            check(hg == hc and g.shape == c.shape == (CLI_F64_HOURS, len(hg)), f"CLI f64 {name}: shapes")
+            unit = units.get(name, 1e-4)
+            if unit is None:  # PMV to 1e-3, PPD% to 0.1
+                z = (len(hg) - 1) // 2
+                unit = np.array([1e-3] * z + [0.1] * z)
+            gap = float((np.abs(g[:, 1:] - c[:, 1:]) / unit).max())
+            check(gap <= 1.0 + 1e-9, f"CLI f64 {name}: card vs CPU {gap} units of the last digit apart")
+            worst_units = max(worst_units, gap)
+        with open(f"{d}/gpu_s.json") as f, open(f"{d}/cpu_s.json") as f2:
+            js_gap = json_gap(json.load(f), json.load(f2))
+        check(js_gap <= 1e-9, f"CLI f64 summary: card vs CPU {js_gap} relative")
+        w = read_epw(epw_path)
+
+        # (f) size --annual in f32: the design days on the parity day march
+        # (the adaptive no-mass loop), the year on the TR-BDF2 one
+        count_reset()
+        t0 = time.time()
+        rc, _, err_f = main(["size", idf, epw_path, "--annual", "--sizing-json", f"{d}/size.json"])
+        wall_f = time.time() - t0
+        check(rc == 0, f"CLI size: exit code {rc}: {err_f[-2000:]}")
+        with open(f"{d}/size.json") as f:
+            sz = json.load(f)
+        dd_launches = sum(sz[season]["warmup_days"] + 1 for season in ("winter", "summer"))
+        year_f = 365 + sz["annual"]["warmup_days"]
+        got = counts() + (km.parity_launches,)
+        check(got == (dd_launches + year_f,) * 3 + (dd_launches,),
+              f"CLI size: {got} (all, cavity, MRT, parity) launches, expected {dd_launches} parity design-day "
+              f"launches and {year_f} for the year, all on the cavity-and-MRT kind")
+        peaks = (sz["winter"]["total_peak_heating_W"], sz["summer"]["total_peak_cooling_W"],
+                 sz["annual"]["total_peak_heating_W"], sz["annual"]["total_peak_cooling_W"])
+        check(bool(np.isfinite(peaks).all()) and peaks[0] > 0, f"CLI size: peaks {peaks}")
+
+    # (c) annual sizing on the office
+    model = load_idf(idf).model
+    count_reset()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    ann = sizing.annual_peak_loads(model, w, engine="kernel", coverage=99.6)
+    wall_c = time.time() - t0
+    got = counts()
+    check(got == (365 + ann.warmup_days,) * 3,
+          f"sizing year: {got} (all, cavity, MRT) launches, expected {365 + ann.warmup_days} of each")
+    for name in ("peak_heating_W", "peak_cooling_W", "max_heating_W", "max_cooling_W"):
+        check(bool(np.isfinite(getattr(ann, name)).all()), f"sizing year {name} not finite")
+    # Without internal gains (annual_peak_loads' default) the synthetic
+    # Santiago year may ask for no cooling at all; it always asks for heat.
+    check(float(ann.max_heating_W.max()) > 0, "sizing year: no heating load")
+    cut = testing.cut_weather(w, SIZING_CUT_HOURS)
+    cfg64 = SimConfig(dtype=torch.float64, interior_mrt=True)
+    kw_cut = dict(engine="kernel", config=cfg64, max_repeats=SIZING_CUT_WARMUP)
+    s_gpu = sizing.annual_peak_loads(model, cut, device="cuda", **kw_cut)
+    s_cpu = sizing.annual_peak_loads(model, cut, device="cpu", **kw_cut)
+    scale = float(np.abs(s_cpu.loads_W).max())
+    gap_c = float(np.abs(s_gpu.loads_W - s_cpu.loads_W).max())
+    check(s_gpu.warmup_days == s_cpu.warmup_days, "sizing cut: warm-up repeats differ")
+    check(scale > 0 and gap_c <= 1e-9 * scale, f"sizing cut: card vs CPU loads {gap_c} W > 1e-9 x {scale} W")
+    # (f) the winter design day in f64 at the coarse discretization with the
+    # adaptive loop: the kernel route on the card against heatx's route
+    # (ThermalModel.run) on the CPU
+    winter = sizing.design_days_from_epw(w)["winter"]
+    kw_dd = dict(epw=w, config=testing.coarse_config(nomass_fixed_iters=None, interior_mrt=True),
+                 max_repeats=SIZING_DD_WARMUP)
+    count_reset()
+    dd_gpu = sizing.design_day_loads(model, winter, device="cuda", **kw_dd)
+    launches_dd = km.parity_launches
+    dd_cpu = sizing.design_day_loads(model, winter, device="cpu", **kw_dd)
+    check(launches_dd == dd_gpu.warmup_days + 1, f"design day: {launches_dd} parity launches")
+    check(dd_gpu.warmup_days == dd_cpu.warmup_days, "design day: warm-up repeats differ")
+    scale_dd = float(np.abs(dd_cpu.profile_W).max())
+    gap_dd = float(np.abs(dd_gpu.profile_W - dd_cpu.profile_W).max())
+    check(scale_dd > 0 and gap_dd <= 1e-9 * scale_dd,
+          f"design day: card kernel vs CPU ThermalModel.run {gap_dd} W > 1e-9 x {scale_dd} W")
+
+    # (d) update_building on the bench city, f32, phase 4's mode
+    kw = dict(mode="trbdf2_refresh", substeps=8, hours=24, refresh_every=2)
+    tm = ThermalModel(ctx.model, n=1, config=SimConfig(dtype=torch.float32), device="cuda")
+    b = tm.building
+    b12 = dataclasses.replace(b, surfaces=dataclasses.replace(b.surfaces, seg_u=b.surfaces.seg_u * 1.2))
+    day = testing.bench_inputs(b, 24, device="cuda")
+    runner = tm.fast_runner(**kw)
+    _, z_before = runner.run(tm.initial_state(), day, interp_weather=True)
+    count_reset()
+    runner.update_building(b12)
+    f_swap, z_swap = runner.run(tm.initial_state(), day, interp_weather=True)
+    launches_d = km.launches
+    t12 = ThermalModel.from_building(b12, device="cuda")
+    f_new, z_new = t12.fast_runner(**kw).run(t12.initial_state(), day, interp_weather=True)
+    check(launches_d == 1, f"update_building day: {launches_d} launches")
+    check(torch.equal(z_swap, z_new) and torch.equal(f_swap.node_T, f_new.node_T),
+          "update_building: the swapped runner's day is not bit-equal to a fresh runner's")
+    moved = float((z_swap - z_before).abs().max())
+    check(moved > 1e-3, f"update_building: the swap moved zone T by {moved} K only")
+
+    # (e) FastRunner(hours=1).march x 24, f64, against one run of the day
+    tm64 = ThermalModel(ctx.model, n=1, config=SimConfig(dtype=torch.float64), device="cuda")
+    day64 = testing.bench_inputs(tm64.building, 24, device="cuda")
+    f24, z24 = tm64.fast_runner(hours=24, **{k: v for k, v in kw.items() if k != "hours"}).run(
+        tm64.initial_state(), day64)
+    r1 = tm64.fast_runner(hours=1, **{k: v for k, v in kw.items() if k != "hours"})
+    st, rows = tm64.initial_state(), []
+    count_reset()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for h in range(24):
+        st = r1.march(st, tree_map(lambda v: v[h] if v.ndim and v.shape[0] == 24 else v, day64))
+        rows.append(st.zone_T)
+    torch.cuda.synchronize()
+    wall_e = time.time() - t0
+    launches_e = km.launches
+    check(launches_e == 24, f"march x 24: {launches_e} launches")
+    gap_e = max(float((torch.stack(rows) - z24).abs().max()), float((st.node_T - f24.node_T).abs().max()))
+    check(gap_e <= F64_TOL, f"march x 24 vs run: max |d| {gap_e} K > {F64_TOL}")
+    phase_s = time.time() - t_phase
+    print(f"phase 27 the command line and sizing on {smi}: (a) python -m heatx_torch simulate office.idf, a "
+          f"synthetic Santiago year, --engine kernel --mode trbdf2, f32, --warmup-days {CLI_WARMUP_DAYS} ({reps} "
+          f"repeats), loads, comfort, fluxes and summary: {wall_a:.3f} s (host clock; the CLI's own "
+          f"{year['wall_clock_s']:.3f} s), {365 + reps} day-march launches, all on the cavity-and-MRT kind, heating "
+          f"{demand['heating_kwh']:.1f} kWh, cooling {demand['cooling_kwh']:.1f} kWh; (b) {CLI_F64_HOURS} h f64 "
+          f"card vs --platform cpu: every CSV within {worst_units:.3f} units of its last digit (<= 1), summary "
+          f"{js_gap:.1e} relative (<= 1e-9); (c) annual_peak_loads(engine=\"kernel\") on the office, f32 year "
+          f"{wall_c:.3f} s (host clock), {365 + ann.warmup_days} launches ({ann.warmup_days} warm-up), peaks "
+          f"heating {float(ann.peak_heating_W.sum()):.1f} W, cooling {float(ann.peak_cooling_W.sum()):.1f} W at "
+          f"{ann.coverage:g} %; f64 {SIZING_CUT_HOURS} h card vs CPU loads {gap_c:.3e} W = "
+          f"{gap_c / scale:.1e} of max |load| (<= 1e-9); (d) update_building on the bench city, seg_u x 1.2, one "
+          f"f32 day bit-equal to a fresh runner (the swap moved zone T by {moved:.3f} K); (e) FastRunner(hours=1)"
+          f".march x 24 on the bench city, f64, {launches_e} launches in {wall_e:.3f} s (host clock), max |d| "
+          f"{gap_e:.3e} K vs one run of the day (<= {F64_TOL:g}); (f) python -m heatx_torch size office.idf "
+          f"--annual, f32: {wall_f:.3f} s (host clock), {dd_launches} parity design-day launches (warm-up "
+          f"{sz['winter']['warmup_days']} winter, {sz['summer']['warmup_days']} summer) and {year_f} for the year, "
+          f"totals: winter heating {peaks[0]} W, summer cooling {peaks[1]} W, annual 99.6 % heating {peaks[2]} W, "
+          f"cooling {peaks[3]} W; the winter design day in f64 at the coarse discretization, adaptive loop, "
+          f"{launches_dd} parity launches, card kernel vs CPU ThermalModel.run {gap_dd:.3e} W = "
+          f"{gap_dd / scale_dd:.1e} of max |load| (<= 1e-9); phase {phase_s:.1f} s", flush=True)
+    return SimpleNamespace(cli_launches=365 + reps, sizing_launches=365 + ann.warmup_days,
+                           size_dd_launches=dd_launches, size_year_launches=year_f, wall_f=wall_f,
+                           swap_launches=launches_d, hour_launches=launches_e, wall_a=wall_a, wall_c=wall_c,
+                           heat=demand["heating_kwh"], cool=demand["cooling_kwh"], seconds=phase_s)
 
 
 def adaptive_kernel_entry(p25):
@@ -4123,8 +4398,11 @@ def main() -> int:
     p25 = phase25_adaptive_city(torch, ctx, p13)
     rows26 = phase26_xla_run(torch, ctx)
     print(f"phase 26 ThermalModel.run on {smi}, the bench city at full width, f32, {ADAPTIVE_RUN_HOURS} h from "
-          f"midnight (host clock): " + "; ".join(rows26) + f"; chip_smoke.py so far {time.time() - t_start:.1f} s "
-          "(host clock, from its start)", flush=True)
+          f"midnight (host clock): " + "; ".join(rows26), flush=True)
+
+    # 27. the command line and sizing (see the module docstring)
+    p27 = phase27_cli_sizing(torch, ctx)
+    print(f"chip_smoke.py so far {time.time() - t_start:.1f} s (host clock, from its start)", flush=True)
 
     # The kernels line: bounds from this run's shapes (f32 bench day; the
     # thermostat instantiation on the demand city's day, same mode).
@@ -4181,6 +4459,8 @@ def main() -> int:
                 "demand gradient, 30 days (phase 11b)": launches_dfwd,
                 "parity run, 48 h (phase 13a)": p13.launches[0],
                 f"parity value_and_grad, {PARITY_GRAD_DAYS} days (phase 14a)": p14.counts[0],
+                "update_building, one day (phase 27d)": p27.swap_launches,
+                "FastRunner(hours=1).march x 24, f64 (phase 27e)": p27.hour_launches,
             },
             "max_abs_err": err32,
             "ms": kernel_ms,
@@ -4322,7 +4602,7 @@ def main() -> int:
             "bound_by": cav_b["parity_adjoint"][3],
             "library_ms": None,
         },
-        *mrt_kernel_entries(p19, p20),
+        *mrt_kernel_entries(p19, p20, p27),
         *gate_kernel_entries(ctx, p22, p23),
         adaptive_kernel_entry(p25),
     ]

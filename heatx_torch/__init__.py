@@ -19,7 +19,11 @@ heatx's XLA-path integrators run too, as plain tensor code on the device:
 ``ThermalModel.run`` (heatx's default exact parity march with the adaptive
 no-mass loop, and the fast modes), ``march``, ``run_checked``, ``warmup``,
 ``march_imp`` and ``march_exp``; the day march runs the adaptive loop with
-``HEATX_KERNEL_WHILE=1``, as heatx's kernel does.
+``HEATX_KERNEL_WHILE=1``, as heatx's kernel does (the sizing design days
+admit it with ``fast_runner(adaptive_nomass=True)``).  heatx's command line
+runs as ``python -m heatx_torch info|simulate|size`` (``heatx_torch.cli``),
+with equipment sizing (``heatx_torch.sizing``), comfort indices, state
+checkpoints, context shading and the ``.spl`` reader beside it.
 Both day kernels are written in CUDA for Hopper
 (``heatx_torch/csrc/day_march_tr.cu``, ``day_march_parity.cu``,
 ``day_adjoint.cu``) with plain PyTorch

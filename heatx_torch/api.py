@@ -16,7 +16,10 @@ schedules, ventilation gates), and with the per-hour h/q and
 operative-temperature histories (``collect_fluxes``, ``collect_operative``); and
 ``FastRunner.chunk_forward``/``chunk_grad``, the forward and backward sweeps
 of ``heatx_torch.engine.adjoint.chunked_value_and_grad`` (the day march and
-the adjoint day march), for zone-temperature and demand objectives.
+the adjoint day march), for zone-temperature and demand objectives; the
+one-step entry points ``FastRunner.hour_inputs``, ``march_blocked`` and
+``march``, and ``FastRunner.update_building``, which swaps a same-layout
+building's values in without a rebuild.
 """
 
 from __future__ import annotations
@@ -89,6 +92,19 @@ def _same(a, b) -> bool:
     if a.shape != b.shape:
         return False
     return bool(np.array_equal(a, b, equal_nan=a.dtype.kind == "f" and b.dtype.kind == "f"))
+
+
+def _operand_shapes(params) -> list:
+    """(name, shape, dtype) of every tensor operand of the day march's
+    blocked building (``None`` where an optional one is absent)."""
+    out = []
+    for f in dataclasses.fields(params):
+        v = getattr(params, f.name)
+        parts = [v] if v is None or isinstance(v, torch.Tensor) else [
+            getattr(v, g.name) for g in dataclasses.fields(v)
+        ]
+        out += [(f.name, None if a is None else (tuple(a.shape), a.dtype)) for a in parts]
+    return out
 
 
 def _requires_grad(v) -> bool:
@@ -374,6 +390,7 @@ class ThermalModel:
         collect_operative: bool = False,
         refresh_every: int = None,
         use_kernel: bool = True,
+        adaptive_nomass: bool = False,
     ) -> "FastRunner":
         """The day-march path (heatx ``ThermalModel.fast_runner``).
 
@@ -384,7 +401,8 @@ class ThermalModel:
         building's own ``dt`` and ``dt_subdivisions`` sub-steps per hour,
         118 at the default discretization; on a building with no-mass nodes
         the adaptive loop, ``config.nomass_fixed_iters=None``, runs only with
-        ``HEATX_KERNEL_WHILE=1``, as in heatx, and has no gradient).  ``block_size`` is
+        ``HEATX_KERNEL_WHILE=1``, as in heatx, or ``adaptive_nomass=True``,
+        and has no gradient).  ``block_size`` is
         the number of surface lanes per zone-closed block, one CUDA thread
         block each (at most 256; default: the largest zone-connected
         component rounded up to a warp).  ``use_kernel=False`` runs the
@@ -400,7 +418,7 @@ class ThermalModel:
             hours=hours, collect_fluxes=collect_fluxes,
             scheduled_setpoints=scheduled_setpoints, mesh=mesh,
             collect_operative=collect_operative, refresh_every=refresh_every,
-            use_kernel=use_kernel,
+            use_kernel=use_kernel, adaptive_nomass=adaptive_nomass,
         )
 
 
@@ -422,11 +440,17 @@ class FastRunner:
         collect_operative: bool = False,
         refresh_every: int = None,
         use_kernel: bool = True,
+        adaptive_nomass: bool = False,
     ):
         _unsupported(mesh=(mesh is not None, "ROADMAP A12"))
         self._tm = tm
         self.device = tm.device
         building = tm.building
+        #: The building whose values the operands hold (``update_building``
+        #: swaps it; the inputs keep reading ``tm.building``, as in heatx).
+        self._building = building
+        # The requested block size, for update_building's re-blocking.
+        self._block_size = block_size
         # The operative history needs the Carroll statics even without MRT physics.
         self._bb = day_march.block_building(
             building, block_size=block_size, mrt_statics=True if collect_operative else None
@@ -441,6 +465,7 @@ class FastRunner:
             refresh_every=refresh_every, collect_bad=True, device=self.device,
             scheduled_setpoints=scheduled_setpoints, collect_hq=collect_fluxes,
             collect_operative=collect_operative, scheduled_shade_sp=self._scheduled_shade,
+            adaptive_nomass=adaptive_nomass,
         )
         self._collect_hq = collect_fluxes
         self._collect_op = collect_operative
@@ -474,6 +499,38 @@ class FastRunner:
     @property
     def layout(self):
         return self._bb.layout
+
+    def update_building(self, building: CompiledBuilding) -> None:
+        """Swap every building-derived operand for those of a same-layout
+        :class:`CompiledBuilding` whose VALUES changed (for instance a scaled
+        ``surfaces.seg_u`` during calibration), without rebuilding the
+        runner (heatx ``FastRunner.update_building``).  The blocked layout
+        (the surface permutation) and every operand's shape must stay as
+        they are; otherwise ``ValueError``.  The swap overrides earlier
+        :meth:`set_ground_temperature` writes (re-apply them after), and
+        drops the value key of ``chunk_forward``'s parameter sync, so a
+        manual swap is never shadowed by a stale sync."""
+        bb2 = day_march.block_building(
+            building, block_size=self._block_size,
+            mrt_statics=True if self._collect_op else None,
+        )
+        if not np.array_equal(np.asarray(bb2.layout.surf_perm), np.asarray(self._bb.layout.surf_perm)):
+            raise ValueError(
+                "update_building requires an identical blocked layout: "
+                "re-discretized or re-ordered buildings need a fresh "
+                "fast_runner (only value changes on the compiled arrays "
+                "keep the layout)"
+            )
+        params2 = day_march.params_from_blocked(bb2, bb2.config.dtype, self.device)
+        if _operand_shapes(params2) != _operand_shapes(self.params):
+            raise ValueError(
+                "update_building produced different operand shapes; the "
+                "building's structure changed"
+            )
+        self._bb, self._building, self.params = bb2, building, params2
+        self._blocker = day_march.ParamBlocker(bb2, self.device)
+        self._ground_masks = None
+        self._param_key = None
 
     def set_ground_temperature(self, value: float) -> None:
         """Set every ground-contact face's soil temperature in the blocked
@@ -738,6 +795,64 @@ class FastRunner:
         prep = self._prepare(inputs_seq, interp_weather)
         return self._day_inputs(prep, 0, prep.D)
 
+    def hour_inputs(self, inputs: StepInputs):
+        """One step's StepInputs -> the day march's hour-input tuple (heatx
+        ``FastRunner.hour_inputs``), held over the runner's ``hours``:
+        weather broadcast over the sub-steps (a scalar, or ``[substeps]``
+        values of one hour), per-surface arrays permuted into blocks, zone
+        gains summed.  Setpoints (scalar or ``[Z]``) and the shading
+        setpoints (scalar or ``[S]``) are constants for the call.  The
+        entries carry :meth:`run`'s leading ``[hours]`` axes
+        (:meth:`kernel_inputs`), heatx's drop it on a one-hour runner."""
+        H, sub = self._hours, self._substeps
+        weather = ("t_out", "wind_speed", "wind_direction")
+        given = {k: torch.as_tensor(getattr(inputs, k), dtype=self._dtype, device=self.device)
+                 for k in weather}
+        upd = {}
+        for f in dataclasses.fields(StepInputs):
+            v = getattr(inputs, f.name)
+            if v is None:
+                continue
+            if f.name in ("heat_sp", "cool_sp"):
+                v = torch.as_tensor(v)
+                upd[f.name] = v.reshape(1, -1) if v.ndim == 1 else v  # [1, Z]: a constant
+            elif f.name in weather:
+                # The hourly value (heatx's gates read the hour's mean);
+                # sub-step values replace the held rows below.
+                upd[f.name] = given[f.name].mean().expand(H)
+            elif f.name not in ("mix_vol", "shade_sp"):
+                v = torch.as_tensor(v, device=self.device)
+                upd[f.name] = v[None].expand((H,) + tuple(v.shape))
+        out = list(self.kernel_inputs(inputs.replace(**upd))[0])
+        for i, k in enumerate(weather):
+            if given[k].ndim:
+                out[i] = torch.broadcast_to(given[k], (sub,)).repeat(H)
+        return tuple(out)
+
+    def march_blocked(self, T, zT, hour_inputs):
+        """One launch of the day march on blocked state (heatx
+        ``FastRunner.march_blocked``, the zero-copy hot path).  Returns
+        ``(T, zT, hq, zt_hist[, hq_hist], bad[, ld_hist][, top_hist])``: the
+        trailing entries follow the runner's flags (``bad`` always, the loads
+        when the building has thermostats, the operative history when built
+        with ``collect_operative``)."""
+        return self._march(self.params, T, zT, hour_inputs)
+
+    def march(self, state: SimState, inputs: StepInputs) -> SimState:
+        """One step of the runner's ``hours`` (one hour on a one-hour
+        runner): SimState in, SimState out (heatx ``FastRunner.march``),
+        through :meth:`to_blocked`, :meth:`hour_inputs`,
+        :meth:`march_blocked` and :meth:`from_blocked`; on a building with
+        thermostats ``ideal_load`` is the last hour's mean ideal power."""
+        T, zT = self.to_blocked(state)
+        outs = self.march_blocked(T, zT, self.hour_inputs(inputs))
+        st = self.from_blocked(outs[0], outs[1], outs[2])
+        if self._has_loads:
+            # The loads sit before the optional operative history.
+            ld = outs[-2] if self._collect_op else outs[-1]
+            st.ideal_load = ld[-1].reshape(-1)[self._zinv]
+        return st
+
     # -- the run ------------------------------------------------------------
 
     def run(
@@ -972,9 +1087,9 @@ class FastRunner:
     def _blocked_params(self, building: CompiledBuilding):
         """``self.params`` with the DIFF rows and zone volumes of
         ``building``, blocked differentiably.  Raises if ``building`` changed
-        any other field: the runner holds those fixed (heatx re-blocks them
-        in ``update_building``, ROADMAP A9)."""
-        base = dict(_fields(self._tm.building))
+        any other field: the runner holds those fixed (:meth:`update_building`
+        swaps a whole building)."""
+        base = dict(_fields(self._building))
         free = self._diff_fields()
         changed = [
             name for name, v in _fields(building) if name not in free and not _same(v, base[name])

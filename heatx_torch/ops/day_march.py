@@ -1613,7 +1613,7 @@ def hour_march_for(
     bb: BlockedBuilding, substeps: int = None, mode: str = "trbdf2", hours: int = 1,
     refresh_every: int = None, collect_bad: bool = False,
     scheduled_setpoints: bool = False, collect_hq: bool = False, collect_operative: bool = False,
-    scheduled_shade_sp: bool = False,
+    scheduled_shade_sp: bool = False, adaptive_nomass: bool = False,
 ) -> HourMarch:
     """The :class:`HourMarch` of :func:`make_hour_march`'s arguments, with
     the sub-step count and refresh cadence resolved (no operands)."""
@@ -1644,8 +1644,8 @@ def hour_march_for(
         # heatx's rules (pallas_step.py:1345-1355): the building's own
         # stability sub-step count and sub-step length, and a fixed number of
         # no-mass iterations wherever there is a no-mass node unless
-        # HEATX_KERNEL_WHILE=1 admits the adaptive loop.
-        if bb.config.nomass_fixed_iters is None and bb.surfaces.has_nomass:
+        # HEATX_KERNEL_WHILE=1 (or adaptive_nomass) admits the adaptive loop.
+        if bb.config.nomass_fixed_iters is None and bb.surfaces.has_nomass and not adaptive_nomass:
             if os.environ.get("HEATX_KERNEL_WHILE", "0") != "1":
                 raise ValueError(
                     "the parity hour kernel requires config.nomass_fixed_iters"
@@ -1679,6 +1679,7 @@ def make_hour_march(
     collect_hq: bool = False,
     collect_operative: bool = False,
     scheduled_shade_sp: bool = False,
+    adaptive_nomass: bool = False,
 ):
     """Build the day march: ``(hour_march, params)`` with ``params`` on
     ``device`` (the card unless the caller asks for another; ``"cuda"``
@@ -1687,7 +1688,8 @@ def make_hour_march(
     sub-steps: ``substeps`` defaults to the building's ``dt_subdivisions``,
     the sub-step length is the building's ``dt`` whatever ``substeps`` says,
     and a building with no-mass nodes needs ``config.nomass_fixed_iters``
-    or, for the adaptive loop, ``HEATX_KERNEL_WHILE=1``.
+    or, for the adaptive loop, ``HEATX_KERNEL_WHILE=1`` or ``adaptive_nomass``
+    (the port's sizing design days, which heatx runs on its XLA path).
     In the TR-BDF2 modes ``substeps`` defaults to 12, ``refresh_every=k``
     rebuilds the operators every k sub-steps (default 1 in refresh mode) and
     frozen mode is ``k = substeps``.  ``scheduled_setpoints`` (thermostat buildings) makes
@@ -1700,6 +1702,6 @@ def make_hour_march(
     with a shading setpoint series ``[hours, SP]`` (see the module
     docstring)."""
     hm = hour_march_for(bb, substeps, mode, hours, refresh_every, collect_bad, scheduled_setpoints,
-                        collect_hq, collect_operative, scheduled_shade_sp)
+                        collect_hq, collect_operative, scheduled_shade_sp, adaptive_nomass)
     params = params_from_blocked(bb, bb.config.dtype, cuda_lib.resolve_device(device))
     return hm, params

@@ -23,13 +23,17 @@ tilt branch.  ``write_synthetic_epw`` writes a seeded EPW file, and
 ``controlled_city_inputs`` are the city with in-run window shading and
 ventilation gates in every zone, ``controlled_office_idf`` the office IDF
 with an ``OnIfHighZoneAirTemperature`` shade on its argon window and
-ventilation temperature limits.
+ventilation temperature limits.  ``TestMat``, ``SingleZoneOptions`` and
+``single_zone_building`` are heatx.testing's single-zone box (the
+reference's ``simple_test_models``), which the sizing tests build on.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from dataclasses import dataclass, field
 from pathlib import Path
+from typing import List
 
 import numpy as np
 import torch
@@ -43,6 +47,7 @@ from heatx_torch.model.building import (
     BuildingModel,
     Construction,
     ElectricHeater,
+    GasSubstance,
     IdealHeaterCooler,
     Luminaire,
     Material,
@@ -553,9 +558,20 @@ class BranchCounter:
 SANTIAGO = (-33.38, -70.78, -4.0, 474.0)
 
 
+#: An ASHRAE DESIGN CONDITIONS header line in the layout EnergyPlus's weather
+#: converter writes (heatx reads the Heating and Cooling runs at fixed offsets):
+#: heating 99.6 % -1.1 C in July, cooling 0.4 % 31.3 C in January, 16.6 K range.
+DESIGN_CONDITIONS = (
+    "DESIGN CONDITIONS,1,Climate Design Data 2009 ASHRAE Handbook,,Heating,7,-1.1,0.1,-7.5,2.1,2.3,"
+    "-5.6,2.6,2.9,8.4,14.4,7.4,14.1,1.3,0,Cooling,1,16.6,31.3,18.6,30.3,18.3,29.2,17.9,20.1,28.4,19.4,"
+    "27.6,18.8,26.9,3.9,220,16.2,12.0,22.5,15.3,11.1,21.9,14.6,10.5,21.4,52.2,28.3,50.1,27.4,48.0,26.8,800"
+)
+
+
 def write_synthetic_epw(path, seed: int = 0) -> str:
     """Write a valid EPW file of 8,760 seeded hourly records at Santiago's
-    location (8 header lines: LOCATION, DESIGN CONDITIONS, TYPICAL/EXTREME
+    location (8 header lines: LOCATION, DESIGN CONDITIONS
+    (:data:`DESIGN_CONDITIONS`, which the sizing design days read), TYPICAL/EXTREME
     PERIODS, GROUND TEMPERATURES with one set of monthly soil temperatures,
     HOLIDAYS/DAYLIGHT SAVINGS, two COMMENTS, DATA PERIODS).  Southern
     seasons: warm Januaries, diurnal swings, clear-sky-shaped radiation from
@@ -594,7 +610,7 @@ def write_synthetic_epw(path, seed: int = 0) -> str:
                           for d in (31, 28, 31, 30, 31, 30, 31, 31, 30, 31, 30, 31)])
     head = [
         f"LOCATION,Santiago (synthetic),-,CHL,seed {seed},855740,{lat},{lon},{tz},{elev}",
-        "DESIGN CONDITIONS,0",
+        DESIGN_CONDITIONS,
         "TYPICAL/EXTREME PERIODS,0",
         "GROUND TEMPERATURES,1,.5,,,," + ",".join(f"{g:.2f}" for g in ground),
         "HOLIDAYS/DAYLIGHT SAVINGS,No,0,0,0",
@@ -614,6 +630,16 @@ def write_synthetic_epw(path, seed: int = 0) -> str:
     with open(path, "w") as f:
         f.write("\n".join(head + rows) + "\n")
     return str(path)
+
+
+def cut_weather(w, hours: int):
+    """The EPW record ``w`` (heatx's or the port's ``EPWData``) with every
+    hourly column cut to its first ``hours``."""
+    n = w.n_hours
+    return dataclasses.replace(w, **{
+        f.name: getattr(w, f.name)[:hours] for f in dataclasses.fields(w)
+        if isinstance(getattr(w, f.name), np.ndarray) and getattr(w, f.name).shape[:1] == (n,)
+    })
 
 
 def office_inputs(loaded, tm, epw, hours: int):
@@ -661,3 +687,122 @@ def office_inputs(loaded, tm, epw, hours: int):
     if has_ground and epw.ground_temps:
         ground = epw.ground_temperature(None)[_MONTH_HOURS[np.arange(T) % 8760]]
     return seq, ground
+
+
+@dataclass
+class TestMat:
+    """One construction layer: kind in {polyurethane, concrete, glass, air}."""
+
+    __test__ = False  # a model factory, not a pytest class
+
+    kind: str
+    thickness: float
+    tau: float = 0.0  # solar transmittance (glass only)
+
+    @staticmethod
+    def polyurethane(thickness: float) -> "TestMat":
+        return TestMat("polyurethane", thickness)
+
+    @staticmethod
+    def concrete(thickness: float) -> "TestMat":
+        return TestMat("concrete", thickness)
+
+    @staticmethod
+    def glass(thickness: float, tau: float = 0.82) -> "TestMat":
+        return TestMat("glass", thickness, tau)
+
+    @staticmethod
+    def air(thickness: float) -> "TestMat":
+        return TestMat("air", thickness)
+
+
+@dataclass
+class SingleZoneOptions:
+    """Mirror of SingleZoneTestBuildingOptions."""
+
+    zone_volume: float = 40.0
+    surface_height: float = 2.0
+    surface_width: float = 2.0
+    window_height: float = 0.0
+    window_width: float = 0.0
+    construction: List[TestMat] = field(default_factory=list)
+    emissivity: float = 0.84  # front/back thermal absorbtance of solid layers
+    solar_absorbtance: float = 0.7  # front/back solar absorbtance
+    heating_power: float = 0.0  # > 0 adds an ElectricHeater
+    lighting_power: float = 0.0  # > 0 adds a Luminaire
+    infiltration_rate: float = 0.0  # m3/s (driven through StepInputs)
+
+
+_PROPS = {
+    "polyurethane": dict(thermal_conductivity=0.0252, density=17.5, specific_heat_capacity=2400.0),
+    "concrete": dict(thermal_conductivity=0.816, density=1700.0, specific_heat_capacity=800.0),
+    "glass": dict(thermal_conductivity=1.0, density=2500.0, specific_heat_capacity=840.0),
+}
+
+
+def single_zone_building(opts: SingleZoneOptions) -> BuildingModel:
+    """Build the single-zone test model: one south-facing exterior wall whose
+    back bounds the zone, optionally with a window hole of the same
+    construction (the closed-form tests treat the window as a hole: total heat
+    transfer area stays height*width)."""
+    m = BuildingModel()
+
+    mats: List[str] = []
+    for i, layer in enumerate(opts.construction):
+        name = f"layer{i}"
+        if layer.kind == "air":
+            sub = GasSubstance(f"{name}-sub", "air")
+            m.add_substance(sub)
+        else:
+            props = _PROPS[layer.kind]
+            sub = Substance(
+                f"{name}-sub",
+                front_thermal_absorbtance=opts.emissivity,
+                back_thermal_absorbtance=opts.emissivity,
+                front_solar_absorbtance=opts.solar_absorbtance,
+                back_solar_absorbtance=opts.solar_absorbtance,
+                solar_transmittance=layer.tau if layer.kind == "glass" else 0.0,
+                **props,
+            )
+            m.add_substance(sub)
+        m.add_material(Material(name, sub.name, layer.thickness))
+        mats.append(name)
+    m.add_construction(Construction("the construction", mats))
+
+    m.add_space(SpaceDef("Space", opts.zone_volume))
+
+    w, h = opts.surface_width, opts.surface_height
+    wall_area = w * h - opts.window_width * opts.window_height
+    # South-facing vertical wall (normal (0,-1,0)), like the fixture IDFs.
+    m.add_surface(
+        SurfaceDef(
+            "the surface",
+            "the construction",
+            Boundary.outdoor(),
+            Boundary.space_("Space"),
+            vertices=np.array([[0, 0, 0], [w, 0, 0], [w, 0, h], [0, 0, h]], float),
+            area=wall_area,
+            perimeter=2.0 * (w + h),
+            height=h / 2.0,
+        )
+    )
+    if opts.window_width > 0.0 and opts.window_height > 0.0:
+        ww, wh = opts.window_width, opts.window_height
+        m.add_fenestration(
+            SurfaceDef(
+                "the window",
+                "the construction",
+                Boundary.outdoor(),
+                Boundary.space_("Space"),
+                vertices=np.array(
+                    [[0, 0, 0], [ww, 0, 0], [ww, 0, wh], [0, 0, wh]], float
+                ),
+                height=h / 2.0,
+            )
+        )
+
+    if opts.heating_power > 0.0:
+        m.add_hvac(ElectricHeater("heater", "Space"))
+    if opts.lighting_power > 0.0:
+        m.add_luminaire(Luminaire("luminaire", "Space"))
+    return m

@@ -354,6 +354,35 @@ def sun_and_sky(epw, hours=None, start_hour=0):
     return dni, dhi, ghi, alt, az, day
 
 
+# ASHRAE (1997 Fundamentals ch. 29, table 7) clear-sky coefficients per
+# month: A = apparent extraterrestrial irradiance [W/m2], B = atmospheric
+# extinction, C = diffuse-to-beam ratio.  The design-day solar model
+# EnergyPlus's ASHRAEClearSky option implements.
+_ASHRAE_A = np.array([1230., 1215., 1186., 1136., 1104., 1088.,
+                      1085., 1107., 1151., 1192., 1221., 1233.])
+_ASHRAE_B = np.array([0.142, 0.144, 0.156, 0.180, 0.196, 0.205,
+                      0.207, 0.201, 0.177, 0.160, 0.149, 0.142])
+_ASHRAE_C = np.array([0.058, 0.060, 0.071, 0.097, 0.121, 0.134,
+                      0.136, 0.122, 0.092, 0.073, 0.063, 0.057])
+
+
+def ashrae_clear_sky(altitude_rad, month, clearness=1.0):
+    """ASHRAE clear-sky ``(DNI, DHI)`` for design days.
+
+    ``DNI = clearness * A * exp(-B / sin alt)`` (0 below the horizon),
+    ``DHI = C * DNI``; ``month`` is 1-12 (scalar), ``clearness`` the
+    optional sky clearness number (EnergyPlus design-day field, 0..1.2).
+    """
+    m = int(month) - 1
+    alt = np.asarray(altitude_rad, np.float64)
+    up = alt > 0.0
+    sin_a = np.where(up, np.sin(alt), 1.0)
+    dni = np.where(
+        up, clearness * _ASHRAE_A[m] * np.exp(-_ASHRAE_B[m] / sin_a), 0.0
+    )
+    return dni, _ASHRAE_C[m] * dni
+
+
 def model_ground_views(model):
     """Per-surface solar ground view factors for :func:`surface_irradiance`,
     aligned with the compiled surface order (surfaces then fenestrations,

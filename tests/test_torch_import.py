@@ -21,6 +21,9 @@ def test_import_loads_no_jax():
         "import heatx_torch.convert, heatx_torch.testing\n"
         "import heatx_torch.model.idf, heatx_torch.weather.epw, heatx_torch.weather.solar\n"
         "import heatx_torch.physics.gas, heatx_torch.physics.cavity\n"
+        "import heatx_torch.cli, heatx_torch.sizing, heatx_torch.comfort, heatx_torch.io.checkpoint\n"
+        "import heatx_torch.model.spl, heatx_torch.weather.shadow, heatx_torch.utils\n"
+        "import heatx_torch.utils.debug, heatx_torch.utils.profiling\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'heatx'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
