@@ -321,6 +321,31 @@ Phases (one output line each, then a JSON line per contract):
    then the winter design day in f64 at the coarse discretization
    (SIZING_DD_WARMUP warm-up repeats): the kernel route on the card against
    ``ThermalModel.run`` on the CPU, within 1e-9 of max |load|.
+28. the ensemble on the card (``heatx_torch.ensemble``, engine "kernel":
+   the members folded into one building, whose blocks one day-march launch
+   marches): (a)
+   scripts/torch_ensemble_sweep.py's thermostatic room, a week, TR-BDF2 at 4
+   sub-steps, f32, at ENS_SIZES members (the last, 4,096, the full width):
+   each a second call timed by the host clock, the full width exactly 7
+   launches, every value finite; ENS_SOLO seeded members run alone through
+   ``FastRunner`` on the kernel against their rows (bit-equal where every
+   solo launch ran the population launch's variant, ENS_SOLO_TOL otherwise),
+   against the f64 plain version (``ensemble.population_runner`` with
+   ``use_kernel=False``, ENS_F32_TOL) and in f64 on the kernel against it
+   (F64_TOL); the population's day-launch timed (CUDA events) beside its
+   plain version and its bound, bytes and operations both counted on the
+   real lanes and zones; (b) the population gradient, ENS_GRAD_E members,
+   one day, d(mean load + mean zone T)/d u_scale: one day-march and one
+   adjoint launch, the kernel pair against the plain pair (the plain
+   population runner's ``grad_run``: DayMarchFn on the plain day march and
+   the plain adjoint) in f64 within ADJ_F64_RTOL of max |ref|, f32 against
+   f64 printed as a relative L2; (c) design_sweep's
+   room, ENS_PARITY_E members, parity with the adaptive no-mass loop, one
+   day, f64: one parity launch, each member against its solo run at
+   F64_TOL; (d) examples_torch/design_sweep.py and uncertainty.py at their
+   full settings (their asserts hold, launches counted, times printed); (e)
+   outdoor air per member in two weather groups: one launch a day each,
+   each group bit-equal to its own run, timed against one weather.
 
 Phases 16b and 19c hold the parity kernels against their plain versions over
 the daytime window PARITY_WINDOW (hours 8-14) of the day-launch; 16b held the
@@ -352,7 +377,10 @@ instantiations: the MRT city's (phase 19; the parity ones held over
 PARITY_WINDOW, ``plain_hours``) and, with gas cavities, the office's
 (phase 20); ``day_march_cavity_mrt`` also lists phase 27's command-line
 and sizing years, ``day_march`` phase 27's update_building day and its 24
-one-hour launches.  The two ``day_march_gated*`` entries are the controlled
+one-hour launches and phase 28's ensemble paths (with an ``ensemble`` entry:
+the population's day-launch, its plain version, its bound and the week's
+times), ``day_adjoint`` phase 28b's gradient and
+``day_march_parity_adaptive`` phase 28c's parity launch.  The two ``day_march_gated*`` entries are the controlled
 city's (phase 22): its annual run's launches (TR-BDF2) and its 48 h parity
 run's, the day-launch timed beside ``ms_ungated_bench_day``, the parity one
 held over PARITY_WINDOW.  ``day_march_parity_adaptive`` is the parity body
@@ -636,6 +664,29 @@ CLI_F64_HOURS = 48  # phase 27b: the CLI's f64 run, card against the CPU
 SIZING_CUT_HOURS = 168  # phase 27c: the f64 sizing run, card against the CPU,
 SIZING_CUT_WARMUP = 3  # with at most this many warm-up days
 SIZING_DD_WARMUP = 2  # phase 27f: the f64 design day's warm-up repeats, card against the CPU
+# Phase 28, the ensemble (heatx_torch.ensemble) on the card: the sizes of
+# scripts/torch_ensemble_sweep.py's week (the last the full width), the seeded
+# members run alone on the kernel, the gradient's, the adaptive parity
+# members', and the two weather groups'.
+ENS_SIZES = (16, 256, 4096)
+ENS_HOURS = 168
+ENS_SOLO = 8
+# A member run alone on the kernel matches its ensemble row bit for bit when
+# both launch the same variant (the same code on the member's lanes and its
+# zone's face list); 1e-5 K otherwise.
+ENS_SOLO_TOL = 1e-5  # K
+# The f32 week against the f64 plain version.  The room free-floats from
+# 22 C to its setpoint on the first day, and f32 rounds the wall's small
+# increments the same way sub-step after sub-step: the f32 plain version
+# drifts from f64 by ~1.6e-5 K an hour there (2.6e-4 K on 8 seeded members
+# on the CPU, 1.7e-4 K on the card) and the f32 kernel by 2.9e-4 K (measured
+# on an H100 80GB HBM3 at 700 W), 1.9e-6 K once the zone sits on its
+# setpoint; bound ~3x that.  The same members in f64 hold the kernel route to
+# the plain version at F64_TOL over the whole week.
+ENS_F32_TOL = 1e-3  # K
+ENS_GRAD_E, ENS_GRAD_HOURS = 256, 24
+ENS_PARITY_E, ENS_PARITY_HOURS = 64, 24
+ENS_WEATHER_E, ENS_WEATHER_HOURS = 64, 48
 # Published H100 SXM rates (NVIDIA H100 datasheet): HBM bytes/s and the
 # f32 FLOP/s outside the tensor cores (the kernels run no matrix products).
 HBM_BPS = 3.35e12
@@ -942,7 +993,27 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def day_work(params, hours, sub, k):
+def real_nbytes(params, lanes, zones, *tensors):
+    """Bytes of a day-march launch's ``tensors`` on the ``lanes`` real lanes
+    and ``zones`` real zone slots: an axis of the padded lanes (the last, of
+    length NB x SB) or of the zone slots (the last two, NB x ZB; the zone
+    offsets NB x ZB + 1) counts its real share, as :func:`day_work` counts
+    operations (the padding is the layout's, not the work's)."""
+    SP, NB, ZB = params.surf.shape[1], params.n_blocks, params.zones_per_block
+    total = 0.0
+    for t in tensors:
+        n = t.numel() * t.element_size()
+        if t.dim() and t.shape[-1] == SP:
+            n *= lanes / SP
+        elif t.dim() >= 2 and tuple(t.shape[-2:]) == (NB, ZB):
+            n *= zones / (NB * ZB)
+        elif t.dim() == 1 and t.shape[0] == NB * ZB + 1:
+            n *= (zones + 1) / (NB * ZB + 1)
+        total += n
+    return total
+
+
+def day_work(params, hours, sub, k, lanes=None, zones=None):
     """Operations of one day-march launch, counted from the TR-BDF2 march's
     arithmetic on this run's shapes with the stage solves as Thomas sweeps
     (the partitioned solve of day_march_tr.cu does more; transcendentals
@@ -953,13 +1024,15 @@ def day_work(params, hours, sub, k):
     (film coefficients and linearized radiation), per zone and sub-step 20
     (zone sums and update); with thermostat rows 45 more per zone and
     sub-step (the landing power, the clamp, the second exponential update,
-    the load sum), and 12 per mixing entry and sub-step."""
+    the load sum), and 12 per mixing entry and sub-step.  ``lanes`` and
+    ``zones`` (default: every lane and zone slot) count the real ones where
+    padding is much of a block."""
     import torch
 
     bits = params.field("node_bits").to(torch.int64)
     valid = int(sum(int(((bits >> i) & 1).sum()) for i in range(params.max_nodes)))
-    lanes = params.surf.shape[1]
-    zones = params.zone_volume.numel()
+    lanes = params.surf.shape[1] if lanes is None else lanes
+    zones = params.zone_volume.numel() if zones is None else zones
     per_sub = 32 * valid + 10 * lanes + 20 * zones
     if params.ctl is not None:
         per_sub += 45 * zones
@@ -3905,7 +3978,290 @@ def phase27_cli_sizing(torch, ctx):
                            heat=demand["heating_kwh"], cool=demand["cooling_kwh"], seconds=phase_s)
 
 
-def adaptive_kernel_entry(p25):
+def load_module(rel, name):
+    """A script of the checkout (``rel`` from the repository root) as a module."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), rel)
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase28_ensemble(torch, ctx, device="cuda"):
+    """The ensemble on the card (see the module docstring): returns the
+    launch counts of each path and the numbers printed."""
+    import contextlib
+    import io
+
+    from heatx_torch import ensemble
+
+    SimConfig, ThermalModel, smi = ctx.SimConfig, ctx.ThermalModel, ctx.smi
+    km, ka = ctx.day_march.day_march_kernel, ctx.day_adjoint.day_adjoint_kernel
+    t_phase = time.time()
+    sweep = load_module("scripts/torch_ensemble_sweep.py", "torch_ensemble_sweep")
+    sweep_ex = load_module("examples_torch/design_sweep.py", "design_sweep_torch")
+    unc_ex = load_module("examples_torch/uncertainty.py", "uncertainty_torch")
+
+    def sync():
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+
+    def reset():
+        km.launches = km.parity_launches = ka.launches = 0
+
+    rng = np.random.default_rng(0)
+    scales = np.exp(rng.normal(0.0, 0.15, max(ENS_SIZES)))
+
+    def week(dtype, E, hours=ENS_HOURS):
+        tm, seq, apply_fn = sweep.sweep_case(hours, dtype=dtype, device=device)
+        pe = torch.as_tensor(scales[:E], dtype=dtype)
+        return tm, seq, apply_fn, pe, lambda: ensemble.run_param_ensemble(
+            tm.building, apply_fn, pe, tm.initial_state(), seq, mode="trbdf2", substeps=4,
+            collect_loads=True, engine="kernel", device=device)
+
+    def population(tm, seq, b_e, hours, use_kernel):
+        """The kernel route's runner over the stacked ``b_e`` (the plain
+        versions with ``use_kernel=False``) and its folded start state and
+        inputs."""
+        n = b_e.surfaces.seg_u.shape[0]
+        idx = list(range(n))
+        runner = ensemble.population_runner(b_e, "trbdf2", 4, 24, device, use_kernel=use_kernel)
+        st = ensemble.fold_state(ensemble.ensemble_initial_state(b_e, n, device), idx)
+        xs = ensemble.fold_inputs(seq, {}, tm.building, idx, hours, tm.building.config.dtype,
+                                  torch.device(device))
+        return runner, st, xs
+
+    def by_member(x, n):
+        """A folded history [T, n*Z] as [n, T, Z]."""
+        return torch.movedim(x.reshape(x.shape[0], n, -1), 1, 0)
+
+    def plain_week(dtype, idx):
+        """Members ``idx`` of the week on the day march's plain version."""
+        tm_, seq_, apply_, pe_, _ = week(dtype, E)
+        b_e = ensemble.apply_members(tm_.building, apply_, pe_[idx])
+        runner, st, xs = population(tm_, seq_, b_e, ENS_HOURS, use_kernel=False)
+        with torch.no_grad():
+            _, z, _ = runner.run(st, xs, collect_loads=True, assert_finite=False)
+        return by_member(z, len(idx))
+
+    # (a) the sweep's week at E = 16, 256, 4096, f32 on the kernel
+    walls, counts = {}, {}
+    for E in ENS_SIZES:
+        tm, seq, apply_fn, pe, run = week(torch.float32, E)
+        run()
+        sync()
+        reset()
+        t0 = time.time()
+        final, (zt, loads) = run()
+        sync()
+        walls[E], counts[E] = time.time() - t0, km.launches
+    E = ENS_SIZES[-1]
+    pop_variant = km.block_threads
+    check(counts[E] == ENS_HOURS // 24, f"ensemble E={E}: {counts[E]} launches, expected {ENS_HOURS // 24}")
+    check(tuple(zt.shape) == (E, ENS_HOURS, 1) and tuple(loads.shape) == (E, ENS_HOURS, 1),
+          f"ensemble E={E}: shapes {tuple(zt.shape)}, {tuple(loads.shape)}")
+    for name, t in (("zone_T", zt), ("loads", loads), ("node_T", final.node_T)):
+        check(bool(torch.isfinite(t).all()), f"ensemble E={E}: {name} not finite")
+    pick = sorted(int(i) for i in rng.choice(E, ENS_SOLO, replace=False))
+    solo_gap, variants = 0.0, set()
+    for i in pick:
+        bi = apply_fn(tm.building, pe[i])
+        bi = dataclasses.replace(bi, surfaces=dataclasses.replace(
+            bi.surfaces, seg_u=bi.surfaces.seg_u.detach().cpu().numpy()))
+        ti = ThermalModel.from_building(bi, device=device)
+        _, zi, li = ti.fast_runner(mode="trbdf2", substeps=4, hours=24).run(
+            ti.initial_state(), seq, collect_loads=True)
+        variants.add(km.block_threads)
+        solo_gap = max(solo_gap, float((zi - zt[i]).abs().max()))
+    same_variant = variants == {pop_variant}
+    solo_tol = 0.0 if same_variant else ENS_SOLO_TOL
+    check(solo_gap <= solo_tol, f"ensemble: members run alone vs their rows {solo_gap} K > {solo_tol} "
+          f"(launch variants {sorted(variants)} alone, {pop_variant} in the population)")
+    tm64, seq64, apply64, pe64, _ = week(torch.float64, E)
+    sub = torch.as_tensor(pick)
+    z64 = plain_week(torch.float64, sub)
+    _, (z64k, _) = ensemble.run_param_ensemble(
+        tm64.building, apply64, pe64[sub], tm64.initial_state(), seq64, mode="trbdf2", substeps=4,
+        collect_loads=True, engine="kernel", device=device)
+    z32p = plain_week(torch.float32, sub)
+    err64 = float((zt[sub].double() - z64).abs().max())
+    err_plain32 = float((z32p.double() - z64).abs().max())
+    err_k64 = float((z64k - z64).abs().max())
+    check(err64 <= ENS_F32_TOL, f"ensemble: f32 kernel vs f64 plain {err64} K > {ENS_F32_TOL}")
+    check(err_k64 <= F64_TOL, f"ensemble: f64 kernel vs f64 plain {err_k64} K > {F64_TOL}")
+    # The population's day-launch: CUDA events, its plain version, its bound
+    # with bytes and operations counted on the real lanes and zones
+    b_e = ensemble.apply_members(tm.building, apply_fn, pe)
+    runner, st_e, xs_e = population(tm, seq, b_e, ENS_HOURS, use_kernel=True)
+    T0, zT0 = runner.to_blocked(st_e)
+    hi0 = runner.kernel_inputs(xs_e)[0]
+    day_k = runner.hour_march(runner.params, T0, zT0, hi0)
+    day_p = runner.hour_march.plain(runner.params, T0, zT0, hi0)
+    err_day = max(float((day_k[i] - day_p[i]).abs().max()) for i in (0, 1, 3))
+    check(err_day <= F32_TOL, f"ensemble day-launch: f32 kernel vs plain {err_day} K > {F32_TOL}")
+    if torch.device(device).type == "cuda":
+        day_ms = event_ms(torch, lambda: runner.hour_march(runner.params, T0, zT0, hi0), 10)
+        day_plain_ms = event_ms(torch, lambda: runner.hour_march.plain(runner.params, T0, zT0, hi0), 1)
+    else:
+        day_ms = day_plain_ms = float("nan")
+    real_lanes, real_zones = E * tm.building.n_surfaces, E * tm.building.n_zones
+    ops_e = day_work(runner.params, 24, 4, 4, lanes=real_lanes, zones=real_zones)[0]
+    bytes_e = real_nbytes(runner.params, real_lanes, real_zones, *param_tensors(runner.params), T0, zT0, *hi0,
+                          day_k[0], day_k[1], *day_k[2], *[o for o in day_k[3:] if isinstance(o, torch.Tensor)])
+    day_bound, day_by = bound(bytes_e, ops_e)
+
+    # (b) the population gradient: E = 256, one day, d loss / d u_scale
+    def grad(dtype, use_kernel):
+        tm_g, seq_g, apply_g = sweep.sweep_case(ENS_GRAD_HOURS, dtype=dtype, device=device)
+        u = torch.as_tensor(scales[:ENS_GRAD_E], dtype=dtype).requires_grad_()
+        if use_kernel:
+            _, (zt_g, ld_g) = ensemble.run_param_ensemble(
+                tm_g.building, apply_g, u, tm_g.initial_state(), seq_g, mode="trbdf2", substeps=4,
+                collect_loads=True, engine="kernel", device=device)
+        else:  # the plain pair: the plain population runner's grad_run
+            b_g = ensemble.apply_members(tm_g.building, apply_g, u)
+            runner_g, st_g, xs_g = population(tm_g, seq_g, b_g, ENS_GRAD_HOURS, use_kernel=False)
+            _, zt_g, ld_g = runner_g.grad_run(ensemble.fold_building(b_g), st_g, xs_g, collect_loads=True)
+            zt_g, ld_g = by_member(zt_g, ENS_GRAD_E), by_member(ld_g, ENS_GRAD_E)
+        loss = (ld_g / 1e3).mean(dim=(1, 2)).sum() + zt_g.mean(dim=(1, 2)).sum()
+        (g,) = torch.autograd.grad(loss, u)
+        sync()
+        return g.double()
+
+    reset()
+    t0 = time.time()
+    g64 = grad(torch.float64, True)
+    wall_g = time.time() - t0
+    grad_counts = (km.launches, ka.launches)
+    check(grad_counts == (1, 1), f"ensemble gradient: {grad_counts} (day march, adjoint) launches, expected (1, 1)")
+    g_plain = grad(torch.float64, False)
+    scale_g = float(g_plain.abs().max())
+    gap_g = float((g64 - g_plain).abs().max())
+    check(scale_g > 0 and gap_g <= ADJ_F64_RTOL * scale_g,
+          f"ensemble gradient: kernel pair vs plain pair {gap_g} > {ADJ_F64_RTOL} x {scale_g}")
+    g32 = grad(torch.float32, True)
+    rel32 = float((g32 - g64).norm() / g64.norm())
+    check(bool(torch.isfinite(g32).all()), "ensemble gradient f32: not finite")
+
+    # (c) the adaptive parity loop: design_sweep's room, E = 64, one day, f64
+    tm_p = ThermalModel(sweep_ex.build(), config=SimConfig(dtype=torch.float64), device=device)
+    bp = tm_p.building
+    dry, wind, wdir, ghi, ir = sweep_ex.week_weather(ENS_PARITY_HOURS)
+    S = bp.n_surfaces
+    seq_p = tm_p.inputs_sequence(
+        ENS_PARITY_HOURS, t_out=dry, wind_speed=wind, wind_direction=wdir,
+        sol_front=np.asarray(ghi)[:, None] * np.ones(S), ir_front=np.asarray(ir)[:, None] * np.ones(S),
+        hvac_power=np.full(bp.n_hvacs, 300.0), inf_vol=np.full(bp.n_zones, 0.008),
+        inf_mask=np.ones(bp.n_zones, bool), inf_temp=np.asarray(dry)[:, None])
+    side = int(round(ENS_PARITY_E ** 0.5))
+    grid = np.meshgrid(np.linspace(0.4, 2.0, side), np.linspace(0.3, 1.3, side), indexing="ij")
+    pp = {"u": torch.as_tensor(grid[0].ravel()), "a": torch.as_tensor(grid[1].ravel())}
+    u0, a0 = torch.as_tensor(bp.surfaces.seg_u), torch.as_tensor(bp.surfaces.front_alphas)
+
+    def apply_p(b, p):
+        return dataclasses.replace(b, surfaces=dataclasses.replace(
+            b.surfaces, seg_u=u0 * p["u"], front_alphas=a0 * p["a"]))
+
+    reset()
+    t0 = time.time()
+    fin_p, zt_p = ensemble.run_param_ensemble(bp, apply_p, pp, tm_p.initial_state(), seq_p, mode="parity",
+                                              engine="kernel", device=device)
+    sync()
+    wall_p = time.time() - t0
+    parity_counts = (km.launches, km.parity_launches)
+    check(parity_counts == (1, 1), f"ensemble parity: {parity_counts} launches, expected one parity launch")
+    gap_p = 0.0
+    for i in range(ENS_PARITY_E):
+        bi = apply_p(bp, {k: v[i] for k, v in pp.items()})
+        bi = dataclasses.replace(bi, surfaces=dataclasses.replace(
+            bi.surfaces, seg_u=bi.surfaces.seg_u.numpy(), front_alphas=bi.surfaces.front_alphas.numpy()))
+        ti = ThermalModel.from_building(bi, device=device)
+        fi, zi = ti.fast_runner(mode="parity", hours=24, adaptive_nomass=True).run(ti.initial_state(), seq_p)
+        gap_p = max(gap_p, float((zi - zt_p[i]).abs().max()), float((fi.node_T - fin_p.node_T[i]).abs().max()))
+    check(gap_p <= F64_TOL, f"ensemble parity: members vs their solo runs {gap_p} K > {F64_TOL}")
+
+    # (d) the two examples at their full settings
+    ex = {}
+    for name, mod, ok in (("design_sweep", sweep_ex, "sweep OK"), ("uncertainty", unc_ex, "UQ OK")):
+        reset()
+        t0 = time.time()
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            mod.main(["--platform", "gpu" if torch.device(device).type == "cuda" else "cpu"])
+        text = out.getvalue()
+        check(text.rstrip().endswith(ok) and "(kernel engine)" in text, f"example {name}: {text[-500:]}")
+        ex[name] = (time.time() - t0, km.launches, [ln for ln in text.splitlines() if " in " in ln][-1])
+
+    # (e) outdoor air per member: two weather groups, one launch a day each
+    tm_w, seq_w, apply_w = sweep.sweep_case(ENS_WEATHER_HOURS, dtype=torch.float32, device=device)
+    t = np.arange(ENS_WEATHER_HOURS)
+    t_a, t_b = 2.0 + 6.0 * np.sin(2 * np.pi * (t - 14) / 24.0), -4.0 + 3.0 * np.cos(2 * np.pi * t / 24.0)
+    t_e = torch.as_tensor(np.stack([t_a if i % 2 == 0 else t_b for i in range(ENS_WEATHER_E)]),
+                          dtype=torch.float32, device=device)
+    pw = torch.as_tensor(scales[:ENS_WEATHER_E], dtype=torch.float32)
+    kw_w = dict(mode="trbdf2", substeps=4, engine="kernel", device=device)
+    reset()
+    _, zt_w = ensemble.run_param_ensemble(tm_w.building, apply_w, pw, tm_w.initial_state(),
+                                          seq_w.replace(t_out=t_e), inputs_axes={"t_out": 0}, **kw_w)
+    groups_w = [len(g) for g in ensemble.last_groups]
+    weather_launches = km.launches
+    want = 2 * ENS_WEATHER_HOURS // 24
+    check(groups_w == [ENS_WEATHER_E // 2] * 2 and weather_launches == want,
+          f"ensemble weather groups: {groups_w}, {weather_launches} launches, expected 2 groups and {want}")
+    gap_w = 0.0
+    for k, ta in enumerate((t_a, t_b)):
+        _, zk = ensemble.run_param_ensemble(tm_w.building, apply_w, pw[k::2], tm_w.initial_state(),
+                                            seq_w.replace(t_out=torch.as_tensor(ta)), **kw_w)
+        gap_w = max(gap_w, float((zk - zt_w[k::2]).abs().max()))
+    check(gap_w == 0.0, f"ensemble weather groups vs each group alone: {gap_w} K")
+
+    def timed(fn, reps=3):
+        best = float("inf")
+        for _ in range(reps):
+            sync()
+            t0 = time.time()
+            fn()
+            sync()
+            best = min(best, time.time() - t0)
+        return best
+
+    wall_grouped = timed(lambda: ensemble.run_param_ensemble(
+        tm_w.building, apply_w, pw, tm_w.initial_state(), seq_w.replace(t_out=t_e), inputs_axes={"t_out": 0},
+        **kw_w))
+    wall_shared = timed(lambda: ensemble.run_param_ensemble(tm_w.building, apply_w, pw, tm_w.initial_state(),
+                                                            seq_w, **kw_w))
+    phase_s = time.time() - t_phase
+    print(f"phase 28 the ensemble on {smi}: (a) scripts/torch_ensemble_sweep.py's room, a week, trbdf2 at 4 "
+          f"sub-steps, f32, engine=\"kernel\" (members as blocks, the thermostat kind): "
+          + ", ".join(f"E={e} {walls[e]:.3f} s ({counts[e]} launches, {e / walls[e]:.0f} members/s)" for e in ENS_SIZES)
+          + f" (host clock, a second call, ending in a synchronize); {ENS_SOLO} seeded members run alone on the "
+          f"kernel max |d| {solo_gap:.3e} K from their rows (<= {solo_tol:g}: launch variant {sorted(variants)} "
+          f"threads alone, {pop_variant} in the population), against the f64 plain version {err64:.3e} K (<= "
+          f"{ENS_F32_TOL:g}; the f32 plain version {err_plain32:.3e} K), in f64 the kernel {err_k64:.3e} K (<= "
+          f"{F64_TOL:g}); the E={E} day-launch {day_ms:.3f} ms (CUDA events; {runner.params.n_blocks} blocks of "
+          f"{runner.params.block_size} lanes and {runner.params.zones_per_block} zone slots, {real_lanes} lanes and "
+          f"{real_zones} zones real), its plain version {day_plain_ms:.1f} ms, f32 "
+          f"kernel vs plain {err_day:.3e} K, bound {day_bound * 1e3:.2f} us ({day_by}; {bytes_e / 1e6:.2f} MB, "
+          f"{ops_e / 1e9:.4f} GFLOP on the real lanes); (b) the population gradient, E={ENS_GRAD_E}, {ENS_GRAD_HOURS} h, d(mean load + mean "
+          f"zone T)/d u_scale, f64: {grad_counts[0]} day-march and {grad_counts[1]} adjoint launch in {wall_g:.3f} s, "
+          f"kernel pair vs plain pair {gap_g:.3e} = {gap_g / scale_g:.1e} of max |ref| (<= {ADJ_F64_RTOL:g}); f32 vs "
+          f"f64 relative L2 {rel32:.3e}; (c) design_sweep's room, E={ENS_PARITY_E}, parity with the adaptive loop, "
+          f"{bp.dt_subdivisions} sub-steps/h, f64, {ENS_PARITY_HOURS} h: {parity_counts[1]} parity launch in "
+          f"{wall_p:.3f} s, each member vs its solo run max |d| {gap_p:.3e} K (<= {F64_TOL:g}); (d) "
+          + "; ".join(f"examples_torch/{n}.py at full settings {w:.2f} s, {c} launches ({line.strip()})"
+                      for n, (w, c, line) in ex.items())
+          + f"; (e) outdoor air per member, E={ENS_WEATHER_E} in groups {groups_w}, {ENS_WEATHER_HOURS} h: "
+          f"{weather_launches} launches, each group bit-equal to its own run; {wall_grouped:.4f} s against "
+          f"{wall_shared:.4f} s with one weather (host clock, best of 3); phase {phase_s:.1f} s", flush=True)
+    return SimpleNamespace(week_launches=counts[E], grad_launches=grad_counts, parity_launches=parity_counts[1],
+                           example_launches={n: v[1] for n, v in ex.items()}, weather_launches=weather_launches,
+                           walls=walls, seconds=phase_s, day_ms=day_ms, day_plain_ms=day_plain_ms, err_day=err_day,
+                           day_bound=day_bound, day_by=day_by, E=E)
+
+
+def adaptive_kernel_entry(p25, p28):
     """The kernels line's entry of the adaptive loop in the parity body."""
     b = p25.bound
     return {
@@ -3915,7 +4271,9 @@ def adaptive_kernel_entry(p25):
         "replaces": "heatx/ops/pallas_step.py:1976 (body _hour_body, pallas_step.py:633; the adaptive loop "
                     ":1345-1353, heatx/engine/surface.py:814-825)",
         "launches": p25.launches[1],
-        "launches_by_path": {"adaptive parity run, 48 h (phase 25a)": p25.launches[1]},
+        "launches_by_path": {"adaptive parity run, 48 h (phase 25a)": p25.launches[1],
+                             f"ensemble E={ENS_PARITY_E}, parity, {ENS_PARITY_HOURS} h, f64 (phase 28c)":
+                                 p28.parity_launches},
         "max_abs_err": p25.err32, "ms": p25.ms, "plain_ms": p25.plain_ms, "plain_hours": PARITY_WINDOW,
         "bound_ms": b[2], "bound_by": b[3], "library_ms": None, "ms_fixed_iters": p25.ms_fixed,
         "mean_iterations": p25.stats["mean"],
@@ -4402,6 +4760,9 @@ def main() -> int:
 
     # 27. the command line and sizing (see the module docstring)
     p27 = phase27_cli_sizing(torch, ctx)
+
+    # 28. the ensemble (see the module docstring)
+    p28 = phase28_ensemble(torch, ctx)
     print(f"chip_smoke.py so far {time.time() - t_start:.1f} s (host clock, from its start)", flush=True)
 
     # The kernels line: bounds from this run's shapes (f32 bench day; the
@@ -4461,7 +4822,15 @@ def main() -> int:
                 f"parity value_and_grad, {PARITY_GRAD_DAYS} days (phase 14a)": p14.counts[0],
                 "update_building, one day (phase 27d)": p27.swap_launches,
                 "FastRunner(hours=1).march x 24, f64 (phase 27e)": p27.hour_launches,
+                f"ensemble E={ENS_SIZES[-1]}, {ENS_HOURS} h, thermostats (phase 28a)": p28.week_launches,
+                f"ensemble gradient E={ENS_GRAD_E}, {ENS_GRAD_HOURS} h, f64 (phase 28b)": p28.grad_launches[0],
+                "examples_torch/design_sweep.py, two sweeps (phase 28d)": p28.example_launches["design_sweep"],
+                "examples_torch/uncertainty.py, two runs (phase 28d)": p28.example_launches["uncertainty"],
+                f"ensemble, two weather groups, {ENS_WEATHER_HOURS} h (phase 28e)": p28.weather_launches,
             },
+            "ensemble": {"members": p28.E, "ms": p28.day_ms, "plain_ms": p28.day_plain_ms,
+                         "max_abs_err": p28.err_day, "bound_ms": p28.day_bound, "bound_by": p28.day_by,
+                         "week_s": {f"E={e}": w for e, w in p28.walls.items()}},
             "max_abs_err": err32,
             "ms": kernel_ms,
             "plain_ms": plain_ms,
@@ -4482,6 +4851,7 @@ def main() -> int:
                 "value_and_grad, 30 days (phase 8b)": launches_adj,
                 "demand gradient, 30 days (phase 11b)": launches_dadj,
                 f"parity value_and_grad, {PARITY_GRAD_DAYS} days (phase 14a)": p14.counts[2],
+                f"ensemble gradient E={ENS_GRAD_E}, {ENS_GRAD_HOURS} h, f64 (phase 28b)": p28.grad_launches[1],
             },
             "max_abs_err": adj32_abs,
             "ms": adj_ms,
@@ -4604,7 +4974,7 @@ def main() -> int:
         },
         *mrt_kernel_entries(p19, p20, p27),
         *gate_kernel_entries(ctx, p22, p23),
-        adaptive_kernel_entry(p25),
+        adaptive_kernel_entry(p25, p28),
     ]
     for k in kernels:
         if k["name"] in VARIANTS:

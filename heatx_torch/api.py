@@ -1112,7 +1112,59 @@ class FastRunner:
         thermostats (heatx api.py:769-771)."""
         return DIFF_FIELDS | CTL_FIELDS if self._has_loads else DIFF_FIELDS
 
-    def _check_grad_scope(self, building: CompiledBuilding):
+    def make_adjoint(self):
+        """The day adjoint of this runner's march (``DayAdjoint.raw``, or its
+        plain version on a ``use_kernel=False`` runner): heatx's refusals of
+        ``make_day_adjoint`` apply."""
+        adj = day_adjoint.make_day_adjoint(
+            self._bb, substeps=self._substeps, mode=self._mode, hours=self._hours,
+            refresh_every=self.hour_march.refresh_every if self._mode == "trbdf2_refresh" else None,
+            device=self.device, scheduled_setpoints=self._scheduled_sp,
+        )
+        return adj.raw if self._use_kernel else functools.partial(adj.raw, plain=True)
+
+    def grad_run(self, building: CompiledBuilding, state: SimState, inputs_seq: StepInputs,
+                 collect_loads: bool = False, interp_weather: bool = False, adjoint=None,
+                 who: str = "grad_run: the building"):
+        """:meth:`run`'s march, differentiable: each day runs through
+        :class:`~heatx_torch.ops.day_adjoint.DayMarchFn` (the day march
+        forward, the day adjoint backward: one launch of each a day) on the
+        rows of ``building`` blocked differentiably and the blocked
+        ``state.node_T``/``state.zone_T``.  ``building`` may differ from the
+        runner's in the differentiated fields only (:meth:`_diff_fields`);
+        ``adjoint`` reuses a :meth:`make_adjoint`.  Returns ``(final state,
+        zone_T [T, Z], loads [T, Z] or None)``; the final h/q carry no
+        gradient.  Raises (ValueError) where a field the adjoint does not
+        differentiate requires grad (``who`` names the caller), and on
+        ``collect_loads`` without thermostats."""
+        self._check_grad_scope(building, who)
+        if collect_loads and not self._has_loads:
+            raise ValueError(
+                "collect_loads requires setpoint-driven HVAC "
+                "(IdealHeaterCooler with heat_setpoint/cool_setpoint)"
+            )
+        adjoint = self.make_adjoint() if adjoint is None else adjoint
+        hist, loads, hq = [], [], None
+        with torch.enable_grad():
+            p = self._blocked_params(building)
+            T, zT = self._blocked_state(state.node_T, state.zone_T)
+            prep = self._prepare(inputs_seq, interp_weather)
+            for hi in self._day_inputs(prep, 0, prep.D):
+                outs = day_adjoint.DayMarchFn.apply(
+                    self._grad_march, adjoint, p, p.node, p.surf, p.zone_volume,
+                    T, zT, *hi, ctl=p.ctl, mrt=p.mrt,
+                )
+                T, zT, hq = outs[0], outs[1], outs[3:7]
+                hist.append(outs[2])
+                if collect_loads:
+                    loads.append(outs[-1])
+
+        def zone_order(rows):
+            return torch.cat(rows).reshape(prep.T_steps, -1)[:, self._zinv]
+
+        return self.from_blocked(T, zT, hq), zone_order(hist), (zone_order(loads) if collect_loads else None)
+
+    def _check_grad_scope(self, building: CompiledBuilding, who: str):
         """Raise if a building field the adjoint does not differentiate holds
         a tensor that requires grad: its gradient would silently be zero.
         Runs on every backward call, at the current parameter values (heatx
@@ -1121,7 +1173,7 @@ class FastRunner:
         bad = [name for name, v in _fields(building) if name not in free and _requires_grad(v)]
         if bad:
             raise ValueError(
-                f"chunk_grad: apply_params feeds building fields the adjoint day march "
+                f"{who} feeds building fields the adjoint day march "
                 f"does not differentiate: {bad}.  Their gradients would silently be zero"
             )
 
@@ -1179,12 +1231,7 @@ class FastRunner:
                     f"chunk_grad: {bad} differ from this runner's last chunk_forward: the "
                     "backward would differentiate a different trajectory"
                 )
-        adj = day_adjoint.make_day_adjoint(
-            self._bb, substeps=self._substeps, mode=self._mode, hours=self._hours,
-            refresh_every=self.hour_march.refresh_every if self._mode == "trbdf2_refresh" else None,
-            device=self.device, scheduled_setpoints=self._scheduled_sp,
-        )
-        adjoint = adj.raw if self._use_kernel else functools.partial(adj.raw, plain=True)
+        adjoint = self.make_adjoint()
 
         def backward_fn(params, state, xs, state_cot, loss_cot):
             p_leaves, rebuild = tree_flatten(params)
@@ -1198,32 +1245,17 @@ class FastRunner:
             with torch.enable_grad():
                 live = rebuild(leaves)
                 building = apply_params(live)
-                self._check_grad_scope(building)
-                p = self._blocked_params(building)
-                T, zT = self._blocked_state(node_T, zone_T)
                 if schedule_fn is not None:
                     xs = xs.replace(**schedule_fn(live, xs))
-                prep = self._prepare(xs, interp_weather)
-                hist, loads = [], []
-                for hi in self._day_inputs(prep, 0, prep.D):
-                    outs = day_adjoint.DayMarchFn.apply(
-                        self._grad_march, adjoint, p, p.node, p.surf, p.zone_volume,
-                        T, zT, *hi, ctl=p.ctl, mrt=p.mrt,
-                    )
-                    T, zT = outs[:2]
-                    hist.append(outs[2])
-                    if collect_loads:
-                        loads.append(outs[-1])
-
-                def zone_order(rows):
-                    return torch.cat(rows).reshape(prep.T_steps, -1)[:, self._zinv]
-
-                zt = zone_order(hist)
-                loss = loss_fn(zt, zone_order(loads), xs) if collect_loads else loss_fn(zt, xs)
-                outs = [loss, T[:, self._inv], zT.reshape(-1)[self._zinv]]
+                final, zt, loads = self.grad_run(
+                    building, dataclasses.replace(state, node_T=node_T, zone_T=zone_T), xs,
+                    collect_loads, interp_weather, adjoint, who="chunk_grad: apply_params",
+                )
+                loss = loss_fn(zt, loads, xs) if collect_loads else loss_fn(zt, xs)
+                outs = [loss, final.node_T, final.zone_T]
                 cots = [
                     torch.as_tensor(loss_cot, dtype=loss.dtype, device=loss.device),
-                    state_cot.node_T.to(T.dtype), state_cot.zone_T.to(T.dtype),
+                    state_cot.node_T.to(final.node_T.dtype), state_cot.zone_T.to(final.node_T.dtype),
                 ]
                 grads = torch.autograd.grad(outs, wrt + [node_T, zone_T], cots, allow_unused=True)
             grads = [torch.zeros_like(x) if g is None else g for x, g in zip(wrt + [node_T, zone_T], grads)]

@@ -24,6 +24,8 @@ def test_import_loads_no_jax():
         "import heatx_torch.cli, heatx_torch.sizing, heatx_torch.comfort, heatx_torch.io.checkpoint\n"
         "import heatx_torch.model.spl, heatx_torch.weather.shadow, heatx_torch.utils\n"
         "import heatx_torch.utils.debug, heatx_torch.utils.profiling\n"
+        "import heatx_torch.ensemble, heatx_torch.io.eplus, heatx_torch.validate\n"
+        "import heatx_torch.validate.replay, heatx_torch.validate.endtoend\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'heatx'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -42,9 +44,12 @@ def _imported_packages(path):
 
 
 def test_no_jax_import_in_sources():
+    sources = [*(REPO / "heatx_torch").rglob("*.py"), *(REPO / "examples_torch").glob("*.py"),
+               REPO / "chip_smoke.py", REPO / "scripts" / "torch_ensemble_sweep.py",
+               REPO / "scripts" / "torch_ensemble_check.py"]
     offenders = [
         (str(p.relative_to(REPO)), m)
-        for p in (REPO / "heatx_torch").rglob("*.py")
+        for p in sources
         for m in _imported_packages(p)
         if m in ("jax", "jaxlib", "heatx")
     ]

@@ -19,10 +19,15 @@ CPU.
   of max |load|, peaks and warm-up counts alike;
 * the ``ValueError``s of heatx's sizing.py:482-487, with heatx's messages.
 
-The room's walls are all concrete.  With a no-mass insulation layer the
-parity march with the MRT network and two fixed no-mass iterations carries a
-1e-13 K difference between the two packages to ~5e-7 K within 8 sub-steps
-of this room's first hour (ROADMAP C), far past these bars.
+* ``size_from_epw`` again with 5 cm of polyurethane (a no-mass node) on
+  the walls, outside or inside the concrete: the same 1e-9 of max |load|.
+
+With the polyurethane on the room side, the parity march with the MRT
+network and two fixed no-mass iterations amplifies a 1e-13 K move of its
+state ~30x within 8 sub-steps where the zone lands on its setpoint, in
+heatx (2.9e-12 K) as in the port (3.6e-12 K); with it outside, neither does
+(1.1e-13 K); the packages' states stay within 1.7e-9 K over two design days
+(scripts/torch_c12_probe.py; ROADMAP C12).
 """
 
 import dataclasses
@@ -58,11 +63,16 @@ def weather(tmp_path_factory):
     return hx_epw.read_epw(path), epw.read_epw(path)
 
 
-def _room(testing_mod, boundary, surface_def):
-    """A single-zone box with a 2 x 1.5 m window and a slab on the ground."""
+def _room(testing_mod, boundary, surface_def, insulation=None):
+    """A single-zone box with a 2 x 1.5 m window and a slab on the ground;
+    its walls 20 cm of concrete, with 5 cm of polyurethane ``"outside"`` or
+    ``"inside"`` it."""
+    mats = [testing_mod.TestMat.concrete(0.2)]
+    poly = testing_mod.TestMat.polyurethane(0.05)
+    mats = {None: mats, "outside": [poly] + mats, "inside": mats + [poly]}[insulation]
     opts = testing_mod.SingleZoneOptions(
         zone_volume=60.0, surface_height=3.0, surface_width=5.0, window_height=1.5, window_width=2.0,
-        construction=[testing_mod.TestMat.concrete(0.2)],
+        construction=mats,
     )
     m = testing_mod.single_zone_building(opts)
     m.add_surface(surface_def(
@@ -72,8 +82,9 @@ def _room(testing_mod, boundary, surface_def):
     return m
 
 
-def _models():
-    return _room(hx_testing, HxBoundary, HxSurfaceDef), _room(testing, Boundary, SurfaceDef)
+def _models(insulation=None):
+    return (_room(hx_testing, HxBoundary, HxSurfaceDef, insulation),
+            _room(testing, Boundary, SurfaceDef, insulation))
 
 
 def test_design_days_and_helpers_match_heatx(weather):
@@ -133,6 +144,25 @@ def test_design_day_loads_match_heatx(weather):
         np.testing.assert_array_equal(g.peak_hour, r.peak_hour)
         assert g.summary() == r.summary()
     assert (got["winter"].profile_W > 0).all() and (got["summer"].profile_W < 0).any()
+
+
+@pytest.mark.parametrize("insulation", ["outside", "inside"])
+def test_design_days_polyurethane_walls_match_heatx(weather, insulation):
+    """ROADMAP C12: walls with a no-mass polyurethane layer, the MRT network
+    and two fixed no-mass iterations hold heatx's design days at the
+    all-concrete room's bar."""
+    hw, pw = weather
+    hm, pm = _models(insulation)
+    hx_cfg, cfg = _coarse()
+    ref = hx_sizing.size_from_epw(hm, hw, heat_sp=18.0, cool_sp=21.0, config=hx_cfg)
+    got = sizing.size_from_epw(pm, pw, heat_sp=18.0, cool_sp=21.0, config=cfg, device="cpu")
+    for season in ref:
+        r, g = ref[season], got[season]
+        assert g.warmup_days == r.warmup_days
+        scale = np.abs(r.profile_W).max()
+        assert scale > 10.0, season
+        np.testing.assert_allclose(g.profile_W, r.profile_W, rtol=0, atol=1e-9 * scale, err_msg=season)
+        np.testing.assert_array_equal(g.peak_hour, r.peak_hour)
 
 
 def test_design_day_kernel_route_matches_heatx(weather):
