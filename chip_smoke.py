@@ -141,9 +141,10 @@ Phases (one output line each, then a JSON line per contract):
    launches, 24 h x 118 sub-steps, on the operands of its first day-launch
    (the conductance scale 1.2 keeps every face off the 2-cycle, which the
    phase measures): the day march on T, zT and the zone history (<= 2e-4 K)
-   and on h/q (<= 1e-3), the adjoint on the loss's own cotangent, every output
-   (relative L2 <= 2e-4 against the f32 plain adjoint re-run from the forward
-   kernel's hour starts).  The bench day's adjoint launch is
+   and on h/q (<= 1e-3), the adjoint on the loss's own cotangent, every output,
+   over PARITY_WINDOW from the kernel's state at its start (relative L2 <=
+   2e-4 against the f32 plain adjoint re-run from the forward kernel's hour
+   starts; the day's adjoint launch timed whole).  The bench day's adjoint launch is
    timed and checked finite; its recomputed hour starts are the forward
    kernel's states at the same hours, f32 and f64, to the bit.  (The f64 plain adjoint, longer gradients and the
    2-cycles taken apart: scripts/torch_parity_diag.py; 73 days, one chunk of
@@ -346,19 +347,44 @@ Phases (one output line each, then a JSON line per contract):
    full settings (their asserts hold, launches counted, times printed); (e)
    outdoor air per member in two weather groups: one launch a day each,
    each group bit-equal to its own run, timed against one weather.
+29. the examples on the card: each of examples_torch/'s nine scripts beside
+   the ensemble's two (annual_city, annual_demand, office_idf, comfort,
+   passive_controls, size_equipment, calibrate_demand and optimal_control's
+   phase 2 (``--phase 2``: its phase 1 has no kernel) at their full
+   settings; calibrate, in f64 and with ``--f32``, at its smoke settings,
+   HEATX_EXAMPLE_FAST=1), loaded with ``load_module`` and its
+   ``main(["--platform", "gpu"])`` called in-process: exit code 0, its own
+   closing asserts and OK line, "kernel engine" printed, and its day-march and
+   adjoint launches counted from 0 and equal to the counts its settings give
+   (``example_launches``: 365 a simulated year, a launch a chunk and sweep of
+   each calibration step, the warm-up repeats each run prints; none is 0 on
+   the day march); the time of each (host clock).  Then, f64, each at the
+   settings its run above had (the kernels' shapes of that run: 24 h of
+   setpoints, calibrate_demand's 48 h in 4 chunks, calibrate's smoke 12 h in
+   2): the first value and gradient of optimal_control's setpoint phase (one
+   zone and the 2-zone variant), calibrate and calibrate_demand on the
+   kernels against the same example's objective on the plain versions on the
+   card (``use_kernel=False``), within ADJ_F64_RTOL relative; optimal_control's
+   finite-difference gate on every zone of its 2-zone variant on the
+   kernels; calibrate's f32 first gradient against the f64 one, relative L2
+   within EX_F32_GRAD_TOL (calibrate_demand's printed).
+   scripts/torch_examples_check.py runs the phase alone, every example at
+   full settings.
 
 Phases 16b and 19c hold the parity kernels against their plain versions over
 the daytime window PARITY_WINDOW (hours 8-14) of the day-launch; 16b held the
 whole day until the MRT phases came (its plain parity adjoint alone took 3.5
-min).  Phase 14b holds the whole day.
+min).  Phase 14b holds the day march over the whole day and the adjoint over
+the same window (its plain adjoint of the whole day took 78 s).
 
 The line before the last is the kernels JSON line.  ``launches`` is each
 kernel's count on this slice's main path: for the four ``*_cavity``
 entries the office workflow (phase 17) and the glazed city's gradient paths
 (phase 16), for the two parity entries the parity gradient of phase 14, for
 the TR-BDF2 entries the 30-day demand gradient of phase 11;
-``launches_by_path`` lists every driven path (phases 4, 8b, 10, 11, 13, 14,
-16, 17), each counted from 0.  The ``*_cavity`` entries' ``ms``,
+``launches_by_path`` lists every driven path (phases 4 to 29; the
+``day_march`` and ``day_adjoint`` entries carry the command line's, the
+ensemble's and each example's), each counted from 0.  The ``*_cavity`` entries' ``ms``,
 ``plain_ms``, ``max_abs_err`` and ``bound_ms`` are the glazed city's
 (phase 16).  ``ms`` is one f32 free-float bench-day launch
 (CUDA events), ``plain_ms`` its f32 plain version on the same inputs,
@@ -369,7 +395,8 @@ Each day-march entry timed at full width names its launch ``variant``
 (``G=4/<threads a block>``, as the wrapper read it back).
 The two ``*_parity`` entries are the parity kernels on the first day-launch
 of the 10-day parity gradient (24 h x 118 sub-steps, phase 14b), held against
-their f32 plain versions there; ``ms_bench_day`` is the same launch on the
+their f32 plain versions there (the adjoint over PARITY_WINDOW,
+``plain_hours``); ``ms_bench_day`` is the same launch on the
 bench day's own operands.  The parity cavity entries are held over
 PARITY_WINDOW (``plain_hours``: first and last hour), their ``plain_ms`` the
 plain versions' time for it.  The eight ``*_mrt`` entries are the MRT
@@ -583,7 +610,8 @@ CAV_WINDOW_ADJ_RL2 = 1e-2  # relative L2 per adjoint output, all lanes and the c
 # whole day of the plain parity adjoint took 207 s on the glazed city on an
 # H100): the sun is up through the whole window on the bench weather, so the
 # solar terms and their cotangents are in the comparison.  The launches are
-# timed whole; phase 14b compares the whole day.  Four hours (8-12) end at
+# timed whole; phase 14b compares the day march's whole day (and the adjoint
+# over this window).  Four hours (8-12) end at
 # the glazing's midday, where the f32 kernel and its plain twin part by
 # 5.6e-4 K on T against CAV_WINDOW_T_TOL (measured on an H100 80GB HBM3 at
 # 700 W): the window ends at 14 h.
@@ -687,6 +715,23 @@ ENS_F32_TOL = 1e-3  # K
 ENS_GRAD_E, ENS_GRAD_HOURS = 256, 24
 ENS_PARITY_E, ENS_PARITY_HOURS = 64, 24
 ENS_WEATHER_E, ENS_WEATHER_HOURS = 64, 48
+# Phase 29, the examples (examples_torch/) on the card: those the phase runs
+# at their full settings (each under ~15 s on an H100), and the one it runs at
+# its smoke settings (HEATX_EXAMPLE_FAST=1): calibrate, whose float64 run at
+# full settings ends 7.4 % from the true u_scale, over its own 5 % bound,
+# exactly as heatx's examples/calibrate.py does on the CPU (ROADMAP C13).
+# EXAMPLE_ARGS: optimal_control runs its phase 2 (the kernels) alone; its phase
+# 1, autograd through eager imp_march sub-steps with no kernel, took 4.6-6.2 s
+# an iteration there (10 iterations at smoke settings, 150 at full).
+# scripts/torch_examples_check.py runs every example whole at full settings.
+# The f32 calibration's first gradient against the f64 one, relative L2:
+# PERF.md's f32-gradient rows measured 1.2e-3 (bench) and 8.9e-3 (glazed);
+# bound above both.
+EXAMPLES_FULL = ("annual_city", "annual_demand", "office_idf", "comfort", "passive_controls", "size_equipment",
+                 "calibrate_demand", "optimal_control")
+EXAMPLES_FAST = ("calibrate",)
+EXAMPLE_ARGS = {"optimal_control": ["--phase", "2"]}
+EX_F32_GRAD_TOL = 1e-2
 # Published H100 SXM rates (NVIDIA H100 datasheet): HBM bytes/s and the
 # f32 FLOP/s outside the tensor cores (the kernels run no matrix products).
 HBM_BPS = 3.35e12
@@ -1871,20 +1916,29 @@ def phase14_parity_grad(torch, ctx, p13):
     g32 = flat_grads(adj(params, T, zT, hi, cots))
     adj_ms = event_ms(torch, lambda: adj(params, T, zT, hi, cots), 2)
     note_adjoint_variant(day_adjoint, "day_adjoint_parity")
-    # The plain adjoint re-run from the forward kernel's hour starts (the march
-    # the kernel differentiates; it skips the plain version's own march).
-    starts = kernel_hour_starts(torch, day_march, fr32._bb, hm, params, T, zT, hi)
-    t0 = time.time()
-    g32p = flat_grads(adj.plain(params, T, zT, hi, cots, starts=starts))
-    torch.cuda.synchronize()
-    adj_plain_ms = (time.time() - t0) * 1e3
-    gaps = rel_l2_gaps(torch, g32, g32p, "f32 parity adjoint kernel vs f32 plain adjoint from its hour starts over "
-                       "the main path's day", PARITY_ADJ_F32_RL2)
-    worst_gap = max(gaps, key=gaps.get)
-    adj32_abs = max(float((g32[n] - ref).abs().max()) for n, ref in g32p.items())
     check(float(g32["seg_u"].abs().max()) > 0 and float(g32["front_alphas"].abs().max()) > 0,
           "the main path's day adjoint gives no gradient on seg_u or front_alphas")
-    del g32p, starts
+    # Over PARITY_WINDOW (the plain adjoint of the whole day took 78 s on an
+    # H100): the adjoint kernel of the window from the kernel's state at its
+    # start, the loss's cotangent on its hours, against the plain adjoint
+    # re-run from the forward kernel's hour starts (the march the kernel
+    # differentiates; it skips the plain version's own march).
+    H, W0 = PARITY_PLAIN_HOURS, PARITY_WINDOW_START
+    hm_w = day_march.hour_march_for(fr32._bb, mode="parity", hours=H)
+    Tw, zTw, hi_w = daytime_window(day_march, fr32._bb, params, T, zT, hi, sub)
+    adj_w = day_adjoint.make_day_adjoint(fr32._bb, substeps=sub, mode="parity", hours=H)
+    cots_w = (torch.zeros_like(T), torch.zeros_like(zT), d_hist[W0:W0 + H].contiguous())
+    g_w = flat_grads(adj_w(params, Tw, zTw, hi_w, cots_w))
+    starts = kernel_hour_starts(torch, day_march, fr32._bb, hm_w, params, Tw, zTw, hi_w)
+    t0 = time.time()
+    g_wp = flat_grads(adj_w.plain(params, Tw, zTw, hi_w, cots_w, starts=starts))
+    torch.cuda.synchronize()
+    adj_plain_ms = (time.time() - t0) * 1e3
+    gaps = rel_l2_gaps(torch, g_w, g_wp, f"f32 parity adjoint kernel vs f32 plain adjoint from its hour starts over "
+                       f"hours {W0}-{W0 + H} of the main path's day", PARITY_ADJ_F32_RL2)
+    worst_gap = max(gaps, key=gaps.get)
+    adj32_abs = max(float((g_w[n] - ref).abs().max()) for n, ref in g_wp.items())
+    del g_w, g_wp, starts
     torch.cuda.empty_cache()
 
     # The bench day itself (phase 13's operands): the adjoint's time, and that
@@ -1911,8 +1965,9 @@ def phase14_parity_grad(torch, ctx, p13):
           f"{plain_ms:.1f} ms (host clock), max |d| " + ", ".join(f"{n} {v:.2e}" for n, v in fwd_gaps.items())
           + f" (<= {PARITY_DAY_TOL:g} K, h/q <= {PARITY_HQ_TOL:g}); a start state moved by {PARITY_EPS:g} K ends the day {growth[0]:.3g} x as "
           f"far apart on the nodes, {growth[1]:.3g} x on the zones (<= {PARITY_GROWTH_MAX:g}: no face 2-cycles); "
-          f"adjoint, the loss's own cotangent: {adj_ms:.3f} ms vs f32 plain adjoint from the forward kernel's hour "
-          f"starts {adj_plain_ms:.1f} ms (autograd per hour, host clock), max |d| {adj32_abs:.3e}, relative L2 worst "
+          f"adjoint, the loss's own cotangent: {adj_ms:.3f} ms; over hours {W0}-{W0 + H} from the kernel's state at "
+          f"{W0} h, against the f32 plain adjoint from the forward kernel's hour starts ({adj_plain_ms:.1f} ms, "
+          f"autograd per hour, host clock), max |d| {adj32_abs:.3e}, relative L2 worst "
           f"{gaps[worst_gap]:.3e} "
           f"({worst_gap}; <= {PARITY_ADJ_F32_RL2:g}), " + ", ".join(f"{n} {v:.2e}" for n, v in gaps.items())
           + f"; on the bench day (u_scale 1, seeded hourly cotangents): adjoint launch {bench_adj_ms:.3f} ms "
@@ -4261,6 +4316,188 @@ def phase28_ensemble(torch, ctx, device="cuda"):
                            day_bound=day_bound, day_by=day_by, E=E)
 
 
+def example_launches(name, fast, text, f32=False):
+    """The (day march, adjoint) launches an example's run must make, from
+    its settings and, where a warm-up converges in a data-dependent number of
+    repeats, the repeats it prints."""
+    import re
+
+    def ints(pattern):
+        return [int(x) for x in re.findall(pattern, text)]
+
+    if name in ("annual_city", "office_idf"):
+        return (48 if fast else 8760) // 24, 0
+    if name == "annual_demand":  # the year twice
+        return 2 * ((48 if fast else 8760) // 24), 0
+    if name == "comfort":  # two offices, each a warm-up of its first day and the week
+        reps = ints(r"warm-up of (\d+) days")
+        check(len(reps) == 2, f"comfort: warm-up repeats {reps}")
+        return 2 * ((48 if fast else 168) // 24) + sum(reps), 0
+    if name == "passive_controls":  # two rooms
+        return 2 * (2 if fast else 7), 0
+    if name == "size_equipment":
+        # each design day: its warm-up repeats and the reported day (parity);
+        # the annual sizing year and the verification year: their warm-up
+        # repeats and 365 days (TR-BDF2)
+        dd = ints(r"converged after (\d+) repeats")
+        ann = ints(r"coverage; warm-up (\d+) days")
+        ver = ints(r"capacity \(warm-up (\d+) days")
+        check(len(dd) == 2 and len(ver) == 1 and len(ann) == (0 if fast else 1),
+              f"size_equipment: warm-ups {dd}, {ann}, {ver}")
+        return sum(r + 1 for r in dd) + sum(365 + r for r in ann) + (3 if fast else 365) + ver[0], 0
+    if name in ("calibrate", "calibrate_demand"):
+        # one launch a chunk (each at most a day): the measured run, then
+        # each iteration's forward (C), backward's recompute (C) and adjoint (C)
+        C = 2 if fast else 4
+        iters = 8 if fast else (80 if name == "calibrate_demand" else (300 if f32 else 120))
+        return C + 2 * C * iters, C * iters
+    if name == "optimal_control":
+        # phase 2, one chunk of one launch: the first value_and_grad, the FD
+        # gate's two forwards, then each Adam iteration's (phase 1 launches none)
+        iters = 2 if fast else 25
+        return 2 + 2 + 2 * iters, 1 + iters
+    raise ValueError(name)
+
+
+def phase29_examples(torch, ctx, full=EXAMPLES_FULL, device="cuda", record_asserts=False, args=EXAMPLE_ARGS):
+    """The nine examples of examples_torch/ that heatx's gallery has beside
+    the ensemble's two, on the card (see the module docstring); ``full``
+    names those run at their full settings, ``args`` what each is given
+    beside ``--platform``.  With ``record_asserts`` an
+    example's own closing assert that fails is recorded in its run's
+    ``failed`` and the phase goes on (its launches are still held to their
+    count).  Returns the launches of each run and the numbers printed."""
+    import contextlib
+    import io
+    import os
+    import re
+    import tempfile
+
+    km, ka = ctx.day_march.day_march_kernel, ctx.day_adjoint.day_adjoint_kernel
+    smi = ctx.smi
+    platform = "gpu" if torch.device(device).type == "cuda" else "cpu"
+    dev = torch.device(device)
+    t_phase = time.time()
+    mods = {n: load_module(f"examples_torch/{n}.py", f"{n}_torch") for n in EXAMPLES_FULL + EXAMPLES_FAST}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def reset():
+        km.launches = km.parity_launches = ka.launches = 0
+
+    @contextlib.contextmanager
+    def fast_env(fast):
+        old = os.environ.get("HEATX_EXAMPLE_FAST")
+        os.environ["HEATX_EXAMPLE_FAST"] = "1" if fast else "0"
+        try:
+            yield
+        finally:
+            if old is None:
+                del os.environ["HEATX_EXAMPLE_FAST"]
+            else:
+                os.environ["HEATX_EXAMPLE_FAST"] = old
+
+    # (a) each example's main on the card, its launches counted
+    runs = {}
+    oks = {"annual_demand": "demand OK", "calibrate": "calibration OK",
+           "calibrate_demand": "demand calibration OK", "optimal_control": "optimal control OK"}
+    cases = [(n, []) for n in EXAMPLES_FULL + EXAMPLES_FAST]
+    cases.insert(cases.index(("calibrate", [])) + 1, ("calibrate", ["--f32"]))
+    for name, extra in cases:
+        fast = name not in full
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as d, fast_env(fast):
+            argv = ["--platform", platform, *args.get(name, []), *extra]
+            if name == "annual_city":
+                argv += ["--out", os.path.join(d, "city.npz")]
+            if name == "office_idf":
+                argv += ["--out", os.path.join(d, "z.csv"), "--loads", os.path.join(d, "l.csv")]
+            reset()
+            t0 = time.time()
+            failed = None
+            with contextlib.redirect_stdout(io.StringIO()) as out, contextlib.redirect_stderr(io.StringIO()) as err:
+                try:
+                    rc = mods[name].main(argv)
+                except AssertionError as e:
+                    if not record_asserts:
+                        raise
+                    rc, failed = 0, f"its closing assert failed: {e!r}"
+            sync()
+            wall = time.time() - t0
+        text = out.getvalue() + err.getvalue()
+        check(rc in (None, 0), f"example {name}: exit code {rc}: {text[-1500:]}")
+        if name in oks and failed is None:
+            check(out.getvalue().rstrip().endswith(oks[name]), f"example {name}: {text[-1500:]}")
+        # (an example prints its engine after its closing asserts)
+        check(failed is not None or "kernel engine" in text, f"example {name}: no kernel engine: {text[-800:]}")
+        got = (km.launches, ka.launches)
+        want = example_launches(name, fast, text, f32="--f32" in extra)
+        check(got[0] > 0 and got == want, f"example {name}{' ' + ' '.join(extra) if extra else ''}: {got} (day march, "
+                                          f"adjoint) launches, expected {want}")
+        key = name + ("_f32" if extra else "")
+        runs[key] = SimpleNamespace(wall=wall, launches=got, fast=fast, parity=km.parity_launches, text=text,
+                                    failed=failed)
+
+    # (b) the gradient examples' first value and gradient, f64: the kernels
+    # against the plain versions on the card, the same example's objective at
+    # the settings (a) ran it with, so at the shapes its run gave the kernels
+    def rel(a, b):
+        a, b = torch.as_tensor(a).double().cpu(), torch.as_tensor(b).double().cpu()
+        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
+
+    oc = mods["optimal_control"]
+    grads = {}
+    for zones in (1, 2):
+        pair = []
+        for use_kernel in (True, False):
+            pb = oc.setpoint_problem("optimal_control" not in full, dev, zones=zones, use_kernel=use_kernel)
+            pair.append((pb,) + tuple(oc.value_and_grad(pb, pb.params)))
+        (pk, vk, gk), (_, vp, gp) = pair
+        grads[f"optimal_control zones={zones} ({pk.T} h)"] = (rel(vk, vp), rel(gk["raw"], gp["raw"]))
+        if zones == 2:
+            # the example's FD gate on the card, zone by zone, on the kernels
+            with contextlib.redirect_stdout(io.StringIO()):
+                fd_rows = oc.fd_gate(pk, pk.params, gk)
+    first = {}
+    for name in ("calibrate", "calibrate_demand"):
+        mod = mods[name]
+        vals = []
+        for dtype, use_kernel in ((torch.float64, True), (torch.float64, False), (torch.float32, True)):
+            pb = mod.problem(name not in full, dev, dtype, route="kernel", use_kernel=use_kernel)
+            v, g = pb.value_and_grad(pb.guess)
+            vals.append((v, torch.stack([g[k] for k in sorted(g)])))
+        (vk, gk), (vp, gp), (v32, g32) = vals
+        grads[f"{name} ({'smoke' if name not in full else 'full'} settings)"] = (rel(vk, vp), rel(gk, gp))
+        first[name] = float((g32.double() - gk).norm() / gk.norm())
+    for what, (rv, rg) in grads.items():
+        check(rv <= ADJ_F64_RTOL and rg <= ADJ_F64_RTOL,
+              f"{what}: f64 kernels vs plain versions, value {rv:.3e}, gradient {rg:.3e} > {ADJ_F64_RTOL}")
+    check(first["calibrate"] <= EX_F32_GRAD_TOL,
+          f"calibrate: f32 first gradient vs f64 {first['calibrate']:.3e} > {EX_F32_GRAD_TOL}")
+    phase_s = time.time() - t_phase
+
+    def line(key):
+        r = runs[key]
+        tail = [ln.strip() for ln in r.text.splitlines() if ln.strip() and not ln.startswith("#")][-1]
+        m = re.search(r"phase 1 \([^)]*\): ([0-9.]+)s", r.text)
+        phase1 = f" (phase 1, no kernel: {m.group(1)} s)" if m else ""
+        return (f"{key} ({'smoke settings' if r.fast else 'full settings'}) {r.wall:.2f} s{phase1}, "
+                f"{r.launches[0]} day-march (parity {r.parity}) and {r.launches[1]} adjoint launches: "
+                f"{r.failed or tail[:140]}")
+
+    print(f"phase 29 the examples on {smi} (examples_torch/*.py main() on the card, host clock, launches counted "
+          f"from 0 and equal to each run's expected count): " + "; ".join(line(k) for k in runs)
+          + "; first value and gradient, f64 kernels vs plain versions (relative, <= "
+          f"{ADJ_F64_RTOL:g}): " + ", ".join(f"{w} {rv:.2e} / {rg:.2e}" for w, (rv, rg) in grads.items())
+          + "; optimal_control's FD gate on the 2-zone variant, f64 kernels: "
+          + ", ".join(f"zone {z} rel {rel_:.2e}" for z, (_, _, rel_) in enumerate(fd_rows))
+          + f" (< {oc.FD_RTOL:g}); f32 first gradient vs f64, relative L2: calibrate {first['calibrate']:.3e} "
+          f"(<= {EX_F32_GRAD_TOL:g}), calibrate_demand {first['calibrate_demand']:.3e}; phase {phase_s:.1f} s",
+          flush=True)
+    return SimpleNamespace(runs=runs, grads=grads, first=first, fd=fd_rows, seconds=phase_s)
+
+
 def adaptive_kernel_entry(p25, p28):
     """The kernels line's entry of the adaptive loop in the parity body."""
     b = p25.bound
@@ -4763,6 +5000,9 @@ def main() -> int:
 
     # 28. the ensemble (see the module docstring)
     p28 = phase28_ensemble(torch, ctx)
+
+    # 29. the examples (see the module docstring)
+    p29 = phase29_examples(torch, ctx)
     print(f"chip_smoke.py so far {time.time() - t_start:.1f} s (host clock, from its start)", flush=True)
 
     # The kernels line: bounds from this run's shapes (f32 bench day; the
@@ -4827,6 +5067,8 @@ def main() -> int:
                 "examples_torch/design_sweep.py, two sweeps (phase 28d)": p28.example_launches["design_sweep"],
                 "examples_torch/uncertainty.py, two runs (phase 28d)": p28.example_launches["uncertainty"],
                 f"ensemble, two weather groups, {ENS_WEATHER_HOURS} h (phase 28e)": p28.weather_launches,
+                **{f"examples_torch/{k}.py, {'smoke' if r.fast else 'full'} settings (phase 29a)": r.launches[0]
+                   for k, r in p29.runs.items()},
             },
             "ensemble": {"members": p28.E, "ms": p28.day_ms, "plain_ms": p28.day_plain_ms,
                          "max_abs_err": p28.err_day, "bound_ms": p28.day_bound, "bound_by": p28.day_by,
@@ -4852,6 +5094,8 @@ def main() -> int:
                 "demand gradient, 30 days (phase 11b)": launches_dadj,
                 f"parity value_and_grad, {PARITY_GRAD_DAYS} days (phase 14a)": p14.counts[2],
                 f"ensemble gradient E={ENS_GRAD_E}, {ENS_GRAD_HOURS} h, f64 (phase 28b)": p28.grad_launches[1],
+                **{f"examples_torch/{k}.py, {'smoke' if r.fast else 'full'} settings (phase 29a)": r.launches[1]
+                   for k, r in p29.runs.items() if r.launches[1]},
             },
             "max_abs_err": adj32_abs,
             "ms": adj_ms,
@@ -4882,6 +5126,7 @@ def main() -> int:
         },
         {
             "name": "day_adjoint_parity",
+            "plain_hours": PARITY_WINDOW,
             "route": "cuda",
             "source": "heatx_torch/csrc/day_adjoint_parity.cu (device code: heatx_torch/csrc/day_parity_adj.cuh, "
                       "day_parity_rows.cuh)",

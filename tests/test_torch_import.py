@@ -46,7 +46,7 @@ def _imported_packages(path):
 def test_no_jax_import_in_sources():
     sources = [*(REPO / "heatx_torch").rglob("*.py"), *(REPO / "examples_torch").glob("*.py"),
                REPO / "chip_smoke.py", REPO / "scripts" / "torch_ensemble_sweep.py",
-               REPO / "scripts" / "torch_ensemble_check.py"]
+               REPO / "scripts" / "torch_ensemble_check.py", REPO / "scripts" / "torch_examples_check.py"]
     offenders = [
         (str(p.relative_to(REPO)), m)
         for p in sources
