@@ -12,9 +12,9 @@ Phases (one output line each, then a JSON line per contract):
    ``nvidia-smi`` reports them.  Exits non-zero without a CUDA device.
 2. build: compiles the day-march kernels (the TR-BDF2 body in
    heatx_torch/csrc/day_march_tr.cu, the parity body in day_march_parity.cu,
-   each four threads per surface in three launch variants, and the C entry
-   in day_march.cu) from the checkout with nvcc and prints the build time
-   and every instantiation's ptxas line.
+   each four threads per surface in three launch variants and eight in the
+   cluster variant, and the C entry in day_march.cu) from the checkout with
+   nvcc and prints the build time and every instantiation's ptxas line.
 3. f64 check on a 4-zone city (40 surfaces), 3 h, modes trbdf2_refresh
    (k=2, k=8) and trbdf2: the CUDA kernel against its plain PyTorch twin on
    the same inputs, max |dT| <= 1e-9 K on T, zT and the zone history (the
@@ -39,6 +39,29 @@ Phases (one output line each, then a JSON line per contract):
    hour, k=2 and frozen, 2 h; the parity adjoint on 72 zones in one 96-lane
    block at the chain's own 118 sub-steps, one no-mass iteration, 1 h; f64,
    against the plain adjoint, every output <= 1e-9 of its max |ref|.
+3d. B1 lifted (ROADMAP B1; the launch variant of G = 8 threads a surface,
+   64 rows, a block past 128 lanes run as a thread-block cluster of up to 8
+   CTAs of 128 lanes): (a) f64, every body of both kernels against its plain
+   version, each adjoint against the plain adjoint on seeded cotangents
+   (<= 1e-9 K, <= 1e-9 of max |ref|), on B1_CASES: one zone of 1,000
+   surfaces with a 36-node wall (free-float; with a thermostat and interior
+   MRT; with argon glazing: 8 CTAs each), 100 surfaces with a 47-node wall
+   and a thermostat (one CTA at G = 8), and testing.build_office_block(8,
+   24, 2) with argon glazing and interior MRT (976 surfaces, 192 zones, 8
+   CTAs), and build_office_block(2, 24, 2) with 200 mm concrete walls (262
+   surfaces, 25 nodes, 3 CTAs: the cluster variant on columns of one mask
+   word); TR-BDF2 k=2 2 h at 8 sub-steps, parity 1 h at the buildings' own
+   118 sub-steps with two no-mass iterations; a 69-node wall refused by the
+   kernels, naming their limit; (b) the f32 kernels against the f64 plain
+   versions (<= 1e-2 K); (c) the full-width path: the office campus
+   (build_office_block(8, 24, 2, buildings=32): 31,232 surfaces, 6,144
+   zones, 32 clusters of 8 CTAs), 48 h trbdf2_refresh k=2 at 8 sub-steps
+   through ThermalModel(..., device="cuda").fast_runner().run in f32 in
+   exactly 2 day-launches, within 1e-2 K of the f64 plain run; one
+   day-launch timed with CUDA events, the cluster size, G and the variant
+   printed; then the TR-BDF2 adjoint, the parity march and its adjoint on
+   its first day, once each, timed, their plain versions over the first
+   hour (the TR-BDF2 march's over the whole day).
 4. the main path at full width: build_city_model(1000, 10) (10,000
    surfaces, 1,000 zones), trbdf2_refresh k=2, 8 sub-steps, hours=24,
    bench weather, 48 h through ThermalModel(..., device="cuda")
@@ -53,7 +76,8 @@ Phases (one output line each, then a JSON line per contract):
 6. build (the adjoint): the day-adjoint kernels (the TR-BDF2 body in
    heatx_torch/csrc/day_adjoint_tr.cu and the parity body in
    day_adjoint_parity.cu, each four threads per surface in three launch
-   variants and with its kMrt unit, and the C entry in day_adjoint.cu), one
+   variants, with its kMrt unit and its cluster-variant unit (*_b1.cu, eight
+   threads per surface), and the C entry in day_adjoint.cu), one
    nvcc per unit started together with phase 2's; their ptxas
    registers/stack/spill lines.
 7. f64 on the 4-zone city, 3 h, k=2, k=8 and frozen: the adjoint kernel
@@ -371,11 +395,11 @@ Phases (one output line each, then a JSON line per contract):
    scripts/torch_examples_check.py runs the phase alone, every example at
    full settings.
 
-Phases 16b and 19c hold the parity kernels against their plain versions over
-the daytime window PARITY_WINDOW (hours 8-14) of the day-launch; 16b held the
-whole day until the MRT phases came (its plain parity adjoint alone took 3.5
-min).  Phase 14b holds the day march over the whole day and the adjoint over
-the same window (its plain adjoint of the whole day took 78 s).
+Phases 14b, 16b and 19c hold the parity kernels against their plain versions
+over the daytime window PARITY_WINDOW (hours 8-14) of the day-launch, the
+day-launches timed whole; 16b held the whole day until the MRT phases came
+(its plain parity adjoint alone took 3.5 min), 14b's day march until phase
+3d came (its plain twin of the day took 23.7-29.4 s).
 
 The line before the last is the kernels JSON line.  ``launches`` is each
 kernel's count on this slice's main path: for the four ``*_cavity``
@@ -392,11 +416,12 @@ ensemble's and each example's), each counted from 0.  The ``*_cavity`` entries' 
 bound from this run's shapes; ``thermostat`` holds the same five numbers
 for the thermostat instantiation on the demand city's day (same mode, k=2).
 Each day-march entry timed at full width names its launch ``variant``
-(``G=4/<threads a block>``, as the wrapper read it back).
+(``G=<threads a surface>/<threads a CTA>``, ``x<C> CTAs`` for a cluster, as
+the wrapper read it back).
 The two ``*_parity`` entries are the parity kernels on the first day-launch
 of the 10-day parity gradient (24 h x 118 sub-steps, phase 14b), held against
-their f32 plain versions there (the adjoint over PARITY_WINDOW,
-``plain_hours``); ``ms_bench_day`` is the same launch on the
+their f32 plain versions there (over PARITY_WINDOW, ``plain_hours``);
+``ms_bench_day`` is the same launch on the
 bench day's own operands.  The parity cavity entries are held over
 PARITY_WINDOW (``plain_hours``: first and last hour), their ``plain_ms`` the
 plain versions' time for it.  The eight ``*_mrt`` entries are the MRT
@@ -414,7 +439,12 @@ held over PARITY_WINDOW.  ``day_march_parity_adaptive`` is the parity body
 with the adaptive loop on the bench city (phase 25): its 48 h run's
 launches, the bench-day launch beside the fixed-iteration one
 (``ms_fixed_iters``), held and its plain version timed over PARITY_WINDOW,
-the bound's operations scaled by the window's mean iterations.  The last line is ``{"ok": true, "device": {...}}``;
+the bound's operations scaled by the window's mean iterations.  The four
+``*_b1`` entries are the cluster variant of each body (G = 8, phase 3d): its
+``max_abs_err`` the worst f64 gap of 3d(a), its launches, time and bound the
+office campus's (3d(c), f32), its plain version timed over ``plain_hours``
+(the first hour; the TR-BDF2 march's whole day).  The line before the kernels line is the script's total
+time.  The last line is ``{"ok": true, "device": {...}}``;
 any failed check raises and the script exits non-zero.
 """
 
@@ -610,8 +640,8 @@ CAV_WINDOW_ADJ_RL2 = 1e-2  # relative L2 per adjoint output, all lanes and the c
 # whole day of the plain parity adjoint took 207 s on the glazed city on an
 # H100): the sun is up through the whole window on the bench weather, so the
 # solar terms and their cotangents are in the comparison.  The launches are
-# timed whole; phase 14b compares the day march's whole day (and the adjoint
-# over this window).  Four hours (8-12) end at
+# timed whole; so does phase 14b (the day march and the adjoint over this
+# window).  Four hours (8-12) end at
 # the glazing's midday, where the f32 kernel and its plain twin part by
 # 5.6e-4 K on T against CAV_WINDOW_T_TOL (measured on an H100 80GB HBM3 at
 # 700 W): the window ends at 14 h.
@@ -739,17 +769,26 @@ PEAK_F32_FLOPS = 67e12
 
 
 #: The launch variant each timed day-march kind ran in, as the wrapper read
-#: it back (``G=4/<threads a block>``), by its entry on the kernels line.
+#: it back (``G=<threads a surface>/<threads a CTA>``, with ``xC`` the CTAs
+#: of a thread-block cluster), by its entry on the kernels line.
 VARIANTS = {}
 
 
+def variant_text(wrapper):
+    """A kernel wrapper's last launch variant: ``G=<G>/<threads a CTA>``,
+    ``x<C> CTAs`` appended for a cluster."""
+    shape = wrapper.shape
+    text = f"G={shape.group}/{wrapper.block_threads}"
+    return text + (f" x{shape.cluster} CTAs" if shape.cluster > 1 else "")
+
+
 def note_variant(day_march, name):
-    VARIANTS[name] = f"G=4/{day_march.day_march_kernel.block_threads}"
+    VARIANTS[name] = variant_text(day_march.day_march_kernel)
 
 
 def note_adjoint_variant(day_adjoint, name):
     """The day adjoint's launch variant, as its wrapper read it back."""
-    VARIANTS[name] = f"G=4/{day_adjoint.day_adjoint_kernel.block_threads}"
+    VARIANTS[name] = variant_text(day_adjoint.day_adjoint_kernel)
 
 
 def hour_slices(hi, h, sub):
@@ -988,6 +1027,305 @@ def phase3c_zone_rows(torch, day_adjoint, testing, ThermalModel, SimConfig):
     return worst, (r.params.block_size, r.params.zones_per_block, r.params.max_nodes, variants)
 
 
+#: Phase 3d: the buildings past B1's old limits, each body of both kernels
+#: in f64 against its plain version and in f32 against the f64 plain version.
+#: (name, model builder (testing), config keywords, inputs builder, the
+#: kind it takes).  The wide zone's 1,000 surfaces with a 36-node wall and
+#: the office's 976 surfaces (192 zones) each run as a cluster of 8 CTAs of
+#: 128 lanes at G = 8; the 47-node wall as one CTA at G = 8.
+#: 200 mm of concrete between 20 mm of polystyrene: 25 nodes per surface,
+#: so that a component past 256 lanes runs the 64-row cluster variant on
+#: columns of one 32-bit mask word.
+B1_THIN_WALL = (("poly", 0.02), ("concrete", 0.20), ("poly", 0.02))
+B1_CASES = (
+    ("wide 1000 surfaces, 36 nodes", lambda t: t.build_wide_zone_model(1000, concrete=0.30), {},
+     "bench_inputs", "free-float"),
+    ("wide 1000, 36 nodes, thermostat, interior MRT",
+     lambda t: t.build_wide_zone_model(1000, thermostat=True, concrete=0.30), dict(interior_mrt=True),
+     "demand_inputs", "kMrt"),
+    ("wide 1000, 36 nodes, argon glazing", lambda t: t.glaze_windows(t.build_wide_zone_model(1000, concrete=0.30)),
+     {}, "bench_inputs", "kCav"),
+    ("100 surfaces, 47 nodes, thermostat", lambda t: t.build_wide_zone_model(100, thermostat=True, concrete=0.40),
+     {}, "demand_inputs", "kExt"),
+    ("office 8 x 24 x 2, argon glazing, interior MRT", lambda t: t.glaze_windows(t.build_office_block(8, 24, 2)),
+     dict(interior_mrt=True), "bench_inputs", "kMrt + kCav"),
+    ("office 2 x 24 x 2, 200 mm concrete walls", lambda t: t.build_office_block(2, 24, 2, wall=B1_THIN_WALL), {},
+     "bench_inputs", "free-float"),
+)
+B1_TR_HOURS = 2  # TR-BDF2 k=2 at 8 sub-steps an hour
+B1_PARITY_HOURS = 1  # parity at the building's own sub-steps (the default discretization), 2 no-mass iterations
+#: Phase 3d(c): the office campus, B1's full-width path.
+B1_CAMPUS = (8, 24, 2, 32)  # floors, rooms a floor, windows a room, buildings
+B1_CAMPUS_HOURS = 48
+
+
+def phase3d_b1_cases(torch, ctx):
+    """Phase 3d (a) and (b): for each of B1_CASES, the TR-BDF2 march (k=2,
+    B1_TR_HOURS) and the parity march (B1_PARITY_HOURS at the building's own
+    sub-steps, two no-mass iterations), each launched through its runner's
+    hour march: f64 kernel against the plain version (every output <=
+    F64_TOL, loads relative to their largest), f32 kernel against the f64
+    plain version (T, zT and the zone history <= F32_TOL); each body's
+    adjoint kernel on the f64 launch against the plain adjoint on seeded
+    cotangents (<= ADJ_F64_RTOL of max |ref|).  Then the 69-node wall: the
+    kernels refuse it, naming their limit.  Returns the worst f64, f32 and
+    adjoint gaps, a line per case and mode (its lanes, nodes, the launch
+    variants) and the worst f64 gap of each body ({"trbdf2", "parity",
+    "trbdf2_adjoint", "parity_adjoint"})."""
+    day_march, day_adjoint, testing = ctx.day_march, ctx.day_adjoint, ctx.testing
+    worst64, worst32, worst_adj, lines = 0.0, 0.0, 0.0, []
+    by_body = {k: 0.0 for k in ("trbdf2", "parity", "trbdf2_adjoint", "parity_adjoint")}
+    for name, build, cfg, inputs, kind in B1_CASES:
+        model = build(testing)
+        for mode in ("trbdf2", "parity"):
+            what = f"B1 {name} ({kind}), {mode}"
+            hours = B1_TR_HOURS if mode == "trbdf2" else B1_PARITY_HOURS
+            kw = (dict(mode="trbdf2_refresh", substeps=8, refresh_every=2) if mode == "trbdf2"
+                  else dict(mode="parity"))
+            extra = {} if mode == "trbdf2" else dict(nomass_fixed_iters=2)
+            outs = {}
+            for dtype in (torch.float64, torch.float32):
+                tm = ctx.ThermalModel(model, n=1, config=ctx.SimConfig(dtype=dtype, **cfg, **extra), device="cuda")
+                r = tm.fast_runner(hours=hours, **kw)
+                T, zT = r.to_blocked(tm.initial_state())
+                hi = r.kernel_inputs(getattr(testing, inputs)(tm.building, hours, device="cuda"))[0]
+                before = day_march.day_march_kernel.launches
+                outs[dtype] = r.hour_march(r.params, T, zT, hi)
+                torch.cuda.synchronize()
+                check(day_march.day_march_kernel.launches == before + 1, f"{what}: the kernel did not launch")
+                fwd_variant = variant_text(day_march.day_march_kernel)
+                if dtype == torch.float64:
+                    ref = r.hour_march.plain(r.params, T, zT, hi)
+                    akw = dict(kw, substeps=tm.dt_subdivisions) if mode == "parity" else kw
+                    adj = day_adjoint.make_day_adjoint(r._bb, hours=hours, **akw)
+                    rng = np.random.default_rng(len(name))
+                    NB, ZB = r._bb.n_blocks, r._bb.zones_per_block
+                    has_ctl = r.params.ctl is not None
+
+                    def cot(shape, scale=1.0):
+                        return torch.as_tensor(rng.normal(size=shape) * scale, dtype=dtype, device="cuda")
+
+                    cots = (cot(T.shape), cot(zT.shape), cot((hours, NB, ZB))) + (
+                        (cot((hours, NB, ZB), 1e-3),) if has_ctl else ())
+                    before = day_adjoint.day_adjoint_kernel.launches
+                    _, w = adjoint_vs_plain(torch, adj, r.params, T, zT, hi, cots, what)
+                    check(day_adjoint.day_adjoint_kernel.launches == before + 1,
+                          f"{what}: the adjoint kernel did not launch")
+                    worst_adj = max(worst_adj, w)
+                    by_body[mode + "_adjoint"] = max(by_body[mode + "_adjoint"], w)
+                    adj_variant = variant_text(day_adjoint.day_adjoint_kernel)
+            loads = r.params.ctl is not None
+            for i, (x, y, z) in enumerate(zip(outs[torch.float64], ref, outs[torch.float32])):
+                if isinstance(x, tuple):
+                    x, y, z = torch.stack(x), torch.stack(y), torch.stack(z)
+                load = loads and i == 5  # the load history, W (after T, zT, hq, zt_hist, bad)
+                scale = max(float(y.abs().max()), 1e-30) if load else 1.0
+                d = float((x - y).abs().max()) / scale
+                check(d <= F64_TOL, f"{what} f64 output {i}: max |d| {d} > {F64_TOL}")
+                worst64 = max(worst64, d)
+                by_body[mode] = max(by_body[mode], d)
+                if i in (0, 1, 3):
+                    d32 = float((z.double() - y).abs().max())
+                    check(d32 <= F32_TOL, f"{what} f32 output {i} vs f64 plain: max |d| {d32} > {F32_TOL}")
+                    worst32 = max(worst32, d32)
+            check(bool(torch.isfinite(outs[torch.float32][0]).all()), f"{what} f32: non-finite state")
+            lines.append(f"{name} {mode} ({kind}): {r.params.block_size} lanes x {r.params.max_nodes} nodes, "
+                         f"{r.params.zones_per_block} zones, march {fwd_variant}, adjoint {adj_variant}")
+    tm = ctx.ThermalModel(testing.build_wide_zone_model(50, concrete=0.60), n=1,
+                          config=ctx.SimConfig(dtype=torch.float64), device="cuda")
+    r = tm.fast_runner(hours=1, mode="trbdf2_refresh", substeps=8, refresh_every=2)
+    T, zT = r.to_blocked(tm.initial_state())
+    hi = r.kernel_inputs(testing.bench_inputs(tm.building, 1, device="cuda"))[0]
+    try:
+        r.hour_march(r.params, T, zT, hi)
+        refused = None
+    except NotImplementedError as e:
+        refused = str(e)
+    check(refused is not None and "64 nodes per surface" in refused,
+          f"a {r.params.max_nodes}-node wall: the kernel did not refuse it ({refused})")
+    lines.append(f"{r.params.max_nodes} nodes: refused ({refused})")
+    return worst64, worst32, worst_adj, lines, by_body
+
+
+def b1_kernel_entries(by_body, campus):
+    """The kernels line's entries of the cluster variant (G = 8, up to 8 CTAs
+    of 128 lanes a block): each body's max_abs_err the worst f64 gap of
+    phase 3d(a), its launches, times and bound the office campus's (phase
+    3d(c), f32; ``plain_hours`` the hours its plain version was timed over)."""
+    rows = (
+        ("day_march_b1", "heatx_torch/csrc/day_march_tr.cu (device code: day_tr.cuh, day_cluster.cuh)",
+         "heatx/ops/pallas_step.py:1976", "trbdf2", campus.tr, "run, 48 h, 2 launches (phase 3d(c))"),
+        ("day_adjoint_b1", "heatx_torch/csrc/day_adjoint_tr.cu (device code: day_tr_adj.cuh, day_cluster.cuh)",
+         "heatx/ops/pallas_adjoint.py:717", "trbdf2_adjoint", campus.tr_adj,
+         "make_day_adjoint, the first day (phase 3d(c))"),
+        ("day_march_parity_b1", "heatx_torch/csrc/day_march_parity.cu (device code: day_parity_rows.cuh, "
+         "day_cluster.cuh)", "heatx/ops/pallas_step.py:1976 (body _hour_body, pallas_step.py:633)", "parity",
+         campus.parity, "parity run, 24 h (phase 3d(c))"),
+        ("day_adjoint_parity_b1", "heatx_torch/csrc/day_adjoint_parity.cu (device code: day_parity_adj.cuh, "
+         "day_cluster.cuh)", "heatx/ops/pallas_adjoint.py:717 (body _hour_body(unroll=True), "
+         "pallas_adjoint.py:573)", "parity_adjoint", campus.parity_adj, "make_day_adjoint, parity, the first day "
+         "(phase 3d(c))"),
+    )
+    out = []
+    for name, source, replaces, body, c, path in rows:
+        out.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": c["launches"],
+            "launches_by_path": {path: c["launches"]}, "variant": c["variant"],
+            "max_abs_err": by_body[body], "ms": c["ms"], "plain_ms": c["plain_ms"], "plain_hours": c["plain_hours"],
+            "bound_ms": c["bound"][0], "bound_by": c["bound"][1], "library_ms": None,
+        })
+    return out
+
+
+def phase3d_campus(torch, ctx):
+    """Phase 3d(c): B1's full-width path, testing.build_office_block(*B1_CAMPUS):
+    32 buildings of 976 surfaces (36-node walls, 192 zones each), every
+    building one cluster of 8 CTAs of 128 lanes at G = 8.  The user's path:
+    ThermalModel(..., device="cuda").fast_runner().run, trbdf2_refresh k=2 at
+    8 sub-steps, B1_CAMPUS_HOURS in f32, exactly 2 day-launches, held within
+    F32_TOL of the f64 plain version's run; one day-launch timed (CUDA
+    events) beside the plain version's day (host clock).  Then each other
+    body once on the campus's first day through its entry point, its launch
+    counted from 0: the TR-BDF2 adjoint (make_day_adjoint), the parity
+    march (fast_runner(mode="parity").run, one no-mass iteration) and its
+    adjoint, each day-launch timed, their plain versions timed over the
+    first hour (the TR-BDF2 march's over the whole day; ``plain_hours``).
+    Returns what the kernels line reads."""
+    day_march, day_adjoint, testing = ctx.day_march, ctx.day_adjoint, ctx.testing
+    floors, rooms, windows, buildings = B1_CAMPUS
+    model = testing.build_office_block(floors, rooms, windows, buildings=buildings)
+    kw = dict(mode="trbdf2_refresh", substeps=8, hours=24, refresh_every=2)
+    H = B1_CAMPUS_HOURS
+    tm32 = ctx.ThermalModel(model, n=1, config=ctx.SimConfig(dtype=torch.float32), device="cuda")
+    b = tm32.building
+    r32 = tm32.fast_runner(**kw)
+    inputs = testing.bench_inputs(b, H, device="cuda")
+    day_march.day_march_kernel.launches = 0
+    t0 = time.time()
+    fin32, z32 = r32.run(tm32.initial_state(), inputs)
+    torch.cuda.synchronize()
+    run_s = time.time() - t0
+    launches = day_march.day_march_kernel.launches
+    check(launches == H // 24, f"campus: {launches} day-launches for {H} h, expected {H // 24}")
+    variant = variant_text(day_march.day_march_kernel)
+    shape = day_march.day_march_kernel.shape
+    per_building = testing.office_block_surfaces(floors, rooms, windows)
+    check(shape.group == 8 and shape.cluster == -(-per_building // shape.cta_lanes) > 1,
+          f"campus: launch variant {variant}, expected a cluster of CTAs at G = 8")
+    tm64 = ctx.ThermalModel(model, n=1, config=ctx.SimConfig(dtype=torch.float64), device="cuda")
+    r64 = tm64.fast_runner(use_kernel=False, **kw)
+    t0 = time.time()
+    fin64, z64 = r64.run(tm64.initial_state(), testing.bench_inputs(tm64.building, H, device="cuda"))
+    torch.cuda.synchronize()
+    plain_run_s = time.time() - t0
+    for name, t in (("zone_T", z32), ("node_T", fin32.node_T)):
+        check(bool(torch.isfinite(t).all()), f"campus: {name} has non-finite values")
+    err = float((z32.double() - z64).abs().max())
+    check(tuple(z32.shape) == (H, b.n_zones) and err <= F32_TOL,
+          f"campus: f32 kernel vs f64 plain zone_T max |d| {err} > {F32_TOL} (shape {tuple(z32.shape)})")
+    T, zT = r32.to_blocked(tm32.initial_state())
+    hi = r32.kernel_inputs(testing.bench_inputs(b, 24, device="cuda"))[0]
+    tr_ms = event_ms(torch, lambda: r32.hour_march(r32.params, T, zT, hi), 3)
+    got = r32.hour_march(r32.params, T, zT, hi)
+    t0 = time.time()
+    r32.hour_march.plain(r32.params, T, zT, hi)
+    torch.cuda.synchronize()
+    tr_plain_ms = (time.time() - t0) * 1e3
+    lanes, zones = b.n_surfaces, b.n_zones
+    ops, *_ = day_work(r32.params, 24, 8, 2, lanes, zones)
+    moved = real_nbytes(r32.params, lanes, zones, *param_tensors(r32.params), T, zT, *hi, got[0], got[1], *got[2],
+                        *got[3:])
+    out = SimpleNamespace(launches=launches, variant=variant, run_s=run_s, plain_run_s=plain_run_s, err=err,
+                          lanes=lanes, zones=zones, blocks=r32.params.n_blocks, block=r32.params.block_size,
+                          nodes=r32.params.max_nodes, cluster=shape.cluster, group=shape.group)
+    out.tr = dict(ms=tr_ms, plain_ms=tr_plain_ms, plain_hours=[0, 24], launches=launches, variant=variant,
+                  bound=bound(moved, ops))
+
+    # The TR-BDF2 adjoint on the campus's first day (seeded zone-history cotangents).
+    NB, ZB = r32._bb.n_blocks, r32._bb.zones_per_block
+    rng = np.random.default_rng(11)
+    d_hist = torch.as_tensor(rng.normal(size=(24, NB, ZB)) / (24 * zones), dtype=torch.float32, device="cuda")
+    cots = (torch.zeros_like(T), torch.zeros_like(zT), d_hist)
+    adj = day_adjoint.make_day_adjoint(r32._bb, substeps=8, mode="trbdf2_refresh", hours=24, refresh_every=2)
+    day_adjoint.day_adjoint_kernel.launches = 0
+    grads = adj(r32.params, T, zT, hi, cots)
+    torch.cuda.synchronize()
+    adj_launches = day_adjoint.day_adjoint_kernel.launches
+    adj_variant = variant_text(day_adjoint.day_adjoint_kernel)
+    g = flat_grads(grads)
+    check(adj_launches == 1 and all(bool(torch.isfinite(v).all()) for v in g.values()),
+          f"campus adjoint: {adj_launches} launches, finite {all(bool(torch.isfinite(v).all()) for v in g.values())}")
+    adj_ms = event_ms(torch, lambda: adj(r32.params, T, zT, hi, cots), 1)
+    adj1 = day_adjoint.make_day_adjoint(r32._bb, substeps=8, mode="trbdf2_refresh", hours=1, refresh_every=2)
+    hi1 = hour_slices(hi, 0, 8)
+    cots1 = (cots[0], cots[1], d_hist[:1])
+    t0 = time.time()
+    adj1.plain(r32.params, T, zT, hi1, cots1)
+    torch.cuda.synchronize()
+    adj_plain_ms = (time.time() - t0) * 1e3
+    ops_a = adjoint_work(r32.params, 24, 8, 2)
+    moved_a = nbytes(*param_tensors(r32.params), T, zT, *hi, *cots) + nbytes(*g.values())
+    out.tr_adj = dict(ms=adj_ms, plain_ms=adj_plain_ms, plain_hours=[0, 1], launches=adj_launches, variant=adj_variant,
+                      bound=bound(moved_a, ops_a))
+
+    # The parity march and its adjoint, one no-mass iteration, the campus's first day.
+    tmp = ctx.ThermalModel(model, n=1, config=ctx.SimConfig(dtype=torch.float32, nomass_fixed_iters=PARITY_ITERS),
+                           device="cuda")
+    sub = tmp.dt_subdivisions
+    rp = tmp.fast_runner(mode="parity", hours=24)
+    day_march.day_march_kernel.launches = 0
+    _, zp = rp.run(tmp.initial_state(), testing.bench_inputs(tmp.building, 24, device="cuda"))
+    torch.cuda.synchronize()
+    p_launches = day_march.day_march_kernel.launches
+    p_variant = variant_text(day_march.day_march_kernel)
+    check(p_launches == 1 and bool(torch.isfinite(zp).all()), f"campus parity: {p_launches} launches, or non-finite")
+    Tp, zTp = rp.to_blocked(tmp.initial_state())
+    hip = rp.kernel_inputs(testing.bench_inputs(tmp.building, 24, device="cuda"))[0]
+    p_ms = event_ms(torch, lambda: rp.hour_march(rp.params, Tp, zTp, hip), 1)
+    gotp = rp.hour_march(rp.params, Tp, zTp, hip)
+    rp1 = tmp.fast_runner(mode="parity", hours=1)
+    hip1 = hour_slices(hip, 0, sub)
+    t0 = time.time()
+    rp1.hour_march.plain(rp1.params, Tp, zTp, hip1)
+    torch.cuda.synchronize()
+    p_plain_ms = (time.time() - t0) * 1e3
+    ops_p = parity_day_work(rp.params, 24, sub, PARITY_ITERS)[0]
+    moved_p = nbytes(*param_tensors(rp.params), Tp, zTp, *hip) + nbytes(gotp[0], gotp[1], *gotp[2], *gotp[3:])
+    out.parity = dict(ms=p_ms, plain_ms=p_plain_ms, plain_hours=[0, 1], launches=p_launches, variant=p_variant, sub=sub,
+                      bound=bound(moved_p, ops_p))
+    adjp = day_adjoint.make_day_adjoint(rp._bb, substeps=sub, mode="parity", hours=24)
+    day_adjoint.day_adjoint_kernel.launches = 0
+    gp = flat_grads(adjp(rp.params, Tp, zTp, hip, cots))
+    torch.cuda.synchronize()
+    pa_launches = day_adjoint.day_adjoint_kernel.launches
+    pa_variant = variant_text(day_adjoint.day_adjoint_kernel)
+    check(pa_launches == 1 and all(bool(torch.isfinite(v).all()) for v in gp.values()),
+          f"campus parity adjoint: {pa_launches} launches, or non-finite")
+    pa_ms = event_ms(torch, lambda: adjp(rp.params, Tp, zTp, hip, cots), 1)
+    adjp1 = day_adjoint.make_day_adjoint(rp._bb, substeps=sub, mode="parity", hours=1)
+    t0 = time.time()
+    adjp1.plain(rp.params, Tp, zTp, hip1, cots1)
+    torch.cuda.synchronize()
+    pa_plain_ms = (time.time() - t0) * 1e3
+    ops_pa = parity_adjoint_work(rp.params, 24, sub, PARITY_ITERS)
+    moved_pa = nbytes(*param_tensors(rp.params), Tp, zTp, *hip, *cots) + nbytes(*gp.values())
+    out.parity_adj = dict(ms=pa_ms, plain_ms=pa_plain_ms, plain_hours=[0, 1], launches=pa_launches, variant=pa_variant,
+                          bound=bound(moved_pa, ops_pa))
+    out.text = (
+        f"phase 3d(c) the office campus ({buildings} buildings of {floors} floors x {rooms} rooms x {windows} "
+        f"windows: {lanes} surfaces, {zones} zones, {out.nodes}-node walls; {out.blocks} blocks of {out.block} "
+        f"lanes, each a cluster of {out.cluster} CTAs at G = {out.group}, launch variant {variant}): f32 "
+        f"fast_runner().run {H} h trbdf2_refresh k=2 at 8 sub-steps, {launches} day-launches, {run_s:.3f} s "
+        f"(host clock); f32 kernel vs f64 plain zone_T max |d| {err:.3e} K (<= {F32_TOL:g}; the plain run "
+        f"{plain_run_s:.1f} s); one day-launch {tr_ms:.3f} ms (CUDA events), plain day {tr_plain_ms:.1f} ms, bound "
+        f"{out.tr['bound'][0] * 1e3:.2f} us ({out.tr['bound'][1]}); the first day's TR-BDF2 adjoint "
+        f"{adj_launches} launch ({adj_variant}) {adj_ms:.3f} ms, plain over 1 h {adj_plain_ms:.1f} ms; parity "
+        f"({sub} sub-steps/h, one no-mass iteration) {p_launches} launch ({p_variant}) {p_ms:.3f} ms, plain over "
+        f"1 h {p_plain_ms:.1f} ms; its adjoint {pa_launches} launch ({pa_variant}) {pa_ms:.3f} ms, plain over "
+        f"1 h {pa_plain_ms:.1f} ms")
+    return out
+
+
 #: Phase 3c's parity zone chain: the most zones whose block the one-thread
 #: parity adjoint took at the chain's 118 sub-steps an hour (72 zones, 72 zone
 #: slots, 96 lanes: its shared memory 8 (72 (3 x 118 + 11) + 6 x 96) B = 215
@@ -1072,10 +1410,9 @@ def day_work(params, hours, sub, k, lanes=None, zones=None):
     the load sum), and 12 per mixing entry and sub-step.  ``lanes`` and
     ``zones`` (default: every lane and zone slot) count the real ones where
     padding is much of a block."""
-    import torch
+    from heatx_torch.ops import day_march
 
-    bits = params.field("node_bits").to(torch.int64)
-    valid = int(sum(int(((bits >> i) & 1).sum()) for i in range(params.max_nodes)))
+    valid = int(day_march.bit_rows(params, "node_bits").sum())
     lanes = params.surf.shape[1] if lanes is None else lanes
     zones = params.zone_volume.numel() if zones is None else zones
     per_sub = 32 * valid + 10 * lanes + 20 * zones
@@ -1581,24 +1918,24 @@ def ptxas_table(log: str) -> str:
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
             sym = m.group(1)
-            t = re.search(r"kernelI([fd])((?:Li\d+E)*)((?:Lb[01]E)+)", sym)
-            flags = re.findall(r"Lb([01])E", t.group(3)) if t else []
-            ints = re.findall(r"Li(\d+)E", t.group(2)) if t else []
-            group = ""
-            if "day_march_tr_kernel" in sym:  # <T, G, kThreads, kMinBlocks, kExt, kCav, kMrt>
-                (ext, cav, mrt), parity = (flags + ["?"] * 3)[:3], "0"
-                group = " G=" + "/".join(ints)
-            elif "day_march_parity_kernel" in sym:  # <T, kThreads, kMinBlocks, kExt, kCav, kMrt>, G = 4
-                (ext, cav, mrt), parity = (flags + ["?"] * 3)[:3], "1"
-                group = " G=4/" + "/".join(ints)
-            elif "day_adjoint_tr_kernel" in sym:  # <T, kThreads, kMinBlocks, kExt, kCav, kMrt>, G = 4
-                (ext, cav, mrt), parity = (flags + ["?"] * 3)[:3], "0"
-                group = " G=4/" + "/".join(ints)
-            else:  # the parity adjoint <T, kThreads, kMinBlocks, kCav, kMrt>, G = 4, one kind with the thermostats
-                (ext, cav, mrt), parity = (["1"] + flags + ["?"] * 2)[:3], "1"
-                group = " G=4/" + "/".join(ints)
-            name = (f"{'f32' if t and t.group(1) == 'f' else 'f64'} ext={ext} parity={parity}{group}"
-                    + (" cavities" if cav == "1" else "") + (" mrt" if mrt == "1" else ""))
+            t = re.search(r"kernelI([fd])((?:L[ib]\d+E)+)", sym)
+            args = [int(v) for v in re.findall(r"L[ib](\d+)E", t.group(2))] if t else []
+            # Template arguments after T: the TR-BDF2 forward's
+            # <G, kThreads, kMinBlocks, kExt, kCav, kMrt, kNodes, kCl>, the
+            # parity forward's and the TR-BDF2 adjoint's <kThreads,
+            # kMinBlocks, kExt, kCav, kMrt, G, kNodes, kCl>, the parity
+            # adjoint's <kThreads, kMinBlocks, kCav, kMrt, G, kNodes, kCl>
+            # (one kind with the thermostats).
+            parity = "0" if "_tr_kernel" in sym else "1"
+            if "day_march_tr_kernel" in sym:
+                args = args[1:3] + args[3:6] + args[:1] + args[6:]
+            elif "day_adjoint_parity_kernel" in sym:
+                args = args[:2] + [1] + args[2:]
+            args = (args + [0] * 8)[:8]
+            threads, blocks, ext, cav, mrt, g, nodes, cl = args
+            name = (f"{'f32' if t and t.group(1) == 'f' else 'f64'} ext={ext} parity={parity} "
+                    f"G={g}/{threads}/{blocks}" + (f" nodes={nodes}" if nodes != 32 else "")
+                    + (" cluster" if cl else "") + (" cavities" if cav == 1 else "") + (" mrt" if mrt == 1 else ""))
             entry = {"name": name}
             out.append(entry)
             continue
@@ -1626,10 +1963,9 @@ def parity_day_work(params, hours, sub, iters):
     (two film evaluations, the linearized radiation, the forced term, the
     face sums), per zone and sub-step 20 (45 more with thermostat rows, 12
     per mixing entry)."""
-    import torch
+    from heatx_torch.ops import day_march
 
-    bits = params.field("node_bits").to(torch.int64)
-    valid = int(sum(int(((bits >> i) & 1).sum()) for i in range(params.max_nodes)))
+    valid = int(day_march.bit_rows(params, "node_bits").sum())
     lanes = params.surf.shape[1]
     zones = params.zone_volume.numel()
     per_sub = (65 + 16 * iters) * valid + 125 * lanes + 20 * zones
@@ -1891,21 +2227,29 @@ def phase14_parity_grad(torch, ctx, p13):
     kernel_ms = event_ms(torch, lambda: hm(params, T, zT, hi), 3)
     got = hm(params, T, zT, hi)
     torch.cuda.synchronize()
+    # The plain twin over PARITY_WINDOW (the whole day took 23.7-29.4 s on an
+    # H100), both sides from the kernel's state at its start, the same bounds.
+    H, W0 = PARITY_PLAIN_HOURS, PARITY_WINDOW_START
+    hm_w = day_march.hour_march_for(fr32._bb, mode="parity", hours=H)
+    Tw, zTw, hi_w = daytime_window(day_march, fr32._bb, params, T, zT, hi, sub)
+    got_w = hm_w(params, Tw, zTw, hi_w)
+    torch.cuda.synchronize()
     t0 = time.time()
-    ref = hm.plain(params, T, zT, hi)
+    ref = hm_w.plain(params, Tw, zTw, hi_w)
     torch.cuda.synchronize()
     plain_ms = (time.time() - t0) * 1e3
     fwd_gaps = {name: float((a - b).abs().max()) for name, a, b in (
-        ("T", got[0], ref[0]), ("zT", got[1], ref[1]), ("zt_hist", got[3], ref[3]),
-        *((n, got[2][j], ref[2][j]) for j, n in enumerate(("h_front", "h_back", "q_front", "q_back"))))}
+        ("T", got_w[0], ref[0]), ("zT", got_w[1], ref[1]), ("zt_hist", got_w[3], ref[3]),
+        *((n, got_w[2][j], ref[2][j]) for j, n in enumerate(("h_front", "h_back", "q_front", "q_back"))))}
     for name, err in fwd_gaps.items():
         tol = PARITY_HQ_TOL if name[:2] in ("h_", "q_") else PARITY_DAY_TOL
-        check(err <= tol, f"parity f32 kernel vs plain twin over the main path's day, {name}: max |d| {err} > {tol}")
+        check(err <= tol, f"parity f32 kernel vs plain twin over hours {W0}-{W0 + H} of the main path's day, "
+              f"{name}: max |d| {err} > {tol}")
     err32 = max(fwd_gaps.values())
     growth = parity_sensitivity(torch, hm, params, T, zT, hi)
     check(growth[0] <= PARITY_GROWTH_MAX,
           f"the main path's first day carries a perturbation {growth[0]} x on the nodes: a no-mass face 2-cycles")
-    del ref
+    del ref, got_w
 
     # The loss's own cotangent on that day's zone history
     NB, ZB = fr32._bb.n_blocks, fr32._bb.zones_per_block
@@ -1923,9 +2267,6 @@ def phase14_parity_grad(torch, ctx, p13):
     # start, the loss's cotangent on its hours, against the plain adjoint
     # re-run from the forward kernel's hour starts (the march the kernel
     # differentiates; it skips the plain version's own march).
-    H, W0 = PARITY_PLAIN_HOURS, PARITY_WINDOW_START
-    hm_w = day_march.hour_march_for(fr32._bb, mode="parity", hours=H)
-    Tw, zTw, hi_w = daytime_window(day_march, fr32._bb, params, T, zT, hi, sub)
     adj_w = day_adjoint.make_day_adjoint(fr32._bb, substeps=sub, mode="parity", hours=H)
     cots_w = (torch.zeros_like(T), torch.zeros_like(zT), d_hist[W0:W0 + H].contiguous())
     g_w = flat_grads(adj_w(params, Tw, zTw, hi_w, cots_w))
@@ -1961,8 +2302,9 @@ def phase14_parity_grad(torch, ctx, p13):
         check(gap_T == 0.0 and gap_z == 0.0, f"the parity adjoint's {name} hour starts part from the forward "
               f"kernel's states by {gap_T} K (nodes), {gap_z} K (zones)")
     print(f"phase 14b the main path's first day-launch (24 h x {sub} sub-steps, u_scale 1.2, alpha_scale 0.8), "
-          f"f32, each parity kernel against its plain version: day march {kernel_ms:.3f} ms vs plain twin "
-          f"{plain_ms:.1f} ms (host clock), max |d| " + ", ".join(f"{n} {v:.2e}" for n, v in fwd_gaps.items())
+          f"f32, each parity kernel against its plain version: day march {kernel_ms:.3f} ms; over hours {W0}-{W0 + H} "
+          f"from the kernel's state at {W0} h, plain twin {plain_ms:.1f} ms (host clock), max |d| "
+          + ", ".join(f"{n} {v:.2e}" for n, v in fwd_gaps.items())
           + f" (<= {PARITY_DAY_TOL:g} K, h/q <= {PARITY_HQ_TOL:g}); a start state moved by {PARITY_EPS:g} K ends the day {growth[0]:.3g} x as "
           f"far apart on the nodes, {growth[1]:.3g} x on the zones (<= {PARITY_GROWTH_MAX:g}: no face 2-cycles); "
           f"adjoint, the loss's own cotangent: {adj_ms:.3f} ms; over hours {W0}-{W0 + H} from the kernel's state at "
@@ -1987,12 +2329,11 @@ def phase14_parity_grad(torch, ctx, p13):
 def cavity_segments(params):
     """The gas-cavity segments of a launch (the set bits of the lanes' cavity
     words)."""
-    import torch
+    from heatx_torch.ops import day_march
 
     if params.cav is None:
         return 0
-    bits = params.field("cav_bits").to(torch.int64)
-    return sum(int(((bits >> i) & 1).sum()) for i in range(params.max_nodes))
+    return int(day_march.bit_rows(params, "cav_bits").sum())
 
 
 def cavity_work(params, builds, adjoint=False):
@@ -4590,6 +4931,21 @@ def main() -> int:
           f"{np_}-node panes, a thermostat each, {subp} sub-steps/h, one no-mass iteration, f64, 1 h (launch variant "
           f"{varp}): {e3cp:.3e} (<= {ADJ_F64_RTOL:g})", flush=True)
 
+    # 3d. B1 lifted: components past 256 surfaces as thread-block clusters,
+    # walls past 32 nodes at G = 8, every body; then the office campus.
+    t0 = time.time()
+    ctx3 = SimpleNamespace(day_march=day_march, day_adjoint=day_adjoint, testing=testing, SimConfig=SimConfig,
+                           ThermalModel=ThermalModel)
+    e3d, e3d32, e3d_adj, lines3d, by_body3d = phase3d_b1_cases(torch, ctx3)
+    print(f"phase 3d(a, b) B1 lifted, f64 kernel vs plain version and f32 kernel vs f64 plain on "
+          + "; ".join(lines3d) + f" (TR-BDF2 k=2 {B1_TR_HOURS} h at 8 sub-steps/h, parity {B1_PARITY_HOURS} h at "
+          f"the building's own sub-steps, two no-mass iterations): f64 max |d| {e3d:.3e} K (<= {F64_TOL:g}); f32 "
+          f"vs f64 plain {e3d32:.3e} K (<= {F32_TOL:g}); every adjoint vs the plain adjoint, seeded cotangents, "
+          f"worst max |d| / max |ref| {e3d_adj:.3e} (<= {ADJ_F64_RTOL:g}); by body "
+          + ", ".join(f"{k} {v:.3e}" for k, v in by_body3d.items()), flush=True)
+    campus = phase3d_campus(torch, ctx3)
+    print(campus.text + f"; phase 3d {time.time() - t0:.1f} s", flush=True)
+
     # 4. the main path at full width
     model = testing.build_city_model(1000, 10)
     kw = dict(mode="trbdf2_refresh", substeps=8, hours=24, refresh_every=2)
@@ -4656,7 +5012,8 @@ def main() -> int:
     # 6. the adjoint kernel's build (it ran in parallel with phase 2's)
     ptxas_adj = ptxas_table(cuda_lib.build_log("heatx_day_adjoint", day_adjoint.KERNEL_SOURCES))
     print(f"phase 6 build the day adjoint (the C entry day_adjoint.cu, day_adjoint_parity.cu with the parity "
-          f"body, day_adjoint_tr.cu with the TR-BDF2 body, each with its kMrt unit; with phase 2's, {build_s:.1f} s "
+          f"body, day_adjoint_tr.cu with the TR-BDF2 body, each with its kMrt and cluster units; with phase 2's, "
+          f"{build_s:.1f} s "
           f"for both libraries); "
           f"ptxas: {ptxas_adj}", flush=True)
 
@@ -5120,6 +5477,7 @@ def main() -> int:
             "max_abs_err": p14.err32,
             "ms": p14.kernel_ms,
             "plain_ms": p14.plain_ms,
+            "plain_hours": PARITY_WINDOW,
             "bound_ms": pf_bound,
             "bound_by": pf_by,
             "library_ms": None,
@@ -5138,6 +5496,7 @@ def main() -> int:
             "rel_l2_err": p14.adj32_rel,
             "ms": p14.adj_ms,
             "plain_ms": p14.adj_plain_ms,
+            "plain_hours": PARITY_WINDOW,
             "bound_ms": pa_bound,
             "bound_by": pa_by,
             "library_ms": None,
@@ -5220,10 +5579,12 @@ def main() -> int:
         *mrt_kernel_entries(p19, p20, p27),
         *gate_kernel_entries(ctx, p22, p23),
         adaptive_kernel_entry(p25, p28),
+        *b1_kernel_entries(by_body3d, campus),
     ]
     for k in kernels:
         if k["name"] in VARIANTS:
             k["variant"] = VARIANTS[k["name"]]
+    print(f"chip_smoke.py total {time.time() - t_start:.1f} s of its 1,200 s limit (host clock)", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

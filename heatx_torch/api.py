@@ -1216,10 +1216,7 @@ class FastRunner:
                 "trajectory in ways the backward does not recompute"
             )
         if self._scheduled_shade:
-            raise ValueError(
-                "chunk_grad: in-run zone shading is not supported (heatx's XLA backward, "
-                "ROADMAP A10, is not ported)"
-            )
+            raise ValueError("chunk_grad: in-run zone shading is not supported " + day_adjoint.XLA_BACKWARD)
         self._check_chunk_options("chunk_grad", collect_loads, schedule_fn)
         fw = getattr(self, "_fw_contract", None)
         if fw is not None:

@@ -46,13 +46,14 @@
 // device code: the TR-BDF2 body (day_adjoint_tr.cu, day_adjoint_tr_mrt.cu;
 // device code in day_tr_adj.cuh) and the parity body (day_adjoint_parity.cu,
 // day_adjoint_parity_mrt.cu; device code in day_parity_adj.cuh).  The C entry
-// below checks a launch's arguments and hands it to the body of its mode, whose
-// units pick the kind and the launch variant.
+// below checks a launch's arguments, the host's launch variant among them, and
+// hands it to the body of its mode, whose units pick the kind.
 
 #include <type_traits>
 
 #include "day_adjoint_args.cuh"
 #include "day_common.cuh"
+#include "day_march_args.cuh"
 
 extern "C" int heatx_day_adjoint_tr_f32(const void* g, void* stream, int* block_threads);
 extern "C" int heatx_day_adjoint_tr_f64(const void* g, void* stream, int* block_threads);
@@ -66,8 +67,12 @@ using namespace heatx;
 template <typename T>
 int launch(const MrtAdjArgs<T>& g, cudaStream_t stream, int* block_threads) {
   const DayArgs<T>& a = g.in;
-  if (a.N < 1 || a.N > kMaxNodes || a.SB < 1 || a.SB > kMaxLanes || a.NB < 1 || a.ZB < 1 ||
-      a.hours < 1 || a.refresh_every < 1 || a.substeps % a.refresh_every || g.tape == nullptr)
+  if (a.N < 1 || a.SB < 1 || a.NB < 1 || a.ZB < 1 || a.hours < 1 || a.refresh_every < 1 ||
+      a.substeps % a.refresh_every || g.tape == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // The host's launch variant must take the block's lanes and rows, a
+  // cluster's block in whole CTAs.
+  if (!variant_takes(kAdjLaunchVariants, kAdjVariants, a.variant, a.SB, a.N))
     return static_cast<int>(cudaErrorInvalidValue);
   // The parity march rebuilds its operators every sub-step; its adjoint
   // takes a fixed number of no-mass iterations (heatx refuses the adaptive
@@ -170,6 +175,7 @@ int day_adjoint(void* const* p, int n_ptrs, const int* ints, const double* reals
   a.nomass_iters = ints[9];
   a.esc_after = ints[10];
   g.net.phys = ints[11];
+  a.variant = ints[12];
   a.nomass_tol = reals[6];
   a.nomass_tol_esc = reals[7];
   return launch<T>(g, static_cast<cudaStream_t>(stream), block_threads);
@@ -185,7 +191,8 @@ extern "C" {
 // building has none, the gas-cavity operands, the MRT network's
 // operands and its cotangents' output, and last the tape workspace of both
 // bodies), `ints` N, NB, SB, ZB, hours, substeps, refresh_every, amb_bug,
-// parity, nomass_iters, esc_after, mrt_phys, `reals` dt, gamma dt/2, gamma
+// parity, nomass_iters, esc_after, mrt_phys, the launch variant (an index
+// of kAdjLaunchVariants: heatx_torch/ops/day_march.py launch_shape), `reals` dt, gamma dt/2, gamma
 // dt, beta dt, c1, c2, nomass_tol, nomass_tol_esc.  Writes the threads of a
 // block of the launch variant the launch ran in to *block_threads.  Returns
 // cudaGetLastError() of the launch.

@@ -35,12 +35,13 @@ struct AdjArgs {
   T* d_ctl;            // [4, NB, ZB]; rows 0 (heat_sp) and 1 (cool_sp) written
   T* d_sp_heat;        // [hours, NB, ZB]
   T* d_sp_cool;
-  // Workspace, an hour's tape: TR-BDF2 [2 substeps + 1, kMaxNodes, SP] (each
+  // Workspace, an hour's tape: TR-BDF2 [2 substeps + 1, nodes, SP] (each
   // thread's rows of T at every sub-step start (and the hour's end), then of
-  // each sub-step's stage-1 state T1), parity [substeps, kMaxNodes, SP] (each
-  // thread's rows at every sub-step start); then [NB] blocks' hour zone rows
-  // and weather, read by the 1024-thread variants (day_adjoint_tr.cu
-  // hour_zone_rows, day_adjoint_parity.cu parity_hour_rows)
+  // each sub-step's stage-1 state T1), parity [substeps, nodes, SP] (each
+  // thread's rows at every sub-step start), nodes the launch variant's row
+  // capacity; then [NB x C] CTAs' hour zone rows and weather, read by the
+  // 1024-thread variants (day_adjoint_tr.cu hour_zone_rows,
+  // day_adjoint_parity.cu parity_hour_rows)
   T* tape;
 };
 

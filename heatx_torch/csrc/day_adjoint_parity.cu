@@ -23,7 +23,9 @@
 // latency of one block's chain.
 //
 // This design:
-//  * G = 4 threads per surface lane (kGroup), thread `rank` owning the M =
+//  * G = 4 threads per surface lane (G = 8 for columns of 33-64 rows and
+//    for components past 256 lanes, which run as a thread-block cluster of
+//    CTAs of 128 lanes, day_cluster.cuh), thread `rank` owning the M =
 //    32/G node rows [rank*M, rank*M + M) in unrolled register arrays, in the
 //    launch variants of kAdjLaunchVariants (day_march_args.cuh).
 //  * The recompute is the parity forward kernel's (day_march_parity.cu), in
@@ -75,6 +77,12 @@
 // which includes this file), as the day march's do.
 extern "C" int heatx_day_adjoint_parity_mrt_f32(const void* g, void* stream, int* block_threads);
 extern "C" int heatx_day_adjoint_parity_mrt_f64(const void* g, void* stream, int* block_threads);
+// The cluster variant (kAdjLaunchVariants[3]) lives in a unit of its own
+// (day_adjoint_parity_b1.cu), as the kMrt kinds do: ptxas compiles the out-of-line
+// device functions that a unit's kernels share once for all of them, so
+// the other variants keep the code they had without it.
+extern "C" int heatx_day_adjoint_parity_b1_f32(const void* g, int cav, int mrt, void* stream, int* block_threads);
+extern "C" int heatx_day_adjoint_parity_b1_f64(const void* g, int cav, int mrt, void* stream, int* block_threads);
 
 namespace {
 
@@ -105,30 +113,37 @@ constexpr int kParityAdjRows = 6;
 // their cotangents; with kMrt the network's rows), the per-face rows, the
 // lanes' boundaries and face statics, then the zone lists and, with kMrt, the
 // network lists (ints).
-template <typename T, bool kMrt, bool kStaged>
-size_t parity_adj_smem(const DayArgs<T>& a) {
-  const size_t ZB = a.ZB, SB = a.SB;
+// `lanes` is the CTA's (the block's, but for a cluster's CTA).
+template <typename T, bool kMrt, bool kStaged, int kNodes>
+size_t parity_adj_smem(const DayArgs<T>& a, int lanes) {
+  const size_t ZB = a.ZB, SB = a.SB, SBc = lanes;
   const size_t zrows = 16 + (kMrt ? 5 : 0);
   const size_t staged =
-      kStaged ? parity_hour_rows(a.substeps, a.ZB) + kParityAdjRows * static_cast<size_t>(kMaxNodes) * SB : 0;
+      kStaged ? parity_hour_rows(a.substeps, a.ZB) + kParityAdjRows * static_cast<size_t>(kNodes) * SBc : 0;
   const size_t lists = (kMrt ? 2 : 1) * (ZB + 1 + 2 * SB);
-  return sizeof(T) * (zrows * ZB + 6 * SB + staged) + (sizeof(LaneBounds<T>) * SB + 16) +
-         (sizeof(FaceStatics<T>) * SB + 16) + sizeof(int) * lists;
+  return sizeof(T) * (zrows * ZB + 6 * SBc + staged) + (sizeof(LaneBounds<T>) * SBc + 16) +
+         (sizeof(FaceStatics<T>) * SBc + 16) + sizeof(int) * lists;
 }
 
-template <typename T, int kThreads, int kMinBlocks, bool kCav, bool kMrt>
+template <typename T, int kThreads, int kMinBlocks, bool kCav, bool kMrt, int G, int kNodes, bool kCl>
 __global__ void __launch_bounds__(kThreads, kMinBlocks) day_adjoint_parity_kernel(const AdjArgsOf<T, kMrt> g) {
-  constexpr int G = kGroup;
-  constexpr int M = kMaxNodes / G;
+  constexpr int M = kNodes / G;
+  using W = ColBits<kNodes>;
   constexpr bool kShared = kParityAdjStaged<kThreads>;
   const DayArgs<T>& a = g.in;
+  const Ctas<kCl, kThreads / G> cc;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int N = a.N, SB = a.SB, ZB = a.ZB, NB = a.NB, sub = a.substeps;
+  // The CTA's lanes (the block's, or one CTA's share of a cluster's), the
+  // CTA's index and the launch's CTAs (the blocks', or every cluster's).
+  const int SBc = kCl ? static_cast<int>(blockDim.x) / G : SB;
+  const int cta = kCl ? static_cast<int>(blockIdx.x) : cc.block();
+  const int n_cta = kCl ? static_cast<int>(gridDim.x) : NB;
   // The hour's zone rows of every sub-step and its weather: in shared memory
-  // (kShared) or in this block's part of the workspace after the tape.
+  // (kShared) or in this CTA's part of the workspace after the tape.
   T* const hz = kShared ? reinterpret_cast<T*>(smem_raw)
-                        : g.tape + static_cast<size_t>(sub) * kMaxNodes * NB * SB +
-                              static_cast<size_t>(blockIdx.x) * parity_hour_rows(sub, ZB);
+                        : g.tape + static_cast<size_t>(sub) * kNodes * NB * SB +
+                              static_cast<size_t>(cta) * parity_hour_rows(sub, ZB);
   T* s_zt = hz;                     // [(sub+1)*ZB] zone T at each sub-step start, and the hour's end
   T* s_az = s_zt + (sub + 1) * ZB;  // [sub*ZB] a_z of each sub-step
   T* s_bz = s_az + sub * ZB;        // [sub*ZB] b_z of each sub-step
@@ -151,28 +166,28 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_adjoint_parity_kerne
   T* s_lden = s_lnum + (kMrt ? ZB : 0);
   T* s_lm = s_lden + (kMrt ? ZB : 0);        // kMrt: [ZB] cotangent of a zone's MRT node
   T* s_lzf = s_lm + (kMrt ? ZB : 0);         // kMrt: [ZB] the network's fallback cotangent
-  T* s_haT = s_lzf + (kMrt ? ZB : 0);        // [2*SB] h*A*T_s per face (kMrt: also w*T_s)
-  T* s_ha = s_haT + 2 * SB;                  // [2*SB] h*A per face (kMrt: also w)
-  T* s_lt = s_ha + 2 * SB;                   // [2*SB] boundary-T cotangent per face
+  T* s_haT = s_lzf + (kMrt ? ZB : 0);        // [2*SBc] h*A*T_s per face (kMrt: also w*T_s)
+  T* s_ha = s_haT + 2 * SBc;                 // [2*SBc] h*A per face (kMrt: also w)
+  T* s_lt = s_ha + 2 * SBc;                  // [2*SBc] boundary-T cotangent per face
   // [M][blockDim] each: the thread's kParityAdjRows rows (row j of thread t at
   // j*blockDim + t, read by that thread only)
-  T* s_rows = s_lt + 2 * SB;
+  T* s_rows = s_lt + 2 * SBc;
   LaneBounds<T>* s_lb = reinterpret_cast<LaneBounds<T>*>(
-      (reinterpret_cast<size_t>(s_rows + (kShared ? kParityAdjRows * kMaxNodes * SB : 0)) + 15) &
+      (reinterpret_cast<size_t>(s_rows + (kShared ? kParityAdjRows * kNodes * SBc : 0)) + 15) &
       ~static_cast<size_t>(15));
   FaceStatics<T>* s_fs = reinterpret_cast<FaceStatics<T>*>(
-      (reinterpret_cast<size_t>(s_lb + SB) + 15) & ~static_cast<size_t>(15));
-  int* s_zptr = reinterpret_cast<int*>(s_fs + SB);  // [ZB+1] block-local face offsets
+      (reinterpret_cast<size_t>(s_lb + SBc) + 15) & ~static_cast<size_t>(15));
+  int* s_zptr = reinterpret_cast<int*>(s_fs + SBc);  // [ZB+1] block-local face offsets
   int* s_zf = s_zptr + ZB + 1;                      // [<= 2*SB] the zones' faces
   int* s_mptr = s_zf + 2 * SB;                      // kMrt: [ZB+1] the network lists' offsets
   int* s_mf = s_mptr + ZB + 1;                      // kMrt: [<= 2*SB] the zones' network faces
 
-  const int b = blockIdx.x;
+  const int b = cc.block();
   const int tid = threadIdx.x;
   const int nthreads = blockDim.x;
   const int SP = NB * SB;
-  const int slot = tid / G;  // the lane's place in the block
-  const int lane = b * SB + slot;
+  const int slot = tid / G;  // the lane's place in the CTA
+  const int lane = b * SB + cc.lane0 + slot;
   const Group<G> gr{block_warp_mask(), tid % G};
   const int row0 = gr.rank * M;
   const bool back = gr.rank != 0;  // this thread's face in the film evaluations
@@ -189,28 +204,28 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_adjoint_parity_kerne
 
   // The lane's rows as words (bit i: row i), and the thread's share (bit j:
   // row row0 + j), as the forward kernel takes them.
-  const RowWords W(static_cast<unsigned>(a.lane[LN_BITS * SP + lane]),
-                   static_cast<unsigned>(a.lane[LN_MASS * SP + lane]),
-                   static_cast<unsigned>(a.lane[LN_CHUNK * SP + lane]), N);
+  const RowWords<W> Wd(lane_word<W>(a.lane, SP, LN_BITS, lane, a.N), lane_word<W>(a.lane, SP, LN_MASS, lane, a.N),
+                       lane_word<W>(a.lane, SP, LN_CHUNK, lane, a.N), N);
   constexpr unsigned own = (1u << M) - 1u;
-  const unsigned fb = (W.first >> row0) & own, lb = (W.last >> row0) & own;
-  const unsigned mb = (W.mass >> row0) & own, sb = (W.sel >> row0) & own;
-  const unsigned cl = (W.coup_l >> row0) & own, cr = (W.coup_r >> row0) & own;
-  const unsigned dl = (W.dir_l >> row0) & own, dr = (W.dir_r >> row0) & own;
-  const unsigned hd = (W.head >> row0) & own;
-  const unsigned ph = (W.pair >> row0) & own, pt = ((W.pair << 1) >> row0) & own;
-  const unsigned left = W.coup_l | W.dir_l;
-  const unsigned links = (left >> (row0 + 1)) & own;  // bit j: rows j and j+1 joined by a segment
-  const unsigned cav_w = kCav ? static_cast<unsigned>(a.lane[LN_CAV * SP + lane]) : 0u;
-  const unsigned cav = (cav_w >> row0) & own;
-  const bool cav_lane = cav_w != 0u;
+  auto mine = [&](W w) { return static_cast<unsigned>(w >> row0) & own; };
+  const unsigned fb = mine(Wd.first), lb = mine(Wd.last);
+  const unsigned mb = mine(Wd.mass), sb = mine(Wd.sel);
+  const unsigned cl = mine(Wd.coup_l), cr = mine(Wd.coup_r);
+  const unsigned dl = mine(Wd.dir_l), dr = mine(Wd.dir_r);
+  const unsigned hd = mine(Wd.head);
+  const unsigned ph = mine(Wd.pair), pt = mine(Wd.pair << 1);
+  const W left = Wd.coup_l | Wd.dir_l;
+  const unsigned links = mine(left >> 1);  // bit j: rows j and j+1 joined by a segment
+  const W cav_w = kCav ? lane_word<W>(a.lane, SP, LN_CAV, lane, a.N) : W(0);
+  const unsigned cav = mine(cav_w);
+  const bool cav_lane = cav_w != W(0);
   // A block with a no-mass run of three or more nodes solves by Thomas.
-  const bool long_runs = __syncthreads_or(W.long_run()) != 0;
-  const unsigned faces_w = W.first | W.last;
+  const bool long_runs = __syncthreads_or(Wd.long_run()) != 0;
+  const W faces_w = Wd.first | Wd.last;
   const unsigned heads1 = sb & ~pt;
-  const unsigned dyn = (((W.sel & (faces_w | (W.pair & (faces_w >> 1)))) >> row0) & own) & ~pt;
-  const bool one_last = __all_sync(gr.mask, __popc(W.last) <= 1);
-  const int last_owner = W.last ? (31 - __clz(W.last)) / M : 0;
+  const unsigned dyn = mine(Wd.sel & (faces_w | (Wd.pair & (faces_w >> 1)))) & ~pt;
+  const bool one_last = __all_sync(gr.mask, popc(Wd.last) <= 1);
+  const int last_owner = Wd.last ? hibit(Wd.last) / M : 0;
 
   const T* U = a.node + (ND_U * N) * SP + lane;
   const T* FA = a.node + (ND_FA * N) * SP + lane;
@@ -222,9 +237,9 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_adjoint_parity_kerne
   T Tn[M], ul[M], A[M], D[M], C[M], P[M];
   T* const rows = s_rows + tid;
   Rows<T, M, kShared> sq{rows, nthreads};  // the hour's absorbed solar
-  Rows<T, M, kShared> dU{rows + kMaxNodes * SB, nthreads}, dCap{rows + 2 * kMaxNodes * SB, nthreads};
-  Rows<T, M, kShared> dFA{rows + 3 * kMaxNodes * SB, nthreads}, dFB{rows + 4 * kMaxNodes * SB, nthreads};
-  Rows<T, M, kShared> lqh{rows + 5 * kMaxNodes * SB, nthreads};  // the hour's cotangent of sq
+  Rows<T, M, kShared> dU{rows + kNodes * SBc, nthreads}, dCap{rows + 2 * kNodes * SBc, nthreads};
+  Rows<T, M, kShared> dFA{rows + 3 * kNodes * SBc, nthreads}, dFB{rows + 4 * kNodes * SBc, nthreads};
+  Rows<T, M, kShared> lqh{rows + 5 * kNodes * SBc, nthreads};  // the hour's cotangent of sq
 #pragma unroll
   for (int j = 0; j < M; ++j) {
     const int i = row0 + j, ic = min(i, N - 1);
@@ -237,7 +252,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_adjoint_parity_kerne
     dU[j] = dCap[j] = dFA[j] = dFB[j] = T(0);
   }
   const int il = row0 + M - 1;  // the segment below the thread's last row
-  T ur_last = (il + 1 < 32 && ((left >> (il + 1)) & 1u)) ? U[il * SP] : T(0);
+  T ur_last = (il + 1 < kNodes && ((left >> (il + 1)) & 1u)) ? U[il * SP] : T(0);
 
   // ---- the forward kernel's sub-step pieces (day_march_parity.cu) ----------
   T hf = T(0), hb = T(0), radf = T(0), radb = T(0), rad_ft = T(0), rad_bt = T(0), src_f = T(0), src_b = T(0);
@@ -293,7 +308,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_adjoint_parity_kerne
     for (int k = 0; k < N; ++k) {
       const T lk = row_of<M>(gr, Al, k), dk = row_of<M>(gr, D, k), uk = row_of<M>(gr, Cl, k);
       const T rk = row_of<M>(gr, r, k), wk = row_of<M>(gr, w, k);
-      const bool s = (W.sel >> k) & 1u;
+      const bool s = (Wd.sel >> k) & 1u;
       const T l = s ? lk : T(0), u = s ? uk : T(0), rh = s ? rk : wk;
       const T inv = T(1) / ((s ? dk : T(1)) - l * cs_p);
       cs_p = u * inv;
@@ -390,7 +405,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_adjoint_parity_kerne
       me = back ? ML.eb : ML.ef;
       tm = mrt_face_node<T, true>(ZB, s_mptr, s_mf, tid, nthreads, owner, ((ML.bits >> int(back)) & 1u) != 0,
                                   2 * slot + int(back), back ? LB.zone_b : LB.zone_f, me, L.area,
-                                  back ? ts_b : ts_f, back ? tb : tf, zt, s_ha, s_haT, s_tm, hist);
+                                  back ? ts_b : ts_f, back ? tb : tf, zt, s_ha, s_haT, s_tm, hist, cc);
     }
     base = L.base(s_wx[sub + i], s_wx[2 * sub + i], s_wx[3 * sub + i]);
     const FaceOps<T> fo = parity_face_ops<T, kMrt>(L, back, ts_f, ts_b, tf, tb, rad_out, base, a.amb_bug, me, tm);
@@ -414,7 +429,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_adjoint_parity_kerne
   // upto - 1 applied to x in place, then iteration upto's solve w -> xs and
   // the lane's rows it moves (`moved`, the lane-wide word); with upto = iters
   // the whole march (no solve after it).  Per-run state at each head.
-  auto nomass_run = [&](T(&x)[M], int upto, T(&xs)[M], unsigned& moved) {
+  auto nomass_run = [&](T(&x)[M], int upto, T(&xs)[M], W& moved) {
     T oerr[M];
     int cnt[M];
 #pragma unroll
@@ -448,22 +463,22 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_adjoint_parity_kerne
         int head = 0;
         for (int k = 0; k < N; ++k) {
           const T dk = row_of<M>(gr, d, k);
-          if ((W.head >> k) & 1u) {
+          if ((Wd.head >> k) & 1u) {
             e = T(0);
             head = k;
           }
-          if ((W.sel >> k) & 1u) {
+          if ((Wd.sel >> k) & 1u) {
             e += dk;
-            const bool end = k + 1 >= 32 || !((W.cont >> (k + 1)) & 1u);
+            const bool end = k + 1 >= kNodes || !((Wd.cont >> (k + 1)) & 1u);
             if (end && head / M == gr.rank) put(err, head % M, e);
           }
         }
       }
-      unsigned mv = 0u;
+      W mv = W(0);
 #pragma unroll
       for (int j = 0; j < M; ++j) {
         if (!((hd >> j) & 1u)) continue;
-        const unsigned run = long_runs ? W.run(row0 + j) : (((ph >> j) & 1u) ? 3u : 1u) << (row0 + j);
+        const W run = long_runs ? Wd.run(row0 + j) : W(((ph >> j) & 1u) ? 3u : 1u) << (row0 + j);
         const bool active = (act >> j) & 1u;
         const bool increase = err[j] > oerr[j];
         if (active && !increase) {
@@ -471,7 +486,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_adjoint_parity_kerne
           oerr[j] = err[j];
         }
         const T tol = cnt[j] < pc.esc_after ? pc.tol : pc.tol_esc;
-        const bool converged = err[j] / T(__popc(run)) < tol;
+        const bool converged = err[j] / T(popc(run)) < tol;
         if (active && !increase && !converged)
           ++cnt[j];
         else
@@ -494,7 +509,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_adjoint_parity_kerne
       for (int j = 0; j < M; ++j)
         if ((sb >> j) & 1u) x[j] = T(0.5) * (x[j] + xs[j]);
     } else {
-      unsigned moved = 0u;
+      W moved = W(0);
       nomass_run(x, pc.iters, xs, moved);
     }
   };
@@ -545,7 +560,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_adjoint_parity_kerne
     s_zt[z] = a.zT0[b * ZB + z];
     s_vol[z] = a.zone_volume[b * ZB + z];
   }
-  __syncthreads();
+  cc.sync();
 
   // The zone phase's threads in the march: a warp per zone when the block is
   // whole warps (as the forward kernel).
@@ -554,8 +569,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_adjoint_parity_kerne
 
   // The tape: column c's row j of this thread at tape[(c*M + j) * TP], T at
   // sub-step c's start.
-  const size_t TP = static_cast<size_t>(NB) * nthreads;
-  T* const tape = g.tape + static_cast<size_t>(b) * nthreads + tid;
+  const size_t TP = static_cast<size_t>(n_cta) * nthreads;
+  T* const tape = g.tape + static_cast<size_t>(cta) * nthreads + tid;
   auto tape_put = [&](int c, const T(&x)[M]) {
 #pragma unroll
     for (int j = 0; j < M; ++j) tape[(static_cast<size_t>(c) * M + j) * TP] = x[j];
@@ -601,7 +616,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_adjoint_parity_kerne
         s_wx[2 * sub + i] = m_sin(a.wdir[h * sub + i]);
         s_wx[3 * sub + i] = m_cos(a.wdir[h * sub + i]);
       }
-      __syncthreads();
+      cc.sync();
     }
     for (int i = 0; i < sub; ++i) {
       if (taped) tape_put(i, Tn);
@@ -625,15 +640,15 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_adjoint_parity_kerne
         s_haT[2 * slot + 1] = hab * ts_b;
         s_ha[2 * slot + 1] = hab;
       }
-      __syncthreads();
+      cc.sync();
       const T* zt = s_zt + i * ZB;
       for (int z = by_warp ? tid >> 5 : tid; z < ZB; z += zstep) {
         const int gz = b * ZB + z;
         T az, bz;
         if (by_warp)
-          zone_sums_warp(s_zptr, s_zf, z, tid & 31, s_haT, s_ha, s_ga[z], s_gb[z], az, bz);
+          zone_sums_warp(s_zptr, s_zf, z, tid & 31, s_haT, s_ha, s_ga[z], s_gb[z], az, bz, cc);
         else
-          zone_sums_shared(s_zptr, s_zf, z, s_haT, s_ha, s_ga[z], s_gb[z], az, bz);
+          zone_sums_shared(s_zptr, s_zf, z, s_haT, s_ha, s_ga[z], s_gb[z], az, bz, cc);
         if (by_warp && (tid & 31)) continue;
         if (a.mix_ptr) mix_sums(a, gz, zt, az, bz);
         s_az[i * ZB + z] = az;
@@ -648,7 +663,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_adjoint_parity_kerne
         }
         s_zt[(i + 1) * ZB + z] = znew;
       }
-      __syncthreads();
+      cc.sync();
     }
   };
 
@@ -661,7 +676,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_adjoint_parity_kerne
     if (h + 1 == a.hours) break;  // the last hour's end is not needed
     march_hour(h, false);
     for (int z = tid; z < ZB; z += nthreads) s_zt[z] = s_zt[sub * ZB + z];
-    __syncthreads();
+    cc.sync();
   }
 
   // ---- pass 2: the hours backwards ----------------------------------------
@@ -834,7 +849,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_adjoint_parity_kerne
         s_da[z] += laz;
         s_db[z] += lbz;
       }
-      __syncthreads();
+      cc.sync();
 
       // (b) the lane's sub-step: its forward recomputed from the taped start,
       // then backwards.
@@ -944,7 +959,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_adjoint_parity_kerne
       // the sub-step's start column (a cavity lane's rows at that input).
       for (int it = pc.iters - 1; it >= 0; --it) {
         T w[M], x[M];
-        unsigned moved = W.sel;
+        W moved = Wd.sel;
         tape_get(i, w);
         if constexpr (kCav) {  // the rows at the sub-step's start
           cavity(w);
@@ -954,7 +969,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_adjoint_parity_kerne
           nomass_solve(w, x);
         else
           nomass_run(w, it, x, moved);
-        const unsigned upd = (moved >> row0) & own;
+        const unsigned upd = mine(moved);
         T lx[M], y[M], c[M];
 #pragma unroll
         for (int j = 0; j < M; ++j) {
@@ -1005,7 +1020,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_adjoint_parity_kerne
           const T l_t0 = mrt_face_node_adj(ZB, s_mptr, s_mf, tid, nthreads, owner, ((ML.bits >> int(back)) & 1u) != 0,
                                            2 * slot + int(back), back ? LB.zone_b : LB.zone_f, me, L.area,
                                            back ? ts_b : ts_f, hist, fc.l_tm, l_ts, d_me, sg.v[SF_AREA], s_ha,
-                                           s_haT, s_lt, s_lnum, s_lden, s_lm, s_lzf);
+                                           s_haT, s_lt, s_lnum, s_lden, s_lm, s_lzf, cc);
           if (back) {
             fc.l_bs += l_ts;
             fc.l_tb += l_t0;
@@ -1034,7 +1049,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_adjoint_parity_kerne
         if (!LB.f_space && !LB.f_out) sg.v[SF_TEMPF] += lt_f;
         if (!LB.b_space && !LB.b_out) sg.v[SF_TEMPB] += lt_b;
       }
-      __syncthreads();
+      cc.sync();
 
       // (c) the faces' boundary cotangents into their zones, in the
       // forward's fixed order of each zone's face list.
@@ -1044,9 +1059,9 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_adjoint_parity_kerne
         for (int e2 = s_zptr[z]; e2 < s_zptr[z + 1]; ++e2) {
           const int f = s_zf[e2];
           if (f & 1)
-            sbk += s_lt[f];
+            sbk += cc.face(s_lt, f);
           else
-            sf += s_lt[f];
+            sf += cc.face(s_lt, f);
         }
         s_lz[z] += sf + sbk;
         if constexpr (kMrt) {  // the network's fallback onto the zone row
@@ -1067,7 +1082,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_adjoint_parity_kerne
       }
       // The next sub-step's zone phase runs on the same threads per zone;
       // only the mixing transpose reads other zones' rows.
-      if (a.mixt_ptr) __syncthreads();
+      if (a.mixt_ptr) cc.sync();
     }
 
     // ---- end of hour: the channel and gain cotangents ----------------------
@@ -1099,17 +1114,24 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_adjoint_parity_kerne
       }
     }
     for (int z = tid; z < ZB; z += nthreads) {
-      g.d_a[(size_t)h * NB * ZB + b * ZB + z] = s_da[z];
-      g.d_b[(size_t)h * NB * ZB + b * ZB + z] = s_db[z];
+      if (cc.lead()) {
+        g.d_a[(size_t)h * NB * ZB + b * ZB + z] = s_da[z];
+        g.d_b[(size_t)h * NB * ZB + b * ZB + z] = s_db[z];
+      }
       if (a.sp_heat) {  // scheduled: the hour's rows take the cotangents
-        g.d_sp_heat[(size_t)h * NB * ZB + b * ZB + z] = s_dsh[z];
-        g.d_sp_cool[(size_t)h * NB * ZB + b * ZB + z] = s_dsc[z];
+        if (cc.lead()) {
+          g.d_sp_heat[(size_t)h * NB * ZB + b * ZB + z] = s_dsh[z];
+          g.d_sp_cool[(size_t)h * NB * ZB + b * ZB + z] = s_dsc[z];
+        }
         s_dsh[z] = s_dsc[z] = T(0);
       }
     }
   }
 
   // ---- outputs ------------------------------------------------------------
+  // A cluster's CTAs read each other's face rows up to here: none leaves
+  // (and frees its shared memory) before all are done.
+  if constexpr (kCl) cc.sync();
 #pragma unroll
   for (int j = 0; j < M; ++j) {
     const int n = row0 + j;
@@ -1132,6 +1154,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_adjoint_parity_kerne
       g.d_mrt[SP + lane] = eb;
     }
   }
+  if (!cc.lead()) return;  // the per-zone outputs are the lead CTA's
   for (int z = tid; z < ZB; z += nthreads) {
     g.d_zT0[b * ZB + z] = s_lz[z];
     g.d_zv[b * ZB + z] = s_dV[z];
@@ -1142,49 +1165,68 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_adjoint_parity_kerne
   }
 }
 
-template <typename T, int kThreads, int kMinBlocks, bool kCav, bool kMrt>
+template <typename T, int kV, bool kCav, bool kMrt>
 int launch_parity_adj(const AdjArgsOf<T, kMrt>& g, cudaStream_t stream, int* block_threads) {
+  constexpr LaunchVariant V = kAdjLaunchVariants[kV];
+  constexpr bool kCl = V.cluster > 1;
   const DayArgs<T>& a = g.in;
-  const size_t smem = parity_adj_smem<T, kMrt, kParityAdjStaged<kThreads>>(a);
-  const auto kernel = day_adjoint_parity_kernel<T, kThreads, kMinBlocks, kCav, kMrt>;
+  const int C = cluster_ctas(V, a.SB), lanes = a.SB / C;
+  const size_t smem = parity_adj_smem<T, kMrt, kParityAdjStaged<V.threads>, V.nodes>(a, lanes);
+  const auto kernel =
+      day_adjoint_parity_kernel<T, V.threads, kAdjVariantBlocks<T, kV>, kCav, kMrt, V.group, V.nodes, kCl>;
   if (smem > 48 * 1024) {
     const cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  kernel<<<a.NB, a.SB * kGroup, smem, stream>>>(g);
-  if (block_threads) *block_threads = kThreads;
+  if (block_threads) *block_threads = V.threads;
+  if constexpr (kCl) return launch_cluster(kernel, a.NB, C, lanes * V.group, smem, stream, g);
+  kernel<<<a.NB, a.SB * V.group, smem, stream>>>(g);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The kind's kernel in the launch variant that takes the block's lanes
-// (adj_launch_variant); a block whose staged rows would not fit a block's
-// shared memory runs the unstaged variant.  f64 runs one block an SM in the
-// 128- and 256-thread variants alike (255 registers both), so its 128-thread
-// blocks run the 256-thread instantiation.  Writes the threads of a block of
-// the variant that ran to *block_threads.
+// The kind's kernel in the host's launch variant (DayArgs::variant, which
+// the C entry checked); a block whose staged rows would not fit a block's
+// shared memory runs the unstaged G = 4 variant.  f64 runs one block
+// an SM in the 128- and 256-thread variants alike (255 registers both), so
+// its 128-thread blocks run the 256-thread instantiation.  Writes the threads
+// of a CTA of the variant that ran to *block_threads.
 template <typename T, bool kCav, bool kMrt>
 int launch_kind(const AdjArgsOf<T, kMrt>& g, cudaStream_t st, int* bt) {
-  int v = adj_launch_variant(g.in.SB);
-  if (v < 0) return static_cast<int>(cudaErrorInvalidValue);
+  int v = g.in.variant;
   int dev = 0, optin = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (parity_adj_smem<T, kMrt, true>(g.in) > static_cast<size_t>(optin)) v = kAdjVariants - 1;
+  if (v < kAdjUnstaged && parity_adj_smem<T, kMrt, true, 32>(g.in, g.in.SB) > static_cast<size_t>(optin))
+    v = kAdjUnstaged;
   switch (v) {
     case 0:
-      if constexpr (sizeof(T) == 4)
-        return launch_parity_adj<T, kAdjLaunchVariants[0].threads, kAdjVariantBlocks<T, 0>, kCav, kMrt>(g, st, bt);
+      if constexpr (sizeof(T) == 4) return launch_parity_adj<T, 0, kCav, kMrt>(g, st, bt);
       [[fallthrough]];
     case 1:
-      return launch_parity_adj<T, kAdjLaunchVariants[1].threads, kAdjVariantBlocks<T, 1>, kCav, kMrt>(g, st, bt);
+      return launch_parity_adj<T, 1, kCav, kMrt>(g, st, bt);
     case 2:
-      return launch_parity_adj<T, kAdjLaunchVariants[2].threads, kAdjVariantBlocks<T, 2>, kCav, kMrt>(g, st, bt);
+      return launch_parity_adj<T, 2, kCav, kMrt>(g, st, bt);
+    case 3:
+      return std::is_same_v<T, float> ? heatx_day_adjoint_parity_b1_f32(&g, kCav, kMrt, st, bt)
+                                      : heatx_day_adjoint_parity_b1_f64(&g, kCav, kMrt, st, bt);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-#ifndef HEATX_DAY_ADJOINT_PARITY_KMRT_UNIT
+#if defined(HEATX_DAY_ADJOINT_PARITY_B1_UNIT)
+// The cluster variant's kind (the flags are launch_kind's).
+template <typename T>
+int day_adjoint_parity_b1(const void* args, int cav, int mrt, void* stream, int* bt) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (mrt) {
+    const MrtAdjArgs<T>& g = *static_cast<const MrtAdjArgs<T>*>(args);
+    return cav ? launch_parity_adj<T, 3, true, true>(g, st, bt) : launch_parity_adj<T, 3, false, true>(g, st, bt);
+  }
+  const AdjArgs<T>& g = *static_cast<const AdjArgs<T>*>(args);
+  return cav ? launch_parity_adj<T, 3, true, false>(g, st, bt) : launch_parity_adj<T, 3, false, false>(g, st, bt);
+}
+#elif !defined(HEATX_DAY_ADJOINT_PARITY_KMRT_UNIT)
 // One kind for free-float buildings and those with thermostats, schedules or
 // mixing (their rows checked at run time); gas cavities the kind with the
 // cavity code (kCav); MRT physics the kMrt unit's kinds.
@@ -1210,7 +1252,14 @@ int day_adjoint_parity_mrt(const void* args, void* stream, int* bt) {
 }  // namespace
 
 extern "C" {
-#ifndef HEATX_DAY_ADJOINT_PARITY_KMRT_UNIT
+#if defined(HEATX_DAY_ADJOINT_PARITY_B1_UNIT)
+int heatx_day_adjoint_parity_b1_f32(const void* g, int cav, int mrt, void* stream, int* bt) {
+  return day_adjoint_parity_b1<float>(g, cav, mrt, stream, bt);
+}
+int heatx_day_adjoint_parity_b1_f64(const void* g, int cav, int mrt, void* stream, int* bt) {
+  return day_adjoint_parity_b1<double>(g, cav, mrt, stream, bt);
+}
+#elif !defined(HEATX_DAY_ADJOINT_PARITY_KMRT_UNIT)
 int heatx_day_adjoint_parity_f32(const void* g, void* stream, int* bt) {
   return day_adjoint_parity<float>(g, stream, bt);
 }

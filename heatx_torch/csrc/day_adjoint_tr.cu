@@ -20,9 +20,13 @@
 // SM).  Its bench-city day-launch took 21.96 ms against a bound of 0.026 ms.
 //
 // This design:
-//  * G = 4 threads per surface lane (kGroup), thread `rank` owning the M =
-//    32/G node rows [rank*M, rank*M + M) in unrolled register arrays, in the
-//    launch variants of kAdjLaunchVariants (day_march_args.cuh).
+//  * G = 4 threads per surface lane, thread `rank` owning the M = 8 node rows
+//    [rank*M, rank*M + M) in unrolled register arrays, in the launch variants
+//    of kAdjLaunchVariants (day_march_args.cuh); G = 8 for columns of 33-64
+//    rows and for components past 256 lanes, which run as a thread-block
+//    cluster of CTAs of 128 lanes (day_cluster.cuh: cluster barriers, the
+//    zone phases' face sums read from each face's CTA, every CTA keeping the
+//    component's zone rows, the lead CTA writing the per-zone outputs).
 //  * The recompute is the forward kernel's (day_march_tr.cu): its operator
 //    build (face_ops with the faces split over the group, the cavity U in
 //    registers, mrt_face_node), its partitioned factorization and solve
@@ -69,6 +73,12 @@
 // which includes this file), as the day march's do.
 extern "C" int heatx_day_adjoint_tr_mrt_f32(const void* g, void* stream, int* block_threads);
 extern "C" int heatx_day_adjoint_tr_mrt_f64(const void* g, void* stream, int* block_threads);
+// The cluster variant (kAdjLaunchVariants[3]) lives in a unit of its own
+// (day_adjoint_tr_b1.cu), as the kMrt kinds do: ptxas compiles the out-of-line
+// device functions that a unit's kernels share once for all of them, so
+// the other variants keep the code they had without it.
+extern "C" int heatx_day_adjoint_tr_b1_f32(const void* g, int ext, int cav, int mrt, void* stream, int* block_threads);
+extern "C" int heatx_day_adjoint_tr_b1_f64(const void* g, int ext, int cav, int mrt, void* stream, int* block_threads);
 
 namespace {
 
@@ -90,33 +100,40 @@ __host__ __device__ inline size_t hour_zone_rows(int substeps, int ZB) {
   return static_cast<size_t>(3 * substeps + 1) * ZB + 3 * static_cast<size_t>(substeps);
 }
 
-// Bytes of a block's dynamic shared memory: with kStaged the hour's zone
+// Bytes of a CTA's dynamic shared memory: with kStaged the hour's zone
 // rows and weather (hour_zone_rows) and seven rows per thread; the zone rows
 // of the hour (volumes, gains, cotangents; with kExt the setpoints and their
 // cotangents; with kMrt the network's rows), the per-face rows, the lanes'
 // boundaries, then the zone lists and, with kMrt, the network lists (ints).
-template <typename T, bool kExt, bool kMrt, bool kStaged>
-size_t tr_adj_smem(const DayArgs<T>& a) {
-  const size_t ZB = a.ZB, SB = a.SB;
+// `lanes` is the CTA's (the block's, but for a cluster's CTA).
+template <typename T, bool kExt, bool kMrt, bool kStaged, int kNodes>
+size_t tr_adj_smem(const DayArgs<T>& a, int lanes) {
+  const size_t ZB = a.ZB, SB = a.SB, SBc = lanes;
   const size_t zrows = 9 + (kExt ? 7 : 0) + (kMrt ? 5 : 0);
-  const size_t staged = kStaged ? hour_zone_rows(a.substeps, a.ZB) + 7 * static_cast<size_t>(kMaxNodes) * SB : 0;
+  const size_t staged = kStaged ? hour_zone_rows(a.substeps, a.ZB) + 7 * static_cast<size_t>(kNodes) * SBc : 0;
   const size_t lists = (kMrt ? 2 : 1) * (ZB + 1 + 2 * SB);
-  return sizeof(T) * (zrows * ZB + 6 * SB + staged) + (sizeof(LaneBounds<T>) * SB + 16) + sizeof(int) * lists;
+  return sizeof(T) * (zrows * ZB + 6 * SBc + staged) + (sizeof(LaneBounds<T>) * SBc + 16) + sizeof(int) * lists;
 }
 
-template <typename T, int kThreads, int kMinBlocks, bool kExt, bool kCav, bool kMrt>
+template <typename T, int kThreads, int kMinBlocks, bool kExt, bool kCav, bool kMrt, int G, int kNodes, bool kCl>
 __global__ void __launch_bounds__(kThreads, kMinBlocks) day_adjoint_tr_kernel(const AdjArgsOf<T, kMrt> g) {
-  constexpr int G = kGroup;
-  constexpr int M = kMaxNodes / G;
+  constexpr int M = kNodes / G;
+  using W = ColBits<kNodes>;
   constexpr bool kShared = kAdjStaged<kThreads>;
   const DayArgs<T>& a = g.in;
+  const Ctas<kCl, kThreads / G> cc;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int N = a.N, SB = a.SB, ZB = a.ZB, NB = a.NB, sub = a.substeps, k = a.refresh_every;
+  // The CTA's lanes (the block's, or one CTA's share of a cluster's), the
+  // CTA's index and the launch's CTAs (the blocks', or every cluster's).
+  const int SBc = kCl ? static_cast<int>(blockDim.x) / G : SB;
+  const int cta = kCl ? static_cast<int>(blockIdx.x) : cc.block();
+  const int n_cta = kCl ? static_cast<int>(gridDim.x) : NB;
   // The hour's zone rows of every sub-step and its weather: in shared memory
-  // (kShared) or in this block's part of the workspace after the tape.
+  // (kShared) or in this CTA's part of the workspace after the tape.
   T* const hz = kShared ? reinterpret_cast<T*>(smem_raw)
-                        : g.tape + static_cast<size_t>(2 * sub + 1) * kMaxNodes * NB * SB +
-                              static_cast<size_t>(blockIdx.x) * hour_zone_rows(sub, ZB);
+                        : g.tape + static_cast<size_t>(2 * sub + 1) * kNodes * NB * SB +
+                              static_cast<size_t>(cta) * hour_zone_rows(sub, ZB);
   T* s_zt = hz;                              // [(sub+1)*ZB] zone T at each sub-step start, and the hour's end
   T* s_az = s_zt + (sub + 1) * ZB;           // [sub*ZB] a_z of each sub-step
   T* s_bz = s_az + sub * ZB;                 // [sub*ZB] b_z of each sub-step
@@ -138,28 +155,28 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_adjoint_tr_kernel(co
   T* s_lden = s_lnum + (kMrt ? ZB : 0);
   T* s_lm = s_lden + (kMrt ? ZB : 0);        // kMrt: [ZB] cotangent of a zone's MRT node
   T* s_lzf = s_lm + (kMrt ? ZB : 0);         // kMrt: [ZB] the network's fallback cotangent
-  T* s_haT = s_lzf + (kMrt ? ZB : 0);        // [2*SB] h*A*T_s per face (kMrt: also w*T_s)
-  T* s_ha = s_haT + 2 * SB;                  // [2*SB] h*A per face (kMrt: also w)
-  T* s_lt = s_ha + 2 * SB;                   // [2*SB] boundary-T cotangent per face
-  T* s_wx = kShared ? s_lt + 2 * SB : s_bz + sub * ZB;  // [3*sub] the hour's t_out, wind, wdir
+  T* s_haT = s_lzf + (kMrt ? ZB : 0);        // [2*SBc] h*A*T_s per face (kMrt: also w*T_s)
+  T* s_ha = s_haT + 2 * SBc;                 // [2*SBc] h*A per face (kMrt: also w)
+  T* s_lt = s_ha + 2 * SBc;                  // [2*SBc] boundary-T cotangent per face
+  T* s_wx = kShared ? s_lt + 2 * SBc : s_bz + sub * ZB;  // [3*sub] the hour's t_out, wind, wdir
   // [M][blockDim] each: the thread's rows' capacities, the hour's solar
   // forcing, U to the row above, and the day's cotangents of U (to the row
   // below), the capacity and the two absorption fractions (row j of thread t
   // at j*blockDim + t, read by that thread only)
-  T* s_rows = kShared ? s_wx + 3 * sub : s_lt + 2 * SB;
+  T* s_rows = kShared ? s_wx + 3 * sub : s_lt + 2 * SBc;
   LaneBounds<T>* s_lb = reinterpret_cast<LaneBounds<T>*>(
-      (reinterpret_cast<size_t>(s_rows + (kShared ? 7 * kMaxNodes * SB : 0)) + 15) & ~static_cast<size_t>(15));
-  int* s_zptr = reinterpret_cast<int*>(s_lb + SB);  // [ZB+1] block-local face offsets
+      (reinterpret_cast<size_t>(s_rows + (kShared ? 7 * kNodes * SBc : 0)) + 15) & ~static_cast<size_t>(15));
+  int* s_zptr = reinterpret_cast<int*>(s_lb + SBc);  // [ZB+1] block-local face offsets
   int* s_zf = s_zptr + ZB + 1;                      // [<= 2*SB] the zones' faces
   int* s_mptr = s_zf + 2 * SB;                      // kMrt: [ZB+1] the network lists' offsets
   int* s_mf = s_mptr + ZB + 1;                      // kMrt: [<= 2*SB] the zones' network faces
 
-  const int b = blockIdx.x;
+  const int b = cc.block();
   const int tid = threadIdx.x;
   const int nthreads = blockDim.x;
   const int SP = NB * SB;
-  const int slot = tid / G;  // the lane's place in the block
-  const int lane = b * SB + slot;
+  const int slot = tid / G;  // the lane's place in the CTA
+  const int lane = b * SB + cc.lane0 + slot;
   const Group<G> gr{block_warp_mask(), tid % G};
   const int row0 = gr.rank * M;
   const bool back = gr.rank != 0;   // this thread's face in the operator build
@@ -168,26 +185,26 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_adjoint_tr_kernel(co
   if (gr.rank == 0) s_lb[slot] = LaneBounds<T>(Lane<T>(a, lane, kCav));
 
   // The thread's rows: bit j of each word is row row0 + j.
-  const unsigned col = N < 32 ? (1u << N) - 1u : ~0u;
-  const unsigned bits = static_cast<unsigned>(a.lane[LN_BITS * SP + lane]) & col;
+  const W col = N < 8 * static_cast<int>(sizeof(W)) ? (W(1) << N) - W(1) : ~W(0);
+  const W bits = lane_word<W>(a.lane, SP, LN_BITS, lane, a.N) & col;
   constexpr unsigned own = (1u << M) - 1u;
-  const unsigned vb = (bits >> row0) & own;
-  const unsigned fb = ((bits & ~(bits << 1)) >> row0) & own;
-  const unsigned lasts = bits & ~(bits >> 1);
-  const unsigned lbits = (lasts >> row0) & own;
-  const unsigned lf = bits & (bits << 1);      // left(i): rows i-1 and i valid
-  const unsigned links = (lf >> (row0 + 1)) & own;  // bit j: rows j and j+1 joined by a segment
-  const unsigned cav = kCav ? (static_cast<unsigned>(a.lane[LN_CAV * SP + lane]) >> row0) & own : 0u;
-  const bool one_last = __all_sync(gr.mask, __popc(lasts) <= 1);
-  const int last_owner = lasts ? (31 - __clz(lasts)) / M : 0;
+  const unsigned vb = static_cast<unsigned>(bits >> row0) & own;
+  const unsigned fb = static_cast<unsigned>((bits & ~(bits << 1)) >> row0) & own;
+  const W lasts = bits & ~(bits >> 1);
+  const unsigned lbits = static_cast<unsigned>(lasts >> row0) & own;
+  const W lf = bits & (bits << 1);      // left(i): rows i-1 and i valid
+  const unsigned links = static_cast<unsigned>(lf >> (row0 + 1)) & own;  // bit j: rows j and j+1 joined by a segment
+  const unsigned cav = kCav ? static_cast<unsigned>(lane_word<W>(a.lane, SP, LN_CAV, lane, a.N) >> row0) & own : 0u;
+  const bool one_last = __all_sync(gr.mask, popc(lasts) <= 1);
+  const int last_owner = lasts ? hibit(lasts) / M : 0;
   const T* U = a.node + (ND_U * N) * SP + lane;
   const T* FA = a.node + (ND_FA * N) * SP + lane;
   const T* FB = a.node + (ND_FB * N) * SP + lane;
   T* const rows = s_rows + tid;
-  Rows<T, M, kShared> cap{rows, nthreads}, sq{rows + kMaxNodes * SB, nthreads};
-  Rows<T, M, kShared> kl{rows + 2 * kMaxNodes * SB, nthreads};  // K's lower coefficient, 0 off the column
-  Rows<T, M, kShared> dU{rows + 3 * kMaxNodes * SB, nthreads}, dCap{rows + 4 * kMaxNodes * SB, nthreads};
-  Rows<T, M, kShared> dFA{rows + 5 * kMaxNodes * SB, nthreads}, dFB{rows + 6 * kMaxNodes * SB, nthreads};
+  Rows<T, M, kShared> cap{rows, nthreads}, sq{rows + kNodes * SBc, nthreads};
+  Rows<T, M, kShared> kl{rows + 2 * kNodes * SBc, nthreads};  // K's lower coefficient, 0 off the column
+  Rows<T, M, kShared> dU{rows + 3 * kNodes * SBc, nthreads}, dCap{rows + 4 * kNodes * SBc, nthreads};
+  Rows<T, M, kShared> dFA{rows + 5 * kNodes * SBc, nthreads}, dFB{rows + 6 * kNodes * SBc, nthreads};
   T Tn[M];
 #pragma unroll
   for (int j = 0; j < M; ++j) {
@@ -200,7 +217,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_adjoint_tr_kernel(co
     dU[j] = dCap[j] = dFA[j] = dFB[j] = T(0);
   }
   const int il = row0 + M - 1;  // the segment below the thread's last row
-  T ku_last = (il + 1 < 32 && ((lf >> (il + 1)) & 1u)) ? U[il * SP] : T(0);
+  T ku_last = (il + 1 < kNodes && ((lf >> (il + 1)) & 1u)) ? U[il * SP] : T(0);
   const int e_base = a.zone_ptr[b * ZB];
   for (int z = tid; z <= ZB; z += nthreads) s_zptr[z] = a.zone_ptr[b * ZB + z] - e_base;
   for (int e = tid; e < a.zone_ptr[b * ZB + ZB] - e_base; e += nthreads) s_zf[e] = a.zone_faces[e_base + e];
@@ -213,7 +230,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_adjoint_tr_kernel(co
     s_zt[z] = a.zT0[b * ZB + z];
     s_vol[z] = a.zone_volume[b * ZB + z];
   }
-  __syncthreads();
+  cc.sync();
   const LaneBounds<T>& LB = s_lb[slot];
 
   // The zone phase's threads in the march: a warp per zone when the block is
@@ -223,8 +240,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_adjoint_tr_kernel(co
 
   // The tape: column c's row j of this thread at tape[(c*M + j) * TP], T at
   // sub-step c's start for c <= sub, T1 of sub-step i at c = sub + 1 + i.
-  const size_t TP = static_cast<size_t>(NB) * nthreads;
-  T* const tape = g.tape + static_cast<size_t>(b) * nthreads + tid;
+  const size_t TP = static_cast<size_t>(n_cta) * nthreads;
+  T* const tape = g.tape + static_cast<size_t>(cta) * nthreads + tid;
   auto put = [&](int c, const T (&x)[M]) {
 #pragma unroll
     for (int j = 0; j < M; ++j) tape[(static_cast<size_t>(c) * M + j) * TP] = x[j];
@@ -247,7 +264,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_adjoint_tr_kernel(co
   // The refresh group's operators and factors from its start column x
   // (sub-step i0 of the current hour): the forward kernel's operator build.
   Ops<T> o{};
-  PartFactors<T, G> P;
+  PartFactors<T, G, M> P;
   T e[M], ml[M], mu_last = T(0);
   T rad_out = T(0);        // the hour's outdoor radiant temperature of this thread's face
   T me = T(0), tm = T(0);  // kMrt: this thread's face's effective emissivity and MRT node
@@ -263,7 +280,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_adjoint_tr_kernel(co
       tm = mrt_face_node<T, true>(ZB, s_mptr, s_mf, tid, nthreads, owner, ((ML.bits >> int(back)) & 1u) != 0,
                                   2 * slot + int(back), back ? L.zone_b : L.zone_f, me, L.area,
                                   back ? ts_back : ts_front, back ? t_back : t_front, s_zt + i0 * ZB, s_ha,
-                                  s_haT, s_tm, hist);
+                                  s_haT, s_tm, hist, cc);
     }
     if constexpr (kCav) {  // the cavity segments' U from the start column
       const T t_next = gr.next(x[0], 1, T(0));
@@ -272,7 +289,9 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_adjoint_tr_kernel(co
       for (int j = 0; j < M; ++j) {
         const int s = row0 + j;
         if (((cav >> j) & 1u) && s + 1 < N) {
-          const T u = cavity_u(L.Cav + s * SP, ns, x[j], j + 1 < M ? x[j + 1] : t_next,
+          // a column past 32 rows may hold its cavities in rows 32-63 only
+          const T* cav_ops = kNodes > 32 ? a.cav + lane : L.Cav;
+          const T u = cavity_u(cav_ops + s * SP, ns, x[j], j + 1 < M ? x[j + 1] : t_next,
                                static_cast<T*>(nullptr), static_cast<T*>(nullptr));
           const bool link = (lf >> (s + 1)) & 1u;
           if (j + 1 < M)
@@ -343,7 +362,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_adjoint_tr_kernel(co
         s_wx[sub + i] = a.wind[h * sub + i];
         s_wx[2 * sub + i] = a.wdir[h * sub + i];
       }
-      __syncthreads();
+      cc.sync();
     }
     for (int i0 = 0; i0 < sub; i0 += k) {
       build(i0, Tn);
@@ -387,15 +406,15 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_adjoint_tr_kernel(co
           s_haT[2 * slot + 1] = hab * ts_b;
           s_ha[2 * slot + 1] = hab;
         }
-        __syncthreads();
+        cc.sync();
         const T* zt = s_zt + i * ZB;
         for (int z = by_warp ? tid >> 5 : tid; z < ZB; z += zstep) {
           const int gz = b * ZB + z;
           T az, bz;
           if (by_warp)
-            zone_sums_warp(s_zptr, s_zf, z, tid & 31, s_haT, s_ha, s_ga[z], s_gb[z], az, bz);
+            zone_sums_warp(s_zptr, s_zf, z, tid & 31, s_haT, s_ha, s_ga[z], s_gb[z], az, bz, cc);
           else
-            zone_sums_shared(s_zptr, s_zf, z, s_haT, s_ha, s_ga[z], s_gb[z], az, bz);
+            zone_sums_shared(s_zptr, s_zf, z, s_haT, s_ha, s_ga[z], s_gb[z], az, bz, cc);
           if (by_warp && (tid & 31)) continue;
           if (kExt && a.mix_ptr) mix_sums(a, gz, zt, az, bz);
           s_az[i * ZB + z] = az;
@@ -410,7 +429,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_adjoint_tr_kernel(co
           }
           s_zt[(i + 1) * ZB + z] = znew;
         }
-        __syncthreads();
+        cc.sync();
       }
     }
     if (taped) put(sub, Tn);
@@ -425,7 +444,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_adjoint_tr_kernel(co
     if (h + 1 == a.hours) break;  // the last hour's end is not needed
     march_hour(h, false);
     for (int z = tid; z < ZB; z += nthreads) s_zt[z] = s_zt[sub * ZB + z];
-    __syncthreads();
+    cc.sync();
   }
 
   // ---- pass 2: the hours backwards ----------------------------------------
@@ -501,7 +520,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_adjoint_tr_kernel(co
           s_da[z] += laz;
           s_db[z] += lbz;
         }
-        __syncthreads();
+        cc.sync();
 
         // (b) the lane's sub-step, backwards.
         T Ts[M], T1[M], Tnew[M];
@@ -655,7 +674,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_adjoint_tr_kernel(co
                                              ((ML.bits >> int(back)) & 1u) != 0, 2 * slot + int(back),
                                              back ? L.zone_b : L.zone_f, me, L.area, back ? ts_back : ts_front,
                                              hist, fc.l_tm, l_ts, d_me, sg.v[SF_AREA], s_ha, s_haT, s_lt, s_lnum,
-                                             s_lden, s_lm, s_lzf);
+                                             s_lden, s_lm, s_lzf, cc);
             if (back) {
               fc.l_bs += l_ts;
               fc.l_tb += l_t0;
@@ -684,7 +703,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_adjoint_tr_kernel(co
           if (!LB.f_space && !LB.f_out) sg.v[SF_TEMPF] += lt_f;
           if (!LB.b_space && !LB.b_out) sg.v[SF_TEMPB] += lt_b;
         }
-        __syncthreads();
+        cc.sync();
 
         // (c) the faces' boundary cotangents into their zones, in the
         // forward's fixed order of each zone's face list.
@@ -694,9 +713,9 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_adjoint_tr_kernel(co
           for (int e2 = s_zptr[z]; e2 < s_zptr[z + 1]; ++e2) {
             const int f = s_zf[e2];
             if (f & 1)
-              sb += s_lt[f];
+              sb += cc.face(s_lt, f);
             else
-              sf += s_lt[f];
+              sf += cc.face(s_lt, f);
           }
           s_lz[z] += sf + sb;
           if constexpr (kMrt) {  // the network's fallback onto the zone row
@@ -717,7 +736,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_adjoint_tr_kernel(co
         }
         // The next sub-step's zone phase runs on the same threads per zone;
         // only the mixing transpose reads other zones' rows.
-        if (kExt && a.mixt_ptr) __syncthreads();
+        if (kExt && a.mixt_ptr) cc.sync();
       }
     }
 
@@ -750,19 +769,26 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_adjoint_tr_kernel(co
       }
     }
     for (int z = tid; z < ZB; z += nthreads) {
-      g.d_a[(size_t)h * NB * ZB + b * ZB + z] = s_da[z];
-      g.d_b[(size_t)h * NB * ZB + b * ZB + z] = s_db[z];
+      if (cc.lead()) {
+        g.d_a[(size_t)h * NB * ZB + b * ZB + z] = s_da[z];
+        g.d_b[(size_t)h * NB * ZB + b * ZB + z] = s_db[z];
+      }
       if (kExt && a.sp_heat) {  // scheduled: the hour's rows take the cotangents
-        g.d_sp_heat[(size_t)h * NB * ZB + b * ZB + z] = s_dsh[z];
-        g.d_sp_cool[(size_t)h * NB * ZB + b * ZB + z] = s_dsc[z];
+        if (cc.lead()) {
+          g.d_sp_heat[(size_t)h * NB * ZB + b * ZB + z] = s_dsh[z];
+          g.d_sp_cool[(size_t)h * NB * ZB + b * ZB + z] = s_dsc[z];
+        }
         s_dsh[z] = s_dsc[z] = T(0);
       }
     }
   }
 
   // ---- outputs ------------------------------------------------------------
-  const unsigned mass = (static_cast<unsigned>(a.lane[LN_MASS * SP + lane]) >> row0) & own;
-  const unsigned cav_all = kCav ? (static_cast<unsigned>(a.lane[LN_CAV * SP + lane]) >> row0) & own : 0u;
+  // A cluster's CTAs read each other's face rows up to here: none leaves
+  // (and frees its shared memory) before all are done.
+  if constexpr (kCl) cc.sync();
+  const unsigned mass = static_cast<unsigned>(lane_word<W>(a.lane, SP, LN_MASS, lane, a.N) >> row0) & own;
+  const unsigned cav_all = kCav ? static_cast<unsigned>(lane_word<W>(a.lane, SP, LN_CAV, lane, a.N) >> row0) & own : 0u;
 #pragma unroll
   for (int j = 0; j < M; ++j) {
     const int n = row0 + j;
@@ -785,55 +811,75 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_adjoint_tr_kernel(co
       g.d_mrt[SP + lane] = eb;
     }
   }
-  for (int z = tid; z < ZB; z += nthreads) {
-    g.d_zT0[b * ZB + z] = s_lz[z];
-    g.d_zv[b * ZB + z] = s_dV[z];
-    if (kExt && a.ctl) {  // the compiled rows (0 where the march was scheduled)
-      g.d_ctl[b * ZB + z] = s_dsh[z];
-      g.d_ctl[NB * ZB + b * ZB + z] = s_dsc[z];
+  if (cc.lead()) {
+    for (int z = tid; z < ZB; z += nthreads) {
+      g.d_zT0[b * ZB + z] = s_lz[z];
+      g.d_zv[b * ZB + z] = s_dV[z];
+      if (kExt && a.ctl) {  // the compiled rows (0 where the march was scheduled)
+        g.d_ctl[b * ZB + z] = s_dsh[z];
+        g.d_ctl[NB * ZB + b * ZB + z] = s_dsc[z];
+      }
     }
   }
 }
 
-template <typename T, int kThreads, int kMinBlocks, bool kExt, bool kCav, bool kMrt>
+template <typename T, int kV, bool kExt, bool kCav, bool kMrt>
 int launch_tr_adj(const AdjArgsOf<T, kMrt>& g, cudaStream_t stream, int* block_threads) {
+  constexpr LaunchVariant V = kAdjLaunchVariants[kV];
+  constexpr bool kCl = V.cluster > 1;
   const DayArgs<T>& a = g.in;
-  const size_t smem = tr_adj_smem<T, kExt, kMrt, kAdjStaged<kThreads>>(a);
-  const auto kernel = day_adjoint_tr_kernel<T, kThreads, kMinBlocks, kExt, kCav, kMrt>;
+  const int C = cluster_ctas(V, a.SB), lanes = a.SB / C;
+  const size_t smem = tr_adj_smem<T, kExt, kMrt, kAdjStaged<V.threads>, V.nodes>(a, lanes);
+  const auto kernel =
+      day_adjoint_tr_kernel<T, V.threads, kAdjVariantBlocks<T, kV>, kExt, kCav, kMrt, V.group, V.nodes, kCl>;
   if (smem > 48 * 1024) {
     const cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  kernel<<<a.NB, a.SB * kGroup, smem, stream>>>(g);
-  if (block_threads) *block_threads = kThreads;
+  if (block_threads) *block_threads = V.threads;
+  if constexpr (kCl) return launch_cluster(kernel, a.NB, C, lanes * V.group, smem, stream, g);
+  kernel<<<a.NB, a.SB * V.group, smem, stream>>>(g);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The kind's kernel in the launch variant that takes the block's lanes
-// (adj_launch_variant); a block whose staged rows would not fit a block's
-// shared memory runs the unstaged variant.  Writes the threads of a block of
-// the variant that ran to *block_threads.
+// The kind's kernel in the host's launch variant (DayArgs::variant, which
+// the C entry checked); a block whose staged rows would not fit a block's
+// shared memory runs the unstaged G = 4 variant.  Writes the threads
+// of a CTA of the variant that ran to *block_threads.
 template <typename T, bool kExt, bool kCav, bool kMrt>
 int launch_kind(const AdjArgsOf<T, kMrt>& g, cudaStream_t st, int* bt) {
-  int v = adj_launch_variant(g.in.SB);
-  if (v < 0) return static_cast<int>(cudaErrorInvalidValue);
+  int v = g.in.variant;
   int dev = 0, optin = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (tr_adj_smem<T, kExt, kMrt, true>(g.in) > static_cast<size_t>(optin)) v = kAdjVariants - 1;
+  if (v < kAdjUnstaged && tr_adj_smem<T, kExt, kMrt, true, 32>(g.in, g.in.SB) > static_cast<size_t>(optin))
+    v = kAdjUnstaged;
   switch (v) {
-    case 0:
-      return launch_tr_adj<T, kAdjLaunchVariants[0].threads, kAdjVariantBlocks<T, 0>, kExt, kCav, kMrt>(g, st, bt);
-    case 1:
-      return launch_tr_adj<T, kAdjLaunchVariants[1].threads, kAdjVariantBlocks<T, 1>, kExt, kCav, kMrt>(g, st, bt);
-    case 2:
-      return launch_tr_adj<T, kAdjLaunchVariants[2].threads, kAdjVariantBlocks<T, 2>, kExt, kCav, kMrt>(g, st, bt);
+    case 0: return launch_tr_adj<T, 0, kExt, kCav, kMrt>(g, st, bt);
+    case 1: return launch_tr_adj<T, 1, kExt, kCav, kMrt>(g, st, bt);
+    case 2: return launch_tr_adj<T, 2, kExt, kCav, kMrt>(g, st, bt);
+    case 3:
+      return std::is_same_v<T, float> ? heatx_day_adjoint_tr_b1_f32(&g, kExt, kCav, kMrt, st, bt)
+                                      : heatx_day_adjoint_tr_b1_f64(&g, kExt, kCav, kMrt, st, bt);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-#ifndef HEATX_DAY_ADJOINT_TR_KMRT_UNIT
+#if defined(HEATX_DAY_ADJOINT_TR_B1_UNIT)
+// The cluster variant's kind (the flags are launch_kind's).
+template <typename T>
+int day_adjoint_tr_b1(const void* args, int ext, int cav, int mrt, void* stream, int* bt) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (mrt) {
+    const MrtAdjArgs<T>& g = *static_cast<const MrtAdjArgs<T>*>(args);
+    return cav ? launch_tr_adj<T, 3, true, true, true>(g, st, bt) : launch_tr_adj<T, 3, true, false, true>(g, st, bt);
+  }
+  const AdjArgs<T>& g = *static_cast<const AdjArgs<T>*>(args);
+  if (cav) return launch_tr_adj<T, 3, true, true, false>(g, st, bt);
+  return ext ? launch_tr_adj<T, 3, true, false, false>(g, st, bt) : launch_tr_adj<T, 3, false, false, false>(g, st, bt);
+}
+#elif !defined(HEATX_DAY_ADJOINT_TR_KMRT_UNIT)
 // Free-float buildings run the kind without the extra zone code; thermostats,
 // schedules or mixing the extended one (kExt); gas cavities the extended one
 // with the cavity code (kCav); MRT physics the kMrt unit's kinds.
@@ -862,7 +908,14 @@ int day_adjoint_tr_mrt(const void* args, void* stream, int* bt) {
 }  // namespace
 
 extern "C" {
-#ifndef HEATX_DAY_ADJOINT_TR_KMRT_UNIT
+#if defined(HEATX_DAY_ADJOINT_TR_B1_UNIT)
+int heatx_day_adjoint_tr_b1_f32(const void* g, int ext, int cav, int mrt, void* stream, int* bt) {
+  return day_adjoint_tr_b1<float>(g, ext, cav, mrt, stream, bt);
+}
+int heatx_day_adjoint_tr_b1_f64(const void* g, int ext, int cav, int mrt, void* stream, int* bt) {
+  return day_adjoint_tr_b1<double>(g, ext, cav, mrt, stream, bt);
+}
+#elif !defined(HEATX_DAY_ADJOINT_TR_KMRT_UNIT)
 int heatx_day_adjoint_tr_f32(const void* g, void* stream, int* bt) { return day_adjoint_tr<float>(g, stream, bt); }
 int heatx_day_adjoint_tr_f64(const void* g, void* stream, int* bt) { return day_adjoint_tr<double>(g, stream, bt); }
 #else

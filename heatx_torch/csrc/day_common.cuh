@@ -14,11 +14,14 @@
 
 #include <cfloat>
 #include <cmath>
+#include <type_traits>
 
 namespace heatx {
 
-constexpr int kMaxNodes = 32;
-constexpr int kMaxLanes = 256;
+// What a C entry returns when the card cannot hold a launch's thread-block
+// cluster (cudaOccupancyMaxActiveClusters is 0): heatx_torch raises
+// NotImplementedError naming the limit (ops/day_march.py CLUSTER_REFUSED).
+constexpr int kClusterRefused = 100001;
 
 // Boundary codes (heatx_torch/build/layout.py).
 constexpr int kOutdoor = 0;
@@ -34,6 +37,20 @@ enum {
 enum { LN_FCODE, LN_BCODE, LN_FZONE, LN_BZONE, LN_BITS, LN_MASS };
 constexpr int LN_CAV = LN_MASS + 2;  // after the chunk words (day_parity.cuh LN_CHUNK)
 constexpr int LN_MRT = LN_CAV + 1;   // bit 0: the front face is on the MRT network, bit 1: the back
+// The lane rows that hold word 0 (rows 0-31) of each per-node mask; a column
+// of more than 32 nodes appends word 1 (rows 32-63) of LN_BITS..LN_CAV, in
+// that order, from LN_COUNT on (day_march.py BIT_FIELDS).
+constexpr int LN_COUNT = LN_MRT + 1;
+
+// A lane's column-wide node masks: one bit a row, in a 32-bit word for
+// columns of up to 32 rows (kNodes), else in a 64-bit one.
+template <int kNodes>
+using ColBits = std::conditional_t<(kNodes > 32), unsigned long long, unsigned>;
+__device__ __forceinline__ int popc(unsigned x) { return __popc(x); }
+__device__ __forceinline__ int popc(unsigned long long x) { return __popcll(x); }
+// The highest set bit of a non-zero word.
+__device__ __forceinline__ int hibit(unsigned x) { return 31 - __clz(x); }
+__device__ __forceinline__ int hibit(unsigned long long x) { return 63 - __clzll(x); }
 
 constexpr double kKelvin = 273.15;
 constexpr double kSigma = 5.670374419e-8;
@@ -216,7 +233,7 @@ template <typename T>
 struct DayArgs {
   const T* node;         // [4, N, SP]
   const T* surf;         // [13, SP]
-  const int* lane;       // [6, SP]
+  const int* lane;       // [LN_COUNT (+ 4 with 64-bit words), SP]
   const T* zone_volume;  // [NB, ZB]
   const int* zone_ptr;   // [NB*ZB + 1]
   const int* zone_faces; // [E]: block-local lane*2 + side
@@ -257,6 +274,11 @@ struct DayArgs {
   const T* shade_tau = nullptr;
   const T* shade_sp = nullptr;
   int shade_sp_stride = 0;
+  // The launch variant the host chose (an index of kLaunchVariants and of
+  // kAdjLaunchVariants, day_march_args.cuh: heatx_torch/ops/day_march.py
+  // launch_shape), read by the host launch code only.  It fills the padding
+  // before the next pointer, so the kernels' argument layout is unchanged.
+  int variant = -1;
   const T* vent_min = nullptr;
   const T* vent_max = nullptr;
   const T* a_vent = nullptr;
@@ -271,6 +293,19 @@ struct DayArgs {
   int nomass_max_iter = 0;
   double nomass_tol, nomass_tol_esc;
 };
+
+// The column-wide node mask of lane row `row` (LN_BITS, LN_MASS, LN_CHUNK or
+// LN_CAV) as a ColBits word: word 0, and with 64-bit words word 1 after it
+// (`lanes`: the lane rows, SP lanes each).  Word 1 is there only for
+// columns of more than 32 rows (`N`, the launch's rows); a 64-row variant
+// launched on shorter columns (a cluster of them) reads word 0 alone.
+template <typename W>
+__device__ __forceinline__ W lane_word(const int* lanes, int SP, int row, int lane, int N) {
+  W w = static_cast<unsigned>(lanes[row * SP + lane]);
+  if constexpr (sizeof(W) > 4)
+    if (N > 32) w |= static_cast<W>(static_cast<unsigned>(lanes[(LN_COUNT + row - LN_BITS) * SP + lane])) << 32;
+  return w;
+}
 
 // TR-BDF2 scheme constants in the working precision.
 template <typename T>
@@ -292,7 +327,8 @@ struct Lane {
   const T* Cav;  // a cavity lane's cavity operands (rows of N x SP), else null
 
   // `cavities` is the kernel's compile-time kCav: without it cav_bits is the
-  // constant 0 and every cavity branch folds away.
+  // constant 0 and every cavity branch folds away.  cav_bits holds rows 0-31:
+  // the kernels of longer columns take their cavity operands from the lane.
   __device__ Lane(const DayArgs<T>& a, int lane, bool cavities) : SP(a.NB * a.SB) {
     const T* sf = a.surf + lane;
     area = sf[SF_AREA * SP];

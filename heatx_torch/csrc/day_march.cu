@@ -1,9 +1,10 @@
 // The C entry of every day-march launch for NVIDIA Hopper (sm_90a), bound
 // through a plain C interface (ctypes; see heatx_torch/ops/day_march.py): it
 // fills the launch's arguments, checks them, and hands the launch to the
-// kernel of its mode, picking the launch variant from the block's lanes
-// (launch_variant, day_march_args.cuh; the same table for both kernels) and
-// writing back the threads a block of it runs.  The TR-BDF2 modes (trbdf2,
+// kernel of its mode in the launch variant the host chose (an index of
+// kLaunchVariants, day_march_args.cuh, the same table for both kernels;
+// checked to take the block's lanes and rows) and writing back the threads a
+// CTA of it runs.  The TR-BDF2 modes (trbdf2,
 // trbdf2_refresh) run in day_march_tr.cu (and day_march_tr_mrt.cu), parity in
 // day_march_parity.cu (and day_march_parity_mrt.cu); both replace
 // heatx/ops/pallas_step.py::make_hour_march -> `kernel` (the pl.pallas_call at
@@ -26,8 +27,8 @@ using namespace heatx;
 template <typename T>
 int check_args(const MarchArgs<T>& m) {
   const DayArgs<T>& a = m.in;
-  if (a.N < 1 || a.N > kMaxNodes || a.SB < 1 || a.SB > kMaxLanes || a.NB < 1 ||
-      a.ZB < 1 || a.hours < 1 || a.refresh_every < 1 || a.substeps % a.refresh_every)
+  if (a.N < 1 || a.SB < 1 || a.NB < 1 || a.ZB < 1 || a.hours < 1 || a.refresh_every < 1 ||
+      a.substeps % a.refresh_every)
     return static_cast<int>(cudaErrorInvalidValue);
   // The parity march rebuilds its operators every sub-step; nomass_iters -1
   // is the adaptive loop, capped at nomass_max_iter iterations.
@@ -58,7 +59,7 @@ int day_march(const void* node, const void* surf, const void* lane, const void* 
               const void* a_vent, const void* b_vent, const void* vent_thr, int N,
               int NB, int SB, int ZB, int hours, int substeps, int refresh_every, int amb_bug,
               int parity, int nomass_iters, int esc_after, int nomass_max_iter, int mrt_phys,
-              double dt, double half_dt, double gamma_dt, double beta_dt, double c1, double c2,
+              int variant, double dt, double half_dt, double gamma_dt, double beta_dt, double c1, double c2,
               double nomass_tol, double nomass_tol_esc, int* block_threads, void* stream) {
   MrtMarchArgs<T> m;  // the kMrt instantiations take it whole, the others its MarchArgs
   DayArgs<T>& a = m.in;
@@ -139,10 +140,11 @@ int day_march(const void* node, const void* surf, const void* lane, const void* 
   // list may come as a null pointer: it is never read).
   if ((mrt_phys || m.top || m.hq_hist) && !(m.net.mrt && m.net.mrt_ptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  // The launch variant that takes the block's lanes (both kernels' table).
-  const int v = launch_variant(SB);
-  if (v < 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (block_threads) *block_threads = kLaunchVariants[v].threads;
+  // The host's launch variant (both kernels' table) must take the block's
+  // lanes and rows; a cluster's block is whole CTAs.
+  if (!variant_takes(kLaunchVariants, kVariants, variant, SB, N)) return static_cast<int>(cudaErrorInvalidValue);
+  a.variant = variant;
+  if (block_threads) *block_threads = kLaunchVariants[variant].threads;
   if (parity)
     return std::is_same_v<T, float> ? heatx_day_march_parity_f32(&m, stream)
                                     : heatx_day_march_parity_f64(&m, stream);
@@ -165,7 +167,7 @@ int day_march(const void* node, const void* surf, const void* lane, const void* 
       const void *a_vent, const void *b_vent, const void *vent_thr, int N,                 \
       int NB, int SB, int ZB, int hours, int substeps, int refresh_every, int amb_bug,     \
       int parity, int nomass_iters, int esc_after, int nomass_max_iter, int mrt_phys,      \
-      double dt, double half_dt, double gamma_dt, double beta_dt, double c1, double c2,   \
+      int variant, double dt, double half_dt, double gamma_dt, double beta_dt, double c1, double c2,   \
       double nomass_tol, double nomass_tol_esc, int *block_threads, void *stream
 #define HEATX_DAY_MARCH_CALL                                                               \
   node, surf, lane, zone_volume, zone_ptr, zone_faces, t_out, wind, wdir, sol_f, sol_b,    \
@@ -173,7 +175,7 @@ int day_march(const void* node, const void* surf, const void* lane, const void* 
       ctl, sp_heat, sp_cool, mix_ptr, mix_src, mix_vol, cav, mrt, mrt_ptr, mrt_faces, \
       hq_hist, top, shade_slot, shade, shade_sp, vent, a_vent, b_vent, vent_thr, N, NB, SB, ZB, hours, \
       substeps, refresh_every, amb_bug, parity, nomass_iters, esc_after, nomass_max_iter,  \
-      mrt_phys, dt, half_dt, gamma_dt, beta_dt, c1, c2, nomass_tol, nomass_tol_esc, block_threads, stream
+      mrt_phys, variant, dt, half_dt, gamma_dt, beta_dt, c1, c2, nomass_tol, nomass_tol_esc, block_threads, stream
 
 extern "C" {
 

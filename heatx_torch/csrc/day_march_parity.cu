@@ -33,10 +33,12 @@
 //     stage's row needs only its two neighbours.
 //
 // This design, cause by cause:
-//  1. G = 4 threads per surface lane (kGroup; blockDim = lanes x G) in the
-//     TR-BDF2 kernel's launch variants (kLaunchVariants, day_march_args.cuh:
-//     128 threads and three f32 blocks an SM for blocks of up to 32 lanes,
-//     256 up to 64, 1024 up to 256).  Thread `rank` owns the M = 8 rows
+//  1. G = 4 threads per surface lane (blockDim = lanes x G) in the TR-BDF2
+//     kernel's launch variants (kLaunchVariants, day_march_args.cuh: 128
+//     threads and three f32 blocks an SM for blocks of up to 32 lanes, 256
+//     up to 64, 1024 up to 256; G = 8 for columns of 33-64 rows and for
+//     components past 256 lanes, which run as a thread-block cluster of CTAs
+//     of 128 lanes, day_cluster.cuh).  Thread `rank` owns the M = 8 rows
 //     [rank*M, rank*M + M).
 //  2. Each thread's rows live in unrolled register arrays: the column, the
 //     row's operator and its U to the row above.
@@ -101,36 +103,49 @@
 // registers and stack.
 extern "C" int heatx_day_march_parity_mrt_f32(const void* m, void* stream);
 extern "C" int heatx_day_march_parity_mrt_f64(const void* m, void* stream);
+// The cluster variant (kLaunchVariants[3]) lives in a unit of its own (day_march_parity_b1.cu),
+// as the kMrt kinds do: ptxas compiles the out-of-line device functions
+// that a unit's kernels share once for all of them, so the other
+// variants keep the code they had without it.
+extern "C" int heatx_day_march_parity_b1_f32(const void* m, int ext, int cav, int mrt, void* stream);
+extern "C" int heatx_day_march_parity_b1_f64(const void* m, int ext, int cav, int mrt, void* stream);
 
 namespace {
 
 using namespace heatx;
 
-// Bytes of a block's dynamic shared memory: the zone row, the per-face rows,
+// Bytes of a CTA's dynamic shared memory: the zone row, the per-face rows,
 // the hour's gains and the zones' volumes, with kExt the new zone row, the
 // load sums and the hour's four setpoint rows, with kMrt the MRT nodes; the
-// hour's weather; with kShared each thread's rows' solar forcing (kMaxNodes
+// hour's weather; with kShared each thread's rows' solar forcing (kNodes
 // rows a lane); the lanes' boundaries and face statics; then the zone lists
-// and, with kMrt, the network lists (ints).
-template <typename T, bool kExt, bool kMrt, bool kShared>
-size_t parity_smem(const DayArgs<T>& a) {
+// and, with kMrt, the network lists (ints).  `lanes` is the CTA's (the
+// block's, but for a cluster's CTA); the zone rows and lists are the block's.
+template <typename T, bool kExt, bool kMrt, bool kShared, int kNodes>
+size_t parity_smem(const DayArgs<T>& a, int lanes) {
   const size_t zrows = 4 + (kExt ? 6 : 0) + (kMrt ? 1 : 0);
   const size_t lists = (kMrt ? 2 : 1) * (a.ZB + 1 + 2 * static_cast<size_t>(a.SB));
-  const size_t rows = kShared ? static_cast<size_t>(kMaxNodes) * a.SB : 0;
-  return sizeof(T) * (zrows * a.ZB + 4 * static_cast<size_t>(a.SB) + 5 * static_cast<size_t>(a.substeps) + rows) +
-         (sizeof(LaneBounds<T>) * a.SB + 16) + (sizeof(FaceStatics<T>) * a.SB + 16) + sizeof(int) * lists;
+  const size_t rows = kShared ? static_cast<size_t>(kNodes) * lanes : 0;
+  return sizeof(T) * (zrows * a.ZB + 4 * static_cast<size_t>(lanes) + 5 * static_cast<size_t>(a.substeps) + rows) +
+         (sizeof(LaneBounds<T>) * lanes + 16) + (sizeof(FaceStatics<T>) * lanes + 16) + sizeof(int) * lists;
 }
 
-template <typename T, int kThreads, int kMinBlocks, bool kExt, bool kCav, bool kMrt>
+template <typename T, int kThreads, int kMinBlocks, bool kExt, bool kCav, bool kMrt, int G, int kNodes, bool kCl>
 __global__ void __launch_bounds__(kThreads, kMinBlocks) day_march_parity_kernel(const MarchArgsOf<T, kMrt> m) {
-  constexpr int G = kGroup;
-  constexpr int M = kMaxNodes / G;
+  constexpr int M = kNodes / G;
+  using W = ColBits<kNodes>;
   const DayArgs<T>& a = m.in;
+  const Ctas<kCl, kThreads / G> cc;
+  // The CTA's lanes: the block's, or one CTA's share of a cluster's.  A
+  // function, so that the one-CTA variants read a.SB at each use as they
+  // did: one value held in a register moved ptxas's allocation of the
+  // parity kernels (+16 B of stack, +2-3 % a day-launch).
+  const auto SBc = [&] { return kCl ? static_cast<int>(blockDim.x) / G : a.SB; };
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* s_zT = reinterpret_cast<T*>(smem_raw);  // [ZB] zone air temperatures
-  T* s_haT = s_zT + a.ZB;                    // [2*SB] h*A*T_s per face (kMrt: also w*T_s)
-  T* s_ha = s_haT + 2 * a.SB;                // [2*SB] h*A per face (kMrt: also w)
-  T* s_ga = s_ha + 2 * a.SB;                 // [ZB] the hour's a_extra (gated: plus a_vent)
+  T* s_haT = s_zT + a.ZB;                    // [2*SBc] h*A*T_s per face (kMrt: also w*T_s)
+  T* s_ha = s_haT + 2 * SBc();               // [2*SBc] h*A per face (kMrt: also w)
+  T* s_ga = s_ha + 2 * SBc();                // [ZB] the hour's a_extra (gated: plus a_vent)
   T* s_gb = s_ga + a.ZB;                     // [ZB] the hour's b_extra (gated: plus b_vent)
   T* s_vol = s_gb + a.ZB;                    // [ZB] zone volumes
   T* s_zN = s_vol + a.ZB;                    // kExt: [ZB] the sub-step's new zone row
@@ -143,25 +158,25 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_march_parity_kernel(
   // 1024-thread variant, which keeps them in its registers
   constexpr bool kShared = kThreads < 1024;
   T* s_sq = s_wx + 5 * a.substeps;
-  // [SB] each lane's boundaries (LaneBounds) and face statics, read by its
+  // [SBc] each lane's boundaries (LaneBounds) and face statics, read by its
   // group's threads
   LaneBounds<T>* s_lb = reinterpret_cast<LaneBounds<T>*>(
-      (reinterpret_cast<size_t>(s_sq + (kShared ? kMaxNodes * a.SB : 0)) + 15) & ~static_cast<size_t>(15));
+      (reinterpret_cast<size_t>(s_sq + (kShared ? kNodes * SBc() : 0)) + 15) & ~static_cast<size_t>(15));
   FaceStatics<T>* s_fs = reinterpret_cast<FaceStatics<T>*>(
-      (reinterpret_cast<size_t>(s_lb + a.SB) + 15) & ~static_cast<size_t>(15));
-  int* s_zptr = reinterpret_cast<int*>(s_fs + a.SB);  // [ZB+1] block-local face offsets
+      (reinterpret_cast<size_t>(s_lb + SBc()) + 15) & ~static_cast<size_t>(15));
+  int* s_zptr = reinterpret_cast<int*>(s_fs + SBc());  // [ZB+1] block-local face offsets
   int* s_zf = s_zptr + a.ZB + 1;                      // [<= 2*SB] the zones' faces
   int* s_mptr = s_zf + 2 * a.SB;  // kMrt: [ZB+1] block-local offsets of the network lists
   int* s_mf = s_mptr + a.ZB + 1;  // kMrt: [<= 2*SB] the zones' network faces
   __shared__ int s_bad;
 
   const int N = a.N, SB = a.SB, ZB = a.ZB, NB = a.NB, sub = a.substeps;
-  const int b = blockIdx.x;
+  const int b = cc.block();
   const int tid = threadIdx.x;
   const int nthreads = blockDim.x;
   const int SP = NB * SB;
-  const int slot = tid / G;  // the lane's place in the block
-  const int lane = b * SB + slot;
+  const int slot = tid / G;  // the lane's place in the CTA
+  const int lane = b * SB + cc.lane0 + slot;
   const Group<G> g{block_warp_mask(), tid % G};
   const int row0 = g.rank * M;
   const bool back = g.rank != 0;  // this thread's face
@@ -177,32 +192,32 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_march_parity_kernel(
 
   // The lane's rows as words (bit i: row i), and the thread's share (bit j:
   // row row0 + j).
-  const RowWords W(static_cast<unsigned>(a.lane[LN_BITS * SP + lane]),
-                   static_cast<unsigned>(a.lane[LN_MASS * SP + lane]),
-                   static_cast<unsigned>(a.lane[LN_CHUNK * SP + lane]), N);
+  const RowWords<W> Wd(lane_word<W>(a.lane, SP, LN_BITS, lane, a.N), lane_word<W>(a.lane, SP, LN_MASS, lane, a.N),
+                       lane_word<W>(a.lane, SP, LN_CHUNK, lane, a.N), N);
   constexpr unsigned own = (1u << M) - 1u;
-  const unsigned vb = (W.valid >> row0) & own, fb = (W.first >> row0) & own, lb = (W.last >> row0) & own;
-  const unsigned mb = (W.mass >> row0) & own, sb = (W.sel >> row0) & own;
-  const unsigned cl = (W.coup_l >> row0) & own, cr = (W.coup_r >> row0) & own;
-  const unsigned dl = (W.dir_l >> row0) & own, dr = (W.dir_r >> row0) & own;
-  const unsigned hd = (W.head >> row0) & own;
-  const unsigned ph = (W.pair >> row0) & own, pt = ((W.pair << 1) >> row0) & own;
-  const unsigned left = W.coup_l | W.dir_l;
-  const unsigned cav_w = kCav ? static_cast<unsigned>(a.lane[LN_CAV * SP + lane]) : 0u;
-  const unsigned cav = (cav_w >> row0) & own;
-  const bool cav_lane = cav_w != 0u;
+  auto mine = [&](W w) { return static_cast<unsigned>(w >> row0) & own; };
+  const unsigned vb = mine(Wd.valid), fb = mine(Wd.first), lb = mine(Wd.last);
+  const unsigned mb = mine(Wd.mass), sb = mine(Wd.sel);
+  const unsigned cl = mine(Wd.coup_l), cr = mine(Wd.coup_r);
+  const unsigned dl = mine(Wd.dir_l), dr = mine(Wd.dir_r);
+  const unsigned hd = mine(Wd.head);
+  const unsigned ph = mine(Wd.pair), pt = mine(Wd.pair << 1);
+  const W left = Wd.coup_l | Wd.dir_l;
+  const W cav_w = kCav ? lane_word<W>(a.lane, SP, LN_CAV, lane, a.N) : W(0);
+  const unsigned cav = mine(cav_w);
+  const bool cav_lane = cav_w != W(0);
   // A block with a no-mass run of three or more nodes solves by Thomas.
-  const bool long_runs = __syncthreads_or(W.long_run()) != 0;
+  const bool long_runs = __syncthreads_or(Wd.long_run()) != 0;
   // The runs whose denominator a face row's film moves: face rows and the
   // heads of pairs whose tail is a face row (tails copy their head's).
-  const unsigned faces_w = W.first | W.last;
+  const W faces_w = Wd.first | Wd.last;
   const unsigned heads1 = sb & ~pt;
-  const unsigned dyn = (((W.sel & (faces_w | (W.pair & (faces_w >> 1)))) >> row0) & own) & ~pt;
+  const unsigned dyn = mine(Wd.sel & (faces_w | (Wd.pair & (faces_w >> 1)))) & ~pt;
   // The back face's temperature: one shuffle from the owner of the column's
   // last valid row when every lane of the warp has one such row (the sum of
   // the group's partial sums otherwise, as engine.surface._last_node sums them).
-  const bool one_last = __all_sync(g.mask, __popc(W.last) <= 1);
-  const int last_owner = W.last ? (31 - __clz(W.last)) / M : 0;
+  const bool one_last = __all_sync(g.mask, popc(Wd.last) <= 1);
+  const int last_owner = Wd.last ? hibit(Wd.last) / M : 0;
 
   const T* U = a.node + (ND_U * N) * SP + lane;
   const T* FA = a.node + (ND_FA * N) * SP + lane;
@@ -226,7 +241,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_march_parity_kernel(
     sq[j] = T(0);
   }
   const int il = row0 + M - 1;  // the segment below the thread's last row
-  T ur_last = (il + 1 < 32 && ((left >> (il + 1)) & 1u)) ? U[il * SP] : T(0);
+  T ur_last = (il + 1 < kNodes && ((left >> (il + 1)) & 1u)) ? U[il * SP] : T(0);
 
   // The sub-step's face operators (the first film evaluation's films and
   // linearized radiation; src: t_air h).
@@ -307,7 +322,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_march_parity_kernel(
     for (int k = 0; k < N; ++k) {
       const T lk = row_of<M>(g, A, k), dk = row_of<M>(g, D, k), uk = row_of<M>(g, C, k);
       const T rk = row_of<M>(g, r, k), wk = row_of<M>(g, w, k);
-      const bool s = (W.sel >> k) & 1u;
+      const bool s = (Wd.sel >> k) & 1u;
       const T l = s ? lk : T(0), u = s ? uk : T(0), rh = s ? rk : wk;
       const T inv = T(1) / ((s ? dk : T(1)) - l * cs_p);
       cs_p = u * inv;
@@ -387,7 +402,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_march_parity_kernel(
     s_vol[z] = a.zone_volume[b * ZB + z];
     if (kExt) s_ld[z] = T(0);
   }
-  __syncthreads();
+  cc.sync();
 
   // The zone phase's threads: a warp per zone when the block is whole warps.
   const bool by_warp = (nthreads & 31) == 0;
@@ -443,7 +458,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_march_parity_kernel(
         s_wx[3 * sub + i] = m_sin(a.wdir[h * sub + i]);
         s_wx[4 * sub + i] = m_cos(a.wdir[h * sub + i]);
       }
-      __syncthreads();
+      cc.sync();
     }
     for (int i = 0; i < sub; ++i) {
       // ---- the sub-step's operators from its start column -------------------
@@ -459,7 +474,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_march_parity_kernel(
           me = back ? ML.eb : ML.ef;
           tm = mrt_face_node(ZB, s_mptr, s_mf, tid, nthreads, g.rank < 2, ((ML.bits >> int(back)) & 1u) != 0,
                              2 * slot + int(back), back ? LB.zone_b : LB.zone_f, me, L.area, back ? ts_b : ts_f,
-                             back ? t_back : t_front, s_zT, s_ha, s_haT, s_tm);
+                             back ? t_back : t_front, s_zT, s_ha, s_haT, s_tm, static_cast<T*>(nullptr), cc);
         }
       }
       const T base = L.base(s_wx[sub + i], s_wx[3 * sub + i], s_wx[4 * sub + i]);
@@ -526,24 +541,24 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_march_parity_kernel(
             int head = 0;
             for (int k = 0; k < N; ++k) {
               const T dk = row_of<M>(g, d, k);
-              if ((W.head >> k) & 1u) {
+              if ((Wd.head >> k) & 1u) {
                 e = T(0);
                 head = k;
               }
-              if ((W.sel >> k) & 1u) {
+              if ((Wd.sel >> k) & 1u) {
                 e += dk;
-                const bool end = k + 1 >= 32 || !((W.cont >> (k + 1)) & 1u);
+                const bool end = k + 1 >= kNodes || !((Wd.cont >> (k + 1)) & 1u);
                 if (end && head / M == g.rank) put(err, head % M, e);
               }
             }
           }
           // Relax the active runs whose error did not grow; test convergence
           // on the mean error with the escalating tolerance.
-          unsigned moved = 0u;
+          W moved = W(0);
 #pragma unroll
           for (int j = 0; j < M; ++j) {
             if (!((hd >> j) & 1u)) continue;
-            const unsigned run = long_runs ? W.run(row0 + j) : (((ph >> j) & 1u) ? 3u : 1u) << (row0 + j);
+            const W run = long_runs ? Wd.run(row0 + j) : W(((ph >> j) & 1u) ? 3u : 1u) << (row0 + j);
             const bool active = (act >> j) & 1u;
             const bool increase = err[j] > oerr[j];
             if (active && !increase) {
@@ -551,7 +566,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_march_parity_kernel(
               oerr[j] = err[j];
             }
             const T tol = cnt[j] < pc.esc_after ? pc.tol : pc.tol_esc;
-            const bool converged = err[j] / T(__popc(run)) < tol;
+            const bool converged = err[j] / T(popc(run)) < tol;
             if (active && !increase && !converged)
               ++cnt[j];
             else
@@ -610,7 +625,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_march_parity_kernel(
         s_haT[2 * slot + 1] = hab * ts_b;
         s_ha[2 * slot + 1] = hab;
       }
-      __syncthreads();
+      cc.sync();
 
       // Zone sums and the exact exponential zone update: a warp per zone
       // when the block is whole warps (zone_sums_warp; its lane 0 updates the
@@ -619,9 +634,9 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_march_parity_kernel(
         const int gz = b * ZB + z;
         T az, bz;
         if (by_warp)
-          zone_sums_warp(s_zptr, s_zf, z, tid & 31, s_haT, s_ha, s_ga[z], s_gb[z], az, bz);
+          zone_sums_warp(s_zptr, s_zf, z, tid & 31, s_haT, s_ha, s_ga[z], s_gb[z], az, bz, cc);
         else
-          zone_sums_shared(s_zptr, s_zf, z, s_haT, s_ha, s_ga[z], s_gb[z], az, bz);
+          zone_sums_shared(s_zptr, s_zf, z, s_haT, s_ha, s_ga[z], s_gb[z], az, bz, cc);
         if (by_warp && (tid & 31)) continue;
         if (kExt) {
           if (a.mix_ptr) mix_sums(a, gz, s_zT, az, bz);
@@ -637,7 +652,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_march_parity_kernel(
           s_zT[z] = zone_update(s_zT[z], az, bz, s_vol[z], dt);
         }
       }
-      __syncthreads();
+      cc.sync();
       if (kExt) {  // the new row becomes the current one
         T* t = s_zT;
         s_zT = s_zN;
@@ -661,9 +676,11 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_march_parity_kernel(
         faces(ts_f, ts_b);
         mrt_face_node(ZB, s_mptr, s_mf, tid, nthreads, g.rank < 2, ((ML.bits >> int(back)) & 1u) != 0,
                       2 * slot + int(back), back ? LB.zone_b : LB.zone_f, back ? ML.eb : ML.ef, LB.area,
-                      back ? ts_b : ts_f, back ? t_back : t_front, s_zT, s_ha, s_haT, s_tm);
-        for (int z = tid; z < ZB; z += nthreads)
-          m.top[(size_t)h * NB * ZB + b * ZB + z] = (s_zT[z] + s_tm[z]) / T(2);
+                      back ? ts_b : ts_f, back ? t_back : t_front, s_zT, s_ha, s_haT, s_tm,
+                      static_cast<T*>(nullptr), cc);
+        if (cc.lead())
+          for (int z = tid; z < ZB; z += nthreads)
+            m.top[(size_t)h * NB * ZB + b * ZB + z] = (s_zT[z] + s_tm[z]) / T(2);
       }
     }
     int cnt = 0;
@@ -672,18 +689,20 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_march_parity_kernel(
       if (((vb >> j) & 1u) && !is_finite(Tn[j])) ++cnt;
     for (int z = tid; z < ZB; z += nthreads) {
       const T zt = s_zT[z];
-      m.zt_hist[(size_t)h * NB * ZB + b * ZB + z] = zt;
-      if (!is_finite(zt)) ++cnt;
+      if (cc.lead()) {  // the zones are the lead CTA's to write and count
+        m.zt_hist[(size_t)h * NB * ZB + b * ZB + z] = zt;
+        if (!is_finite(zt)) ++cnt;
+      }
       if (kExt && a.ctl) {
-        m.ld_hist[(size_t)h * NB * ZB + b * ZB + z] = s_ld[z] / T(sub);
+        if (cc.lead()) m.ld_hist[(size_t)h * NB * ZB + b * ZB + z] = s_ld[z] / T(sub);
         s_ld[z] = T(0);
       }
     }
     if (tid == 0) s_bad = 0;
-    __syncthreads();
-    if (cnt) atomicAdd(&s_bad, cnt);
-    __syncthreads();
-    if (tid == 0) m.bad[h * NB + b] = T(s_bad);
+    cc.sync();
+    if (cnt) atomicAdd(cc.lead_int(&s_bad), cnt);
+    cc.sync();
+    if (tid == 0 && cc.lead()) m.bad[h * NB + b] = T(s_bad);
   }
 
 #pragma unroll
@@ -695,37 +714,59 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_march_parity_kernel(
     m.hq[2 * SP + lane] = qf;
     m.hq[3 * SP + lane] = qb;
   }
-  for (int z = tid; z < ZB; z += nthreads) m.zT_out[b * ZB + z] = s_zT[z];
+  if (cc.lead())
+    for (int z = tid; z < ZB; z += nthreads) m.zT_out[b * ZB + z] = s_zT[z];
 }
 
 template <typename T, int kV, bool kExt, bool kCav, bool kMrt>
 int launch_parity(const MarchArgsOf<T, kMrt>& m, cudaStream_t stream) {
-  constexpr int kThreads = kLaunchVariants[kV].threads;
+  constexpr LaunchVariant V = kLaunchVariants[kV];
+  constexpr int kThreads = V.threads;
   constexpr int kBlocks = kVariantBlocks<T, kV>;
+  constexpr bool kCl = kVariantCluster<kV>;
   const DayArgs<T>& a = m.in;
-  const size_t smem = parity_smem<T, kExt, kMrt, (kThreads < 1024)>(a);
+  const int C = cluster_ctas(V, a.SB), lanes = a.SB / C;
+  const size_t smem = parity_smem<T, kExt, kMrt, (kThreads < 1024), V.nodes>(a, lanes);
+  const auto kernel = day_march_parity_kernel<T, kThreads, kBlocks, kExt, kCav, kMrt, V.group, V.nodes, kCl>;
   if (smem > 48 * 1024) {
     const cudaError_t e =
-        cudaFuncSetAttribute(day_march_parity_kernel<T, kThreads, kBlocks, kExt, kCav, kMrt>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  day_march_parity_kernel<T, kThreads, kBlocks, kExt, kCav, kMrt><<<a.NB, a.SB * kGroup, smem, stream>>>(m);
+  if constexpr (kCl) return launch_cluster(kernel, a.NB, C, lanes * V.group, smem, stream, m);
+  kernel<<<a.NB, a.SB * V.group, smem, stream>>>(m);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The kind's kernel in the launch variant that takes the block's lanes.
+// The kind's kernel in the host's launch variant (DayArgs::variant, which the
+// C entry checked).
 template <typename T, bool kExt, bool kCav, bool kMrt>
 int launch_kind(const MarchArgsOf<T, kMrt>& m, cudaStream_t st) {
-  switch (launch_variant(m.in.SB)) {
+  switch (m.in.variant) {
     case 0: return launch_parity<T, 0, kExt, kCav, kMrt>(m, st);
     case 1: return launch_parity<T, 1, kExt, kCav, kMrt>(m, st);
     case 2: return launch_parity<T, 2, kExt, kCav, kMrt>(m, st);
+    case 3:
+      return std::is_same_v<T, float> ? heatx_day_march_parity_b1_f32(&m, kExt, kCav, kMrt, st)
+                                      : heatx_day_march_parity_b1_f64(&m, kExt, kCav, kMrt, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-#ifndef HEATX_DAY_MARCH_PARITY_KMRT_UNIT
+#if defined(HEATX_DAY_MARCH_PARITY_B1_UNIT)
+// The cluster variant's kind (the flags are launch_kind's).
+template <typename T>
+int day_march_parity_b1(const void* args, int ext, int cav, int mrt, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (mrt) {
+    const MrtMarchArgs<T>& m = *static_cast<const MrtMarchArgs<T>*>(args);
+    return cav ? launch_parity<T, 3, true, true, true>(m, st) : launch_parity<T, 3, true, false, true>(m, st);
+  }
+  const MarchArgs<T>& m = *static_cast<const MarchArgs<T>*>(args);
+  if (cav) return launch_parity<T, 3, true, true, false>(m, st);
+  return ext ? launch_parity<T, 3, true, false, false>(m, st) : launch_parity<T, 3, false, false, false>(m, st);
+}
+#elif !defined(HEATX_DAY_MARCH_PARITY_KMRT_UNIT)
 // Free-float buildings run the kind without the extra zone code; thermostats,
 // mixing, shading or gates the extended one (kExt); gas cavities the extended
 // one with the cavity code (kCav); MRT physics and the histories the kMrt
@@ -755,7 +796,14 @@ int day_march_parity_mrt(const void* args, void* stream) {
 }  // namespace
 
 extern "C" {
-#ifndef HEATX_DAY_MARCH_PARITY_KMRT_UNIT
+#if defined(HEATX_DAY_MARCH_PARITY_B1_UNIT)
+int heatx_day_march_parity_b1_f32(const void* m, int ext, int cav, int mrt, void* stream) {
+  return day_march_parity_b1<float>(m, ext, cav, mrt, stream);
+}
+int heatx_day_march_parity_b1_f64(const void* m, int ext, int cav, int mrt, void* stream) {
+  return day_march_parity_b1<double>(m, ext, cav, mrt, stream);
+}
+#elif !defined(HEATX_DAY_MARCH_PARITY_KMRT_UNIT)
 int heatx_day_march_parity_f32(const void* m, void* stream) { return day_march_parity<float>(m, stream); }
 int heatx_day_march_parity_f64(const void* m, void* stream) { return day_march_parity<double>(m, stream); }
 #else

@@ -21,12 +21,16 @@
 // day-launch took 2.980 ms against a bound of 0.0094 ms by operations.
 //
 // This design:
-//  * G = 4 threads per surface lane (kGroup; blockDim = lanes x G; groups of
-//    8 and 16 were slower in every kind and type), thread `rank` owning the
-//    M = 32/G consecutive node rows [rank*M, rank*M + M) in unrolled register
-//    arrays: no runtime-indexed per-thread array, no local memory.  The block
-//    is still one zone-closed block of block_building; the launch variant
-//    (kLaunchVariants, day_march_args.cuh) follows from its lanes.
+//  * G = 4 threads per surface lane (blockDim = lanes x G; groups of 8 and
+//    16 were slower in every kind and type at up to 32 rows), thread `rank`
+//    owning the M = 8 consecutive node rows [rank*M, rank*M + M) in unrolled
+//    register arrays: no runtime-indexed per-thread array, no local memory.
+//    The block is still one zone-closed block of block_building; the launch
+//    variant (kLaunchVariants, day_march_args.cuh) follows from its lanes and
+//    rows: columns of 33-64 rows run at G = 8 (kNodes 64, 64-bit column
+//    masks), and a component past 256 lanes as a thread-block cluster of
+//    CTAs of 128 lanes (kCl, day_cluster.cuh: every barrier a cluster
+//    barrier, the zone sums reading each face from its CTA).
 //  * Statics loaded once per launch: each row's valid/first/last bits in
 //    registers, its capacity and U to the row above in shared memory (read by
 //    its thread only: registers go to the column, its stage-1 operator and
@@ -74,6 +78,12 @@
 // which includes this file), as the parity body's do.
 extern "C" int heatx_day_march_tr_mrt_f32(const void* m, void* stream);
 extern "C" int heatx_day_march_tr_mrt_f64(const void* m, void* stream);
+// The cluster variant (kLaunchVariants[3]) lives in a unit of its own (day_march_tr_b1.cu),
+// as the kMrt kinds do: ptxas compiles the out-of-line device functions
+// that a unit's kernels share once for all of them, so the other
+// variants keep the code they had without it.
+extern "C" int heatx_day_march_tr_b1_f32(const void* m, int ext, int cav, int mrt, void* stream);
+extern "C" int heatx_day_march_tr_b1_f64(const void* m, int ext, int cav, int mrt, void* stream);
 
 namespace {
 
@@ -83,7 +93,8 @@ using namespace heatx;
 // parity kernel's too): G = 4 at 128 threads and three f32 blocks an SM
 // (blocks of up to 32 lanes, such as the bench city's: its 334 blocks then run
 // in one wave on 132 SMs), at 256 (up to 64 lanes) and at 1024 (up to 256
-// lanes, 64 registers a thread).
+// lanes, 64 registers a thread), and G = 8 at 1024 threads (64 rows, up to 8
+// CTAs of 128 lanes a cluster).
 constexpr int kWide = 1024;
 // Whether a variant keeps each thread's rows' capacities, solar forcing and
 // U in shared memory (the 1024-thread one, whose blocks may need more than a
@@ -91,31 +102,39 @@ constexpr int kWide = 1024;
 template <int kThreads>
 constexpr bool kStaged = kThreads < kWide;
 
-// Bytes of a block's dynamic shared memory: the zone row, the per-face rows,
+// Bytes of a CTA's dynamic shared memory: the zone row, the per-face rows,
 // the hour's gains and the zones' volumes, with kExt the new zone row, the
 // load sums and the hour's four setpoint rows, with kMrt the MRT nodes; the
 // hour's weather; the lanes' last face fluxes; with kRowsShared each thread's
-// rows' capacities, solar forcing and U to the row above (kMaxNodes rows a
+// rows' capacities, solar forcing and U to the row above (kNodes rows a
 // lane: 48 KB in f64 at 64 lanes); the lanes' boundaries; then the zone lists
-// and, with kMrt, the network lists (ints).
-template <typename T, bool kExt, bool kMrt, bool kRowsShared>
-size_t tr_smem(const DayArgs<T>& a) {
+// and, with kMrt, the network lists (ints).  `lanes` is the CTA's (the
+// block's, but for a cluster's CTA); the zone rows and lists are the block's.
+template <typename T, bool kExt, bool kMrt, bool kRowsShared, int kNodes>
+size_t tr_smem(const DayArgs<T>& a, int lanes) {
   const size_t zrows = 4 + (kExt ? 6 : 0) + (kMrt ? 1 : 0);
   const size_t lists = (kMrt ? 2 : 1) * (a.ZB + 1 + 2 * static_cast<size_t>(a.SB));
-  const size_t rows = kRowsShared ? 3 * static_cast<size_t>(kMaxNodes) * a.SB : 0;
-  return sizeof(T) * (zrows * a.ZB + 6 * static_cast<size_t>(a.SB) + 3 * static_cast<size_t>(a.substeps) + rows) +
-         (sizeof(LaneBounds<T>) * a.SB + 16) + sizeof(int) * lists;
+  const size_t rows = kRowsShared ? 3 * static_cast<size_t>(kNodes) * lanes : 0;
+  return sizeof(T) * (zrows * a.ZB + 6 * static_cast<size_t>(lanes) + 3 * static_cast<size_t>(a.substeps) + rows) +
+         (sizeof(LaneBounds<T>) * lanes + 16) + sizeof(int) * lists;
 }
 
-template <typename T, int G, int kThreads, int kMinBlocks, bool kExt, bool kCav, bool kMrt>
+template <typename T, int G, int kThreads, int kMinBlocks, bool kExt, bool kCav, bool kMrt, int kNodes, bool kCl>
 __global__ void __launch_bounds__(kThreads, kMinBlocks) day_march_tr_kernel(const MarchArgsOf<T, kMrt> m) {
-  constexpr int M = kMaxNodes / G;
+  constexpr int M = kNodes / G;
+  using W = ColBits<kNodes>;
   const DayArgs<T>& a = m.in;
+  const Ctas<kCl, kThreads / G> cc;
+  // The CTA's lanes: the block's, or one CTA's share of a cluster's.  A
+  // function, so that the one-CTA variants read a.SB at each use as they
+  // did: one value held in a register moved ptxas's allocation of the
+  // parity kernels (+16 B of stack, +2-3 % a day-launch).
+  const auto SBc = [&] { return kCl ? static_cast<int>(blockDim.x) / G : a.SB; };
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* s_zT = reinterpret_cast<T*>(smem_raw);  // [ZB] zone air temperatures
-  T* s_haT = s_zT + a.ZB;                    // [2*SB] h*A*T_s per face (kMrt: also w*T_s)
-  T* s_ha = s_haT + 2 * a.SB;                // [2*SB] h*A per face (kMrt: also w)
-  T* s_ga = s_ha + 2 * a.SB;                 // [ZB] the hour's a_extra (gated: plus a_vent)
+  T* s_haT = s_zT + a.ZB;                    // [2*SBc] h*A*T_s per face (kMrt: also w*T_s)
+  T* s_ha = s_haT + 2 * SBc();               // [2*SBc] h*A per face (kMrt: also w)
+  T* s_ga = s_ha + 2 * SBc();                // [ZB] the hour's a_extra (gated: plus a_vent)
   T* s_gb = s_ga + a.ZB;                     // [ZB] the hour's b_extra (gated: plus b_vent)
   T* s_vol = s_gb + a.ZB;                    // [ZB] zone volumes
   T* s_zN = s_vol + a.ZB;                    // kExt: [ZB] the sub-step's new zone row
@@ -128,25 +147,25 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_march_tr_kernel(cons
   // thread only, kept here to leave registers to the columns and the factors)
   constexpr bool kShared = kStaged<kThreads>;
   T* s_cap = s_wx + 3 * a.substeps;
-  T* s_sq = s_cap + (kShared ? kMaxNodes * a.SB : 0);
-  T* s_kl = s_sq + (kShared ? kMaxNodes * a.SB : 0);
-  T* s_q = s_kl + (kShared ? kMaxNodes * a.SB : 0);  // [2*SB] each lane's last q_front, q_back
-  // [SB] each lane's boundaries (LaneBounds), read by its group's threads
+  T* s_sq = s_cap + (kShared ? kNodes * SBc() : 0);
+  T* s_kl = s_sq + (kShared ? kNodes * SBc() : 0);
+  T* s_q = s_kl + (kShared ? kNodes * SBc() : 0);  // [2*SBc] each lane's last q_front, q_back
+  // [SBc] each lane's boundaries (LaneBounds), read by its group's threads
   LaneBounds<T>* s_lb = reinterpret_cast<LaneBounds<T>*>(
-      (reinterpret_cast<size_t>(s_q + 2 * a.SB) + 15) & ~static_cast<size_t>(15));
-  int* s_zptr = reinterpret_cast<int*>(s_lb + a.SB);  // [ZB+1] block-local face offsets
+      (reinterpret_cast<size_t>(s_q + 2 * SBc()) + 15) & ~static_cast<size_t>(15));
+  int* s_zptr = reinterpret_cast<int*>(s_lb + SBc());  // [ZB+1] block-local face offsets
   int* s_zf = s_zptr + a.ZB + 1;                                // [<= 2*SB] the zones' faces
   int* s_mptr = s_zf + 2 * a.SB;  // kMrt: [ZB+1] block-local offsets of the network lists
   int* s_mf = s_mptr + a.ZB + 1;  // kMrt: [<= 2*SB] the zones' network faces
   __shared__ int s_bad;
 
   const int N = a.N, SB = a.SB, ZB = a.ZB, NB = a.NB, sub = a.substeps;
-  const int b = blockIdx.x;
+  const int b = cc.block();
   const int tid = threadIdx.x;
   const int nthreads = blockDim.x;
   const int SP = NB * SB;
-  const int slot = tid / G;  // the lane's place in the block
-  const int lane = b * SB + slot;
+  const int slot = tid / G;  // the lane's place in the CTA
+  const int lane = b * SB + cc.lane0 + slot;
   const Group<G> g{block_warp_mask(), tid % G};
   const int row0 = g.rank * M;
   const bool back = g.rank != 0;  // this thread's face
@@ -157,20 +176,20 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_march_tr_kernel(cons
   const LaneBounds<T>& LB = s_lb[slot];
 
   // The thread's rows: bit j of each word is row row0 + j.
-  const unsigned col = N < 32 ? (1u << N) - 1u : ~0u;
-  const unsigned bits = static_cast<unsigned>(a.lane[LN_BITS * SP + lane]) & col;
+  const W col = N < 8 * static_cast<int>(sizeof(W)) ? (W(1) << N) - W(1) : ~W(0);
+  const W bits = lane_word<W>(a.lane, SP, LN_BITS, lane, a.N) & col;
   constexpr unsigned own = (1u << M) - 1u;
-  const unsigned vb = (bits >> row0) & own;
-  const unsigned fb = ((bits & ~(bits << 1)) >> row0) & own;
-  const unsigned lasts = bits & ~(bits >> 1);
-  const unsigned lb = (lasts >> row0) & own;
-  const unsigned lf = bits & (bits << 1);  // left(i): rows i-1 and i valid
-  const unsigned cav = kCav ? (static_cast<unsigned>(a.lane[LN_CAV * SP + lane]) >> row0) & own : 0u;
+  const unsigned vb = static_cast<unsigned>(bits >> row0) & own;
+  const unsigned fb = static_cast<unsigned>((bits & ~(bits << 1)) >> row0) & own;
+  const W lasts = bits & ~(bits >> 1);
+  const unsigned lb = static_cast<unsigned>(lasts >> row0) & own;
+  const W lf = bits & (bits << 1);  // left(i): rows i-1 and i valid
+  const unsigned cav = kCav ? static_cast<unsigned>(lane_word<W>(a.lane, SP, LN_CAV, lane, a.N) >> row0) & own : 0u;
   // The back face's temperature: one shuffle from the owner of the column's
   // last valid row when every lane of the warp has one such row (the sum of
   // the group's partial sums otherwise, as engine.surface._last_node sums them).
-  const bool one_last = __all_sync(g.mask, __popc(lasts) <= 1);
-  const int last_owner = lasts ? (31 - __clz(lasts)) / M : 0;
+  const bool one_last = __all_sync(g.mask, popc(lasts) <= 1);
+  const int last_owner = lasts ? hibit(lasts) / M : 0;
   const T* U = a.node + (ND_U * N) * SP + lane;
   const T* FA = a.node + (ND_FA * N) * SP + lane;
   const T* FB = a.node + (ND_FB * N) * SP + lane;
@@ -190,7 +209,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_march_tr_kernel(cons
     kl[j] = ((lf >> i) & 1u) ? u : T(0);
   }
   const int il = row0 + M - 1;  // the segment below the thread's last row
-  T ku_last = (il + 1 < 32 && ((lf >> (il + 1)) & 1u)) ? U[il * SP] : T(0);
+  T ku_last = (il + 1 < kNodes && ((lf >> (il + 1)) & 1u)) ? U[il * SP] : T(0);
   const int e_base = a.zone_ptr[b * ZB];
   for (int z = tid; z <= ZB; z += nthreads) s_zptr[z] = a.zone_ptr[b * ZB + z] - e_base;
   for (int e = tid; e < a.zone_ptr[b * ZB + ZB] - e_base; e += nthreads) s_zf[e] = a.zone_faces[e_base + e];
@@ -204,7 +223,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_march_tr_kernel(cons
     s_vol[z] = a.zone_volume[b * ZB + z];
     if (kExt) s_ld[z] = T(0);
   }
-  __syncthreads();
+  cc.sync();
 
   // The zone phase's threads: a warp per zone when the block is whole warps.
   const bool by_warp = (nthreads & 31) == 0;
@@ -221,7 +240,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_march_tr_kernel(cons
   };
 
   Ops<T> o{};
-  PartFactors<T, G> P;
+  PartFactors<T, G, M> P;
   // The group's stage-1 operator by rows, from each operator build: the
   // diagonal e = C + (gamma dt/2) K_d and the lower coefficient ml = -(gamma
   // dt/2) K_l of valid rows (the upper one of row j is ml of row j + 1, the
@@ -277,7 +296,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_march_tr_kernel(cons
         s_wx[sub + i] = a.wind[h * sub + i];
         s_wx[2 * sub + i] = a.wdir[h * sub + i];
       }
-      __syncthreads();
+      cc.sync();
     }
     for (int i0 = 0; i0 < sub; i0 += a.refresh_every) {
       // ---- the operators of the group, from its start column ---------------
@@ -294,7 +313,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_march_tr_kernel(cons
           me = back ? ML.eb : ML.ef;
           tm = mrt_face_node(ZB, s_mptr, s_mf, tid, nthreads, g.rank < 2, ((ML.bits >> int(back)) & 1u) != 0,
                              2 * slot + int(back), back ? L.zone_b : L.zone_f, me, L.area,
-                             back ? ts_back : ts_front, back ? t_back : t_front, s_zT, s_ha, s_haT, s_tm);
+                             back ? ts_back : ts_front, back ? t_back : t_front, s_zT, s_ha, s_haT, s_tm,
+                             static_cast<T*>(nullptr), cc);
         }
       }
       if constexpr (kCav) {  // the cavity segments' U from the start column
@@ -304,7 +324,9 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_march_tr_kernel(cons
         for (int j = 0; j < M; ++j) {
           const int s = row0 + j;
           if (((cav >> j) & 1u) && s + 1 < N) {
-            const T u = cavity_u(L.Cav + s * SP, ns, Tn[j], j + 1 < M ? Tn[j + 1] : t_next,
+            // a column past 32 rows may hold its cavities in rows 32-63 only
+            const T* cav_ops = kNodes > 32 ? a.cav + lane : L.Cav;
+            const T u = cavity_u(cav_ops + s * SP, ns, Tn[j], j + 1 < M ? Tn[j + 1] : t_next,
                                  static_cast<T*>(nullptr), static_cast<T*>(nullptr));
             const bool link = (lf >> (s + 1)) & 1u;
             if (j + 1 < M)
@@ -383,7 +405,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_march_tr_kernel(cons
           s_haT[2 * slot + 1] = hab * ts_b;
           s_ha[2 * slot + 1] = hab;
         }
-        __syncthreads();
+        cc.sync();
 
         // Zone sums and the exact exponential zone update: a warp per zone
         // when the block is whole warps (zone_sums_warp; its lane 0 updates the
@@ -392,9 +414,9 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_march_tr_kernel(cons
           const int gz = b * ZB + z;
           T az, bz;
           if (by_warp)
-            zone_sums_warp(s_zptr, s_zf, z, tid & 31, s_haT, s_ha, s_ga[z], s_gb[z], az, bz);
+            zone_sums_warp(s_zptr, s_zf, z, tid & 31, s_haT, s_ha, s_ga[z], s_gb[z], az, bz, cc);
           else
-            zone_sums_shared(s_zptr, s_zf, z, s_haT, s_ha, s_ga[z], s_gb[z], az, bz);
+            zone_sums_shared(s_zptr, s_zf, z, s_haT, s_ha, s_ga[z], s_gb[z], az, bz, cc);
           if (by_warp && (tid & 31)) continue;
           if (kExt) {
             if (a.mix_ptr) mix_sums(a, gz, s_zT, az, bz);
@@ -410,7 +432,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_march_tr_kernel(cons
             s_zT[z] = zone_update(s_zT[z], az, bz, s_vol[z], sc.dt);
           }
         }
-        __syncthreads();
+        cc.sync();
         if (kExt) {  // the new row becomes the current one
           T* t = s_zT;
           s_zT = s_zN;
@@ -435,9 +457,11 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_march_tr_kernel(cons
         faces(ts_f, ts_b);
         mrt_face_node(ZB, s_mptr, s_mf, tid, nthreads, g.rank < 2, ((ML.bits >> int(back)) & 1u) != 0,
                       2 * slot + int(back), back ? LB.zone_b : LB.zone_f, back ? ML.eb : ML.ef, LB.area,
-                      back ? ts_b : ts_f, back ? t_back : t_front, s_zT, s_ha, s_haT, s_tm);
-        for (int z = tid; z < ZB; z += nthreads)
-          m.top[(size_t)h * NB * ZB + b * ZB + z] = (s_zT[z] + s_tm[z]) / T(2);
+                      back ? ts_b : ts_f, back ? t_back : t_front, s_zT, s_ha, s_haT, s_tm,
+                      static_cast<T*>(nullptr), cc);
+        if (cc.lead())
+          for (int z = tid; z < ZB; z += nthreads)
+            m.top[(size_t)h * NB * ZB + b * ZB + z] = (s_zT[z] + s_tm[z]) / T(2);
       }
     }
     int cnt = 0;
@@ -446,18 +470,20 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_march_tr_kernel(cons
       if (((vb >> j) & 1u) && !is_finite(Tn[j])) ++cnt;
     for (int z = tid; z < ZB; z += nthreads) {
       const T zt = s_zT[z];
-      m.zt_hist[(size_t)h * NB * ZB + b * ZB + z] = zt;
-      if (!is_finite(zt)) ++cnt;
+      if (cc.lead()) {  // the zones are the lead CTA's to write and count
+        m.zt_hist[(size_t)h * NB * ZB + b * ZB + z] = zt;
+        if (!is_finite(zt)) ++cnt;
+      }
       if (kExt && a.ctl) {
-        m.ld_hist[(size_t)h * NB * ZB + b * ZB + z] = s_ld[z] / T(sub);
+        if (cc.lead()) m.ld_hist[(size_t)h * NB * ZB + b * ZB + z] = s_ld[z] / T(sub);
         s_ld[z] = T(0);
       }
     }
     if (tid == 0) s_bad = 0;
-    __syncthreads();
-    if (cnt) atomicAdd(&s_bad, cnt);
-    __syncthreads();
-    if (tid == 0) m.bad[h * NB + b] = T(s_bad);
+    cc.sync();
+    if (cnt) atomicAdd(cc.lead_int(&s_bad), cnt);
+    cc.sync();
+    if (tid == 0 && cc.lead()) m.bad[h * NB + b] = T(s_bad);
   }
 
 #pragma unroll
@@ -469,36 +495,58 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) day_march_tr_kernel(cons
     m.hq[2 * SP + lane] = s_q[2 * slot];
     m.hq[3 * SP + lane] = s_q[2 * slot + 1];
   }
-  for (int z = tid; z < ZB; z += nthreads) m.zT_out[b * ZB + z] = s_zT[z];
+  if (cc.lead())
+    for (int z = tid; z < ZB; z += nthreads) m.zT_out[b * ZB + z] = s_zT[z];
 }
 
-template <typename T, int G, int kThreads, int kMinBlocks, bool kExt, bool kCav, bool kMrt>
+template <typename T, int kV, bool kExt, bool kCav, bool kMrt>
 int launch_tr(const MarchArgsOf<T, kMrt>& m, cudaStream_t stream) {
+  constexpr LaunchVariant V = kLaunchVariants[kV];
+  constexpr int G = V.group, kThreads = V.threads;
+  constexpr bool kCl = kVariantCluster<kV>;
   const DayArgs<T>& a = m.in;
-  const size_t smem = tr_smem<T, kExt, kMrt, kStaged<kThreads>>(a);
+  const int C = cluster_ctas(V, a.SB), lanes = a.SB / C;
+  const size_t smem = tr_smem<T, kExt, kMrt, kStaged<kThreads>, V.nodes>(a, lanes);
+  const auto kernel = day_march_tr_kernel<T, G, kThreads, kVariantBlocks<T, kV>, kExt, kCav, kMrt, V.nodes, kCl>;
   if (smem > 48 * 1024) {
     const cudaError_t e =
-        cudaFuncSetAttribute(day_march_tr_kernel<T, G, kThreads, kMinBlocks, kExt, kCav, kMrt>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  day_march_tr_kernel<T, G, kThreads, kMinBlocks, kExt, kCav, kMrt><<<a.NB, a.SB * G, smem, stream>>>(m);
+  if constexpr (kCl) return launch_cluster(kernel, a.NB, C, lanes * G, smem, stream, m);
+  kernel<<<a.NB, a.SB * G, smem, stream>>>(m);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The kind's kernel in the launch variant that takes the block's lanes
-// (launch_variant; tests/test_torch_partitioned_solve.py holds the table).
+// The kind's kernel in the host's launch variant (DayArgs::variant, which the
+// C entry checked; tests/test_torch_partitioned_solve.py holds the table).
 template <typename T, bool kExt, bool kCav, bool kMrt>
 int launch_kind(const MarchArgsOf<T, kMrt>& m, cudaStream_t st) {
-  switch (launch_variant(m.in.SB)) {
-    case 0: return launch_tr<T, kGroup, kLaunchVariants[0].threads, kVariantBlocks<T, 0>, kExt, kCav, kMrt>(m, st);
-    case 1: return launch_tr<T, kGroup, kLaunchVariants[1].threads, kVariantBlocks<T, 1>, kExt, kCav, kMrt>(m, st);
-    case 2: return launch_tr<T, kGroup, kLaunchVariants[2].threads, kVariantBlocks<T, 2>, kExt, kCav, kMrt>(m, st);
+  switch (m.in.variant) {
+    case 0: return launch_tr<T, 0, kExt, kCav, kMrt>(m, st);
+    case 1: return launch_tr<T, 1, kExt, kCav, kMrt>(m, st);
+    case 2: return launch_tr<T, 2, kExt, kCav, kMrt>(m, st);
+    case 3:
+      return std::is_same_v<T, float> ? heatx_day_march_tr_b1_f32(&m, kExt, kCav, kMrt, st)
+                                      : heatx_day_march_tr_b1_f64(&m, kExt, kCav, kMrt, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-#ifndef HEATX_DAY_MARCH_TR_KMRT_UNIT
+#if defined(HEATX_DAY_MARCH_TR_B1_UNIT)
+// The cluster variant's kind (the flags are launch_kind's).
+template <typename T>
+int day_march_tr_b1(const void* args, int ext, int cav, int mrt, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (mrt) {
+    const MrtMarchArgs<T>& m = *static_cast<const MrtMarchArgs<T>*>(args);
+    return cav ? launch_tr<T, 3, true, true, true>(m, st) : launch_tr<T, 3, true, false, true>(m, st);
+  }
+  const MarchArgs<T>& m = *static_cast<const MarchArgs<T>*>(args);
+  if (cav) return launch_tr<T, 3, true, true, false>(m, st);
+  return ext ? launch_tr<T, 3, true, false, false>(m, st) : launch_tr<T, 3, false, false, false>(m, st);
+}
+#elif !defined(HEATX_DAY_MARCH_TR_KMRT_UNIT)
 // Free-float buildings run the kind without the extra zone code; thermostats,
 // mixing, shading or gates the extended one (kExt); gas cavities the extended
 // one with the cavity code (kCav); MRT physics and the histories the kMrt
@@ -528,7 +576,14 @@ int day_march_tr_mrt(const void* args, void* stream) {
 }  // namespace
 
 extern "C" {
-#ifndef HEATX_DAY_MARCH_TR_KMRT_UNIT
+#if defined(HEATX_DAY_MARCH_TR_B1_UNIT)
+int heatx_day_march_tr_b1_f32(const void* m, int ext, int cav, int mrt, void* stream) {
+  return day_march_tr_b1<float>(m, ext, cav, mrt, stream);
+}
+int heatx_day_march_tr_b1_f64(const void* m, int ext, int cav, int mrt, void* stream) {
+  return day_march_tr_b1<double>(m, ext, cav, mrt, stream);
+}
+#elif !defined(HEATX_DAY_MARCH_TR_KMRT_UNIT)
 int heatx_day_march_tr_f32(const void* m, void* stream) { return day_march_tr<float>(m, stream); }
 int heatx_day_march_tr_f64(const void* m, void* stream) { return day_march_tr<double>(m, stream); }
 #else

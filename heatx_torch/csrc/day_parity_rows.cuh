@@ -96,24 +96,26 @@ __device__ __forceinline__ T row_of(const Group<G>& g, const T (&v)[M], int k) {
 }
 
 // The group's OR of a word, the same on every thread.
-template <int G>
-__device__ __forceinline__ unsigned group_or(const Group<G>& g, unsigned v) {
+template <int G, typename W>
+__device__ __forceinline__ W group_or(const Group<G>& g, W v) {
 #pragma unroll
   for (int o = G / 2; o > 0; o >>= 1) v |= __shfl_xor_sync(g.mask, v, o, G);
   return v;
 }
 
-// A lane's rows as 32-bit words (bit i: row i) from its node, mass and chunk
-// words (day_parity.cuh LN_CHUNK; engine.surface.compute_statics): valid,
+// A lane's rows as column words W (ColBits: bit i, row i) from its node,
+// mass and chunk words (day_parity.cuh LN_CHUNK; engine.surface.compute_statics): valid,
 // first and last rows, the couplings inside a chunk and across chunks (the
 // frozen sources), massive and no-mass rows, and the no-mass runs: a row
 // that continues the run above it (no-mass, joined to a no-mass row), the
 // runs' heads, and the heads of 2-node runs (heatx's pair_head).
+template <typename W>
 struct RowWords {
-  unsigned valid, first, last, coup_l, coup_r, dir_l, dir_r, mass, sel, cont, head, pair;
-  __device__ RowWords(unsigned node_bits, unsigned mass_bits, unsigned joined, int N) {
-    valid = node_bits & (N < 32 ? (1u << N) - 1u : ~0u);
-    const unsigned left = valid & (valid << 1), right = valid & (valid >> 1);
+  static constexpr int kBits = 8 * sizeof(W);
+  W valid, first, last, coup_l, coup_r, dir_l, dir_r, mass, sel, cont, head, pair;
+  __device__ RowWords(W node_bits, W mass_bits, W joined, int N) {
+    valid = node_bits & (N < kBits ? (W(1) << N) - W(1) : ~W(0));
+    const W left = valid & (valid << 1), right = valid & (valid >> 1);
     first = valid & ~(valid << 1);
     last = valid & ~(valid >> 1);
     coup_l = left & (joined << 1);
@@ -127,13 +129,13 @@ struct RowWords {
     pair = sel & coup_r;
   }
   // The rows of the no-mass run whose head is row i.
-  __device__ __forceinline__ unsigned run(int i) const {
-    unsigned r = 1u << i;
-    for (int k = i + 1; k < 32 && ((cont >> k) & 1u); ++k) r |= 1u << k;
+  __device__ __forceinline__ W run(int i) const {
+    W r = W(1) << i;
+    for (int k = i + 1; k < kBits && ((cont >> k) & 1u); ++k) r |= W(1) << k;
     return r;
   }
   // Whether some no-mass run has more than two rows.
-  __device__ __forceinline__ bool long_run() const { return (cont & (cont >> 1)) != 0u; }
+  __device__ __forceinline__ bool long_run() const { return (cont & (cont >> 1)) != W(0); }
 };
 
 }  // namespace heatx

@@ -6,6 +6,7 @@
 // (partition_factor, partition_solve).
 #pragma once
 
+#include "day_cluster.cuh"
 #include "day_common.cuh"
 
 namespace heatx {
@@ -86,7 +87,7 @@ __device__ __forceinline__ void pcr_level(T& b, T& a, T& c, T ru, T au, T cu, T 
 }
 
 // The partitioned factorization of one surface's stage matrix, a thread's
-// share: its M = kMaxNodes/G rows eliminated locally (a forward sweep, a
+// share: its M rows (the launch variant's node capacity over G) eliminated locally (a forward sweep, a
 // backward sweep, row 0 against row 1) until each interior row reads
 // x_j + A_j x_first + C_j x_last = D_j, then the reduced system of the
 // group's 2G first and last rows (first_0, last_0, first_1, ...) factored by
@@ -94,9 +95,9 @@ __device__ __forceinline__ void pcr_level(T& b, T& a, T& c, T ru, T au, T cu, T 
 // neighbours' rows by shuffle.  Identity rows (md 1, ml = mu = 0) stay
 // identity rows.  factor() runs at each operator build; solve() in both
 // stages of every sub-step of the refresh group.
-template <typename T, int G>
+template <typename T, int G, int kM>
 struct PartFactors {
-  static constexpr int M = kMaxNodes / G;
+  static constexpr int M = kM;
   static constexpr int R = ilog2(G) + 1;
   static_assert(M >= 2, "the reduced system takes two rows per thread");
   T f[M];        // the forward sweep's pivot reciprocals
@@ -232,9 +233,10 @@ struct LaneBounds {
 // A zone's A/B sums (zone_sums) from the block's face list in shared memory
 // (s_zptr: block-local offsets, s_zf: block-local lane*2 + side), computed by
 // one thread in the list's order; the loads of eight entries go out together.
-template <typename T>
+template <typename T, typename R>
 __device__ __forceinline__ void zone_sums_shared(const int* s_zptr, const int* s_zf, int z, const T* s_haT,
-                                                 const T* s_ha, T a_ex, T b_ex, T& az, T& bz) {
+                                                 const T* s_ha, T a_ex, T b_ex, T& az, T& bz,
+                                                 R rd) {
   T af = T(0), bf = T(0), ab = T(0), bb = T(0);
   const int e1 = s_zptr[z + 1];
   for (int e0 = s_zptr[z]; e0 < e1; e0 += 8) {
@@ -244,8 +246,8 @@ __device__ __forceinline__ void zone_sums_shared(const int* s_zptr, const int* s
     for (int k = 0; k < 8; ++k) f[k] = e0 + k < e1 ? s_zf[e0 + k] : -1;
 #pragma unroll
     for (int k = 0; k < 8; ++k) {  // unconditional reads (entry 0 for an absent one)
-      ht[k] = s_haT[f[k] >= 0 ? f[k] : 0];
-      hh[k] = s_ha[f[k] >= 0 ? f[k] : 0];
+      ht[k] = rd.face(s_haT, f[k] >= 0 ? f[k] : 0);
+      hh[k] = rd.face(s_ha, f[k] >= 0 ? f[k] : 0);
     }
 #pragma unroll
     for (int k = 0; k < 8; ++k) {  // adding +0 for an absent entry or the other side changes no bit
@@ -272,15 +274,16 @@ __device__ __forceinline__ T warp_sum(T v) {
 
 // The same sums by a whole warp (lane wl of 32): each lane adds the entries
 // wl, wl + 32, ... of the zone's list in order, the warp adds the lanes' sums
-// by warp_sum.  Every lane returns the zone's sums.
-template <typename T>
+// by warp_sum.  Every lane returns the zone's sums.  `rd` reads a face of the
+// block's face rows, from the CTA that owns the face (Ctas, day_cluster.cuh).
+template <typename T, typename R>
 __device__ __forceinline__ void zone_sums_warp(const int* s_zptr, const int* s_zf, int z, int wl, const T* s_haT,
-                                               const T* s_ha, T a_ex, T b_ex, T& az, T& bz) {
+                                               const T* s_ha, T a_ex, T b_ex, T& az, T& bz, R rd) {
   T af = T(0), bf = T(0), ab = T(0), bb = T(0);
   const int e1 = s_zptr[z + 1];
   for (int e = s_zptr[z] + wl; e < e1; e += 32) {
     const int f = s_zf[e];
-    const T ht = s_haT[f], hh = s_ha[f];
+    const T ht = rd.face(s_haT, f), hh = rd.face(s_ha, f);
     const bool bk = f & 1;
     ab += bk ? ht : T(0);
     bb += bk ? hh : T(0);
@@ -338,21 +341,21 @@ __device__ __forceinline__ FaceOps<T> face_ops(const Lane<T>& L, bool back, T ts
 // block's network lists in shared memory (s_mptr: block-local offsets, s_mf:
 // block-local lane*2 + side): by one thread in list order (wl < 0), or by a
 // whole warp as zone_sums_warp (lane wl; every lane returns the sums).
-template <typename T>
+template <typename T, typename R>
 __device__ __forceinline__ void mrt_sums_shared(const int* s_mptr, const int* s_mf, int z, int wl, const T* s_wt,
-                                                const T* s_w, T& num, T& den) {
+                                                const T* s_w, T& num, T& den, R rd) {
   num = den = T(0);
   const int e1 = s_mptr[z + 1];
   if (wl < 0) {
     for (int e = s_mptr[z]; e < e1; ++e) {
-      num += s_wt[s_mf[e]];
-      den += s_w[s_mf[e]];
+      num += rd.face(s_wt, s_mf[e]);
+      den += rd.face(s_w, s_mf[e]);
     }
     return;
   }
   for (int e = s_mptr[z] + wl; e < e1; e += 32) {
-    num += s_wt[s_mf[e]];
-    den += s_w[s_mf[e]];
+    num += rd.face(s_wt, s_mf[e]);
+    den += rd.face(s_w, s_mf[e]);
   }
   num = warp_sum(num);
   den = warp_sum(den);
@@ -367,11 +370,12 @@ __device__ __forceinline__ void mrt_sums_shared(const int* s_mptr, const int* s_
 // when the block is whole warps (else a thread per zone).  Every thread of
 // the block calls it; s_tm holds the zones' nodes on return, and the return
 // value is the face's node.  kHist (the day adjoint's operator builds) keeps
-// the node before each iteration in hist[4].
-template <typename T, bool kHist = false>
+// the node before each iteration in hist[4].  `cc` is the block's CTAs
+// (their barriers and face reads; day_cluster.cuh).
+template <typename T, bool kHist = false, typename R>
 __device__ T mrt_face_node(int ZB, const int* s_mptr, const int* s_mf, int tid, int nthreads, bool writer,
                            bool on, int slot, int zone, T eps, T area, T ts, T tm0, const T* s_zT, T* s_w,
-                           T* s_wt, T* s_tm, T* hist = nullptr) {
+                           T* s_wt, T* s_tm, T* hist, R cc) {
   const bool by_warp = (nthreads & 31) == 0;
   T tm = tm0;
   for (int it = 0; it < 4; ++it) {
@@ -381,13 +385,13 @@ __device__ T mrt_face_node(int ZB, const int* s_mptr, const int* s_mf, int tid, 
       s_w[slot] = w;
       s_wt[slot] = w * ts;
     }
-    __syncthreads();
+    cc.sync();
     for (int z = by_warp ? tid >> 5 : tid; z < ZB; z += by_warp ? nthreads >> 5 : nthreads) {
       T num, den;
-      mrt_sums_shared(s_mptr, s_mf, z, by_warp ? tid & 31 : -1, s_wt, s_w, num, den);
+      mrt_sums_shared(s_mptr, s_mf, z, by_warp ? tid & 31 : -1, s_wt, s_w, num, den, cc);
       if (!by_warp || (tid & 31) == 0) s_tm[z] = den > T(1e-30) ? num / den : s_zT[z];
     }
-    __syncthreads();
+    cc.sync();
     const T t = s_tm[zone >= 0 ? zone : 0];
     tm = zone >= 0 ? t : T(0);
   }

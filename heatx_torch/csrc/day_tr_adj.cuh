@@ -21,11 +21,10 @@ namespace heatx {
 //    cotangents (the level's shuffles in the opposite direction);
 //  * the chunk's row 0 normalization, its backward sweep from the top down
 //    and its forward sweep from the bottom up.
-template <typename T, int G>
-__device__ __forceinline__ void solve_transposed(const PartFactors<T, G>& P, const Group<G>& g,
-                                                 const T (&ml)[PartFactors<T, G>::M],
-                                                 T (&y)[PartFactors<T, G>::M]) {
-  constexpr int M = PartFactors<T, G>::M, R = PartFactors<T, G>::R;
+template <typename T, int G, int kM>
+__device__ __forceinline__ void solve_transposed(const PartFactors<T, G, kM>& P, const Group<G>& g,
+                                                 const T (&ml)[kM], T (&y)[kM]) {
+  constexpr int M = kM, R = PartFactors<T, G, kM>::R;
   T lf = y[0], ll = y[M - 1];
 #pragma unroll
   for (int j = 1; j < M - 1; ++j) {
@@ -170,10 +169,11 @@ __device__ FaceCot<T> face_ops_adj(const Lane<T>& L, bool back, T ts_front, T ts
 
 // Zone z's sum of a per-face row over its network faces, in list order (the
 // block's lists in shared memory, as mrt_face_node reads them).
-template <typename T>
-__device__ __forceinline__ T mrt_face_sum_shared(const int* s_mptr, const int* s_mf, int z, const T* s_face) {
+template <typename T, typename R>
+__device__ __forceinline__ T mrt_face_sum_shared(const int* s_mptr, const int* s_mf, int z, const T* s_face,
+                                                 R rd) {
   T s = T(0);
-  for (int e = s_mptr[z]; e < s_mptr[z + 1]; ++e) s += s_face[s_mf[e]];
+  for (int e = s_mptr[z]; e < s_mptr[z + 1]; ++e) s += rd.face(s_face, s_mf[e]);
   return s;
 }
 
@@ -187,16 +187,16 @@ __device__ __forceinline__ T mrt_face_sum_shared(const int* s_mptr, const int* s
 // zone's sum over its network faces, the transpose of the zone sums a
 // per-face read of the zone's cotangents: a thread per zone, in list order.
 // Every thread of the block calls it.  Shared rows: s_w/s_wt/s_lt [2*SB],
-// s_lnum/s_lden/s_lm [ZB].
-template <typename T>
+// s_lnum/s_lden/s_lm [ZB].  `cc` is the block's CTAs (day_cluster.cuh).
+template <typename T, typename R>
 __device__ T mrt_face_node_adj(int ZB, const int* s_mptr, const int* s_mf, int tid, int nthreads, bool writer,
                                bool on, int slot, int zone, T eps, T area, T ts, const T* hist, T l_tm, T& l_ts,
                                T& l_eps, T& l_area, T* s_w, T* s_wt, T* s_lt, T* s_lnum, T* s_lden, T* s_lm,
-                               T* s_lzf) {
+                               T* s_lzf, R cc) {
   const bool mine = writer && on;
   if (mine) s_lt[slot] = l_tm;
-  __syncthreads();
-  for (int z = tid; z < ZB; z += nthreads) s_lm[z] = mrt_face_sum_shared(s_mptr, s_mf, z, s_lt);
+  cc.sync();
+  for (int z = tid; z < ZB; z += nthreads) s_lm[z] = mrt_face_sum_shared(s_mptr, s_mf, z, s_lt, cc);
   T l_t0 = T(0);
   for (int it = 3; it >= 0; --it) {
     if (mine) {
@@ -204,10 +204,10 @@ __device__ T mrt_face_node_adj(int ZB, const int* s_mptr, const int* s_mf, int t
       s_w[slot] = w;
       s_wt[slot] = w * ts;
     }
-    __syncthreads();
+    cc.sync();
     for (int z = tid; z < ZB; z += nthreads) {
       T num, den;
-      mrt_sums_shared(s_mptr, s_mf, z, -1, s_wt, s_w, num, den);
+      mrt_sums_shared(s_mptr, s_mf, z, -1, s_wt, s_w, num, den, cc);
       const T lm = s_lm[z];
       if (den > T(1e-30)) {
         s_lnum[z] = lm / den;
@@ -217,13 +217,13 @@ __device__ T mrt_face_node_adj(int ZB, const int* s_mptr, const int* s_mf, int t
         s_lzf[z] += lm;
       }
     }
-    __syncthreads();
+    cc.sync();
     T lf = T(0);
     if (mine) lf = mrt_face_adj(eps, area, hist[it], ts, s_lnum[zone], s_lden[zone], l_ts, l_eps, l_area);
     if (it > 0) {
       if (mine) s_lt[slot] = lf;
-      __syncthreads();
-      for (int z = tid; z < ZB; z += nthreads) s_lm[z] = mrt_face_sum_shared(s_mptr, s_mf, z, s_lt);
+      cc.sync();
+      for (int z = tid; z < ZB; z += nthreads) s_lm[z] = mrt_face_sum_shared(s_mptr, s_mf, z, s_lt, cc);
     } else {
       l_t0 = lf;
     }

@@ -101,10 +101,11 @@ DIFF_CHANNELS = ("sol_front", "sol_back", "ir_front", "ir_back")
 NODE_ROW = {"seg_u": 0, "mass": 1, "front_alphas": 2, "back_alphas": 3}
 
 #: The adjoint's compilation units (as day_march.KERNEL_SOURCES): the C entry,
-#: the parity body with its kMrt unit, the TR-BDF2 body with its kMrt unit.
+#: the parity body and the TR-BDF2 body, each with its kMrt unit and its
+#: cluster-variant unit.
 KERNEL_SOURCES = tuple(cuda_lib.CSRC_DIR / name for name in (
-    "day_adjoint.cu", "day_adjoint_parity.cu", "day_adjoint_parity_mrt.cu", "day_adjoint_tr.cu",
-    "day_adjoint_tr_mrt.cu"))
+    "day_adjoint.cu", "day_adjoint_parity.cu", "day_adjoint_parity_mrt.cu", "day_adjoint_parity_b1.cu",
+    "day_adjoint_tr.cu", "day_adjoint_tr_mrt.cu", "day_adjoint_tr_b1.cu"))
 
 
 def plain_day_adjoint(
@@ -261,6 +262,7 @@ class DayAdjointKernel:
     def __init__(self):
         self.launches = 0
         self.block_threads = None
+        self.shape = None  # the last launch's day_march.LaunchShape
         self.parity_launches = 0  # those of ``launches`` that ran the parity kernel
         self.cavity_launches = 0  # those of ``launches`` on a building with gas cavities
         self.parity_cavity_launches = 0  # those of ``cavity_launches`` in parity mode
@@ -317,8 +319,12 @@ class DayAdjointKernel:
         # csrc/day_adjoint_parity.cu: the only bound on the sub-steps is memory).
         T_ws = torch.empty((hours, N, SP), **kw)
         zT_ws = torch.empty((hours, NB, ZB), **kw)
+        # The tape holds the launch's own node capacity a lane, and the zone
+        # rows one set a CTA (every CTA of a cluster keeps the component's).
+        shape = day_march.launch_shape(SB, N)
         columns, weather = (substeps, 4 * substeps) if parity else (2 * substeps + 1, 3 * substeps)
-        tape = torch.empty((columns * day_march.MAX_NODES * SP + NB * ((3 * substeps + 1) * ZB + weather),), **kw)
+        tape = torch.empty((columns * shape.nodes * SP + NB * shape.cluster * ((3 * substeps + 1) * ZB + weather),),
+                           **kw)
         outs = (
             torch.empty((N, SP), **kw), torch.empty((NB, ZB), **kw),
             torch.empty((4, N, SP), **kw), torch.empty((len(SURF_FIELDS), SP), **kw),
@@ -342,9 +348,9 @@ class DayAdjointKernel:
             *outs[8:11], params.cav, *mrt, outs[11], tape,
         ]
         ptrs = (ctypes.c_void_p * _N_PTRS)(*[None if t is None else t.data_ptr() for t in tensors])
-        ints = (ctypes.c_int * 12)(
+        ints = (ctypes.c_int * 13)(
             N, NB, SB, ZB, hours, substeps, refresh_every, int(config.replicate_ambient_back_bug),
-            *day_march.parity_ints(config, parity)[:3], int(config.interior_mrt),
+            *day_march.parity_ints(config, parity)[:3], int(config.interior_mrt), shape.index,
         )
         reals = (ctypes.c_double * 8)(
             dt, imp_mod.GAMMA * dt / 2.0, imp_mod.GAMMA * dt, imp_mod.BETA * dt,
@@ -355,10 +361,9 @@ class DayAdjointKernel:
             stream = torch.cuda.current_stream().cuda_stream
             err = fn(ctypes.cast(ptrs, ctypes.c_void_p), len(tensors), ctypes.cast(ints, ctypes.c_void_p),
                      ctypes.cast(reals, ctypes.c_void_p), ctypes.byref(ran), stream)
-        if err != 0:
-            msg = lib.heatx_cuda_error_string(err).decode()
-            raise RuntimeError(f"day_adjoint kernel launch failed: CUDA error {err} ({msg})")
+        day_march.raise_launch_error("day_adjoint", lib, err, shape)
         self.block_threads = ran.value
+        self.shape = shape
         self.launches += 1
         self.parity_launches += int(parity)
         self.cavity_launches += int(params.cav is not None)
@@ -443,19 +448,19 @@ class DayAdjoint:
         return self._dict(plain_day_adjoint(*args, **self._hm._kw(observables=False), starts=starts))
 
 
+#: Where the refusals below send the caller: heatx's "XLA backward", the
+#: port's autograd through the XLA-path integrators, which carry the controls
+#: (tests/test_torch_xla_controls_grad.py holds it to heatx's jax.grad).
+XLA_BACKWARD = "(use the XLA backward: autograd through ThermalModel.run, engine.step.run)"
+
+
 def refuse_gates(shaded: bool, vent_gated: bool):
     """heatx's refusals (pallas_adjoint.py:162-171): the adjoint does not
     differentiate in-run zone shading or ventilation gates."""
     if shaded:
-        raise ValueError(
-            "adjoint kernel: in-run zone shading is not supported (heatx's XLA backward, "
-            "ROADMAP A10, is not ported)"
-        )
+        raise ValueError("adjoint kernel: in-run zone shading is not supported " + XLA_BACKWARD)
     if vent_gated:
-        raise ValueError(
-            "adjoint kernel: in-run ventilation gates are not supported (heatx's XLA backward, "
-            "ROADMAP A10, is not ported)"
-        )
+        raise ValueError("adjoint kernel: in-run ventilation gates are not supported " + XLA_BACKWARD)
 
 
 def make_day_adjoint(
@@ -495,7 +500,6 @@ def make_day_adjoint(
         if bb.surfaces.has_nomass and bb.config.nomass_fixed_iters is None:
             raise ValueError(surf_mod.ADAPTIVE_GRAD_REFUSAL)
     refuse_gates(bb.shade is not None, bb.vent is not None)
-    day_march._check_supported(bb.base)
     cuda_lib.resolve_device(device)
     return DayAdjoint(day_march.hour_march_for(
         bb, substeps, mode, hours, refresh_every, scheduled_setpoints=scheduled_setpoints

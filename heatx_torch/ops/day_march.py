@@ -26,13 +26,18 @@ both through the C entry in ``day_march.cu``.
 
 Design, and what of heatx's kernel is deliberately not carried over:
 
-* One CUDA thread block per zone-closed block (at most 256 lanes per
-  block), laid out with ``node_split=None``: the TPU's node-height split
-  that saves padded rows on its vector lanes has nothing to save here.  Both
-  kernels run 4 threads per surface lane, each owning 8 consecutive node
-  rows in registers, in the launch variant that the C side's one table
-  (``kLaunchVariants``, ``csrc/day_march_args.cuh``) picks from the block's
-  lanes; :class:`DayMarchKernel` reads back which one ran.
+* One CUDA thread block per zone-closed block, laid out with
+  ``node_split=None``: the TPU's node-height split that saves padded rows on
+  its vector lanes has nothing to save here.  Both kernels run G threads per
+  surface lane, each owning 8 consecutive node rows in registers, in the
+  launch variant that the C side's one table (``kLaunchVariants``,
+  ``csrc/day_march_args.cuh``, mirrored by :data:`LAUNCH_VARIANTS`) picks
+  from the block's lanes and node count: G = 4 up to 32 nodes and 256 lanes,
+  else G = 8 (64 nodes) with a block past 128 lanes split over a
+  thread-block cluster of CTAs of 128 lanes, whose zone sums read the other
+  CTAs' face rows over distributed shared memory (:func:`launch_shape`);
+  :class:`DayMarchKernel` reads back which one ran.  The plain twin takes
+  any block.
 * Zone coupling goes through shared memory: boundary air temperatures are
   indexed reads of the block's zone row (``front_zone``/``back_zone``, -1 for
   a face that bounds no zone), and the zone A/B sums are a fixed-order sum
@@ -157,13 +162,107 @@ from heatx_torch.engine import zone as zone_mod
 from heatx_torch.ops import cuda_lib, tridiag
 from heatx_torch.physics import gas
 
-#: Largest surface node count the kernel marches (node masks ride as 32-bit
-#: words, one per lane).
-MAX_NODES = 32
-#: Largest lane count per CUDA thread block (the kernel's launch bound).
-MAX_BLOCK_LANES = 256
 #: Lane granularity of a block: one warp.
 WARP = 32
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchVariant:
+    """One row of the kernels' launch table (``kLaunchVariants`` and
+    ``kAdjLaunchVariants`` in csrc/day_march_args.cuh, in its order): the
+    most lanes one CTA takes, its threads (the launch bound), the blocks an
+    SM holds in f32, G threads a lane, the column's node capacity (8 rows a
+    thread) and the most CTAs of a thread-block cluster (1: a zone-closed
+    block is one CTA)."""
+
+    lanes: int
+    threads: int
+    f32_blocks: int
+    group: int
+    nodes: int
+    cluster: int
+
+
+#: The day kernels' launch variants (tests/test_torch_partitioned_solve.py
+#: holds them equal to the C table); the first that takes a block's lanes and
+#: node count runs it (:func:`launch_shape`, which the C entries take).  The last one's clusters are portable ones (at most 8
+#: CTAs), so the kernels take up to 64 nodes per surface and 1,024 lanes per
+#: zone-connected component (ROADMAP B1 keeps what lies past that).
+LAUNCH_VARIANTS = (
+    LaunchVariant(32, 128, 3, 4, 32, 1),
+    LaunchVariant(64, 256, 1, 4, 32, 1),
+    LaunchVariant(256, 1024, 1, 4, 32, 1),
+    LaunchVariant(128, 1024, 1, 8, 64, 8),
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchShape:
+    """How the kernels launch a block: the variant (its index in
+    :data:`LAUNCH_VARIANTS`), the CTAs of its cluster and the lanes of each."""
+
+    index: int
+    variant: LaunchVariant
+    cluster: int
+    cta_lanes: int
+
+    @property
+    def group(self) -> int:
+        return self.variant.group
+
+    @property
+    def threads(self) -> int:
+        """Threads of one CTA."""
+        return self.cta_lanes * self.variant.group
+
+    @property
+    def nodes(self) -> int:
+        """The column's node capacity (the adjoints' tape rows a lane)."""
+        return self.variant.nodes
+
+
+def _variant_for(lanes: int, max_nodes: int):
+    for v, var in enumerate(LAUNCH_VARIANTS):
+        if 1 <= lanes <= var.lanes * var.cluster and max_nodes <= var.nodes:
+            return v, var
+    return None, None
+
+
+def launch_block_lanes(lanes: int, max_nodes: int) -> int:
+    """The block size the kernels launch for a block of ``lanes`` lanes and
+    ``max_nodes`` nodes per surface: ``lanes`` itself where one CTA takes the
+    block, else rounded up to whole CTAs of the cluster variant (padded
+    lanes, as any block's).  Past what any variant takes, ``lanes``."""
+    _, var = _variant_for(lanes, max_nodes)
+    if var is None or lanes <= var.lanes:
+        return lanes
+    return -(-lanes // var.lanes) * var.lanes
+
+
+def launch_shape(lanes: int, max_nodes: int) -> LaunchShape:
+    """The launch of a block of ``lanes`` lanes with ``max_nodes`` rows per
+    surface, which the wrappers hand to the C entries (its ``index``; they
+    check that it takes the block).  Raises NotImplementedError, naming the
+    limit, where no variant takes it (no fallback), and ValueError where a
+    cluster's block is not whole CTAs (:func:`launch_block_lanes`)."""
+    v, var = _variant_for(lanes, max_nodes)
+    if var is None:
+        last = LAUNCH_VARIANTS[-1]
+        raise NotImplementedError(
+            f"a zone-closed block of {lanes} lanes with {max_nodes} nodes per surface: the H100 day "
+            f"kernels take at most {last.nodes} nodes per surface and {last.lanes * last.cluster} "
+            f"lanes per zone-connected component (a portable cluster of {last.cluster} CTAs of "
+            f"{last.lanes} lanes; ROADMAP B1)"
+        )
+    if lanes <= var.lanes:
+        return LaunchShape(v, var, 1, lanes)
+    if lanes % var.lanes:
+        raise ValueError(
+            f"a block of {lanes} lanes spans a cluster of CTAs of {var.lanes} lanes: block it with "
+            f"block_building, which rounds it up to {launch_block_lanes(lanes, max_nodes)}"
+        )
+    return LaunchShape(v, var, lanes // var.lanes, var.lanes)
+
 # Row order of DayMarchParams.node / .surf / .lane — the CUDA kernel indexes
 # these rows by the same order (enum ND_*, SF_*, LN_* in csrc/day_common.cuh).
 NODE_FIELDS = ("seg_u", "capacity", "front_alphas", "back_alphas")
@@ -176,6 +275,12 @@ LANE_FIELDS = (
     "front_code", "back_code", "front_zone", "back_zone", "node_bits", "mass_bits",
     "chunk_bits", "cav_bits", "mrt_bits",
 )
+#: The lane rows that are per-node bit masks, 32 rows a word: LANE_FIELDS's
+#: rows hold each mask's word 0 (rows 0-31), and a column of more than 32
+#: nodes appends word w >= 1 of each, in this order, at rows
+#: ``len(LANE_FIELDS) + len(BIT_FIELDS) * (w - 1) + k`` (csrc/day_common.cuh
+#: LN_COUNT).
+BIT_FIELDS = ("node_bits", "mass_bits", "chunk_bits", "cav_bits")
 #: Row order of DayMarchParams.mrt: the faces' Carroll effective emissivities
 #: (heatx's operand names; 0 off the network).  Bit 0 (front) and bit 1
 #: (back) of a lane's ``mrt_bits`` mark its faces on the network.
@@ -191,11 +296,11 @@ CAV_FIELDS = (
 )
 
 #: The day march's compilation units: the C entry, the parity body and the
-#: TR-BDF2 body (each four threads per surface), and each body's MRT kinds
-#: apart (csrc/day_march_parity_mrt.cu says why).
+#: TR-BDF2 body, each body's MRT kinds and its cluster variant apart
+#: (csrc/day_march_parity_mrt.cu and day_march_tr_b1.cu say why).
 KERNEL_SOURCES = tuple(cuda_lib.CSRC_DIR / f for f in (
-    "day_march.cu", "day_march_parity.cu", "day_march_parity_mrt.cu", "day_march_tr.cu",
-    "day_march_tr_mrt.cu"))
+    "day_march.cu", "day_march_parity.cu", "day_march_parity_mrt.cu", "day_march_parity_b1.cu",
+    "day_march_tr.cu", "day_march_tr_mrt.cu", "day_march_tr_b1.cu"))
 
 #: Values of the blocked parameter rows on padded lanes (0.0 for the rest).
 #: Area 1 keeps perimeter*v/area finite on a padded lane, and its
@@ -322,21 +427,10 @@ class BlockedBuilding:
         return self.surfaces.max_nodes
 
 
-def _check_supported(building: CompiledBuilding):
-    """Raise NotImplementedError (naming the ROADMAP item) for building
-    features the day march does not carry yet."""
-    missing = []
-    if building.max_nodes > MAX_NODES:
-        missing.append(f"more than {MAX_NODES} nodes per surface (ROADMAP B1)")
-    if missing:
-        raise NotImplementedError(
-            "heatx_torch's day march does not support " + "; ".join(missing)
-        )
-
-
 def min_block_lanes(building: CompiledBuilding) -> int:
     """The smallest block that holds the largest zone-connected component:
-    its surface count rounded up to a whole warp."""
+    its surface count rounded up to a whole warp and, where it spans a
+    thread-block cluster, to whole CTAs (:func:`launch_block_lanes`)."""
     comp = _union_find_components(building)
     sb = building.surfaces
     fc, bc = np.asarray(sb.front_code), np.asarray(sb.back_code)
@@ -345,7 +439,7 @@ def min_block_lanes(building: CompiledBuilding) -> int:
         np.where(bc == B_SPACE, comp[np.asarray(sb.back_space)], -1),
     )
     largest = int(np.bincount(owner[owner >= 0]).max()) if (owner >= 0).any() else 1
-    return -(-largest // WARP) * WARP
+    return launch_block_lanes(-(-largest // WARP) * WARP, building.max_nodes)
 
 
 def _mrt_part_mask(sb, front_oh, back_oh, n_blocks, zones_per_block):
@@ -414,7 +508,11 @@ def block_building(
     ``block_size`` lanes (heatx ``block_building`` with ``node_split=None``;
     the same arrays).  ``None`` picks :func:`min_block_lanes`: at bench scale
     the day kernel runs fastest with the fewest lanes per thread block
-    (PERF.md, H100 port).  ``mrt_statics`` forces the Carroll network's
+    (PERF.md, H100 port); a given size that spans a thread-block cluster is
+    rounded up to whole CTAs (:func:`launch_block_lanes`).  Any block that
+    heatx's ``build_blocks`` takes blocks here and runs on the plain twin;
+    the kernels refuse what no launch variant takes (:func:`launch_shape`).
+    ``mrt_statics`` forces the Carroll network's
     static data (the operative-temperature history needs it without MRT
     physics); by default it is computed where ``config.interior_mrt`` is
     set."""
@@ -423,14 +521,9 @@ def block_building(
             "the node-height split is a TPU lane optimisation; the CUDA day "
             "kernel marches whole node columns (node_split=None only)"
         )
-    _check_supported(building)
     if block_size is None:
         block_size = min_block_lanes(building)
-    if block_size > MAX_BLOCK_LANES:
-        raise NotImplementedError(
-            f"blocks of {block_size} lanes: the day kernel takes at most "
-            f"{MAX_BLOCK_LANES} surfaces per zone-connected component (ROADMAP B1)"
-        )
+    block_size = launch_block_lanes(int(block_size), building.max_nodes)
     layout = build_blocks(building, block_size=block_size, node_split=None)
     sb = building.surfaces
 
@@ -561,7 +654,7 @@ class DayMarchParams:
 
     node: torch.Tensor  # [4, N, SP] float
     surf: torch.Tensor  # [13, SP] float
-    lane: torch.Tensor  # [8, SP] int32
+    lane: torch.Tensor  # [9 + 4 (W - 1), SP] int32: W words of each bit mask (BIT_FIELDS)
     zone_volume: torch.Tensor  # [NB, ZB] float
     zone_ptr: torch.Tensor  # [NB*ZB + 1] int32 offsets into zone_faces
     zone_faces: torch.Tensor  # [E] int32: block-local lane*2 + side (0 front, 1 back)
@@ -631,11 +724,24 @@ def local_zone(oh: np.ndarray) -> np.ndarray:
 
 
 def _node_bits(mask: np.ndarray) -> np.ndarray:
-    """[N, SP] bool -> [SP] int32 words with bit i = row i."""
-    bits = np.zeros(mask.shape[1], np.int64)
+    """[N, SP] bool -> [W, SP] int32 words (W = ceil(N / 32), at least 1),
+    bit i of word w = row 32 w + i."""
+    words = np.zeros((max(1, -(-mask.shape[0] // 32)), mask.shape[1]), np.int64)
     for i in range(mask.shape[0]):
-        bits |= mask[i].astype(np.int64) << i
-    return bits.astype(np.uint32).view(np.int32)
+        words[i // 32] |= mask[i].astype(np.int64) << (i % 32)
+    return words.astype(np.uint32).view(np.int32)
+
+
+def _lane_rows(fields: dict) -> np.ndarray:
+    """The lane rows of :class:`DayMarchParams` from each LANE_FIELDS row
+    (``[SP]``, or ``[W, SP]`` words for BIT_FIELDS): every field's word 0 in
+    LANE_FIELDS order, then the later words of BIT_FIELDS."""
+    words = {k: np.atleast_2d(fields[k]) for k in BIT_FIELDS}
+    W = max(w.shape[0] for w in words.values())
+    rows = [words[k][0] if k in words else np.asarray(fields[k]) for k in LANE_FIELDS]
+    for w in range(1, W):
+        rows += [words[k][w] if w < words[k].shape[0] else np.zeros_like(words[k][0]) for k in BIT_FIELDS]
+    return np.stack(rows)
 
 
 def pack_params(
@@ -667,8 +773,6 @@ def pack_params(
     if same_chunk is None:
         same_chunk = np.zeros_like(node_mask)
         same_chunk[:-1] = node_mask[:-1] & node_mask[1:] & (massive[:-1] == massive[1:])
-    if N > MAX_NODES:
-        raise NotImplementedError(f"more than {MAX_NODES} nodes per surface (ROADMAP B1)")
     NB = int(n_blocks)
     SB = SP // NB
     ZB = np.asarray(zone_volume).shape[-1]
@@ -715,11 +819,12 @@ def pack_params(
     return DayMarchParams(
         node=f(np.stack([seg_u, capacity, front_alphas, back_alphas])),
         surf=f(np.stack([np.asarray(surf[k], np.float64).reshape(SP) for k in SURF_FIELDS])),
-        lane=i32(np.stack([
-            np.asarray(front_code).reshape(SP), np.asarray(back_code).reshape(SP),
-            fz, bz, _node_bits(node_mask), _node_bits(massive),
-            _node_bits(np.asarray(same_chunk, bool)), _node_bits(cav_mask), mrt_bits,
-        ])),
+        lane=i32(_lane_rows(dict(
+            front_code=np.asarray(front_code).reshape(SP), back_code=np.asarray(back_code).reshape(SP),
+            front_zone=fz, back_zone=bz, node_bits=_node_bits(node_mask), mass_bits=_node_bits(massive),
+            chunk_bits=_node_bits(np.asarray(same_chunk, bool)), cav_bits=_node_bits(cav_mask),
+            mrt_bits=mrt_bits,
+        ))),
         zone_volume=f(np.asarray(zone_volume).reshape(NB, ZB)),
         zone_ptr=i32(zone_ptr),
         zone_faces=i32(faces),
@@ -844,11 +949,15 @@ def params_from_blocked(bb: BlockedBuilding, dtype, device) -> DayMarchParams:
 
 
 def bit_rows(params: DayMarchParams, name: str) -> torch.Tensor:
-    """A lane row of 32-bit node masks (``node_bits``/``mass_bits``/
-    ``chunk_bits``) as the [N, SP] bool mask it packs."""
-    bits = params.field(name).to(torch.int64)
-    shifts = torch.arange(params.max_nodes, device=bits.device)[:, None]
-    return ((bits[None, :] >> shifts) & 1).bool()
+    """A per-node bit mask of the lanes (BIT_FIELDS: ``node_bits``,
+    ``mass_bits``, ``chunk_bits``, ``cav_bits``), all its 32-bit words, as
+    the [N, SP] bool mask it packs."""
+    k, base = BIT_FIELDS.index(name), len(LANE_FIELDS)
+    W = 1 + (params.lane.shape[0] - base) // len(BIT_FIELDS)
+    words = [params.field(name)] + [params.lane[base + len(BIT_FIELDS) * (w - 1) + k] for w in range(1, W)]
+    shifts = torch.arange(32, device=params.lane.device)[:, None]
+    rows = [(w.to(torch.int64)[None, :] >> shifts) & 1 for w in words]
+    return torch.cat(rows)[: params.max_nodes].bool()
 
 
 def _chunk_view(node_mask, massive, same_chunk) -> dict:
@@ -1240,7 +1349,7 @@ def _load_library():
     if not getattr(lib, "_heatx_bound", False):
         vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
         for fn in (lib.heatx_day_march_f32, lib.heatx_day_march_f64):
-            fn.argtypes = [vp] * 42 + [ci] * 13 + [cd] * 8 + [vp, vp]
+            fn.argtypes = [vp] * 42 + [ci] * 14 + [cd] * 8 + [vp, vp]
             fn.restype = ci
         lib.heatx_cuda_error_string.argtypes = [ci]
         lib.heatx_cuda_error_string.restype = ctypes.c_char_p
@@ -1255,10 +1364,12 @@ def load_kernel() -> None:
 
 class DayMarchKernel:
     """Launches the day march on CUDA tensors: the TR-BDF2 modes in
-    ``day_march_tr.cu``, parity in ``day_march_parity.cu``, both four
-    threads per surface in the launch variant that the C entry picks from the
-    block's lanes (``block_threads`` reads back the threads of a block of the
-    last launch's).  ``launches`` counts the launches made through this
+    ``day_march_tr.cu``, parity in ``day_march_parity.cu``, both G threads
+    per surface in the launch variant of the block's lanes and node count
+    (:func:`launch_shape`; ``block_threads`` reads back the threads
+    of a CTA of the last launch's, ``shape`` its :class:`LaunchShape`: the
+    variant, the cluster's CTAs).  A cluster the card cannot hold raises
+    NotImplementedError, naming the limit.  ``launches`` counts the launches made through this
     wrapper (and nothing else).  Arguments and returns as
     :func:`plain_day_march`.  Thermostat rows (``params.ctl``), per-hour
     setpoints and mixing lists select the kernels' second kind, gas cavities
@@ -1273,6 +1384,7 @@ class DayMarchKernel:
 
     def __init__(self):
         self.block_threads = None  # threads per block of the last launch's variant
+        self.shape = None  # the last launch's LaunchShape
         self.launches = 0
         self.parity_launches = 0  # those of ``launches`` that ran the parity kernel
         self.cavity_launches = 0  # those of ``launches`` on a building with gas cavities
@@ -1323,20 +1435,20 @@ class DayMarchKernel:
             *mrt, hq_hist, top, params.shade_slot, params.shade, shade_sp, params.vent,
             a_vent, b_vent, vent_thr,
         )]
+        shape = launch_shape(SB, N)
         ran = ctypes.c_int(0)
         with torch.cuda.device(T.device):
             stream = torch.cuda.current_stream().cuda_stream
             err = fn(
                 *ptrs, N, NB, SB, ZB, hours, substeps, refresh_every,
                 int(config.replicate_ambient_back_bug), *parity_ints(config, parity),
-                int(config.interior_mrt), dt, imp_mod.GAMMA * dt / 2.0, imp_mod.GAMMA * dt,
+                int(config.interior_mrt), shape.index, dt, imp_mod.GAMMA * dt / 2.0, imp_mod.GAMMA * dt,
                 imp_mod.BETA * dt, imp_mod.C1, imp_mod.C2,
                 config.nomass_tol, config.nomass_tol_escalated, ctypes.byref(ran), stream,
             )
-        if err != 0:
-            msg = lib.heatx_cuda_error_string(err).decode()
-            raise RuntimeError(f"day_march kernel launch failed: CUDA error {err} ({msg})")
+        raise_launch_error("day_march", lib, err, shape)
         self.block_threads = ran.value
+        self.shape = shape
         self.launches += 1
         self.parity_launches += int(parity)
         self.cavity_launches += int(params.cav is not None)
@@ -1346,6 +1458,24 @@ class DayMarchKernel:
         self.gated_launches += int(params.gated)
         self.parity_gated_launches += int(parity and params.gated)
         return T_out, zT_out, hq, zt_hist, bad, ld_hist, hq_hist, top
+
+
+#: What the C entries return when the card cannot hold a launch's cluster
+#: (csrc/day_common.cuh kClusterRefused).
+CLUSTER_REFUSED = 100001
+
+
+def raise_launch_error(kernel: str, lib, err: int, shape: LaunchShape) -> None:
+    """Raise for a failed launch: NotImplementedError, naming the limit,
+    where the card cannot hold the launch's cluster, else RuntimeError."""
+    if err == CLUSTER_REFUSED:
+        raise NotImplementedError(
+            f"{kernel}: the card holds no cluster of {shape.cluster} CTAs of {shape.threads} threads with "
+            f"this launch's registers and shared memory (cudaOccupancyMaxActiveClusters is 0; ROADMAP B1)"
+        )
+    if err != 0:
+        msg = lib.heatx_cuda_error_string(err).decode()
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err} ({msg})")
 
 
 def gate_operands(params: DayMarchParams, hours: int, dtype, shade_sp=None, a_vent=None, b_vent=None,
@@ -1416,19 +1546,17 @@ def launch_operands(
     """What either kernel's launch reads, as ``cuda_lib.check_operands``
     takes it (``name: (tensor, shape, dtype)``, in the order of the C
     interface's leading pointers, then the thermostat, schedule and mixing
-    operands the building has).  Raises on a dtype, block size, node count
-    or cadence the kernels do not take; per-hour setpoints come as a
-    heat/cool pair, on thermostat rows."""
+    operands the building has).  Raises on a dtype or cadence the kernels
+    do not take, NotImplementedError on a block no launch variant takes
+    (:func:`launch_shape`); per-hour setpoints come as a heat/cool pair, on
+    thermostat rows."""
     N, NB, ZB = params.max_nodes, params.n_blocks, params.zones_per_block
     SB = params.block_size
     SP = NB * SB
     dtype = T.dtype
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"{kernel} kernel takes float32/float64, got {dtype}")
-    if SB > MAX_BLOCK_LANES:
-        raise ValueError(f"block of {SB} lanes > {MAX_BLOCK_LANES} (use a smaller block_size)")
-    if N > MAX_NODES:
-        raise ValueError(f"{N} nodes per surface > {MAX_NODES}")
+    launch_shape(SB, N)
     if substeps % refresh_every:
         raise ValueError(f"refresh_every {refresh_every} must divide substeps {substeps}")
     if (sp_heat is None) != (sp_cool is None) or (sp_heat is not None and params.ctl is None):
@@ -1436,7 +1564,7 @@ def launch_operands(
     out = {
         "node": (params.node, (4, N, SP), dtype),
         "surf": (params.surf, (len(SURF_FIELDS), SP), dtype),
-        "lane": (params.lane, (len(LANE_FIELDS), SP), torch.int32),
+        "lane": (params.lane, (len(LANE_FIELDS) + len(BIT_FIELDS) * ((N - 1) // 32), SP), torch.int32),
         "zone_volume": (params.zone_volume, (NB, ZB), dtype),
         "zone_ptr": (params.zone_ptr, (NB * ZB + 1,), torch.int32),
         "zone_faces": (params.zone_faces, tuple(params.zone_faces.shape), torch.int32),

@@ -11,7 +11,9 @@ every front face, 500 W per heater and 150 W per luminaire.
 per zone at 20/26 C, luminaires on, heaters off.  ``build_thermostat_model``
 is a small building that takes every branch of the thermostat update, and
 ``BranchCounter`` counts the zone-sub-steps a plain march puts on each.
-``build_zone_chain_model`` puts many zones with short walls in one block.
+``build_zone_chain_model`` puts many zones with short walls in one block,
+``build_office_block`` a multi-floor office whose rooms form one
+zone-connected component of up to ~1,000 surfaces with deep walls.
 ``build_nomass_run_model`` has no-mass runs of 3 and 4 nodes,
 ``build_two_zone_model`` interior-MRT networks on both faces of a partition, and
 ``coarse_config`` a discretization whose parity march is short.
@@ -123,19 +125,120 @@ def build_demand_city(n_zones: int, surfaces_per_zone: int):
     return m
 
 
-def build_wide_zone_model(surfaces: int = 256, thermostat: bool = False):
-    """The edge of the day march's limits (ROADMAP B1): one zone bounded by
-    ``surfaces`` surfaces, the most one block takes
-    (``day_march.MAX_BLOCK_LANES``), one of them a 32-node wall (20 mm of
-    polystyrene on each side of 265 mm of concrete; ``day_march.MAX_NODES``).
-    With ``thermostat`` an ideal heater-cooler holds the zone at 20/26 C (the
-    extended kernel kind)."""
-    m = build_city_model(1, surfaces)
-    m.add_material(Material("c265", "concrete", 0.265))
-    m.add_construction(Construction("deep", ["p2", "c265", "p2"]))
+def build_wide_zone_model(surfaces: int = 256, thermostat: bool = False, concrete: float = 0.265, base=None,
+                          classes=building_mod):
+    """One zone bounded by ``surfaces`` surfaces, one of them a deep wall:
+    20 mm of polystyrene on each side of ``concrete`` m of concrete (32
+    nodes at the default 0.265 m, 36 at 0.30, 47 at 0.40).  At the defaults
+    it is the edge of one CTA of the day kernels' G = 4 variants (256 lanes,
+    32 nodes); past it the component runs as a thread-block cluster and the
+    column at G = 8 (``day_march.launch_shape``).  With ``thermostat`` an
+    ideal heater-cooler holds the zone at 20/26 C (the extended kernel
+    kind).  ``base`` is the city to widen (default ``build_city_model(1,
+    surfaces)``) and ``classes`` the module of its model classes (heatx's,
+    for the reference's twin)."""
+    m = build_city_model(1, surfaces) if base is None else base
+    m.add_material(classes.Material("cdeep", "concrete", float(concrete)))
+    m.add_construction(classes.Construction("deep", ["p2", "cdeep", "p2"]))
     m.surfaces[0] = dataclasses.replace(m.surfaces[0], construction="deep")
     if thermostat:
-        m.add_hvac(IdealHeaterCooler("tstat0", ["z0"], heat_setpoint=20.0, cool_setpoint=26.0))
+        m.add_hvac(classes.IdealHeaterCooler("tstat0", ["z0"], heat_setpoint=20.0, cool_setpoint=26.0))
+    return m
+
+
+#: The insulated 300 mm concrete wall (20 mm of polystyrene on each side):
+#: 36 nodes per surface at the default discretization (max_dx 0.04, min_dt 60).
+OFFICE_WALL = (("poly", 0.02), ("concrete", 0.30), ("poly", 0.02))
+
+
+def office_block_surfaces(floors: int, rooms_per_floor: int, windows_per_room: int, buildings: int = 1) -> int:
+    """The surface count of :func:`build_office_block`: per building, an
+    exterior wall, its windows and a floor per room, a partition between
+    neighbours on a floor and a roof over each top-floor room (976 for 8
+    floors of 24 rooms with 2 windows each)."""
+    rooms = floors * rooms_per_floor
+    per = rooms * (2 + windows_per_room) + floors * (rooms_per_floor - 1) + rooms_per_floor
+    return buildings * per
+
+
+def build_office_block(floors: int, rooms_per_floor: int, windows_per_room: int, wall=OFFICE_WALL,
+                       buildings: int = 1, classes=building_mod):
+    """A multi-zone office of ``floors`` floors, each a row of
+    ``rooms_per_floor`` rooms (4 x 5 x 3 m), every room a zone with an
+    exterior wall of the layers ``wall`` ((substance, thickness m) pairs of
+    ``concrete``, ``poly`` and ``glass``; default :data:`OFFICE_WALL`, 36
+    nodes) facing south outdoors and holding ``windows_per_room`` windows
+    (6 mm glass, fenestrations), a 150 mm concrete partition with the next
+    room on its floor (space to space), a 200 mm concrete floor shared with
+    the room below (the ground at 10 C under floor 0) and, on the top floor,
+    a roof (polystyrene on 200 mm of concrete) to the outdoors.  Partitions
+    and floors join every room of a building into one zone-connected
+    component of :func:`office_block_surfaces` surfaces (976 at 8 x 24 x 2);
+    ``buildings`` copies it, 30 m apart, into disjoint components.
+    ``classes`` is the module of the model classes (heatx's, to build the
+    reference's twin)."""
+    m = classes.BuildingModel()
+    props = dict(front_thermal_absorbtance=0.9, back_thermal_absorbtance=0.9, front_solar_absorbtance=0.7,
+                 back_solar_absorbtance=0.7)
+    m.add_substance(classes.Substance("concrete", thermal_conductivity=0.816, density=1700.0,
+                                      specific_heat_capacity=800.0, **props))
+    m.add_substance(classes.Substance("poly", thermal_conductivity=0.0252, density=17.5,
+                                      specific_heat_capacity=2400.0, **props))
+    m.add_substance(classes.Substance("glass", thermal_conductivity=1.0, density=2500.0,
+                                      specific_heat_capacity=840.0, solar_transmittance=0.8,
+                                      front_solar_absorbtance=0.1, back_solar_absorbtance=0.1,
+                                      front_thermal_absorbtance=0.84, back_thermal_absorbtance=0.84))
+    layers = []
+    for k, (sub, thick) in enumerate(wall):
+        layers.append(f"wall{k}")
+        m.add_material(classes.Material(f"wall{k}", sub, float(thick)))
+    for name, sub, thick in (("c15", "concrete", 0.15), ("c20", "concrete", 0.2), ("p10", "poly", 0.1),
+                             ("g6", "glass", 0.006)):
+        m.add_material(classes.Material(name, sub, thick))
+    m.add_construction(classes.Construction("exterior", layers))
+    m.add_construction(classes.Construction("partition", ["c15"]))
+    m.add_construction(classes.Construction("slab", ["c20"]))
+    m.add_construction(classes.Construction("roof", ["p10", "c20"]))
+    m.add_construction(classes.Construction("window", ["g6"]))
+    B = classes.Boundary
+    W, D, H = 4.0, 5.0, 3.0
+
+    def quad(*pts):
+        return np.array(pts, float)
+
+    for bi in range(buildings):
+        x_off = bi * (rooms_per_floor * W + 30.0)
+        for f in range(floors):
+            z0 = f * H
+            for r in range(rooms_per_floor):
+                x0 = x_off + r * W
+                room = f"b{bi}f{f}r{r}"
+                m.add_space(classes.SpaceDef(room, W * D * H))
+                # The exterior wall in the plane y = 0, facing south (-y).
+                m.add_surface(classes.SurfaceDef(
+                    f"{room}_ext", "exterior", B.outdoor(), B.space_(room),
+                    vertices=quad([x0, 0, z0], [x0 + W, 0, z0], [x0 + W, 0, z0 + H], [x0, 0, z0 + H])))
+                for k in range(windows_per_room):
+                    wx = x0 + (k + 0.5) * W / windows_per_room - 0.6
+                    m.add_fenestration(classes.SurfaceDef(
+                        f"{room}_win{k}", "window", B.outdoor(), B.space_(room),
+                        vertices=quad([wx, 0, z0 + 0.9], [wx + 1.2, 0, z0 + 0.9], [wx + 1.2, 0, z0 + 2.4],
+                                      [wx, 0, z0 + 2.4])))
+                if r + 1 < rooms_per_floor:  # the partition with the next room, in the plane x = x0 + W
+                    xp = x0 + W
+                    m.add_surface(classes.SurfaceDef(
+                        f"{room}_part", "partition", B.space_(f"b{bi}f{f}r{r + 1}"), B.space_(room),
+                        vertices=quad([xp, 0, z0], [xp, D, z0], [xp, D, z0 + H], [xp, 0, z0 + H])))
+                # The floor (its front below: the room under it, or the ground).
+                below = B.space_(f"b{bi}f{f - 1}r{r}") if f > 0 else B.ground(10.0)
+                m.add_surface(classes.SurfaceDef(
+                    f"{room}_floor", "slab", below, B.space_(room),
+                    vertices=quad([x0, 0, z0], [x0, D, z0], [x0 + W, D, z0], [x0 + W, 0, z0])))
+                if f + 1 == floors:
+                    zt = z0 + H
+                    m.add_surface(classes.SurfaceDef(
+                        f"{room}_roof", "roof", B.outdoor(), B.space_(room),
+                        vertices=quad([x0, 0, zt], [x0 + W, 0, zt], [x0 + W, D, zt], [x0, D, zt])))
     return m
 
 

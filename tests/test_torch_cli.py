@@ -222,20 +222,28 @@ def test_refusals_match_heatx(name, epw_path, tmp_path):
     assert lines[0] and lines[1] == lines[0]
 
 
-def test_block_size_over_b1_raises(epw_path):
-    """The port's blocks hold at most 256 lanes (ROADMAP B1): an explicit
-    ``--block-size`` over it raises that error, never a silent clamp
-    (heatx's default is 1024; the port's is the fewest lanes)."""
+def test_block_size_over_b1_raises(epw_path, tmp_path):
+    """An explicit ``--block-size`` is the block the runner takes, never a
+    silent clamp (heatx's default is 1024; the port's is the fewest lanes):
+    512 lanes, past one CTA (a thread-block cluster on the card, ROADMAP B1),
+    runs and gives the default block's loads to round-off on the plain
+    versions; past the kernels' limit of 1,024 lanes the launch shape raises
+    ROADMAP B1's error."""
     argv = ["simulate", IDF, epw_path, "--platform", "cpu", "--f64", "--engine", "kernel", "--mode", "trbdf2",
-            "--hours", "24", "--block-size", "512"]
-    with pytest.raises(NotImplementedError, match="ROADMAP B1"):
-        _main("port", argv)
-    from heatx_torch.model.idf import load_idf
-    from heatx_torch.sizing import annual_peak_loads
-    from heatx_torch.weather.epw import read_epw
+            "--hours", "24"]
+    loads = {}
+    for block in (None, 512):
+        out = str(tmp_path / f"loads_{block}.csv")
+        extra = [] if block is None else ["--block-size", str(block)]
+        rc, _, err = _main("port", argv + extra + ["--loads-csv", out])
+        assert rc == 0, err
+        loads[block] = _rows(out)[1]
+    scale = float(np.abs(loads[None]).max())
+    assert scale > 0 and np.abs(loads[512] - loads[None]).max() <= 1e-9 * scale
+    from heatx_torch.ops import day_march
 
     with pytest.raises(NotImplementedError, match="ROADMAP B1"):
-        annual_peak_loads(load_idf(IDF).model, read_epw(epw_path), engine="kernel", block_size=512, device="cpu")
+        day_march.launch_shape(day_march.launch_block_lanes(2048, 8), 8)
 
 
 def test_info_prints_heatx_text(tmp_path):

@@ -20,6 +20,7 @@ import heatx
 from heatx.ops import pallas_step
 from heatx_torch import SimConfig, ThermalModel, convert, testing
 from heatx_torch.model.building import IdealHeaterCooler, ZoneShadingControl, ZoneVentilationControl
+from heatx_torch.ops import day_march
 
 torch.set_num_threads(1)
 
@@ -164,7 +165,11 @@ def _gated_model():
         # not (heatx's adjoint refuses the gates too).
         (lambda: _gated_model().fast_runner(collect_fluxes=True, **KW).chunk_grad(
             lambda p: None, lambda zt, xs: zt.sum()), ValueError, "in-run ventilation gates are not supported"),
-        (lambda: _port_model().fast_runner(block_size=512, **KW), NotImplementedError, "ROADMAP"),
+        # A block past every launch variant (2,048 lanes: more than a portable
+        # cluster of 8 CTAs of 128 lanes) blocks and runs on the plain version;
+        # the kernels refuse it, naming their limit (ROADMAP B1).
+        (lambda: day_march.launch_shape(_port_model().fast_runner(block_size=2048, **KW).params.block_size, 32),
+         NotImplementedError, "1024 lanes per zone-connected component.*ROADMAP B1"),
         # Thermostats, the operative temperature they are judged by and in-run
         # window shading run; the shading's gradient does not (heatx refuses it).
         (lambda: _thermostat_model(shaded=True).fast_runner(collect_operative=True, **KW).chunk_grad(

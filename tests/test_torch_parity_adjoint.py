@@ -53,22 +53,25 @@ def test_parity_adjoint_kernel_takes_any_substep_count():
 def test_parity_adjoint_dispatch():
     """The C entry hands every parity launch to the parity body, which
     launches every variant of the adjoints' table (kAdjLaunchVariants)
-    through adj_launch_variant, and refuses the adaptive no-mass loop as
+    on the host's choice (DayArgs::variant), and refuses the adaptive no-mass loop as
     heatx does; the wrapper builds the parity units."""
     entry = (cuda_lib.CSRC_DIR / "day_adjoint.cu").read_text()
     assert "heatx_day_adjoint_parity_f32(&g, stream, block_threads)" in entry
     assert "a.parity && (a.refresh_every != 1 || a.nomass_iters < 1)" in entry
     table = re.search(r"kAdjLaunchVariants\[\] = \{(.*?)\};",
-                      (cuda_lib.CSRC_DIR / "day_march_args.cuh").read_text()).group(1)
+                      (cuda_lib.CSRC_DIR / "day_march_args.cuh").read_text(), re.S).group(1)
     variants = re.findall(r"\{([\d, ]+)\}", table)
     body = (cuda_lib.CSRC_DIR / "day_adjoint_parity.cu").read_text()
     body = body[body.index("int launch_kind("):]
     body = body[:body.index("\n}\n")]
-    assert "adj_launch_variant(g.in.SB)" in body
+    assert "int v = g.in.variant;" in body
     assert re.findall(r"case (\d+):", body) == [str(v) for v in range(len(variants))]
-    assert re.findall(r"kAdjLaunchVariants\[(\d+)\]\.threads", body) == [str(v) for v in range(len(variants))]
+    last = len(variants) - 1  # the cluster variant, in its own unit (day_adjoint_parity_b1.cu)
+    assert sorted(set(re.findall(r"launch_parity_adj<T, (\d+),", body))) == [str(v) for v in range(last)]
+    assert "heatx_day_adjoint_parity_b1_f32(&g, kCav, kMrt, st, bt)" in body
     names = [p.name for p in day_adjoint.KERNEL_SOURCES]
     assert "day_adjoint_parity.cu" in names and "day_adjoint_parity_mrt.cu" in names
+    assert "day_adjoint_parity_b1.cu" in names
 
 
 def _check_script():

@@ -235,10 +235,14 @@ def _unshaded_scheduled_shade_sp():
     day_march.make_hour_march(day_march.block_building(p0), device="cpu", scheduled_shade_sp=True)
 
 
+# The refusals send the caller to the XLA path (tests/test_torch_xla_controls_grad.py).
+XLA_BACKWARD = r" \(use the XLA backward: autograd through ThermalModel\.run, engine\.step\.run\)"
+
+
 @pytest.mark.parametrize("call, match", [
-    (_chunk_grad, "chunk_grad: in-run zone shading is not supported"),
-    (_make_day_adjoint, "in-run zone shading is not supported"),
-    (_backward_through_day_march, "in-run zone shading is not supported"),
+    (_chunk_grad, "chunk_grad: in-run zone shading is not supported" + XLA_BACKWARD),
+    (_make_day_adjoint, "in-run zone shading is not supported" + XLA_BACKWARD),
+    (_backward_through_day_march, "in-run zone shading is not supported" + XLA_BACKWARD),
     (_autograd_through_plain_march, "in-run zone shading and ventilation gates"),
     (_unshaded_shade_sp, "shade_sp requires in-run zone-shading controls"),
     (_bad_shape((HOURS, 7)), "shade_sp schedule shape"),

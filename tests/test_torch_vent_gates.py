@@ -226,10 +226,14 @@ def _nine_leaves():
     fr.hour_march(fr.params, T, zT, fr.kernel_inputs(port_inputs(tm.building, CALL_HOURS))[0][:9])
 
 
+# The refusals send the caller to the XLA path (tests/test_torch_xla_controls_grad.py).
+XLA_BACKWARD = r" \(use the XLA backward: autograd through ThermalModel\.run, engine\.step\.run\)"
+
+
 @pytest.mark.parametrize("call, match", [
-    (_chunk_grad, "in-run ventilation gates are not supported"),
-    (_make_day_adjoint, "in-run ventilation gates are not supported"),
-    (_backward_through_day_march, "in-run ventilation gates are not supported"),
+    (_chunk_grad, "in-run ventilation gates are not supported" + XLA_BACKWARD),
+    (_make_day_adjoint, "in-run ventilation gates are not supported" + XLA_BACKWARD),
+    (_backward_through_day_march, "in-run ventilation gates are not supported" + XLA_BACKWARD),
     (_nine_leaves, "12-leaf hour-input tuple"),
 ], ids=["chunk_grad", "make_day_adjoint", "day_march_fn_backward", "nine_leaves"])
 def test_vent_gate_refusals(call, match):
